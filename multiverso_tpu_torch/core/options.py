@@ -1,0 +1,140 @@
+"""Request options and table options.
+
+Parity with the reference's serialized per-request hyperparameter structs
+(``include/multiverso/updater/updater.h:10-110``: ``AddOption`` packs
+{worker_id, momentum, learning_rate, rho, lambda}; ``GetOption`` packs
+{worker_id}) and the per-table creation options
+(``ArrayTableOption``/``MatrixTableOption``/``MatrixOption``/``KVTableOption``).
+
+Port notes: options are dataclasses; the numeric fields reach the updater
+math as float32 scalars, exactly as the JAX package passes them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class AddOption:
+    """Per-Add hyperparameters (ref updater.h:10-70).
+
+    ``staleness`` is an addition the reference struct lacks: the
+    MEASURED clock lag of this worker at add time (SSP staleness), fed by
+    the sync coordinator / PS service when ``-staleness_adaptive`` is on.
+    Negative means unmeasured — staleness-aware updaters (DC-ASGD) keep
+    their fixed lambda then, so the default is behavior-preserving.
+    """
+    worker_id: int = 0
+    momentum: float = 0.0
+    learning_rate: float = 0.1
+    rho: float = 0.1
+    lambda_: float = 0.0
+    staleness: float = -1.0
+
+    def scalars(self):
+        """Pack numeric fields as device-friendly scalars for jit args."""
+        return (
+            np.int32(self.worker_id),
+            np.float32(self.momentum),
+            np.float32(self.learning_rate),
+            np.float32(self.rho),
+            np.float32(self.lambda_),
+            np.float32(self.staleness),
+        )
+
+
+@dataclasses.dataclass
+class GetOption:
+    """Per-Get options (ref updater.h:72-110)."""
+    worker_id: int = 0
+
+
+@dataclasses.dataclass
+class TableOption:
+    """Base for all table-creation options."""
+    updater: Optional[str] = None   # None -> '-updater_type' flag
+    name: Optional[str] = None
+    # Per-table communication policy (parallel/comm_policy.py):
+    # ps|allreduce|model_average, "auto" = resolve_comm_policy's decision
+    # table (probes once per byte bucket), None = ps (the existing plane,
+    # resolved without probing so table creation stays free).
+    comm_policy: Optional[str] = None
+
+
+@dataclasses.dataclass
+class ArrayTableOption(TableOption):
+    """1-D dense table (ref include/multiverso/table/array_table.h)."""
+    size: int = 0
+    dtype: Any = np.float32
+
+    def __init__(self, size: int, dtype: Any = np.float32, **kw: Any):
+        super().__init__(**kw)
+        self.size = int(size)
+        self.dtype = dtype
+
+
+@dataclasses.dataclass
+class MatrixTableOption(TableOption):
+    """2-D dense row-sharded table (ref include/multiverso/table/matrix.h:116-123)."""
+    num_row: int = 0
+    num_col: int = 0
+    dtype: Any = np.float32
+    is_sparse: bool = False
+    is_pipeline: bool = False
+    random_init: bool = False       # ref matrix_table.cpp:372-384 uniform init ctor
+    init_low: float = -0.5
+    init_high: float = 0.5
+    seed: int = 0
+    use_pallas: bool = False        # opt-in hand-written row kernels (ops/rows.py)
+
+    def __init__(self, num_row: int, num_col: int, dtype: Any = np.float32,
+                 is_sparse: bool = False, is_pipeline: bool = False,
+                 random_init: bool = False, init_low: float = -0.5,
+                 init_high: float = 0.5, seed: int = 0,
+                 use_pallas: bool = False, **kw: Any):
+        super().__init__(**kw)
+        self.num_row = int(num_row)
+        self.num_col = int(num_col)
+        self.dtype = dtype
+        self.is_sparse = bool(is_sparse)
+        self.is_pipeline = bool(is_pipeline)
+        self.random_init = bool(random_init)
+        self.init_low = float(init_low)
+        self.init_high = float(init_high)
+        self.seed = int(seed)
+        self.use_pallas = bool(use_pallas)
+
+
+@dataclasses.dataclass
+class KVTableOption(TableOption):
+    """Distributed key->value map (ref include/multiverso/table/kv_table.h).
+
+    ``device=True`` selects the HBM-slab variant (key directory over
+    device-resident values; supports ``value_dim`` vectors and updaters).
+    ``device_directory=True`` additionally moves the key->slot directory
+    itself onto the device (jitted open-addressing hash,
+    :mod:`multiverso_tpu_torch.ops.device_hash`) — no host Python loop per batch.
+    """
+    value_dtype: Any = np.float32
+    capacity: int = 1 << 16         # slot capacity (device variant)
+    device: bool = False
+    device_directory: bool = False
+    value_dim: int = 1
+
+    def __init__(self, value_dtype: Any = np.float32, capacity: int = 1 << 16,
+                 device: bool = False, value_dim: int = 1,
+                 device_directory: bool = False, **kw: Any):
+        super().__init__(**kw)
+        self.value_dtype = value_dtype
+        self.capacity = int(capacity)
+        self.device = bool(device)
+        self.device_directory = bool(device_directory)
+        if self.device_directory and not self.device:
+            raise ValueError(
+                "KVTableOption(device_directory=True) requires device=True "
+                "— the jitted directory only exists for the HBM-slab table")
+        self.value_dim = int(value_dim)

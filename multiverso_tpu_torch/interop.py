@@ -1,0 +1,48 @@
+"""Carry parameters from the JAX package into the port.
+
+The JAX package's parameters arrive as numpy arrays (``np.asarray`` of its
+device arrays), so this module needs neither JAX nor the JAX package:
+
+* :func:`load_store_payload` takes a ``ServerStore.store_state()`` payload
+  of the JAX package (``data`` plus ``state/<leaf>`` entries, logical
+  extents) and loads it into a port ``ServerStore`` — the same format the
+  port's own ``store_state`` writes;
+* :func:`load_word2vec_tables` writes the four word2vec table arrays
+  (input/output embeddings and their AdaGrad accumulators) into a port
+  ``Word2Vec``.
+
+Both check shapes and dtypes, so a mismatched pair of models fails loudly.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+
+from multiverso_tpu_torch.utils.log import check
+
+
+def load_store_payload(store, payload: Mapping[str, np.ndarray]) -> None:
+    """Load a JAX package ``store_state()`` payload into a port store."""
+    check("data" in payload, "store payload needs a 'data' entry")
+    for key in payload:
+        check(key == "data" or (key.startswith("state/")
+                                and key[len("state/"):] in store.state),
+              f"payload entry {key!r} has no counterpart in table "
+              f"'{store.name}' (leaves {sorted(store.state)})")
+    store.load_state({k: np.array(v, copy=True) for k, v in payload.items()})
+
+
+def load_word2vec_tables(w2v, w_in: np.ndarray, w_out: np.ndarray,
+                         g_in: np.ndarray, g_out: np.ndarray) -> None:
+    """Write the four word2vec tables of the JAX package into ``w2v``."""
+    for table, values in ((w2v.input_table, w_in), (w2v.output_table, w_out),
+                          (w2v.adagrad_in, g_in), (w2v.adagrad_out, g_out)):
+        values = np.asarray(values)
+        check(values.shape == table.store.logical_shape,
+              f"{table.name}: shape {values.shape} != "
+              f"{table.store.logical_shape}")
+        check(values.dtype == np.float32,
+              f"{table.name}: dtype {values.dtype} != float32")
+        table.store.load_state({"data": values})

@@ -1,0 +1,328 @@
+"""Metric primitives: log-bucket histograms, counters, gauges + registry.
+
+The reference's Dashboard stops at {count, total, average} per monitor
+(``include/multiverso/dashboard.h:16-74``) — useless for the tail-latency
+and staleness pathologies that decide PS throughput at scale. This module
+is the storage layer behind the upgraded Dashboard and the telemetry
+exporter: every metric lives in one process-global :class:`MetricsRegistry`
+whose :meth:`MetricsRegistry.snapshot` is the JSON the exporter ships.
+
+Design constraints:
+
+* hot-path cheap — ``Histogram.observe`` is a couple of float ops and one
+  list increment under a lock (host-side code paths only; nothing here
+  ever runs inside a jitted region);
+* fixed memory — histograms use FIXED log-2 buckets (no per-sample
+  storage), so a week-long run costs the same RAM as a unit test;
+* stdlib only — this module must import nothing from the framework so
+  every layer (utils, core, parallel, models) can depend on it without
+  cycles.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, List, Optional
+
+__all__ = ["Histogram", "Counter", "Gauge", "MetricsRegistry",
+           "get_registry", "histogram", "counter", "gauge"]
+
+
+_HIST_LO_MS = 1e-3
+_HIST_BASE = 2.0
+_HIST_N_BOUNDS = 30
+_HIST_BOUNDS = [_HIST_LO_MS * _HIST_BASE ** i
+                for i in range(_HIST_N_BOUNDS)]
+
+
+class Histogram:
+    """Fixed log-2 bucket latency histogram (milliseconds).
+
+    Buckets: ``(0, LO]``, then ``(LO * 2^(i-1), LO * 2^i]`` for
+    ``i in 1..N_BUCKETS-1``, plus one overflow bucket. With ``LO = 1e-3`` ms
+    (1 us) and 30 bounds the range covers 1 us .. ~9 min — every host-side
+    latency this framework produces — at a worst-case quantile error of one
+    bucket ratio (2x), tightened by geometric interpolation inside the
+    bucket and clamping to the observed min/max.
+    """
+
+    LO_MS = _HIST_LO_MS
+    BASE = _HIST_BASE
+    N_BOUNDS = _HIST_N_BOUNDS
+    BOUNDS: List[float] = _HIST_BOUNDS
+
+    __slots__ = ("name", "_lock", "_counts", "count", "sum", "_min", "_max")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._counts = [0] * (self.N_BOUNDS + 1)   # +1 = overflow
+        self.count = 0
+        self.sum = 0.0
+        self._min = math.inf
+        self._max = 0.0
+
+    @classmethod
+    def bucket_index(cls, value_ms: float) -> int:
+        if value_ms <= cls.LO_MS:
+            return 0
+        idx = int(math.ceil(math.log(value_ms / cls.LO_MS, cls.BASE)))
+        # Float round-off at an exact boundary may land one bucket high.
+        if idx > 0 and value_ms <= cls.BOUNDS[min(idx - 1,
+                                                  cls.N_BOUNDS - 1)]:
+            idx -= 1
+        return min(idx, cls.N_BOUNDS)
+
+    def observe(self, value_ms: float) -> None:
+        value_ms = max(float(value_ms), 0.0)
+        idx = self.bucket_index(value_ms)
+        with self._lock:
+            self._counts[idx] += 1
+            self.count += 1
+            self.sum += value_ms
+            if value_ms < self._min:
+                self._min = value_ms
+            if value_ms > self._max:
+                self._max = value_ms
+
+    # -- quantiles ---------------------------------------------------------
+    @classmethod
+    def percentile_from_counts(cls, counts, total: int, q: float,
+                               value_min: Optional[float] = None,
+                               value_max: Optional[float] = None) -> float:
+        """Geometric-interpolated percentile over log-2 bucket counts —
+        THE one statement of what a bucket means, shared by the
+        cumulative path (which passes its exact observed extrema for
+        clamping and the overflow-bucket upper edge) and the timeseries
+        plane's windowed DELTAS (which track no extrema and take the
+        bucket edges: overflow caps at one more geometric step)."""
+        if total <= 0:
+            return 0.0
+        rank = q * total
+        cum = 0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if cum + c >= rank:
+                if i == 0:
+                    lo, hi = cls.LO_MS / cls.BASE, cls.BOUNDS[0]
+                elif i < cls.N_BOUNDS:
+                    lo, hi = cls.BOUNDS[i - 1], cls.BOUNDS[i]
+                else:
+                    lo = cls.BOUNDS[-1]
+                    hi = max(value_max, lo) if value_max is not None \
+                        else lo * cls.BASE
+                frac = min(max((rank - cum) / c, 0.0), 1.0)
+                val = lo * (hi / lo) ** frac if hi > lo > 0.0 else hi
+                if value_min is not None and value_max is not None:
+                    # Observed extrema are exact; bucket edges are not.
+                    val = min(max(val, value_min), value_max)
+                return float(val)
+            cum += c
+        return float(value_max if value_max is not None
+                     else cls.BOUNDS[-1])
+
+    @classmethod
+    def violations_from_counts(cls, counts, threshold_ms: float) -> int:
+        """Observations at/above ``threshold_ms``: every bucket whose
+        LOWER edge clears the threshold counts whole — an under-count by
+        at most the one straddling bucket (a stable burn counter beats
+        an optimistic one). Shared by ``fleet.health.slo_violations``
+        (cumulative) and the timeseries ``bad.*`` series (deltas)."""
+        total = 0
+        for i, c in enumerate(counts):
+            if not c:
+                continue
+            lower = 0.0 if i == 0 else cls.BOUNDS[i - 1]
+            if lower >= threshold_ms:
+                total += c
+        return total
+
+    def _percentile_locked(self, q: float) -> float:
+        return self.percentile_from_counts(
+            self._counts, self.count, q,
+            value_min=self._min, value_max=self._max)
+
+    def percentile(self, q: float) -> float:
+        with self._lock:
+            return self._percentile_locked(q)
+
+    def raw_counts(self) -> tuple:
+        """``(count, bucket_counts)`` under the lock — the timeseries
+        sampler's entry point (windowed percentiles come from DELTAS of
+        these, so the full snapshot would be wasted work per tick)."""
+        with self._lock:
+            return self.count, list(self._counts)
+
+    def snapshot(self) -> Dict:
+        """Consistent point-in-time view (single lock acquisition)."""
+        with self._lock:
+            count = self.count
+            return {
+                "count": count,
+                "sum_ms": self.sum,
+                "min_ms": self._min if count else 0.0,
+                "max_ms": self._max,
+                "mean_ms": self.sum / count if count else 0.0,
+                "p50": self._percentile_locked(0.50),
+                "p95": self._percentile_locked(0.95),
+                "p99": self._percentile_locked(0.99),
+                "bucket_lo_ms": self.LO_MS,
+                "bucket_base": self.BASE,
+                "bucket_counts": list(self._counts),
+            }
+
+
+class Counter:
+    """Monotonic event count."""
+
+    __slots__ = ("name", "_lock", "value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self.value = 0
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self.value += n
+
+    def snapshot(self) -> Dict:
+        with self._lock:
+            return {"value": self.value}
+
+
+class Gauge:
+    """Last-value gauge with min/max/mean over the sampled values."""
+
+    __slots__ = ("name", "_lock", "last", "_min", "_max", "_sum", "samples")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self.last = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+        self._sum = 0.0
+        self.samples = 0
+
+    def set(self, value: float) -> None:
+        value = float(value)
+        if math.isinf(value) or math.isnan(value):
+            return      # INF vector clocks (finished workers) never export
+        with self._lock:
+            self.last = value
+            self._sum += value
+            self.samples += 1
+            if value < self._min:
+                self._min = value
+            if value > self._max:
+                self._max = value
+
+    def snapshot(self) -> Dict:
+        with self._lock:
+            n = self.samples
+            return {"last": self.last,
+                    "min": self._min if n else 0.0,
+                    "max": self._max if n else 0.0,
+                    "mean": self._sum / n if n else 0.0,
+                    "samples": n}
+
+
+class MetricsRegistry:
+    """Process-global named metric store (the Dashboard's storage layer)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._histograms: Dict[str, Histogram] = {}
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+
+    def histogram(self, name: str) -> Histogram:
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(name)
+            return h
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name)
+            return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name)
+            return g
+
+    def metrics(self) -> tuple:
+        """Raw metric objects ``(histograms, counters, gauges)`` — the
+        timeseries sampler's entry point. Each metric guards its own
+        state; the registry lock only covers the dict reads."""
+        with self._lock:
+            return (list(self._histograms.values()),
+                    list(self._counters.values()),
+                    list(self._gauges.values()))
+
+    def snapshot(self, buckets: bool = True) -> Dict:
+        """Structured view of every metric. ``buckets=False`` drops the
+        per-histogram bucket arrays (compact embed, e.g. bench records)."""
+        with self._lock:
+            hists = list(self._histograms.values())
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
+        out = {"histograms": {}, "counters": {}, "gauges": {}}
+        for h in hists:
+            snap = h.snapshot()
+            if not buckets:
+                snap.pop("bucket_counts", None)
+            out["histograms"][h.name] = snap
+        for c in counters:
+            out["counters"][c.name] = c.snapshot()
+        for g in gauges:
+            out["gauges"][g.name] = g.snapshot()
+        return out
+
+    def drop(self, name: str) -> None:
+        """Remove one metric (any type). Dashboard.reset uses this so a
+        re-created Monitor starts from zero instead of resuming the old
+        histogram."""
+        with self._lock:
+            self._histograms.pop(name, None)
+            self._counters.pop(name, None)
+            self._gauges.pop(name, None)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._histograms.clear()
+            self._counters.clear()
+            self._gauges.clear()
+
+
+_registry: Optional[MetricsRegistry] = None
+_registry_lock = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    global _registry
+    with _registry_lock:
+        if _registry is None:
+            _registry = MetricsRegistry()
+        return _registry
+
+
+def histogram(name: str) -> Histogram:
+    return get_registry().histogram(name)
+
+
+def counter(name: str) -> Counter:
+    return get_registry().counter(name)
+
+
+def gauge(name: str) -> Gauge:
+    return get_registry().gauge(name)
