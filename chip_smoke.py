@@ -16,8 +16,10 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    B1 ``gather_rows`` and B2 ``scatter_add_sorted_rows`` (both signs) with
    100,000 ids into a 1,000,000 x 50 table, bitwise; B5 ``sgns_block`` on
    one full flagship block (V=50,000, D=128, C=8192, K=5, masked tail
-   chunk), tables within ``SGNS_TABLE_ATOL`` and loss within
-   ``SGNS_LOSS_RTOL``;
+   chunk), each table within ``SGNS_RTOL[table]`` of its largest value and
+   the loss within ``SGNS_LOSS_RTOL``; then every other compiled variant
+   of each kernel once at a small shape (row widths 128 and 25, B5 with
+   10 negatives and with D=126, and SGD), at the same tolerances;
 3. the table plane: ``mv.init()`` on the card, 1,000,000 x 50
    ``use_pallas`` tables (default and sgd updaters), row Adds/Gets at 10%
    coverage checked against a numpy replay (and bitwise against the plain
@@ -46,15 +48,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA's data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-SGNS_TABLE_ATOL = 5e-3        # kernel vs plain after one block (see below)
-SGNS_LOSS_RTOL = 1e-4
-# B5 tolerance: the kernel reduces the dot products with warp shuffles and
+# B5 tolerance, per table: max |kernel - plain| <= SGNS_RTOL[table] *
+# max |plain|. The kernel reduces the dot products with warp shuffles and
 # the plain version with torch sums, and the plain version's index_add_ on
-# the card adds duplicate rows with atomics in no fixed order; the two
-# agree to float32 rounding per chunk, and the nonlinear updates carry the
-# difference through the block's 111 chunks, where the most frequent rows
-# grow to magnitudes of a few hundred. Nine runs of this script on an
-# H100 measured max |kernel - plain| of 2.1e-4 to 4.1e-4.
+# the card adds a row's duplicate lanes with atomics in no fixed order;
+# the block's 111 chunks carry those roundings on. The AdaGrad sums only
+# grow (sums of squares), so they stay close in relative terms; an
+# embedding row is a sum of hundreds of steps of both signs per chunk, so
+# its rounding differences are large against its value. One flagship
+# block on an H100 measured 9.4e-5 (w_in, largest |value| 0.54), 2.4e-4
+# (w_out, 0.83), 1.5e-4 (g_in, 229) and 1.8e-4 (g_out, 405). A wrong
+# update of one lane moves a row by about lr = 0.025.
+SGNS_RTOL = {"w_in": 2e-3, "w_out": 2e-3, "g_in": 1e-5, "g_out": 1e-5}
+SGNS_LOSS_RTOL = 1e-4
 
 V, D, CHUNK, NEG = 50_000, 128, 8192, 5
 ROWS, COLS, N_IDS = 1_000_000, 50, 100_000
@@ -230,6 +236,27 @@ def sgns_bound(streams, n_live: int):
     return bound_ms(n_bytes, p * flops_per_pair)
 
 
+TABLES = ("w_in", "w_out", "g_in", "g_out")
+
+
+def sgns_table_errs(kern, plain, what: str) -> dict:
+    """Max |kernel - plain| of each table, checked against the table's own
+    scale; returns {table: error}."""
+    import torch
+    errs = {}
+    for name, a, b in zip(TABLES, kern, plain):
+        assert bool(torch.isfinite(a).all()), f"{what}: {name} not finite"
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        log(f"  {what} {name}: max_abs_err {err:.3e}, largest |value| "
+            f"{scale:.4g}, limit {SGNS_RTOL[name] * scale:.3e}")
+        errs[name] = err
+    for name, a, b in zip(TABLES, kern, plain):
+        assert errs[name] <= SGNS_RTOL[name] * float(b.abs().max()), \
+            f"{what}: {name} differs by {errs[name]}"
+    return errs
+
+
 def check_sgns_kernel(dev) -> dict:
     import torch
     from multiverso_tpu_torch.ops import sgns
@@ -246,15 +273,18 @@ def check_sgns_kernel(dev) -> dict:
     loss_k = sgns.sgns_block_cuda(*kern, *streams[:3], n_pairs, lr, True)
     loss_p = sgns.sgns_block_plain(*plain, *streams[:3], n_pairs, lr, True)
     torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(kern, plain))
-    scale = max(float(b.abs().max()) for b in plain)
     lk, lp = float(loss_k), float(loss_p)
-    log(f"B5 sgns_block: tables max_abs_err {err} (tolerance "
-        f"{SGNS_TABLE_ATOL}; largest |value| {scale:.4f}), loss {lk} vs "
-        f"plain {lp}")
-    assert all(bool(torch.isfinite(t).all()) for t in kern)
-    assert err <= SGNS_TABLE_ATOL, f"sgns tables differ by {err}"
+    log(f"B5 sgns_block: loss {lk} vs plain {lp}; per table:")
+    errs = sgns_table_errs(kern, plain, "B5")
+    err = max(errs.values())
     assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (lk, lp)
+    # The reference's own spread: the plain version again on the same
+    # inputs (its index_add_ atomics add duplicates in another order).
+    again = [t.clone() for t in tables]
+    sgns.sgns_block_plain(*again, *streams[:3], n_pairs, lr, True)
+    log("B5 plain vs plain: " + ", ".join(
+        f"{name} {float((a - b).abs().max()):.3e}"
+        for name, a, b in zip(TABLES, again, plain)))
     launch = sgns.prepare_sgns_block(*[t.clone() for t in tables],
                                      *streams[:3], n_pairs, lr, True)
     ms = cuda_ms(lambda: sgns.launch_sgns_block(launch), 5, warmup=1)
@@ -287,8 +317,74 @@ def check_sgns_kernel(dev) -> dict:
     return {"name": "sgns_block", "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/sgns.cu",
             "replaces": "multiverso_tpu/ops/pallas_sgns.py:122",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+            "max_abs_err": err, "max_abs_err_tables": errs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
+
+
+def check_variants(dev) -> dict:
+    """Every compiled variant the main path does not reach, once at a small
+    shape against its plain version: the row kernels at widths 128 (16-byte
+    loads) and 25 (4-byte loads; the main path's 50 takes 8-byte loads),
+    bitwise; B5 built for 16 negatives (K=10), for widths that are not a
+    multiple of 4 (D=126, with K=5 and K=10), and SGD, with skewed ids so
+    long runs take the CTA path. Returns {kernel: [variant records]}."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.ops import rows, sgns
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {"gather_rows": [], "scatter_add_sorted_rows": []}
+    for cols in (128, 25):
+        table = torch.randn((20_000, cols), generator=g, device=dev)
+        ids = torch.randint(0, 2_000, (5_000,), generator=g, device=dev,
+                            dtype=torch.int32)
+        assert torch.equal(rows.gather_rows(table, ids),
+                           rows.gather_rows_plain(table, ids)), cols
+        sid = torch.sort(ids)[0]
+        deltas = torch.randn((5_000, cols), generator=g, device=dev)
+        for sign in (1.0, -1.0):
+            a, b = table.clone(), table.clone()
+            rows.scatter_add_sorted_rows(a, sid, deltas, sign)
+            rows.scatter_add_sorted_rows_plain(b, sid, deltas, sign)
+            assert torch.equal(a, b), (cols, sign)
+        out["gather_rows"].append({"cols": cols, "max_abs_err": 0.0})
+        out["scatter_add_sorted_rows"].append({"cols": cols,
+                                               "max_abs_err": 0.0})
+        log(f"B1/B2 variant D={cols}: 5,000 ids (2,000 rows) bitwise")
+
+    v, c, n = 2_000, 1_024, 4
+    zipf = 1.0 / np.arange(1, v + 1)
+    zipf = torch.as_tensor(zipf / zipf.sum(), dtype=torch.float32,
+                           device=dev)
+
+    def draw(*shape):
+        return torch.multinomial(zipf, int(np.prod(shape)), True,
+                                 generator=g).to(torch.int32).view(shape)
+
+    out["sgns_block"] = []
+    for d, k, adagrad in ((128, 10, True), (126, 5, True), (126, 10, True),
+                          (128, 5, False)):
+        streams = (draw(n, c), draw(n, c), draw(n, c, k))
+        n_pairs = torch.tensor(3 * c + 517, dtype=torch.int32, device=dev)
+        tables = (0.1 * torch.randn((v, d), generator=g, device=dev),
+                  0.1 * torch.randn((v, d), generator=g, device=dev),
+                  torch.zeros((v, d), device=dev),
+                  torch.zeros((v, d), device=dev))
+        kern = [t.clone() for t in tables]
+        plain = [t.clone() for t in tables]
+        lk = float(sgns.sgns_block_cuda(*kern, *streams, n_pairs, 0.025,
+                                        adagrad))
+        lp = float(sgns.sgns_block_plain(*plain, *streams, n_pairs, 0.025,
+                                         adagrad))
+        what = f"B5 variant D={d} K={k} {'adagrad' if adagrad else 'sgd'}"
+        log(f"{what}: V={v} C={c}, 3 full chunks + a tail of 517; loss "
+            f"{lk} vs plain {lp}")
+        errs = sgns_table_errs(kern, plain, what)
+        assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (what, lk, lp)
+        out["sgns_block"].append({"d": d, "k": k, "adagrad": adagrad,
+                                  "max_abs_err_tables": errs})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +542,9 @@ def main() -> int:
     mv.init([])
     kernels = check_row_kernels(dev)
     kernels.append(check_sgns_kernel(dev))
+    variants = check_variants(dev)
+    for k in kernels:
+        k["variants"] = variants[k["name"]]
     mv.shutdown()
 
     # Phase 3: the table plane (counts read for B1/B2).
@@ -474,9 +573,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    assert all(key in k for k in kernels for key in keys), kernels
     assert np.isfinite([k["ms"] for k in kernels]).all()
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in kernels]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

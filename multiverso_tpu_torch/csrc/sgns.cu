@@ -24,7 +24,7 @@
 //      1+K dot products with warp shuffles, and writes the gradient rows
 //      (grad_u [C,D], grad_out [C*(1+K),D] in the order of
 //      concat(contexts, negatives.flatten())) to scratch, plus a per-CTA
-//      loss partial;
+//      loss partial; the warps also list the chunk's long runs (below);
 //   2. grid.sync(); CTA 0 adds the partials in a fixed order (so the loss
 //      is deterministic); one warp per run of equal row ids (from a stable
 //      sort done before the launch) applies the run's lanes in lane order:
@@ -36,13 +36,14 @@
 //      16 lanes at a time. A run of one frequent id can be hundreds of
 //      lanes long (unigram^0.75 negatives), and its lane-order chain of
 //      loads would hold the whole grid at the next barrier: runs of at
-//      least long_min lanes (their starts listed by the glue) go to a
-//      whole CTA, which stages their gradient rows through shared memory
-//      64 lanes per round trip and folds them one float column per
-//      thread; those CTAs take no short runs. The glue sorts the masked
-//      lanes of the tail chunk (exact zero gradients) to the end as an
-//      out-of-range id, which is dropped. The w_in runs and the w_out
-//      runs touch different tables, so they share one phase;
+//      least long_min lanes (their starts listed in phase 1, one ballot
+//      and one atomic per 32 sorted slots) go to a whole CTA, which
+//      stages their gradient rows through shared memory 64 lanes per
+//      round trip and folds them one float column per thread; those CTAs
+//      take no short runs. The glue sorts the masked lanes (exact zero
+//      gradients) to the end as an out-of-range id, which is dropped. The
+//      w_in runs and the w_out runs touch different tables, so they share
+//      one phase;
 //   3. grid.sync() before the next chunk reads the updated rows.
 // Dead chunks (all lanes masked) are skipped: in JAX they are bitwise
 // no-ops. Registers bound the occupancy (every CTA must be resident for
@@ -93,8 +94,9 @@ struct SgnsArgs {
   int d;
   float lr;
   int adagrad;
-  const int32_t* long_runs;  // [n_long, 3]: chunk, is_in, start
-  const int32_t* long_off;   // [n_chunks + 1]: a chunk's entries
+  int32_t* long_runs;        // [n_chunks, long_cap]: a run's first slot
+  int32_t* long_count;       // [n_chunks], zero at launch
+  int long_cap;
   int long_min;              // runs this long or longer go to a CTA
 };
 
@@ -366,6 +368,36 @@ sgns_block_kernel(SgnsArgs a) {
         gp[c] = L::scale(g_pos, uu);
       }
     }
+    // The chunk's long runs, for phase 2: the first sorted slot (the C
+    // in-slots, then the C*(1+K) out-slots) of every run of at least
+    // long_min equal in-range ids. The list's order does not matter: each
+    // run is applied whole by one CTA.
+    const int32_t* in_ids = a.in_ids + ci * C;
+    const int32_t* out_ids = a.out_ids + ci * n_out_lanes;
+    for (int64_t base = gwarp * 32; base < C + n_out_lanes;
+         base += nwarps * 32) {
+      const int64_t j = base + lane;
+      bool is_long = false;
+      if (j < C + n_out_lanes) {
+        const bool is_in = j < C;
+        const int32_t* ids = is_in ? in_ids : out_ids;
+        const int64_t jj = is_in ? j : j - C;
+        const int64_t last = jj + a.long_min - 1;
+        const int32_t r = ids[jj];
+        is_long = (jj == 0 || ids[jj - 1] != r) &&
+                  last < (is_in ? C : n_out_lanes) && ids[last] == r &&
+                  r >= 0 && r < (is_in ? a.v_in : a.v_out);
+      }
+      const unsigned longs = __ballot_sync(0xffffffffu, is_long);
+      if (longs) {
+        int first = 0;
+        if (lane == 0) first = atomicAdd(a.long_count + ci, __popc(longs));
+        first = __shfl_sync(0xffffffffu, first, 0);
+        if (is_long)
+          a.long_runs[ci * a.long_cap + first +
+                      __popc(longs & ((1u << lane) - 1u))] = (int32_t)j;
+      }
+    }
     if (lane == 0) {
       warp_pos[wib] = sum_pos;
       warp_neg[wib] = sum_neg;
@@ -391,20 +423,17 @@ sgns_block_kernel(SgnsArgs a) {
       }
       total = total + (-sp - sn);
     }
-    const int32_t* in_ids = a.in_ids + ci * C;
-    const int32_t* out_ids = a.out_ids + ci * n_out_lanes;
-    // The chunk's long runs (listed by the glue), one CTA each; while
+    // The chunk's long runs (listed in phase 1), one CTA each; while
     // there are fewer long runs than CTAs, the CTAs that take one apply
     // no short runs, so a long run does not queue behind short ones.
-    const int lo = a.long_off[ci], n_long = a.long_off[ci + 1] - lo;
+    const int n_long = a.long_count[ci];
     const int first_short = n_long < (int)gridDim.x ? n_long : 0;
-    for (int q = lo + blockIdx.x; q < lo + n_long; q += gridDim.x) {
-      const int32_t* run = a.long_runs + 3 * (int64_t)q;
-      const bool is_in = run[1] != 0;
-      const int64_t s = run[2];
+    for (int q = blockIdx.x; q < n_long; q += gridDim.x) {
+      const int64_t slot = a.long_runs[ci * a.long_cap + q];
+      const bool is_in = slot < C;
+      const int64_t s = is_in ? slot : slot - C;
       const int32_t* ids = is_in ? in_ids : out_ids;
       const int32_t rr = ids[s];
-      if (rr < 0 || rr >= (is_in ? a.v_in : a.v_out)) continue;
       if (threadIdx.x < 32) {
         const int64_t end = run_end(ids, s, is_in ? C : n_out_lanes, rr,
                                     lane);
@@ -511,13 +540,13 @@ int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
                   const int32_t* n_pairs, float* grad_u, float* grad_out,
                   float* loss_partials, float* loss_out, int64_t n_chunks,
                   int chunk, int k, int d, float lr, int adagrad, int grid,
-                  const int32_t* long_runs, const int32_t* long_off,
+                  int32_t* long_runs, int32_t* long_count, int long_cap,
                   int long_min, void* stream) {
   SgnsArgs a{w_in,   w_out,    g_in,     g_out,    v_in,          v_out,
              centers, contexts, negatives, in_ids,  in_perm,       out_ids,
              out_perm, n_pairs, grad_u,   grad_out, loss_partials, loss_out,
              n_chunks, chunk,   k,        d,        lr,            adagrad,
-             long_runs, long_off, long_min};
+             long_runs, long_count, long_cap, long_min};
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d % 4 == 0)
     return k <= kSmallNeg ? launch<4, kSmallNeg>(a, grid, st)

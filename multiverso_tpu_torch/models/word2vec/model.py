@@ -43,7 +43,8 @@ from multiverso_tpu_torch.models.word2vec.data import (BatchGenerator,
                                                        read_corpus)
 from multiverso_tpu_torch.models.word2vec.dictionary import (Dictionary,
                                                              Sampler)
-from multiverso_tpu_torch.ops.sgns import (build_sgns_grid_step,
+from multiverso_tpu_torch.ops.sgns import (MAX_NEGATIVE,
+                                           build_sgns_grid_step,
                                            sgns_block_plain,
                                            sgns_grid_eligible)
 from multiverso_tpu_torch.telemetry import span
@@ -267,32 +268,35 @@ def resolve_dispatch_mode(cfg: "Word2VecConfig", in_rows: int,
     """The port's dispatch-mode decision (the JAX table is TPU-derived).
 
     Explicit ``dispatch_mode`` wins (the deprecated ``chunk_dispatch`` maps
-    onto it); ``pallas_grid`` on a card must be eligible for the B5 kernel.
-    AUTO: on a CUDA device, an eligible sg-ns configuration -> pallas_grid
-    (one kernel launch per block); otherwise -> in_graph (the plain torch
-    chunk loop)."""
+    onto it). AUTO on the CPU -> in_graph (the plain torch chunk loop). On
+    a CUDA device, both AUTO and an explicit ``pallas_grid`` -> the B5
+    kernel, one launch per block; a configuration the kernel does not take
+    raises there instead of training through the plain loop. Only an
+    explicit ``in_graph``/``pipelined_host`` runs the plain loop on a card."""
     mode = cfg.dispatch_mode
     if mode is None and cfg.chunk_dispatch is not None:
         mode = "pipelined_host" if cfg.chunk_dispatch else "in_graph"
-    eligible = sgns_grid_eligible(in_rows, out_rows, cfg.embedding_size,
-                                  cfg.batch_size, cfg.negative,
-                                  np.dtype(cfg.param_dtype))
     if mode not in (None, "auto"):
         check(mode in DISPATCH_MODES,
               f"dispatch_mode must be one of {DISPATCH_MODES} or 'auto'; "
               f"got {mode!r}")
-        if mode == "pallas_grid" and device.type == "cuda":
-            check(eligible,
-                  "dispatch_mode=pallas_grid: the sg-ns kernel takes f32 "
-                  f"tables, negative <= 16 and a working set within device "
-                  f"memory; vocab {in_rows}/{out_rows} x "
-                  f"D={cfg.embedding_size} K={cfg.negative} does not fit")
-        return mode
-    if device.type == "cuda" and eligible:
-        log.info("w2v dispatch auto: CUDA device -> pallas_grid")
+    elif device.type != "cuda":
+        log.info("w2v dispatch auto: %s -> in_graph", device.type)
+        return "in_graph"
+    if device.type == "cuda" and mode in (None, "auto", "pallas_grid"):
+        check(sgns_grid_eligible(in_rows, out_rows, cfg.embedding_size,
+                                 cfg.batch_size, cfg.negative,
+                                 np.dtype(cfg.param_dtype), device),
+              f"dispatch_mode={mode or 'auto'} on {device}: the sg-ns kernel "
+              f"takes float32 tables, negative <= {MAX_NEGATIVE} and a "
+              f"working set within the device's memory; vocab "
+              f"{in_rows}/{out_rows} x D={cfg.embedding_size} "
+              f"K={cfg.negative} is not taken (ROADMAP B5; an explicit "
+              f"dispatch_mode=in_graph runs the plain chunk loop)")
+        if mode in (None, "auto"):
+            log.info("w2v dispatch auto: CUDA device -> pallas_grid")
         return "pallas_grid"
-    log.info("w2v dispatch auto: %s -> in_graph", device.type)
-    return "in_graph"
+    return mode
 
 
 def _waits(cfg: Word2VecConfig) -> None:

@@ -15,11 +15,11 @@ kernel donated them) and returned.
 For CUDA tensors the step launches ONE persistent cooperative kernel per
 block (``csrc/sgns.cu``); for CPU tensors it runs the plain PyTorch chunk
 loop (:func:`sgns_block_plain`), which is also the kernel's oracle. The
-glue around the launch stable-sorts each live chunk's row ids (centers,
-and contexts followed by negatives) so the kernel can fold duplicate ids
-in lane order; finding how many chunks are live costs one read of
-``n_pairs`` on the host per block, while the kernel itself reads
-``n_pairs`` on the device.
+glue around the launch stable-sorts each chunk's row ids (centers, and
+contexts followed by negatives) so the kernel can fold duplicate ids in
+lane order. It sorts every chunk of the stream, since how many are live
+is known only on the device: the kernel reads ``n_pairs`` there, and
+nothing between the pair stream and the launch waits for the host.
 
 On the TPU the kernel kept all four tables in VMEM, so it was only
 eligible for small vocabularies. Here the tables stay in HBM, and
@@ -29,7 +29,7 @@ eligible for small vocabularies. Here the tables stay in HBM, and
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -41,7 +41,6 @@ LAUNCHES: Dict[str, int] = {"sgns_block": 0}
 
 MAX_NEGATIVE = 16              # csrc/sgns.cu kMaxNeg
 LONG_RUN = 64                  # runs this long are applied by a whole CTA
-HBM_BUDGET_BYTES = 80 * 10**9  # one H100's device memory
 
 _grid_cache: Dict[tuple, int] = {}
 
@@ -60,17 +59,19 @@ def sgns_grid_bytes(in_rows: int, out_rows: int, dim: int, chunk: int,
 
 def sgns_grid_eligible(in_rows: int, out_rows: int, dim: int, chunk: int,
                        negative: int, param_dtype,
-                       budget: Optional[int] = None) -> bool:
-    """True when the kernel takes this configuration: float32 tables,
-    ``negative <= MAX_NEGATIVE``, and the working set within ``budget``
-    bytes of device memory (default: one H100)."""
+                       device: torch.device) -> bool:
+    """True when the kernel takes this configuration on ``device``: a CUDA
+    device, float32 tables, ``negative <= MAX_NEGATIVE``, and the working
+    set within the device's memory."""
+    if device.type != "cuda":
+        return False
     if np.dtype(param_dtype) != np.dtype(np.float32):
         return False
     if not 1 <= negative <= MAX_NEGATIVE:
         return False
-    budget = HBM_BUDGET_BYTES if budget is None else budget
+    total = torch.cuda.get_device_properties(device).total_memory
     return sgns_grid_bytes(in_rows, out_rows, dim, chunk, negative,
-                           param_dtype) <= budget
+                           param_dtype) <= total
 
 
 def _n_live(n_pairs: torch.Tensor, chunk: int, n: int) -> int:
@@ -101,7 +102,8 @@ def _lib():
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_sgns_block.argtypes = (
             [c] * 4 + [i64, i64] + [c] * 12 +
-            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, c, i32, c])
+            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, c, i32, i32,
+             c])
         lib.mv_sgns_block.restype = ctypes.c_int
         lib.mv_sgns_grid_size.argtypes = [i32, i32]
         lib.mv_sgns_grid_size.restype = ctypes.c_int
@@ -149,35 +151,47 @@ class SgnsLaunch(NamedTuple):
     sorted_streams: tuple  # in_ids, in_perm, out_ids, out_perm (int32)
     n_pairs: torch.Tensor  # [1] int32 on the card
     scratch: tuple         # grad_u, grad_out, loss partials
-    long_runs: tuple       # [n_long, 3] (chunk, is_in, start), offsets
+    long_runs: tuple       # [n, cap] run starts, [n] counts (the kernel's)
     loss: torch.Tensor     # [1] float32
-    n_live: int
     lr: float
     adagrad: bool
     grid: int
 
 
-def _long_runs(sorted_ids: torch.Tensor, is_in: int) -> torch.Tensor:
-    """``[n, 3]`` int64 rows (chunk, is_in, start) of every run of equal
-    ids at least ``LONG_RUN`` lanes long in each chunk's row of
-    ``sorted_ids`` (the kernel finds each run's end)."""
-    lanes = sorted_ids.shape[1]
-    start = torch.ones_like(sorted_ids, dtype=torch.bool)
-    start[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
-    long = torch.zeros_like(start)
-    span = LONG_RUN - 1
-    long[:, :lanes - span] = start[:, :lanes - span] & (
-        sorted_ids[:, span:] == sorted_ids[:, :lanes - span])
-    where = torch.nonzero(long)
-    return torch.cat([where[:, :1], torch.full_like(where[:, :1], is_in),
-                      where[:, 1:]], 1)
+def long_run_capacity(chunk: int, negative: int) -> int:
+    """Most runs of at least ``LONG_RUN`` lanes one chunk can hold: its
+    ``chunk`` center slots and ``chunk * (1 + negative)`` out slots."""
+    return chunk // LONG_RUN + chunk * (1 + negative) // LONG_RUN
+
+
+def sorted_row_ids(centers, contexts, negatives, n_pairs):
+    """Each chunk's row ids stable-sorted, with the lane each came from:
+    ``(in_ids, in_perm)`` over the centers and ``(out_ids, out_perm)`` over
+    the contexts followed by the flattened negatives. Lanes past
+    ``n_pairs`` (the tail chunk's padding and the dead chunks) carry exact
+    zero gradients; their keys sort to the end as an out-of-range id, which
+    the kernel drops, so they join no real row's run."""
+    n, chunk = centers.shape
+    k = negatives.shape[2]
+    lane = torch.arange(n * chunk, device=centers.device).view(n, chunk)
+    live = lane < n_pairs
+    dead = torch.iinfo(torch.int32).max
+    in_keys = torch.where(live, centers, dead)
+    out_keys = torch.cat([
+        torch.where(live, contexts, dead),
+        torch.where(live[:, :, None], negatives, dead).reshape(n, chunk * k)],
+        1)
+    in_ids, in_perm = torch.sort(in_keys, dim=1, stable=True)
+    out_ids, out_perm = torch.sort(out_keys, dim=1, stable=True)
+    return (in_ids.contiguous(), in_perm.to(torch.int32),
+            out_ids.contiguous(), out_perm.to(torch.int32))
 
 
 def prepare_sgns_block(w_in, w_out, g_in, g_out, centers2d, contexts2d,
                        negatives3d, n_pairs, lr, adagrad: bool) -> SgnsLaunch:
     """The glue before the launch: checks, int32 streams, the per-chunk
-    stable sort of the live chunks' row ids (which groups duplicate ids
-    into runs in lane order) and the scratch buffers."""
+    stable sort of the row ids (which groups duplicate ids into runs in
+    lane order) and the scratch buffers. Nothing here waits for the card."""
     _check(w_in, w_out, g_in, g_out, centers2d, contexts2d, negatives3d)
     dev = w_in.device
     n, chunk = centers2d.shape
@@ -185,57 +199,39 @@ def prepare_sgns_block(w_in, w_out, g_in, g_out, centers2d, contexts2d,
     d = w_in.shape[1]
     n_pairs = torch.as_tensor(n_pairs, dtype=torch.int32,
                               device=dev).reshape(1).contiguous()
-    n_live = _n_live(n_pairs, chunk, n)
     centers = centers2d.to(torch.int32).contiguous()
     contexts = contexts2d.to(torch.int32).contiguous()
     negatives = negatives3d.to(torch.int32).contiguous()
-    # Masked lanes (the tail chunk's padding) carry exact zero gradients:
-    # their keys sort to the end as an out-of-range id, which the kernel
-    # drops, so they join no real row's run (adding their zeros could
-    # change only the sign of a zero entry).
-    lane = torch.arange(n_live * chunk, device=dev).view(n_live, chunk)
-    live = lane < n_pairs
-    dead = torch.iinfo(torch.int32).max
-    in_keys = torch.where(live, centers[:n_live], dead)
-    out_keys = torch.cat([
-        torch.where(live, contexts[:n_live], dead),
-        torch.where(live[:, :, None], negatives[:n_live], dead)
-        .reshape(n_live, chunk * k)], 1)
-    in_ids, in_perm = torch.sort(in_keys, dim=1, stable=True)
-    out_ids, out_perm = torch.sort(out_keys, dim=1, stable=True)
-    runs = torch.cat([_long_runs(in_ids, 1), _long_runs(out_ids, 0)])
-    runs = runs[torch.sort(runs[:, 0], stable=True)[1]]
-    long_off = torch.zeros(n_live + 1, dtype=torch.int64, device=dev)
-    long_off[1:] = torch.cumsum(torch.bincount(runs[:, 0],
-                                               minlength=n_live), 0)
     grid = grid_size(d, k, dev)
     scratch = (torch.empty((chunk, d), dtype=torch.float32, device=dev),
                torch.empty((chunk * (1 + k), d), dtype=torch.float32,
                            device=dev),
                torch.empty(2 * grid, dtype=torch.float32, device=dev))
+    long_runs = (torch.empty((n, long_run_capacity(chunk, k)),
+                             dtype=torch.int32, device=dev),
+                 torch.zeros(n, dtype=torch.int32, device=dev))
     return SgnsLaunch((w_in, w_out, g_in, g_out),
                       (centers, contexts, negatives),
-                      (in_ids.contiguous(), in_perm.to(torch.int32),
-                       out_ids.contiguous(), out_perm.to(torch.int32)),
-                      n_pairs, scratch,
-                      (runs.to(torch.int32).contiguous(),
-                       long_off.to(torch.int32)),
+                      sorted_row_ids(centers, contexts, negatives, n_pairs),
+                      n_pairs, scratch, long_runs,
                       torch.zeros(1, dtype=torch.float32, device=dev),
-                      n_live, float(lr), bool(adagrad), grid)
+                      float(lr), bool(adagrad), grid)
 
 
 def launch_sgns_block(p: SgnsLaunch) -> torch.Tensor:
     """One cooperative launch of the block kernel; returns the loss (0-d)."""
     w_in, w_out, g_in, g_out = p.tables
-    chunk = p.streams[0].shape[1]
+    n, chunk = p.streams[0].shape
     k = p.streams[2].shape[2]
+    runs, counts = p.long_runs
+    counts.zero_()                   # the kernel lists each chunk's runs
     ptrs = [t.data_ptr() for t in (*p.streams, *p.sorted_streams)]
     err = _lib().mv_sgns_block(
         w_in.data_ptr(), w_out.data_ptr(), g_in.data_ptr(), g_out.data_ptr(),
         w_in.shape[0], w_out.shape[0], *ptrs, p.n_pairs.data_ptr(),
-        *[t.data_ptr() for t in p.scratch], p.loss.data_ptr(), p.n_live,
+        *[t.data_ptr() for t in p.scratch], p.loss.data_ptr(), n,
         chunk, k, w_in.shape[1], p.lr, int(p.adagrad), p.grid,
-        p.long_runs[0].data_ptr(), p.long_runs[1].data_ptr(), LONG_RUN,
+        runs.data_ptr(), counts.data_ptr(), runs.shape[1], LONG_RUN,
         torch.cuda.current_stream(w_in.device).cuda_stream)
     _build.check_launch(err, "sgns_block")
     LAUNCHES["sgns_block"] += 1

@@ -7,14 +7,11 @@ import subprocess
 import sys
 
 import pytest
-import torch
 
-import multiverso_tpu_torch
+import _torch_port
 
-torch.set_num_threads(1)
-
-PKG = os.path.dirname(multiverso_tpu_torch.__file__)
-REPO = os.path.dirname(PKG)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "multiverso_tpu_torch")
 
 
 def _imports(path):
@@ -61,8 +58,30 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip().endswith("clean")
 
 
+def test_collecting_the_port_tests_loads_no_torch():
+    """The port's test modules load torch from fixtures only, so a test
+    worker that runs only JAX tests never has torch in its process."""
+    mods = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "tests"))
+                  if f.startswith("test_torch_") and f.endswith(".py"))
+    assert len(mods) >= 6
+    code = ("import sys\n"
+            f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'multiverso_tpu_torch')]\n"
+            "assert not bad, bad[:5]\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
+    torch = _torch_port.load_torch()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     yield
     from multiverso_tpu_torch.core.zoo import Zoo

@@ -13,17 +13,23 @@ import zlib
 
 import numpy as np
 import pytest
-import torch
 
 import jax.numpy as jnp
 
+import _torch_port
 from multiverso_tpu.ops.pallas_rows import (gather_rows as jax_gather_rows,
                                             scatter_add_rows as jax_scatter,
                                             scatter_add_sorted_rows as
                                             jax_scatter_sorted)
-from multiverso_tpu_torch.ops import rows
 
-torch.set_num_threads(1)
+torch = rows = None  # set by _load_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _load_port():
+    global torch, rows
+    torch = _torch_port.load_torch()
+    from multiverso_tpu_torch.ops import rows
 
 
 def _t(a):

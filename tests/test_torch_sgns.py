@@ -12,15 +12,22 @@ version on the card by ``chip_smoke.py``.
 
 import numpy as np
 import pytest
-import torch
 
 import jax.numpy as jnp
 
+import _torch_port
 from multiverso_tpu.ops.pallas_sgns import \
     build_sgns_grid_step as jax_grid_step
-from multiverso_tpu_torch.ops import sgns
 
-torch.set_num_threads(1)
+torch = sgns = None  # set by _load_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _load_port():
+    global torch, sgns
+    torch = _torch_port.load_torch()
+    from multiverso_tpu_torch.ops import sgns
+
 
 V, D, C, K, N = 64, 16, 8, 3, 4
 
@@ -96,31 +103,57 @@ def test_step_updates_tables_in_place():
             np.float32(0.05))
 
 
-def test_eligibility_reckons_device_memory():
+class _Card:
+    total_memory = 80 * 2**30
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """A CUDA device with an 80 GiB memory, as the eligibility rule reads
+    it (no card is touched)."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: _Card)
+    return torch.device("cuda", 0)
+
+
+def test_eligibility_reckons_device_memory(card):
     """Unlike the TPU's VMEM rule, the flagship's 50K vocab is eligible on
-    one H100; 16-bit tables and more than 16 negatives are not."""
-    assert sgns.sgns_grid_eligible(50_000, 50_000, 128, 8192, 5, np.float32)
+    one H100; 16-bit tables, more than 16 negatives, a working set beyond
+    the device's memory and a CPU device are not."""
+    assert sgns.sgns_grid_eligible(50_000, 50_000, 128, 8192, 5, np.float32,
+                                   card)
     assert sgns.sgns_grid_bytes(50_000, 50_000, 128, 8192, 5,
                                 np.float32) < 2**28
     assert not sgns.sgns_grid_eligible(50_000, 50_000, 128, 8192, 5,
-                                       np.dtype("float16"))
-    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 17, np.float32)
-    assert not sgns.sgns_grid_eligible(10**9, 10**9, 128, 8192, 5,
-                                       np.float32)
+                                       np.dtype("float16"), card)
+    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 17, np.float32,
+                                       card)
+    assert not sgns.sgns_grid_eligible(10**8, 10**8, 128, 8192, 5,
+                                       np.float32, card)
+    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 5, np.float32,
+                                       torch.device("cpu"))
 
 
-def test_long_runs_are_listed_for_the_cta_path():
-    """The glue lists the start of every run of at least LONG_RUN equal ids
-    per chunk (the kernel applies those with a whole CTA and skips them per
-    warp)."""
-    L = sgns.LONG_RUN
-    row0 = [1] * (L + 3) + [2] * (L - 1) + [5] * L
-    row1 = [0] * 3 + [4] * (2 * L) + [9] * (len(row0) - 2 * L - 3)
-    ids = torch.tensor([row0, row1], dtype=torch.int32)
-    assert sgns._long_runs(ids, 0).tolist() == [[0, 0, 0], [0, 0, 2 * L + 2],
-                                                [1, 0, 3]]
-    assert sgns._long_runs(ids[:0], 1).shape == (0, 3)
-    assert sgns._long_runs(torch.zeros((2, L), dtype=torch.int32),
-                           1).tolist() == [[0, 1, 0], [1, 1, 0]]
-    assert sgns._long_runs(torch.zeros((1, L - 1), dtype=torch.int32),
-                           1).shape == (0, 3)
+def test_glue_sorts_every_chunk_and_drops_dead_lanes():
+    """The glue before the launch sorts each chunk's ids stably, with the
+    lanes past n_pairs keyed out of range (no host read of n_pairs)."""
+    _, (centers, contexts, negatives) = _inputs(5)
+    n_pairs = C + 3                           # chunk 1 has 3 live lanes
+    in_ids, in_perm, out_ids, out_perm = sgns.sorted_row_ids(
+        *[torch.as_tensor(x) for x in (centers, contexts, negatives)],
+        torch.tensor([n_pairs], dtype=torch.int32))
+    dead = np.iinfo(np.int32).max
+    assert in_ids.shape == (N, C) and out_ids.shape == (N, C * (1 + K))
+    live = (np.arange(N * C).reshape(N, C) < n_pairs)
+    keys_in = np.where(live, centers, dead)
+    keys_out = np.concatenate(
+        [np.where(live, contexts, dead),
+         np.where(live[:, :, None], negatives, dead).reshape(N, C * K)], 1)
+    for keys, ids, perm in ((keys_in, in_ids, in_perm),
+                            (keys_out, out_ids, out_perm)):
+        order = np.argsort(keys, axis=1, kind="stable")
+        assert np.array_equal(perm.numpy(), order)
+        assert np.array_equal(ids.numpy(),
+                              np.take_along_axis(keys, order, 1))
+    assert (in_ids[2:] == dead).all() and (out_ids[2:] == dead).all()
+    assert sgns.long_run_capacity(8192, 5) == 8192 // 64 + 8192 * 6 // 64

@@ -11,15 +11,21 @@ stateful dense Adds, which the JAX store runs under ``jax.jit`` (see
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 
+import _torch_port
 import multiverso_tpu as mvj
-import multiverso_tpu_torch as mvt
-from multiverso_tpu_torch import interop
 
-torch.set_num_threads(1)
+mvt = interop = None  # set by _load_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _load_port():
+    global mvt, interop
+    _torch_port.load_torch()
+    import multiverso_tpu_torch as mvt
+    from multiverso_tpu_torch import interop
 
 
 @pytest.fixture(autouse=True)

@@ -20,17 +20,23 @@ from the JAX package's pure pieces instead.
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
 
+import _torch_port
 from multiverso_tpu.core import updater as jupd
 from multiverso_tpu.core.options import AddOption as JaxAddOption
-from multiverso_tpu_torch.core import updater as tupd
-from multiverso_tpu_torch.core.options import AddOption
 
-torch.set_num_threads(1)
+torch = tupd = AddOption = None   # set by _load_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _load_port():
+    global torch, tupd, AddOption
+    torch = _torch_port.load_torch()
+    from multiverso_tpu_torch.core import updater as tupd
+    from multiverso_tpu_torch.core.options import AddOption
 
 UPDATERS = ["default", "sgd", "momentum_sgd", "adagrad", "ftrl", "dcasgd",
             "dcasgda"]

@@ -16,14 +16,12 @@
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
 
+import _torch_port
 import multiverso_tpu as mvj
-import multiverso_tpu_torch as mvt
-from multiverso_tpu_torch import interop
 from multiverso_tpu.models.word2vec import Word2Vec as JaxWord2Vec
 from multiverso_tpu.models.word2vec import Word2VecConfig as JaxConfig
 from multiverso_tpu.models.word2vec.dictionary import \
@@ -32,12 +30,24 @@ from multiverso_tpu.models.word2vec.dictionary import \
     HuffmanEncoder as JaxHuffman
 from multiverso_tpu.models.word2vec.dictionary import Sampler as JaxSampler
 from multiverso_tpu.models.word2vec.model import build_chunked_pipeline
-from multiverso_tpu_torch.models.word2vec import (Dictionary,
-                                                  HuffmanEncoder, Sampler,
-                                                  Word2Vec, Word2VecConfig)
-from multiverso_tpu_torch.models.word2vec import model as tmodel
 
-torch.set_num_threads(1)
+# Bound by _load_port: collection loads no torch.
+torch = mvt = interop = tmodel = None
+Dictionary = HuffmanEncoder = Sampler = Word2Vec = Word2VecConfig = None
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _load_port():
+    global torch, mvt, interop, tmodel
+    global Dictionary, HuffmanEncoder, Sampler, Word2Vec, Word2VecConfig
+    torch = _torch_port.load_torch()
+    import multiverso_tpu_torch as mvt
+    from multiverso_tpu_torch import interop
+    from multiverso_tpu_torch.models.word2vec import (Dictionary,
+                                                      HuffmanEncoder, Sampler,
+                                                      Word2Vec,
+                                                      Word2VecConfig)
+    from multiverso_tpu_torch.models.word2vec import model as tmodel
 
 V, D, W, K, CHUNK, S, L = 200, 16, 3, 3, 16, 6, 20
 
@@ -200,6 +210,26 @@ def test_dispatch_and_waits():
                  dict(param_dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             Word2Vec(Word2VecConfig(**_cfg_kwargs(**over)), d)
+
+
+def test_dispatch_on_a_card_never_falls_back_to_the_plain_loop(monkeypatch):
+    """On a CUDA device AUTO and pallas_grid go to the B5 kernel, and a
+    configuration it does not take raises; only an explicit in_graph or
+    pipelined_host runs the plain loop there (no card is touched)."""
+    class Card:
+        total_memory = 80 * 2**30
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Card)
+    card = torch.device("cuda", 0)
+    from multiverso_tpu_torch.utils.log import FatalError
+    for mode in (None, "auto", "pallas_grid"):
+        cfg = Word2VecConfig(**_cfg_kwargs(dispatch_mode=mode))
+        assert tmodel.resolve_dispatch_mode(cfg, V, V, card) == "pallas_grid"
+        cfg = Word2VecConfig(**_cfg_kwargs(dispatch_mode=mode, negative=17))
+        with pytest.raises(FatalError, match="ROADMAP B5"):
+            tmodel.resolve_dispatch_mode(cfg, V, V, card)
+    for mode in ("in_graph", "pipelined_host"):
+        cfg = Word2VecConfig(**_cfg_kwargs(dispatch_mode=mode, negative=17))
+        assert tmodel.resolve_dispatch_mode(cfg, V, V, card) == mode
 
 
 def _topic_corpus(path, n=300, seed=0):
