@@ -14,16 +14,29 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    main path's shapes, and time kernel, plain version and the one-call
    PyTorch yardstick (``library_ms``) with CUDA events:
    B1 ``gather_rows`` and B2 ``scatter_add_sorted_rows`` (both signs) with
-   100,000 ids into a 1,000,000 x 50 table, bitwise; B5 ``sgns_block`` on
-   one full flagship block (V=50,000, D=128, C=8192, K=5, masked tail
-   chunk), each table within ``SGNS_RTOL[table]`` of its largest value and
-   the loss within ``SGNS_LOSS_RTOL``; then every other compiled variant
-   of each kernel once at a small shape (row widths 128 and 25, B5 with
-   10 negatives and with D=126, and SGD), at the same tolerances;
+   100,000 ids into a 1,000,000 x 50 table, bitwise; the stateful
+   combine's ``fold_sorted_runs`` on the same ids, bitwise to the CPU's
+   lane-order fold; B3 ``fused_stateful_rows`` for momentum_sgd, adagrad
+   and ftrl from that combined input into a 1,000,000 x 50 table and its
+   state, bitwise; B4 ``tiled_scatter_add_sorted_rows`` (both signs) with
+   8,192 sorted ids into 100,000 x 128 (bench.py's shape), bitwise; B5
+   ``sgns_block`` on one full flagship block (V=50,000, D=128, C=8192,
+   K=5, masked tail chunk), each table within ``SGNS_RTOL[table]`` of its
+   largest value and the loss within ``SGNS_LOSS_RTOL``; then every other
+   compiled variant of each kernel once at a small shape (row widths 128
+   and 25, B3 with 2 workers at worker 1, all-sentinel and empty batches,
+   B5 with 10 negatives and with D=126, and SGD), at the same tolerances;
 3. the table plane: ``mv.init()`` on the card, 1,000,000 x 50
-   ``use_pallas`` tables (default and sgd updaters), row Adds/Gets at 10%
-   coverage checked against a numpy replay (and bitwise against the plain
-   version on the CPU), B1 and B2 launched; param updates/sec;
+   ``use_pallas`` tables: default and sgd updaters (row Adds/Gets at 10%
+   coverage against a numpy replay and bitwise against the plain version
+   on the CPU; B1 and B2 launched; param updates/sec), then momentum_sgd,
+   adagrad and ftrl (3 row Adds of 100,000 ids with duplicates and
+   non-default option scalars, bitwise against the same Adds replayed
+   through the port's plain path on the CPU, data and every state leaf,
+   and within ``MODEL_RTOL``/``MODEL_ATOL`` of a float64 numpy model; the
+   fold, B3 and B1 launched; param updates/sec per updater); then
+   bench.py's row scatter leg, 21 calls of ``tiled_scatter_add_rows``
+   (B4 launched 21 times, exact counts);
 4. the word2vec flagship through ``Word2Vec.train`` at bench width on a
    synthetic Zipf corpus: one warm-up block, then 3 full blocks with the B5
    kernel launched once per block and a finite loss; words/sec, pairs/sec;
@@ -31,8 +44,8 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    two-topic corpus: intra-topic cosine must exceed cross-topic cosine;
 6. a JSON line of the kernels, the card line, and the result line.
 
-The launch counts are set to 0 just before each main-path phase (3 and 4)
-and read just after it, so the comparisons of phase 2 do not count.
+Every launch count is set to 0 just before each main-path run of phases 3
+and 4 and read just after it, so the comparisons of phase 2 do not count.
 """
 
 from __future__ import annotations
@@ -93,6 +106,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed ``reps`` times between two events. A small
+    kernel's event time over back-to-back wrapper calls (``cuda_ms``) is
+    bound by the host's per-call cost (Python, ctypes, the launch); this
+    one is not."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
@@ -143,9 +175,11 @@ def check_row_kernels(dev) -> list:
     b1_ms = cuda_ms(lambda: rows.gather_rows(table, ids), 50)
     b1_plain = cuda_ms(lambda: rows.gather_rows_plain(table, ids), 50)
     b1_lib = cuda_ms(lambda: torch.index_select(table, 0, ids64), 50)
+    b1_graph = graph_ms(lambda: rows.gather_rows(table, ids))
     b1_bound = bound_ms(N_IDS * 4 + uniq * COLS * 4 + N_IDS * COLS * 4)
     log(f"B1 gather_rows: max_abs_err {err_b1} (bitwise), kernel "
-        f"{b1_ms:.4f} ms, plain {b1_plain:.4f} ms, index_select "
+        f"{b1_ms:.4f} ms ({b1_graph:.4f} ms in a CUDA graph), plain "
+        f"{b1_plain:.4f} ms, index_select "
         f"{b1_lib:.4f} ms, bound {b1_bound[0]:.4f} ms ({b1_bound[1]})")
 
     sorted_ids, order = torch.sort(ids.to(torch.int64), stable=True)
@@ -171,24 +205,286 @@ def check_row_kernels(dev) -> list:
                      50)
     b2_bound = bound_ms(N_IDS * 4 + N_IDS * COLS * 4 + 2 * uniq * COLS * 4,
                         N_IDS * COLS)
+    sorted32 = sorted_ids.to(torch.int32)
+    b2_graph = graph_ms(lambda: rows.scatter_add_sorted_rows(
+        work, sorted32, sorted_deltas))
     log(f"B2 scatter_add_sorted_rows (signs +1, -1): max_abs_err {err_b2} "
-        f"(bitwise), kernel {b2_ms:.4f} ms, plain {b2_plain:.4f} ms, "
+        f"(bitwise), kernel {b2_ms:.4f} ms ({b2_graph:.4f} ms in a CUDA "
+        f"graph), plain {b2_plain:.4f} ms, "
         f"index_add_ {b2_lib:.4f} ms, bound {b2_bound[0]:.4f} ms "
         f"({b2_bound[1]})")
     return [
         {"name": "gather_rows", "route": "cuda",
          "source": "multiverso_tpu_torch/csrc/rows.cu",
          "replaces": "multiverso_tpu/ops/pallas_rows.py:106",
-         "max_abs_err": err_b1, "ms": b1_ms, "plain_ms": b1_plain,
+         "max_abs_err": err_b1, "ms": b1_ms, "graph_ms": b1_graph,
+         "plain_ms": b1_plain,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
          "library_ms": b1_lib},
         {"name": "scatter_add_sorted_rows", "route": "cuda",
          "source": "multiverso_tpu_torch/csrc/rows.cu",
          "replaces": "multiverso_tpu/ops/pallas_rows.py:186",
-         "max_abs_err": err_b2, "ms": b2_ms, "plain_ms": b2_plain,
+         "max_abs_err": err_b2, "ms": b2_ms, "graph_ms": b2_graph,
+         "plain_ms": b2_plain,
          "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
          "library_ms": b2_lib},
     ]
+
+
+STATEFUL = ("momentum_sgd", "adagrad", "ftrl")
+# Non-default option scalars of the stateful checks (FTRL reads momentum
+# as l2, learning_rate as alpha, rho as beta, lambda_ as l1).
+STATEFUL_OPT = dict(worker_id=0, momentum=0.9, learning_rate=0.05, rho=0.1,
+                    lambda_=0.01)
+# float32 operations per element of each updater's row math.
+STATEFUL_OPS = {"momentum_sgd": 4, "adagrad": 8, "ftrl": 16}
+# The stateful table plane against a float64 numpy model of the updater:
+# |card - model| <= MODEL_ATOL + MODEL_RTOL * |model|, elementwise. The
+# card rounds each op to float32 and the model does not; three Adds from
+# zero state carry at most a few float32 roundings per element, far
+# below these limits, while a wrong update is off by its whole step.
+MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
+B4_ROWS, B4_COLS, B4_IDS = 100_000, 128, 8_192    # bench.py:434-480
+
+
+def stateful_inputs(g, updater, rows_n, cols, workers, dev):
+    """A random table and random state leaves for ``updater`` (the sums
+    of squares non-negative)."""
+    import torch
+    table = torch.randn((rows_n, cols), generator=g, device=dev)
+    state = updater.init_state((rows_n, cols), torch.float32, workers, dev)
+    for key, leaf in state.items():
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=dev))
+        if key in ("g2", "n"):
+            leaf.abs_()
+    return table, state
+
+
+def stateful_pair(updater, table, state, ids, deltas, opt):
+    """B3 and its plain version from the same inputs on the card; returns
+    the largest |difference| after asserting that every buffer is equal
+    (the table and each leaf)."""
+    import torch
+    from multiverso_tpu_torch.ops import rows
+    a = (table.clone(), {k: v.clone() for k, v in state.items()})
+    b = (table.clone(), {k: v.clone() for k, v in state.items()})
+    rows.fused_stateful_rows(a[0], a[1], ids, deltas, opt, updater)
+    rows.fused_stateful_rows_plain(b[0], b[1], ids, deltas, opt, updater)
+    torch.cuda.synchronize()
+    pairs = [("data", a[0], b[0])] + [(k, a[1][k], b[1][k]) for k in state]
+    err = max(float((x - y).abs().max()) for _, x, y in pairs)
+    for key, x, y in pairs:
+        assert torch.equal(x, y), (updater.name, key, err)
+    return err
+
+
+def check_stateful_kernels(dev) -> list:
+    """The combine's fold and B3 at the table plane's width: 100,000 ids
+    (the B1/B2 draw) into a 1,000,000 x 50 table, each updater bitwise
+    against its plain version from one combined input; then B3's other
+    compiled variants, per-worker indexing, sentinel and empty batches at
+    small shapes."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.updater import (combine_duplicate_rows,
+                                                   get_updater)
+    from multiverso_tpu_torch.ops import rows
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    torch.randn((ROWS, COLS), generator=g, device=dev)   # B1/B2's draw
+    ids = torch.randint(0, ROWS, (N_IDS,), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int64)
+    deltas = torch.randn((N_IDS, COLS), generator=g, device=dev)
+
+    # The fold of the combine, against the CPU's lane-order index_add_.
+    sorted_ids, order = torch.sort(ids, stable=True)
+    sorted_deltas = deltas.index_select(0, order)
+    got = rows.fold_sorted_runs(sorted_ids, sorted_deltas)
+    want = rows.fold_sorted_runs_plain(sorted_ids.cpu(), sorted_deltas.cpu())
+    err_fold = float((got.cpu() - want).abs().max())
+    assert torch.equal(got.cpu(), want), f"fold differs: {err_fold}"
+    # The fold's float64 variant (stateful tables of float64), small.
+    ids_f64 = torch.sort(torch.randint(0, 300, (2_000,), generator=g,
+                                       device=dev))[0]
+    d_f64 = torch.randn((2_000, 7), generator=g, device=dev,
+                        dtype=torch.float64)
+    assert torch.equal(rows.fold_sorted_runs(ids_f64, d_f64).cpu(),
+                       rows.fold_sorted_runs_plain(ids_f64.cpu(),
+                                                   d_f64.cpu()))
+    r_eff, d_c = combine_duplicate_rows(ids, deltas, ROWS)
+    r_cpu, d_cpu = combine_duplicate_rows(ids.cpu(), deltas.cpu(), ROWS)
+    assert torch.equal(r_eff.cpu(), r_cpu) and torch.equal(d_c.cpu(), d_cpu)
+    uniq = int((r_eff < ROWS).sum())
+    fold_ms = cuda_ms(lambda: rows.fold_sorted_runs(sorted_ids,
+                                                    sorted_deltas), 50)
+    fold_plain = cuda_ms(lambda: rows.fold_sorted_runs_plain(
+        sorted_ids, sorted_deltas), 20)
+    fold_graph = graph_ms(lambda: rows.fold_sorted_runs(sorted_ids,
+                                                        sorted_deltas))
+    glue_ms = cuda_ms(lambda: combine_duplicate_rows(ids, deltas, ROWS), 20)
+    fold_bound = bound_ms(N_IDS * 8 + 2 * N_IDS * COLS * 4, N_IDS * COLS)
+    log(f"combine fold_sorted_runs: {N_IDS} ids, {uniq} unique, bitwise to "
+        f"the CPU's fold (and the whole combine), kernel {fold_ms:.4f} ms "
+        f"({fold_graph:.4f} ms in a CUDA graph), "
+        f"plain {fold_plain:.4f} ms (index_add_, atomics), whole combine "
+        f"(sort, gather, fold) {glue_ms:.4f} ms, bound {fold_bound[0]:.4f} "
+        f"ms ({fold_bound[1]}); float64 variant bitwise")
+    fold = {"name": "fold_sorted_runs", "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/stateful_rows.cu",
+            "replaces": "multiverso_tpu/core/updater.py:124",
+            "note": "the combine's segment_sum, an XLA op in the JAX "
+                    "package (no Pallas kernel); no single PyTorch call "
+                    "gives each lane its run's total",
+            "max_abs_err": err_fold, "ms": fold_ms, "graph_ms": fold_graph,
+            "plain_ms": fold_plain,
+            "bound_ms": fold_bound[0], "bound_by": fold_bound[1],
+            "library_ms": None, "combine_ms": glue_ms,
+            "variants": [{"dtype": "float64", "cols": 7,
+                          "max_abs_err": 0.0}]}
+
+    opt = AddOption(**STATEFUL_OPT).scalars()
+    r32 = r_eff.to(torch.int32)
+    variants = []
+    for name in STATEFUL:
+        up = get_updater(np.float32, name)
+        table, state = stateful_inputs(g, up, ROWS, COLS, 1, dev)
+        err = stateful_pair(up, table, state, r_eff, d_c, opt)
+        ms = cuda_ms(lambda: rows.fused_stateful_rows(table, state, r32,
+                                                      d_c, opt, up), 20)
+        graph = graph_ms(lambda: rows.fused_stateful_rows(table, state, r32,
+                                                          d_c, opt, up))
+        plain = cuda_ms(lambda: rows.fused_stateful_rows_plain(
+            table, state, r_eff, d_c, opt, up), 5)
+        n_bytes = (N_IDS * 4 + uniq * COLS * 4
+                   + 2 * (1 + len(state)) * uniq * COLS * 4)
+        bound = bound_ms(n_bytes, uniq * COLS * STATEFUL_OPS[name])
+        log(f"B3 fused_stateful_rows [{name}]: {ROWS} x {COLS}, {N_IDS} "
+            f"combined lanes ({uniq} unique), bitwise (max_abs_err {err}), "
+            f"kernel {ms:.4f} ms ({graph:.4f} ms in a CUDA graph), plain "
+            f"{plain:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}, {n_bytes / 1e6:.1f} MB)")
+        variants.append({"updater": name, "cols": COLS, "max_abs_err": err,
+                         "ms": ms, "graph_ms": graph, "plain_ms": plain,
+                         "bound_ms": bound[0],
+                         "bound_by": bound[1], "library_ms": None})
+        del table, state
+
+    # The other compiled widths (16- and 4-byte loads), per-worker
+    # indexing, sentinel lanes and the empty batch, at small shapes.
+    small = 2_000
+    for cols in (128, 25):
+        for name in STATEFUL:
+            up = get_updater(np.float32, name)
+            table, state = stateful_inputs(g, up, small, cols, 1, dev)
+            sid = torch.randint(0, small, (1_500,), generator=g, device=dev)
+            sd = torch.randn((1_500, cols), generator=g, device=dev)
+            r, d = combine_duplicate_rows(sid, sd, small)
+            stateful_pair(up, table, state, r, d, opt)
+            variants.append({"updater": name, "cols": cols,
+                             "max_abs_err": 0.0})
+    up = get_updater(np.float32, "adagrad")
+    table, state = stateful_inputs(g, up, small, COLS, 2, dev)
+    sid = torch.randint(0, small, (1_500,), generator=g, device=dev)
+    r, d = combine_duplicate_rows(
+        sid, torch.randn((1_500, COLS), generator=g, device=dev), small)
+    opt1 = AddOption(**dict(STATEFUL_OPT, worker_id=1)).scalars()
+    stateful_pair(up, table, state, r, d, opt1)
+    plane0 = state["g2"][0].clone()
+    rows.fused_stateful_rows(table, state, r, d, opt1, up)
+    assert torch.equal(state["g2"][0], plane0), "worker 0's g2 moved"
+    variants.append({"updater": "adagrad", "workers": 2, "worker_id": 1,
+                     "max_abs_err": 0.0, "other_plane_untouched": True})
+    for name in STATEFUL:
+        up = get_updater(np.float32, name)
+        table, state = stateful_inputs(g, up, small, COLS, 1, dev)
+        before = [table.clone()] + [v.clone() for v in state.values()]
+        sentinel = torch.full((64,), small, device=dev, dtype=torch.int64)
+        launched = rows.LAUNCHES["fused_stateful_rows"]
+        rows.fused_stateful_rows(table, state, sentinel,
+                                 torch.randn((64, COLS), device=dev), opt, up)
+        rows.fused_stateful_rows(table, state, sentinel[:0],
+                                 torch.zeros((0, COLS), device=dev), opt, up)
+        torch.cuda.synchronize()
+        assert rows.LAUNCHES["fused_stateful_rows"] == launched + 1
+        for x, y in zip(before, [table] + list(state.values())):
+            assert torch.equal(x, y), f"{name}: a sentinel lane wrote"
+    log("B3 variants: D=128 and D=25 for each updater bitwise; adagrad "
+        "with 2 workers at worker 1 bitwise, worker 0's g2 untouched; an "
+        "all-sentinel batch and the empty batch leave table and state as "
+        "they were")
+    # The adagrad line at the main path's width stands for the kernel.
+    top = next(v for v in variants if v["updater"] == "adagrad")
+    b3 = {"name": "fused_stateful_rows", "route": "cuda",
+          "source": "multiverso_tpu_torch/csrc/stateful_rows.cu",
+          "replaces": "multiverso_tpu/ops/pallas_rows.py:324",
+          "top_level": "adagrad",
+          "library_ms_reason": "no single PyTorch call gathers, updates "
+                               "and scatters a table and its state",
+          "max_abs_err": max(v["max_abs_err"] for v in variants),
+          "ms": top["ms"], "graph_ms": top["graph_ms"],
+          "plain_ms": top["plain_ms"],
+          "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+          "library_ms": None, "variants": variants}
+    return [b3, fold]
+
+
+def check_tiled_kernel(dev) -> dict:
+    """B4 at bench.py's shape, both signs, bitwise against its plain
+    version; then its other compiled widths once at a small shape."""
+    import torch
+    from multiverso_tpu_torch.ops import rows
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    table = torch.randn((B4_ROWS, B4_COLS), generator=g, device=dev)
+    ids = torch.sort(torch.randint(0, B4_ROWS, (B4_IDS,), generator=g,
+                                   device=dev))[0].to(torch.int32)
+    deltas = torch.randn((B4_IDS, B4_COLS), generator=g, device=dev)
+    uniq = int(torch.unique(ids).numel())
+    err = 0.0
+    for sign in (1.0, -1.0):
+        a, b = table.clone(), table.clone()
+        rows.tiled_scatter_add_sorted_rows(a, ids, deltas, sign)
+        rows.tiled_scatter_add_sorted_rows_plain(b, ids, deltas, sign)
+        torch.cuda.synchronize()
+        e = float((a - b).abs().max())
+        assert torch.equal(a, b), f"tiled scatter sign {sign} differs: {e}"
+        err = max(err, e)
+    work = table.clone()
+    ms = cuda_ms(lambda: rows.tiled_scatter_add_sorted_rows(work, ids,
+                                                            deltas), 50)
+    plain = cuda_ms(lambda: rows.tiled_scatter_add_sorted_rows_plain(
+        work, ids, deltas), 10)
+    graph = graph_ms(lambda: rows.tiled_scatter_add_sorted_rows(work, ids,
+                                                                deltas))
+    ids64 = ids.to(torch.int64)
+    lib = cuda_ms(lambda: work.index_add_(0, ids64, deltas), 50)
+    bound = bound_ms(B4_IDS * 4 + B4_IDS * B4_COLS * 4
+                     + 2 * uniq * B4_COLS * 4, B4_IDS * B4_COLS)
+    variants = [{"cols": B4_COLS, "max_abs_err": err}]
+    for cols in (50, 25):
+        t = torch.randn((5_000, cols), generator=g, device=dev)
+        sid = torch.sort(torch.randint(0, 500, (3_000,), generator=g,
+                                       device=dev))[0]
+        sd = torch.randn((3_000, cols), generator=g, device=dev)
+        for sign in (1.0, -1.0):
+            a, b = t.clone(), t.clone()
+            rows.tiled_scatter_add_sorted_rows(a, sid, sd, sign)
+            rows.tiled_scatter_add_sorted_rows_plain(b, sid, sd, sign)
+            assert torch.equal(a, b), (cols, sign)
+        variants.append({"cols": cols, "max_abs_err": 0.0})
+    log(f"B4 tiled_scatter_add_sorted_rows (signs +1, -1): {B4_IDS} sorted "
+        f"ids ({uniq} unique) into {B4_ROWS} x {B4_COLS}, bitwise, kernel "
+        f"{ms:.4f} ms ({graph:.4f} ms in a CUDA graph), plain {plain:.4f} "
+        f"ms, index_add_ {lib:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}); D=50 and D=25 bitwise")
+    return {"name": "tiled_scatter_add_sorted_rows", "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/rows.cu",
+            "replaces": "multiverso_tpu/ops/pallas_rows.py:430",
+            "max_abs_err": err, "ms": ms, "graph_ms": graph,
+            "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib,
+            "variants": variants}
 
 
 def flagship_block(dev):
@@ -445,6 +741,150 @@ def table_plane() -> None:
     log(f"table plane: get_rows of {n} rows (to host) in {dt * 1e3:.3f} ms")
 
 
+def stateful_model(name, batches, opt, shape):
+    """The updater in float64 numpy over the Adds ``batches`` from a zero
+    table and zero state: duplicates summed, then the update on each
+    touched row. Returns {"data": ..., "state/<leaf>": ...}."""
+    import numpy as np
+    f = [float(x) for x in opt[1:5]]        # momentum, lr, rho, lambda_
+    out = {"data": np.zeros(shape)}
+    leaves = {"momentum_sgd": ("smooth",), "adagrad": ("g2",),
+              "ftrl": ("z", "n")}[name]
+    for key in leaves:
+        out[f"state/{key}"] = np.zeros(shape)
+    for ids, deltas in batches:
+        uniq, inv = np.unique(ids, return_inverse=True)
+        g = np.zeros((len(uniq), shape[1]))
+        np.add.at(g, inv, deltas.astype(np.float64))
+        w = out["data"][uniq]
+        if name == "momentum_sgd":
+            s = f[0] * out["state/smooth"][uniq] + (1 - f[0]) * g
+            out["state/smooth"][uniq] = s
+            out["data"][uniq] = w - s
+        elif name == "adagrad":
+            gg = g / f[1]
+            g2 = out["state/g2"][uniq] + gg * gg
+            out["state/g2"][uniq] = g2
+            out["data"][uniq] = w - f[2] / np.sqrt(g2 + 1e-6) * gg
+        else:
+            l2, alpha, beta, l1 = f
+            n = out["state/n"][uniq]
+            n_new = n + g * g
+            z = (out["state/z"][uniq] + g
+                 - (np.sqrt(n_new) - np.sqrt(n)) / alpha * w)
+            out["data"][uniq] = np.where(
+                np.abs(z) > l1, -(z - np.sign(z) * l1) /
+                ((beta + np.sqrt(n_new)) / alpha + l2), 0.0)
+            out["state/z"][uniq] = z
+            out["state/n"][uniq] = n_new
+    if name == "adagrad":                     # [num_workers=1, R, D]
+        out["state/g2"] = out["state/g2"][None]
+    return out
+
+
+def stateful_table_plane(name) -> dict:
+    """One stateful ``use_pallas`` table on the card through the user's
+    calls: 3 row Adds of 100,000 ids (with duplicates) and row Gets,
+    bitwise against the same Adds replayed through the port's plain path
+    on the CPU (data and every state leaf) and close to a float64 numpy
+    model; then param updates/sec on device-resident operands."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+
+    rng = np.random.default_rng(7)
+    n = ROWS // 10
+    opt = AddOption(**STATEFUL_OPT)
+    t = mv.create_table(mv.MatrixTableOption(ROWS, COLS, use_pallas=True,
+                                             updater=name,
+                                             name=f"stateful_{name}"))
+    store = t.store
+    assert store._pallas_cap == "fused_stateful", store._pallas_cap
+    assert store.device.type == "cuda", store.device
+    replay = ServerStore(f"replay_{name}", (ROWS, COLS), np.float32,
+                         get_updater(np.float32, name), torch.device("cpu"),
+                         num_workers=1, use_pallas_rows=True)
+    batches = []
+    for _ in range(3):
+        ids = rng.integers(0, ROWS, size=n).astype(np.int32)
+        deltas = rng.normal(size=(n, COLS)).astype(np.float32)
+        t.add_rows(ids, deltas, opt)
+        replay.apply_rows(ids, deltas, opt)
+        batches.append((ids, deltas))
+    probe = rng.integers(0, ROWS, size=n).astype(np.int32)
+    assert np.array_equal(t.get_rows(probe),
+                          replay.read_rows(probe).numpy()), name
+    got, want = store.store_state(), replay.store_state()
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for key in want:
+        assert np.array_equal(got[key], want[key]), \
+            f"{name}: card {key} differs from the CPU plain replay"
+    del replay, want
+    model = stateful_model(name, batches, opt.scalars(), (ROWS, COLS))
+    worst = {}
+    for key, ref in model.items():
+        err = np.abs(got[key] - ref)
+        worst[key] = float(err.max())
+        assert bool((err <= MODEL_ATOL + MODEL_RTOL * np.abs(ref)).all()), \
+            (name, key, worst[key])
+    del got, model
+    log(f"stateful table plane [{name}]: 3 x {n} row Adds + {n} row Gets "
+        f"bitwise to the CPU plain replay (data and "
+        f"{', '.join(sorted(store.state))}); against the float64 model "
+        f"max |err| " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (limit {MODEL_ATOL} + {MODEL_RTOL} |model|)")
+    # Updates/sec on device-resident operands, as the sgd line.
+    sets = [torch.randint(0, ROWS, (n,), device=store.device,
+                          dtype=torch.int32) for _ in range(10)]
+    delta = torch.randn((n, COLS), device=store.device)
+    store.apply_rows(sets[0], delta, opt)
+    store.block()
+    t0 = time.perf_counter()
+    for ids in sets:
+        store.apply_rows(ids, delta, opt)
+    store.block()
+    dt = time.perf_counter() - t0
+    rate = len(sets) * n * COLS / dt
+    log(f"stateful table plane [{name}]: {len(sets)} x {n} row Adds in "
+        f"{dt:.4f} s -> {rate:.6g} param updates/sec (ids and deltas on "
+        f"the card)")
+    return {"updater": name, "updates_per_sec": rate,
+            "model_max_abs_err": worst}
+
+
+def tiled_leg(dev) -> float:
+    """bench.py's row scatter leg (bench.py:434-480) through B4: 8,192
+    sorted ids (bench.py's draw) of ones into a zero 100,000 x 128 table,
+    21 calls of ``tiled_scatter_add_rows``; every row must then hold 21
+    times its id's count, exactly. Returns ms per call."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.ops import rows
+
+    rng = np.random.default_rng(2)
+    ids_np = np.sort(rng.integers(0, B4_ROWS, size=B4_IDS)).astype(np.int32)
+    table = torch.zeros((B4_ROWS, B4_COLS), device=dev)
+    ids = torch.as_tensor(ids_np, device=dev)
+    deltas = torch.ones((B4_IDS, B4_COLS), device=dev)
+    rows.tiled_scatter_add_rows(table, ids, deltas)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        rows.tiled_scatter_add_rows(table, ids, deltas)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 20 * 1e3
+    want = 21 * np.bincount(ids_np, minlength=B4_ROWS).astype(np.float32)
+    assert np.array_equal(table.cpu().numpy(),
+                          np.repeat(want[:, None], B4_COLS, 1))
+    log(f"B4 leg (bench.py's row scatter): 21 x tiled_scatter_add_rows of "
+        f"{B4_IDS} x {B4_COLS} into {B4_ROWS} x {B4_COLS}, exact counts, "
+        f"{ms:.4f} ms per call (host clock, sort included)")
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the flagship
 # ---------------------------------------------------------------------------
@@ -541,35 +981,73 @@ def main() -> int:
     # Phase 2: kernels against their plain versions.
     mv.init([])
     kernels = check_row_kernels(dev)
+    kernels += check_stateful_kernels(dev)
+    kernels.append(check_tiled_kernel(dev))
     kernels.append(check_sgns_kernel(dev))
     variants = check_variants(dev)
     for k in kernels:
-        k["variants"] = variants[k["name"]]
+        k.setdefault("variants", variants.get(k["name"], []))
     mv.shutdown()
 
-    # Phase 3: the table plane (counts read for B1/B2).
+    # Each main path runs with every launch count set to 0 just before it
+    # and read just after it.
+    def on_path(fn, *args):
+        for counts in (rows.LAUNCHES, sgns.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+        out = fn(*args)
+        return out, {**rows.LAUNCHES, **sgns.LAUNCHES}
+
+    # Phase 3: the table plane: stateless (B1, B2), then each stateful
+    # updater (the combine's fold, B3 and B1), then bench.py's row
+    # scatter leg (B4).
     mv.init([])
-    rows.LAUNCHES.update(gather_rows=0, scatter_add_sorted_rows=0)
-    table_plane()
-    plane_launches = dict(rows.LAUNCHES)
+    _, plane = on_path(table_plane)
+    assert plane["gather_rows"] > 0, plane
+    assert plane["scatter_add_sorted_rows"] > 0, plane
+    stateful = {}
+    for name in STATEFUL:
+        stateful[name], counts = on_path(stateful_table_plane, name)
+        stateful[name]["launches"] = {
+            k: counts[k] for k in ("fold_sorted_runs", "fused_stateful_rows",
+                                   "gather_rows")}
+        assert counts["fused_stateful_rows"] > 0, (name, counts)
+        assert counts["fold_sorted_runs"] > 0, (name, counts)
     mv.shutdown()
-    assert plane_launches["gather_rows"] > 0, plane_launches
-    assert plane_launches["scatter_add_sorted_rows"] > 0, plane_launches
+    leg_ms, leg = on_path(tiled_leg, dev)
+    assert leg["tiled_scatter_add_sorted_rows"] == 21, leg
 
     # Phase 4: the flagship (counts read for B5).
     d, sents = zipf_corpus(V, 512 * 4, 500)
     mv.init([])
-    flagship(sents, d)
-    flag_launches = sgns.LAUNCHES["sgns_block"]
+    _, flag = on_path(flagship, sents, d)
     mv.shutdown()
 
     # Phase 5: the CLI.
     cli_topics()
 
-    launches = dict(plane_launches, sgns_block=flag_launches)
+    launches = {
+        "gather_rows": plane["gather_rows"],
+        "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"],
+        "fused_stateful_rows": sum(r["launches"]["fused_stateful_rows"]
+                                   for r in stateful.values()),
+        "fold_sorted_runs": sum(r["launches"]["fold_sorted_runs"]
+                                for r in stateful.values()),
+        "tiled_scatter_add_sorted_rows":
+            leg["tiled_scatter_add_sorted_rows"],
+        "sgns_block": flag["sgns_block"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
+        if k["name"] == "fused_stateful_rows":
+            for v in k["variants"]:
+                if v.get("cols") == COLS and "workers" not in v:
+                    path = stateful[v["updater"]]
+                    v["launches"] = path["launches"]["fused_stateful_rows"]
+                    v["updates_per_sec"] = path["updates_per_sec"]
+                    v["model_max_abs_err"] = path["model_max_abs_err"]
+        if k["name"] == "tiled_scatter_add_sorted_rows":
+            k["leg_ms_per_call"] = leg_ms
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -16,11 +16,12 @@ Port of ``multiverso_tpu/core/table.py`` (ref
 ``use_pallas`` selects the hand-written row kernels under the same
 eligibility as the JAX package (2-D float32, one shard, unsharded state)
 and the same per-updater capability registry: ``scatter_add`` /
-``scatter_sub`` route row Adds to the sorted scatter-add kernel (B2) and
-row Gets to the gather kernel (B1). The fused stateful kernel (B3) is not
-ported yet: a CUDA table that would need it raises ``NotImplementedError``
-(on the CPU such a table runs the plain row math). Cross-replica state
-sharding (``-state_sharding=on``) waits for several cards (ROADMAP A7).
+``scatter_sub`` route row Adds to the sorted scatter-add kernel (B2);
+``fused_stateful`` (momentum_sgd, adagrad, ftrl) routes them to the
+duplicate combine and then the fused gather-update-scatter kernel (B3);
+row Gets go to the gather kernel (B1). On the CPU each kernel's plain
+version runs. Cross-replica state sharding (``-state_sharding=on``) waits
+for several cards (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -34,7 +35,10 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.core.options import AddOption, GetOption
-from multiverso_tpu_torch.core.updater import Updater, pallas_row_capability
+from multiverso_tpu_torch.core.updater import (Updater,
+                                               combine_duplicate_rows,
+                                               pallas_row_capability)
+from multiverso_tpu_torch.ops import rows
 from multiverso_tpu_torch.telemetry import gauge
 from multiverso_tpu_torch.utils.configure import get_flag
 from multiverso_tpu_torch.utils.locks import make_lock
@@ -111,12 +115,6 @@ class ServerStore:
                     cap == "fused_stateful" and not self.state_sharded):
                 self._pallas_cap = cap
         self._pallas_rows = self._pallas_cap is not None
-        if self._pallas_cap == "fused_stateful" and \
-                self.device.type == "cuda":
-            raise NotImplementedError(
-                f"use_pallas with the stateful '{updater.name}' updater "
-                "needs the fused gather-update-scatter kernel, not ported "
-                "yet: ROADMAP B3")
         self._lock = make_lock("core.store")
         self._g_data_bytes = gauge(f"ps.data_bytes.{name}")
         self._g_state_bytes = gauge(f"ps.state_bytes.{name}")
@@ -144,10 +142,17 @@ class ServerStore:
         delta = self._tensor(delta)
         with self._lock:
             if self._pallas_cap in ("scatter_add", "scatter_sub"):
-                from multiverso_tpu_torch.ops.rows import scatter_add_rows
                 # SGD applies data -= delta (the client pre-scales lr).
                 sign = -1.0 if self._pallas_cap == "scatter_sub" else 1.0
-                scatter_add_rows(self.data, ids, delta, sign=sign)
+                rows.scatter_add_rows(self.data, ids, delta, sign=sign)
+            elif self._pallas_cap == "fused_stateful":
+                # As the XLA path: duplicates folded (set semantics must
+                # combine, not race), then ONE in-place dispatch over the
+                # table and every state leaf.
+                ids, delta = combine_duplicate_rows(ids, delta,
+                                                    self.data.shape[0])
+                rows.fused_stateful_rows(self.data, self.state, ids, delta,
+                                         opt.scalars(), self.updater)
             else:
                 self.data, self.state = self.updater.update_rows(
                     self.data, self.state, ids, delta, opt.scalars())
@@ -162,8 +167,7 @@ class ServerStore:
         ids = self._clip(row_ids)
         with self._lock:
             if self._pallas_rows:
-                from multiverso_tpu_torch.ops.rows import gather_rows
-                return gather_rows(self.data, ids)
+                return rows.gather_rows(self.data, ids)
             return self.data.index_select(self.shard_axis, ids)
 
     def block(self) -> None:

@@ -16,7 +16,8 @@ rounds per op, so the JAX package's ``exact_elementwise`` valve (which
 stops XLA:CPU from contracting mul+add to fma) has no counterpart here.
 
 Per-worker AdaGrad accumulators are a ``[num_workers, ...]`` leading-axis
-state tensor indexed by ``worker_id``.
+state tensor indexed by ``worker_id``. Row Adds of the stateful updaters
+write the table and its state in place (the JAX package donates them).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.ops import rows as _rows
 from multiverso_tpu_torch.utils.configure import get_flag
 
 State = Dict[str, torch.Tensor]
@@ -39,6 +41,18 @@ def _f32(x, like: torch.Tensor) -> torch.Tensor:
                            device=like.device)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root. torch's float32 ``sqrt`` on the
+    CPU is not: on tensors of more than a few hundred elements it is one
+    ulp off for ~0.7% of them (torch 2.13's CPU build), while the card,
+    numpy and XLA round exactly. A float64 square root rounded to float32
+    is exact (a 53-bit root rounds to 24 bits without double-rounding
+    error), so the CPU and the card agree bit for bit."""
+    if x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def _opt_staleness(opt: Scalars):
     """Measured clock lag, or -1 when the caller passes a 5-tuple."""
     return opt[5] if len(opt) > 5 else np.float32(-1.0)
@@ -50,20 +64,19 @@ def combine_duplicate_rows(rows: torch.Tensor, delta: torch.Tensor,
     """Fold duplicate row ids into one combined delta per id.
 
     Stateful updaters gather-compute-set, so duplicates must combine
-    rather than race. Stable sort by id, segment-sum each run (in lane
-    order), give every lane its run's total, and remap all but the run's
-    first lane to the out-of-range sentinel ``num_rows`` so the write-back
-    drops them. Returns ``(rows_eff, delta_combined)`` in sorted order,
-    both the shapes of the inputs."""
+    rather than race. Stable sort by id, sum each run in lane order
+    (``0 + d0 + d1 + ...``: ``index_add_`` on the CPU, the fold kernel of
+    ``ops/rows.fold_sorted_runs`` on the card, with the same bits), give
+    every lane its run's total, and remap all but the run's first lane to
+    the out-of-range sentinel ``num_rows`` so the write-back drops them.
+    Returns ``(rows_eff, delta_combined)`` in sorted order, both the shapes
+    of the inputs."""
     if rows.shape[0] == 0:
         return rows, delta
     r, order = torch.sort(rows, stable=True)
-    d = delta.index_select(0, order)
+    d_comb = _rows.fold_sorted_runs(r, delta.index_select(0, order))
     is_start = torch.ones_like(r, dtype=torch.bool)
     is_start[1:] = r[1:] != r[:-1]
-    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
-    totals = torch.zeros_like(d).index_add_(0, seg, d)
-    d_comb = totals.index_select(0, seg)
     r_eff = torch.where(is_start, r, torch.full_like(r, num_rows))
     return r_eff, d_comb
 
@@ -109,32 +122,16 @@ class Updater:
         raise NotImplementedError(f"{self.name} has no row-block math")
 
     def _rows_update_via_math(self, data, state, rows, delta, opt):
-        """Combine duplicates, gather touched rows of data AND state
-        (``mode="clip"``), apply :meth:`rows_math`, write both back
-        (``mode="drop"`` discards the duplicate-run sentinels)."""
-        wid = int(opt[0])
-        num_rows = data.shape[0]
+        """Combine duplicates, then gather the touched rows of data AND
+        state (``mode="clip"``), apply :meth:`rows_math` and write both
+        back in place (``mode="drop"`` discards the duplicate-run
+        sentinels): ``ops/rows.fused_stateful_rows_plain``, the plain
+        version of the fused kernel. The JAX package's donated jit becomes
+        these in-place writes; the store holds its lock around them."""
         rows, delta = combine_duplicate_rows(rows.to(torch.int64), delta,
-                                             num_rows)
-        clipped = rows.clamp(0, num_rows - 1)
-        d_rows = data.index_select(0, clipped)
-        st_rows: State = {}
-        for key, leaf in state.items():
-            src = leaf[wid] if key in self.per_worker_state else leaf
-            st_rows[key] = src.index_select(0, clipped)
-        new_d, new_st = self.rows_math(d_rows, st_rows, delta, opt)
-        keep = _drop_mask(rows, num_rows)
-        idx = rows[keep]
-        data = data.index_copy(0, idx, new_d[keep])
-        out_state: State = {}
-        for key, leaf in state.items():
-            if key in self.per_worker_state:
-                leaf = leaf.clone()
-                leaf[wid] = leaf[wid].index_copy(0, idx, new_st[key][keep])
-                out_state[key] = leaf
-            else:
-                out_state[key] = leaf.index_copy(0, idx, new_st[key][keep])
-        return data, out_state
+                                             data.shape[0])
+        return _rows.fused_stateful_rows_plain(data, state, rows, delta,
+                                               opt, self)
 
 
 class SGDUpdater(Updater):
@@ -201,14 +198,14 @@ class AdaGradUpdater(Updater):
         g2_w = state["g2"][wid] + torch.square(g)
         g2 = state["g2"].clone()
         g2[wid] = g2_w
-        step = rho / torch.sqrt(g2_w + self.eps) * g
+        step = rho / _sqrt(g2_w + self.eps) * g
         return data - step.to(data.dtype), {"g2": g2}
 
     def rows_math(self, d_rows, state_rows, delta, opt):
         lr, rho = _f32(opt[2], d_rows), _f32(opt[3], d_rows)
         g = self._grad(delta.to(torch.float32), lr)
         g2_rows = state_rows["g2"] + torch.square(g)
-        step = rho / torch.sqrt(g2_rows + self.eps) * g
+        step = rho / _sqrt(g2_rows + self.eps) * g
         return d_rows - step.to(d_rows.dtype), {"g2": g2_rows}
 
     def update_rows(self, data, state, rows, delta, opt):
@@ -281,7 +278,7 @@ class DCASGDAUpdater(DCASGDUpdater):
         g = delta.to(torch.float32)
         d32 = data.to(torch.float32)
         m = self.eps_m * state["m"] + (1.0 - self.eps_m) * g * g
-        lam_eff = lam / torch.sqrt(m + self.eps)
+        lam_eff = lam / _sqrt(m + self.eps)
         backup_w = state["backup"][wid]
         step = lr * (g + lam_eff * g * g * (d32 - backup_w))
         new_data = d32 - step
@@ -294,7 +291,7 @@ class DCASGDAUpdater(DCASGDUpdater):
         lam = self._lam_eff(_f32(opt[4], d_rows), opt, d_rows)
         g = delta.to(torch.float32)
         m_rows = self.eps_m * state_rows["m"] + (1.0 - self.eps_m) * g * g
-        lam_eff = lam / torch.sqrt(m_rows + self.eps)
+        lam_eff = lam / _sqrt(m_rows + self.eps)
         d32 = d_rows.to(torch.float32)
         step = lr * (g + lam_eff * g * g * (d32 - state_rows["backup"]))
         new_rows = d32 - step
@@ -320,12 +317,12 @@ class FTRLUpdater(Updater):
                                _f32(opt[3], w), _f32(opt[4], w))
         g32 = g.to(torch.float32)
         n_new = n + torch.square(g32)
-        sigma = (torch.sqrt(n_new) - torch.sqrt(n)) / alpha
+        sigma = (_sqrt(n_new) - _sqrt(n)) / alpha
         z_new = z + g32 - sigma * w.to(torch.float32)
         w_new = torch.where(
             torch.abs(z_new) > l1,
             -(z_new - torch.sign(z_new) * l1) /
-            ((beta + torch.sqrt(n_new)) / alpha + l2),
+            ((beta + _sqrt(n_new)) / alpha + l2),
             torch.zeros_like(z_new))
         return w_new.to(w.dtype), z_new, n_new
 
@@ -357,8 +354,8 @@ _REGISTRY: Dict[str, Callable[[], Updater]] = {
 # the same dispatch decision).
 #   "scatter_add"/"scatter_sub" — the sorted-run scatter kernel
 #       (ops/rows.scatter_add_rows, sign +/-1);
-#   "fused_stateful"            — the fused gather-update-scatter kernel
-#       (not ported yet: ROADMAP B3).
+#   "fused_stateful"            — duplicates combined, then the fused
+#       gather-update-scatter kernel (ops/rows.fused_stateful_rows).
 PALLAS_ROW_CAPABILITY: Dict[str, str] = {
     "default": "scatter_add",
     "sgd": "scatter_sub",

@@ -25,6 +25,16 @@
 // padded there to a multiple of 8 with the last id and zero deltas; the
 // last run's final group folds those zeros too.
 //
+// mv_tiled_scatter_add_sorted_rows replaces
+// multiverso_tpu/ops/pallas_rows.py::tiled_scatter_add_sorted_rows (B4):
+// the same update as B2, but each row takes its deltas one at a time in
+// sorted order (row = row + sign*delta_j), the TPU kernel's rounding. The
+// TPU kernel sweeps the whole table in 256-row tiles because a per-row DMA
+// costs about a microsecond there; here that sweep would read and write
+// the whole table to touch a few percent of it, so one warp owns each run
+// of equal ids, as in B2, and walks its deltas in order. Bytes bound it
+// too: one add per delta element.
+//
 // Ids outside [0, num_rows) are clamped (gather) or dropped (scatter) as
 // a memory-safety guard; the table plane only passes in-range ids.
 
@@ -119,6 +129,36 @@ scatter_add_sorted_kernel(float* __restrict__ table,
   }
 }
 
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+tiled_scatter_add_sorted_kernel(float* __restrict__ table,
+                                const int32_t* __restrict__ ids,
+                                const float* __restrict__ deltas, int64_t n,
+                                int64_t num_rows, int d, float sign) {
+  using V = typename Vec<VEC>::T;
+  using O = Vec<VEC>;
+  const int lane = threadIdx.x & 31;
+  const int64_t nwarps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  const int dv = d / VEC;
+  for (int64_t s = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       s < n; s += nwarps) {
+    const int32_t r = ids[s];
+    if (s > 0 && ids[s - 1] == r) continue;  // not the start of a run
+    if (r < 0 || r >= num_rows) continue;
+    int64_t e = s + 1;
+    while (e < n && ids[e] == r) ++e;
+    V* row = reinterpret_cast<V*>(table + (int64_t)r * d);
+    for (int c = lane; c < dv; c += 32) {
+      V v = row[c];
+      for (int64_t j = s; j < e; ++j) {
+        const V step = reinterpret_cast<const V*>(deltas + j * d)[c];
+        v = O::add(v, sign > 0.f ? step : O::neg(step));
+      }
+      row[c] = v;
+    }
+  }
+}
+
 int grid_for(int64_t warps_needed) {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
@@ -181,6 +221,29 @@ int mv_scatter_add_sorted_rows(float* table, const int32_t* ids,
       break;
     default:
       scatter_add_sorted_kernel<1><<<grid, kThreads, 0, st>>>(
+          table, ids, deltas, n, num_rows, d, sign);
+  }
+  return (int)cudaGetLastError();
+}
+
+int mv_tiled_scatter_add_sorted_rows(float* table, const int32_t* ids,
+                                     const float* deltas, int64_t n,
+                                     int64_t num_rows, int d, float sign,
+                                     void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int grid = grid_for(n);
+  switch (vec_width(table, deltas, d)) {
+    case 4:
+      tiled_scatter_add_sorted_kernel<4><<<grid, kThreads, 0, st>>>(
+          table, ids, deltas, n, num_rows, d, sign);
+      break;
+    case 2:
+      tiled_scatter_add_sorted_kernel<2><<<grid, kThreads, 0, st>>>(
+          table, ids, deltas, n, num_rows, d, sign);
+      break;
+    default:
+      tiled_scatter_add_sorted_kernel<1><<<grid, kThreads, 0, st>>>(
           table, ids, deltas, n, num_rows, d, sign);
   }
   return (int)cudaGetLastError();

@@ -26,10 +26,18 @@ from typing import Dict, Iterable, List
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "multiverso_tpu_torch"
-SOURCES = ("rows", "sgns")
+SOURCES = ("rows", "sgns", "stateful_rows")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
+# Flags of one source only. The stateful updaters' math must round once
+# per op, as torch's eager ops do, so nvcc may not contract a*b + c into a
+# fused multiply-add there.
+EXTRA_FLAGS = {"stateful_rows": ["--fmad=false"]}
+
+
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,7 +56,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 
@@ -59,7 +67,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log_path = BUILD_DIR / f"{name}.build.log"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     log = open(log_path, "w")
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     return proc, log, tmp, out, log_path

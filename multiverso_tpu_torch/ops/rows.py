@@ -1,21 +1,25 @@
-"""Row kernels of the table plane: row gather (B1) and sorted scatter-add (B2).
+"""Row kernels of the table plane: row gather (B1), sorted scatter-add (B2),
+the fused stateful gather-update-scatter (B3) and the tiled scatter-add
+(B4).
 
-Port of ``multiverso_tpu/ops/pallas_rows.py``: ``gather_rows`` and
+Port of ``multiverso_tpu/ops/pallas_rows.py``: ``gather_rows``,
 ``scatter_add_sorted_rows`` (with the argsort wrapper
-``scatter_add_rows``). The kernels are CUDA C++ in ``csrc/rows.cu``; each
-wrapper launches its kernel for a CUDA tensor (or raises) and runs the
-plain PyTorch version beside it for a CPU tensor. Each wrapper counts its
-kernel launches in ``LAUNCHES``.
-
-The fused stateful gather-update-scatter (B3) and the tiled scatter-add
-(B4) are not ported yet (ROADMAP B3, B4).
+``scatter_add_rows``), ``fused_stateful_rows`` and
+``tiled_scatter_add_sorted_rows`` (with ``tiled_scatter_add_rows`` and
+``tiled_scatter_eligible``), plus ``fold_sorted_runs``, the fold of the
+stateful updaters' duplicate combine. The kernels are CUDA C++ in
+``csrc/rows.cu`` (B1, B2, B4) and ``csrc/stateful_rows.cu`` (B3 and the
+fold); each wrapper launches its kernel for CUDA tensors (or raises) and
+runs its plain PyTorch twin, defined beside it, for CPU tensors. Each
+wrapper counts its kernel launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from multiverso_tpu_torch.ops import _build
@@ -23,7 +27,9 @@ from multiverso_tpu_torch.ops import _build
 GROUP = 8   # the TPU kernel's fold group for 4-byte rows
 
 #: Kernel launches per wrapper, counted where the kernel is launched.
-LAUNCHES: Dict[str, int] = {"gather_rows": 0, "scatter_add_sorted_rows": 0}
+LAUNCHES: Dict[str, int] = {"gather_rows": 0, "scatter_add_sorted_rows": 0,
+                             "tiled_scatter_add_sorted_rows": 0,
+                             "fold_sorted_runs": 0, "fused_stateful_rows": 0}
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -38,6 +44,27 @@ def _lib():
         lib.mv_scatter_add_sorted_rows.argtypes = [
             _c, _c, _c, _i64, _i64, ctypes.c_int, ctypes.c_float, _c]
         lib.mv_scatter_add_sorted_rows.restype = ctypes.c_int
+        lib.mv_tiled_scatter_add_sorted_rows.argtypes = \
+            lib.mv_scatter_add_sorted_rows.argtypes
+        lib.mv_tiled_scatter_add_sorted_rows.restype = ctypes.c_int
+        lib._mv_typed = True
+    return lib
+
+
+def _stateful_lib():
+    lib = _build.load("stateful_rows")
+    if not getattr(lib, "_mv_typed", False):
+        lib.mv_fused_stateful_rows.argtypes = [
+            ctypes.c_int, _c, _c, _c, _c, _c, _i64, _i64, ctypes.c_int, _i64,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            _c]
+        lib.mv_fused_stateful_rows.restype = ctypes.c_int
+        lib.mv_fold_sorted_runs_f32.argtypes = [_c, _c, _c, _i64,
+                                                ctypes.c_int, _c]
+        lib.mv_fold_sorted_runs_f32.restype = ctypes.c_int
+        lib.mv_fold_sorted_runs_f64.argtypes = \
+            lib.mv_fold_sorted_runs_f32.argtypes
+        lib.mv_fold_sorted_runs_f64.restype = ctypes.c_int
         lib._mv_typed = True
     return lib
 
@@ -91,6 +118,25 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # B2: sorted scatter-add (in place)
 # ---------------------------------------------------------------------------
+def _add_in_rounds(table: torch.Tensor, sorted_ids: torch.Tensor,
+                   values: torch.Tensor) -> torch.Tensor:
+    """``table[ids[i]] += values[i]`` for sorted ids, in place, each row
+    taking its values one at a time in order: round r adds every id's
+    r-th value with one ``index_add_`` of unique ids, so the adds are
+    deterministic on any device."""
+    if sorted_ids.numel() == 0:
+        return table
+    new = torch.ones_like(sorted_ids, dtype=torch.bool)
+    new[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    pos = torch.arange(sorted_ids.numel(), device=sorted_ids.device)
+    first = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)), 0)[0]
+    rank = pos - first
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        table.index_add_(0, sorted_ids[sel], values[sel])
+    return table
+
+
 def _check_sign(sign: float) -> float:
     if sign not in (1.0, -1.0):
         raise ValueError(f"sign must be +-1.0 (a direction, not a scale); "
@@ -132,19 +178,7 @@ def scatter_add_sorted_rows_plain(table: torch.Tensor, sorted_ids: torch.Tensor,
         f_acc = -f_acc
     keep = (f_ids >= 0) & (f_ids < table.shape[0])
     f_ids, f_acc = f_ids[keep], f_acc[keep]
-    if f_ids.numel() == 0:
-        return table
-    # Rank of each flush among the flushes of its id: round r applies
-    # every id's r-th group partial, so each round's ids are unique.
-    new = torch.ones_like(f_ids, dtype=torch.bool)
-    new[1:] = f_ids[1:] != f_ids[:-1]
-    pos = torch.arange(f_ids.numel(), device=f_ids.device)
-    first = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)), 0)[0]
-    rank = pos - first
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
-        table.index_add_(0, f_ids[sel], f_acc[sel])
-    return table
+    return _add_in_rounds(table, f_ids, f_acc)
 
 
 def scatter_add_sorted_rows(table: torch.Tensor, sorted_ids: torch.Tensor,
@@ -177,3 +211,211 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     sorted_ids, order = torch.sort(ids.to(torch.int64), stable=True)
     return scatter_add_sorted_rows(table, sorted_ids,
                                    deltas.index_select(0, order), sign=sign)
+
+
+# ---------------------------------------------------------------------------
+# B4: tiled scatter-add (in place)
+# ---------------------------------------------------------------------------
+#: The JAX package's eligibility budget: its TPU kernel holds the whole
+#: delta block in 8 MiB of VMEM.
+TILED_DELTA_LIMIT = 8 << 20
+
+
+def tiled_scatter_eligible(n_deltas: int, n_cols: int, dtype) -> bool:
+    """The JAX package's answer (the delta block fits 8 MiB), so callers of
+    both packages decide alike. The CUDA kernel takes any size."""
+    itemsize = (dtype.itemsize if isinstance(dtype, torch.dtype)
+                else np.dtype(dtype).itemsize)
+    return n_deltas * n_cols * itemsize <= TILED_DELTA_LIMIT
+
+
+def tiled_scatter_add_sorted_rows_plain(table: torch.Tensor,
+                                        sorted_ids: torch.Tensor,
+                                        sorted_deltas: torch.Tensor,
+                                        sign: float = 1.0) -> torch.Tensor:
+    """The plain version, in the TPU kernel's arithmetic order: each row
+    takes its deltas one at a time in sorted order, ``row = row +
+    sign*delta`` (the sign applied to each delta before its add); ids out
+    of range are dropped."""
+    sign = _check_sign(sign)
+    ids = sorted_ids.to(torch.int64)
+    deltas = sorted_deltas.to(table.dtype)
+    keep = (ids >= 0) & (ids < table.shape[0])
+    ids, deltas = ids[keep], deltas[keep]
+    return _add_in_rounds(table, ids, deltas if sign > 0 else -deltas)
+
+
+def tiled_scatter_add_sorted_rows(table: torch.Tensor,
+                                  sorted_ids: torch.Tensor,
+                                  sorted_deltas: torch.Tensor,
+                                  sign: float = 1.0) -> torch.Tensor:
+    """``table[ids[i]] += sign*deltas[i]`` for SORTED ids, in place, each
+    row folding its deltas into itself one by one (B2 sums a group's
+    deltas first: another rounding)."""
+    sign = _check_sign(sign)
+    _check_table(table)
+    if not _on_card(table, sorted_ids, sorted_deltas):
+        return tiled_scatter_add_sorted_rows_plain(table, sorted_ids,
+                                                   sorted_deltas, sign)
+    n, d = sorted_ids.shape[0], table.shape[1]
+    if sorted_deltas.shape != (n, d):
+        raise ValueError(f"deltas {tuple(sorted_deltas.shape)} != ({n}, {d})")
+    ids32 = sorted_ids.to(torch.int32).contiguous()
+    deltas = sorted_deltas.to(table.dtype).contiguous()
+    err = _lib().mv_tiled_scatter_add_sorted_rows(
+        table.data_ptr(), ids32.data_ptr(), deltas.data_ptr(), n,
+        table.shape[0], d, sign, _stream(table))
+    _build.check_launch(err, "tiled_scatter_add_sorted_rows")
+    LAUNCHES["tiled_scatter_add_sorted_rows"] += 1
+    return table
+
+
+def tiled_scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
+                           deltas: torch.Tensor,
+                           sign: float = 1.0) -> torch.Tensor:
+    """Unsorted wrapper: a stable sort (glue, as ``jnp.argsort`` is in the
+    JAX package), then the tiled kernel. In place."""
+    sorted_ids, order = torch.sort(ids.to(torch.int64), stable=True)
+    return tiled_scatter_add_sorted_rows(
+        table, sorted_ids, deltas.index_select(0, order), sign=sign)
+
+
+# ---------------------------------------------------------------------------
+# The fold of the stateful updaters' duplicate combine
+# ---------------------------------------------------------------------------
+def fold_sorted_runs_plain(sorted_ids: torch.Tensor,
+                           sorted_deltas: torch.Tensor) -> torch.Tensor:
+    """The plain version: each run of equal sorted ids sums its deltas with
+    ``index_add_`` and every lane gets its run's total. On the CPU that
+    adds in lane order (``0 + d0 + d1 + ...``); on the card ``index_add_``
+    adds with atomics in no fixed order."""
+    is_start = torch.ones_like(sorted_ids, dtype=torch.bool)
+    is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    totals = torch.zeros_like(sorted_deltas).index_add_(0, seg,
+                                                        sorted_deltas)
+    return totals.index_select(0, seg)
+
+
+def fold_sorted_runs(sorted_ids: torch.Tensor,
+                     sorted_deltas: torch.Tensor) -> torch.Tensor:
+    """Each lane's run total, every run folded in lane order (the CPU's
+    bits on the card too, with no float atomics). A new tensor."""
+    if not _on_card(sorted_ids, sorted_deltas):
+        return fold_sorted_runs_plain(sorted_ids, sorted_deltas)
+    n = sorted_ids.shape[0]
+    if sorted_deltas.dim() != 2 or sorted_deltas.shape[0] != n:
+        raise ValueError(f"deltas {tuple(sorted_deltas.shape)} are not "
+                         f"({n}, D)")
+    fn = {torch.float32: "mv_fold_sorted_runs_f32",
+          torch.float64: "mv_fold_sorted_runs_f64"}.get(sorted_deltas.dtype)
+    if fn is None:
+        raise ValueError("fold_sorted_runs takes float32 or float64 deltas "
+                         f"on the card; got {sorted_deltas.dtype}")
+    ids64 = sorted_ids.to(torch.int64).contiguous()
+    deltas = sorted_deltas.contiguous()
+    out = torch.empty_like(deltas)
+    err = getattr(_stateful_lib(), fn)(ids64.data_ptr(), deltas.data_ptr(),
+                                       out.data_ptr(), n, deltas.shape[1],
+                                       _stream(deltas))
+    _build.check_launch(err, "fold_sorted_runs")
+    LAUNCHES["fold_sorted_runs"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B3: fused stateful gather-update-scatter (in place)
+# ---------------------------------------------------------------------------
+#: The kernel's updaters, by the code of their math in
+#: ``csrc/stateful_rows.cu``.
+STATEFUL_KINDS = {"momentum_sgd": 0, "adagrad": 1, "ftrl": 2}
+
+
+def fused_stateful_rows_plain(table: torch.Tensor,
+                              state: Dict[str, torch.Tensor],
+                              ids: torch.Tensor, deltas: torch.Tensor, opt,
+                              updater) -> Tuple[torch.Tensor, Dict]:
+    """The plain version: gather the lanes' rows of the table and of every
+    state leaf (ids clamped, per-worker leaves at plane ``opt[0]``), apply
+    ``updater.rows_math``, and write the in-range lanes back in place."""
+    if ids.shape[0] == 0:
+        return table, state
+    wid = int(opt[0])
+    num_rows = table.shape[0]
+    ids = ids.to(torch.int64)
+    clipped = ids.clamp(0, num_rows - 1)
+    planes = {key: leaf[wid] if key in updater.per_worker_state else leaf
+              for key, leaf in state.items()}
+    new_d, new_st = updater.rows_math(
+        table.index_select(0, clipped),
+        {key: p.index_select(0, clipped) for key, p in planes.items()},
+        deltas, opt)
+    keep = (ids >= 0) & (ids < num_rows)
+    idx = ids[keep]
+    table.index_copy_(0, idx, new_d[keep])
+    for key, plane in planes.items():
+        plane.index_copy_(0, idx, new_st[key][keep])
+    return table, state
+
+
+def _stateful_args(updater, opt, state):
+    """(kind, leaf_a, leaf_b, four float32 scalars) of the kernel."""
+    kind = STATEFUL_KINDS[updater.name]
+    f = [float(np.float32(x)) for x in opt[1:5]]
+    if updater.name == "momentum_sgd":
+        return kind, state["smooth"], None, (f[0], 0.0, 0.0, 0.0)
+    if updater.name == "adagrad":
+        eps = float(np.float32(updater.eps))
+        return kind, state["g2"], None, (f[1], f[2], eps, 0.0)
+    return kind, state["z"], state["n"], (f[0], f[1], f[2], f[3])
+
+
+def fused_stateful_rows(table: torch.Tensor, state: Dict[str, torch.Tensor],
+                        ids: torch.Tensor, deltas: torch.Tensor, opt,
+                        updater) -> Tuple[torch.Tensor, Dict]:
+    """One in-place gather-update-scatter over the table and every state
+    leaf of a momentum_sgd, adagrad or ftrl updater.
+
+    ``ids``/``deltas`` must already be duplicate-combined
+    (:func:`multiverso_tpu_torch.core.updater.combine_duplicate_rows`):
+    unique ids, dropped lanes remapped to the sentinel ``table.shape[0]``,
+    which write nothing. ``opt`` is ``AddOption.scalars()``. Returns
+    ``(table, state)``, both updated in place."""
+    _check_table(table)
+    if not state:
+        raise ValueError("fused_stateful_rows needs at least one state "
+                         "leaf; stateless updaters use scatter_add_rows")
+    if not _on_card(table, ids, deltas, *state.values()):
+        return fused_stateful_rows_plain(table, state, ids, deltas, opt,
+                                         updater)
+    from multiverso_tpu_torch.core.updater import pallas_row_capability
+    if updater.name not in STATEFUL_KINDS or \
+            pallas_row_capability(updater) != "fused_stateful":
+        raise ValueError(f"fused_stateful_rows has a kernel for "
+                         f"{sorted(STATEFUL_KINDS)} only; got "
+                         f"{type(updater).__name__} '{updater.name}'")
+    n, d = ids.shape[0], table.shape[1]
+    if deltas.shape != (n, d):
+        raise ValueError(f"deltas {tuple(deltas.shape)} != ({n}, {d})")
+    wid = int(opt[0])
+    for key, leaf in state.items():
+        lead = ((leaf.shape[0],) if key in updater.per_worker_state else ())
+        if leaf.shape != lead + tuple(table.shape) or \
+                leaf.dtype != torch.float32 or not leaf.is_contiguous():
+            raise ValueError(f"state leaf '{key}' {tuple(leaf.shape)} "
+                             f"{leaf.dtype} does not match the table")
+        if lead and not 0 <= wid < lead[0]:
+            raise ValueError(f"worker id {wid} outside the {lead[0]} "
+                             f"planes of state leaf '{key}'")
+    if n == 0:
+        return table, state
+    kind, leaf_a, leaf_b, p = _stateful_args(updater, opt, state)
+    ids32 = ids.to(torch.int32).contiguous()
+    deltas = deltas.to(torch.float32).contiguous()
+    err = _stateful_lib().mv_fused_stateful_rows(
+        kind, table.data_ptr(), leaf_a.data_ptr(),
+        None if leaf_b is None else leaf_b.data_ptr(), ids32.data_ptr(),
+        deltas.data_ptr(), n, table.shape[0], d, wid, *p, _stream(table))
+    _build.check_launch(err, "fused_stateful_rows")
+    LAUNCHES["fused_stateful_rows"] += 1
+    return table, state

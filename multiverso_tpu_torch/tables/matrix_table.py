@@ -8,8 +8,9 @@ server-side per-row updates and optional uniform random init
 so both start from the same values).
 
 Storage is a [rows, cols] tensor on the Zoo's device. Row Get is a gather
-(the B1 kernel on a ``use_pallas`` table); row Add is one updater call (the
-B2 kernel for the default/sgd updaters on a ``use_pallas`` table).
+(the B1 kernel on a ``use_pallas`` table); row Add is one updater call (on
+a ``use_pallas`` table, the B2 kernel for the default/sgd updaters and the
+fused B3 kernel for momentum_sgd/adagrad/ftrl).
 """
 
 from __future__ import annotations

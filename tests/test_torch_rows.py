@@ -116,6 +116,12 @@ def test_kernel_modules_build_lazily():
     from multiverso_tpu_torch.ops import _build
     assert _build._libs == {}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "multiverso_tpu_torch")
-    assert set(_build.SOURCES) == {"rows", "sgns"}
+    assert set(_build.SOURCES) == {"rows", "sgns", "stateful_rows"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
+    # Only the stateful updaters' source is built without fused
+    # multiply-adds; the other sources keep the common flags.
+    assert _build._flags("stateful_rows") == \
+        _build.NVCC_FLAGS + ["--fmad=false"]
+    assert _build._flags("rows") == _build._flags("sgns") == \
+        _build.NVCC_FLAGS

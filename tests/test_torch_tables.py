@@ -169,3 +169,97 @@ def test_port_table_surface_and_waits():
     mvt.shutdown()
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mvt.init(["-platform=cpu", "-coordinator=localhost:1234"])
+
+
+STATEFUL = ["momentum_sgd", "adagrad", "ftrl"]
+
+
+@pytest.mark.parametrize("updater", STATEFUL)
+def test_stateful_pallas_table_random_ops_bitwise(updater):
+    """A ``use_pallas`` stateful table (combine, then the fused row
+    kernel's plain version) against a table of the same updater without
+    it, over a random sequence of row Adds (with duplicates), dense Adds
+    and Gets: data and every state leaf bitwise (mirrors
+    ``tests/test_fuzz_semantics.py``'s random op sequences)."""
+    mvt.init(["-platform=cpu"], num_local_workers=2)
+    rng = np.random.default_rng(0)
+    R, C = 37, 5
+    t_pal = mvt.create_table(mvt.MatrixTableOption(R, C, updater=updater,
+                                                   use_pallas=True))
+    t_ref = mvt.create_table(mvt.MatrixTableOption(R, C, updater=updater))
+    assert t_pal.store._pallas_cap == "fused_stateful"
+    assert not t_ref.store._pallas_rows
+    for _ in range(40):
+        op = rng.integers(0, 4)
+        opt = mvt.AddOption(worker_id=int(rng.integers(0, 2)),
+                            momentum=0.7, learning_rate=0.05, rho=0.1,
+                            lambda_=0.01)
+        if op == 0:
+            delta = rng.normal(size=(R, C)).astype(np.float32)
+            t_pal.add(delta, opt)
+            t_ref.add(delta, opt)
+        elif op == 1:
+            n = int(rng.integers(0, 12))
+            ids = rng.integers(0, R, size=n)
+            deltas = rng.normal(size=(n, C)).astype(np.float32)
+            t_pal.add_rows(ids, deltas, opt)
+            t_ref.add_rows(ids, deltas, opt)
+        elif op == 2:
+            ids = rng.integers(0, R, size=6)
+            assert np.array_equal(t_pal.get_rows(ids), t_ref.get_rows(ids))
+        else:
+            assert np.array_equal(t_pal.get(), t_ref.get())
+    got, want = t_pal.store.store_state(), t_ref.store.store_state()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), (updater, k)
+    mvt.shutdown()
+
+
+@pytest.mark.parametrize("updater", STATEFUL)
+def test_stateful_payload_into_pallas_table(both, updater):
+    """A JAX store payload of a stateful updater (data + ``state/<leaf>``)
+    loads into a ``use_pallas`` port table through ``interop``; one further
+    row Add matches the JAX package's pieces (combine, ``rows_math``) run
+    eagerly on the same payload, bitwise, data and every leaf."""
+    from multiverso_tpu.core import updater as jupd
+    import jax.numpy as jnp
+    mvj, mvt = both
+    R, C = 24, 6
+    tj = mvj.create_table(mvj.MatrixTableOption(R, C, updater=updater))
+    rng = np.random.default_rng(4)
+    kw = dict(momentum=0.6, learning_rate=0.05, rho=0.2, lambda_=0.01)
+    for _ in range(2):     # the JAX store's dense Add (its row Add: C1)
+        tj.add(rng.normal(size=(R, C)).astype(np.float32),
+               mvj.AddOption(**kw))
+    payload = {k: np.asarray(v) for k, v in tj.store.store_state().items()}
+    tt = mvt.create_table(mvt.MatrixTableOption(R, C, updater=updater,
+                                                use_pallas=True))
+    assert tt.store._pallas_cap == "fused_stateful"
+    interop.load_store_payload(tt.store, payload)
+    ids = np.array([3, 9, 3, 23, 0, 9, 3], np.int32)
+    deltas = rng.normal(size=(len(ids), C)).astype(np.float32)
+    opt = mvt.AddOption(**kw)
+    tt.add_rows(ids, deltas, opt)
+    # The JAX pieces on the payload.
+    up = jupd._REGISTRY[updater]()
+    r_eff, d_c = jupd.combine_duplicate_rows(jnp.asarray(ids),
+                                             jnp.asarray(deltas), R)
+    r_eff = np.asarray(r_eff)
+    keep = r_eff < R
+    clip = np.minimum(r_eff, R - 1)
+    wid = opt.worker_id
+    want = {k: v.copy() for k, v in payload.items()}
+    planes = {k[len("state/"):]: (v[wid] if k[len("state/"):] in
+                                  up.per_worker_state else v)
+              for k, v in want.items() if k != "data"}
+    nd, ns = up.rows_math(jnp.asarray(want["data"][clip]),
+                          {k: jnp.asarray(p[clip]) for k, p in planes.items()},
+                          d_c, opt.scalars())
+    want["data"][r_eff[keep]] = np.asarray(nd)[keep]
+    for k, p in planes.items():
+        p[r_eff[keep]] = np.asarray(ns[k])[keep]
+    got = tt.store.store_state()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), (updater, k)
