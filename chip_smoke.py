@@ -42,10 +42,31 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    kernel launched once per block and a finite loss; words/sec, pairs/sec;
 5. the CLI (``python -m multiverso_tpu_torch.apps.word2vec_main``) on a
    two-topic corpus: intra-topic cosine must exceed cross-topic cosine;
-6. a JSON line of the kernels, the card line, and the result line.
+6. the attention LM (``models/attention_lm.py``) at GPT-2-small widths
+   (OpenAI's 124M ``hparams.json``: vocab 50,257, dim 768, 12 heads, 12
+   layers, seq 1,024; the repo's own block), batch 8 of cyclic tokens
+   (``token[t+1] = (token[t] + 1) mod 17``):
+   ``loss()`` with ``-flash_attention`` off and on, in ring and Ulysses
+   mode (on: B6 launched exactly 12 times per forward pass, the loss
+   within ``LM_LOSS_RTOL`` of the flag-off loss), one untimed ``fit``
+   step and 3 timed ones with the flag off (finite losses, and a lower
+   loss on a held-out batch after them), then the 8-expert MoE
+   configuration at 2 layers (one ``fit`` step, one ``loss()`` with the
+   flag on: B6 launched twice);
+   tokens/sec of each. Before it, a small LM on the card against the
+   same parameters on the CPU (loss and 2 ``fit`` steps);
+7. a JSON line of the kernels, the card line, and the result line.
 
-Every launch count is set to 0 just before each main-path run of phases 3
-and 4 and read just after it, so the comparisons of phase 2 do not count.
+Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
+at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
+of ``scripts/bench_flash_attn.py:41`` (non-causal, timed with the bound
+and ``scaled_dot_product_attention`` as the yardstick), and once each
+causal with offsets, fully masked, with a bias, in bfloat16 and at D = 8
+and 256, within ``ATTN_TOL``.
+
+Every launch count is set to 0 just before each main-path run of phases
+3, 4 and 6 and read just after it, so the comparisons of phase 2 do not
+count.
 """
 
 from __future__ import annotations
@@ -77,6 +98,22 @@ SGNS_LOSS_RTOL = 1e-4
 
 V, D, CHUNK, NEG = 50_000, 128, 8192, 5
 ROWS, COLS, N_IDS = 1_000_000, 50, 100_000
+
+# The attention LM at GPT-2 small's published widths (124M hparams.json).
+LM = dict(vocab=50_257, dim=768, heads=12, layers=12, seq=1_024)
+LM_BATCH, LM_STEPS = 8, 3
+LM_CYCLE = 17          # tokens of the cyclic sequences (test_attention_lm)
+MOE_LAYERS, MOE_EXPERTS = 2, 8
+# flag-on loss (B6) against flag-off loss (plain block step): the same
+# softmax, summed tile by tile instead of in one pass.
+LM_LOSS_RTOL = 1e-5
+# B6 against its plain version (the JAX flash tests' tolerances,
+# tests/test_pallas_attention.py:33-39): the normalised output o / l
+# (rtol, atol), l (rtol) and m (rtol; the kernel's dot products sum in
+# another order than cuBLAS's, so m is not bitwise).
+ATTN_TOL = {"o_rtol": 2e-5, "o_atol": 2e-6, "l_rtol": 2e-5, "m_rtol": 1e-6}
+# The ring-step shapes of scripts/bench_flash_attn.py:41 (B, H, S, D).
+RING_SHAPES = ((1, 8, 2048, 128), (1, 8, 4096, 128), (2, 16, 2048, 64))
 
 
 def log(msg: str) -> None:
@@ -684,6 +721,161 @@ def check_variants(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (B6): flash block attention against its plain version
+# ---------------------------------------------------------------------------
+def attn_inputs(g, dev, b, h, sq, sk, dh):
+    import torch
+    return tuple(torch.randn((b, h, s, dh), generator=g, device=dev)
+                 for s in (sq, sk, sk))
+
+
+def attn_compare(what, got, want) -> float:
+    """Hold B6's (o, m, l) against the plain version's within
+    ``ATTN_TOL``; returns the largest |difference| of o / l."""
+    import torch
+    torch.cuda.synchronize()
+    (o2, m2, l2), (o1, m1, l1) = got, want
+    for t in got:
+        assert bool(torch.isfinite(t).all()), f"{what}: not finite"
+    n2 = o2 / torch.clamp(l2, min=1e-20)
+    n1 = o1 / torch.clamp(l1, min=1e-20)
+    err = float((n2 - n1).abs().max())
+    l_err = float(((l2 - l1).abs() / l1.abs()).max())
+    m_err = float(((m2 - m1).abs() / m1.abs()).max())
+    log(f"  {what}: max |o/l - plain| {err:.3e}, max rel l {l_err:.3e}, "
+        f"max rel m {m_err:.3e}")
+    assert bool(((n2 - n1).abs() <= ATTN_TOL["o_atol"]
+                 + ATTN_TOL["o_rtol"] * n1.abs()).all()), (what, err)
+    assert l_err <= ATTN_TOL["l_rtol"], (what, l_err)
+    assert m_err <= ATTN_TOL["m_rtol"], (what, m_err)
+    return err
+
+
+def attn_bound(b, h, sq, sk, dh, causal=False, offsets=(0, 0)):
+    """q, k, v read and o written once in float32, plus m and l; both
+    products (4 D operations) over each (q, k) pair whose score counts.
+    With ``causal``, a masked score adds exp(-1e30 - m) = 0 to a row that
+    sees any key, so only its unmasked pairs count; a row that sees none
+    comes out as o = the sum of v (D adds per key)."""
+    q_off, k_off = offsets
+    n_ops = 0
+    for i in range(sq):
+        seen = min(max(q_off + i - k_off + 1, 0), sk) if causal else sk
+        n_ops += 4 * dh * seen if seen else dh * sk
+    return bound_ms((2 * sq + 2 * sk) * b * h * dh * 4 + 2 * b * h * sq * 4,
+                    float(b * h * n_ops))
+
+
+def sdpa_backend(q, k, v, causal) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    names = {int(val): key for key, val in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v, None, 0.0,
+                                                 causal)), "unknown")
+
+
+def time_attn(q, k, v, causal, reps) -> dict:
+    """B6 by events over back-to-back calls and in a CUDA graph, its plain
+    version, and the SDPA yardstick (normalised output only: not the same
+    function, and never called by the port)."""
+    import torch.nn.functional as F
+    from multiverso_tpu_torch.ops import attention
+    kw = dict(scale=float(q.shape[-1] ** -0.5), causal=causal)
+    return {
+        "ms": cuda_ms(lambda: attention.flash_block_attn(q, k, v, **kw),
+                      reps),
+        "graph_ms": graph_ms(lambda: attention.flash_block_attn(q, k, v,
+                                                                **kw),
+                             reps=5, calls=5),
+        "plain_ms": cuda_ms(lambda: attention.flash_block_attn_plain(
+            q, k, v, **kw), reps),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), reps),
+        "library": "scaled_dot_product_attention "
+                   f"({sdpa_backend(q, k, v, causal)}, float32)"}
+
+
+def check_attention_kernel(dev) -> dict:
+    """B6 at the LM's eval shape (causal) and at the ring-step shapes
+    (non-causal), timed; then once each at a small shape: causal with
+    offsets, fully masked, with a bias, bfloat16, D = 8 and D = 256."""
+    import torch
+    from multiverso_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def pair(what, q, k, v, bias=None, **kw):
+        got = attention.flash_block_attn(q, k, v, bias, **kw)
+        want = attention.flash_block_attn_plain(q, k, v, bias, **kw)
+        return attn_compare(what, got, want), got, want
+
+    b, h, s, dh = LM_BATCH, LM["heads"], LM["seq"], LM["dim"] // LM["heads"]
+    q, k, v = attn_inputs(g, dev, b, h, s, s, dh)
+    err, _, _ = pair(f"B6 at the LM's eval shape {(b, h, s, dh)}, causal",
+                     q, k, v, scale=dh ** -0.5, causal=True, offsets=(0, 0))
+    rec = time_attn(q, k, v, True, 20)
+    bound = attn_bound(b, h, s, s, dh, causal=True, offsets=(0, 0))
+    log(f"B6 flash_block_attn {(b, h, s, dh)} causal: kernel "
+        f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
+        f"plain {rec['plain_ms']:.4f} ms, {rec['library']} "
+        f"{rec['library_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    shapes = []
+    for b2, h2, s2, d2 in RING_SHAPES:
+        q, k, v = attn_inputs(g, dev, b2, h2, s2, s2, d2)
+        e, _, _ = pair(f"B6 ring step {(b2, h2, s2, d2)}", q, k, v,
+                       scale=d2 ** -0.5)
+        t = time_attn(q, k, v, False, 10)
+        bd = attn_bound(b2, h2, s2, s2, d2)
+        log(f"B6 ring step {(b2, h2, s2, d2)} float32: kernel "
+            f"{t['ms']:.4f} ms ({t['graph_ms']:.4f} ms in a CUDA graph), "
+            f"plain {t['plain_ms']:.4f} ms, {t['library']} "
+            f"{t['library_ms']:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+        shapes.append({"shape": [b2, h2, s2, d2], "causal": False,
+                       "max_abs_err": e, **t, "bound_ms": bd[0],
+                       "bound_by": bd[1]})
+        del q, k, v
+
+    variants = []
+    q, k, v = attn_inputs(g, dev, 2, 3, 128, 256, 64)
+    for offs in ((0, 0), (384, 128), (128, 384)):
+        e, _, _ = pair(f"B6 causal offsets {offs}", q, k, v, scale=0.125,
+                       causal=True, offsets=offs)
+        variants.append({"case": f"causal offsets {list(offs)}",
+                         "max_abs_err": e})
+    q, k, v = attn_inputs(g, dev, 2, 3, 128, 128, 64)
+    full = torch.full((128, 128), attention.NEG_INF, device=dev)
+    for case, kw in (("fully masked (causal)",
+                      dict(causal=True, offsets=(0, 128))),
+                     ("fully masked (bias)", dict(bias=full))):
+        e, got, want = pair(f"B6 {case}", q, k, v, scale=0.125, **kw)
+        assert bool((got[1] == attention.NEG_INF).all()), case
+        assert torch.equal(got[2], want[2]), case
+        variants.append({"case": case, "max_abs_err": e})
+    q, k, v = attn_inputs(g, dev, 2, 3, 256, 384, 64)
+    band = torch.where(torch.arange(384, device=dev)[None, :]
+                       > torch.arange(256, device=dev)[:, None] + 100,
+                       attention.NEG_INF, 0.0).to(torch.float32)
+    e, _, _ = pair("B6 bias", q, k, v, band, scale=0.125)
+    variants.append({"case": "bias", "max_abs_err": e})
+    e, _, _ = pair("B6 bfloat16", *(t.to(torch.bfloat16) for t in (q, k, v)),
+                   scale=0.125)
+    variants.append({"case": "bfloat16", "max_abs_err": e})
+    for d2 in (8, 256):
+        q, k, v = attn_inputs(g, dev, 2, 3, 256, 384, d2)
+        e, _, _ = pair(f"B6 D={d2} causal", q, k, v, scale=d2 ** -0.5,
+                       causal=True, offsets=(128, 0))
+        variants.append({"case": f"D={d2}", "max_abs_err": e})
+    return {"name": "flash_block_attn", "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/attention.cu",
+            "replaces": "multiverso_tpu/ops/pallas_attention.py:97",
+            "shape": [b, h, s, dh], "causal": True, "max_abs_err": err,
+            **rec, "bound_ms": bound[0], "bound_by": bound[1],
+            "shapes": shapes, "variants": variants}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the table plane
 # ---------------------------------------------------------------------------
 def table_plane() -> None:
@@ -953,6 +1145,160 @@ def cli_topics() -> None:
         assert intra > inter + 0.1, (intra, inter)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the attention LM
+# ---------------------------------------------------------------------------
+def cyclic_batches(n, b, s, k, seed=0):
+    """Deterministic cyclic sequences, token[t+1] = (token[t] + 1) mod k
+    (``tests/test_attention_lm.py:12-19``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [((rng.integers(0, k, size=(b, 1)) + np.arange(s)[None, :]) % k)
+            .astype(np.int32) for _ in range(n)]
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def small_lm_against_cpu(dev) -> None:
+    """A small LM on the card against the same parameters on the CPU
+    (both drawn from the CPU generator of ``cfg.seed``): the loss with
+    ``-flash_attention`` off and on (B6 at D = 8), and 2 ``fit`` steps."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.models.attention_lm import AttentionLM, LMConfig
+    from multiverso_tpu_torch.utils.configure import set_flag
+
+    cfg = dict(vocab=61, dim=32, heads=4, layers=2, seq=256)
+    card = AttentionLM(LMConfig(**cfg), dev)
+    host = AttentionLM(LMConfig(**cfg), torch.device("cpu"))
+    for name, p in card.params.items():
+        assert torch.equal(p.cpu(), host.params[name]), name
+    batches = cyclic_batches(3, 4, cfg["seq"], cfg["vocab"], seed=3)
+    ref = host.loss(batches[0])
+    for flash in (False, True):
+        set_flag("flash_attention", flash)
+        got = card.loss(batches[0])
+        log(f"small LM on the card, flash {flash}: loss {got} vs CPU {ref}")
+        assert abs(got - ref) <= LM_LOSS_RTOL * abs(ref), (flash, got, ref)
+    set_flag("flash_attention", False)
+    got, want = card.fit(batches[1:]), host.fit(batches[1:])
+    log(f"small LM on the card: 2 fit steps {got} vs CPU {want}")
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def attention_lm(dev, card) -> dict:
+    """The LM at GPT-2-small widths on the card (see the module's
+    docstring). Each run sets B6's count to 0 just before it and reads it
+    just after; returns the readings and the sum of the counts."""
+    import math
+    import torch
+    from multiverso_tpu_torch.models.attention_lm import AttentionLM, LMConfig
+    from multiverso_tpu_torch.ops import attention
+    from multiverso_tpu_torch.utils.configure import set_flag
+
+    counts = attention.LAUNCHES
+    out = {"runs": []}
+    n_tok = LM_BATCH * LM["seq"]
+
+    def run(what, fn, want_launches):
+        counts["flash_block_attn"] = 0
+        val, dt = timed(fn)
+        n = counts["flash_block_attn"]
+        assert n == want_launches, (what, n, want_launches)
+        out["runs"].append({"run": what, "seconds": dt, "launches": n})
+        return val, dt
+
+    cfg = LMConfig(**LM, seed=0)
+    (lm, init_s) = timed(lambda: AttentionLM(cfg, dev))
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"attention LM {LM}, batch {LM_BATCH}: {n_params} parameters, "
+        f"built on the card in {init_s:.2f} s")
+    # batches[0] is held out, batches[1] warms fit up, the rest are timed.
+    batches = cyclic_batches(LM_STEPS + 2, LM_BATCH, LM["seq"], LM_CYCLE)
+    tokens = batches[0]
+    set_flag("flash_attention", False)
+    run("warm-up loss", lambda: lm.loss(tokens), 0)
+    losses = {}
+    for mode in ("ring", "ulysses"):
+        cfg.sp_mode = mode
+        for flash in (False, True):
+            set_flag("flash_attention", flash)
+            want = LM["layers"] if flash else 0
+            run(f"loss {mode} flash={flash}", lambda: lm.loss(tokens), want)
+            loss, dt = run(f"loss {mode} flash={flash} (timed)",
+                           lambda: lm.loss(tokens), want)
+            losses[(mode, flash)] = loss
+            out[f"loss_{mode}_flash_{str(flash).lower()}"] = loss
+            out[f"loss_tokens_per_sec_{mode}_flash_{str(flash).lower()}"] = \
+                n_tok / dt
+            log(f"LM loss() {mode}, flash {flash}: {loss}, "
+                f"{n_tok / dt:.6g} tokens/sec ({dt * 1e3:.2f} ms; B6 "
+                f"launches {want}) [{card}]")
+            assert math.isfinite(loss), (mode, flash, loss)
+        on, off = losses[(mode, True)], losses[(mode, False)]
+        assert abs(on - off) <= LM_LOSS_RTOL * abs(off), (mode, on, off)
+    cfg.sp_mode = "ring"
+    set_flag("flash_attention", False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # One untimed step first: it allocates Adam's state and warms the
+    # backward pass, which the timed window should not pay.
+    (warm_loss,), _ = run("fit warm-up step ring flash=False",
+                          lambda: lm.fit(batches[1:2]), 0)
+    fit_losses, dt = run(f"fit {LM_STEPS} steps ring flash=False",
+                         lambda: lm.fit(batches[2:]), 0)
+    assert all(math.isfinite(x) for x in [warm_loss] + fit_losses), \
+        (warm_loss, fit_losses)
+    out["fit_warm_up_loss"] = warm_loss
+    out["fit_losses"] = fit_losses
+    out["fit_tokens_per_sec"] = LM_STEPS * n_tok / dt
+    out["fit_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    after, _ = run("loss after fit ring flash=False",
+                   lambda: lm.loss(tokens), 0)
+    out["loss_after_fit"] = after
+    # The batches share one cyclic rule, so 4 steps must lower the loss
+    # of a batch the model did not train on.
+    assert after < losses[("ring", False)], (after, losses)
+    log(f"LM fit, {LM_STEPS} steps (ring, flash off, Adam): losses "
+        f"{fit_losses}, {out['fit_tokens_per_sec']:.6g} tokens/sec "
+        f"({dt:.3f} s, after one untimed step: loss {warm_loss}), peak "
+        f"{out['fit_peak_gib']:.2f} GiB; loss() of the held-out batch "
+        f"{losses[('ring', False)]} before, {after} after [{card}]")
+    del lm
+    torch.cuda.empty_cache()
+
+    mcfg = LMConfig(**dict(LM, layers=MOE_LAYERS), moe_experts=MOE_EXPERTS,
+                    seed=0)
+    moe = AttentionLM(mcfg, dev)
+    (moe_loss,), dt = run("MoE fit 1 step ring flash=False",
+                          lambda: moe.fit(batches[1:2]), 0)
+    out["moe_fit_tokens_per_sec"] = n_tok / dt
+    off, _ = run("MoE loss ring flash=False", lambda: moe.loss(tokens), 0)
+    set_flag("flash_attention", True)
+    on, dt = run("MoE loss ring flash=True", lambda: moe.loss(tokens),
+                 MOE_LAYERS)
+    set_flag("flash_attention", False)
+    assert all(math.isfinite(x) for x in (moe_loss, off, on))
+    assert abs(on - off) <= LM_LOSS_RTOL * abs(off), (on, off)
+    out.update(moe_fit_loss=moe_loss, moe_loss_flash_false=off,
+               moe_loss_flash_true=on,
+               moe_loss_tokens_per_sec_flash_true=n_tok / dt)
+    log(f"MoE LM ({MOE_EXPERTS} experts, {MOE_LAYERS} layers): first fit step "
+        f"loss {moe_loss} ({out['moe_fit_tokens_per_sec']:.6g} tokens/sec),"
+        f" loss() flash off {off}, on {on} ({n_tok / dt:.6g} tokens/sec; "
+        f"B6 launches {MOE_LAYERS}) [{card}]")
+    del moe
+    torch.cuda.empty_cache()
+    out["b6_launches"] = sum(r["launches"] for r in out["runs"])
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -962,7 +1308,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
     import multiverso_tpu_torch as mv
-    from multiverso_tpu_torch.ops import _build, rows, sgns
+    from multiverso_tpu_torch.ops import _build, attention, rows, sgns
 
     # Phase 1: build, record the card.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -984,6 +1330,7 @@ def main() -> int:
     kernels += check_stateful_kernels(dev)
     kernels.append(check_tiled_kernel(dev))
     kernels.append(check_sgns_kernel(dev))
+    kernels.append(check_attention_kernel(dev))
     variants = check_variants(dev)
     for k in kernels:
         k.setdefault("variants", variants.get(k["name"], []))
@@ -992,11 +1339,11 @@ def main() -> int:
     # Each main path runs with every launch count set to 0 just before it
     # and read just after it.
     def on_path(fn, *args):
-        for counts in (rows.LAUNCHES, sgns.LAUNCHES):
+        for counts in (rows.LAUNCHES, sgns.LAUNCHES, attention.LAUNCHES):
             for key in counts:
                 counts[key] = 0
         out = fn(*args)
-        return out, {**rows.LAUNCHES, **sgns.LAUNCHES}
+        return out, {**rows.LAUNCHES, **sgns.LAUNCHES, **attention.LAUNCHES}
 
     # Phase 3: the table plane: stateless (B1, B2), then each stateful
     # updater (the combine's fold, B3 and B1), then bench.py's row
@@ -1026,6 +1373,10 @@ def main() -> int:
     # Phase 5: the CLI.
     cli_topics()
 
+    # Phase 6: the attention LM (its runs read B6's count one by one).
+    small_lm_against_cpu(dev)
+    lm = attention_lm(dev, card)
+
     launches = {
         "gather_rows": plane["gather_rows"],
         "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"],
@@ -1035,7 +1386,8 @@ def main() -> int:
                                 for r in stateful.values()),
         "tiled_scatter_add_sorted_rows":
             leg["tiled_scatter_add_sorted_rows"],
-        "sgns_block": flag["sgns_block"]}
+        "sgns_block": flag["sgns_block"],
+        "flash_block_attn": lm["b6_launches"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
@@ -1048,6 +1400,9 @@ def main() -> int:
                     v["model_max_abs_err"] = path["model_max_abs_err"]
         if k["name"] == "tiled_scatter_add_sorted_rows":
             k["leg_ms_per_call"] = leg_ms
+        if k["name"] == "flash_block_attn":
+            k["launches_by_run"] = {r["run"]: r["launches"]
+                                    for r in lm["runs"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

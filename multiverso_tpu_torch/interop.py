@@ -9,9 +9,12 @@ device arrays), so this module needs neither JAX nor the JAX package:
   port's own ``store_state`` writes;
 * :func:`load_word2vec_tables` writes the four word2vec table arrays
   (input/output embeddings and their AdaGrad accumulators) into a port
-  ``Word2Vec``.
+  ``Word2Vec``;
+* :func:`load_attention_lm_params` writes the JAX ``AttentionLM.params``
+  into a port ``AttentionLM``.
 
-Both check shapes and dtypes, so a mismatched pair of models fails loudly.
+Each checks names, shapes and dtypes, so a mismatched pair of models
+fails loudly.
 """
 
 from __future__ import annotations
@@ -46,3 +49,27 @@ def load_word2vec_tables(w2v, w_in: np.ndarray, w_out: np.ndarray,
         check(values.dtype == np.float32,
               f"{table.name}: dtype {values.dtype} != float32")
         table.store.load_state({"data": values})
+
+
+def load_attention_lm_params(lm, params: Mapping[str, np.ndarray]) -> None:
+    """Write the JAX package's ``AttentionLM.params`` (``np.asarray`` of
+    each leaf) into the port's ``AttentionLM``: the same names, the same
+    ``[in, out]`` layouts, float32. Adam's state is not carried."""
+    import torch
+
+    mine = dict(lm.named_parameters())
+    missing = sorted(set(mine) - set(params))
+    extra = sorted(set(params) - set(mine))
+    check(not missing and not extra,
+          f"attention LM parameter names differ: missing {missing}, "
+          f"unexpected {extra}")
+    for name, value in params.items():
+        value = np.asarray(value)
+        p = mine[name]
+        check(value.shape == tuple(p.shape),
+              f"{name}: shape {value.shape} != {tuple(p.shape)}")
+        check(value.dtype == np.float32,
+              f"{name}: dtype {value.dtype} != float32")
+    with torch.no_grad():
+        for name, value in params.items():
+            mine[name].copy_(torch.as_tensor(np.asarray(value)))

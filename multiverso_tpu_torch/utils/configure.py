@@ -222,9 +222,9 @@ define_double("wire_compression_clip", 0.0, "SparseFilter clip threshold "
 define_string("mesh_shape", "", "comma 'axis:size' list, e.g. 'server:8'; "
               "empty = one axis over all devices")
 define_bool("deterministic", False, "force deterministic reductions")
-define_bool("flash_attention", False, "route ring attention's local block "
-            "step through the flash-attention kernel (not ported yet: "
-            "ROADMAP B6)")
+define_bool("flash_attention", False, "route the local block step of ring "
+            "and Ulysses attention through the flash block kernel (B6, "
+            "csrc/attention.cu; forward only: train with it off)")
 # Multi-controller bring-up (the Controller/RegisterNode analog,
 # ref src/controller.cpp:38-80 -> a torch.distributed process group;
 # multi-process start-up waits: ROADMAP A7).

@@ -48,6 +48,10 @@ def test_importing_the_port_loads_no_jax():
             "import multiverso_tpu_torch.apps.word2vec_main\n"
             "import multiverso_tpu_torch.models.word2vec\n"
             "import multiverso_tpu_torch.ops.rows, multiverso_tpu_torch.ops.sgns\n"
+            "import multiverso_tpu_torch.ops.attention\n"
+            "import multiverso_tpu_torch.parallel.sequence\n"
+            "import multiverso_tpu_torch.parallel.expert\n"
+            "import multiverso_tpu_torch.models.attention_lm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'multiverso_tpu')]\n"
             "assert not bad, bad\n"
