@@ -55,18 +55,36 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    flag on: B6 launched twice);
    tokens/sec of each. Before it, a small LM on the card against the
    same parameters on the CPU (loss and 2 ``fit`` steps);
-7. a JSON line of the kernels, the card line, and the result line.
+7. the LM served at the same widths (weights from seed 0) through
+   ``ServingService`` and ``ServingClient`` on localhost: 32 prompts of
+   ``scripts/serve_bench.py``'s decode workload (seed 7), 8 in flight,
+   ``max_new`` 64, 8 slots per engine, buckets 128 and 512, pages of 16,
+   in continuous paged mode (B7 launched exactly 12 times per engine
+   step), then drain preallocated and drain paged (B7 12 x 63 times per
+   batch). Every request must be answered; every served token must be
+   the argmax of the port's teacher-forced full ``forward`` on the card
+   or within ``TIE_ATOL`` of its largest logit; the drain modes' tokens
+   must equal the continuous ones up to such a tie. Per mode: served
+   tokens/sec, first-token and per-token latency p50/p99 (device clock),
+   request latency, the pool's high-water pages, the pipeline depth;
+8. a JSON line of the kernels, the card line, and the result line.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
 of ``scripts/bench_flash_attn.py:41`` (non-causal, timed with the bound
 and ``scaled_dot_product_attention`` as the yardstick), and once each
 causal with offsets, fully masked, with a bias, in bfloat16 and at D = 8
-and 256, within ``ATTN_TOL``.
+and 256, within ``ATTN_TOL``; and B7 (``paged_decode_attn``) at the
+serving shape (8 slots, 12 heads, dh 64, page 16, bucket 512, max_new 64:
+36 pages per slot) over one layer of a pool of the serving phase's size,
+with a page table from real page plans of the workload's lengths, timed
+with the byte bound and SDPA over the pre-gathered cache as a yardstick,
+then with a bfloat16 pool, a page that does not divide the bucket, an
+idle slot on the garbage page, t = 0 and dh = 128, within ``PAGED_TOL``.
 
 Every launch count is set to 0 just before each main-path run of phases
-3, 4 and 6 and read just after it, so the comparisons of phase 2 do not
-count.
+3, 4, 6 and 7 and read just after it, so the comparisons of phase 2 do
+not count.
 """
 
 from __future__ import annotations
@@ -114,6 +132,21 @@ LM_LOSS_RTOL = 1e-5
 ATTN_TOL = {"o_rtol": 2e-5, "o_atol": 2e-6, "l_rtol": 2e-5, "m_rtol": 1e-6}
 # The ring-step shapes of scripts/bench_flash_attn.py:41 (B, H, S, D).
 RING_SHAPES = ((1, 8, 2048, 128), (1, 8, 4096, 128), (2, 16, 2048, 64))
+# The serving phase: GPT-2-small widths (LM) served with max_new 64 and 8
+# slots per bucket engine over buckets 128 and 512, pages of 16 positions;
+# 32 prompts of serve_bench's decode workload, 8 in flight.
+SERVE_BUCKETS = (128, 512)
+SERVE_MAX_NEW, SERVE_BATCH, SERVE_PAGE = 64, 8, 16
+SERVE_REQUESTS, SERVE_IN_FLIGHT = 32, 8
+# B7 against its plain version: the JAX package's tolerances for its
+# paged kernel against the gather formulation
+# (tests/test_pallas_attention.py:163-199); the kernel sums page by page.
+PAGED_TOL = {"rtol": 2e-5, "atol": 2e-6}
+# A served token passes the full-forward check if it is the argmax of the
+# teacher-forced logits or within this of the largest logit: a tie that
+# no float32 summing order can decide (logits of GPT-2-small widths are
+# of order 1-10, so 1e-4 is a few float32 roundings of 12 layers).
+TIE_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -876,6 +909,187 @@ def check_attention_kernel(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (B7): paged decode attention against its plain version
+# ---------------------------------------------------------------------------
+def decode_workload(rng, n_req: int, bucket: int, prefix_frac: float,
+                    shared_prompt):
+    """``scripts/serve_bench.py::_decode_workload`` (:571-587): a quarter
+    of the prompts a long tail of 3/4 to all of ``bucket``, the rest a
+    short head under a quarter of it; a ``prefix_frac`` fraction repeats
+    ONE shared prompt."""
+    prompts = []
+    for _ in range(n_req):
+        if prefix_frac > 0.0 and rng.random() < prefix_frac:
+            prompts.append(list(shared_prompt))
+        elif rng.random() < 0.25:               # the long tail
+            n = int(rng.integers(max(bucket * 3 // 4, 2), bucket + 1))
+            prompts.append(rng.integers(1, 60, n).tolist())
+        else:                                    # the short head
+            n = int(rng.integers(1, max(bucket // 4, 2)))
+            prompts.append(rng.integers(1, 60, n).tolist())
+    return prompts
+
+
+def paged_inputs(g, dev, lengths, t, bucket, max_new, page, heads, dh,
+                 n_phys, layers=1, dtype=None):
+    """B7's inputs as the serving step hands them: q [B, H, dh]; one
+    layer (the middle one) of a ``[n_phys, layers, H, page, dh]`` pool,
+    random; a page table from ``page_plan`` of each length, pages drawn
+    in order from 1 (pad pages on the garbage page 0); lengths and t."""
+    import torch
+    from multiverso_tpu_torch.serving import page_plan, pages_of
+
+    G = pages_of(bucket + max_new, page)
+    ptab = torch.zeros((len(lengths), G), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lengths):
+        plan = page_plan(n, bucket, max_new, page)
+        for logical in (*plan.shared, *plan.private):
+            ptab[b, logical] = nxt
+            nxt += 1
+    assert nxt <= n_phys, (nxt, n_phys)
+    shape = (n_phys, layers, heads, page, dh)
+    dt = dtype or torch.float32
+    kp = torch.randn(shape, generator=g, device=dev).to(dt)
+    vp = torch.randn(shape, generator=g, device=dev).to(dt)
+    q = torch.randn((len(lengths), heads, dh), generator=g, device=dev)
+    i = layers // 2
+    return (q, kp[:, i], vp[:, i], ptab.to(dev),
+            torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+            torch.as_tensor(t, dtype=torch.int32, device=dev))
+
+
+def paged_bound(q, kp, ptab, lengths, t, bucket, page):
+    """The bytes B7 must move for these inputs: the K and V row of each
+    key a slot's mask admits (a masked key adds exactly 0, and each row
+    is a contiguous dh-element line), q read and o written, the page
+    table entries of the pages holding admitted keys, lengths and t. The
+    work, 4 dh flops per admitted key, is far below the bytes' time."""
+    import numpy as np
+    B, H, dh = q.shape
+    G = ptab.shape[1]
+    lens, ts = lengths.cpu().numpy(), t.cpu().numpy()
+    pages = keys = 0
+    for b in range(B):
+        pos = np.arange(G * page)
+        valid = (pos < lens[b]) | ((pos >= bucket) & (pos <= bucket + ts[b]))
+        pages += int(valid.reshape(G, page).any(axis=1).sum())
+        keys += int(valid.sum())
+    elem = kp.element_size()
+    n_bytes = (2 * keys * H * dh * elem + 2 * B * H * dh * 4
+               + (pages + 2 * B) * 4)
+    return bound_ms(n_bytes, 4.0 * dh * keys * H)
+
+
+def check_paged_kernel(dev) -> dict:
+    """B7 at the serving phase's shape (8 slots, 12 heads, dh 64, page 16,
+    bucket 512, max_new 64: G = 36 pages) over one layer of a pool of the
+    serving phase's size, a page table from real page plans of the
+    serving workload's mixed lengths and mixed t; timed with events and
+    in a CUDA graph, against the plain version and the SDPA yardstick.
+    Then small variants: a bfloat16 pool, a page that does not divide the
+    bucket, an idle slot on the garbage page, t = 0 and dh = 128."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from multiverso_tpu_torch.ops import attention
+    from multiverso_tpu_torch.serving import default_pool_pages
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.default_rng(7)
+    S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
+    H, dh = LM["heads"], LM["dim"] // LM["heads"]
+    lengths = [min(len(p), S) for p in decode_workload(
+        rng, SERVE_BATCH, S, 0.0, [])]
+    lengths[0] = S                        # one full prompt
+    t = rng.integers(0, N, SERVE_BATCH).tolist()
+    n_phys = default_pool_pages(SERVE_BUCKETS, SERVE_BATCH, N, P) + 1
+
+    def pair(what, args, page, bucket, scale):
+        kw = dict(bucket=bucket, page=page, scale=scale)
+        got = attention.paged_decode_attn(*args, **kw)
+        want = attention.paged_decode_attn_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), what
+        err = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= PAGED_TOL["atol"]
+                   + PAGED_TOL["rtol"] * want.abs()).all())
+        log(f"  {what}: max |kernel - plain| {err:.3e}")
+        assert ok, (what, err)
+        return err
+
+    args = paged_inputs(g, dev, lengths, t, S, N, P, H, dh, n_phys,
+                        layers=LM["layers"])
+    scale = dh ** -0.5
+    err = pair(f"B7 at the serving shape (B {SERVE_BATCH}, H {H}, dh {dh}, "
+               f"page {P}, bucket {S}, max_new {N})", args, P, S, scale)
+    kw = dict(bucket=S, page=P, scale=scale)
+    q, kp, vp, ptab, lens, ts = args
+    # The yardstick: SDPA over the cache gathered beforehand (the gather
+    # not timed), with the serving mask. Not the same function: it reads
+    # a contiguous cache, and the port never calls it.
+    G = ptab.shape[1]
+    idx = ptab.long().reshape(-1)
+    kf = kp.index_select(0, idx).reshape(SERVE_BATCH, G, H, P, dh) \
+        .transpose(1, 2).reshape(SERVE_BATCH, H, G * P, dh)
+    vf = vp.index_select(0, idx).reshape(SERVE_BATCH, G, H, P, dh) \
+        .transpose(1, 2).reshape(SERVE_BATCH, H, G * P, dh)
+    pos = torch.arange(G * P, device=dev)[None, :]
+    mask = ((pos < lens[:, None]) | ((pos >= S)
+                                     & (pos <= S + ts[:, None])))
+    mask = mask[:, None, None, :]
+    rec = {
+        "ms": cuda_ms(lambda: attention.paged_decode_attn(*args, **kw), 50),
+        "graph_ms": graph_ms(lambda: attention.paged_decode_attn(*args,
+                                                                 **kw)),
+        "plain_ms": cuda_ms(lambda: attention.paged_decode_attn_plain(
+            *args, **kw), 50),
+        "library_ms": None,
+        "library": "none: no single PyTorch call reads through a page "
+                   "table",
+        "yardstick_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kf, vf, attn_mask=mask), 50),
+        "yardstick": "scaled_dot_product_attention over the cache "
+                     "gathered beforehand, with the mask (float32; not the "
+                     "same function, never called by the port)"}
+    bound = paged_bound(q, kp, ptab, lens, ts, S, P)
+    log(f"B7 paged_decode_attn (8, 12, 64), page {P}, G {G}: kernel "
+        f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
+        f"plain {rec['plain_ms']:.4f} ms, yardstick SDPA over the "
+        f"pre-gathered cache {rec['yardstick_ms']:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    del args, q, kp, vp, kf, vf
+    torch.cuda.empty_cache()
+
+    variants = []
+    small = dict(heads=4, n_phys=64)
+    for case, lens_v, t_v, bucket, mx, page, d, dt in (
+            ("bfloat16 pool", [3, 60, 128, 17], [0, 5, 63, 20], 128, 64,
+             16, 64, torch.bfloat16),
+            ("page 3 does not divide bucket 8", [3, 1, 8, 7], [0, 2, 5, 3],
+             8, 6, 3, 64, None),
+            ("idle slot on the garbage page", [1, 40, 100, 7],
+             [0, 10, 63, 1], 128, 64, 16, 64, None),
+            ("t = 0", [5, 128, 64, 1], [0, 0, 0, 0], 128, 64, 16, 64,
+             None),
+            ("dh = 128", [3, 60, 128, 17], [0, 5, 63, 20], 128, 64, 16,
+             128, None)):
+        a = paged_inputs(g, dev, lens_v, t_v, bucket, mx, page,
+                         small["heads"], d, small["n_phys"], dtype=dt)
+        if case.startswith("idle"):
+            a[3][0] = 0                     # every page the garbage page
+        e = pair(f"B7 {case}", a, page, bucket, d ** -0.5)
+        variants.append({"case": case, "max_abs_err": e})
+    return {"name": "paged_decode_attn", "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "multiverso_tpu/ops/pallas_attention.py:253",
+            "shape": [SERVE_BATCH, H, dh], "page": P, "bucket": S,
+            "pages_per_slot": G, "max_abs_err": err, **rec,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "variants": variants}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the table plane
 # ---------------------------------------------------------------------------
 def table_plane() -> None:
@@ -1299,6 +1513,281 @@ def attention_lm(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the attention LM served on the card
+# ---------------------------------------------------------------------------
+class HistWindow:
+    """What one of the registry's latency histograms observed from now
+    until ``read``: the bucket counts' difference, read through the
+    histogram's public ``raw_counts``, as the telemetry's windowed
+    percentiles are (log-2 buckets, geometric interpolation inside one)."""
+
+    def __init__(self, name: str):
+        from multiverso_tpu_torch.telemetry import histogram
+        self.hist = histogram(name)
+        self.count, self.counts = self.hist.raw_counts()
+
+    def read(self):
+        n, counts = self.hist.raw_counts()
+        return n - self.count, [c - c0 for c, c0 in zip(counts,
+                                                        self.counts)]
+
+    def pct(self, q: float) -> float:
+        from multiverso_tpu_torch.telemetry import Histogram
+        n, counts = self.read()
+        return Histogram.percentile_from_counts(counts, n, q / 100) \
+            if n else float("nan")
+
+
+def pct(values, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(values), q)) if values else \
+        float("nan")
+
+
+def drive(cli, runner_id, prompts, in_flight):
+    """Send every prompt over ``cli`` with ``in_flight`` requests
+    outstanding; returns (tokens per prompt, request latencies in ms,
+    wall seconds, errors)."""
+    import queue
+    import threading
+    import numpy as np
+
+    todo = queue.Queue()
+    for i in range(len(prompts)):
+        todo.put(i)
+    tokens = [None] * len(prompts)
+    lat = [0.0] * len(prompts)
+    errors = []
+
+    def worker():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue.Empty:
+                return
+            t0 = time.perf_counter()
+            try:
+                got = cli.generate(np.asarray(prompts[i], np.int32),
+                                   deadline_ms=600_000, runner_id=runner_id,
+                                   timeout=600)
+                tokens[i] = got.tolist()
+            except Exception as e:  # noqa: BLE001 - counted, then failed
+                errors.append((i, repr(e)))
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=worker) for _ in range(in_flight)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        assert not t.is_alive(), "a serving client thread hung"
+    return tokens, lat, time.perf_counter() - t0, errors
+
+
+def teacher_forced(params, cfg, prompts, served, dev):
+    """Each served token against the port's full ``forward`` on the card
+    over prompt + served tokens (teacher forcing): it passes if it is the
+    argmax there, or if its logit is within ``TIE_ATOL`` of the largest
+    (a tie no float32 summing order can decide). Returns the per-request
+    logits rows the check read ([max_new, vocab] each, on the card) and
+    the count of ties."""
+    import torch
+    from multiverso_tpu_torch.models.attention_lm import forward
+
+    rows, ties = [], 0
+    with torch.no_grad():
+        for c in range(0, len(prompts), 8):
+            seqs = [p + s[:-1] for p, s in zip(prompts[c:c + 8],
+                                                served[c:c + 8])]
+            width = max(len(x) for x in seqs)
+            toks = torch.zeros((len(seqs), width), dtype=torch.long,
+                               device=dev)
+            for j, x in enumerate(seqs):
+                toks[j, :len(x)] = torch.as_tensor(x, device=dev)
+            logits, _ = forward(params, toks, cfg)
+            for j, (p, s) in enumerate(zip(prompts[c:c + 8],
+                                           served[c:c + 8])):
+                lg = logits[j, len(p) - 1:len(p) - 1 + len(s)]
+                s_t = torch.as_tensor(s, device=dev)
+                mx = lg.max(dim=-1).values
+                chosen = lg.gather(1, s_t[:, None])[:, 0]
+                arg = lg.argmax(dim=-1) == s_t
+                tie = ~arg & (chosen >= mx - TIE_ATOL)
+                bad = ~arg & ~tie
+                assert not bool(bad.any()), (
+                    c + j, int(bad.nonzero()[0, 0]),
+                    float((mx - chosen).max()))
+                ties += int(tie.sum())
+                rows.append(lg.clone())
+            del logits
+    return rows, ties
+
+
+def agree(base, other, rows_other):
+    """Tokens of another mode against ``base`` under the tie rule: equal
+    up to the first difference; there, in the other mode's own
+    teacher-forced logits (the same prefix), both tokens within
+    ``TIE_ATOL`` of the largest logit. Returns the count of requests that
+    diverged at such a tie."""
+    diverged = 0
+    for i, (a, b) in enumerate(zip(base, other)):
+        if a == b:
+            continue
+        d = next(k for k in range(len(a)) if a[k] != b[k])
+        lg = rows_other[i][d]
+        top = float(lg.max())
+        assert float(lg[a[d]]) >= top - TIE_ATOL and \
+            float(lg[b[d]]) >= top - TIE_ATOL, (i, d, a[d], b[d])
+        diverged += 1
+    return diverged
+
+
+def serve_lm(dev, card) -> dict:
+    """The attention LM served on the card through ``ServingService`` and
+    ``ServingClient`` (see the module's docstring). Each mode's run sets
+    every launch count to 0 just before it and reads them just after."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.models.attention_lm import (LMConfig,
+                                                          init_params)
+    from multiverso_tpu_torch.ops import attention, rows, sgns
+    from multiverso_tpu_torch.serving import (AttentionLMRunner,
+                                              ServingClient, ServingService)
+    from multiverso_tpu_torch.serving.pipeline import \
+        measured_dispatch_latency_ms
+    from multiverso_tpu_torch.telemetry import get_registry
+
+    cfg = LMConfig(**LM, seed=0)
+    params, init_s = timed(lambda: {
+        k: v.cpu().numpy() for k, v in init_params(cfg).items()})
+    rng = np.random.default_rng(7)
+    shared = rng.integers(1, 60, SERVE_BUCKETS[-1] // 3).tolist()
+    prompts = decode_workload(rng, SERVE_REQUESTS, SERVE_BUCKETS[-1], 0.5,
+                              shared)
+    n_tail = sum(len(p) > SERVE_BUCKETS[0] for p in prompts)
+    log(f"serving: GPT-2-small widths {LM}, weights from seed 0 "
+        f"({init_s:.2f} s), max_new {SERVE_MAX_NEW}, max_batch "
+        f"{SERVE_BATCH}, buckets {SERVE_BUCKETS}, page {SERVE_PAGE}; "
+        f"{len(prompts)} prompts (serve_bench's _decode_workload, seed 7): "
+        f"{sum(p == shared for p in prompts)} repeats of one "
+        f"{len(shared)}-token prompt, {n_tail} over {SERVE_BUCKETS[0]} "
+        f"tokens, lengths {min(map(len, prompts))}..{max(map(len, prompts))}")
+    modes = (("continuous paged", dict(paged=True, page=SERVE_PAGE),
+              dict(continuous=True, paged=True, kv_page=SERVE_PAGE)),
+             ("drain preallocated", {}, dict(pipeline_depth="auto")),
+             ("drain paged", dict(paged=True, page=SERVE_PAGE),
+              dict(pipeline_depth="auto")))
+    svc = ServingService()
+    cli = None
+    out = {"modes": {}}
+    try:
+        runners = []
+        for rid, (name, rkw, skw) in enumerate(modes):
+            runner = AttentionLMRunner(params, cfg, max_new=SERVE_MAX_NEW,
+                                       max_batch=SERVE_BATCH, **rkw)
+            svc.register_runner(runner, runner_id=rid,
+                                buckets=SERVE_BUCKETS,
+                                max_batch=SERVE_BATCH, **skw)
+            runners.append(runner)
+        warmed, warm_s = timed(svc.warmup)
+        probe = measured_dispatch_latency_ms(dev)
+        depth = svc.batcher(1).pipeline_depth
+        log(f"serving: {warmed} warm-up runs in {warm_s:.2f} s; the "
+            f"pipeline probe read {probe:.4f} ms per launch + sync, "
+            f"\"auto\" chose depth {depth} [{card}]")
+        cli = ServingClient(*svc.address)
+        lm_params = runners[0].params_ref()
+        served = {}
+        reg = get_registry()
+        for rid, (name, _, _) in enumerate(modes):
+            b = svc.batcher(rid)
+            h_first = HistWindow("serve.latency.first_token")
+            h_per_token = HistWindow("serve.latency.per_token")
+            steps0 = reg.counter("serve.continuous.steps").snapshot()["value"]
+            batches0 = reg.counter("serve.batches").snapshot()["value"]
+            for counts in (rows.LAUNCHES, sgns.LAUNCHES, attention.LAUNCHES):
+                for key in counts:
+                    counts[key] = 0
+            tokens, lat, wall, errors = drive(cli, rid, prompts,
+                                              SERVE_IN_FLIGHT)
+            launches = dict(attention.LAUNCHES)
+            steps = reg.counter("serve.continuous.steps").snapshot()[
+                "value"] - steps0
+            batches = reg.counter("serve.batches").snapshot()["value"] \
+                - batches0
+            assert not errors, (name, errors[:3])
+            assert all(t is not None and len(t) == SERVE_MAX_NEW
+                       for t in tokens), name
+            n_tok = SERVE_MAX_NEW * len(prompts)
+            rec = {"tokens_per_sec": n_tok / wall, "seconds": wall,
+                   "requests": len(prompts), "errors": len(errors),
+                   "latency_ms_p50": pct(lat, 50),
+                   "latency_ms_p99": pct(lat, 99),
+                   "first_token_ms_p50": h_first.pct(50),
+                   "first_token_ms_p99": h_first.pct(99),
+                   "per_token_ms_p50": h_per_token.pct(50),
+                   "per_token_ms_p99": h_per_token.pct(99),
+                   "b7_launches": launches["paged_decode_attn"],
+                   "b6_launches": launches["flash_block_attn"]}
+            assert h_first.read()[0] == len(prompts), name
+            assert rec["b6_launches"] == 0, rec
+            if name == "continuous paged":
+                rec["engine_steps"] = steps
+                rec["pool_high_water_pages"] = b.pool.max_used
+                rec["pool_pages"] = b.pool.capacity
+                want = LM["layers"] * steps
+            elif name == "drain paged":
+                rec["batches"] = batches
+                rec["pool_high_water_pages"] = runners[rid].pool_high_water()
+                rec["pipeline_depth"] = b.pipeline_depth
+                want = LM["layers"] * (SERVE_MAX_NEW - 1) * batches
+            else:
+                rec["batches"] = batches
+                rec["pipeline_depth"] = b.pipeline_depth
+                want = 0
+            assert rec["b7_launches"] == want, (name, rec, want)
+            assert want > 0 or name == "drain preallocated"
+            served[name] = tokens
+            lg_rows, ties = teacher_forced(lm_params, cfg, prompts, tokens,
+                                           dev)
+            rec["ties"] = ties
+            if name != "continuous paged":
+                rec["diverged_at_a_tie"] = agree(served["continuous paged"],
+                                                 tokens, lg_rows)
+            del lg_rows
+            out["modes"][name] = rec
+            log(f"serving {name}: {len(prompts)} requests, {n_tok} tokens "
+                f"in {wall:.3f} s -> {rec['tokens_per_sec']:.6g} "
+                f"tokens/sec; first token p50 "
+                f"{rec['first_token_ms_p50']:.3f} ms p99 "
+                f"{rec['first_token_ms_p99']:.3f} ms; per token p50 "
+                f"{rec['per_token_ms_p50']:.4f} ms p99 "
+                f"{rec['per_token_ms_p99']:.4f} ms; request p50 "
+                f"{rec['latency_ms_p50']:.3f} ms p99 "
+                f"{rec['latency_ms_p99']:.3f} ms; B7 launches "
+                f"{rec['b7_launches']}; "
+                + (f"engine steps {steps}, " if "engine_steps" in rec
+                   else f"batches {batches}, pipeline depth "
+                   f"{rec['pipeline_depth']}, ")
+                + (f"pool high-water {rec['pool_high_water_pages']} pages, "
+                   if "pool_high_water_pages" in rec else "")
+                + f"full-forward check: every token passes, {ties} ties"
+                + (f", {rec['diverged_at_a_tie']} requests diverge from "
+                   "continuous at a tie" if "diverged_at_a_tie" in rec
+                   else "") + f" [{card}]")
+        out["pipeline_probe_ms"] = probe
+        out["pipeline_depth_auto"] = depth
+    finally:
+        if cli is not None:
+            cli.close()
+        svc.close()
+    torch.cuda.empty_cache()
+    out["b7_launches"] = sum(m["b7_launches"] for m in out["modes"].values())
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1331,6 +1820,7 @@ def main() -> int:
     kernels.append(check_tiled_kernel(dev))
     kernels.append(check_sgns_kernel(dev))
     kernels.append(check_attention_kernel(dev))
+    kernels.append(check_paged_kernel(dev))
     variants = check_variants(dev)
     for k in kernels:
         k.setdefault("variants", variants.get(k["name"], []))
@@ -1377,6 +1867,9 @@ def main() -> int:
     small_lm_against_cpu(dev)
     lm = attention_lm(dev, card)
 
+    # Phase 7: the LM served (each mode reads the counts one by one).
+    served = serve_lm(dev, card)
+
     launches = {
         "gather_rows": plane["gather_rows"],
         "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"],
@@ -1387,7 +1880,8 @@ def main() -> int:
         "tiled_scatter_add_sorted_rows":
             leg["tiled_scatter_add_sorted_rows"],
         "sgns_block": flag["sgns_block"],
-        "flash_block_attn": lm["b6_launches"]}
+        "flash_block_attn": lm["b6_launches"],
+        "paged_decode_attn": served["b7_launches"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
@@ -1403,6 +1897,10 @@ def main() -> int:
         if k["name"] == "flash_block_attn":
             k["launches_by_run"] = {r["run"]: r["launches"]
                                     for r in lm["runs"]}
+        if k["name"] == "paged_decode_attn":
+            k["launches_by_mode"] = {name: m["b7_launches"] for name, m
+                                     in served["modes"].items()}
+            k["serving"] = served
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,10 @@
 """Shared CLI app runner: init -> body -> shutdown with clean exits.
 
 Port of the part of ``multiverso_tpu/apps/_runner.py`` the word2vec CLI
-uses. User-facing errors (bad flag values, fatal checks, IO) log one line
-and return exit code 1 instead of a traceback. Telemetry export
-(``-telemetry_dir``) and the multi-process launch helpers wait
-(ROADMAP A11, A7).
+and the serving plane use. User-facing errors (bad flag values, fatal
+checks, IO) log one line and return exit code 1 instead of a traceback.
+Telemetry export (``-telemetry_dir``) and the multi-process launch
+helpers wait (ROADMAP A11, A7).
 """
 
 from __future__ import annotations
@@ -40,6 +40,59 @@ def run_app(body: Callable[[List[str]], int],
         return 1
     finally:
         mv.shutdown()
+
+
+def serve_config() -> dict:
+    """Resolve the ``-serve_*`` flags into the kwargs
+    :meth:`ServingService.register_runner` takes, plus the listener
+    address (the JAX package's ``apps/_runner.py::serve_config``)."""
+    from multiverso_tpu_torch.serving.quant import STORAGE_DTYPES
+    from multiverso_tpu_torch.utils.log import FatalError
+
+    get_flag = configure.get_flag
+    raw = str(get_flag("serve_buckets"))
+    try:
+        buckets = tuple(int(b) for b in raw.split(",") if b.strip())
+    except ValueError:
+        raise FatalError(f"bad -serve_buckets value '{raw}' "
+                         "(want e.g. '8,16,32,64')") from None
+    if not buckets:
+        raise FatalError("-serve_buckets must name at least one bucket")
+    depth_raw = str(get_flag("serve_pipeline_depth")).strip().lower()
+    if depth_raw not in ("", "auto"):
+        try:
+            int(depth_raw)
+        except ValueError:
+            raise FatalError(f"bad -serve_pipeline_depth value "
+                             f"'{depth_raw}' (want an int or 'auto')") \
+                from None
+    kv_dtype = str(get_flag("serve_kv_dtype")).strip().lower() or "f32"
+    table_dtype = str(get_flag("serve_table_dtype")).strip().lower() \
+        or "f32"
+    for name, val in (("-serve_kv_dtype", kv_dtype),
+                      ("-serve_table_dtype", table_dtype)):
+        if val not in STORAGE_DTYPES:
+            raise FatalError(f"bad {name} value '{val}' "
+                             f"(want one of {', '.join(STORAGE_DTYPES)})")
+    return {
+        "host": str(get_flag("serve_host")),
+        "port": int(get_flag("serve_port")),
+        "buckets": buckets,
+        "max_batch": int(get_flag("serve_max_batch")),
+        "max_wait_ms": float(get_flag("serve_max_wait_ms")),
+        "max_queue": int(get_flag("serve_admission")),
+        "pipeline_depth": depth_raw or "auto",
+        "cache_rows": int(get_flag("serve_cache_rows")),
+        "cache_staleness": int(get_flag("serve_cache_staleness")),
+        "cache_mem_budget": int(get_flag("serve_cache_mem_budget")),
+        "continuous": bool(get_flag("serve_continuous")),
+        "paged": bool(get_flag("serve_paged_kv")),
+        "kv_page": int(get_flag("serve_kv_page")),
+        "kv_pages": int(get_flag("serve_kv_pages")),
+        "kv_dtype": kv_dtype,
+        "table_dtype": table_dtype,
+        "prefix_entries": int(get_flag("serve_prefix_cache")),
+    }
 
 
 def comm_config() -> dict:

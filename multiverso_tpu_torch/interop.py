@@ -11,7 +11,8 @@ device arrays), so this module needs neither JAX nor the JAX package:
   (input/output embeddings and their AdaGrad accumulators) into a port
   ``Word2Vec``;
 * :func:`load_attention_lm_params` writes the JAX ``AttentionLM.params``
-  into a port ``AttentionLM``.
+  into a port ``AttentionLM``; :func:`check_attention_lm_params` is its
+  check, which the serving runner applies to the same dict.
 
 Each checks names, shapes and dtypes, so a mismatched pair of models
 fails loudly.
@@ -51,25 +52,34 @@ def load_word2vec_tables(w2v, w_in: np.ndarray, w_out: np.ndarray,
         table.store.load_state({"data": values})
 
 
-def load_attention_lm_params(lm, params: Mapping[str, np.ndarray]) -> None:
-    """Write the JAX package's ``AttentionLM.params`` (``np.asarray`` of
-    each leaf) into the port's ``AttentionLM``: the same names, the same
-    ``[in, out]`` layouts, float32. Adam's state is not carried."""
-    import torch
-
-    mine = dict(lm.named_parameters())
-    missing = sorted(set(mine) - set(params))
-    extra = sorted(set(params) - set(mine))
+def check_attention_lm_params(params: Mapping[str, np.ndarray],
+                              shapes: Mapping[str, tuple]) -> None:
+    """The JAX package's attention-LM parameters (``np.asarray`` of each
+    leaf) against the names and shapes a port model expects: the same
+    names, the same ``[in, out]`` layouts, float32. Raises before
+    anything is moved."""
+    missing = sorted(set(shapes) - set(params))
+    extra = sorted(set(params) - set(shapes))
     check(not missing and not extra,
           f"attention LM parameter names differ: missing {missing}, "
           f"unexpected {extra}")
     for name, value in params.items():
         value = np.asarray(value)
-        p = mine[name]
-        check(value.shape == tuple(p.shape),
-              f"{name}: shape {value.shape} != {tuple(p.shape)}")
+        check(value.shape == tuple(shapes[name]),
+              f"{name}: shape {value.shape} != {tuple(shapes[name])}")
         check(value.dtype == np.float32,
               f"{name}: dtype {value.dtype} != float32")
+
+
+def load_attention_lm_params(lm, params: Mapping[str, np.ndarray]) -> None:
+    """Write the JAX package's ``AttentionLM.params`` (``np.asarray`` of
+    each leaf) into the port's ``AttentionLM`` after
+    :func:`check_attention_lm_params`. Adam's state is not carried."""
+    import torch
+
+    mine = dict(lm.named_parameters())
+    check_attention_lm_params(params,
+                              {n: tuple(p.shape) for n, p in mine.items()})
     with torch.no_grad():
         for name, value in params.items():
             mine[name].copy_(torch.as_tensor(np.asarray(value)))

@@ -90,6 +90,18 @@ def init_params(cfg: LMConfig, device: Optional[torch.device] = None
     return params
 
 
+def dense_param_shapes(cfg: LMConfig) -> Dict[str, Tuple[int, ...]]:
+    """Names and shapes of the flat dense layout's parameters (the ones
+    :func:`init_params` draws without MoE), without drawing them."""
+    shapes = {"embed": (cfg.vocab, cfg.dim), "out": (cfg.dim, cfg.vocab)}
+    for i in range(cfg.layers):
+        shapes[f"qkv_{i}"] = (cfg.dim, 3 * cfg.dim)
+        shapes[f"attn_out_{i}"] = (cfg.dim, cfg.dim)
+        shapes[f"mlp_in_{i}"] = (cfg.dim, 4 * cfg.dim)
+        shapes[f"mlp_out_{i}"] = (4 * cfg.dim, cfg.dim)
+    return shapes
+
+
 def _ln(x: torch.Tensor) -> torch.Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, correction=0)

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, List
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "multiverso_tpu_torch"
-SOURCES = ("rows", "sgns", "stateful_rows", "attention")
+SOURCES = ("rows", "sgns", "stateful_rows", "attention", "paged_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]

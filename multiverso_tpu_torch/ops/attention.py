@@ -1,5 +1,6 @@
-"""Flash block attention (B6): the local block step of ring and Ulysses
-attention.
+"""Flash block attention (B6), the local block step of ring and Ulysses
+attention, and paged decode attention (B7), the serving step's read of
+the paged KV pool.
 
 Port of the B6 half of ``multiverso_tpu/ops/pallas_attention.py``
 (``flash_block_attn`` and ``supported``). :func:`flash_block_attn`
@@ -19,6 +20,15 @@ and trains through the plain ``_block_attn``. Called directly, the plain
 version is that training step: ``parallel/sequence.py`` runs it as the
 ring's block step with the flag off, and autograd differentiates it. The
 wrapper counts its kernel launches in ``LAUNCHES``.
+
+B7 is the port of ``paged_decode_attn`` of the same JAX module:
+:func:`paged_decode_attn` attends one decode token per slot over ONE
+layer's page pool through a page table, with the serving step's mask
+(key ``r`` valid iff ``r < len`` or ``bucket <= r <= bucket + t``), and
+returns the normalised float32 output. On CUDA tensors it launches the
+kernel of ``csrc/paged_attention.cu`` (or raises); on CPU tensors it runs
+:func:`paged_decode_attn_plain`, the JAX serving step's gather, mask and
+softmax line for line, which is also the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -33,9 +43,16 @@ from multiverso_tpu_torch.ops import _build
 NEG_INF = -1e30
 BLOCK = 128          # the TPU kernel's tile; Sq and Sk must divide by it
 MAX_HEAD_DIM = 256   # csrc/attention.cu kMaxD
+PAGED_MAX_HEAD_DIM = 256   # csrc/paged_attention.cu kMaxD
+PAGED_MAX_SMEM = 232448    # csrc/paged_attention.cu kMaxSmem
 
 #: Kernel launches, counted where the kernel is launched.
-LAUNCHES: Dict[str, int] = {"flash_block_attn": 0}
+LAUNCHES: Dict[str, int] = {"flash_block_attn": 0, "paged_decode_attn": 0}
+
+INT8_PAGES = (
+    "paged_decode_attn reads float32 or bfloat16 pages; int8 pages with "
+    "their scale planes are not ported yet: ROADMAP B7 (B7 with int8 "
+    "scale planes)")
 
 NO_BACKWARD = (
     "flash_block_attn has no backward: the JAX package cannot "
@@ -201,3 +218,145 @@ def flash_block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_off, k_off = _offsets(offsets)
     return _FlashBlockAttn.apply(q, k, v, bias, float(scale), bool(causal),
                                  q_off, k_off, on_card)
+
+
+# ---------------------------------------------------------------------------
+# B7: paged single-token decode attention.
+# ---------------------------------------------------------------------------
+def paged_decode_attn_plain(q: torch.Tensor, kp: torch.Tensor,
+                            vp: torch.Tensor, ptab: torch.Tensor,
+                            lengths: torch.Tensor, t: torch.Tensor, *,
+                            bucket: int, page: int,
+                            scale: float) -> torch.Tensor:
+    """The JAX serving step's read (``serving/continuous.py:442-454,
+    472-477``): gather every slot's pages into a ``[B, H, G*P, dh]``
+    logical cache (page ids clipped into the pool, as ``mode="clip"``),
+    mask, softmax with ``-inf``, product with V. Float32 out."""
+    B, H, dh = q.shape
+    G = ptab.shape[1]
+    idx = ptab.long().clamp(0, kp.shape[0] - 1).reshape(-1)
+
+    def gather(pool):
+        g = pool.index_select(0, idx).reshape(B, G, H, page, dh)
+        return g.transpose(1, 2).reshape(B, H, G * page, dh).float()
+
+    kf, vf = gather(kp), gather(vp)
+    key_slot = torch.arange(G * page, device=q.device)[None, :]
+    lengths = lengths.to(key_slot.dtype)[:, None]
+    t = t.to(key_slot.dtype)[:, None]
+    mask = (key_slot < lengths) | ((key_slot >= bucket)
+                                   & (key_slot <= bucket + t))
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), kf) * scale
+    probs = torch.softmax(s.masked_fill(~mask[:, None], float("-inf")),
+                          dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", probs, vf)
+
+
+def _paged_lib():
+    lib = _build.load("paged_attention")
+    if not getattr(lib, "_mv_typed", False):
+        c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.mv_paged_decode_attn.argtypes = [
+            c, c, c, c, c, c, c, i32, i32, i32, i32, i32, i64, i32, i32,
+            ctypes.c_float, i32, c]
+        lib.mv_paged_decode_attn.restype = ctypes.c_int
+        lib.mv_paged_decode_attn_smem_bytes.argtypes = [i32, i32]
+        lib.mv_paged_decode_attn_smem_bytes.restype = i64
+        lib._mv_typed = True
+    return lib
+
+
+def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
+    """Validate; True when the tensors lie on one CUDA device (launch the
+    kernel), False when all lie on the CPU (run the plain version)."""
+    tensors = (q, kp, vp, ptab, lengths, t)
+    devs = {x.device for x in tensors}
+    on_card = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    if not on_card and {d.type for d in devs} != {"cpu"}:
+        raise ValueError("paged_decode_attn takes tensors on one CUDA "
+                         "device or all on the CPU; got "
+                         f"{sorted(map(str, devs))}")
+    if kp.dtype == torch.int8 or vp.dtype == torch.int8:
+        raise NotImplementedError(INT8_PAGES)
+    if q.dim() != 3 or kp.dim() != 4 or vp.shape != kp.shape or \
+            kp.shape[1] != q.shape[1] or kp.shape[3] != q.shape[2] or \
+            kp.shape[2] != page:
+        raise ValueError(
+            "paged_decode_attn takes q [B,H,dh] and kp, vp [n_phys,H,page,"
+            f"dh] with page={page}; got {tuple(q.shape)}, "
+            f"{tuple(kp.shape)}, {tuple(vp.shape)}")
+    B = q.shape[0]
+    if ptab.dim() != 2 or ptab.shape[0] != B or \
+            tuple(lengths.shape) != (B,) or tuple(t.shape) != (B,):
+        raise ValueError(
+            f"paged_decode_attn takes ptab [B,G] and lengths, t [B] with "
+            f"B={B}; got {tuple(ptab.shape)}, {tuple(lengths.shape)}, "
+            f"{tuple(t.shape)}")
+    if q.dtype != torch.float32 or kp.dtype != vp.dtype or \
+            kp.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("paged_decode_attn takes float32 q and float32 or "
+                         f"bfloat16 pages; got {q.dtype}, {kp.dtype}, "
+                         f"{vp.dtype}")
+    for x in (ptab, lengths, t):
+        if x.dtype.is_floating_point or x.dtype == torch.bool:
+            raise ValueError("ptab, lengths and t must be integer tensors")
+    if on_card:
+        dh = q.shape[2]
+        if dh > PAGED_MAX_HEAD_DIM:
+            raise NotImplementedError(
+                f"paged_decode_attn on a card takes dh <= "
+                f"{PAGED_MAX_HEAD_DIM}; got dh={dh} (ROADMAP B7)")
+        smem = _paged_lib().mv_paged_decode_attn_smem_bytes(page, dh)
+        if smem > PAGED_MAX_SMEM:
+            raise NotImplementedError(
+                f"paged_decode_attn on a card stages a page of {page} x "
+                f"{dh} in shared memory; that needs {smem} bytes, more "
+                f"than a block's {PAGED_MAX_SMEM} (ROADMAP B7)")
+        inner = (page * dh, dh, 1)
+        if tuple(kp.stride()[1:]) != inner or kp.stride() != vp.stride():
+            raise ValueError(
+                "paged_decode_attn on a card needs each page's [H, page, "
+                "dh] block contiguous and kp, vp with equal strides; got "
+                f"{kp.stride()}, {vp.stride()}")
+    return on_card
+
+
+def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
+                  scale: float) -> torch.Tensor:
+    B, H, dh = q.shape
+    o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o
+    q = q.contiguous()
+    ptab, lengths, t = (x.to(torch.int32).contiguous()
+                        for x in (ptab, lengths, t))
+    err = _paged_lib().mv_paged_decode_attn(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptab.data_ptr(),
+        lengths.data_ptr(), t.data_ptr(), o.data_ptr(), B, H,
+        ptab.shape[1], page, dh, kp.stride(0), kp.shape[0], int(bucket),
+        float(scale), int(kp.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch(err, "paged_decode_attn")
+    LAUNCHES["paged_decode_attn"] += 1
+    return o
+
+
+def paged_decode_attn(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                      ptab: torch.Tensor, lengths: torch.Tensor,
+                      t: torch.Tensor, *, bucket: int, page: int,
+                      scale: float) -> torch.Tensor:
+    """One decode step of attention over paged KV storage.
+
+    ``q`` [B, H, dh] float32, this step's queries (one token per slot);
+    ``kp``/``vp`` [n_phys, H, page, dh] float32 or bfloat16, ONE layer of
+    the pool (``pool.kp[:, i]``: a strided view, each page's block
+    contiguous); ``ptab`` [B, G] the logical-to-physical page table;
+    ``lengths``/``t`` [B] the prompt lengths and per-slot step counters.
+    Returns the normalised attention output [B, H, dh] float32: a softmax
+    over each slot's valid keys (prompt, then generated so far). int8
+    pages raise ``NotImplementedError`` (ROADMAP B7)."""
+    if _check_paged(q, kp, vp, ptab, lengths, t, page):
+        return _launch_paged(q, kp, vp, ptab, lengths, t, bucket, page,
+                             scale)
+    return paged_decode_attn_plain(q, kp, vp, ptab, lengths, t,
+                                   bucket=bucket, page=page, scale=scale)

@@ -1,0 +1,696 @@
+"""Dynamic micro-batcher: the admission + coalescing stage of the serving
+plane.
+
+Port of ``multiverso_tpu/serving/batcher.py``. The tail-exemplar offers
+to the phase-ledger reservoir (``telemetry/critical_path.py``) wait with
+the rest of the telemetry exporters (ROADMAP A11). The port adds two
+histograms read from the device clock (``serving/device_clock.py``):
+``serve.latency.first_token`` (submit to the first token computed on the
+device) and ``serve.latency.per_token`` (device time between a request's
+first and last token over its ``max_new - 1`` steps), observed for
+runners that report ``token_times``.
+
+Concurrent point requests (a handful of embedding rows, one decode prompt)
+are individually far too small to feed a card; the batcher coalesces them
+into pad-to-bucket shapes so the runner underneath sees one fixed shape
+per ladder bucket (the JAX package compiles one executable per bucket;
+the port keeps the same shapes, so one set of cache tensors per bucket).
+The batch dimension is always padded to ``max_batch`` for the same
+reason.
+
+Admission control is deadline-aware: the queue is bounded, and when it
+overflows the request that dies is the one whose deadline is nearest —
+it was the least likely to make it anyway, and shedding it preserves the
+most aggregate slack. Requests that expire while queued are shed at batch
+formation instead of wasting device time. Overload therefore degrades to
+a bounded queue + rising shed counters, never an unbounded backlog
+(``serve.shed.*`` counters + ``serve.queue_depth`` gauge tell the story).
+
+Dispatch is PIPELINED when the runner speaks the two-phase contract
+(``dispatch``/``collect`` — serving/pipeline.py): the worker gathers,
+pads, and launches batch ``k+1`` while batch ``k`` is still on device,
+and a collector thread syncs + delivers in FIFO order. Batching turns
+adaptive with it: the head request waits for company ONLY while the
+dispatch window is full (the device is the bottleneck and waiting is
+free); with a free slot it dispatches immediately, so an idle service
+adds zero artificial batching latency instead of the fixed
+``max_wait_ms``. A runner without the contract (or
+``pipeline_depth<2``) keeps the serialized gather->run->deliver loop
+bit-for-bit.
+
+A runner may also answer a request host-side at ADMISSION via
+``try_cached`` (the hot-row cache, serving/cache.py): a fully-hot
+request skips the queue, the batch, and the device entirely.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from multiverso_tpu_torch.telemetry import (child_of, counter,
+                                            current_context, emit_span,
+                                            gauge, histogram, span,
+                                            watchdog_scope)
+from multiverso_tpu_torch.telemetry.context import TraceContext
+from multiverso_tpu_torch.utils.locks import make_condition, make_lock
+from multiverso_tpu_torch.utils.log import check, log
+
+
+class ShedError(RuntimeError):
+    """Request rejected: admission control shed it or its deadline passed
+    before service. Carries ``reason`` in {"queue_full", "deadline",
+    "oversize", "malformed", "cancelled", "closed"} ("server"
+    client-side, when the reason string arrived over the wire)."""
+
+    def __init__(self, reason: str, detail: str = ""):
+        super().__init__(f"request shed ({reason})"
+                         + (f": {detail}" if detail else ""))
+        self.reason = reason
+
+
+class BucketLadder:
+    """Fixed, sorted ladder of padded payload lengths."""
+
+    def __init__(self, buckets: Sequence[int]):
+        check(len(buckets) > 0, "bucket ladder must not be empty")
+        self.buckets: Tuple[int, ...] = tuple(sorted({int(b)
+                                                      for b in buckets}))
+        check(self.buckets[0] >= 1, "buckets must be >= 1")
+
+    def pick(self, n: int) -> Optional[int]:
+        """Smallest bucket >= n, or None when n exceeds the ladder."""
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return None
+
+    @property
+    def max(self) -> int:
+        return self.buckets[-1]
+
+
+# ---------------------------------------------------------------------------
+# Per-batcher queue gauges. `serve.queue_depth`/`serve.queue_bound` used
+# to be single last-writer-wins gauges: with several batchers in one
+# process (multi-runner services, in-process tests) the LAST-constructed
+# bound clobbered the rest, so the queue-saturation alert could compare
+# one batcher's depth against another's bound. Each live batcher now owns
+# a slot-indexed gauge pair (`serve.queue_{depth,bound}.batcher_<i>` —
+# the bounded `_<i>` family shape; slots are REUSED on close, so gauge
+# cardinality is bounded by peak concurrent batchers, not by churn) and
+# the unlabeled process-wide gauges are SUMS across live batchers — the
+# coherent aggregate the SaturationRule reads.
+# ---------------------------------------------------------------------------
+_slots_lock = make_lock("serve.slots")
+_slots: dict = {}
+_totals = {"depth": 0, "bound": 0}   # running sums over live batchers
+
+
+def _acquire_batcher_slot(batcher) -> int:
+    with _slots_lock:
+        idx = 0
+        while idx in _slots:
+            idx += 1
+        _slots[idx] = batcher
+        return idx
+
+
+def _release_batcher_slot(idx: int) -> None:
+    with _slots_lock:
+        _slots.pop(idx, None)
+
+
+def _adjust_queue_totals(d_depth: int, d_bound: int = 0) -> None:
+    """O(1) delta maintenance of the process-wide sums — the per-request
+    path must not re-sum every live batcher under a global lock. Each
+    batcher's own delta is exact (computed under its cv), so the running
+    totals stay exact; clamped at 0 as a belt against a torn shutdown.
+    Gauge factories are looked up per call so telemetry resets between
+    tests never detach the published values."""
+    with _slots_lock:
+        _totals["depth"] = max(0, _totals["depth"] + int(d_depth))
+        _totals["bound"] = max(0, _totals["bound"] + int(d_bound))
+        # Publish INSIDE the lock: compute-then-publish outside lets two
+        # concurrent adjustments land out of order and leave the summed
+        # gauges stale at the older value until the next adjustment.
+        gauge("serve.queue_depth").set(_totals["depth"])
+        gauge("serve.queue_bound").set(_totals["bound"])
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """One queued request. ``on_done`` receives either the result row
+    (runner-sliced) or a :class:`ShedError`; it runs on the batcher worker
+    thread and must be cheap (hand the bytes to an IO layer, set an
+    event). ``ctx`` is the trace context active at submission — the
+    batcher worker emits this request's per-stage spans under it (the
+    submit thread's thread-local stack does not reach the worker).
+    ``cancelled`` is set by :meth:`DynamicBatcher.cancel` (hedged-loser
+    server-side cancel); a cancelled request is dropped at batch
+    formation instead of spending device time on a discarded answer."""
+    payload: np.ndarray
+    deadline: float                      # absolute time.monotonic()
+    t_submit: float
+    on_done: Callable[[object], None]
+    ctx: Optional[TraceContext] = None
+    cancelled: bool = False
+    # Phase-ledger boundary (telemetry/critical_path.py): when admission
+    # work (validation + cache probe) finished and the request entered
+    # the queue. 0.0 = not stamped; readers fall back to t_submit.
+    t_enqueue: float = 0.0
+
+
+class _Future:
+    """Event + slot future for the synchronous submit surface."""
+
+    __slots__ = ("event", "slot")
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.slot: List[object] = []
+
+    def deliver(self, result: object) -> None:
+        self.slot.append(result)
+        self.event.set()
+
+    def wait(self, timeout: Optional[float] = None):
+        # the caller's whole-residency wait: measured end-to-end by the
+        # root serve span + serve.latency.total, not a hidden phase
+        # graftlint: disable=unattributed-wait
+        check(self.event.wait(timeout), "serve request timed out")
+        result = self.slot[0]
+        if isinstance(result, BaseException):
+            raise result
+        return result
+
+
+class DynamicBatcher:
+    """Coalesces requests for ONE runner into padded bucket-shaped batches.
+
+    Knobs: ``max_batch`` (coalescing width — also the padded batch dim),
+    ``max_wait_ms`` (how long the head request may wait for company),
+    ``max_queue`` (admission bound: queued-but-unbatched requests)."""
+
+    def __init__(self, runner, buckets: Sequence[int],
+                 max_batch: int = 8, max_wait_ms: float = 2.0,
+                 max_queue: int = 64, pipeline_depth=0):
+        from multiverso_tpu_torch.serving.pipeline import make_pipeline
+
+        self.runner = runner
+        self.ladder = BucketLadder(buckets)
+        self.max_batch = max(1, int(max_batch))
+        self.max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
+        self.max_queue = max(1, int(max_queue))
+        self._cv = make_condition("serve.batcher.cv")
+        self._queue: "collections.deque[ServeRequest]" = collections.deque()
+        self._running = True
+        self._busy = False      # a batch is mid-dispatch (quiesce barrier)
+        # Depth-N double-buffered dispatch (serving/pipeline.py); None =
+        # the serialized path (runner lacks dispatch/collect, or depth<2).
+        self._pipeline = make_pipeline(runner, pipeline_depth)
+        # Telemetry (docs/OBSERVABILITY.md catalog, serve.* family).
+        # Each batcher owns a slot-labeled depth/bound gauge pair; the
+        # unlabeled serve.queue_depth/serve.queue_bound the saturation
+        # alert reads are the SUMS across live batchers (see the module
+        # comment — the old single gauges were last-writer-wins).
+        self._depth = 0
+        self._slot = _acquire_batcher_slot(self)
+        self._g_depth = gauge(f"serve.queue_depth.batcher_{self._slot}")
+        self._g_depth.set(0)
+        self._g_bound = gauge(f"serve.queue_bound.batcher_{self._slot}")
+        self._g_bound.set(self.max_queue)
+        _adjust_queue_totals(0, self.max_queue)
+        self._g_inflight = gauge("serve.inflight")
+        self._c_requests = counter("serve.requests")
+        self._c_batches = counter("serve.batches")
+        self._c_shed_full = counter("serve.shed.queue_full")
+        self._c_shed_deadline = counter("serve.shed.deadline")
+        self._c_shed_oversize = counter("serve.shed.oversize")
+        self._c_cancelled = counter("serve.cancelled")
+        self._h_admit = histogram("serve.latency.admit")
+        self._h_batch = histogram("serve.latency.batch")
+        self._h_device = histogram("serve.latency.device")
+        self._h_dispatch = histogram("serve.latency.dispatch")
+        self._h_first = histogram("serve.latency.first_token")
+        self._h_per_token = histogram("serve.latency.per_token")
+        self._worker = threading.Thread(target=self._loop,
+                                        name="serve-batcher", daemon=True)
+        self._worker.start()
+
+    @property
+    def pipeline_depth(self) -> int:
+        """Resolved dispatch-window depth (0 = serialized path) — what
+        the fleet heartbeat reports next to the occupancy gauge."""
+        return self._pipeline.depth if self._pipeline is not None else 0
+
+    def _set_depth(self, depth: int) -> None:
+        """This batcher's labeled depth gauge + an exact delta into the
+        process-wide sum (callers hold this batcher's cv, so the delta
+        against the previous value cannot race itself)."""
+        depth = int(depth)
+        delta = depth - self._depth
+        self._depth = depth
+        self._g_depth.set(depth)
+        if delta:
+            _adjust_queue_totals(delta)
+
+    # -- submission ---------------------------------------------------------
+    def submit(self, payload: np.ndarray,
+               deadline_ms: float = 100.0) -> _Future:
+        """Synchronous-friendly submit: returns a future; ``wait()`` raises
+        :class:`ShedError` if the request was shed."""
+        fut = _Future()
+        self.submit_callback(payload, deadline_ms, fut.deliver)
+        return fut
+
+    def submit_callback(self, payload: np.ndarray, deadline_ms: float,
+                        on_done: Callable[[object], None]
+                        ) -> Optional[ServeRequest]:
+        """Admission-controlled enqueue; sheds synchronously (via
+        ``on_done``) when the request cannot be admitted. Returns the
+        admitted request as a CANCEL TOKEN for :meth:`cancel` (None when
+        the request was shed at admission)."""
+        now = time.monotonic()
+        payload = np.atleast_1d(np.asarray(payload))
+        if payload.ndim != 1:
+            # Reject at admission: a 2-D/ragged payload would blow up in
+            # batch formation and take innocent batch-mates with it (a
+            # remote client controls this value).
+            on_done(ShedError("malformed",
+                              f"payload must be 1-D, got shape "
+                              f"{payload.shape}"))
+            return None
+        if self.ladder.pick(payload.shape[0]) is None:
+            self._c_shed_oversize.inc()
+            on_done(ShedError("oversize",
+                              f"payload length {payload.shape[0]} exceeds "
+                              f"largest bucket {self.ladder.max}"))
+            return None
+        if deadline_ms > 0.0:
+            # Hot-row cache fast path: a fully-hot request is answered on
+            # the submit thread — no queue, no batch, no device. Already-
+            # expired requests (deadline_ms<=0) keep the shed semantics.
+            hit = self._try_cached(payload)
+            if hit is not None:
+                self._c_requests.inc()
+                ctx = current_context()
+                if ctx is not None and ctx.sampled:
+                    emit_span("serve.cache_hit", child_of(ctx), now,
+                              (time.monotonic() - now) * 1e3,
+                              keys=int(payload.shape[0]))
+                on_done(hit)
+                return None
+        req = ServeRequest(payload=payload,
+                           deadline=now + max(deadline_ms, 0.0) / 1e3,
+                           t_submit=now, on_done=on_done,
+                           ctx=current_context())
+        # Phase ledger: admission ends / queue begins HERE. Stamped
+        # before the enqueue so the worker can never observe the request
+        # without it; the admission span (validation + cache probe) is
+        # emitted only for sampled traces.
+        req.t_enqueue = time.monotonic()
+        if req.ctx is not None and req.ctx.sampled:
+            emit_span("serve.admission", child_of(req.ctx), now,
+                      (req.t_enqueue - now) * 1e3)
+        shed: List[Tuple[ServeRequest, ShedError]] = []
+        with self._cv:
+            if not self._running:
+                shed.append((req, ShedError("closed", "batcher is closed")))
+            else:
+                self._admit_locked(req, now, shed)
+                self._set_depth(len(self._queue))
+                self._cv.notify()
+        for victim, err in shed:
+            victim.on_done(err)
+        return None if any(v is req for v, _ in shed) else req
+
+    def _try_cached(self, payload: np.ndarray) -> Optional[np.ndarray]:
+        fn = getattr(self.runner, "try_cached", None)
+        if fn is None:
+            return None
+        try:
+            return fn(payload)
+        except Exception as e:  # noqa: BLE001 - a hostile payload falls
+            log.error("serve batcher: cache probe failed: %s", e)  # back
+            return None                          # to the guarded device path
+
+    def cancel(self, req: ServeRequest) -> bool:
+        """Server-side hedged-loser cancel: drop ``req`` at admission if
+        it is still queued (delivering ``ShedError("cancelled")`` so the
+        waiter/inflight bookkeeping completes), or mark it so batch
+        formation skips it. Returns True when the request will NOT reach
+        the device; False when it already has (too late — the normal
+        reply wins and the client discards it)."""
+        with self._cv:
+            req.cancelled = True
+            try:
+                self._queue.remove(req)
+                removed = True
+                self._set_depth(len(self._queue))
+            except ValueError:
+                removed = False
+        if removed:
+            self._c_cancelled.inc()
+            self._safe_done(req, ShedError("cancelled",
+                                           "hedged loser cancelled"))
+        return removed
+
+    def _admit_locked(self, req: ServeRequest, now: float,
+                      shed: List[Tuple[ServeRequest, ShedError]]) -> None:
+        """Deadline-aware admission: expired entries are purged first;
+        if the queue is still at the bound, the earliest-deadline request
+        (queued OR incoming) is the one shed."""
+        if len(self._queue) >= self.max_queue:
+            live = []
+            for r in self._queue:
+                if r.deadline < now:
+                    self._c_shed_deadline.inc()
+                    shed.append((r, ShedError("deadline",
+                                              "expired while queued")))
+                else:
+                    live.append(r)
+            self._queue = collections.deque(live)
+        if len(self._queue) >= self.max_queue:
+            victim = min(self._queue, key=lambda r: r.deadline)
+            self._c_shed_full.inc()
+            if victim.deadline <= req.deadline:
+                self._queue.remove(victim)
+                shed.append((victim, ShedError("queue_full",
+                                               "admission bound exceeded")))
+                self._queue.append(req)
+            else:
+                shed.append((req, ShedError("queue_full",
+                                            "admission bound exceeded")))
+            return
+        self._queue.append(req)
+
+    # -- batch formation + dispatch -----------------------------------------
+    def _loop(self) -> None:
+        # Wedge watchdog: the idle wait inside _gather_batch wakes every
+        # 0.2s and beats, so an idle batcher never trips — only a loop
+        # genuinely stuck (runner wedged, poisoned lock) ages past the
+        # timeout and dumps a postmortem (telemetry/flight.py).
+        with watchdog_scope("serve-batcher", timeout_s=60.0) as wd:
+            self._wd = wd
+            while True:
+                wd.beat()
+                batch = self._gather_batch()
+                if batch is None:
+                    if self._pipeline is not None:
+                        self._pipeline.close()
+                    return
+                if not batch:
+                    self._busy = False      # popped entries all expired
+                    continue
+                self._c_requests.inc(len(batch))
+                if self._pipeline is not None:
+                    try:
+                        self._dispatch_batch(batch)
+                    finally:
+                        self._busy = False
+                    continue
+                self._g_inflight.set(len(batch))
+                try:
+                    self._run_batch(batch)
+                finally:
+                    self._busy = False
+                self._g_inflight.set(0)
+
+    def quiesce(self, timeout_s: float = 30.0) -> bool:
+        """Block until the queue is empty AND no batch is mid-dispatch
+        (including every batch still riding the dispatch pipeline) — the
+        drain barrier a rolling checkpoint swap needs before touching
+        the runner's weights. New submissions are NOT blocked (a draining
+        fleet replica keeps serving; it just waits for a quiet instant),
+        so under sustained load this can time out: returns False then."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        while time.monotonic() < deadline:
+            with self._cv:
+                idle = not self._queue and not self._busy
+            if idle and (self._pipeline is None or self._pipeline.empty()):
+                return True
+            # Deliberately tight + constant: quiesce hunts a transient
+            # quiet instant under live traffic; backing off would make
+            # it MISS the gap it is waiting for.
+            time.sleep(0.002)  # graftlint: disable=poll-loop-no-backoff
+        return False
+
+    def _gather_batch(self) -> Optional[List[ServeRequest]]:
+        """Blocks for the head request, then waits up to ``max_wait_ms``
+        (from the head's submit) for company; sheds expired entries.
+        PIPELINED mode waits only while the dispatch window is full
+        (waiting is free when the device is busy; with a free slot an
+        immediate dispatch beats any amount of coalescing). Returns None
+        on shutdown with an empty queue."""
+        with self._cv:
+            while self._running and not self._queue:
+                self._cv.wait(0.2)
+                self._wd.beat()     # idle is progress, not a wedge
+            if not self._queue:
+                return None         # shutdown
+            head = self._queue[0]
+            flush_at = head.t_submit + self.max_wait_s
+            while (self._running and len(self._queue) < self.max_batch
+                   and time.monotonic() < flush_at):
+                if self._pipeline is not None and not self._pipeline.full():
+                    break           # free dispatch slot: go now
+                self._cv.wait(max(flush_at - time.monotonic(), 1e-4))
+            batch = [self._queue.popleft()
+                     for _ in range(min(self.max_batch, len(self._queue)))]
+            if batch:
+                # Atomic with the pop, under the cv: quiesce() must never
+                # observe "queue empty, not busy" while a just-gathered
+                # batch is on its way to dispatch — that window is exactly
+                # the straddling batch the drain barrier exists to stop.
+                self._busy = True
+            self._set_depth(len(self._queue))
+        now = time.monotonic()
+        live: List[ServeRequest] = []
+        for r in batch:
+            if r.cancelled:
+                # Hedged loser whose cancel raced the pop: still before
+                # the device — dropping it here is the whole point.
+                self._c_cancelled.inc()
+                self._safe_done(r, ShedError("cancelled",
+                                             "hedged loser cancelled"))
+            elif r.deadline < now:
+                self._c_shed_deadline.inc()
+                self._safe_done(r, ShedError("deadline",
+                                             "expired while queued"))
+            else:
+                self._h_admit.observe((now - r.t_submit) * 1e3)
+                live.append(r)
+        return live
+
+    def _form_batch(self, batch: List[ServeRequest], t0: float):
+        """Pad the batch into its bucket-shaped matrix — the ONE
+        formation path shared by the serialized and pipelined loops
+        (padding/dtype/bucket fixes must never diverge between them)."""
+        bucket = self.ladder.pick(max(r.payload.shape[0] for r in batch))
+        dtype = getattr(self.runner, "payload_dtype", np.int32)
+        pad_id = getattr(self.runner, "pad_id", 0)
+        mat = np.full((self.max_batch, bucket), pad_id, dtype=dtype)
+        lengths = np.zeros(self.max_batch, dtype=np.int32)
+        for i, r in enumerate(batch):
+            n = r.payload.shape[0]
+            mat[i, :n] = r.payload
+            lengths[i] = n
+        self._h_batch.observe((time.monotonic() - t0) * 1e3)
+        return mat, lengths, bucket
+
+    def _run_batch(self, batch: List[ServeRequest]) -> None:
+        """Exactly-once delivery: each request's ``on_done`` runs once no
+        matter where a failure lands — a runner error sheds the whole
+        batch (none delivered yet), and a per-request delivery/slice
+        error is contained to that request (already-answered siblings
+        must never see a second, contradictory callback)."""
+        t0 = time.monotonic()
+        try:
+            # Formation is inside the guard too: admission validates
+            # payload rank, but a dtype a runner can't cast must shed the
+            # batch, never kill the worker thread (one hostile client
+            # would otherwise wedge the service for everyone).
+            mat, lengths, bucket = self._form_batch(batch, t0)
+            t1 = time.monotonic()
+            with span("serve.batch",
+                      runner=getattr(self.runner, "name", "?"),
+                      bucket=bucket, size=len(batch)):
+                out = self.runner.run(mat, lengths)
+        except Exception as e:  # noqa: BLE001 - a poisoned batch must not
+            log.error("serve batcher: batch failed: %s", e)   # kill the
+            for r in batch:                                   # worker
+                self._safe_done(r, ShedError("closed",
+                                             f"runner error: {e}"))
+            return
+        self._c_batches.inc()
+        t2 = time.monotonic()
+        self._h_device.observe((t2 - t1) * 1e3)
+        for r in batch:
+            # Per-request stage spans for sampled traces: where did THIS
+            # request wait (admit), pad (batch-form), and compute
+            # (device)? Unsampled/uncontexted requests skip at the flag
+            # check — the emission cost rides only on sampled exemplars.
+            if r.ctx is not None and r.ctx.sampled:
+                t_enq = r.t_enqueue or r.t_submit
+                emit_span("serve.admit_wait", child_of(r.ctx), t_enq,
+                          (t0 - t_enq) * 1e3)
+                emit_span("serve.batch_form", child_of(r.ctx), t0,
+                          (t1 - t0) * 1e3, bucket=bucket, size=len(batch))
+                emit_span("serve.device", child_of(r.ctx), t1,
+                          (t2 - t1) * 1e3, bucket=bucket)
+        for i, r in enumerate(batch):
+            try:
+                result = self.runner.slice_result(out, i, int(lengths[i]))
+            except Exception as e:  # noqa: BLE001 - contain to request i
+                log.error("serve batcher: result slice failed: %s", e)
+                result = ShedError("closed", f"runner error: {e}")
+            self._safe_done(r, result)
+
+    # -- pipelined dispatch (serving/pipeline.py) ---------------------------
+    def _dispatch_batch(self, batch: List[ServeRequest]) -> None:
+        """Form + LAUNCH the batch without waiting for the device, then
+        hand it to the pipeline window; delivery happens on the collector
+        thread in FIFO order. Formation/dispatch failures shed the whole
+        batch (nothing delivered yet) — the same exactly-once contract
+        as the serialized path."""
+        from multiverso_tpu_torch.serving.pipeline import InflightBatch
+
+        t0 = time.monotonic()
+        # Reserve the window slot BEFORE launching: the bound is on
+        # device in-flight work, so dispatching first would let depth+1
+        # batches ride the device while the producer blocks. Formation
+        # below still overlaps the device (the wait is the backpressure).
+        if not self._pipeline.wait_for_slot():
+            for r in batch:
+                self._safe_done(r, ShedError("closed",
+                                             "batcher is closed"))
+            return
+        try:
+            mat, lengths, bucket = self._form_batch(batch, t0)
+            t1 = time.monotonic()
+            handle = self.runner.dispatch(mat, lengths)
+        except Exception as e:  # noqa: BLE001 - a poisoned batch must not
+            log.error("serve batcher: dispatch failed: %s", e)  # kill the
+            for r in batch:                                     # worker
+                self._safe_done(r, ShedError("closed",
+                                             f"runner error: {e}"))
+            return
+        # Phase ledger: dispatch (the async launch call) ends here; the
+        # stretch to the collector's pickup is device-window residency.
+        t_d = time.monotonic()
+        self._h_dispatch.observe((t_d - t1) * 1e3)
+        item = InflightBatch(handle, self.runner.collect,
+                             self._deliver_collected, len(batch),
+                             meta=(batch, lengths, bucket, t0, t1, t_d))
+        if not self._pipeline.submit(item):      # pipeline closed
+            for r in batch:
+                self._safe_done(r, ShedError("closed",
+                                             "batcher is closed"))
+            return
+        self._g_inflight.set(self._pipeline.inflight_requests())
+
+    def _deliver_collected(self, item, result) -> None:
+        """Collector-thread delivery for one pipelined batch: the result
+        is the synced batch output, or the exception that killed
+        collection (shed the whole batch — none delivered yet)."""
+        batch, lengths, bucket, t0, t1, t_d = item.meta
+        t2 = time.monotonic()
+        # Collector pickup stamp (serving/pipeline.py sets it right
+        # before calling collect): splits window residency (device) from
+        # the host-side sync (collect). Absent stamp -> zero-width
+        # collect, never a negative device phase.
+        t_c0 = getattr(item, "t_collect0", 0.0) or t2
+        if isinstance(result, BaseException):
+            for r in batch:
+                self._safe_done(r, ShedError("closed",
+                                             f"runner error: {result}"))
+            self._g_inflight.set(max(0, self._pipeline.inflight_requests()
+                                     - item.n_requests))
+            return
+        self._c_batches.inc()
+        # In pipelined mode "device" spans dispatch -> collected: launch,
+        # window queueing, execution, and the sync — the whole stretch the
+        # request is owned by the device side.
+        self._h_device.observe((t2 - t1) * 1e3)
+        for r in batch:
+            if r.ctx is not None and r.ctx.sampled:
+                t_enq = r.t_enqueue or r.t_submit
+                emit_span("serve.admit_wait", child_of(r.ctx), t_enq,
+                          (t0 - t_enq) * 1e3)
+                emit_span("serve.batch_form", child_of(r.ctx), t0,
+                          (t1 - t0) * 1e3, bucket=bucket, size=len(batch))
+                emit_span("serve.dispatch", child_of(r.ctx), t1,
+                          (t_d - t1) * 1e3, bucket=bucket)
+                emit_span("serve.device", child_of(r.ctx), t_d,
+                          (t_c0 - t_d) * 1e3, bucket=bucket, pipelined=1)
+                emit_span("serve.collect", child_of(r.ctx), t_c0,
+                          (t2 - t_c0) * 1e3, bucket=bucket)
+        for i, r in enumerate(batch):
+            try:
+                sliced = self.runner.slice_result(result, i,
+                                                  int(lengths[i]))
+            except Exception as e:  # noqa: BLE001 - contain to request i
+                log.error("serve batcher: result slice failed: %s", e)
+                sliced = ShedError("closed", f"runner error: {e}")
+            self._safe_done(r, sliced)
+        self._observe_token_times(batch, item.handle)
+        # This batch still counts in inflight_requests() until the
+        # collector loop's post-deliver decrement; subtract it so the
+        # gauge reads 0 at true idle.
+        self._g_inflight.set(max(0, self._pipeline.inflight_requests()
+                                 - item.n_requests))
+
+    def _observe_token_times(self, batch: List[ServeRequest],
+                             handle) -> None:
+        """First-token and per-token latency of one delivered batch, for
+        runners that read them from the device clock."""
+        fn = getattr(self.runner, "token_times", None)
+        if fn is None:
+            return
+        first, per_token_ms = fn(handle)
+        for r in batch:
+            self._h_first.observe((first - r.t_submit) * 1e3)
+            if per_token_ms is not None:
+                self._h_per_token.observe(per_token_ms)
+
+    @staticmethod
+    def _safe_done(req: ServeRequest, result: object) -> None:
+        try:
+            req.on_done(result)
+        except Exception as e:  # noqa: BLE001 - a callback raise must not
+            log.error("serve batcher: on_done callback failed: %s", e)
+            # poison sibling deliveries or re-enter delivery for this req
+
+    # -- lifecycle -----------------------------------------------------------
+    def close(self) -> None:
+        with self._cv:
+            # Idempotent: a second close (explicit close + service
+            # close is a normal shutdown sequence) must not subtract
+            # this batcher's bound from the shared totals again, nor
+            # re-free a slot a newer batcher may have since reused.
+            if getattr(self, "_closed", False):
+                return
+            self._closed = True
+            self._running = False
+            pending = list(self._queue)
+            self._queue.clear()
+            self._cv.notify_all()
+        for r in pending:
+            self._safe_done(r, ShedError("closed", "batcher is closed"))
+        self._worker.join(timeout=10)
+        # Leave the aggregate gauges coherent: subtract this batcher
+        # from the sums and zero its labeled gauges BEFORE freeing the
+        # slot — release-first would let a concurrent construction
+        # reuse the index and have its freshly-set bound clobbered to 0.
+        residual = self._depth
+        self._depth = 0
+        self._g_depth.set(0)
+        self._g_bound.set(0)
+        _adjust_queue_totals(-residual, -self.max_queue)
+        _release_batcher_slot(self._slot)

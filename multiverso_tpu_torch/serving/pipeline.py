@@ -1,0 +1,299 @@
+"""Depth-N double-buffered device dispatch for the serving plane.
+
+Port of ``multiverso_tpu/serving/pipeline.py``. Batch ``k+1`` is
+gathered, padded and *dispatched* while batch ``k`` is still on the
+device, and a dedicated collector thread syncs batches in FIFO order and
+runs delivery. Up to ``depth`` batches are in flight; beyond that the
+batcher blocks in :meth:`DispatchPipeline.submit` (bounded backpressure).
+
+Depth AUTO probes the host's dispatch + sync latency once per device and
+picks the shallowest window that still hides it. The port's probe is a
+trivial CUDA launch (``x + 1`` on an 8-element tensor) followed by
+``torch.cuda.synchronize()``, on the card the runner serves from (on the
+CPU: the same op, which runs synchronously). The thresholds are the JAX
+package's decision table; what the probe reads on the H100 and the depth
+it picks are recorded in PERF.md, printed by ``chip_smoke.py``.
+
+Occupancy is exported as ``serve.pipeline.inflight`` next to
+``serve.pipeline.depth`` and a ``serve.pipeline.batches`` counter.
+"""
+
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+
+from multiverso_tpu_torch.telemetry import counter, gauge, watchdog_scope
+from multiverso_tpu_torch.utils.locks import make_condition
+from multiverso_tpu_torch.utils.log import check, log
+
+# Depth decision table (AUTO): measured one-dispatch round-trip latency
+# -> in-flight window. Below DISPATCH_FAST_MS a double buffer already
+# hides the launch; between the thresholds one extra slot absorbs jitter;
+# above DISPATCH_SLOW_MS (tunneled links) the window deepens so the host
+# keeps dispatching while early batches ride out the link latency.
+DISPATCH_FAST_MS = 1.0
+DISPATCH_SLOW_MS = 10.0
+MAX_AUTO_DEPTH = 4
+
+_probe_lock = threading.Lock()
+_probe_cache: Dict[str, float] = {}
+
+
+def measured_dispatch_latency_ms(device=None, n: int = 7) -> float:
+    """Median latency of a trivial launch + sync on ``device`` (the card
+    when None and one is present, else the CPU), measured once per device
+    type per process and cached (serving may resolve a depth per
+    registered runner; the hardware does not change between them)."""
+    import torch
+
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    with _probe_lock:
+        if device.type in _probe_cache:
+            return _probe_cache[device.type]
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        x = torch.zeros(8, dtype=torch.float32, device=device)
+        # _probe_lock held across the sync ON PURPOSE: one prober per
+        # process; concurrent resolvers wait for the cached median.
+        x + 1.0                             # warm the launch path
+        sync()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            x + 1.0
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        _probe_cache[device.type] = float(np.median(times))
+        return _probe_cache[device.type]
+
+
+def resolve_pipeline_depth(value, device=None) -> int:
+    """Resolve the ``-serve_pipeline_depth`` flag into an in-flight depth.
+
+    * an int (or int string) >= 2 — use it verbatim;
+    * ``1`` or ``0`` — serialized dispatch (the pre-pipeline path);
+    * ``"auto"`` — probe the dispatch latency on ``device`` and apply
+      the decision table: fast launches -> 2, mid -> 3, slow -> 4.
+    """
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if v in ("", "auto"):
+            value = None
+        else:
+            try:
+                value = int(v)
+            except ValueError:
+                check(False, f"-serve_pipeline_depth must be an int or "
+                      f"'auto'; got {value!r}")
+    if value is not None:
+        return max(0, int(value))
+    lat = measured_dispatch_latency_ms(device)
+    if lat < DISPATCH_FAST_MS:
+        depth = 2
+    elif lat < DISPATCH_SLOW_MS:
+        depth = 3
+    else:
+        depth = MAX_AUTO_DEPTH
+    log.info("serve pipeline auto: dispatch latency %.3fms -> depth %d",
+             lat, depth)
+    return depth
+
+
+class InflightBatch:
+    """One dispatched-but-uncollected batch riding the pipeline window.
+
+    ``handle`` is whatever the runner's ``dispatch`` returned (device
+    arrays still executing); ``collect`` is called on the collector
+    thread to sync it, ``deliver`` with the synced result OR the
+    exception that killed collection. Timing fields feed the per-stage
+    spans/histograms the batcher emits at delivery."""
+
+    __slots__ = ("handle", "collect", "deliver", "n_requests",
+                 "t_dispatch", "t_collect0", "meta")
+
+    def __init__(self, handle, collect: Callable[[object], object],
+                 deliver: Callable[["InflightBatch", object], None],
+                 n_requests: int, meta=None):
+        self.handle = handle
+        self.collect = collect
+        self.deliver = deliver
+        self.n_requests = max(0, int(n_requests))
+        self.t_dispatch = time.monotonic()
+        # Collector pickup stamp (set by _run_collect just before
+        # collect()): the phase-ledger boundary between device-window
+        # residency and the host-side sync (critical_path.py).
+        self.t_collect0 = 0.0
+        self.meta = meta
+
+
+class DispatchPipeline:
+    """Bounded FIFO of in-flight batches + the collector thread.
+
+    ``submit`` blocks while ``depth`` batches are already in flight —
+    that wait IS the backpressure mechanism, overlapped by the younger
+    queued batches exactly like ``_DispatchQueue.push``. The collector
+    syncs the OLDEST batch (FIFO keeps per-runner delivery order, which
+    the lookup runners' ``last_clock`` stamping relies on) and runs the
+    batcher's delivery callback outside the pipeline lock."""
+
+    def __init__(self, depth: int):
+        self.depth = max(2, int(depth))
+        self._cv = make_condition("serve.pipeline.cv")
+        self._fifo: "collections.deque[InflightBatch]" = collections.deque()
+        self._collecting = False     # oldest batch popped, mid-delivery
+        self._inflight_reqs = 0
+        self._running = True
+        self._g_inflight = gauge("serve.pipeline.inflight")
+        self._g_depth = gauge("serve.pipeline.depth")
+        self._g_depth.set(self.depth)
+        self._c_batches = counter("serve.pipeline.batches")
+        self._c_backpressure = counter("serve.pipeline.backpressure")
+        self._collector = threading.Thread(
+            target=self._collect_loop, name="serve-collector", daemon=True)
+        self._collector.start()
+
+    # -- producer side (batcher worker) -------------------------------------
+    def wait_for_slot(self) -> bool:
+        """Block until the window has a free slot (bounded backpressure).
+        The batcher calls this BEFORE ``runner.dispatch`` so device
+        in-flight work never exceeds ``depth`` launched batches — the
+        wait itself is overlapped by the batches already riding the
+        window, exactly like ``_DispatchQueue.push``. Single-producer
+        contract: only the batcher worker reserves slots, so a slot
+        observed free here cannot be taken before the matching
+        ``submit``. Returns False when the pipeline is closed."""
+        with self._cv:
+            if len(self._fifo) >= self.depth:
+                self._c_backpressure.inc()
+            while self._running and len(self._fifo) >= self.depth:
+                # backpressure stall inside the caller's serve.dispatch
+                # span: the ledger books it as dispatch time
+                # graftlint: disable=unattributed-wait
+                self._cv.wait(0.2)
+            return self._running
+
+    def submit(self, item: InflightBatch) -> bool:
+        """Enqueue a dispatched batch into the slot ``wait_for_slot``
+        cleared (still guards the bound for direct callers). Returns
+        False when the pipeline is closed (caller sheds)."""
+        with self._cv:
+            while self._running and len(self._fifo) >= self.depth:
+                # same backpressure stall as wait_for_slot: booked to
+                # the caller's serve.dispatch span
+                # graftlint: disable=unattributed-wait
+                self._cv.wait(0.2)
+            if not self._running:
+                return False
+            self._fifo.append(item)
+            self._inflight_reqs += item.n_requests
+            self._g_inflight.set(len(self._fifo) + (1 if self._collecting
+                                                    else 0))
+            self._cv.notify_all()
+        return True
+
+    def inflight_requests(self) -> int:
+        with self._cv:
+            return self._inflight_reqs
+
+    def empty(self) -> bool:
+        """True when nothing is in flight AND nothing is mid-delivery —
+        the pipeline half of the batcher's quiesce barrier."""
+        with self._cv:
+            return not self._fifo and not self._collecting
+
+    def full(self) -> bool:
+        """Unsynchronized snapshot: is the window at depth? Used by the
+        batcher's adaptive wait (stale reads only delay one gather)."""
+        return len(self._fifo) >= self.depth
+
+    # -- collector -----------------------------------------------------------
+    def _collect_loop(self) -> None:
+        # Wedge watchdog: a wedged device sync in collect() is EXACTLY
+        # the stall this loop can hide — the window fills, the producer
+        # backpressures, and the service looks "busy" forever. The 60s
+        # timeout rides out any legitimate tunneled sync.
+        with watchdog_scope("serve-collector", timeout_s=60.0) as wd:
+            self._run_collect(wd)
+
+    def _run_collect(self, wd) -> None:
+        while True:
+            with self._cv:
+                while self._running and not self._fifo:
+                    # collector idle (no batch in flight): a present
+                    # batch is collected at once under serve.collect
+                    # graftlint: disable=unattributed-wait
+                    self._cv.wait(0.2)
+                    wd.beat()       # idle is progress, not a wedge
+                if not self._fifo:
+                    return          # closed and drained
+                # Popped-but-undelivered must stay visible to empty():
+                # the quiesce barrier exists precisely for the batch that
+                # straddles the pop (same move as the batcher's _busy).
+                item = self._fifo.popleft()
+                self._collecting = True
+                self._g_inflight.set(len(self._fifo) + 1)
+                self._cv.notify_all()
+            wd.beat()
+            item.t_collect0 = time.monotonic()
+            try:
+                result: object = item.collect(item.handle)
+            except Exception as e:  # noqa: BLE001 - a poisoned batch must
+                log.error("serve pipeline: collect failed: %s", e)  # not
+                result = e                                # kill the thread
+            try:
+                item.deliver(item, result)
+            except Exception as e:  # noqa: BLE001 - delivery guards its
+                log.error("serve pipeline: deliver failed: %s", e)  # own
+            self._c_batches.inc()                    # per-request errors
+            with self._cv:
+                self._collecting = False
+                self._inflight_reqs -= item.n_requests
+                self._g_inflight.set(len(self._fifo))
+                self._cv.notify_all()
+
+    # -- lifecycle -----------------------------------------------------------
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Block until every in-flight batch has been collected and
+        delivered. The batcher calls this from quiesce (checkpoint swaps
+        must not straddle an in-flight batch)."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        with self._cv:
+            while self._fifo or self._collecting:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                # drain/close teardown wait, after admission stopped
+                # graftlint: disable=unattributed-wait
+                self._cv.wait(min(remaining, 0.2))
+        return True
+
+    def close(self, timeout_s: float = 10.0) -> None:
+        self.drain(timeout_s)
+        with self._cv:
+            self._running = False
+            self._cv.notify_all()
+        self._collector.join(timeout=timeout_s)
+
+
+def make_pipeline(runner, depth) -> Optional[DispatchPipeline]:
+    """Pipeline for ``runner`` iff it speaks the two-phase dispatch
+    contract (``dispatch``/``collect``) and the resolved depth is >= 2;
+    None means the caller keeps the serialized run() path."""
+    if not (hasattr(runner, "dispatch") and hasattr(runner, "collect")):
+        return None         # before the probe: no point measuring a
+    resolved = resolve_pipeline_depth(      # launch we'll never make
+        depth, getattr(runner, "device", None))
+    if resolved < 2:
+        return None
+    return DispatchPipeline(resolved)

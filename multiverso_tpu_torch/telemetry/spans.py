@@ -5,8 +5,9 @@ calls. ``span(name, **attrs)`` records a begin/end pair as one Chrome
 trace-event "complete" event (``ph: "X"``) and feeds the ``span.<name>``
 histogram; the region is nested under ``torch.profiler.record_function``
 so the same name shows up in a ``torch.profiler`` trace of the card.
-Distributed trace contexts (parent/child request spans) wait for the
-serving plane (ROADMAP A9/A11).
+:func:`emit_span` records a completed span of a distributed request trace
+(``telemetry/context.py``) from explicit timestamps, for the serving
+plane's stages that straddle threads.
 """
 
 from __future__ import annotations
@@ -20,9 +21,11 @@ from typing import Dict, Iterator, List, Optional
 
 import torch
 
+from multiverso_tpu_torch.telemetry.context import TraceContext
 from multiverso_tpu_torch.telemetry.metrics import get_registry
 
-__all__ = ["span", "TraceBuffer", "get_trace_buffer", "current_identity"]
+__all__ = ["span", "emit_span", "TraceBuffer", "get_trace_buffer",
+           "current_identity"]
 
 
 class TraceBuffer:
@@ -103,3 +106,44 @@ def span(name: str, **attrs) -> Iterator[None]:
             "tid": threading.get_ident() % (1 << 31),
             "cat": "multiverso_tpu_torch", "args": args})
         get_registry().histogram(f"span.{name}").observe(dur_ms)
+
+
+def _trace_args(args: Dict, ctx: TraceContext) -> Dict:
+    args["trace"] = ctx.trace_hex
+    args["span"] = ctx.span_hex
+    if ctx.parent_id:
+        args["parent"] = f"{ctx.parent_id:016x}"
+    if ctx.hedge:
+        args["hedge"] = 1
+        args["attempt"] = ctx.hedge
+    return args
+
+
+def emit_span(name: str, ctx: Optional[TraceContext], t0_mono: float,
+              dur_ms: float, force: bool = False, **attrs) -> None:
+    """Record a COMPLETED span from explicit timestamps, for stages whose
+    begin and end straddle threads or callbacks (batcher admit-wait,
+    device window, reply leg).
+
+    ``ctx`` IS the span's identity (build one with ``child_of(parent)``);
+    ``t0_mono`` is the ``time.monotonic()`` start. Skipped for an
+    unsampled context unless ``force`` (tail exemplars: shed, error and
+    slow requests). The ``span.<name>`` histogram observes only when the
+    event records."""
+    if ctx is None or not (ctx.sampled or force):
+        return
+    ident = current_identity()
+    epoch_minus_mono = time.time() - time.monotonic()
+    args = _clean_attrs(attrs)
+    args["rank"] = ident["rank"]
+    _trace_args(args, ctx)
+    if force and not ctx.sampled:
+        args["tail"] = 1
+    dur_ms = max(float(dur_ms), 0.0)
+    get_trace_buffer().record({
+        "name": name, "ph": "X",
+        "ts": int((epoch_minus_mono + t0_mono) * 1e6),
+        "dur": max(int(dur_ms * 1e3), 0), "pid": ident["pid"],
+        "tid": threading.get_ident() % (1 << 31),
+        "cat": "multiverso_tpu_torch", "args": args})
+    get_registry().histogram(f"span.{name}").observe(dur_ms)

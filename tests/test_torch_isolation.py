@@ -52,6 +52,21 @@ def test_importing_the_port_loads_no_jax():
             "import multiverso_tpu_torch.parallel.sequence\n"
             "import multiverso_tpu_torch.parallel.expert\n"
             "import multiverso_tpu_torch.models.attention_lm\n"
+            "import multiverso_tpu_torch.serving\n"
+            "import multiverso_tpu_torch.serving.batcher\n"
+            "import multiverso_tpu_torch.serving.client\n"
+            "import multiverso_tpu_torch.serving.continuous\n"
+            "import multiverso_tpu_torch.serving.device_clock\n"
+            "import multiverso_tpu_torch.serving.paged\n"
+            "import multiverso_tpu_torch.serving.pipeline\n"
+            "import multiverso_tpu_torch.serving.quant\n"
+            "import multiverso_tpu_torch.serving.runners\n"
+            "import multiverso_tpu_torch.serving.service\n"
+            "import multiverso_tpu_torch.telemetry.context\n"
+            "import multiverso_tpu_torch.telemetry.flight\n"
+            "import multiverso_tpu_torch.core.actor\n"
+            "import multiverso_tpu_torch.parallel.net\n"
+            "import multiverso_tpu_torch.apps._runner\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'multiverso_tpu')]\n"
             "assert not bad, bad\n"

@@ -117,7 +117,7 @@ def test_kernel_modules_build_lazily():
     assert _build._libs == {}
     assert _build.BUILD_DIR.parts[-2:] == ("build", "multiverso_tpu_torch")
     assert set(_build.SOURCES) == {"rows", "sgns", "stateful_rows",
-                                   "attention"}
+                                   "attention", "paged_attention"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
     # Only the stateful updaters' source is built without fused
@@ -125,4 +125,5 @@ def test_kernel_modules_build_lazily():
     assert _build._flags("stateful_rows") == \
         _build.NVCC_FLAGS + ["--fmad=false"]
     assert _build._flags("rows") == _build._flags("sgns") == \
-        _build._flags("attention") == _build.NVCC_FLAGS
+        _build._flags("attention") == _build._flags("paged_attention") == \
+        _build.NVCC_FLAGS
