@@ -42,7 +42,10 @@
 //     max and sum are taken with four xor shuffles;
 //   * p goes through shared memory, and the same thread then owns rows
 //     ty + 16 i of o, columns 4 (tx + 16 jj) .. +3, in registers.
-// Every tile is computed, masked or not, as on the TPU. Up to D = 256 the
+// A causal call with no bias stops each CTA's k walk after the last tile
+// holding a key that its last row sees, when every row of the CTA sees the
+// first key (a masked score then adds exactly 0), and the grid launches the
+// q tiles with the most k tiles first. Up to D = 256 the
 // tiles fit in 220,160 bytes of shared memory (above 48 KB it needs the
 // opt-in attribute, set at an instance's first launch).
 
@@ -93,8 +96,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ bias,
                    float* __restrict__ o, float* __restrict__ m_out,
-                   float* __restrict__ l_out, int sq, int sk, int d,
-                   float scale, int causal, int64_t q_off, int64_t k_off) {
+                   float* __restrict__ l_out, int n_bh, int sq, int sk,
+                   int d, float scale, int causal, int64_t q_off,
+                   int64_t k_off) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ds = d + kPad;
@@ -104,8 +108,8 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ps = vs + kTile * ds;
 
   const int n_qt = sq / kTile;
-  const int64_t bh = blockIdx.x / n_qt;
-  const int q0 = static_cast<int>(blockIdx.x - bh * n_qt) * kTile;
+  const int64_t bh = blockIdx.x % n_bh;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / n_bh)) * kTile;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const T* kb = k + bh * sk * d;
@@ -125,7 +129,13 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < sk; k0 += kTile) {
+  int k_end = sk;
+  if (causal && bias == nullptr && k_off <= q_off + q0) {
+    const int64_t seen = q_off + q0 + kTile - k_off;  // keys the last row sees
+    k_end = static_cast<int>(
+        min(static_cast<int64_t>(sk), (seen + kTile - 1) / kTile * kTile));
+  }
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the last tile's K, V and p are read
     stage(ks, kb + static_cast<int64_t>(k0) * d, d);
     stage(vs, vb + static_cast<int64_t>(k0) * d, d);
@@ -256,8 +266,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   const unsigned grid = static_cast<unsigned>(bh * (sq / kTile));
   flash_block_kernel<T, NC><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, o, m, l, sq, sk, d, scale, causal,
-      q_off, k_off);
+      static_cast<const T*>(v), bias, o, m, l, static_cast<int>(bh), sq, sk,
+      d, scale, causal, q_off, k_off);
   return static_cast<int>(cudaGetLastError());
 }
 
