@@ -14,40 +14,66 @@
 //
 // with m starting at -1e30 (not -inf, so a fully masked row keeps finite
 // o, m, l), l and o at 0, q_pos = q_off + row and k_pos = k_off + col.
-// Inputs are float32 or bfloat16 and every operation is float32 (expf, no
-// fast math, no TF32 and no tensor cores), so the result is held to the
-// plain float32 version within float32 rounding.
+// Inputs are float32 or bfloat16; the softmax is float32 with expf (no
+// fast math).
 //
 // What bounds it on this card: operations. The function needs 4*D flops
 // for each (q, k) pair whose score counts (all BH*Sq*Sk of them without a
-// mask; with the causal mask at equal offsets, only the ~Sq*Sk/2 pairs on
-// or below the diagonal, as a masked score adds exactly 0 to a row that
-// sees any key) and moves (2*Sq + 2*Sk)*BH*D floats: at the LM's
-// GPT-2-small eval step (BH 96, S 1024, D 64, causal) that is 12.9 GFLOP
-// against ~101 MB, ~0.192 ms at the 67 TFLOP/s float32 peak against
-// ~0.030 ms of HBM time. This version computes every tile, so it does
-// twice that work at the causal shape.
+// mask; with the causal mask at equal offsets only the ~Sq*Sk/2 pairs on
+// or below the diagonal) and moves (2*Sq + 2*Sk)*BH*D floats: at the LM's
+// GPT-2-small eval step (BH 96, S 1024, D 64, causal) 12.9 GFLOP against
+// ~101 MB. Both products run on the tensor cores as three TF32 products
+// each (below), so the bound is 3 x 12.9 GFLOP at 495 TFLOP/s, ~0.078 ms;
+// on the CUDA cores (67 TFLOP/s float32) the same work needs ~0.192 ms,
+// and the bytes ~0.030 ms of HBM time.
 //
-// Design, a simple first version. The TPU kernel walks a sequential grid
-// whose innermost k dimension carries (o, m, l) in VMEM scratch. Here one
-// CTA of 256 threads owns one 64-row q tile of one bh and loops over the
-// 64-row k tiles itself, keeping (o, m, l) in registers:
-//   * the q tile, and per step one K and one V tile, are staged into
-//     dynamic shared memory as float32 rows padded by 4 floats, so the
-//     16-byte loads of 8 neighbouring rows fall on distinct banks;
-//   * thread (ty, tx) = (tid / 16, tid % 16) owns q rows ty + 16 i and k
-//     columns tx + 16 j (i, j < 4): a 4 x 4 block of scores by float32 FMA
-//     on the CUDA cores;
-//   * a row's 64 scores live on the 16 threads of one half-warp, so its
-//     max and sum are taken with four xor shuffles;
-//   * p goes through shared memory, and the same thread then owns rows
-//     ty + 16 i of o, columns 4 (tx + 16 jj) .. +3, in registers.
-// A causal call with no bias stops each CTA's k walk after the last tile
-// holding a key that its last row sees, when every row of the CTA sees the
-// first key (a masked score then adds exactly 0), and the grid launches the
-// q tiles with the most k tiles first. Up to D = 256 the
-// tiles fit in 220,160 bytes of shared memory (above 48 KB it needs the
-// opt-in attribute, set at an instance's first launch).
+// Design. The TPU kernel walks a sequential grid whose innermost k
+// dimension carries (o, m, l) in VMEM scratch. Here one CTA of 4 warps
+// owns one 64-row q tile of one bh and walks the 64-row k tiles itself,
+// FlashAttention-2 style:
+//   * each warp owns 16 q rows. S = Q K^T and O += P V are
+//     mma.sync.m16n8k8 TF32 products with float32 accumulators. A float32
+//     operand x is split into hi = tf32(x) and lo = tf32(x - hi) and a
+//     product is taken as hi*hi + hi*lo + lo*hi ("3xTF32"): each term is
+//     exact in the tensor core, and the dropped lo*lo and the rounding of
+//     lo are ~2^-22 of the product, float32 rounding. bfloat16 inputs are
+//     exact in TF32 (lo = 0), so one path serves both types;
+//   * S stays in the accumulator registers. Thread (g, t) = (lane / 4,
+//     lane % 4) holds rows g and g + 8, keys 2t and 2t + 1 of each 8-key
+//     slice, so a row's max and sum are two xor shuffles within the quad.
+//     P feeds the P.V product straight from those registers: inside each
+//     8-key slice the product's k index t stands for key 2t and t + 4 for
+//     key 2t + 1, and V's fragment rows are read in that order. For Q.K^T
+//     the head dim is permuted the same way inside each 8-column slice
+//     (k index t <-> column 2t), so a thread's two values of a fragment
+//     row are one 8-byte load;
+//   * the row max m is exact. The tensor-core scores carry ~1e-7 of
+//     absolute error, a large relative error of m for a row whose largest
+//     score is near 0 (a causal row seeing one key). So each row keeps the
+//     key of its running max, and at the end one thread rescores that key
+//     as a float32 FMA chain over d in order (the plain dot product) and
+//     o and l are rescaled by exp(m_tc - m);
+//   * K and V tiles are double-buffered: tile j + 1 is copied with 16-byte
+//     cp.async.cg while tile j computes (one buffer at D > 128, where two
+//     do not fit). bfloat16 tiles are converted to float32 on the way in,
+//     synchronously. Rows are padded to D + 8 floats (Q, K: a warp's
+//     8-byte loads of 8 rows x 4 columns fall on distinct banks) and D + 4
+//     (V: 8 rows x 4-byte loads);
+//   * masked tiles are skipped, exactly. A causal call with no bias, where
+//     every row of the CTA sees the first key (k_off <= q_off + q0), stops
+//     the k walk after the last tile holding a key its last row sees. A
+//     later tile's scores are all x*scale - 1e30 = -1e30 in float32, and a
+//     row that has seen an unmasked key has m > -1e30, so such a tile
+//     gives m_new = m, alpha = 1 and p = exp(-1e30 - m) = 0: it changes
+//     nothing, bit for bit, and its K and V are never read. Without that
+//     condition (a row that saw no key yet, or a bias that may mask a
+//     whole row) every tile is walked. The grid launches the q tiles with
+//     the most k tiles first, so the long CTAs do not come last.
+// Shared memory: 90,112 bytes at D = 64 (two CTAs per SM), 172,032 at
+// D = 128 and 201,728 at D = 256 (above 48 KB it needs the opt-in
+// attribute, set at an instance's first launch). The registers and
+// spills of each instance (-Xptxas -v) are printed by chip_smoke.py and
+// kept in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,41 +82,132 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kTile = 64;               // q rows and k rows per tile
-constexpr int kPad = 4;                 // floats of padding per staged row
-constexpr int kPStride = kTile + 16;    // row stride of the p tile
+constexpr int kQKPad = 8;               // floats of padding per Q, K row
+constexpr int kVPad = 4;                // floats of padding per V row
 constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;       // pallas_attention.py NEG_INF
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// x = hi + lo, both TF32 (the top 19 bits of a float32): hi rounded to
+// nearest (ties away, as cvt.rna) and lo = x - hi, exact in float32,
+// truncated, so x - hi - lo < 2^-21 |x|. Integer ops at the full rate
+// (cvt.rna.tf32 issues at a quarter of it), and a NaN x gives a NaN lo.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
 }
 
-// Rows [0, 64) of a row-major [*, d] matrix into shared [64][d + kPad],
-// as float32.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int d) {
+// c += a * b, one m16n8k8 TF32 product.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, 64) of a row-major [*, d] matrix into shared rows of stride ds:
+// float32 by cp.async (landed after the next wait), bfloat16 converted to
+// float32 by plain loads and stores.
+__device__ __forceinline__ void stage(float* dst, const float* src, int d,
+                                      int ds) {
   const int d4 = d / 4;
-  const int ds = d + kPad;
   for (int i = threadIdx.x; i < kTile * d4; i += kThreads) {
     const int r = i / d4;
     const int c = (i - r * d4) * 4;
     *reinterpret_cast<float4*>(dst + r * ds + c) =
-        load4(src + static_cast<int64_t>(r) * d + c);
+        *reinterpret_cast<const float4*>(src + static_cast<int64_t>(r) * d + c);
   }
 }
 
-// NC: float4 column chunks of o per thread, ceil(d / 64).
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      int d, int ds) {
+  const int d4 = d / 4;
+  for (int i = threadIdx.x; i < kTile * d4; i += kThreads) {
+    const int r = i / d4;
+    const int c = (i - r * d4) * 4;
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(src + static_cast<int64_t>(r) * d + c);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    *reinterpret_cast<float4*>(dst + r * ds + c) =
+        make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// The quad's largest (value, key), the lower key on a tie.
+__device__ __forceinline__ void quad_argmax(float& v, int& i) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  x += __shfl_xor_sync(kFull, x, 2);
+  return x;
+}
+
+// K/V buffers: two up to D = 128, one above (two do not fit).
+__host__ __device__ constexpr int stages_for(int nc) { return 1; }
+
+size_t smem_bytes(int d, int stages) {
+  return ((1 + stages) * kTile * (d + kQKPad) +
+          stages * kTile * (d + kVPad)) *
+         sizeof(float);
+}
+
+// NC: 64-column chunks of o, ceil(d / 64); each warp holds NC * 8 column
+// fragments of its 16 rows.
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -99,150 +216,214 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    float* __restrict__ l_out, int n_bh, int sq, int sk,
                    int d, float scale, int causal, int64_t q_off,
                    int64_t k_off) {
+  constexpr int kStages = stages_for(NC);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ds = d + kPad;
+  const int qk_ds = d + kQKPad;
+  const int v_ds = d + kVPad;
   float* qs = smem;
-  float* ks = qs + kTile * ds;
-  float* vs = ks + kTile * ds;
-  float* ps = vs + kTile * ds;
+  float* ks = qs + kTile * qk_ds;            // kStages x [64][qk_ds]
+  float* vs = ks + kStages * kTile * qk_ds;  // kStages x [64][v_ds]
 
+  // The q tiles with the most k tiles launch first.
   const int n_qt = sq / kTile;
   const int64_t bh = blockIdx.x % n_bh;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / n_bh)) * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16 + g;  // this thread's rows r0, r0+8
   const T* kb = k + bh * sk * d;
   const T* vb = v + bh * sk * d;
 
-  stage(qs, q + (bh * sq + q0) * d, d);
-
-  float acc[4][NC][4];
-  float m_i[4], l_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < NC; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.0f;
-  }
-
-  int k_end = sk;
+  int n_kt = sk / kTile;
   if (causal && bias == nullptr && k_off <= q_off + q0) {
     const int64_t seen = q_off + q0 + kTile - k_off;  // keys the last row sees
-    k_end = static_cast<int>(
-        min(static_cast<int64_t>(sk), (seen + kTile - 1) / kTile * kTile));
+    const int64_t walk = (seen + kTile - 1) / kTile;
+    if (walk < n_kt) n_kt = static_cast<int>(walk);
   }
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the last tile's K, V and p are read
-    stage(ks, kb + static_cast<int64_t>(k0) * d, d);
-    stage(vs, vb + static_cast<int64_t>(k0) * d, d);
-    __syncthreads();
 
-    float s[4][4];
+  stage(qs, q + (bh * sq + q0) * d, d, qk_ds);
+  stage(ks, kb, d, qk_ds);
+  stage(vs, vb, d, v_ds);
+  cp_async_commit();
+
+  float acc[NC * 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NC * 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int c = 0; c < d; c += 4) {
-      float4 qa[4], kc[4];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m_i[2] = {kNegInf, kNegInf};
+  float l_i[2] = {0.0f, 0.0f};
+  int best[2] = {-1, -1};  // the key of each row's running max
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * kTile;
+    const int buf = kStages == 2 ? (j & 1) : 0;
+    if constexpr (kStages == 2) {
+      if (j + 1 < n_kt) {
+        const int64_t off = static_cast<int64_t>(k0 + kTile) * d;
+        stage(ks + (buf ^ 1) * kTile * qk_ds, kb + off, d, qk_ds);
+        stage(vs + (buf ^ 1) * kTile * v_ds, vb + off, d, v_ds);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      if (j > 0) {
+        const int64_t off = static_cast<int64_t>(k0) * d;
+        stage(ks, kb + off, d, qk_ds);
+        stage(vs, vb + off, d, v_ds);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j has landed
+    const float* kt = ks + buf * kTile * qk_ds;
+    const float* vt = vs + buf * kTile * v_ds;
+
+    // S = Q K^T for rows r0, r0 + 8 and the tile's 64 keys, 8 per fragment.
+    float s[8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = load4(qs + (ty + 16 * i) * ds + c);
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kc[j] = load4(ks + (tx + 16 * j) * ds + c);
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    for (int c = 0; c < d; c += 8) {
+      const float2 qa =
+          *reinterpret_cast<const float2*>(qs + r0 * qk_ds + c + 2 * t);
+      const float2 qb =
+          *reinterpret_cast<const float2*>(qs + (r0 + 8) * qk_ds + c + 2 * t);
+      const float a[4] = {qa.x, qb.x, qa.y, qb.y};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 kk = *reinterpret_cast<const float2*>(
+            kt + (n * 8 + g) * qk_ds + c + 2 * t);
+        mma3(s[n], ah, al, kk.x, kk.y);
+      }
+    }
+
+    // Scale, mask and bias; each row's max and its key.
+    // Masked: col - row > q_off + q0 - k_off - k0, clamped (|col - row| < 64).
+    int64_t lim64 = q_off + q0 - k_off - k0;
+    lim64 = lim64 < -kTile ? -kTile : (lim64 > kTile ? kTile : lim64);
+    const int lim = static_cast<int>(lim64);
+    float mx[2] = {-INFINITY, -INFINITY};
+    int ix[2] = {0, 0};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int row = r0 + 8 * h;
+        const int col = n * 8 + 2 * t + (e & 1);
+        float x = s[n][e] * scale;
+        if (causal) x = x + ((col - row > lim) ? kNegInf : 0.0f);
+        if (bias != nullptr)
+          x = x + bias[static_cast<int64_t>(q0 + row) * sk + k0 + col];
+        s[n][e] = x;
+        if (x > mx[h]) {
+          mx[h] = x;
+          ix[h] = col;
+        }
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      quad_argmax(mx[h], ix[h]);
+      if (mx[h] > m_i[h]) best[h] = k0 + ix[h];
+      const float m_new = fmaxf(m_i[h], mx[h]);
+      alpha[h] = expf(m_i[h] - m_new);
+      m_i[h] = m_new;
+    }
+    // P = exp(S - m), split for the P.V product. P's fragment is the S
+    // fragment: key 2t as k index t and key 2t + 1 as t + 4.
+    float rs[2] = {0.0f, 0.0f};
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = expf(s[n][e] - m_i[e >> 1]);
+        rs[e >> 1] += p[e];
+      }
+      const float a[4] = {p[0], p[2], p[1], p[3]};
+      split4(a, ph[n], pl[n]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_i[h] = alpha[h] * l_i[h] + quad_sum(rs[h]);
+
+    // O = alpha O + P V. The tile's P V is summed from 0 in the tensor
+    // cores, which truncate each sum, and added to O in float32 (rounded),
+    // so the truncation does not build up over the k walk. V's fragment
+    // rows are read in P's key order; four column fragments at a time.
+#pragma unroll
+    for (int j0 = 0; j0 < NC * 8; j0 += 4) {
+      float pv[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qa[i].x * kc[j].x;
-          s[i][j] += qa[i].y * kc[j].y;
-          s[i][j] += qa[i].z * kc[j].z;
-          s[i][j] += qa[i].w * kc[j].w;
-        }
-    }
-
+        for (int e = 0; e < 4; ++e) pv[i][e] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      const int64_t q_pos = q_off + q0 + row;
-      float mx = -INFINITY;
+      for (int n = 0; n < 8; ++n) {
+        const float* v0 = vt + (n * 8 + 2 * t) * v_ds + g;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (causal) x = x + ((k_off + k0 + col > q_pos) ? kNegInf : 0.0f);
-        if (bias != nullptr)
-          x = x + bias[static_cast<int64_t>(q0 + row) * sk + k0 + col];
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[row * kPStride + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_i[i] = alpha * l_i[i] + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < NC; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
-    }
-    __syncthreads();  // p is written
-
-    for (int c = 0; c < kTile; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * kPStride + c];
-#pragma unroll
-      for (int jj = 0; jj < NC; ++jj) {
-        const int col = 4 * (tx + 16 * jj);
-        if (col < d) {
-          const float4 vv = load4(vs + c * ds + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][jj][0] += p[i] * vv.x;
-            acc[i][jj][1] += p[i] * vv.y;
-            acc[i][jj][2] += p[i] * vv.z;
-            acc[i][jj][3] += p[i] * vv.w;
-          }
+        for (int i = 0; i < 4; ++i) {
+          const int jj = j0 + i;
+          if (jj * 8 < d)
+            mma3(pv[i], ph[n], pl[n], v0[jj * 8], v0[v_ds + jj * 8]);
         }
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j0 + i][e] = fmaf(alpha[e >> 1], acc[j0 + i][e], pv[i][e]);
     }
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+  // m exactly: the running max's key rescored as a float32 FMA chain over
+  // d in order, by thread t = h of the quad for row r0 + 8h.
+  float m_exact = kNegInf;
+  if (t < 2) {
+    const int row = r0 + 8 * t;
+    const int key = t == 0 ? best[0] : best[1];
+    m_exact = t == 0 ? m_i[0] : m_i[1];
+    if (key >= 0) {
+      const float* qr = qs + row * qk_ds;
+      const T* kr = kb + static_cast<int64_t>(key) * d;
+      float dot = 0.0f;
+      for (int c = 0; c < d; ++c) dot = fmaf(qr[c], to_float(kr[c]), dot);
+      float x = dot * scale;
+      if (causal) x = x + ((k_off + key > q_off + q0 + row) ? kNegInf : 0.0f);
+      if (bias != nullptr)
+        x = x + bias[static_cast<int64_t>(q0 + row) * sk + key];
+      m_exact = x;
+    }
+  }
+  float mf[2], f[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mf[h] = __shfl_sync(kFull, m_exact, (lane & ~3) | h);
+    f[h] = expf(m_i[h] - mf[h]);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = bh * sq + q0 + ty + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = bh * sq + q0 + r0 + 8 * h;
+    float* orow = o + r * d + 2 * t;
 #pragma unroll
-    for (int jj = 0; jj < NC; ++jj) {
-      const int col = 4 * (tx + 16 * jj);
-      if (col < d)
-        *reinterpret_cast<float4*>(o + r * d + col) =
-            make_float4(acc[i][jj][0], acc[i][jj][1], acc[i][jj][2],
-                        acc[i][jj][3]);
-    }
-    if (tx == 0) {
-      m_out[r] = m_i[i];
-      l_out[r] = l_i[i];
+    for (int jj = 0; jj < NC * 8; ++jj)
+      if (jj * 8 < d)
+        *reinterpret_cast<float2*>(orow + jj * 8) =
+            make_float2(acc[jj][2 * h] * f[h], acc[jj][2 * h + 1] * f[h]);
+    if (t == 0) {
+      m_out[r] = mf[h];
+      l_out[r] = l_i[h] * f[h];
     }
   }
-}
-
-size_t smem_bytes(int d) {
-  return (3 * kTile * (d + kPad) + kTile * kPStride) * sizeof(float);
 }
 
 template <typename T, int NC>
@@ -250,6 +431,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
            float* o, float* m, float* l, int64_t bh, int sq, int sk, int d,
            float scale, int causal, int64_t q_off, int64_t k_off,
            cudaStream_t st) {
+  constexpr int kStages = stages_for(NC);
   // The opt-in is set once per instance to the most any D of the
   // instance needs (the attribute is per device: one card per process),
   // so no launch captured in a CUDA graph makes the call.
@@ -258,11 +440,11 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
     const cudaError_t err = cudaFuncSetAttribute(
         flash_block_kernel<T, NC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes(64 * NC)));
+        static_cast<int>(smem_bytes(64 * NC, kStages)));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  const size_t smem = smem_bytes(d);
+  const size_t smem = smem_bytes(d, kStages);
   const unsigned grid = static_cast<unsigned>(bh * (sq / kTile));
   flash_block_kernel<T, NC><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
