@@ -71,10 +71,13 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
-of ``scripts/bench_flash_attn.py:41`` (non-causal, timed with the bound
-and ``scaled_dot_product_attention`` as the yardstick), and once each
-causal with offsets, fully masked, with a bias, in bfloat16 and at D = 8
-and 256, within ``ATTN_TOL``; and B7 (``paged_decode_attn``) at the
+of ``scripts/bench_flash_attn.py:41`` (non-causal, timed with both bounds,
+3xTF32 on the tensor cores and float32 on the CUDA cores, and
+``scaled_dot_product_attention`` as the yardstick), at the LM's widths
+with NaN in the K and V rows of the keys no query sees (the kernel skips
+their tiles; the plain version gets clean rows), and once each causal
+with offsets, fully masked, with a bias, in bfloat16 and at D = 8 and
+256, within ``ATTN_TOL``; and B7 (``paged_decode_attn``) at the
 serving shape (8 slots, 12 heads, dh 64, page 16, bucket 512, max_new 64:
 36 pages per slot) over one layer of a pool of the serving phase's size,
 with a page table from real page plans of the workload's lengths, timed
@@ -100,6 +103,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA's data sheet)
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 # B5 tolerance, per table: max |kernel - plain| <= SGNS_RTOL[table] *
 # max |plain|. The kernel reduces the dot products with warp shuffles and
 # the plain version with torch sums, and the plain version's index_add_ on
@@ -127,8 +131,9 @@ MOE_LAYERS, MOE_EXPERTS = 2, 8
 LM_LOSS_RTOL = 1e-5
 # B6 against its plain version (the JAX flash tests' tolerances,
 # tests/test_pallas_attention.py:33-39): the normalised output o / l
-# (rtol, atol), l (rtol) and m (rtol; the kernel's dot products sum in
-# another order than cuBLAS's, so m is not bitwise).
+# (rtol, atol), l (rtol) and m (rtol; the kernel rescores each row's max
+# as a float32 FMA chain in d order, which has matched cuBLAS's bits, but
+# cuBLAS's summing order is not a contract).
 ATTN_TOL = {"o_rtol": 2e-5, "o_atol": 2e-6, "l_rtol": 2e-5, "m_rtol": 1e-6}
 # The ring-step shapes of scripts/bench_flash_attn.py:41 (B, H, S, D).
 RING_SHAPES = ((1, 8, 2048, 128), (1, 8, 4096, 128), (2, 16, 2048, 64))
@@ -159,6 +164,36 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name in an
+    anonymous namespace: ``flash_block_kernelIfLi1EE`` (float, NC 1) for
+    ``_ZN45_GLOBAL__N__..._cu_465a24ce18flash_block_kernelIfLi1EEEv...``;
+    other names are cut to 48 characters."""
+    import re
+    outer = re.match(r"_ZN(\d+)", mangled)
+    inner = outer and re.compile(r"\d+").match(
+        mangled, outer.end() + int(outer.group(1)))
+    if not inner:
+        return mangled[:48]
+    end = inner.end() + int(inner.group())
+    args = mangled[end:]
+    cut = args.find("EE")
+    return mangled[inner.end():end] + (
+        args[:cut + 2] if args.startswith("I") and cut >= 0 else "")
+
+
+def ptxas_lines(build_log: str):
+    """(kernel, line) for each registers or spill line of ``nvcc -Xptxas
+    -v`` output."""
+    kernel = "?"
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            kernel = kernel_label(
+                line.split("Function properties for", 1)[1].strip())
+        elif "registers" in line or "spill" in line:
+            yield kernel, line.strip()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -195,9 +230,10 @@ def graph_ms(fn, reps: int = 20, calls: int = 20) -> float:
     return cuda_ms(graph.replay, reps) / calls
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0):
+def bound_ms(n_bytes: float, n_ops: float = 0.0,
+             ops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -784,19 +820,32 @@ def attn_compare(what, got, want) -> float:
     return err
 
 
-def attn_bound(b, h, sq, sk, dh, causal=False, offsets=(0, 0)):
-    """q, k, v read and o written once in float32, plus m and l; both
-    products (4 D operations) over each (q, k) pair whose score counts.
-    With ``causal``, a masked score adds exp(-1e30 - m) = 0 to a row that
-    sees any key, so only its unmasked pairs count; a row that sees none
-    comes out as o = the sum of v (D adds per key)."""
+def attn_bounds(b, h, sq, sk, dh, causal=False, offsets=(0, 0)) -> dict:
+    """B6's two bounds. q, k, v read and o written once in float32, plus
+    m and l; both products (4 D operations) over each (q, k) pair whose
+    score counts. With ``causal``, a masked score adds exp(-1e30 - m) = 0
+    to a row that sees any key, so only its unmasked pairs count; a row
+    that sees none comes out as o = the sum of v (D adds per key). The
+    kernel's route takes each float32 product as three TF32 products on
+    the tensor cores (``bound_ms``); beside it the same operations on the
+    float32 CUDA cores (``bound_cuda_core_ms``)."""
     q_off, k_off = offsets
     n_ops = 0
     for i in range(sq):
         seen = min(max(q_off + i - k_off + 1, 0), sk) if causal else sk
         n_ops += 4 * dh * seen if seen else dh * sk
-    return bound_ms((2 * sq + 2 * sk) * b * h * dh * 4 + 2 * b * h * sq * 4,
-                    float(b * h * n_ops))
+    n_bytes = (2 * sq + 2 * sk) * b * h * dh * 4 + 2 * b * h * sq * 4
+    tc = bound_ms(n_bytes, 3.0 * b * h * n_ops, TF32_FLOPS_PER_S)
+    cc = bound_ms(n_bytes, float(b * h * n_ops))
+    return {"bound_ms": tc[0], "bound_by": tc[1],
+            "bound_route": "3xTF32 on the tensor cores",
+            "bound_cuda_core_ms": cc[0], "bound_cuda_core_by": cc[1]}
+
+
+def bounds_text(bd: dict) -> str:
+    return (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+            f"{bd['bound_route']}; float32 CUDA cores "
+            f"{bd['bound_cuda_core_ms']:.4f} ms)")
 
 
 def sdpa_backend(q, k, v, causal) -> str:
@@ -832,8 +881,11 @@ def time_attn(q, k, v, causal, reps) -> dict:
 
 def check_attention_kernel(dev) -> dict:
     """B6 at the LM's eval shape (causal) and at the ring-step shapes
-    (non-causal), timed; then once each at a small shape: causal with
-    offsets, fully masked, with a bias, bfloat16, D = 8 and D = 256."""
+    (non-causal), timed; on inputs with NaN in the K and V rows that no
+    query sees (the LM's widths with twice the keys), against the plain
+    version on the clean inputs; then once each at a small shape: causal
+    with offsets, fully masked, with a bias, bfloat16, D = 8 and D =
+    256."""
     import torch
     from multiverso_tpu_torch.ops import attention
 
@@ -849,28 +901,39 @@ def check_attention_kernel(dev) -> dict:
     err, _, _ = pair(f"B6 at the LM's eval shape {(b, h, s, dh)}, causal",
                      q, k, v, scale=dh ** -0.5, causal=True, offsets=(0, 0))
     rec = time_attn(q, k, v, True, 20)
-    bound = attn_bound(b, h, s, s, dh, causal=True, offsets=(0, 0))
+    bound = attn_bounds(b, h, s, s, dh, causal=True, offsets=(0, 0))
     log(f"B6 flash_block_attn {(b, h, s, dh)} causal: kernel "
         f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
         f"plain {rec['plain_ms']:.4f} ms, {rec['library']} "
-        f"{rec['library_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        f"{rec['library_ms']:.4f} ms, {bounds_text(bound)}")
+    # The kernel skips the k tiles that no query of its q tile sees, so
+    # NaN there must not reach (o, m, l): keys s..2s-1 at offsets (0, 0).
+    kp, vp = (torch.cat([t, torch.full_like(t, float("nan"))], dim=2)
+              for t in (k, v))
+    kc, vc = (torch.cat([t, t], dim=2) for t in (k, v))
+    kw = dict(scale=dh ** -0.5, causal=True, offsets=(0, 0))
+    poisoned = attn_compare(
+        f"B6 at the LM's widths, keys {s}..{2 * s - 1} NaN (kernel) or "
+        "clean (plain)", attention.flash_block_attn(q, kp, vp, **kw),
+        attention.flash_block_attn_plain(q, kc, vc, **kw))
+    del kp, vp, kc, vc
     shapes = []
     for b2, h2, s2, d2 in RING_SHAPES:
         q, k, v = attn_inputs(g, dev, b2, h2, s2, s2, d2)
         e, _, _ = pair(f"B6 ring step {(b2, h2, s2, d2)}", q, k, v,
                        scale=d2 ** -0.5)
         t = time_attn(q, k, v, False, 10)
-        bd = attn_bound(b2, h2, s2, s2, d2)
+        bd = attn_bounds(b2, h2, s2, s2, d2)
         log(f"B6 ring step {(b2, h2, s2, d2)} float32: kernel "
             f"{t['ms']:.4f} ms ({t['graph_ms']:.4f} ms in a CUDA graph), "
             f"plain {t['plain_ms']:.4f} ms, {t['library']} "
-            f"{t['library_ms']:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+            f"{t['library_ms']:.4f} ms, {bounds_text(bd)}")
         shapes.append({"shape": [b2, h2, s2, d2], "causal": False,
-                       "max_abs_err": e, **t, "bound_ms": bd[0],
-                       "bound_by": bd[1]})
+                       "max_abs_err": e, **t, **bd})
         del q, k, v
 
-    variants = []
+    variants = [{"case": "NaN in the unseen keys' K and V, LM widths",
+                 "max_abs_err": poisoned}]
     q, k, v = attn_inputs(g, dev, 2, 3, 128, 256, 64)
     for offs in ((0, 0), (384, 128), (128, 384)):
         e, _, _ = pair(f"B6 causal offsets {offs}", q, k, v, scale=0.125,
@@ -904,8 +967,7 @@ def check_attention_kernel(dev) -> dict:
             "source": "multiverso_tpu_torch/csrc/attention.cu",
             "replaces": "multiverso_tpu/ops/pallas_attention.py:97",
             "shape": [b, h, s, dh], "causal": True, "max_abs_err": err,
-            **rec, "bound_ms": bound[0], "bound_by": bound[1],
-            "shapes": shapes, "variants": variants}
+            **rec, **bound, "shapes": shapes, "variants": variants}
 
 
 # ---------------------------------------------------------------------------
@@ -1806,9 +1868,8 @@ def main() -> int:
     _build.build_all()
     log(f"built {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(_build.build_log(name)):
+            log(f"  {name}: {kernel}: {line}")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)

@@ -170,8 +170,8 @@ def main() -> int:
     built = build(versions, os.path.join(REPO, "build", "flash_steps"))
     libs, rec = {}, {"card": card, "versions": {}}
     for name, (path, log) in built.items():
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+        regs = [f"{kernel}: {line}"
+                for kernel, line in chip_smoke.ptxas_lines(log)]
         rec["versions"][name] = {"source": versions[name], "built": bool(path),
                                  "ptxas": regs, "cases": {}, "ms": {}}
         print(f"{name}: {'built' if path else 'FAILED to build'}", flush=True)

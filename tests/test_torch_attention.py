@@ -126,6 +126,35 @@ def test_plain_fully_masked_block_matches_jax_convention(how):
     np.testing.assert_allclose(got[0], want[0], rtol=2e-5, atol=2e-5)
 
 
+def test_plain_ignores_keys_no_query_sees():
+    """The premise of the kernel's tile skip: with q 256 and k 384 at
+    offsets (0, 0), keys 256-383 are masked to every query, and large
+    finite K and V rows there change no bit of the plain (o, m, l) (a
+    masked score is -1e30 exactly, its p exactly 0)."""
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(rng, Sq=256, Sk=384)
+    k_big, v_big = k.copy(), v.copy()
+    k_big[:, :, 256:] = 1e6 * rng.normal(size=k_big[:, :, 256:].shape)
+    v_big[:, :, 256:] = 1e30
+    kw = dict(scale=0.125, causal=True, offsets=(0, 0))
+    for got, want in zip(_port(q, k_big, v_big, **kw), _port(q, k, v, **kw)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_plain_rows_that_see_no_key_sum_every_v():
+    """Where the skip must not apply: at offsets (0, 128) no query sees
+    any key, so every row is o = the sum of v over all keys, l = Sk and m
+    = -1e30, and every k tile counts."""
+    rng = np.random.default_rng(10)
+    q, k, v = _qkv(rng, Sq=128, Sk=256)
+    o, m, l = _port(q, k, v, scale=0.125, causal=True, offsets=(0, 128))
+    np.testing.assert_array_equal(m, np.float32(-1e30))
+    np.testing.assert_array_equal(l, np.float32(256))
+    np.testing.assert_allclose(
+        o, np.broadcast_to(v.sum(axis=2, keepdims=True), o.shape),
+        rtol=1e-5, atol=1e-5)
+
+
 def test_plain_bf16_inputs_compute_in_f32():
     rng = np.random.default_rng(6)
     q, k, v = (jnp.asarray(t).astype(jnp.bfloat16)
@@ -170,21 +199,34 @@ def test_flash_has_no_backward():
         (o / l).sum().backward()
 
 
-@pytest.mark.parametrize("case", ["causal", "bias", "bf16", "d8", "d256"])
+@pytest.mark.parametrize("case", ["causal", "bias", "bf16", "d8", "d256",
+                                  "poisoned"])
 def test_kernel_matches_plain_on_card(card, case):
+    """The kernel against the plain version on the same inputs; for
+    ``poisoned``, the kernel on inputs with NaN in the K and V rows of
+    keys 256-383, which no query sees at offsets (0, 0), against the plain
+    version on the clean inputs: the kernel never reads those rows."""
     rng = np.random.default_rng(7)
     d = {"d8": 8, "d256": 256}.get(case, 64)
     q, k, v = (torch.as_tensor(t, device=card)
                for t in _qkv(rng, Sq=256, Sk=384, D=d))
+    kq, vq = k, v
     kw = dict(scale=float(1.0 / np.sqrt(d)))
     if case == "causal":
         kw.update(causal=True, offsets=(384, 128))
+    if case == "poisoned":
+        kw.update(causal=True, offsets=(0, 0))
+        kq, vq = k.clone(), v.clone()
+        kq[:, :, 256:] = float("nan")
+        vq[:, :, 256:] = float("nan")
     if case == "bias":
         kw["bias"] = torch.as_tensor(_band_bias(256, 384), device=card)
     if case == "bf16":
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        kq, vq = k, v
     before = attention.LAUNCHES["flash_block_attn"]
-    got = [t.cpu().numpy() for t in attention.flash_block_attn(q, k, v, **kw)]
+    got = [t.cpu().numpy()
+           for t in attention.flash_block_attn(q, kq, vq, **kw)]
     assert attention.LAUNCHES["flash_block_attn"] == before + 1
     want = [t.cpu().numpy()
             for t in attention.flash_block_attn_plain(q, k, v, **kw)]
