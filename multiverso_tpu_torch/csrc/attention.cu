@@ -439,428 +439,6 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-
-// ---------------------------------------------------------------------------
-// D <= 128: both products as wgmma.mma_async m64n64k8 TF32 (3xTF32).
-// ---------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, K-major, no swizzle: core matrices of
-// 8 rows x 16 bytes; lbo = bytes between the two core matrices of a k8
-// step (along K), sbo = bytes between 8-row groups.
-__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a >> 4) & 0x3fff) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Orders a register after the asynchronous products that read or write it.
-__device__ __forceinline__ void keep(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void keep(uint32_t& x) {
-  asm volatile("" : "+r"(x)::"memory");
-}
-
-// d (+)= A B, A and B from shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (+)= A B, A from registers, B from shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// Rows [0, 64) of a row-major [*, d] matrix into the K-major core layout:
-// 4-column chunk c holds all 64 rows, 16 bytes each.
-__device__ __forceinline__ void stage_core(float* dst, const float* src,
-                                           int d, const Chunks& w) {
-  for (int r = w.r0, c = w.c0; r < kTile;) {
-    cp_async16(dst + c * kTile * 4 + r * 4,
-               src + static_cast<int64_t>(r) * d + 4 * c);
-    r += w.dr;
-    c += w.dc;
-    if (c >= w.d4) {
-      c -= w.d4;
-      ++r;
-    }
-  }
-}
-
-__device__ __forceinline__ void stage_core(float* dst,
-                                           const __nv_bfloat16* src, int d,
-                                           const Chunks& w) {
-  for (int r = w.r0, c = w.c0; r < kTile;) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(
-        src + static_cast<int64_t>(r) * d + 4 * c);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    *reinterpret_cast<float4*>(dst + c * kTile * 4 + r * 4) =
-        make_float4(a.x, a.y, b.x, b.y);
-    r += w.dr;
-    c += w.dc;
-    if (c >= w.d4) {
-      c -= w.d4;
-      ++r;
-    }
-  }
-}
-
-// Rows [0, 64) of a row-major [*, d] V tile into rows of R floats, chunk c
-// of row r at chunk c ^ (r & 7), so that the transposing split below reads
-// 4 rows x 8 columns on distinct banks.
-template <int R, typename T>
-__device__ __forceinline__ void stage_vraw(float* dst, const T* src, int d,
-                                           const Chunks& w) {
-  for (int r = w.r0, c = w.c0; r < kTile;) {
-    float* at = dst + r * R + ((c ^ (r & 7)) << 2);
-    if constexpr (sizeof(T) == 4) {
-      cp_async16(at, reinterpret_cast<const float*>(src) +
-                         static_cast<int64_t>(r) * d + 4 * c);
-    } else {
-      const uint2 raw = *reinterpret_cast<const uint2*>(
-          src + static_cast<int64_t>(r) * d + 4 * c);
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-      const float2 b = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-      *reinterpret_cast<float4*>(at) = make_float4(a.x, a.y, b.x, b.y);
-    }
-    r += w.dr;
-    c += w.dc;
-    if (c >= w.d4) {
-      c -= w.d4;
-      ++r;
-    }
-  }
-}
-
-// V^T split into hi and lo planes (K-major core layout, R rows = columns
-// of V, K = the 64 keys): key r of an 8-key slice is k index r / 2 + 4 (r
-// % 2), the order of P's fragment. A warp writes 4 keys x 8 columns, 32
-// consecutive floats.
-template <int R>
-__device__ __forceinline__ void split_vt(float* vth, float* vtl,
-                                         const float* vraw) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kp = 0; kp < 16; ++kp) {
-    const int key = (kp >> 1) * 8 + 2 * (lane & 3) + (kp & 1);
-#pragma unroll
-    for (int m = 0; m < R / 32; ++m) {
-      const int col = ((threadIdx.x >> 5) + 4 * m) * 8 + (lane >> 2);
-      uint32_t hi, lo;
-      split(vraw[key * R + ((((col >> 2) ^ (key & 7)) << 2) | (col & 3))], hi,
-            lo);
-      const int at = kp * R * 4 + col * 4 + (lane & 3);
-      vth[at] = __uint_as_float(hi);
-      vtl[at] = __uint_as_float(lo);
-    }
-  }
-}
-
-// hi in place, lo into lo_plane: a 64 x R plane.
-template <int R>
-__device__ __forceinline__ void split_plane(float* hi_plane, float* lo_plane) {
-#pragma unroll
-  for (int k = 0; k < kTile * R / 4 / kThreads; ++k) {
-    const int i = threadIdx.x + k * kThreads;
-    const float4 x = reinterpret_cast<float4*>(hi_plane)[i];
-    uint32_t h[4], l[4];
-    split(x.x, h[0], l[0]);
-    split(x.y, h[1], l[1]);
-    split(x.z, h[2], l[2]);
-    split(x.w, h[3], l[3]);
-    reinterpret_cast<uint4*>(hi_plane)[i] = make_uint4(h[0], h[1], h[2], h[3]);
-    reinterpret_cast<uint4*>(lo_plane)[i] = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-
-// Q hi, lo; K hi, lo; V^T hi, lo; raw V: seven 64 x 64 NC planes.
-size_t wg_smem_bytes(int nc) { return 7 * kTile * 64 * nc * sizeof(float); }
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_block_wgmma(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ bias,
-                  float* __restrict__ o, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int n_bh, int sq, int sk, int d,
-                  float scale, int causal, int64_t q_off, int64_t k_off) {
-  constexpr int kR = 64 * NC;  // plane width: d, padded
-  extern __shared__ float4 smem4[];
-  float* qh = reinterpret_cast<float*>(smem4);
-  float* ql = qh + kTile * kR;
-  float* kh = ql + kTile * kR;
-  float* kl = kh + kTile * kR;
-  float* vth = kl + kTile * kR;
-  float* vtl = vth + kTile * kR;
-  float* vraw = vtl + kTile * kR;
-
-  const int n_qt = sq / kTile;
-  const int64_t bh = blockIdx.x % n_bh;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x / n_bh)) * kTile;
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
-  const T* kb = k + bh * sk * d;
-  const T* vb = v + bh * sk * d;
-
-  int n_kt = sk / kTile;
-  if (causal && bias == nullptr && k_off <= q_off + q0) {
-    const int64_t seen = q_off + q0 + kTile - k_off;
-    const int64_t walk = (seen + kTile - 1) / kTile;
-    if (walk < n_kt) n_kt = static_cast<int>(walk);
-  }
-
-  // Q and K columns d .. kR - 1 hold zeros: the fixed-count k8 loop adds
-  // exactly 0 there. (V^T's rows there feed output columns not written.)
-  if (d < kR)
-    for (int i = threadIdx.x + d * kTile; i < kR * kTile; i += kThreads) {
-      qh[i] = 0.0f;
-      kh[i] = 0.0f;
-    }
-  const Chunks w = chunks_of(d);
-  stage_core(qh, q + (bh * sq + q0) * d, d, w);
-  stage_core(kh, kb, d, w);
-  cp_async_commit();
-  stage_vraw<kR>(vraw, vb, d, w);
-  cp_async_commit();
-
-  float acc[NC][32];
-#pragma unroll
-  for (int cb = 0; cb < NC; ++cb)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[cb][e] = 0.0f;
-  float m_i[2] = {kNegInf, kNegInf};
-  float l_i[2] = {0.0f, 0.0f};
-  int best[2] = {-1, -1};
-  constexpr uint32_t kQKLbo = kTile * 16;  // one 4-column chunk, 64 rows
-  constexpr uint32_t kVtLbo = kR * 16;
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int k0 = j * kTile;
-    const int64_t next = static_cast<int64_t>(k0 + kTile) * d;
-    cp_async_wait<1>();
-    __syncthreads();  // K of tile j (and Q) has landed
-    if (j == 0) split_plane<kR>(qh, ql);
-    split_plane<kR>(kh, kl);
-    fence_async_smem();
-    __syncthreads();
-
-    float s[32];
-    wg_fence();
-#pragma unroll
-    for (int c = 0; c < kR; c += 8) {
-      const int off = (c / 4) * kTile * 4;
-      const uint64_t dqh = smem_desc(qh + off, kQKLbo, 128);
-      const uint64_t dql = smem_desc(ql + off, kQKLbo, 128);
-      const uint64_t dkh = smem_desc(kh + off, kQKLbo, 128);
-      const uint64_t dkl = smem_desc(kl + off, kQKLbo, 128);
-      wgmma_ss(s, dql, dkh, c > 0);
-      wgmma_ss(s, dqh, dkl, 1);
-      wgmma_ss(s, dqh, dkh, 1);
-    }
-    wg_commit();
-    wg_wait0();
-#pragma unroll
-    for (int e = 0; e < 32; ++e) keep(s[e]);
-    __syncthreads();  // every warp is done with K
-    if (j + 1 < n_kt) stage_core(kh, kb + next, d, w);
-    cp_async_commit();
-
-    // Scale, mask and bias; each row's max, and its key when the max
-    // grows (as in flash_block_kernel).
-    int64_t lim64 = q_off + q0 - k_off - k0;
-    lim64 = lim64 < -kTile ? -kTile : (lim64 > kTile ? kTile : lim64);
-    const int lim = static_cast<int>(lim64);
-    const bool mask = causal && lim < kTile - 1;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int row = r0 + 8 * h;
-        const int col = n * 8 + 2 * t + (e & 1);
-        float x = s[4 * n + e] * scale;
-        if (mask) x = x + ((col - row > lim) ? kNegInf : 0.0f);
-        if (bias != nullptr)
-          x = x + bias[static_cast<int64_t>(q0 + row) * sk + k0 + col];
-        s[4 * n + e] = x;
-        mx[h] = fmaxf(mx[h], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
-      if (mx[h] > m_i[h]) {
-        int ix = kTile;
-#pragma unroll
-        for (int n = 7; n >= 0; --n)
-#pragma unroll
-          for (int e = 2 * h + 1; e >= 2 * h; --e)
-            if (s[4 * n + e] == mx[h]) ix = n * 8 + 2 * t + (e & 1);
-        ix = min(ix, __shfl_xor_sync(0xfu << (lane & ~3), ix, 1));
-        ix = min(ix, __shfl_xor_sync(0xfu << (lane & ~3), ix, 2));
-        best[h] = k0 + ix;
-      }
-      const float m_new = fmaxf(m_i[h], mx[h]);
-      alpha[h] = expf(m_i[h] - m_new);
-      m_i[h] = m_new;
-    }
-    // P = exp(S - m), split; its fragment is S's (key 2t as k index t).
-    float rs[2] = {0.0f, 0.0f};
-    uint32_t ph[8][4], pl[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = expf(s[4 * n + e] - m_i[e >> 1]);
-        rs[e >> 1] += p[e];
-      }
-      const float a[4] = {p[0], p[2], p[1], p[3]};
-      split4(a, ph[n], pl[n]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l_i[h] = alpha[h] * l_i[h] + quad_sum(rs[h]);
-
-    cp_async_wait<1>();
-    __syncthreads();  // V of tile j has landed
-    split_vt<kR>(vth, vtl, vraw);
-    fence_async_smem();
-    __syncthreads();  // every warp is done with the raw V tile
-    if (j + 1 < n_kt) stage_vraw<kR>(vraw, vb + next, d, w);
-    cp_async_commit();
-
-#pragma unroll
-    for (int cb = 0; cb < NC; ++cb) {
-      float pv[32];
-      wg_fence();
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int off = n * 2 * kR * 4 + cb * 64 * 4;
-        const uint64_t dvh = smem_desc(vth + off, kVtLbo, 128);
-        const uint64_t dvl = smem_desc(vtl + off, kVtLbo, 128);
-        wgmma_rs(pv, pl[n], dvh, n > 0);
-        wgmma_rs(pv, ph[n], dvl, 1);
-        wgmma_rs(pv, ph[n], dvh, 1);
-      }
-      wg_commit();
-      wg_wait0();
-#pragma unroll
-      for (int e = 0; e < 32; ++e) keep(pv[e]);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          keep(ph[n][e]);
-          keep(pl[n][e]);
-        }
-#pragma unroll
-      for (int e = 0; e < 32; ++e)
-        acc[cb][e] = fmaf(alpha[(e >> 1) & 1], acc[cb][e], pv[e]);
-    }
-    __syncthreads();  // every warp is done with V^T
-  }
-
-  // m exactly, as in flash_block_kernel (Q's plane holds hi parts now, so
-  // the row is read from q).
-  float m_exact = kNegInf;
-  if (t < 2) {
-    const int row = r0 + 8 * t;
-    const int key = t == 0 ? best[0] : best[1];
-    m_exact = t == 0 ? m_i[0] : m_i[1];
-    if (key >= 0) {
-      const T* qr = q + (bh * sq + q0 + row) * d;
-      const T* kr = kb + static_cast<int64_t>(key) * d;
-      float dot = 0.0f;
-      for (int c = 0; c < d; ++c)
-        dot = fmaf(to_float(qr[c]), to_float(kr[c]), dot);
-      float x = dot * scale;
-      if (causal) x = x + ((k_off + key > q_off + q0 + row) ? kNegInf : 0.0f);
-      if (bias != nullptr)
-        x = x + bias[static_cast<int64_t>(q0 + row) * sk + key];
-      m_exact = x;
-    }
-  }
-  float mf[2], f[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mf[h] = __shfl_sync(kFull, m_exact, (lane & ~3) | h);
-    f[h] = expf(m_i[h] - mf[h]);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int64_t r = bh * sq + q0 + r0 + 8 * h;
-    float* orow = o + r * d + 2 * t;
-#pragma unroll
-    for (int cb = 0; cb < NC; ++cb)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        if (cb * 64 + n * 8 < d)
-          *reinterpret_cast<float2*>(orow + cb * 64 + n * 8) =
-              make_float2(acc[cb][4 * n + 2 * h] * f[h],
-                          acc[cb][4 * n + 2 * h + 1] * f[h]);
-    if (t == 0) {
-      m_out[r] = mf[h];
-      l_out[r] = l_i[h] * f[h];
-    }
-  }
-}
-
-template <typename T, int NC>
-int launch_wgmma(const void* q, const void* k, const void* v,
-                 const float* bias, float* o, float* m, float* l, int64_t bh,
-                 int sq, int sk, int d, float scale, int causal,
-                 int64_t q_off, int64_t k_off, cudaStream_t st) {
-  const size_t smem = wg_smem_bytes(NC);
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_block_wgmma<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  const unsigned grid = static_cast<unsigned>(bh * (sq / kTile));
-  flash_block_wgmma<T, NC><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, o, m, l, static_cast<int>(bh), sq, sk,
-      d, scale, causal, q_off, k_off);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            float* o, float* m, float* l, int64_t bh, int sq, int sk, int d,
@@ -893,11 +471,11 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias,
              cudaStream_t st) {
   switch ((d + 63) / 64) {
     case 1:
-      return launch_wgmma<T, 1>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
-                                causal, q_off, k_off, st);
+      return launch<T, 1>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
+                          causal, q_off, k_off, st);
     case 2:
-      return launch_wgmma<T, 2>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
-                                causal, q_off, k_off, st);
+      return launch<T, 2>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
+                          causal, q_off, k_off, st);
     case 3:
       return launch<T, 3>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
                           causal, q_off, k_off, st);
