@@ -13,13 +13,20 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes, and time kernel, plain version and the one-call
    PyTorch yardstick (``library_ms``) with CUDA events:
-   B1 ``gather_rows`` and B2 ``scatter_add_sorted_rows`` (both signs) with
-   100,000 ids into a 1,000,000 x 50 table, bitwise; the stateful
-   combine's ``fold_sorted_runs`` on the same ids, bitwise to the CPU's
-   lane-order fold; B3 ``fused_stateful_rows`` for momentum_sgd, adagrad
+   B1 ``gather_rows`` and B2 ``scatter_add_sorted_rows`` (both signs,
+   int64 sorted ids as the table plane passes them and int32) with
+   100,000 ids into a 1,000,000 x 50 table, bitwise, one B2 call with
+   int64 ids launching exactly one CUDA kernel (``torch.profiler``), each
+   timed by events in 5 readings of 200 calls in turns with its library
+   call (median and range) and in a CUDA graph, the library call too;
+   the stateful combine's ``fold_sorted_runs`` on the same ids, bitwise
+   to the CPU's lane-order fold; B3 ``fused_stateful_rows`` for momentum_sgd, adagrad
    and ftrl from that combined input into a 1,000,000 x 50 table and its
-   state, bitwise; B4 ``tiled_scatter_add_sorted_rows`` (both signs) with
-   8,192 sorted ids into 100,000 x 128 (bench.py's shape), bitwise; B5
+   state, bitwise; B4 ``tiled_scatter_add_sorted_rows`` (both signs and
+   id types) with 8,192 sorted ids into 100,000 x 128 (bench.py's shape),
+   bitwise, timed as B2; B2 and B4 on every ``scatter_layouts`` layout at
+   row widths ``LAYOUT_COLS`` with int32 and int64 ids, with deltas at an
+   odd element offset, with no ids and with out-of-range ids, bitwise; B5
    ``sgns_block`` on one full flagship block (V=50,000, D=128, C=8192,
    K=5, masked tail chunk), each table within ``SGNS_RTOL[table]`` of its
    largest value and the loss within ``SGNS_LOSS_RTOL``; then every other
@@ -119,6 +126,9 @@ SGNS_RTOL = {"w_in": 2e-3, "w_out": 2e-3, "g_in": 1e-5, "g_out": 1e-5}
 SGNS_LOSS_RTOL = 1e-4
 
 V, D, CHUNK, NEG = 50_000, 128, 8192, 5
+# Row widths of the B2/B4 layout checks: 4-byte, 8-byte and 16-byte loads,
+# and lane groups of 1, 4, 8 and 32 (D = 129 takes two passes).
+LAYOUT_COLS = (1, 3, 25, 50, 64, 128, 129)
 ROWS, COLS, N_IDS = 1_000_000, 50, 100_000
 
 # The attention LM at GPT-2 small's published widths (124M hparams.json).
@@ -230,11 +240,75 @@ def graph_ms(fn, reps: int = 20, calls: int = 20) -> float:
     return cuda_ms(graph.replay, reps) / calls
 
 
+def repeat_ms(fns: dict, readings: int = 5, calls: int = 200) -> dict:
+    """``cuda_ms`` of each function over ``calls`` back-to-back calls,
+    ``readings`` times, the functions in turns (a kernel and its library
+    call interleaved); name -> {"median", "min", "max", "readings"}."""
+    import statistics
+    got = {name: [] for name in fns}
+    for _ in range(readings):
+        for name, fn in fns.items():
+            got[name].append(cuda_ms(fn, calls))
+    return {name: {"median": statistics.median(v), "min": min(v),
+                   "max": max(v), "readings": v} for name, v in got.items()}
+
+
+def spread(r: dict) -> str:
+    return f"{r['median']:.4f} [{r['min']:.4f}-{r['max']:.4f}]"
+
+
+def kernels_launched(fn) -> list:
+    """The names of the device activities (kernels, copies) that one call
+    of ``fn`` starts, traced by ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0,
              ops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scatter_layouts() -> dict:
+    """Sorted id layouts that cross the edges of B2's and B4's tiles (a
+    warp owns 32 id slots and reads 64): name -> sorted int64 ids in
+    [0, 64). Runs of 33, 65 and 129 equal ids; runs that start at every
+    offset mod 8 around each multiple of 32 up to 128 (at 32k + shift,
+    shift in -4..3, among random shorter runs); ids whose count leaves
+    1-7 lanes of the last group of 8; one run holding every id."""
+    import numpy as np
+    out = {}
+    for length in (33, 65, 129):
+        out[f"run_{length}"] = np.array([0, 2, 3] + [5] * length + [7, 7, 11])
+    for shift in range(-4, 4):
+        rng = np.random.default_rng(100 + shift)
+        n = 136
+        edge = rng.random(n) < 0.25
+        edge[[32 * k + shift for k in range(1, 5)]] = True
+        edge[0] = False
+        out[f"starts_at_32k{shift:+d}"] = np.cumsum(edge)
+    for tail in range(1, 8):
+        rng = np.random.default_rng(200 + tail)
+        out[f"n_mod_8_is_{tail}"] = np.sort(rng.integers(0, 24, 64 + tail))
+    out["one_run"] = np.full(100, 7)
+    return {k: v.astype(np.int64) for k, v in out.items()}
+
+
+def out_of_range_ids(rows: int):
+    """Sorted ids with runs below 0 and at or past ``rows``, which the
+    scatters drop, around in-range runs."""
+    import numpy as np
+    return np.array([-9, -3, -3, -1, 0, 4, 4, 4, 9, 30, 30, rows - 1,
+                     rows, rows, rows + 5], np.int64)
 
 
 def zipf_corpus(vocab: int, n_sent: int, sent_len: int, seed: int = 0):
@@ -278,62 +352,90 @@ def check_row_kernels(dev) -> list:
     err_b1 = float((got - want).abs().max())
     assert torch.equal(got, want), f"gather_rows differs: {err_b1}"
     ids64 = ids.to(torch.int64)
-    b1_ms = cuda_ms(lambda: rows.gather_rows(table, ids), 50)
     b1_plain = cuda_ms(lambda: rows.gather_rows_plain(table, ids), 50)
-    b1_lib = cuda_ms(lambda: torch.index_select(table, 0, ids64), 50)
     b1_graph = graph_ms(lambda: rows.gather_rows(table, ids))
+    b1_lib_graph = graph_ms(lambda: torch.index_select(table, 0, ids64))
     b1_bound = bound_ms(N_IDS * 4 + uniq * COLS * 4 + N_IDS * COLS * 4)
-    log(f"B1 gather_rows: max_abs_err {err_b1} (bitwise), kernel "
-        f"{b1_ms:.4f} ms ({b1_graph:.4f} ms in a CUDA graph), plain "
-        f"{b1_plain:.4f} ms, index_select "
-        f"{b1_lib:.4f} ms, bound {b1_bound[0]:.4f} ms ({b1_bound[1]})")
 
+    # B2 on the main path's ids: the table plane sorts int64 ids
+    # (scatter_add_rows) and B2 reads them as they are.
     sorted_ids, order = torch.sort(ids.to(torch.int64), stable=True)
+    sorted32 = sorted_ids.to(torch.int32)
     deltas = torch.randn((N_IDS, COLS), generator=g, device=dev)
     sorted_deltas = deltas.index_select(0, order)
     err_b2 = 0.0
-    for sign in (1.0, -1.0):
-        a = table.clone()
-        b = table.clone()
-        rows.scatter_add_sorted_rows(a, sorted_ids, sorted_deltas, sign)
-        rows.scatter_add_sorted_rows_plain(b, sorted_ids, sorted_deltas,
-                                           sign)
-        torch.cuda.synchronize()
-        e = float((a - b).abs().max())
-        assert torch.equal(a, b), f"scatter_add sign {sign} differs: {e}"
-        err_b2 = max(err_b2, e)
+    for sid in (sorted_ids, sorted32):
+        for sign in (1.0, -1.0):
+            a = table.clone()
+            b = table.clone()
+            rows.scatter_add_sorted_rows(a, sid, sorted_deltas, sign)
+            rows.scatter_add_sorted_rows_plain(b, sid, sorted_deltas, sign)
+            torch.cuda.synchronize()
+            e = float((a - b).abs().max())
+            assert torch.equal(a, b), \
+                f"scatter_add {sid.dtype} sign {sign} differs: {e}"
+            err_b2 = max(err_b2, e)
     work = table.clone()
-    b2_ms = cuda_ms(lambda: rows.scatter_add_sorted_rows(
-        work, sorted_ids, sorted_deltas), 50)
+    launched = kernels_launched(lambda: rows.scatter_add_sorted_rows(
+        work, sorted_ids, sorted_deltas))
+    assert len(launched) == 1 and "scatter_runs_kernel" in launched[0], \
+        f"one B2 call with int64 ids started {launched}"
+    name = launched[0].split("::", 1)[-1].split(">(")[0] + ">"
+    log(f"B2 with int64 sorted ids: one call launches one CUDA kernel "
+        f"({name}; torch.profiler)")
     b2_plain = cuda_ms(lambda: rows.scatter_add_sorted_rows_plain(
         work, sorted_ids, sorted_deltas), 10)
-    b2_lib = cuda_ms(lambda: work.index_add_(0, sorted_ids, sorted_deltas),
-                     50)
-    b2_bound = bound_ms(N_IDS * 4 + N_IDS * COLS * 4 + 2 * uniq * COLS * 4,
+    b2_bound = bound_ms(N_IDS * 8 + N_IDS * COLS * 4 + 2 * uniq * COLS * 4,
                         N_IDS * COLS)
-    sorted32 = sorted_ids.to(torch.int32)
     b2_graph = graph_ms(lambda: rows.scatter_add_sorted_rows(
+        work, sorted_ids, sorted_deltas))
+    b2_graph32 = graph_ms(lambda: rows.scatter_add_sorted_rows(
         work, sorted32, sorted_deltas))
-    log(f"B2 scatter_add_sorted_rows (signs +1, -1): max_abs_err {err_b2} "
-        f"(bitwise), kernel {b2_ms:.4f} ms ({b2_graph:.4f} ms in a CUDA "
-        f"graph), plain {b2_plain:.4f} ms, "
-        f"index_add_ {b2_lib:.4f} ms, bound {b2_bound[0]:.4f} ms "
-        f"({b2_bound[1]})")
+    b2_lib_graph = graph_ms(lambda: work.index_add_(0, sorted_ids,
+                                                    sorted_deltas))
+    # Events readings, each kernel in turns with its library call.
+    ev = repeat_ms({
+        "gather_rows": lambda: rows.gather_rows(table, ids),
+        "index_select": lambda: torch.index_select(table, 0, ids64),
+        "scatter_add_sorted_rows": lambda: rows.scatter_add_sorted_rows(
+            work, sorted_ids, sorted_deltas),
+        "index_add_": lambda: work.index_add_(0, sorted_ids, sorted_deltas)})
+    log(f"B1 gather_rows: max_abs_err {err_b1} (bitwise), kernel "
+        f"{spread(ev['gather_rows'])} ms by events (median [min-max] of 5 x "
+        f"200 calls; {b1_graph:.4f} ms in a CUDA graph), index_select "
+        f"{spread(ev['index_select'])} ms ({b1_lib_graph:.4f} in a graph), "
+        f"plain {b1_plain:.4f} ms, bound {b1_bound[0]:.4f} ms "
+        f"({b1_bound[1]})")
+    log(f"B2 scatter_add_sorted_rows (int64 and int32 ids, signs +1, -1): "
+        f"max_abs_err {err_b2} (bitwise), kernel "
+        f"{spread(ev['scatter_add_sorted_rows'])} ms by events with int64 "
+        f"ids ({b2_graph:.4f} ms in a CUDA graph; int32 ids "
+        f"{b2_graph32:.4f}), index_add_ {spread(ev['index_add_'])} ms "
+        f"({b2_lib_graph:.4f} in a graph), plain {b2_plain:.4f} ms, bound "
+        f"{b2_bound[0]:.4f} ms ({b2_bound[1]}, ids at 8 bytes)")
     return [
         {"name": "gather_rows", "route": "cuda",
          "source": "multiverso_tpu_torch/csrc/rows.cu",
          "replaces": "multiverso_tpu/ops/pallas_rows.py:106",
-         "max_abs_err": err_b1, "ms": b1_ms, "graph_ms": b1_graph,
+         "max_abs_err": err_b1, "ms": ev["gather_rows"]["median"],
+         "ms_readings": ev["gather_rows"]["readings"], "graph_ms": b1_graph,
          "plain_ms": b1_plain,
          "bound_ms": b1_bound[0], "bound_by": b1_bound[1],
-         "library_ms": b1_lib},
+         "library_ms": ev["index_select"]["median"],
+         "library_ms_readings": ev["index_select"]["readings"],
+         "library_graph_ms": b1_lib_graph},
         {"name": "scatter_add_sorted_rows", "route": "cuda",
          "source": "multiverso_tpu_torch/csrc/rows.cu",
          "replaces": "multiverso_tpu/ops/pallas_rows.py:186",
-         "max_abs_err": err_b2, "ms": b2_ms, "graph_ms": b2_graph,
+         "max_abs_err": err_b2,
+         "ms": ev["scatter_add_sorted_rows"]["median"],
+         "ms_readings": ev["scatter_add_sorted_rows"]["readings"],
+         "graph_ms": b2_graph, "graph_ms_int32_ids": b2_graph32,
          "plain_ms": b2_plain,
          "bound_ms": b2_bound[0], "bound_by": b2_bound[1],
-         "library_ms": b2_lib},
+         "library_ms": ev["index_add_"]["median"],
+         "library_ms_readings": ev["index_add_"]["readings"],
+         "library_graph_ms": b2_lib_graph},
     ]
 
 
@@ -536,36 +638,44 @@ def check_stateful_kernels(dev) -> list:
 
 
 def check_tiled_kernel(dev) -> dict:
-    """B4 at bench.py's shape, both signs, bitwise against its plain
-    version; then its other compiled widths once at a small shape."""
+    """B4 at bench.py's shape, both signs and both id types, bitwise
+    against its plain version, timed on the main path's int64 ids (the
+    leg's ``tiled_scatter_add_rows`` sorts int64); then its other compiled
+    widths once at a small shape."""
     import torch
     from multiverso_tpu_torch.ops import rows
 
     g = torch.Generator(device=dev).manual_seed(6)
     table = torch.randn((B4_ROWS, B4_COLS), generator=g, device=dev)
     ids = torch.sort(torch.randint(0, B4_ROWS, (B4_IDS,), generator=g,
-                                   device=dev))[0].to(torch.int32)
+                                   device=dev))[0]
+    ids32 = ids.to(torch.int32)
     deltas = torch.randn((B4_IDS, B4_COLS), generator=g, device=dev)
     uniq = int(torch.unique(ids).numel())
     err = 0.0
-    for sign in (1.0, -1.0):
-        a, b = table.clone(), table.clone()
-        rows.tiled_scatter_add_sorted_rows(a, ids, deltas, sign)
-        rows.tiled_scatter_add_sorted_rows_plain(b, ids, deltas, sign)
-        torch.cuda.synchronize()
-        e = float((a - b).abs().max())
-        assert torch.equal(a, b), f"tiled scatter sign {sign} differs: {e}"
-        err = max(err, e)
+    for sid in (ids, ids32):
+        for sign in (1.0, -1.0):
+            a, b = table.clone(), table.clone()
+            rows.tiled_scatter_add_sorted_rows(a, sid, deltas, sign)
+            rows.tiled_scatter_add_sorted_rows_plain(b, sid, deltas, sign)
+            torch.cuda.synchronize()
+            e = float((a - b).abs().max())
+            assert torch.equal(a, b), \
+                f"tiled scatter {sid.dtype} sign {sign} differs: {e}"
+            err = max(err, e)
     work = table.clone()
-    ms = cuda_ms(lambda: rows.tiled_scatter_add_sorted_rows(work, ids,
-                                                            deltas), 50)
     plain = cuda_ms(lambda: rows.tiled_scatter_add_sorted_rows_plain(
         work, ids, deltas), 10)
     graph = graph_ms(lambda: rows.tiled_scatter_add_sorted_rows(work, ids,
                                                                 deltas))
-    ids64 = ids.to(torch.int64)
-    lib = cuda_ms(lambda: work.index_add_(0, ids64, deltas), 50)
-    bound = bound_ms(B4_IDS * 4 + B4_IDS * B4_COLS * 4
+    graph32 = graph_ms(lambda: rows.tiled_scatter_add_sorted_rows(
+        work, ids32, deltas))
+    lib_graph = graph_ms(lambda: work.index_add_(0, ids, deltas))
+    ev = repeat_ms({
+        "kernel": lambda: rows.tiled_scatter_add_sorted_rows(work, ids,
+                                                             deltas),
+        "index_add_": lambda: work.index_add_(0, ids, deltas)})
+    bound = bound_ms(B4_IDS * 8 + B4_IDS * B4_COLS * 4
                      + 2 * uniq * B4_COLS * 4, B4_IDS * B4_COLS)
     variants = [{"cols": B4_COLS, "max_abs_err": err}]
     for cols in (50, 25):
@@ -579,18 +689,98 @@ def check_tiled_kernel(dev) -> dict:
             rows.tiled_scatter_add_sorted_rows_plain(b, sid, sd, sign)
             assert torch.equal(a, b), (cols, sign)
         variants.append({"cols": cols, "max_abs_err": 0.0})
-    log(f"B4 tiled_scatter_add_sorted_rows (signs +1, -1): {B4_IDS} sorted "
-        f"ids ({uniq} unique) into {B4_ROWS} x {B4_COLS}, bitwise, kernel "
-        f"{ms:.4f} ms ({graph:.4f} ms in a CUDA graph), plain {plain:.4f} "
-        f"ms, index_add_ {lib:.4f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]}); D=50 and D=25 bitwise")
+    log(f"B4 tiled_scatter_add_sorted_rows (int64 and int32 ids, signs +1, "
+        f"-1): {B4_IDS} sorted ids ({uniq} unique) into {B4_ROWS} x "
+        f"{B4_COLS}, bitwise, kernel {spread(ev['kernel'])} ms by events "
+        f"with int64 ids (median [min-max] of 5 x 200 calls; {graph:.4f} ms "
+        f"in a CUDA graph; int32 ids {graph32:.4f}), index_add_ "
+        f"{spread(ev['index_add_'])} ms ({lib_graph:.4f} in a graph), plain "
+        f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, ids at 8 "
+        f"bytes); D=50 and D=25 bitwise")
     return {"name": "tiled_scatter_add_sorted_rows", "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/rows.cu",
             "replaces": "multiverso_tpu/ops/pallas_rows.py:430",
-            "max_abs_err": err, "ms": ms, "graph_ms": graph,
+            "max_abs_err": err, "ms": ev["kernel"]["median"],
+            "ms_readings": ev["kernel"]["readings"], "graph_ms": graph,
+            "graph_ms_int32_ids": graph32,
             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": lib,
+            "library_ms": ev["index_add_"]["median"],
+            "library_ms_readings": ev["index_add_"]["readings"],
+            "library_graph_ms": lib_graph,
             "variants": variants}
+
+
+def check_scatter_layouts(dev) -> dict:
+    """B2 and B4 against their plain versions, bitwise and with both
+    signs, on every ``scatter_layouts`` layout at row widths 1, 3, 25, 50,
+    64, 128 and 129 (each vector width and lane group), with int32 and
+    int64 ids; then with deltas at an odd element offset (4-byte loads at
+    D = 50 and 128), with n = 0 and with out-of-range ids (dropped).
+    Returns {kernel: [variant records]}."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.ops import rows
+
+    kernels = ("scatter_add_sorted_rows", "tiled_scatter_add_sorted_rows")
+    g = torch.Generator(device=dev).manual_seed(8)
+    layouts = scatter_layouts()
+    checked = 0
+
+    def hold(kernel, table, ids, deltas, what):
+        nonlocal checked
+        for sign in (1.0, -1.0):
+            a, b = table.clone(), table.clone()
+            getattr(rows, kernel)(a, ids, deltas, sign)
+            getattr(rows, kernel + "_plain")(b, ids, deltas, sign)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (kernel, what, sign, float(
+                (a - b).abs().max()))
+            checked += 1
+
+    out = {k: [] for k in kernels}
+    for cols in LAYOUT_COLS:
+        table = torch.randn((64, cols), generator=g, device=dev)
+        for name, ids_np in layouts.items():
+            deltas = torch.randn((len(ids_np), cols), generator=g,
+                                 device=dev)
+            for dtype in (torch.int32, torch.int64):
+                ids = torch.as_tensor(ids_np, dtype=dtype, device=dev)
+                for k in kernels:
+                    hold(k, table, ids, deltas, (name, cols, dtype))
+        for k in kernels:
+            out[k].append({"cols": cols, "layouts": len(layouts),
+                           "max_abs_err": 0.0})
+    ids_np = layouts["starts_at_32k+1"]
+    for cols in (50, 128):
+        table = torch.randn((64, cols), generator=g, device=dev)
+        flat = torch.randn((len(ids_np) * cols + 1,), generator=g,
+                           device=dev)
+        odd = flat[1:].view(len(ids_np), cols)      # 4-byte aligned only
+        for dtype in (torch.int32, torch.int64):
+            ids = torch.as_tensor(ids_np, dtype=dtype, device=dev)
+            for k in kernels:
+                hold(k, table, ids, odd, ("odd offset", cols, dtype))
+    empty_table = torch.randn((64, 50), generator=g, device=dev)
+    before = empty_table.clone()
+    oor = torch.as_tensor(out_of_range_ids(64), device=dev)
+    oor_deltas = torch.randn((len(oor), 50), generator=g, device=dev)
+    for dtype in (torch.int32, torch.int64):
+        for k in kernels:
+            getattr(rows, k)(empty_table, torch.zeros(0, dtype=dtype,
+                                                      device=dev),
+                             torch.zeros((0, 50), device=dev))
+            hold(k, empty_table, oor.to(dtype), oor_deltas,
+                 ("out of range", dtype))
+    torch.cuda.synchronize()
+    assert torch.equal(empty_table, before), "n = 0 changed the table"
+    for k in kernels:
+        out[k].append({"odd_offset_deltas": [50, 128], "n_zero": True,
+                       "out_of_range": True, "max_abs_err": 0.0})
+    log(f"B2/B4 layouts: {len(layouts)} layouts x D {list(LAYOUT_COLS)} x "
+        f"int32/int64 ids, deltas at an odd offset (D 50, 128), out-of-range "
+        f"ids, both kernels: {checked} calls bitwise to the plain versions "
+        f"(both signs); n = 0 leaves the table as it was")
+    return out
 
 
 def flagship_block(dev):
@@ -1883,8 +2073,10 @@ def main() -> int:
     kernels.append(check_attention_kernel(dev))
     kernels.append(check_paged_kernel(dev))
     variants = check_variants(dev)
+    layouts = check_scatter_layouts(dev)
     for k in kernels:
         k.setdefault("variants", variants.get(k["name"], []))
+        k["variants"] += layouts.get(k["name"], [])
     mv.shutdown()
 
     # Each main path runs with every launch count set to 0 just before it

@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "multiverso_tpu_torch"
@@ -113,6 +115,19 @@ def build_log(name: str) -> str:
     """The compiler's output of the last build of ``csrc/<name>.cu``."""
     path = BUILD_DIR / f"{name}.build.log"
     return path.read_text() if path.exists() else ""
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s card, for a
+    launch. Read anew on every call, never kept: a CUDA graph is captured
+    on a side stream, and a handle kept from before the capture would
+    launch outside it. ``torch._C._cuda_getCurrentRawStream`` (what
+    Triton's launcher calls) builds no Python stream object; a build of
+    torch without it takes the public path."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(t.device).cuda_stream
+    return raw(t.get_device())
 
 
 def check_launch(err: int, kernel: str) -> None:

@@ -11,7 +11,8 @@ stateful updaters' duplicate combine. The kernels are CUDA C++ in
 ``csrc/rows.cu`` (B1, B2, B4) and ``csrc/stateful_rows.cu`` (B3 and the
 fold); each wrapper launches its kernel for CUDA tensors (or raises) and
 runs its plain PyTorch twin, defined beside it, for CPU tensors. Each
-wrapper counts its kernel launches in ``LAUNCHES``.
+wrapper counts its kernel launches in ``LAUNCHES``. B2 and B4 read int32
+or int64 sorted ids as they are given.
 """
 
 from __future__ import annotations
@@ -35,18 +36,28 @@ _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
 
 
+#: The sorted scatters' C entry points, by kernel and id type.
+_SCATTER = {("scatter_add_sorted_rows", torch.int32):
+            "mv_scatter_add_sorted_rows",
+            ("scatter_add_sorted_rows", torch.int64):
+            "mv_scatter_add_sorted_rows_i64",
+            ("tiled_scatter_add_sorted_rows", torch.int32):
+            "mv_tiled_scatter_add_sorted_rows",
+            ("tiled_scatter_add_sorted_rows", torch.int64):
+            "mv_tiled_scatter_add_sorted_rows_i64"}
+
+
 def _lib():
     lib = _build.load("rows")
     if not getattr(lib, "_mv_typed", False):
         lib.mv_gather_rows.argtypes = [_c, _c, _c, _i64, _i64, ctypes.c_int,
                                        _c]
         lib.mv_gather_rows.restype = ctypes.c_int
-        lib.mv_scatter_add_sorted_rows.argtypes = [
-            _c, _c, _c, _i64, _i64, ctypes.c_int, ctypes.c_float, _c]
-        lib.mv_scatter_add_sorted_rows.restype = ctypes.c_int
-        lib.mv_tiled_scatter_add_sorted_rows.argtypes = \
-            lib.mv_scatter_add_sorted_rows.argtypes
-        lib.mv_tiled_scatter_add_sorted_rows.restype = ctypes.c_int
+        for name in _SCATTER.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [_c, _c, _c, _i64, _i64, ctypes.c_int,
+                           ctypes.c_float, _c]
+            fn.restype = ctypes.c_int
         lib._mv_typed = True
     return lib
 
@@ -69,10 +80,6 @@ def _stateful_lib():
     return lib
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_table(table: torch.Tensor) -> None:
     if table.dim() != 2 or table.dtype != torch.float32 or \
             not table.is_contiguous():
@@ -80,14 +87,20 @@ def _check_table(table: torch.Tensor) -> None:
                          f"got {tuple(table.shape)} {table.dtype}")
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
+def _on_card(first: torch.Tensor, *rest: torch.Tensor) -> bool:
+    if first.is_cuda:
+        dev = first.device
+        for t in rest:
+            if t.device != dev:
+                break
+        else:
+            return True
+    elif first.device.type == "cpu" and \
+            all(t.device.type == "cpu" for t in rest):
         return False
-    if devs == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return True
     raise ValueError(f"row kernels take tensors on one CUDA device or all "
-                     f"on the CPU; got {[str(t.device) for t in tensors]}")
+                     f"on the CPU; got "
+                     f"{[str(t.device) for t in (first, *rest)]}")
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +122,7 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, d), dtype=table.dtype, device=table.device)
     err = _lib().mv_gather_rows(table.data_ptr(), ids32.data_ptr(),
                                 out.data_ptr(), n, table.shape[0], d,
-                                _stream(table))
+                                _build.stream(table))
     _build.check_launch(err, "gather_rows")
     LAUNCHES["gather_rows"] += 1
     return out
@@ -181,6 +194,37 @@ def scatter_add_sorted_rows_plain(table: torch.Tensor, sorted_ids: torch.Tensor,
     return _add_in_rounds(table, f_ids, f_acc)
 
 
+def _launch_sorted(kernel: str, table: torch.Tensor, sorted_ids: torch.Tensor,
+                   sorted_deltas: torch.Tensor, sign: float) -> None:
+    """Launch B2 or B4 (``kernel``) on the card (no launch for no ids).
+    int32 and int64 ids are read where they lie; other integer types are
+    cast to int32. A tensor that already has the kernel's type and layout
+    is passed as it is."""
+    n = sorted_ids.shape[0]
+    num_rows, d = table.shape
+    if sorted_ids.dim() != 1 or sorted_deltas.shape != (n, d):
+        raise ValueError(f"{kernel} takes ids [n] and deltas [n, {d}]; got "
+                         f"{tuple(sorted_ids.shape)} and "
+                         f"{tuple(sorted_deltas.shape)}")
+    if n == 0:
+        return
+    ids = sorted_ids
+    if ids.dtype != torch.int32 and ids.dtype != torch.int64:
+        ids = ids.to(torch.int32)
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    deltas = sorted_deltas
+    if deltas.dtype != torch.float32:
+        deltas = deltas.to(torch.float32)
+    if not deltas.is_contiguous():
+        deltas = deltas.contiguous()
+    err = getattr(_lib(), _SCATTER[kernel, ids.dtype])(
+        table.data_ptr(), ids.data_ptr(), deltas.data_ptr(), n, num_rows, d,
+        sign, _build.stream(table))
+    _build.check_launch(err, kernel)
+    LAUNCHES[kernel] += 1
+
+
 def scatter_add_sorted_rows(table: torch.Tensor, sorted_ids: torch.Tensor,
                             sorted_deltas: torch.Tensor,
                             sign: float = 1.0) -> torch.Tensor:
@@ -191,16 +235,8 @@ def scatter_add_sorted_rows(table: torch.Tensor, sorted_ids: torch.Tensor,
     if not _on_card(table, sorted_ids, sorted_deltas):
         return scatter_add_sorted_rows_plain(table, sorted_ids,
                                              sorted_deltas, sign)
-    n, d = sorted_ids.shape[0], table.shape[1]
-    if sorted_deltas.shape != (n, d):
-        raise ValueError(f"deltas {tuple(sorted_deltas.shape)} != ({n}, {d})")
-    ids32 = sorted_ids.to(torch.int32).contiguous()
-    deltas = sorted_deltas.to(table.dtype).contiguous()
-    err = _lib().mv_scatter_add_sorted_rows(
-        table.data_ptr(), ids32.data_ptr(), deltas.data_ptr(), n,
-        table.shape[0], d, sign, _stream(table))
-    _build.check_launch(err, "scatter_add_sorted_rows")
-    LAUNCHES["scatter_add_sorted_rows"] += 1
+    _launch_sorted("scatter_add_sorted_rows", table, sorted_ids,
+                   sorted_deltas, sign)
     return table
 
 
@@ -257,16 +293,8 @@ def tiled_scatter_add_sorted_rows(table: torch.Tensor,
     if not _on_card(table, sorted_ids, sorted_deltas):
         return tiled_scatter_add_sorted_rows_plain(table, sorted_ids,
                                                    sorted_deltas, sign)
-    n, d = sorted_ids.shape[0], table.shape[1]
-    if sorted_deltas.shape != (n, d):
-        raise ValueError(f"deltas {tuple(sorted_deltas.shape)} != ({n}, {d})")
-    ids32 = sorted_ids.to(torch.int32).contiguous()
-    deltas = sorted_deltas.to(table.dtype).contiguous()
-    err = _lib().mv_tiled_scatter_add_sorted_rows(
-        table.data_ptr(), ids32.data_ptr(), deltas.data_ptr(), n,
-        table.shape[0], d, sign, _stream(table))
-    _build.check_launch(err, "tiled_scatter_add_sorted_rows")
-    LAUNCHES["tiled_scatter_add_sorted_rows"] += 1
+    _launch_sorted("tiled_scatter_add_sorted_rows", table, sorted_ids,
+                   sorted_deltas, sign)
     return table
 
 
@@ -317,7 +345,7 @@ def fold_sorted_runs(sorted_ids: torch.Tensor,
     out = torch.empty_like(deltas)
     err = getattr(_stateful_lib(), fn)(ids64.data_ptr(), deltas.data_ptr(),
                                        out.data_ptr(), n, deltas.shape[1],
-                                       _stream(deltas))
+                                       _build.stream(deltas))
     _build.check_launch(err, "fold_sorted_runs")
     LAUNCHES["fold_sorted_runs"] += 1
     return out
@@ -415,7 +443,8 @@ def fused_stateful_rows(table: torch.Tensor, state: Dict[str, torch.Tensor],
     err = _stateful_lib().mv_fused_stateful_rows(
         kind, table.data_ptr(), leaf_a.data_ptr(),
         None if leaf_b is None else leaf_b.data_ptr(), ids32.data_ptr(),
-        deltas.data_ptr(), n, table.shape[0], d, wid, *p, _stream(table))
+        deltas.data_ptr(), n, table.shape[0], d, wid, *p,
+        _build.stream(table))
     _build.check_launch(err, "fused_stateful_rows")
     LAUNCHES["fused_stateful_rows"] += 1
     return table, state
