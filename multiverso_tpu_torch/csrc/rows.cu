@@ -1,8 +1,3 @@
-// Version of the sorted scatters B2/B4 with a cp.async ring: each lane
-// copies its run's row and first delta chunks (8-byte cp.async) into a
-// 2-stage ring per warp, the next round's copies over this round's fold.
-// 128-thread blocks. Timed against the register version, which replaced it.
-
 // Row kernels of the parameter-server table plane, for Hopper (sm_90a).
 //
 // mv_gather_rows replaces multiverso_tpu/ops/pallas_rows.py::gather_rows
@@ -46,14 +41,16 @@
 //   its last chunk (no bound test between the loads) and not stored.
 //   Deltas are read once, with the streaming hint (__ldcs), so the table
 //   rows keep the L2.
-// - Grid: when the tiles alone would not fill the card, up to G warps
-//   share one tile, each taking every G-th round of runs, so small calls
-//   (B4's 8,192 ids) still spread over all 132 SMs.
+// - Grid: when the tiles alone would not give each SM 32 warps, up to G
+//   warps share one tile, each taking every G-th round of runs, so small
+//   calls (B4's 8,192 ids) still spread over all 132 SMs.
 // - Bytes in flight per SM at the main path's shape (B2: 100,000 int64
-//   ids into 1,000,000 x 50, 256-thread blocks, 44 registers a thread, 5
-//   blocks = 40 warps resident per SM): each warp has 4 runs in flight,
-//   each a 200-byte row and a 200-byte delta, 1.6 KB; 40 warps hold
-//   64 KB per SM, over three times the 18 KB the card needs.
+//   ids into 1,000,000 x 50; 71 registers a thread, so 3 blocks of 256
+//   threads = 24 warps resident per SM): each warp has 4 runs in flight,
+//   each a 200-byte row and a 200-byte delta, 1.6 KB; 24 warps hold
+//   38 KB per SM, twice the 18 KB the card needs. A 64-register cap (32
+//   warps) measured slower. What is left is the DRAM's granularity on
+//   random 200-byte rows: 7 sectors of 32 bytes each, read and written.
 // - No TMA: a D = 50 float32 row is 200 bytes, not a multiple of 16, so
 //   rows at 200-byte strides break TMA's 16-byte stride rule. Plain
 //   vector loads of 8 bytes (16 when D % 4 == 0 and the pointers are
@@ -99,7 +96,7 @@ template <> struct Vec<4> {
   __device__ static T stream(const T* p) { return __ldcs(p); }
 };
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 8;   // the TPU kernel's sublane group of 4-byte rows
 constexpr int kTile = 32;   // sorted id slots a warp owns: one per lane
@@ -187,31 +184,19 @@ __device__ int find_runs(const IdT* __restrict__ ids, int64_t n, int64_t t0,
   return __popc(starts);
 }
 
-
-#ifndef MV_U
-#define MV_U 1
-#endif
-#ifndef MV_MINB
-#define MV_MINB 1
-#endif
-#ifndef MV_FILL
-#define MV_FILL 32
-#endif
-#ifndef MV_WPT_MAX
-#define MV_WPT_MAX 32
-#endif
-constexpr int kU = MV_U;
-
-// Up to kU runs by one lane group: all rows' and first deltas' loads
-// first, then each run's fold and store.
+// One run [s, e) of row r, by one lane group of G lanes (lane gl of it):
+// the row's chunks gl, gl + G, ... in passes of G * kChunks chunks. The
+// loops over a run's further deltas stay rolled: unrolled they cost
+// registers, and so resident warps, that runs of one or two ids never use.
 template <int FOLD, int VEC, int G>
-__device__ void add_runs(float* __restrict__ table,
-                         const float* __restrict__ deltas, const int64_t* r,
-                         const int64_t* s, const int64_t* e, const bool* ok,
-                         int64_t n, int d, bool negate, int gl) {
+__device__ void add_run(float* __restrict__ table,
+                        const float* __restrict__ deltas, int64_t r,
+                        int64_t s, int64_t e, int64_t n, int d, bool negate,
+                        int gl) {
   using V = typename Vec<VEC>::T;
   using O = Vec<VEC>;
   const int dv = d / VEC;
+  V* row = reinterpret_cast<V*>(table + r * d);
   const V* del = reinterpret_cast<const V*>(deltas);
   for (int base = 0; base < dv; base += G * kChunks) {
     int c[kChunks];
@@ -220,220 +205,88 @@ __device__ void add_runs(float* __restrict__ table,
       const int want = base + gl + G * q;
       c[q] = want < dv ? want : dv - 1;
     }
-    V v[kU][kChunks], a[kU][kChunks];
+    V v[kChunks], a[kChunks];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const V* row = reinterpret_cast<const V*>(table + r[u] * d);
+    for (int q = 0; q < kChunks; ++q) v[q] = row[c[q]];
 #pragma unroll
-      for (int q = 0; q < kChunks; ++q) v[u][q] = row[c[q]];
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u)
+    for (int q = 0; q < kChunks; ++q) a[q] = O::stream(del + s * dv + c[q]);
+    if (FOLD == kEachDelta) {
 #pragma unroll
       for (int q = 0; q < kChunks; ++q)
-        a[u][q] = O::stream(del + s[u] * dv + c[q]);
+        v[q] = O::add(v[q], negate ? O::neg(a[q]) : a[q]);
+#pragma unroll 1
+      for (int64_t j = s + 1; j < e; ++j) {
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (FOLD == kEachDelta) {
+        for (int q = 0; q < kChunks; ++q) {
+          const V x = O::stream(del + j * dv + c[q]);
+          v[q] = O::add(v[q], negate ? O::neg(x) : x);
+        }
+      }
+    } else {
+      int64_t j = s;
+#pragma unroll 1
+      for (;;) {
+        const int64_t group_end = (j / kGroup + 1) * kGroup;
+        const int64_t stop = group_end < e ? group_end : e;
+        // A run that starts inside a group folds onto the TPU kernel's
+        // zero (delta + 0), which only differs from delta for -0.
+        if (j % kGroup != 0) {
+#pragma unroll
+          for (int q = 0; q < kChunks; ++q) a[q] = O::add(a[q], O::zero());
+        }
+#pragma unroll 1
+        for (int64_t k = j + 1; k < stop; ++k) {
+#pragma unroll
+          for (int q = 0; q < kChunks; ++q)
+            a[q] = O::add(O::stream(del + k * dv + c[q]), a[q]);
+        }
+        // The TPU kernel's zero-delta pad lanes continue the last run.
+        if (stop == n && n % kGroup != 0) {
+#pragma unroll
+          for (int q = 0; q < kChunks; ++q) a[q] = O::add(O::zero(), a[q]);
+        }
 #pragma unroll
         for (int q = 0; q < kChunks; ++q)
-          v[u][q] = O::add(v[u][q], negate ? O::neg(a[u][q]) : a[u][q]);
-        #pragma unroll 1
-for (int64_t j = s[u] + 1; j < e[u]; ++j) {
+          v[q] = O::add(v[q], negate ? O::neg(a[q]) : a[q]);
+        j = stop;
+        if (j >= e) break;
 #pragma unroll
-          for (int q = 0; q < kChunks; ++q) {
-            const V x = O::stream(del + j * dv + c[q]);
-            v[u][q] = O::add(v[u][q], negate ? O::neg(x) : x);
-          }
-        }
-      } else {
-        int64_t j = s[u];
-        #pragma unroll 1
-for (;;) {
-          const int64_t group_end = (j / kGroup + 1) * kGroup;
-          const int64_t stop = group_end < e[u] ? group_end : e[u];
-          if (j % kGroup != 0) {
-#pragma unroll
-            for (int q = 0; q < kChunks; ++q)
-              a[u][q] = O::add(a[u][q], O::zero());
-          }
-          #pragma unroll 1
-for (int64_t k = j + 1; k < stop; ++k) {
-#pragma unroll
-            for (int q = 0; q < kChunks; ++q)
-              a[u][q] = O::add(O::stream(del + k * dv + c[q]), a[u][q]);
-          }
-          if (stop == n && n % kGroup != 0) {
-#pragma unroll
-            for (int q = 0; q < kChunks; ++q)
-              a[u][q] = O::add(O::zero(), a[u][q]);
-          }
-#pragma unroll
-          for (int q = 0; q < kChunks; ++q)
-            v[u][q] = O::add(v[u][q], negate ? O::neg(a[u][q]) : a[u][q]);
-          j = stop;
-          if (j >= e[u]) break;
-#pragma unroll
-          for (int q = 0; q < kChunks; ++q)
-            a[u][q] = O::stream(del + j * dv + c[q]);
-        }
+        for (int q = 0; q < kChunks; ++q)
+          a[q] = O::stream(del + j * dv + c[q]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      V* row = reinterpret_cast<V*>(table + r[u] * d);
-      if (ok[u]) {
-#pragma unroll
-        for (int q = 0; q < kChunks; ++q)
-          if (base + gl + G * q < dv) row[c[q]] = v[u][q];
-      }
-    }
+    for (int q = 0; q < kChunks; ++q)
+      if (base + gl + G * q < dv) row[c[q]] = v[q];
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void cp_async_v(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(VEC * 4)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Per warp: two stages of each lane's row chunks and first delta chunks.
-template <int VEC> struct Ring {
-  typename Vec<VEC>::T buf[2][2][kChunks][32];
-};
-
+// B2 (FOLD = kGroupFold) and B4 (kEachDelta). Global warp w works on tile
+// w / wpt and takes the rounds sub, sub + wpt, ... of its runs (sub = w %
+// wpt); a round is 32 / G runs, one per lane group.
 template <int FOLD, int VEC, int G, typename IdT>
-__global__ void __launch_bounds__(kThreads, MV_MINB)
+__global__ void __launch_bounds__(kThreads)
 scatter_runs_kernel(float* __restrict__ table, const IdT* __restrict__ ids,
                     const float* __restrict__ deltas, int64_t n,
                     int64_t num_rows, int d, int wpt, bool negate) {
-  using V = typename Vec<VEC>::T;
-  using O = Vec<VEC>;
   constexpr int kPerRound = 32 / G;
   __shared__ Runs<IdT> runs[kWarps];
-  __shared__ Ring<VEC> rings[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = lane / G, gl = lane % G;
   const int64_t total = (n + kTile - 1) / kTile * wpt;
   const int64_t stride = (int64_t)gridDim.x * kWarps;
-  const int dv = d / VEC;
   Runs<IdT>& mine = runs[warp];
-  Ring<VEC>& ring = rings[warp];
-  const V* del = reinterpret_cast<const V*>(deltas);
-  int c[kChunks];
-#pragma unroll
-  for (int q = 0; q < kChunks; ++q) {
-    const int want = gl + G * q;
-    c[q] = want < dv ? want : dv - 1;
-  }
-  const bool one_pass = dv <= G * kChunks;
   for (int64_t w = (int64_t)blockIdx.x * kWarps + warp; w < total;
        w += stride) {
     const int64_t t0 = w / wpt * kTile;
     const int sub = (int)(w % wpt);
     const int count = find_runs(ids, n, t0, lane, mine);
-    const int step = wpt * kPerRound;
-    if (!one_pass) {
-      for (int k = sub * kPerRound + group; k < count; k += step) {
-        int64_t r = mine.id[k];
-        const bool ok = r >= 0 && r < num_rows;
-        if (!ok) r = 0;
-        const int64_t s = t0 + mine.start[k], e = mine.end[k];
-        add_runs<FOLD, VEC, G>(table, deltas, &r, &s, &e, &ok, n, d,
-                               negate, gl);
-      }
-      __syncwarp();
-      continue;
-    }
-    auto issue = [&](int k, int st) {
-      if (k < count) {
-        const int64_t r = mine.id[k];
-        if (r >= 0 && r < num_rows) {
-          const V* row = reinterpret_cast<const V*>(table + r * d);
-          const V* dl = del + (t0 + mine.start[k]) * dv;
-#pragma unroll
-          for (int q = 0; q < kChunks; ++q) {
-            cp_async_v<VEC>(&ring.buf[st][0][q][lane], row + c[q]);
-            cp_async_v<VEC>(&ring.buf[st][1][q][lane], dl + c[q]);
-          }
-        }
-      }
-      cp_commit();
-    };
-    int st = 0;
-    int k = sub * kPerRound + group;
-    issue(k, 0);
-    for (; k < count; k += step, st ^= 1) {
-      issue(k + step, st ^ 1);
-      cp_wait1();
+    for (int k = sub * kPerRound + group; k < count; k += wpt * kPerRound) {
       const int64_t r = mine.id[k];
-      if (r < 0 || r >= num_rows) continue;
-      const int64_t s = t0 + mine.start[k], e = mine.end[k];
-      V v[kChunks], a[kChunks];
-#pragma unroll
-      for (int q = 0; q < kChunks; ++q) {
-        v[q] = ring.buf[st][0][q][lane];
-        a[q] = ring.buf[st][1][q][lane];
-      }
-      if (FOLD == kEachDelta) {
-#pragma unroll
-        for (int q = 0; q < kChunks; ++q)
-          v[q] = O::add(v[q], negate ? O::neg(a[q]) : a[q]);
-        #pragma unroll 1
-for (int64_t j = s + 1; j < e; ++j) {
-#pragma unroll
-          for (int q = 0; q < kChunks; ++q) {
-            const V x = O::stream(del + j * dv + c[q]);
-            v[q] = O::add(v[q], negate ? O::neg(x) : x);
-          }
-        }
-      } else {
-        int64_t j = s;
-        #pragma unroll 1
-for (;;) {
-          const int64_t group_end = (j / kGroup + 1) * kGroup;
-          const int64_t stop = group_end < e ? group_end : e;
-          if (j % kGroup != 0) {
-#pragma unroll
-            for (int q = 0; q < kChunks; ++q) a[q] = O::add(a[q], O::zero());
-          }
-          #pragma unroll 1
-for (int64_t kk = j + 1; kk < stop; ++kk) {
-#pragma unroll
-            for (int q = 0; q < kChunks; ++q)
-              a[q] = O::add(O::stream(del + kk * dv + c[q]), a[q]);
-          }
-          if (stop == n && n % kGroup != 0) {
-#pragma unroll
-            for (int q = 0; q < kChunks; ++q) a[q] = O::add(O::zero(), a[q]);
-          }
-#pragma unroll
-          for (int q = 0; q < kChunks; ++q)
-            v[q] = O::add(v[q], negate ? O::neg(a[q]) : a[q]);
-          j = stop;
-          if (j >= e) break;
-#pragma unroll
-          for (int q = 0; q < kChunks; ++q)
-            a[q] = O::stream(del + j * dv + c[q]);
-        }
-      }
-      V* row = reinterpret_cast<V*>(table + r * d);
-#pragma unroll
-      for (int q = 0; q < kChunks; ++q)
-        if (gl + G * q < dv) row[c[q]] = v[q];
+      if (r >= 0 && r < num_rows)
+        add_run<FOLD, VEC, G>(table, deltas, r, t0 + mine.start[k],
+                              mine.end[k], n, d, negate, gl);
     }
-    cp_wait0();
     __syncwarp();
   }
 }
@@ -503,12 +356,12 @@ int scatter_sorted(float* table, const IdT* ids, const float* deltas,
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int vec = vec_width(table, deltas, d);
   const int g = lanes_per_row(d / vec);
-  // Warps per tile: while the tiles do not fill the card (64 warps an SM)
-  // split each tile's rounds of runs over up to g warps.
+  // Warps per tile: while the tiles do not give each SM 32 warps, split
+  // each tile's rounds of runs over up to g warps.
   const int64_t tiles = (n + kTile - 1) / kTile;
-  const int64_t fill = (int64_t)sm_count() * MV_FILL;
+  const int64_t fill = (int64_t)sm_count() * 32;
   int wpt = 1;
-  while (wpt < g && wpt < MV_WPT_MAX && tiles * wpt < fill) wpt *= 2;
+  while (wpt < g && tiles * wpt < fill) wpt *= 2;
   const int grid = grid_for(tiles * wpt);
   const bool negate = sign < 0.f;
   switch (vec) {
