@@ -20,8 +20,8 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    timed by events in 5 readings of 200 calls in turns with its library
    call (median and range) and in a CUDA graph, the library call too;
    the stateful combine's ``fold_sorted_runs`` on the same ids, bitwise
-   to the CPU's lane-order fold; B3 ``fused_stateful_rows`` for momentum_sgd, adagrad
-   and ftrl from that combined input into a 1,000,000 x 50 table and its
+   to the CPU's lane-order fold; B3 ``fused_stateful_rows`` for
+   momentum_sgd, adagrad and ftrl from that combined input into a 1,000,000 x 50 table and its
    state, bitwise; B4 ``tiled_scatter_add_sorted_rows`` (both signs and
    id types) with 8,192 sorted ids into 100,000 x 128 (bench.py's shape),
    bitwise, timed as B2; B2 and B4 on every ``scatter_layouts`` layout at

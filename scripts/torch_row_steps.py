@@ -20,10 +20,11 @@ plain version on the card (bitwise, both signs), then times, per call:
 CUDA events over 200 back-to-back wrapper calls, 5 readings, the wrapper
 and ``index_add_`` in turns; the wrapper in a CUDA graph (device time, no
 host cost); and the host's time to issue one call (the host clock over
-200 calls before any synchronize), beside the same for the C entry point
-called directly with its arguments made beforehand (ctypes and the
-launch: the rest is the wrapper's Python). One JSON record per reading goes to
-``--out`` and every line is printed.
+200 calls before any synchronize; at B2's shape, where the card is the
+slower side, this includes waits on its queue), beside the same for the
+C entry point called directly with its arguments made beforehand
+(ctypes and the launch: the rest is the wrapper's Python). One JSON
+record per reading goes to ``--out`` and every line is printed.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def host_ms(fn, calls: int = 200, readings: int = 5) -> float:
     """Median host time to issue one call of ``fn`` (no synchronize while
-    the calls are issued; the card's queue holds far more than 200)."""
+    the calls are issued). Where the card takes longer per call than the
+    host, its launch queue pushes back and the reading includes the wait:
+    it is the host's cost only where the card is the faster side."""
     import torch
     got = []
     for _ in range(readings):
