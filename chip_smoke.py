@@ -29,10 +29,15 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    odd element offset, with no ids and with out-of-range ids, bitwise; B5
    ``sgns_block`` on one full flagship block (V=50,000, D=128, C=8192,
    K=5, masked tail chunk), each table within ``SGNS_RTOL[table]`` of its
-   largest value and the loss within ``SGNS_LOSS_RTOL``; then every other
+   largest value and the loss within ``SGNS_LOSS_RTOL``, and a second
+   launch on the same block bitwise equal to the first; then every other
    compiled variant of each kernel once at a small shape (row widths 128
    and 25, B3 with 2 workers at worker 1, all-sentinel and empty batches,
    B5 with 10 negatives and with D=126, and SGD), at the same tolerances;
+   B5 on every ``sgns_layouts`` layout (runs around its tile, batch and
+   long-run edges, one id in every out-lane, a one-lane tail, n_pairs a
+   multiple of C, out-of-range ids), some with D=126, SGD and K=1, and
+   K=16 at the flagship's chunk with Zipf ids;
 3. the table plane: ``mv.init()`` on the card, 1,000,000 x 50
    ``use_pallas`` tables: default and sgd updaters (row Adds/Gets at 10%
    coverage against a numpy replay and bitwise against the plain version
@@ -309,6 +314,104 @@ def out_of_range_ids(rows: int):
     import numpy as np
     return np.array([-9, -3, -3, -1, 0, 4, 4, 4, 9, 30, 30, rows - 1,
                      rows, rows, rows + 5], np.int64)
+
+
+def runs_to_lanes(lengths, total: int, vocab: int, rng, oor=()):
+    """``total`` ids whose stable sort is runs of the given lengths (then
+    runs of one id until ``total``), in a random lane order: the k-th run
+    holds the k-th smallest id, spread over ``[0, vocab)``, except the runs
+    numbered in ``oor``, whose ids lie past the table's end."""
+    import numpy as np
+    lengths = list(lengths)
+    while sum(lengths) > total:
+        lengths[-1] -= sum(lengths) - total
+        if lengths[-1] <= 0:
+            lengths.pop()
+    lengths += [1] * (total - sum(lengths))
+    assert len(lengths) <= vocab, (len(lengths), vocab)
+    ids = np.arange(len(lengths)) * (vocab // len(lengths))
+    for k in oor:
+        if k < len(ids):
+            ids[k] = vocab + k
+    return rng.permutation(np.repeat(ids, lengths))
+
+
+def sgns_layouts(chunk: int, negative: int, vocab: int, long_run: int,
+                 n_chunks: int = 3) -> dict:
+    """Id layouts that cross the edges of B5's partition
+    (``csrc/sgns.cu``): a warp owns a tile of 32 sorted slots and reads 64;
+    lane groups apply runs of up to 2 lanes from registers; a warp stages
+    the rows of runs shorter than ``long_run`` in shared memory; a CTA
+    streams each longer run through a ring of 4 tiles of 32 lanes (a run
+    of at most 128 lanes stays there for both passes) after a k-ary search
+    of its end with 256 probes a step. name -> (centers [n, C], contexts
+    [n, C], negatives [n, C, K], n_pairs), int32; every chunk is drawn
+    anew, its centers and its out-lanes (contexts, then negatives) each
+    sorting into the layout's runs.
+
+    - ``one_out_id``: every out-lane of a chunk holds one id (a run of
+      C * (1 + K) lanes);
+    - ``long_edges``: runs of long_run - 1, long_run, long_run + 1, twice
+      and eight times long_run (+-1, +3) and 257 lanes;
+    - ``held_edges``: runs of 1-4, 7-9, 15-17 and 24-25 lanes (around the
+      register-held runs and the long-run threshold);
+    - ``tile_edges{s}``: a run starts at every slot 32k + s (k >= 1) and at
+      random slots between, so runs cross each tile edge at every offset;
+    - ``tail_one_lane``: n_pairs leaves one live lane in the last chunk;
+    - ``n_pairs_multiple``: n_pairs = 2 * C exactly (the last chunk dead);
+    - ``out_of_range``: runs of ids past the table's end (dropped), long
+      ones among them.
+
+    Every other layout ends in a tail chunk of C // 2 + 3 live lanes."""
+    import numpy as np
+    L, C, K = long_run, chunk, negative
+    n_out = C * (1 + K)
+    held = [1, 2, 3, 4, 7, 8, 9, 15, 16, 17, 24, 25] * 8
+    longs = [L - 1, L, L + 1, 2 * L - 1, 2 * L, 2 * L + 1, 8 * L + 3, 257,
+             1, 2, 3]
+
+    def edges(shift, total, rng):
+        start = rng.random(total) < 0.3
+        start[[32 * k + shift for k in range(1, total // 32 + 1)
+               if 32 * k + shift < total]] = True
+        start[0] = True
+        at = np.flatnonzero(start)
+        return np.diff(np.append(at, total)).tolist()
+
+    # name -> (out-lane runs, center runs, out-of-range run numbers of each)
+    specs = {"one_out_id": ([n_out], held, ()),
+             "long_edges": (longs, longs, ()),
+             "held_edges": (held, held, ())}
+    for shift in (-3, -1, 0, 1, 3):
+        specs[f"tile_edges{shift}"] = (shift, shift, ())
+    specs["tail_one_lane"] = (held, held, ())
+    specs["n_pairs_multiple"] = (held, held, ())
+    specs["out_of_range"] = (longs, held, (1, 3, 7, 9, 12))
+    out = {}
+    for name, (o_spec, i_spec, oor) in specs.items():
+        rng = np.random.default_rng(zlib_crc(name))
+        centers, contexts, negatives = [], [], []
+        for _ in range(n_chunks):
+            o_len = edges(o_spec, n_out, rng) if isinstance(o_spec, int) \
+                else o_spec
+            i_len = edges(i_spec, C, rng) if isinstance(i_spec, int) \
+                else i_spec
+            lanes = runs_to_lanes(o_len, n_out, vocab, rng, oor)
+            centers.append(runs_to_lanes(i_len, C, vocab, rng, oor))
+            contexts.append(lanes[:C])
+            negatives.append(lanes[C:].reshape(C, K))
+        n_pairs = {"tail_one_lane": (n_chunks - 1) * C + 1,
+                   "n_pairs_multiple": (n_chunks - 1) * C}.get(
+            name, (n_chunks - 1) * C + C // 2 + 3)
+        out[name] = (np.stack(centers).astype(np.int32),
+                     np.stack(contexts).astype(np.int32),
+                     np.stack(negatives).astype(np.int32), n_pairs)
+    return out
+
+
+def zlib_crc(name: str) -> int:
+    import zlib
+    return zlib.crc32(name.encode())
 
 
 def zipf_corpus(vocab: int, n_sent: int, sent_len: int, seed: int = 0):
@@ -870,6 +973,16 @@ def check_sgns_kernel(dev) -> dict:
     errs = sgns_table_errs(kern, plain, "B5")
     err = max(errs.values())
     assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (lk, lp)
+    # Each run has one owner and every sum a fixed order: a second launch
+    # on the same inputs gives the same bits.
+    twice = [t.clone() for t in tables]
+    loss_2 = sgns.sgns_block_cuda(*twice, *streams[:3], n_pairs, lr, True)
+    torch.cuda.synchronize()
+    assert float(loss_2) == lk, (float(loss_2), lk)
+    for name, a, b in zip(TABLES, twice, kern):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+    log("B5 sgns_block: a second launch on the same block gives bitwise-"
+        "equal tables and loss")
     # The reference's own spread: the plain version again on the same
     # inputs (its index_add_ atomics add duplicates in another order).
     again = [t.clone() for t in tables]
@@ -886,9 +999,11 @@ def check_sgns_kernel(dev) -> dict:
     plain_ms = cuda_ms(lambda: sgns.sgns_block_plain(
         *work, *streams[:3], n_pairs, lr, True), 2, warmup=1)
     bound = sgns_bound(streams, n_live)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"B5 sgns_block: kernel {ms:.4f} ms per block ({launch.grid} CTAs "
-        f"x 256 threads, cooperative), glue sort {glue_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        f"x 256 threads, cooperative: {launch.grid * 8 / sms:g} warps an "
+        f"SM), glue sort {glue_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
     # Where the time goes: the same block with every row id redrawn
     # uniformly keeps the work per lane and removes the long runs of one
     # frequent id that a single warp applies lane after lane.
@@ -976,6 +1091,70 @@ def check_variants(dev) -> dict:
         assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (what, lk, lp)
         out["sgns_block"].append({"d": d, "k": k, "adagrad": adagrad,
                                   "max_abs_err_tables": errs})
+    return out
+
+
+def check_sgns_layouts(dev) -> list:
+    """B5 against its plain version on ``sgns_layouts`` (C=512, K=5,
+    V=6,144, D=128, AdaGrad), then a few layouts with D=126, with SGD and
+    with K=1, and K=16 at the flagship's chunk and vocabulary with Zipf
+    ids (more tiles of 32 slots than the grid has warps, so tiles are also
+    taken from the chunk's counter), each table within ``SGNS_RTOL`` and
+    the loss within ``SGNS_LOSS_RTOL``. Returns the variant records."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.ops import sgns
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    c = 512
+
+    def tables_for(vocab, d):
+        return (0.1 * torch.randn((vocab, d), generator=g, device=dev),
+                0.1 * torch.randn((vocab, d), generator=g, device=dev),
+                torch.rand((vocab, d), generator=g, device=dev),
+                torch.rand((vocab, d), generator=g, device=dev))
+
+    def hold(what, tables, streams, n_pairs, adagrad):
+        kern = [t.clone() for t in tables]
+        plain = [t.clone() for t in tables]
+        n_pairs = torch.tensor(n_pairs, dtype=torch.int32, device=dev)
+        lk = float(sgns.sgns_block_cuda(*kern, *streams, n_pairs, 0.025,
+                                        adagrad))
+        lp = float(sgns.sgns_block_plain(*plain, *streams, n_pairs, 0.025,
+                                         adagrad))
+        log(f"{what}: loss {lk} vs plain {lp}")
+        errs = sgns_table_errs(kern, plain, what)
+        assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (what, lk, lp)
+        return {"layout": what, "max_abs_err_tables": errs}
+
+    def vocab(k):                      # room for a run per out-lane
+        return max(4096, 2 * c * (1 + k))
+
+    out = []
+    layouts = {k: sgns_layouts(c, k, vocab(k), sgns.LONG_RUN)
+               for k in (1, 5, 16)}
+    cases = [(name, 5, 128, True) for name in layouts[5]]
+    cases += [("tile_edges0", 5, 126, True), ("long_edges", 5, 126, True),
+              ("one_out_id", 5, 128, False), ("long_edges", 5, 128, False),
+              ("held_edges", 1, 128, True), ("long_edges", 1, 128, True),
+              ("tile_edges0", 16, 128, True), ("long_edges", 16, 128, True)]
+    for name, k, d, adagrad in cases:
+        *np_streams, n_pairs = layouts[k][name]
+        streams = [torch.as_tensor(x, device=dev) for x in np_streams]
+        out.append(hold(f"B5 layout {name} K={k} D={d} "
+                        f"{'adagrad' if adagrad else 'sgd'}",
+                        tables_for(vocab(k), d), streams, n_pairs, adagrad))
+    zipf = 1.0 / np.arange(1, V + 1)
+    zipf = torch.as_tensor(zipf / zipf.sum(), dtype=torch.float32,
+                           device=dev)
+    n, k = 2, 16
+    streams = [torch.multinomial(zipf, int(np.prod(shape)), True,
+                                 generator=g).to(torch.int32).view(shape)
+               for shape in ((n, CHUNK), (n, CHUNK), (n, CHUNK, k))]
+    out.append(hold(f"B5 K={k} C={CHUNK} V={V} Zipf ids", tables_for(V, D),
+                    streams, CHUNK + 4097, True))
+    log(f"B5 layouts: {len(out)} cases within SGNS_RTOL and "
+        f"SGNS_LOSS_RTOL")
     return out
 
 
@@ -2073,6 +2252,7 @@ def main() -> int:
     kernels.append(check_attention_kernel(dev))
     kernels.append(check_paged_kernel(dev))
     variants = check_variants(dev)
+    variants["sgns_block"] += check_sgns_layouts(dev)
     layouts = check_scatter_layouts(dev)
     for k in kernels:
         k.setdefault("variants", variants.get(k["name"], []))

@@ -1,73 +1,116 @@
 // Whole-block skip-gram / negative-sampling trainer for Hopper (sm_90a).
 //
 // mv_sgns_block replaces multiverso_tpu/ops/pallas_sgns.py::
-// build_sgns_grid_step (B5): one launch trains every live chunk of a
-// block, in order, each chunk being raw_sg_ns_step
+// build_sgns_grid_step (B5, its pl.pallas_call at :170): one launch trains
+// every live chunk of a block, in order, each chunk being raw_sg_ns_step
 // (multiverso_tpu/models/word2vec/model.py:288-305): gather u, v_pos and
 // v_neg (ids clipped), the sigmoid negative-sampling loss and gradients
 // (_ns_grads), then the AdaGrad (or SGD) update of w_in by centers and of
 // w_out by contexts followed by negatives (_apply_update), with the lanes
 // past n_pairs masked and the loss summed over the chunks.
 //
-// What bounds it on this card: bytes and latency, not arithmetic. A chunk
-// of C pairs gathers C*(2+K) rows and read-modify-writes the touched rows
-// of four tables (about 100 MB at the flagship's V=50,000, D=128: twice
-// the 50 MB L2), at ~10 flops per byte moved.
+// Why the chunks cannot overlap. Chunk i+1 gathers the rows that chunk i
+// updates, and a row's AdaGrad step reads the sum of squares of every one
+// of its lanes in the chunk. So ONE persistent cooperative launch walks the
+// chunks, with grid.sync() in place of the TPU's sequential grid step: the
+// grid is sized by occupancy so that every CTA is resident, and each live
+// chunk i < ceil(n_pairs/C) (n_pairs is read on the device) takes two
+// barriers. Dead chunks (all lanes masked) are skipped: in JAX they are
+// bitwise no-ops.
 //
-// Design. On the TPU the four tables sat in VMEM for the whole grid. The
-// H100 has 227 KB of shared memory per SM, so here the tables stay in
-// HBM/L2 and ONE persistent cooperative launch walks the chunks: the grid
-// is sized by occupancy so every CTA is resident, and grid.sync() stands
-// in for the TPU's sequential grid step. Per live chunk i < ceil(n_pairs/C)
-// (n_pairs is read on the device):
-//   1. one warp per pair gathers its rows with 16-byte loads, reduces the
-//      1+K dot products with warp shuffles, and writes the gradient rows
-//      (grad_u [C,D], grad_out [C*(1+K),D] in the order of
-//      concat(contexts, negatives.flatten())) to scratch, plus a per-CTA
-//      loss partial; the warps also list the chunk's long runs (below);
-//   2. grid.sync(); CTA 0 adds the partials in a fixed order (so the loss
-//      is deterministic); one warp per run of equal row ids (from a stable
-//      sort done before the launch) applies the run's lanes in lane order:
-//      g[r] += grad^2 over the whole run, then w[r] += -lr*grad/sqrt(g[r]
-//      + 1e-6) lane by lane with the final g[r] — the order of the JAX
-//      scatter-adds, with no float atomics. A warp takes 32 sorted slots
-//      at a time, finds the runs that start there with one ballot and
-//      each run's end 32 ids per ballot, and loads the run's gradient rows
-//      16 lanes at a time. A run of one frequent id can be hundreds of
-//      lanes long (unigram^0.75 negatives), and its lane-order chain of
-//      loads would hold the whole grid at the next barrier: runs of at
-//      least long_min lanes (their starts listed in phase 1, one ballot
-//      and one atomic per 32 sorted slots) go to a whole CTA, which
-//      stages their gradient rows through shared memory 64 lanes per
-//      round trip and folds them one float column per thread; those CTAs
-//      take no short runs. The glue sorts the masked lanes (exact zero
-//      gradients) to the end as an out-of-range id, which is dropped. The
-//      w_in runs and the w_out runs touch different tables, so they share
-//      one phase;
-//   3. grid.sync() before the next chunk reads the updated rows.
-// Dead chunks (all lanes masked) are skipped: in JAX they are bitwise
-// no-ops. Registers bound the occupancy (every CTA must be resident for
-// the grid barrier), so the kernel is built for at most 8 negatives and
-// for at most 16, and launched with the smaller variant that fits. The
-// update arithmetic uses explicitly rounded operations (__fmul_rn,
-// __fadd_rn, ...) so no multiply-add is contracted and each element
-// rounds as the plain torch chain does.
+// What bounds it per chunk, at the flagship's V=50,000, D=128, C=8192,
+// K=5: the rows it touches in the four tables (~26 MB read and ~26 MB
+// written; the tables are 102 MB, twice the 50 MB L2), ~29 MB of gathered
+// rows (mostly L2 hits), the chain of dependent loads of the longest run
+// of one row (Zipf negatives: up to ~900 lanes of one id), and the two grid
+// barriers. At ~10 flops per byte moved, arithmetic never bounds it.
+//
+// Phase 1 (one warp per pair, 16-byte loads): the pair's ids come in one
+// load spread over the warp's lanes, fetched one pair ahead; the warp
+// gathers its rows, reduces the 1+K dot products with shuffles and writes
+// the chunk's scratch: grad_u [C, D], a snapshot of u [C, D] and the
+// C*(1+K) coefficients (g_pos, then g_neg in the order of
+// concat(contexts, negatives.flatten())). An out-lane's gradient row
+// g*u is one rounded product of that coefficient and the center's row, so
+// phase 2 rebuilds it bitwise from the snapshot instead of reading a
+// [C*(1+K), D] gradient array (8.6 MB of scratch a chunk instead of
+// 29.4). The snapshot is needed because phase 2 updates w_in while the
+// out-runs still read the old u. The warps also list the chunk's long
+// runs (below), one ballot and at most one atomic per 32 sorted slots.
+//
+// Phase 2 (after grid.sync()): the updates, run by run over each chunk's
+// ids stable-sorted by the glue (in slots: the C centers; out slots: the
+// C*(1+K) contexts then negatives). Each run of equal ids has exactly one
+// owner, so there are no float atomics and two launches give bitwise-equal
+// results. g2[r] takes the squares of all of the run's lanes before any
+// step of the run reads it; the denominator sqrt(g2 + 1e-6) is computed
+// once per column after that, which is bitwise what the per-lane form
+// gives since g2 no longer changes.
+//   - Short and medium runs (< kLongRun lanes): a warp owns a tile of 32
+//     sorted slots (split over 2 warps when the grid has warps to spare),
+//     reads 64 ids and permutation entries in two coalesced loads and
+//     finds its runs by ballot. Runs of at most kHeld lanes go to lane
+//     groups of kRunLanes, 2 runs a warp at once, each lane holding 8
+//     floats of the row: the row's w and g2 and the lanes' gradient rows
+//     all load in one round trip and stay in registers for both passes.
+//     Longer runs take the whole warp: all of their gradient rows go out
+//     in one round trip (cp.async) into the warp's rows of shared memory,
+//     beside the row's w and g2. All fold in lane order, as the JAX
+//     scatter-adds do.
+//   - Long runs (>= kLongRun lanes, listed in phase 1): one CTA each. A
+//     k-ary search with one probe a thread finds the run's end in one or
+//     two round trips. A column's sums are a chain in lane order, but the
+//     columns are independent: each of the 8 warps takes 16 columns and
+//     loads kLongRows of the run's rows a round trip (4 floats a lane, the
+//     next rows' permutation entries already in flight); every lane turns
+//     its rows into terms, and shuffles bring them in lane order onto each
+//     column's sum. The CTAs that hold a long run take no short runs while
+//     the other warps suffice; tiles beyond those go to any warp that asks
+//     the chunk's counter.
+//   Every run folds in lane order onto the row's own g2 and w, so the
+//   tables come out bitwise as the parent kernel's. The order is held,
+//   not only for determinism: the plain version adds a run's lanes one by
+//   one onto g2 too (in no fixed order, with atomics), and adding small
+//   squares one by one onto a large sum rounds with a bias that a sum
+//   taken in segments does not share. A version that summed each long run
+//   in 8 segments and added the partials drifted 1.9e-5 of g_out's
+//   largest value from the plain version over the flagship block, twice
+//   the tolerance chip_smoke.py holds the kernel to.
+// The glue sorts the masked lanes (exact zero gradients) to the end as an
+// out-of-range id, which is dropped like any other (mode="drop"). The
+// w_in runs and the w_out runs touch different tables, so they share one
+// phase. Registers bound the occupancy (every CTA must be resident for the
+// grid barrier), so phase 1 is built for at most 8 negatives and for at
+// most 16, and launched with the smaller variant that fits. The update
+// arithmetic uses explicitly rounded operations (__fmul_rn, __fadd_rn,
+// ...) so no multiply-add is contracted and each element rounds as the
+// plain torch chain does.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+// CTAs per SM the registers are sized for (__launch_bounds__).
+#ifndef SGNS_MIN_BLOCKS
+#define SGNS_MIN_BLOCKS 2
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxNeg = 16;
-constexpr int kSmallNeg = 8;     // the variant for negative <= 8
-constexpr float kEps = 1e-7f;    // model.py _EPS
-constexpr float kAdaEps = 1e-6f; // _apply_update's sqrt(g2 + 1e-6)
-constexpr int kBatch = 16;       // run lanes whose loads go out together
-constexpr int kStageBytes = 32768;  // a CTA's staging tile for long runs
+constexpr int kSmallNeg = 8;      // the variant for negative <= 8
+constexpr float kEps = 1e-7f;     // model.py _EPS
+constexpr float kAdaEps = 1e-6f;  // _apply_update's sqrt(g2 + 1e-6)
+constexpr int kLongRun = 32;      // runs this long or longer: a whole CTA
+constexpr int kRunLanes = 16;     // lanes of a group that applies a short run
+constexpr int kGroups = 32 / kRunLanes;
+constexpr int kHeld = 2;          // a short run's lanes held in registers
+constexpr int kBlock = 128;       // floats of a row per pass over a run
+constexpr int kQuads = kBlock / (4 * kRunLanes);  // a group lane's float4s
+constexpr int kStaged = 16;       // rows a warp stages at once
+constexpr int kLongRows = 64;     // rows of a long run a round trip
+constexpr unsigned kFull = 0xffffffffu;
 
 struct SgnsArgs {
   float* w_in;
@@ -85,7 +128,8 @@ struct SgnsArgs {
   const int32_t* out_perm;   // [n_chunks, C*(1+K)]
   const int32_t* n_pairs;    // device scalar
   float* grad_u;             // scratch [C, D]
-  float* grad_out;           // scratch [C*(1+K), D]
+  float* u_snap;             // scratch [C, D]: the chunk's gathered u
+  float* coef;               // scratch [C*(1+K)]: g_pos, then g_neg
   float* loss_partials;      // scratch [2 * gridDim.x]
   float* loss_out;           // [1]
   int64_t n_chunks;
@@ -94,10 +138,10 @@ struct SgnsArgs {
   int d;
   float lr;
   int adagrad;
-  int32_t* long_runs;        // [n_chunks, long_cap]: a run's first slot
-  int32_t* long_count;       // [n_chunks], zero at launch
-  int long_cap;
-  int long_min;              // runs this long or longer go to a CTA
+  int32_t* long_runs;        // [cap]: the chunk's long runs' first slots
+  int32_t* counts;           // [2 * n_chunks + 2], zero at launch: long
+                             // runs listed, tiles taken from the counter,
+                             // then the grid barrier's two words
 };
 
 __device__ __forceinline__ int64_t clip(int64_t r, int64_t n) {
@@ -106,7 +150,7 @@ __device__ __forceinline__ int64_t clip(int64_t r, int64_t n) {
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 
@@ -114,6 +158,7 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// Phase 1's row access: float4 where D % 4 == 0, else float.
 template <int VEC> struct Ld;
 template <> struct Ld<4> {
   using T = float4;
@@ -129,12 +174,6 @@ template <> struct Ld<4> {
                        __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
   }
   __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static T sq_acc(T acc, T g) {
-    return make_float4(__fadd_rn(acc.x, __fmul_rn(g.x, g.x)),
-                       __fadd_rn(acc.y, __fmul_rn(g.y, g.y)),
-                       __fadd_rn(acc.z, __fmul_rn(g.z, g.z)),
-                       __fadd_rn(acc.w, __fmul_rn(g.w, g.w)));
-  }
 };
 template <> struct Ld<1> {
   using T = float;
@@ -142,260 +181,748 @@ template <> struct Ld<1> {
   __device__ static T scale(float s, T a) { return __fmul_rn(s, a); }
   __device__ static T add(T a, T b) { return __fadd_rn(a, b); }
   __device__ static T zero() { return 0.f; }
-  __device__ static T sq_acc(T acc, T g) {
-    return __fadd_rn(acc, __fmul_rn(g, g));
-  }
 };
 
-// -lr*grad/sqrt(g2 + 1e-6) (AdaGrad) or -lr*grad (SGD), one element.
-__device__ __forceinline__ float step_of(float grad, float g2, float neg_lr,
-                                         bool adagrad) {
-  const float s = __fmul_rn(neg_lr, grad);
-  return adagrad ? __fdiv_rn(s, __fsqrt_rn(__fadd_rn(g2, kAdaEps))) : s;
+// Phase 2 works on 4 floats at a time, each operation rounded once.
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+__device__ __forceinline__ float4 mul4(float s, float4 a) {
+  return make_float4(__fmul_rn(s, a.x), __fmul_rn(s, a.y),
+                     __fmul_rn(s, a.z), __fmul_rn(s, a.w));
+}
+__device__ __forceinline__ float4 sq_acc4(float4 acc, float4 g) {
+  return make_float4(__fadd_rn(acc.x, __fmul_rn(g.x, g.x)),
+                     __fadd_rn(acc.y, __fmul_rn(g.y, g.y)),
+                     __fadd_rn(acc.z, __fmul_rn(g.z, g.z)),
+                     __fadd_rn(acc.w, __fmul_rn(g.w, g.w)));
+}
+// sqrt(g2 + 1e-6), once per column of a run.
+__device__ __forceinline__ float4 den4(float4 g2) {
+  return make_float4(__fsqrt_rn(__fadd_rn(g2.x, kAdaEps)),
+                     __fsqrt_rn(__fadd_rn(g2.y, kAdaEps)),
+                     __fsqrt_rn(__fadd_rn(g2.z, kAdaEps)),
+                     __fsqrt_rn(__fadd_rn(g2.w, kAdaEps)));
+}
+// -lr*grad/den (AdaGrad) or -lr*grad (SGD), one element.
+__device__ __forceinline__ float step1(float neg_lr, float g, float den,
+                                       bool adagrad) {
+  const float s = __fmul_rn(neg_lr, g);
+  return adagrad ? __fdiv_rn(s, den) : s;
+}
+__device__ __forceinline__ float4 step4(float neg_lr, float4 g, float4 den,
+                                        bool adagrad) {
+  return make_float4(step1(neg_lr, g.x, den.x, adagrad),
+                     step1(neg_lr, g.y, den.y, adagrad),
+                     step1(neg_lr, g.z, den.z, adagrad),
+                     step1(neg_lr, g.w, den.w, adagrad));
 }
 
-template <int VEC> struct Upd;
-template <> struct Upd<4> {
-  __device__ static float4 step(float4 g, float4 g2, float nl, bool ada) {
-    return make_float4(step_of(g.x, g2.x, nl, ada), step_of(g.y, g2.y, nl, ada),
-                       step_of(g.z, g2.z, nl, ada), step_of(g.w, g2.w, nl, ada));
+// A warp's share of a 128-float block [cb, cb + 128) of a row: 4 floats a
+// lane, cb + 4*lane .. + 3 (VEC 4) or cb + lane + 32*j (VEC 1). Columns
+// past d load a valid element and are never stored.
+template <int VEC> struct WarpCols;
+template <> struct WarpCols<4> {
+  __device__ static float4 load(const float* row, int cb, int lane, int d) {
+    const int o = cb + 4 * lane;
+    return *reinterpret_cast<const float4*>(row + (o < d ? o : d - 4));
+  }
+  __device__ static void store(float* row, int cb, int lane, int d,
+                               float4 v) {
+    const int o = cb + 4 * lane;
+    if (o < d) *reinterpret_cast<float4*>(row + o) = v;
   }
 };
-template <> struct Upd<1> {
-  __device__ static float step(float g, float g2, float nl, bool ada) {
-    return step_of(g, g2, nl, ada);
+template <> struct WarpCols<1> {
+  __device__ static float at(const float* row, int o, int d) {
+    return row[o < d ? o : d - 1];
+  }
+  __device__ static float4 load(const float* row, int cb, int lane, int d) {
+    const int o = cb + lane;
+    return make_float4(at(row, o, d), at(row, o + 32, d), at(row, o + 64, d),
+                       at(row, o + 96, d));
+  }
+  __device__ static void store(float* row, int cb, int lane, int d,
+                               float4 v) {
+    const int o = cb + lane;
+    if (o < d) row[o] = v.x;
+    if (o + 32 < d) row[o + 32] = v.y;
+    if (o + 64 < d) row[o + 64] = v.z;
+    if (o + 96 < d) row[o + 96] = v.w;
   }
 };
 
-// Apply one sorted run [s, e) of lanes to row r of (w, g2), lane order.
-// The run's permutation entries arrive 32 per coalesced load and are
-// broadcast with shuffles, so each batch of kBatch lanes costs one round
-// trip (its gradient rows) instead of two; the row's w and g2 are both
-// loaded before any store.
+// A lane group's share of the same block: lane gl of kRunLanes (G) holds
+// kQuads quads of 4 floats; quad q is cb + 4*(gl + G*q) .. + 3 (VEC 4) or
+// cb + gl + G*(4q + m), m < 4 (VEC 1).
+template <int VEC> struct GroupCols;
+template <> struct GroupCols<4> {
+  __device__ static float4 load(const float* row, int cb, int gl, int q,
+                                int d) {
+    const int o = cb + 4 * (gl + kRunLanes * q);
+    return *reinterpret_cast<const float4*>(row + (o < d ? o : d - 4));
+  }
+  __device__ static void store(float* row, int cb, int gl, int q, int d,
+                               float4 v) {
+    const int o = cb + 4 * (gl + kRunLanes * q);
+    if (o < d) *reinterpret_cast<float4*>(row + o) = v;
+  }
+};
+template <> struct GroupCols<1> {
+  __device__ static float4 load(const float* row, int cb, int gl, int q,
+                                int d) {
+    const int o = cb + gl + 4 * kRunLanes * q;
+    return make_float4(WarpCols<1>::at(row, o, d),
+                       WarpCols<1>::at(row, o + kRunLanes, d),
+                       WarpCols<1>::at(row, o + 2 * kRunLanes, d),
+                       WarpCols<1>::at(row, o + 3 * kRunLanes, d));
+  }
+  __device__ static void store(float* row, int cb, int gl, int q, int d,
+                               float4 v) {
+    const int o = cb + gl + 4 * kRunLanes * q;
+    if (o < d) row[o] = v.x;
+    if (o + kRunLanes < d) row[o + kRunLanes] = v.y;
+    if (o + 2 * kRunLanes < d) row[o + 2 * kRunLanes] = v.z;
+    if (o + 3 * kRunLanes < d) row[o + 3 * kRunLanes] = v.w;
+  }
+};
+
+// One table's side of a chunk: its sorted ids, the lane each came from,
+// the table and its AdaGrad sums, and where a lane's gradient row comes
+// from (grad_u for centers; the center's u snapshot for out-lanes, scaled
+// by the lane's coefficient).
+struct Side {
+  const int32_t* ids;
+  const int32_t* perm;
+  int64_t n;
+  float* w;
+  float* g2;
+  int64_t rows;
+  const float* src;
+  bool out;
+};
+
+__device__ __forceinline__ Side side_of(const SgnsArgs& a, int64_t ci,
+                                        bool out) {
+  const int64_t C = a.chunk, n_out = C * (1 + a.k);
+  Side s;
+  s.out = out;
+  if (out) {
+    s.ids = a.out_ids + ci * n_out;
+    s.perm = a.out_perm + ci * n_out;
+    s.n = n_out;
+    s.w = a.w_out;
+    s.g2 = a.g_out;
+    s.rows = a.v_out;
+    s.src = a.u_snap;
+  } else {
+    s.ids = a.in_ids + ci * C;
+    s.perm = a.in_perm + ci * C;
+    s.n = C;
+    s.w = a.w_in;
+    s.g2 = a.g_in;
+    s.rows = a.v_in;
+    s.src = a.grad_u;
+  }
+  return s;
+}
+
+// The pair an out-lane belongs to: lanes [0, C) are the contexts, lane
+// C + b*K + k the k-th negative of pair b.
+__device__ __forceinline__ int32_t pair_of(int32_t lane, int C, int K) {
+  return lane < C ? lane : (lane - C) / K;
+}
+
+// The position of the k-th set bit of m (k from 0).
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  for (int i = 0; i < k; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// A short run of row `row` (len <= kHeld lanes, permutation entries pi),
+// by one lane group, lane gl of it. Every load of the run goes out in one
+// round trip; both passes read the held rows.
 template <int VEC>
-__device__ void apply_run(float* w, float* g2, const float* grad,
-                          const int32_t* perm, int64_t s, int64_t e, int d,
-                          float neg_lr, bool adagrad, int lane) {
-  using L = Ld<VEC>;
-  using T = typename L::T;
-  const int dv = d / VEC;
-  T* wr = reinterpret_cast<T*>(w);
-  T* gr = reinterpret_cast<T*>(g2);
-  for (int c0 = 0; c0 < dv; c0 += 32) {   // warp-uniform trip count
-    const int c = c0 + lane;
-    const bool col = c < dv;
-    T wv = col ? wr[c] : L::zero();
-    T acc = (col && adagrad) ? gr[c] : L::zero();
+__device__ void apply_short(const Side& sd, const float* coef, int C, int K,
+                            int d, int32_t row, const int32_t (&pi)[kHeld],
+                            int len, float neg_lr, bool adagrad, int gl) {
+  using Cols = GroupCols<VEC>;
+  float* w = sd.w + (int64_t)row * d;
+  float* g2 = sd.g2 + (int64_t)row * d;
+  const float* src[kHeld];
+  float cf[kHeld];
+#pragma unroll
+  for (int i = 0; i < kHeld; ++i) {
+    const int32_t p = i < len ? pi[i] : pi[0];
+    src[i] = sd.src + (int64_t)(sd.out ? pair_of(p, C, K) : p) * d;
+    cf[i] = sd.out ? coef[p] : 1.f;
+  }
+  for (int cb = 0; cb < d; cb += kBlock) {
+    float4 wv[kQuads], acc[kQuads], g[kHeld][kQuads];
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      wv[q] = Cols::load(w, cb, gl, q, d);
+      acc[q] = adagrad ? Cols::load(g2, cb, gl, q, d) : zero4();
+    }
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i)
+      if (i < len) {
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q)
+          g[i][q] = Cols::load(src[i], cb, gl, q, d);
+      }
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i)
+      if (i < len) {
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) g[i][q] = mul4(cf[i], g[i][q]);
+      }
+    if (adagrad) {
+#pragma unroll
+      for (int i = 0; i < kHeld; ++i)
+        if (i < len) {
+#pragma unroll
+          for (int q = 0; q < kQuads; ++q)
+            acc[q] = sq_acc4(acc[q], g[i][q]);
+        }
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        Cols::store(g2, cb, gl, q, d, acc[q]);
+        acc[q] = den4(acc[q]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i)
+      if (i < len) {
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q)
+          wv[q] = add4(wv[q], step4(neg_lr, g[i][q], acc[q], adagrad));
+      }
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) Cols::store(w, cb, gl, q, d, wv[q]);
+  }
+}
+
+// Each warp's rows of shared memory (dynamic: 64 KB a CTA): the gradient
+// rows of a medium run, kStaged at a time.
+struct RunShared {
+  float rows[kWarps][kStaged][kBlock];
+};
+constexpr int kRunSmem = (int)sizeof(RunShared);
+
+// One 4- or 16-byte copy from global to shared memory, asynchronous.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// This lane's 4 floats of block cb of a global row, copied asynchronously
+// to the same places of a 128-float row in shared memory (WarpCols'
+// layout), and read back.
+template <int VEC>
+__device__ __forceinline__ void stage_row(float* dst, const float* row,
+                                          int cb, int lane, int d) {
+  if (VEC == 4) {
+    const int o = cb + 4 * lane;
+    cp_async<16>(dst + 4 * lane, row + (o < d ? o : d - 4));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = cb + lane + 32 * j;
+      cp_async<4>(dst + lane + 32 * j, row + (o < d ? o : d - 1));
+    }
+  }
+}
+template <int VEC>
+__device__ __forceinline__ float4 staged(const float* src, int lane) {
+  if (VEC == 4) return *reinterpret_cast<const float4*>(src + 4 * lane);
+  return make_float4(src[lane], src[lane + 32], src[lane + 64],
+                     src[lane + 96]);
+}
+
+// The run's lanes [i0, i1) (at most kStaged; lane l of the warp holds
+// lane l's row of src and coefficient): every row goes out in one round
+// trip into the warp's rows of shared memory (each lane copies, and later
+// reads back, only its own 4 floats of each, so no barrier).
+template <int VEC>
+__device__ __forceinline__ void stage_rows(const float* src, int32_t rb_l,
+                                           int i0, int i1, int cb, int d,
+                                           int lane, float (*rows)[kBlock]) {
+  for (int i = i0; i < i1; ++i) {
+    const int32_t rb = __shfl_sync(kFull, rb_l, i);
+    stage_row<VEC>(rows[i - i0], src + (int64_t)rb * d, cb, lane, d);
+  }
+  cp_commit();
+}
+
+// Fold staged lanes [i0, i1) into acc in lane order: squares (pass 0) or
+// steps against den (pass 1).
+template <int VEC>
+__device__ __forceinline__ float4 fold_rows(float4 acc, float cf_l, int i0,
+                                            int i1, int pass, float4 den,
+                                            float neg_lr, bool adagrad,
+                                            int lane,
+                                            float (*rows)[kBlock]) {
+  for (int i = i0; i < i1; ++i) {
+    const float cf = __shfl_sync(kFull, cf_l, i);
+    const float4 x = mul4(cf, staged<VEC>(rows[i - i0], lane));
+    acc = pass == 0 ? sq_acc4(acc, x)
+                    : add4(acc, step4(neg_lr, x, den, adagrad));
+  }
+  return acc;
+}
+
+// A run of kHeld < len < kLongRun lanes by the whole warp; lane l holds
+// the permutation entry of the run's lane l. Its gradient rows go out
+// beside the row's w and g2, kStaged a round trip; a run of at most
+// kStaged lanes keeps them for both passes. Lane order, as apply_short.
+template <int VEC>
+__device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
+                             int d, int32_t row, int32_t pl, int len,
+                             float neg_lr, bool adagrad, int lane,
+                             float (*rows)[kBlock]) {
+  using Cols = WarpCols<VEC>;
+  const bool mine = lane < len;
+  const int32_t p = mine ? pl : 0;
+  const int32_t rb_l = sd.out ? pair_of(p, C, K) : p;
+  const float cf_l = (mine && sd.out) ? coef[p] : 1.f;
+  float* w = sd.w + (int64_t)row * d;
+  float* g2 = sd.g2 + (int64_t)row * d;
+  const bool kept = len <= kStaged;
+  for (int cb = 0; cb < d; cb += kBlock) {
+    if (kept) stage_rows<VEC>(sd.src, rb_l, 0, len, cb, d, lane, rows);
+    float4 wv = Cols::load(w, cb, lane, d);
+    float4 acc = adagrad ? Cols::load(g2, cb, lane, d) : zero4();
     for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
-      for (int64_t j = s; j < e; j += 32) {
-        const int n = e - j < 32 ? (int)(e - j) : 32;
-        const int32_t mine = lane < n ? perm[j + lane] : 0;
-        for (int q0 = 0; q0 < n; q0 += kBatch) {
-          T buf[kBatch];
+      for (int i0 = 0; i0 < len; i0 += kStaged) {
+        const int i1 = i0 + kStaged < len ? i0 + kStaged : len;
+        if (!kept) stage_rows<VEC>(sd.src, rb_l, i0, i1, cb, d, lane, rows);
+        cp_wait_all();
+        if (pass == 0)
+          acc = fold_rows<VEC>(acc, cf_l, i0, i1, 0, acc, neg_lr, adagrad,
+                               lane, rows);
+        else
+          wv = fold_rows<VEC>(wv, cf_l, i0, i1, 1, acc, neg_lr, adagrad,
+                              lane, rows);
+      }
+      if (pass == 0) {
+        Cols::store(g2, cb, lane, d, acc);
+        acc = den4(acc);
+      }
+    }
+    Cols::store(w, cb, lane, d, wv);
+  }
+}
+
+// Four floats of a row from column c on (VEC 4: one aligned load; VEC 1:
+// four, clamped to the row), and their store (columns past d dropped).
+template <int VEC>
+__device__ __forceinline__ float4 load_quad(const float* row, int c, int d) {
+  if (VEC == 4)
+    return *reinterpret_cast<const float4*>(row + (c < d ? c : d - 4));
+  return make_float4(
+      WarpCols<1>::at(row, c, d), WarpCols<1>::at(row, c + 1, d),
+      WarpCols<1>::at(row, c + 2, d), WarpCols<1>::at(row, c + 3, d));
+}
+template <int VEC>
+__device__ __forceinline__ void store_quad(float* row, int c, int d,
+                                           float4 v) {
+  if (VEC == 4) {
+    if (c < d) *reinterpret_cast<float4*>(row + c) = v;
+  } else {
+    if (c < d) row[c] = v.x;
+    if (c + 1 < d) row[c + 1] = v.y;
+    if (c + 2 < d) row[c + 2] = v.z;
+    if (c + 3 < d) row[c + 3] = v.w;
+  }
+}
+__device__ __forceinline__ float4 shfl4(float4 v, int src) {
+  return make_float4(
+      __shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
+      __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
+}
+
+// A long run (first sorted slot `slot`: in slots, then C + out slots) by
+// the whole CTA. A column's sums are a chain in lane order, but the
+// columns are independent, so the warps split the row's columns: warp wib
+// takes 16 columns of each 128-float block, and loads kLongRows of the
+// run's rows a round trip (lane 4r + q holds row r's columns 4q .. 4q+3
+// of them, 8 rows to a load), the next rows' permutation entries already
+// in flight. Every lane turns its rows into terms (squares, or steps
+// against the column's denominator); then each lane adds the terms of its
+// 4 columns in lane order, shuffled from the lanes that hold them, so
+// every lane holding columns 4q .. 4q+3 carries the same sums, and lanes
+// 0-3 store them.
+template <int VEC>
+__device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
+                           float neg_lr, bool adagrad, int lane, int wib) {
+  const int C = a.chunk, K = a.k, d = a.d;
+  const bool out = slot >= C;
+  const Side sd = side_of(a, ci, out);
+  const int64_t s = out ? slot - C : slot;
+  const int32_t row = sd.ids[s];
+  // The run's end, by a k-ary search over [s + kLongRun, n): every thread
+  // probes one slot a step (the ids are sorted, so the probes that still
+  // hold `row` are a prefix), which narrows the span kThreads-fold.
+  int64_t lo = s + kLongRun, hi = sd.n;
+  while (lo < hi) {
+    const int64_t stride = (hi - lo + kThreads - 1) / kThreads;
+    const int64_t q = lo + (int64_t)threadIdx.x * stride;
+    const int cnt = __syncthreads_count(q < hi && sd.ids[q] == row);
+    if (cnt == 0) {
+      hi = lo;
+      break;
+    }
+    const int64_t next = lo + (int64_t)cnt * stride;
+    if (next < hi) hi = next;
+    if (stride == 1) break;
+    lo += (int64_t)(cnt - 1) * stride + 1;
+  }
+  const int64_t e = hi;
+  const int rq = lane >> 2, qd = lane & 3;
+  auto entry = [&](int64_t j) { return j < e ? sd.perm[j] : 0; };
+  float* w = sd.w + (int64_t)row * d;
+  float* g2 = sd.g2 + (int64_t)row * d;
+  for (int cb = 0; cb < d; cb += kBlock) {
+    const int c0 = cb + 16 * wib + 4 * qd;
+    float4 acc = adagrad ? load_quad<VEC>(g2, c0, d) : zero4();
+    float4 wv = load_quad<VEC>(w, c0, d);
+    float4 den = zero4();
+    for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
+      if (pass == 1 && adagrad) den = den4(acc);
+      int32_t pa = entry(s + lane), pb = entry(s + 32 + lane);
+      for (int64_t j0 = s; j0 < e; j0 += kLongRows) {
+        const int n = e - j0 < kLongRows ? (int)(e - j0) : kLongRows;
+        const int32_t na = entry(j0 + kLongRows + lane);
+        const int32_t nb = entry(j0 + kLongRows + 32 + lane);
+        const int32_t ra = out ? pair_of(pa, C, K) : pa;
+        const int32_t rb = out ? pair_of(pb, C, K) : pb;
+        const float fa = (out && lane < n) ? a.coef[pa] : 1.f;
+        const float fb = (out && 32 + lane < n) ? a.coef[pb] : 1.f;
+        float4 x[kLongRows / 8];
 #pragma unroll
-          for (int q = 0; q < kBatch; ++q) {
-            const int32_t row = __shfl_sync(0xffffffffu, mine, (q0 + q) & 31);
-            if (col && q0 + q < n)
-              buf[q] = reinterpret_cast<const T*>(grad + (int64_t)row * d)[c];
-          }
+        for (int b = 0; b < kLongRows / 8; ++b) {
+          const int r = 8 * b + rq;
+          const int32_t src = __shfl_sync(kFull, b < 4 ? ra : rb, r & 31);
+          x[b] = r < n ? load_quad<VEC>(sd.src + (int64_t)src * d, c0, d)
+                       : zero4();
+        }
 #pragma unroll
-          for (int q = 0; q < kBatch; ++q) {
-            if (q0 + q < n) {
+        for (int b = 0; b < kLongRows / 8; ++b) {
+          const int r = 8 * b + rq;
+          const float4 v =
+              mul4(__shfl_sync(kFull, b < 4 ? fa : fb, r & 31), x[b]);
+          x[b] = pass == 0 ? make_float4(__fmul_rn(v.x, v.x),
+                                         __fmul_rn(v.y, v.y),
+                                         __fmul_rn(v.z, v.z),
+                                         __fmul_rn(v.w, v.w))
+                           : step4(neg_lr, v, den, adagrad);
+        }
+#pragma unroll
+        for (int b = 0; b < kLongRows / 8; ++b) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const float4 y = shfl4(x[b], 4 * k + qd);
+            if (8 * b + k < n) {
               if (pass == 0)
-                acc = L::sq_acc(acc, buf[q]);
+                acc = add4(acc, y);
               else
-                wv = L::add(wv, Upd<VEC>::step(buf[q], acc, neg_lr, adagrad));
+                wv = add4(wv, y);
             }
           }
         }
+        pa = na;
+        pb = nb;
       }
+      if (pass == 0 && lane < 4) store_quad<VEC>(g2, c0, d, acc);
     }
-    if (col) {
-      if (adagrad) gr[c] = acc;
-      wr[c] = wv;
-    }
+    if (lane < 4) store_quad<VEC>(w, c0, d, wv);
   }
 }
 
-// Apply one LONG run [s, e) with the whole CTA: all 256 threads stage
-// tiles of the run's gradient rows in shared memory (one round trip per
-// tile instead of one per 16 lanes), then one thread per float column
-// folds the tile in lane order, exactly as apply_run does.
-__device__ void apply_run_cta(float* w, float* g2, const float* grad,
-                              const int32_t* perm, int64_t s, int64_t e,
-                              int d, float neg_lr, bool adagrad,
-                              float* stage) {
-  using L = Ld<1>;
-  using T = float;
-  constexpr int kSlots = kStageBytes / (int)sizeof(T);
-  const int dv = d;
-  T* wr = reinterpret_cast<T*>(w);
-  T* gr = reinterpret_cast<T*>(g2);
-  for (int c0 = 0; c0 < dv; c0 += kThreads) {
-    const int cols = dv - c0 < kThreads ? dv - c0 : kThreads;
-    const int tile = kSlots / cols;
-    const int c = c0 + (int)threadIdx.x;
-    const bool col = (int)threadIdx.x < cols;
-    T wv = col ? wr[c] : L::zero();
-    T acc = (col && adagrad) ? gr[c] : L::zero();
-    for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
-      for (int64_t j0 = s; j0 < e; j0 += tile) {
-        const int n = e - j0 < tile ? (int)(e - j0) : tile;
-        __syncthreads();  // the previous tile has been folded
-        for (int i = threadIdx.x; i < n * cols; i += kThreads) {
-          const int l = i / cols;
-          stage[i] = reinterpret_cast<const T*>(
-              grad + (int64_t)perm[j0 + l] * d)[c0 + i - l * cols];
-        }
-        __syncthreads();
-        if (col) {
-          for (int l = 0; l < n; ++l) {
-            const T v = stage[l * cols + threadIdx.x];
-            if (pass == 0)
-              acc = L::sq_acc(acc, v);
-            else
-              wv = L::add(wv, Upd<1>::step(v, acc, neg_lr, adagrad));
-          }
-        }
-      }
-    }
-    if (col) {
-      if (adagrad) gr[c] = acc;
-      wr[c] = wv;
-    }
+// One tile of 32 sorted slots (tiles [0, tiles_in) are the in slots, the
+// rest the out slots): the runs that START there and are shorter than
+// kLongRun; this warp takes rounds sub, sub + wpt, ... of its short runs
+// and its medium runs sub, sub + wpt, ... A run shorter than kLongRun
+// that starts in the tile ends within the 64 slots read.
+template <int VEC>
+__device__ void apply_tile(const SgnsArgs& a, int64_t ci, int64_t tile,
+                           int sub, int wpt, int64_t tiles_in, float neg_lr,
+                           bool adagrad, int lane, float (*rows)[kBlock]) {
+  const int C = a.chunk, K = a.k, d = a.d;
+  const bool out = tile >= tiles_in;
+  const Side sd = side_of(a, ci, out);
+  const int64_t s0 = (out ? tile - tiles_in : tile) * 32 + lane;
+  const int64_t s1 = s0 + 32;
+  const bool in0 = s0 < sd.n, in1 = s1 < sd.n;
+  const int32_t id0 = in0 ? sd.ids[s0] : 0;
+  const int32_t id1 = in1 ? sd.ids[s1] : 0;
+  const int32_t pm0 = in0 ? sd.perm[s0] : 0;
+  const int32_t pm1 = in1 ? sd.perm[s1] : 0;
+  const int32_t before = (lane == 0 && in0 && s0 > 0) ? sd.ids[s0 - 1] : 0;
+  const int32_t last0 = __shfl_sync(kFull, id0, 31);
+  int32_t prev0 = __shfl_up_sync(kFull, id0, 1);
+  int32_t prev1 = __shfl_up_sync(kFull, id1, 1);
+  if (lane == 0) {
+    prev0 = before;
+    prev1 = last0;
   }
-  __syncthreads();  // the stage is free for the next run
+  const bool start = in0 && (s0 == 0 || id0 != prev0);
+  const unsigned starts = __ballot_sync(kFull, start);
+  if (starts == 0) return;
+  // An edge is a slot that starts a run or lies past the side's end; a
+  // run starting at this lane ends at the next edge after it.
+  const bool edge0 = !in0 || s0 == 0 || id0 != prev0;
+  const bool edge1 = !in1 || id1 != prev1;
+  const uint64_t edges = (uint64_t)__ballot_sync(kFull, edge0) |
+                         ((uint64_t)__ballot_sync(kFull, edge1) << 32);
+  const uint64_t after = edges >> (lane + 1);
+  const int len = after ? __ffsll((long long)after) : 64;
+  const bool live = start && len < kLongRun && id0 >= 0 &&
+                    (int64_t)id0 < sd.rows;           // mode="drop"
+  const unsigned shorts = __ballot_sync(kFull, live && len <= kHeld);
+  const unsigned mediums = __ballot_sync(kFull, live && len > kHeld);
+  const int group = lane / kRunLanes, gl = lane % kRunLanes;
+  const int n_short = __popc(shorts);
+  for (int k0 = sub * kGroups; k0 < n_short; k0 += kGroups * wpt) {
+    const int k = k0 + group;
+    const int src = nth_bit(shorts, k < n_short ? k : k0);
+    const int rlen = __shfl_sync(kFull, len, src);
+    const int32_t row = __shfl_sync(kFull, id0, src);
+    int32_t pi[kHeld];
+#pragma unroll
+    for (int i = 0; i < kHeld; ++i) {
+      const int sl = src + i < 63 ? src + i : 63;
+      const int32_t lo = __shfl_sync(kFull, pm0, sl & 31);
+      const int32_t hi = __shfl_sync(kFull, pm1, sl & 31);
+      pi[i] = sl < 32 ? lo : hi;
+    }
+    if (k < n_short)
+      apply_short<VEC>(sd, a.coef, C, K, d, row, pi, rlen, neg_lr, adagrad,
+                       gl);
+    __syncwarp();
+  }
+  const int n_med = __popc(mediums);
+  for (int k = sub; k < n_med; k += wpt) {
+    const int src = nth_bit(mediums, k);
+    const int rlen = __shfl_sync(kFull, len, src);
+    const int32_t row = __shfl_sync(kFull, id0, src);
+    const int sl = src + lane < 63 ? src + lane : 63;
+    const int32_t lo = __shfl_sync(kFull, pm0, sl & 31);
+    const int32_t hi = __shfl_sync(kFull, pm1, sl & 31);
+    apply_medium<VEC>(sd, a.coef, C, K, d, row, sl < 32 ? lo : hi, rlen,
+                      neg_lr, adagrad, lane, rows);
+  }
 }
 
-// The end of the run of ``r`` that starts at s: 32 ids per step, one
-// ballot each, instead of one dependent load per lane.
-__device__ __forceinline__ int64_t run_end(const int32_t* ids, int64_t s,
-                                           int64_t n, int32_t r, int lane) {
-  int64_t e = s + 1;
-  while (true) {
-    const int64_t q = e + lane;
-    const unsigned differ =
-        __ballot_sync(0xffffffffu, !(q < n && ids[q] == r));
-    if (differ) return e + __ffs(differ) - 1;
-    e += 32;
+// The pair's sigmoid negative-sampling math from its lanes' partial dot
+// products: reduces them over the warp, adds the pair's loss terms to the
+// sums, turns dneg[k] into the negatives' g_neg and returns g_pos.
+template <int KMAX>
+__device__ __forceinline__ float ns_math(float dpos, float (&dneg)[KMAX],
+                                         int K, float m, float& sum_pos,
+                                         float& sum_neg) {
+  dpos = warp_sum(dpos);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    if (k < K) dneg[k] = warp_sum(dneg[k]);
+  const float s_pos = sigmoidf(dpos);
+  float ln = 0.f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k < K) {
+      const float sk = sigmoidf(dneg[k]);
+      ln += m * logf(1.f - sk + kEps);
+      dneg[k] = sk * m;
+    }
   }
+  sum_pos += m * logf(s_pos + kEps);
+  sum_neg += ln;
+  return (s_pos - 1.f) * m;
+}
+
+// Pair p's ids spread over a warp: lane k < K holds negative k, lane K the
+// center, lane K + 1 the context.
+__device__ __forceinline__ int32_t pair_ids(const SgnsArgs& a, int64_t p,
+                                            int lane) {
+  if (lane < a.k) return a.negatives[p * a.k + lane];
+  if (lane == a.k) return a.centers[p];
+  if (lane == a.k + 1) return a.contexts[p];
+  return 0;
+}
+
+// A barrier over every CTA of the cooperative launch (all are resident).
+// The CTAs that arrive early sleep between their polls of one word:
+// cg::grid_group::sync() polls without pause, and 263 CTAs doing so held
+// the one CTA still applying a chunk's longest run to a fraction of the
+// memory system (bar[0] counts arrivals, bar[1] is the generation; both
+// zero at launch).
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(128);
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 template <int VEC, int KMAX>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, SGNS_MIN_BLOCKS)
 sgns_block_kernel(SgnsArgs a) {
   using L = Ld<VEC>;
   using T = typename L::T;
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float warp_pos[kThreads / 32];
-  __shared__ float warp_neg[kThreads / 32];
-  __shared__ __align__(16) unsigned char stage_raw[kStageBytes];
-  __shared__ int64_t long_end;
+  unsigned* bar = reinterpret_cast<unsigned*>(a.counts + 2 * a.n_chunks);
+  __shared__ float warp_pos[kWarps];
+  __shared__ float warp_neg[kWarps];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float(*rows)[kBlock] = reinterpret_cast<RunShared*>(smem)->rows[
+      threadIdx.x >> 5];
 
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
-  const int64_t gwarp = (int64_t)blockIdx.x * (kThreads / 32) + wib;
-  const int64_t nwarps = (int64_t)gridDim.x * (kThreads / 32);
+  const int64_t gwarp = (int64_t)blockIdx.x * kWarps + wib;
+  const int64_t nwarps = (int64_t)gridDim.x * kWarps;
   const int C = a.chunk, K = a.k, D = a.d, dv = D / VEC;
   const int64_t n_out_lanes = (int64_t)C * (1 + K);
+  const int64_t tiles_in = (C + 31) / 32;
+  const int64_t n_tiles = tiles_in + (n_out_lanes + 31) / 32;
   const int64_t n_pairs = *a.n_pairs;
   int64_t n_live = (n_pairs + C - 1) / C;
   if (n_live > a.n_chunks) n_live = a.n_chunks;
   const float neg_lr = -a.lr;
   const bool adagrad = a.adagrad != 0;
-  float total = 0.f;  // meaningful in CTA 0, thread 0 only
+  const bool loss_warp = blockIdx.x == gridDim.x - 1 && wib == 0;
+  float total = 0.f;  // meaningful in the loss warp only
 
   for (int64_t ci = 0; ci < n_live; ++ci) {
-    // -- phase 1: gather, loss and gradients, one warp per pair ----------
+    // -- phase 1: gather, loss, gradient scratch; one warp per pair ------
     float sum_pos = 0.f, sum_neg = 0.f;  // sums of m*log(...) (all lanes)
+    int32_t ids = gwarp < C ? pair_ids(a, ci * C + gwarp, lane) : 0;
     for (int64_t b = gwarp; b < C; b += nwarps) {
+      const int64_t nb = b + nwarps;
+      const int32_t next_ids = nb < C ? pair_ids(a, ci * C + nb, lane) : 0;
       const int64_t p = ci * C + b;
       const float m = (p < n_pairs) ? 1.f : 0.f;
-      const int64_t cr = clip(a.centers[p], a.v_in);
-      const int64_t orow = clip(a.contexts[p], a.v_out);
+      const int64_t cr = clip(__shfl_sync(kFull, ids, K), a.v_in);
+      const int64_t orow = clip(__shfl_sync(kFull, ids, K + 1), a.v_out);
       int32_t nr[KMAX];
 #pragma unroll
-      for (int k = 0; k < KMAX; ++k)
-        nr[k] = k < K ? (int32_t)clip(a.negatives[p * K + k], a.v_out) : 0;
+      for (int k = 0; k < KMAX; ++k) {
+        const int32_t x = __shfl_sync(kFull, ids, k);
+        nr[k] = k < K ? (int32_t)clip(x, a.v_out) : 0;
+      }
       const T* u = reinterpret_cast<const T*>(a.w_in + cr * D);
       const T* vp = reinterpret_cast<const T*>(a.w_out + orow * D);
-      float dpos = 0.f, dneg[KMAX];
+      T* gu = reinterpret_cast<T*>(a.grad_u + b * D);
+      T* us = reinterpret_cast<T*>(a.u_snap + b * D);
+      float dpos = 0.f, dneg[KMAX], g_pos;
 #pragma unroll
       for (int k = 0; k < KMAX; ++k) dneg[k] = 0.f;
-      for (int c = lane; c < dv; c += 32) {
-        const T uu = u[c];
-        dpos += L::dot(uu, vp[c]);
+      if (dv <= 32) {  // a row in one pass: every row loaded once
+        const bool col = lane < dv;
+        const int c = col ? lane : 0;
+        const T uu = u[c], vv = vp[c];
+        T vn[KMAX];
 #pragma unroll
         for (int k = 0; k < KMAX; ++k)
-          if (k < K)
-            dneg[k] += L::dot(uu, reinterpret_cast<const T*>(
-                                      a.w_out + (int64_t)nr[k] * D)[c]);
+          vn[k] = k < K ? reinterpret_cast<const T*>(
+                              a.w_out + (int64_t)nr[k] * D)[c]
+                        : L::zero();
+        if (col) {
+          dpos = L::dot(uu, vv);
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k)
+            if (k < K) dneg[k] = L::dot(uu, vn[k]);
+        }
+        g_pos = ns_math<KMAX>(dpos, dneg, K, m, sum_pos, sum_neg);
+        if (col) {
+          T acc = L::zero();
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k)
+            if (k < K) acc = L::add(acc, L::scale(dneg[k], vn[k]));
+          gu[c] = L::add(L::scale(g_pos, vv), acc);
+          us[c] = uu;
+        }
+      } else {
+        for (int c = lane; c < dv; c += 32) {
+          const T uu = u[c];
+          dpos += L::dot(uu, vp[c]);
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k)
+            if (k < K)
+              dneg[k] += L::dot(uu, reinterpret_cast<const T*>(
+                                        a.w_out + (int64_t)nr[k] * D)[c]);
+        }
+        g_pos = ns_math<KMAX>(dpos, dneg, K, m, sum_pos, sum_neg);
+        for (int c = lane; c < dv; c += 32) {
+          const T uu = u[c];
+          T acc = L::zero();
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k)
+            if (k < K)
+              acc = L::add(acc, L::scale(dneg[k], reinterpret_cast<const T*>(
+                                                      a.w_out +
+                                                      (int64_t)nr[k] *
+                                                          D)[c]));
+          gu[c] = L::add(L::scale(g_pos, vp[c]), acc);
+          us[c] = uu;
+        }
       }
-      dpos = warp_sum(dpos);
+      // Every lane holds the same sums (a xor butterfly adds each pair of
+      // partial sums in both orders, which round alike).
+      if (lane == 0) a.coef[b] = g_pos;
 #pragma unroll
       for (int k = 0; k < KMAX; ++k)
-        if (k < K) dneg[k] = warp_sum(dneg[k]);
-      const float s_pos = sigmoidf(dpos);
-      const float g_pos = (s_pos - 1.f) * m;
-      float ln = 0.f;
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < K) {
-          const float sk = sigmoidf(dneg[k]);
-          ln += m * logf(1.f - sk + kEps);
-          dneg[k] = sk * m;  // from here on: the negative's g_neg
-        }
-      }
-      sum_pos += m * logf(s_pos + kEps);
-      sum_neg += ln;
-      T* gu = reinterpret_cast<T*>(a.grad_u + b * D);
-      T* gp = reinterpret_cast<T*>(a.grad_out + b * D);
-      for (int c = lane; c < dv; c += 32) {
-        const T uu = u[c];
-        T acc = L::zero();
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          if (k < K) {
-            acc = L::add(acc, L::scale(dneg[k], reinterpret_cast<const T*>(
-                                                    a.w_out +
-                                                    (int64_t)nr[k] * D)[c]));
-            reinterpret_cast<T*>(a.grad_out +
-                                 ((int64_t)C + b * K + k) * D)[c] =
-                L::scale(dneg[k], uu);
-          }
-        }
-        gu[c] = L::add(L::scale(g_pos, vp[c]), acc);
-        gp[c] = L::scale(g_pos, uu);
-      }
+        if (k < K && lane == k + 1) a.coef[C + b * K + k] = dneg[k];
+      ids = next_ids;
     }
-    // The chunk's long runs, for phase 2: the first sorted slot (the C
-    // in-slots, then the C*(1+K) out-slots) of every run of at least
-    // long_min equal in-range ids. The list's order does not matter: each
-    // run is applied whole by one CTA.
-    const int32_t* in_ids = a.in_ids + ci * C;
-    const int32_t* out_ids = a.out_ids + ci * n_out_lanes;
-    for (int64_t base = gwarp * 32; base < C + n_out_lanes;
-         base += nwarps * 32) {
-      const int64_t j = base + lane;
-      bool is_long = false;
-      if (j < C + n_out_lanes) {
-        const bool is_in = j < C;
-        const int32_t* ids = is_in ? in_ids : out_ids;
-        const int64_t jj = is_in ? j : j - C;
-        const int64_t last = jj + a.long_min - 1;
-        const int32_t r = ids[jj];
-        is_long = (jj == 0 || ids[jj - 1] != r) &&
-                  last < (is_in ? C : n_out_lanes) && ids[last] == r &&
-                  r >= 0 && r < (is_in ? a.v_in : a.v_out);
-      }
-      const unsigned longs = __ballot_sync(0xffffffffu, is_long);
+    // The chunk's long runs, for phase 2: the first sorted slot (in slots,
+    // then C + out slots) of every run of at least kLongRun equal
+    // in-range ids. The list's order does not matter: each run is applied
+    // whole by one CTA.
+    for (int64_t t = gwarp; t < n_tiles; t += nwarps) {
+      const bool out = t >= tiles_in;
+      const int32_t* sids = out ? a.out_ids + ci * n_out_lanes
+                                : a.in_ids + ci * C;
+      const int64_t n = out ? n_out_lanes : C;
+      const int64_t rows = out ? a.v_out : a.v_in;
+      const int64_t s = (out ? t - tiles_in : t) * 32 + lane;
+      const int64_t last = s + kLongRun - 1;
+      const int32_t r = s < n ? sids[s] : 0;
+      const int32_t prev = (s < n && s > 0) ? sids[s - 1] : 0;
+      const int32_t tail = last < n ? sids[last] : 0;
+      const bool is_long = last < n && (s == 0 || prev != r) && tail == r &&
+                           r >= 0 && r < rows;
+      const unsigned longs = __ballot_sync(kFull, is_long);
       if (longs) {
         int first = 0;
-        if (lane == 0) first = atomicAdd(a.long_count + ci, __popc(longs));
-        first = __shfl_sync(0xffffffffu, first, 0);
+        if (lane == 0) first = atomicAdd(a.counts + ci, __popc(longs));
+        first = __shfl_sync(kFull, first, 0);
         if (is_long)
-          a.long_runs[ci * a.long_cap + first +
-                      __popc(longs & ((1u << lane) - 1u))] = (int32_t)j;
+          a.long_runs[first + __popc(longs & ((1u << lane) - 1u))] =
+              (int32_t)(out ? C + s : s);
       }
     }
     if (lane == 0) {
@@ -405,106 +932,81 @@ sgns_block_kernel(SgnsArgs a) {
     __syncthreads();
     if (threadIdx.x == 0) {
       float sp = 0.f, sn = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) {
+      for (int w = 0; w < kWarps; ++w) {
         sp += warp_pos[w];
         sn += warp_neg[w];
       }
       a.loss_partials[2 * blockIdx.x] = sp;
       a.loss_partials[2 * blockIdx.x + 1] = sn;
     }
-    grid.sync();
+    grid_barrier(bar);
 
-    // -- phase 2: one warp per run of equal ids, w_in and w_out ----------
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
+    // -- phase 2: the updates, one owner per run -------------------------
+    if (loss_warp) {  // the CTAs' partials in a fixed order
       float sp = 0.f, sn = 0.f;
-      for (unsigned q = 0; q < gridDim.x; ++q) {
+      for (unsigned q = lane; q < gridDim.x; q += 32) {
         sp += a.loss_partials[2 * q];
         sn += a.loss_partials[2 * q + 1];
       }
+      sp = warp_sum(sp);
+      sn = warp_sum(sn);
       total = total + (-sp - sn);
     }
-    // The chunk's long runs (listed in phase 1), one CTA each; while
-    // there are fewer long runs than CTAs, the CTAs that take one apply
-    // no short runs, so a long run does not queue behind short ones.
-    const int n_long = a.long_count[ci];
-    const int first_short = n_long < (int)gridDim.x ? n_long : 0;
-    for (int q = blockIdx.x; q < n_long; q += gridDim.x) {
-      const int64_t slot = a.long_runs[ci * a.long_cap + q];
-      const bool is_in = slot < C;
-      const int64_t s = is_in ? slot : slot - C;
-      const int32_t* ids = is_in ? in_ids : out_ids;
-      const int32_t rr = ids[s];
-      if (threadIdx.x < 32) {
-        const int64_t end = run_end(ids, s, is_in ? C : n_out_lanes, rr,
-                                    lane);
-        if (lane == 0) long_end = end;
-      }
-      __syncthreads();
-      const int64_t e = long_end;
-      // Scalar columns: D threads fold a tile, one column each.
-      if (is_in)
-        apply_run_cta(a.w_in + (int64_t)rr * D, a.g_in + (int64_t)rr * D,
-                      a.grad_u, a.in_perm + ci * C, s, e, D, neg_lr,
-                      adagrad, reinterpret_cast<float*>(stage_raw));
-      else
-        apply_run_cta(a.w_out + (int64_t)rr * D, a.g_out + (int64_t)rr * D,
-                      a.grad_out, a.out_perm + ci * n_out_lanes, s, e, D,
-                      neg_lr, adagrad, reinterpret_cast<float*>(stage_raw));
+    const int n_long = a.counts[ci];
+    for (int q = blockIdx.x; q < n_long; q += gridDim.x)
+      apply_long<VEC>(a, ci, a.long_runs[q], neg_lr, adagrad, lane, wib);
+    // Tiles of short runs: the warps of the CTAs without a long run take
+    // one each (a tile split over wpt warps while there are warps to
+    // spare); tiles beyond those go to whichever warp asks the chunk's
+    // counter first, the long-run CTAs' included.
+    const int long_ctas = n_long < (int)gridDim.x ? n_long : (int)gridDim.x;
+    const int64_t short_warps = (int64_t)(gridDim.x - long_ctas) * kWarps;
+    int wpt = 1;
+    while (wpt < kGroups && n_tiles * wpt * 2 <= short_warps) wpt *= 2;
+    const int64_t n_virtual = n_tiles * wpt;
+    if ((int)blockIdx.x >= long_ctas) {
+      const int64_t v = (int64_t)(blockIdx.x - long_ctas) * kWarps + wib;
+      if (v < n_virtual)
+        apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
+                        neg_lr, adagrad, lane, rows);
     }
-    // The other runs: each warp owns 32 consecutive sorted slots (the C
-    // in-slots then the C*(1+K) out-slots) at a time and applies the runs
-    // that START there.
-    const int64_t short_warps =
-        (int64_t)(gridDim.x - first_short) * (kThreads / 32);
-    const int64_t short_warp =
-        ((int64_t)blockIdx.x - first_short) * (kThreads / 32) + wib;
-    for (int64_t base = short_warp * 32;
-         short_warp >= 0 && base < C + n_out_lanes;
-         base += short_warps * 32) {
-      const int64_t j = base + lane;
-      bool start = false;
-      int32_t r = 0;
-      if (j < C + n_out_lanes) {
-        const bool is_in = j < C;
-        const int32_t* ids = is_in ? in_ids : out_ids;
-        const int64_t jj = is_in ? j : j - C;
-        r = ids[jj];
-        start = jj == 0 || ids[jj - 1] != r;
-      }
-      unsigned starts = __ballot_sync(0xffffffffu, start);
-      while (starts) {
-        const int src = __ffs(starts) - 1;
-        starts &= starts - 1;
-        const int32_t rr = __shfl_sync(0xffffffffu, r, src);
-        const int64_t js = base + src;
-        const bool is_in = js < C;
-        const int64_t s = is_in ? js : js - C;
-        const int64_t n_l = is_in ? C : n_out_lanes;
-        const int64_t e = run_end(is_in ? in_ids : out_ids, s, n_l, rr, lane);
-        const int64_t rows = is_in ? a.v_in : a.v_out;
-        if (e - s >= a.long_min) continue;   // a CTA applied it
-        if (rr < 0 || rr >= rows) continue;  // mode="drop"
-        if (is_in)
-          apply_run<VEC>(a.w_in + (int64_t)rr * D, a.g_in + (int64_t)rr * D,
-                         a.grad_u, a.in_perm + ci * C, s, e, D, neg_lr,
-                         adagrad, lane);
-        else
-          apply_run<VEC>(a.w_out + (int64_t)rr * D,
-                         a.g_out + (int64_t)rr * D, a.grad_out,
-                         a.out_perm + ci * n_out_lanes, s, e, D, neg_lr,
-                         adagrad, lane);
+    if (n_virtual > short_warps) {
+      for (;;) {
+        int taken = 0;
+        if (lane == 0) taken = atomicAdd(a.counts + a.n_chunks + ci, 1);
+        const int64_t v = short_warps + __shfl_sync(kFull, taken, 0);
+        if (v >= n_virtual) break;
+        apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
+                        neg_lr, adagrad, lane, rows);
       }
     }
-    grid.sync();
+    grid_barrier(bar);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.loss_out = total;
+  if (loss_warp && lane == 0) *a.loss_out = total;
+}
+
+// Let each instance take kRunSmem bytes of dynamic shared memory, once
+// per device.
+template <int VEC, int KMAX>
+void allow_smem() {
+  static bool done[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64 || !done[dev]) {
+    cudaFuncSetAttribute(sgns_block_kernel<VEC, KMAX>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kRunSmem);
+    if (dev >= 0 && dev < 64) done[dev] = true;
+  }
 }
 
 template <int VEC, int KMAX>
 int launch(SgnsArgs a, int grid, cudaStream_t st) {
+  allow_smem<VEC, KMAX>();
   void* params[] = {&a};
   cudaLaunchCooperativeKernel((const void*)sgns_block_kernel<VEC, KMAX>,
-                              dim3(grid), dim3(kThreads), params, 0, st);
+                              dim3(grid), dim3(kThreads), params, kRunSmem,
+                              st);
   return (int)cudaGetLastError();
 }
 
@@ -513,8 +1015,9 @@ int occupancy_grid() {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  allow_smem<VEC, KMAX>();
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sgns_block_kernel<VEC, KMAX>, kThreads, 0);
+      &per_sm, sgns_block_kernel<VEC, KMAX>, kThreads, kRunSmem);
   return per_sm * sms;
 }
 
@@ -537,16 +1040,16 @@ int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
                   const int32_t* contexts, const int32_t* negatives,
                   const int32_t* in_ids, const int32_t* in_perm,
                   const int32_t* out_ids, const int32_t* out_perm,
-                  const int32_t* n_pairs, float* grad_u, float* grad_out,
-                  float* loss_partials, float* loss_out, int64_t n_chunks,
-                  int chunk, int k, int d, float lr, int adagrad, int grid,
-                  int32_t* long_runs, int32_t* long_count, int long_cap,
-                  int long_min, void* stream) {
-  SgnsArgs a{w_in,   w_out,    g_in,     g_out,    v_in,          v_out,
-             centers, contexts, negatives, in_ids,  in_perm,       out_ids,
-             out_perm, n_pairs, grad_u,   grad_out, loss_partials, loss_out,
-             n_chunks, chunk,   k,        d,        lr,            adagrad,
-             long_runs, long_count, long_cap, long_min};
+                  const int32_t* n_pairs, float* grad_u, float* u_snap,
+                  float* coef, float* loss_partials, float* loss_out,
+                  int64_t n_chunks, int chunk, int k, int d, float lr,
+                  int adagrad, int grid, int32_t* long_runs, int32_t* counts,
+                  void* stream) {
+  SgnsArgs a{w_in,      w_out,    g_in,     g_out,    v_in,     v_out,
+             centers,   contexts, negatives, in_ids,  in_perm,  out_ids,
+             out_perm,  n_pairs,  grad_u,   u_snap,   coef,     loss_partials,
+             loss_out,  n_chunks, chunk,    k,        d,        lr,
+             adagrad,   long_runs, counts};
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d % 4 == 0)
     return k <= kSmallNeg ? launch<4, kSmallNeg>(a, grid, st)

@@ -15,11 +15,12 @@ kernel donated them) and returned.
 For CUDA tensors the step launches ONE persistent cooperative kernel per
 block (``csrc/sgns.cu``); for CPU tensors it runs the plain PyTorch chunk
 loop (:func:`sgns_block_plain`), which is also the kernel's oracle. The
-glue around the launch stable-sorts each chunk's row ids (centers, and
-contexts followed by negatives) so the kernel can fold duplicate ids in
-lane order. It sorts every chunk of the stream, since how many are live
-is known only on the device: the kernel reads ``n_pairs`` there, and
-nothing between the pair stream and the launch waits for the host.
+glue around the launch stable-sorts each live chunk's row ids (centers,
+and contexts followed by negatives) so the kernel can fold duplicate ids
+in lane order. How many chunks are live is known only on the device, so
+the glue reads ``n_pairs`` on the host once per block: a block's stream
+has room for every pair its sentences could give, and subsampling leaves
+about a third of its chunks live at the flagship's settings.
 
 On the TPU the kernel kept all four tables in VMEM, so it was only
 eligible for small vocabularies. Here the tables stay in HBM, and
@@ -40,7 +41,8 @@ from multiverso_tpu_torch.ops import _build
 LAUNCHES: Dict[str, int] = {"sgns_block": 0}
 
 MAX_NEGATIVE = 16              # csrc/sgns.cu kMaxNeg
-LONG_RUN = 64                  # runs this long are applied by a whole CTA
+LONG_RUN = 32                  # csrc/sgns.cu kLongRun: runs this long are
+                               # applied by a whole CTA
 
 _grid_cache: Dict[tuple, int] = {}
 
@@ -48,11 +50,12 @@ _grid_cache: Dict[tuple, int] = {}
 def sgns_grid_bytes(in_rows: int, out_rows: int, dim: int, chunk: int,
                     negative: int, param_dtype) -> int:
     """Device bytes one block step needs: the four tables (embeddings in
-    ``param_dtype``, f32 accumulators), the gradient scratch and the sorted
-    id/permutation streams of one chunk."""
+    ``param_dtype``, f32 accumulators), the gradient scratch (``grad_u``
+    and the snapshot of ``u``, [chunk, dim] each, and one coefficient per
+    out-lane) and the sorted id/permutation streams of one chunk."""
     p = np.dtype(param_dtype).itemsize
     tables = (in_rows + out_rows) * dim * (p + 4)
-    scratch = chunk * (2 + negative) * dim * 4
+    scratch = (chunk * 2 * dim + chunk * (1 + negative)) * 4
     streams = chunk * (2 + negative) * 4 * 3
     return tables + scratch + streams
 
@@ -101,9 +104,8 @@ def _lib():
     if not getattr(lib, "_mv_typed", False):
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_sgns_block.argtypes = (
-            [c] * 4 + [i64, i64] + [c] * 12 +
-            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, c, i32, i32,
-             c])
+            [c] * 4 + [i64, i64] + [c] * 13 +
+            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, c, c])
         lib.mv_sgns_block.restype = ctypes.c_int
         lib.mv_sgns_grid_size.argtypes = [i32, i32]
         lib.mv_sgns_grid_size.restype = ctypes.c_int
@@ -150,8 +152,9 @@ class SgnsLaunch(NamedTuple):
     streams: tuple         # centers, contexts, negatives (int32)
     sorted_streams: tuple  # in_ids, in_perm, out_ids, out_perm (int32)
     n_pairs: torch.Tensor  # [1] int32 on the card
-    scratch: tuple         # grad_u, grad_out, loss partials
-    long_runs: tuple       # [n, cap] run starts, [n] counts (the kernel's)
+    scratch: tuple         # grad_u, u snapshot, coefficients, loss partials
+    long_runs: tuple       # [cap] run starts; [2n + 2] counters and the
+                           # grid barrier's words (the kernel's)
     loss: torch.Tensor     # [1] float32
     lr: float
     adagrad: bool
@@ -165,33 +168,43 @@ def long_run_capacity(chunk: int, negative: int) -> int:
 
 
 def sorted_row_ids(centers, contexts, negatives, n_pairs):
-    """Each chunk's row ids stable-sorted, with the lane each came from:
-    ``(in_ids, in_perm)`` over the centers and ``(out_ids, out_perm)`` over
-    the contexts followed by the flattened negatives. Lanes past
-    ``n_pairs`` (the tail chunk's padding and the dead chunks) carry exact
-    zero gradients; their keys sort to the end as an out-of-range id, which
-    the kernel drops, so they join no real row's run."""
+    """The live chunks' row ids stable-sorted, with the lane each came
+    from: returns ``(n_live, in_ids, in_perm, out_ids, out_perm)``, where
+    ``n_live = ceil(n_pairs / chunk)`` (at most ``n``; one host read of
+    ``n_pairs``), ``(in_ids, in_perm)`` [n_live, chunk] sort the centers
+    and ``(out_ids, out_perm)`` [n_live, chunk * (1 + K)] the contexts
+    followed by the flattened negatives. The dead chunks are not sorted:
+    the kernel never reads them. Lanes past ``n_pairs`` (the tail chunk's
+    padding) carry exact zero gradients; their keys sort to the end as an
+    out-of-range id, which the kernel drops, so they join no real row's
+    run."""
     n, chunk = centers.shape
+    n_live = _n_live(n_pairs, chunk, n)
+    centers, contexts = centers[:n_live], contexts[:n_live]
+    negatives = negatives[:n_live]
     k = negatives.shape[2]
-    lane = torch.arange(n * chunk, device=centers.device).view(n, chunk)
+    lane = torch.arange(n_live * chunk,
+                        device=centers.device).view(n_live, chunk)
     live = lane < n_pairs
     dead = torch.iinfo(torch.int32).max
     in_keys = torch.where(live, centers, dead)
     out_keys = torch.cat([
         torch.where(live, contexts, dead),
-        torch.where(live[:, :, None], negatives, dead).reshape(n, chunk * k)],
-        1)
+        torch.where(live[:, :, None], negatives,
+                    dead).reshape(n_live, chunk * k)], 1)
     in_ids, in_perm = torch.sort(in_keys, dim=1, stable=True)
     out_ids, out_perm = torch.sort(out_keys, dim=1, stable=True)
-    return (in_ids.contiguous(), in_perm.to(torch.int32),
+    return (n_live, in_ids.contiguous(), in_perm.to(torch.int32),
             out_ids.contiguous(), out_perm.to(torch.int32))
 
 
 def prepare_sgns_block(w_in, w_out, g_in, g_out, centers2d, contexts2d,
                        negatives3d, n_pairs, lr, adagrad: bool) -> SgnsLaunch:
     """The glue before the launch: checks, int32 streams, the per-chunk
-    stable sort of the row ids (which groups duplicate ids into runs in
-    lane order) and the scratch buffers. Nothing here waits for the card."""
+    stable sort of the live chunks' row ids (which groups duplicate ids
+    into runs in lane order) and the scratch buffers. It waits for the
+    card once, to read ``n_pairs``; the launch takes the live chunks
+    only."""
     _check(w_in, w_out, g_in, g_out, centers2d, contexts2d, negatives3d)
     dev = w_in.device
     n, chunk = centers2d.shape
@@ -202,18 +215,20 @@ def prepare_sgns_block(w_in, w_out, g_in, g_out, centers2d, contexts2d,
     centers = centers2d.to(torch.int32).contiguous()
     contexts = contexts2d.to(torch.int32).contiguous()
     negatives = negatives3d.to(torch.int32).contiguous()
+    n_live, *sorted_ids = sorted_row_ids(centers, contexts, negatives,
+                                         n_pairs)
     grid = grid_size(d, k, dev)
     scratch = (torch.empty((chunk, d), dtype=torch.float32, device=dev),
-               torch.empty((chunk * (1 + k), d), dtype=torch.float32,
-                           device=dev),
+               torch.empty((chunk, d), dtype=torch.float32, device=dev),
+               torch.empty(chunk * (1 + k), dtype=torch.float32, device=dev),
                torch.empty(2 * grid, dtype=torch.float32, device=dev))
-    long_runs = (torch.empty((n, long_run_capacity(chunk, k)),
-                             dtype=torch.int32, device=dev),
-                 torch.zeros(n, dtype=torch.int32, device=dev))
+    long_runs = (torch.empty(long_run_capacity(chunk, k), dtype=torch.int32,
+                             device=dev),
+                 torch.zeros(2 * n_live + 2, dtype=torch.int32, device=dev))
     return SgnsLaunch((w_in, w_out, g_in, g_out),
-                      (centers, contexts, negatives),
-                      sorted_row_ids(centers, contexts, negatives, n_pairs),
-                      n_pairs, scratch, long_runs,
+                      (centers[:n_live], contexts[:n_live],
+                       negatives[:n_live]),
+                      tuple(sorted_ids), n_pairs, scratch, long_runs,
                       torch.zeros(1, dtype=torch.float32, device=dev),
                       float(lr), bool(adagrad), grid)
 
@@ -224,15 +239,14 @@ def launch_sgns_block(p: SgnsLaunch) -> torch.Tensor:
     n, chunk = p.streams[0].shape
     k = p.streams[2].shape[2]
     runs, counts = p.long_runs
-    counts.zero_()                   # the kernel lists each chunk's runs
+    counts.zero_()                   # the kernel's counters and barrier
     ptrs = [t.data_ptr() for t in (*p.streams, *p.sorted_streams)]
     err = _lib().mv_sgns_block(
         w_in.data_ptr(), w_out.data_ptr(), g_in.data_ptr(), g_out.data_ptr(),
         w_in.shape[0], w_out.shape[0], *ptrs, p.n_pairs.data_ptr(),
         *[t.data_ptr() for t in p.scratch], p.loss.data_ptr(), n,
         chunk, k, w_in.shape[1], p.lr, int(p.adagrad), p.grid,
-        runs.data_ptr(), counts.data_ptr(), runs.shape[1], LONG_RUN,
-        torch.cuda.current_stream(w_in.device).cuda_stream)
+        runs.data_ptr(), counts.data_ptr(), _build.stream(w_in))
     _build.check_launch(err, "sgns_block")
     LAUNCHES["sgns_block"] += 1
     return p.loss[0]

@@ -124,36 +124,38 @@ def test_eligibility_reckons_device_memory(card):
                                    card)
     assert sgns.sgns_grid_bytes(50_000, 50_000, 128, 8192, 5,
                                 np.float32) < 2**28
-    assert not sgns.sgns_grid_eligible(50_000, 50_000, 128, 8192, 5,
-                                       np.dtype("float16"), card)
-    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 17, np.float32,
-                                       card)
-    assert not sgns.sgns_grid_eligible(10**8, 10**8, 128, 8192, 5,
-                                       np.float32, card)
-    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 5, np.float32,
-                                       torch.device("cpu"))
-
+    # The gradient scratch: grad_u and the snapshot of u, [C, D] each, and
+    # one coefficient per out-lane (C * (1 + K)), in float32.
+    tables = 2 * 50_000 * 128 * 8
+    streams = 8192 * 7 * 4 * 3
+    assert sgns.sgns_grid_bytes(50_000, 50_000, 128, 8192, 5, np.float32) \
+        == tables + (2 * 8192 * 128 + 8192 * 6) * 4 + streams
 
 def test_glue_sorts_every_chunk_and_drops_dead_lanes():
-    """The glue before the launch sorts each chunk's ids stably, with the
-    lanes past n_pairs keyed out of range (no host read of n_pairs)."""
+    """The glue before the launch sorts each LIVE chunk's ids stably, with
+    the lanes past n_pairs keyed out of range; the dead chunks, which the
+    kernel never reads, are not sorted (one host read of n_pairs)."""
     _, (centers, contexts, negatives) = _inputs(5)
-    n_pairs = C + 3                           # chunk 1 has 3 live lanes
-    in_ids, in_perm, out_ids, out_perm = sgns.sorted_row_ids(
-        *[torch.as_tensor(x) for x in (centers, contexts, negatives)],
-        torch.tensor([n_pairs], dtype=torch.int32))
     dead = np.iinfo(np.int32).max
-    assert in_ids.shape == (N, C) and out_ids.shape == (N, C * (1 + K))
-    live = (np.arange(N * C).reshape(N, C) < n_pairs)
-    keys_in = np.where(live, centers, dead)
-    keys_out = np.concatenate(
-        [np.where(live, contexts, dead),
-         np.where(live[:, :, None], negatives, dead).reshape(N, C * K)], 1)
-    for keys, ids, perm in ((keys_in, in_ids, in_perm),
-                            (keys_out, out_ids, out_perm)):
-        order = np.argsort(keys, axis=1, kind="stable")
-        assert np.array_equal(perm.numpy(), order)
-        assert np.array_equal(ids.numpy(),
-                              np.take_along_axis(keys, order, 1))
-    assert (in_ids[2:] == dead).all() and (out_ids[2:] == dead).all()
-    assert sgns.long_run_capacity(8192, 5) == 8192 // 64 + 8192 * 6 // 64
+    for n_pairs, n_live in ((C + 3, 2), (2 * C, 2), (0, 0), (N * C, N)):
+        got = sgns.sorted_row_ids(
+            *[torch.as_tensor(x) for x in (centers, contexts, negatives)],
+            torch.tensor([n_pairs], dtype=torch.int32))
+        assert got[0] == n_live
+        in_ids, in_perm, out_ids, out_perm = got[1:]
+        assert in_ids.shape == (n_live, C)
+        assert out_ids.shape == (n_live, C * (1 + K))
+        live = (np.arange(n_live * C).reshape(n_live, C) < n_pairs)
+        keys_in = np.where(live, centers[:n_live], dead)
+        keys_out = np.concatenate(
+            [np.where(live, contexts[:n_live], dead),
+             np.where(live[:, :, None], negatives[:n_live],
+                      dead).reshape(n_live, C * K)], 1)
+        for keys, ids, perm in ((keys_in, in_ids, in_perm),
+                                (keys_out, out_ids, out_perm)):
+            order = np.argsort(keys, axis=1, kind="stable")
+            assert np.array_equal(perm.numpy(), order)
+            assert np.array_equal(ids.numpy(),
+                                  np.take_along_axis(keys, order, 1))
+    assert sgns.long_run_capacity(8192, 5) == \
+        8192 // sgns.LONG_RUN + 8192 * 6 // sgns.LONG_RUN
