@@ -57,25 +57,26 @@
 //     in one round trip (cp.async) into the warp's rows of shared memory,
 //     beside the row's w and g2. All fold in lane order, as the JAX
 //     scatter-adds do.
-//   - Long runs (>= kLongRun lanes, listed in phase 1): one CTA each. A
-//     k-ary search with one probe a thread finds the run's end in one or
-//     two round trips. A column's sums are a chain in lane order, but the
-//     columns are independent: each of the 8 warps takes 16 columns and
-//     loads kLongRows of the run's rows a round trip (4 floats a lane, the
-//     next rows' permutation entries already in flight); every lane turns
-//     its rows into terms, and shuffles bring them in lane order onto each
-//     column's sum. The CTAs that hold a long run take no short runs while
-//     the other warps suffice; tiles beyond those go to any warp that asks
-//     the chunk's counter.
-//   Every run folds in lane order onto the row's own g2 and w, so the
-//   tables come out bitwise as the parent kernel's. The order is held,
-//   not only for determinism: the plain version adds a run's lanes one by
-//   one onto g2 too (in no fixed order, with atomics), and adding small
-//   squares one by one onto a large sum rounds with a bias that a sum
-//   taken in segments does not share. A version that summed each long run
-//   in 8 segments and added the partials drifted 1.9e-5 of g_out's
-//   largest value from the plain version over the flagship block, twice
-//   the tolerance chip_smoke.py holds the kernel to.
+//   - Long runs (>= kLongRun lanes): phase 1 lists each with its length
+//     (a search from its start, 3 round trips for ~800 lanes) and cuts it
+//     into segments of kSeg lanes, which phase 2a spreads over the grid's
+//     warps beside the tiles. Each warp folds its segment in lane order
+//     onto the row's g2 as the chunk found it (P_q), staging 16 rows a
+//     round trip. After a grid barrier (2b), each segment's warp takes
+//     the run's g2 as g2 + (P_0 - g2) + (P_1 - g2) + ..., in segment
+//     order, and folds its steps against that onto the row's w (Q_q);
+//     after another (2c), one warp a run writes g2 and w + (Q_0 - w) +
+//     ... A chunk without long runs skips 2b and 2c.
+//   Short and medium runs fold in lane order, bitwise as the parent
+//   kernel did. A long run's terms are each added onto a sum of the
+//   row's size, as in lane order, but the segments' increments are added
+//   in segment order, which rounds differently (fixed, so deterministic).
+//   That matters here: the plain version adds a run's lanes one by one
+//   onto g2 (in no fixed order, with atomics), and adding small squares
+//   one by one onto a large sum rounds with a bias that a sum taken in
+//   segments from zero does not share: such a version drifted 1.9e-5 of
+//   g_out's largest value from the plain version over the flagship
+//   block, twice the tolerance chip_smoke.py holds the kernel to.
 // The glue sorts the masked lanes (exact zero gradients) to the end as an
 // out-of-range id, which is dropped like any other (mode="drop"). The
 // w_in runs and the w_out runs touch different tables, so they share one
@@ -86,8 +87,11 @@
 // ...) so no multiply-add is contracted and each element rounds as the
 // plain torch chain does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 // CTAs per SM the registers are sized for (__launch_bounds__).
 #ifndef SGNS_MIN_BLOCKS
@@ -102,14 +106,14 @@ constexpr int kMaxNeg = 16;
 constexpr int kSmallNeg = 8;      // the variant for negative <= 8
 constexpr float kEps = 1e-7f;     // model.py _EPS
 constexpr float kAdaEps = 1e-6f;  // _apply_update's sqrt(g2 + 1e-6)
-constexpr int kLongRun = 32;      // runs this long or longer: a whole CTA
+constexpr int kLongRun = 16;      // runs this long or longer: a whole CTA
 constexpr int kRunLanes = 16;     // lanes of a group that applies a short run
 constexpr int kGroups = 32 / kRunLanes;
 constexpr int kHeld = 2;          // a short run's lanes held in registers
 constexpr int kBlock = 128;       // floats of a row per pass over a run
 constexpr int kQuads = kBlock / (4 * kRunLanes);  // a group lane's float4s
-constexpr int kStaged = 16;       // rows a warp stages at once
-constexpr int kLongRows = 64;     // rows of a long run a round trip
+constexpr int kStaged = kLongRun;  // rows a warp stages at once
+constexpr int kSeg = 128;         // lanes of a long run's segment
 constexpr unsigned kFull = 0xffffffffu;
 
 struct SgnsArgs {
@@ -138,10 +142,14 @@ struct SgnsArgs {
   int d;
   float lr;
   int adagrad;
-  int32_t* long_runs;        // [cap]: the chunk's long runs' first slots
-  int32_t* counts;           // [2 * n_chunks + 2], zero at launch: long
-                             // runs listed, tiles taken from the counter,
-                             // then the grid barrier's two words
+  int32_t* long_runs;        // [cap, 4]: a long run's first slot, length,
+                             // first segment, row
+  int32_t* seg_run;          // [cap]: the long run of each segment
+  float* part;               // [2, cap, D]: each segment's pass-0 and
+                             // pass-1 fold
+  int32_t* counts;           // [2, n_chunks], zero at launch: long runs
+                             // and segments listed
+  int long_cap;              // rows of long_runs, seg_run and part
 };
 
 __device__ __forceinline__ int64_t clip(int64_t r, int64_t n) {
@@ -408,7 +416,7 @@ __device__ void apply_short(const Side& sd, const float* coef, int C, int K,
 }
 
 // Each warp's rows of shared memory (dynamic: 64 KB a CTA): the gradient
-// rows of a medium run, kStaged at a time.
+// rows of a medium run, or of a batch of a long run's segment.
 struct RunShared {
   float rows[kWarps][kStaged][kBlock];
 };
@@ -431,7 +439,8 @@ __device__ __forceinline__ void cp_wait_all() {
 
 // This lane's 4 floats of block cb of a global row, copied asynchronously
 // to the same places of a 128-float row in shared memory (WarpCols'
-// layout), and read back.
+// layout), and read back. Each lane reads back only what it copied, so a
+// warp needs no barrier between the two.
 template <int VEC>
 __device__ __forceinline__ void stage_row(float* dst, const float* row,
                                           int cb, int lane, int d) {
@@ -453,29 +462,24 @@ __device__ __forceinline__ float4 staged(const float* src, int lane) {
                      src[lane + 96]);
 }
 
-// The run's lanes [i0, i1) (at most kStaged; lane l of the warp holds
-// lane l's row of src and coefficient): every row goes out in one round
-// trip into the warp's rows of shared memory (each lane copies, and later
-// reads back, only its own 4 floats of each, so no barrier).
+// Fold lanes [i0, i1) of a run (i1 - i0 <= kStaged; lane l of the warp
+// holds lane l's row of src and coefficient) into acc, in lane order:
+// squares (pass 0) or steps against den (pass 1). The rows go out in one
+// round trip into the warp's rows of shared memory.
 template <int VEC>
-__device__ __forceinline__ void stage_rows(const float* src, int32_t rb_l,
-                                           int i0, int i1, int cb, int d,
-                                           int lane, float (*rows)[kBlock]) {
+__device__ __forceinline__ float4 fold_staged(float4 acc, const float* src,
+                                              int32_t rb_l, float cf_l,
+                                              int i0, int i1, int cb, int d,
+                                              int pass, float4 den,
+                                              float neg_lr, bool adagrad,
+                                              int lane,
+                                              float (*rows)[kBlock]) {
   for (int i = i0; i < i1; ++i) {
     const int32_t rb = __shfl_sync(kFull, rb_l, i);
     stage_row<VEC>(rows[i - i0], src + (int64_t)rb * d, cb, lane, d);
   }
   cp_commit();
-}
-
-// Fold staged lanes [i0, i1) into acc in lane order: squares (pass 0) or
-// steps against den (pass 1).
-template <int VEC>
-__device__ __forceinline__ float4 fold_rows(float4 acc, float cf_l, int i0,
-                                            int i1, int pass, float4 den,
-                                            float neg_lr, bool adagrad,
-                                            int lane,
-                                            float (*rows)[kBlock]) {
+  cp_wait_all();
   for (int i = i0; i < i1; ++i) {
     const float cf = __shfl_sync(kFull, cf_l, i);
     const float4 x = mul4(cf, staged<VEC>(rows[i - i0], lane));
@@ -486,9 +490,9 @@ __device__ __forceinline__ float4 fold_rows(float4 acc, float cf_l, int i0,
 }
 
 // A run of kHeld < len < kLongRun lanes by the whole warp; lane l holds
-// the permutation entry of the run's lane l. Its gradient rows go out
-// beside the row's w and g2, kStaged a round trip; a run of at most
-// kStaged lanes keeps them for both passes. Lane order, as apply_short.
+// the permutation entry of the run's lane l. All of its gradient rows go
+// out in one round trip beside the row's w and g2; both passes fold them
+// from shared memory in lane order.
 template <int VEC>
 __device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
                              int d, int32_t row, int32_t pl, int len,
@@ -501,156 +505,103 @@ __device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
   const float cf_l = (mine && sd.out) ? coef[p] : 1.f;
   float* w = sd.w + (int64_t)row * d;
   float* g2 = sd.g2 + (int64_t)row * d;
-  const bool kept = len <= kStaged;
   for (int cb = 0; cb < d; cb += kBlock) {
-    if (kept) stage_rows<VEC>(sd.src, rb_l, 0, len, cb, d, lane, rows);
+    for (int i = 0; i < len; ++i) {
+      const int32_t rb = __shfl_sync(kFull, rb_l, i);
+      stage_row<VEC>(rows[i], sd.src + (int64_t)rb * d, cb, lane, d);
+    }
+    cp_commit();
     float4 wv = Cols::load(w, cb, lane, d);
     float4 acc = adagrad ? Cols::load(g2, cb, lane, d) : zero4();
-    for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
-      for (int i0 = 0; i0 < len; i0 += kStaged) {
-        const int i1 = i0 + kStaged < len ? i0 + kStaged : len;
-        if (!kept) stage_rows<VEC>(sd.src, rb_l, i0, i1, cb, d, lane, rows);
-        cp_wait_all();
-        if (pass == 0)
-          acc = fold_rows<VEC>(acc, cf_l, i0, i1, 0, acc, neg_lr, adagrad,
-                               lane, rows);
-        else
-          wv = fold_rows<VEC>(wv, cf_l, i0, i1, 1, acc, neg_lr, adagrad,
-                              lane, rows);
+    cp_wait_all();
+    if (adagrad) {
+      for (int i = 0; i < len; ++i) {
+        const float cf = __shfl_sync(kFull, cf_l, i);
+        acc = sq_acc4(acc, mul4(cf, staged<VEC>(rows[i], lane)));
       }
-      if (pass == 0) {
-        Cols::store(g2, cb, lane, d, acc);
-        acc = den4(acc);
-      }
+      Cols::store(g2, cb, lane, d, acc);
+      acc = den4(acc);
+    }
+    for (int i = 0; i < len; ++i) {
+      const float cf = __shfl_sync(kFull, cf_l, i);
+      wv = add4(wv, step4(neg_lr, mul4(cf, staged<VEC>(rows[i], lane)), acc,
+                          adagrad));
     }
     Cols::store(w, cb, lane, d, wv);
   }
 }
 
-// Four floats of a row from column c on (VEC 4: one aligned load; VEC 1:
-// four, clamped to the row), and their store (columns past d dropped).
-template <int VEC>
-__device__ __forceinline__ float4 load_quad(const float* row, int c, int d) {
-  if (VEC == 4)
-    return *reinterpret_cast<const float4*>(row + (c < d ? c : d - 4));
-  return make_float4(
-      WarpCols<1>::at(row, c, d), WarpCols<1>::at(row, c + 1, d),
-      WarpCols<1>::at(row, c + 2, d), WarpCols<1>::at(row, c + 3, d));
-}
-template <int VEC>
-__device__ __forceinline__ void store_quad(float* row, int c, int d,
-                                           float4 v) {
-  if (VEC == 4) {
-    if (c < d) *reinterpret_cast<float4*>(row + c) = v;
-  } else {
-    if (c < d) row[c] = v.x;
-    if (c + 1 < d) row[c + 1] = v.y;
-    if (c + 2 < d) row[c + 2] = v.z;
-    if (c + 3 < d) row[c + 3] = v.w;
-  }
-}
-__device__ __forceinline__ float4 shfl4(float4 v, int src) {
-  return make_float4(
-      __shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
-      __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
+// A long run, as phase 1 listed it: its first sorted slot (in slots, then
+// C + out slots), its length, its first segment and its row.
+struct LongRun {
+  Side sd;
+  int64_t s, e;
+  int32_t row;
+  int base, nseg;
+};
+
+__device__ __forceinline__ LongRun long_run(const SgnsArgs& a, int64_t ci,
+                                            int idx) {
+  const int4 rec = reinterpret_cast<const int4*>(a.long_runs)[idx];
+  LongRun r;
+  const bool out = rec.x >= a.chunk;
+  r.sd = side_of(a, ci, out);
+  r.s = out ? rec.x - a.chunk : rec.x;
+  r.e = r.s + rec.y;
+  r.row = rec.w;
+  r.base = rec.z;
+  r.nseg = (rec.y + kSeg - 1) / kSeg;
+  return r;
 }
 
-// A long run (first sorted slot `slot`: in slots, then C + out slots) by
-// the whole CTA. A column's sums are a chain in lane order, but the
-// columns are independent, so the warps split the row's columns: warp wib
-// takes 16 columns of each 128-float block, and loads kLongRows of the
-// run's rows a round trip (lane 4r + q holds row r's columns 4q .. 4q+3
-// of them, 8 rows to a load), the next rows' permutation entries already
-// in flight. Every lane turns its rows into terms (squares, or steps
-// against the column's denominator); then each lane adds the terms of its
-// 4 columns in lane order, shuffled from the lanes that hold them, so
-// every lane holding columns 4q .. 4q+3 carries the same sums, and lanes
-// 0-3 store them.
+// Segment q of a long run: its lanes, folded in lane order onto the row's
+// value at the start of the chunk (base: g2 in pass 0, w in pass 1).
 template <int VEC>
-__device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
-                           float neg_lr, bool adagrad, int lane, int wib) {
-  const int C = a.chunk, K = a.k, d = a.d;
-  const bool out = slot >= C;
-  const Side sd = side_of(a, ci, out);
-  const int64_t s = out ? slot - C : slot;
-  const int32_t row = sd.ids[s];
-  // The run's end, by a k-ary search over [s + kLongRun, n): every thread
-  // probes one slot a step (the ids are sorted, so the probes that still
-  // hold `row` are a prefix), which narrows the span kThreads-fold.
-  int64_t lo = s + kLongRun, hi = sd.n;
-  while (lo < hi) {
-    const int64_t stride = (hi - lo + kThreads - 1) / kThreads;
-    const int64_t q = lo + (int64_t)threadIdx.x * stride;
-    const int cnt = __syncthreads_count(q < hi && sd.ids[q] == row);
-    if (cnt == 0) {
-      hi = lo;
-      break;
-    }
-    const int64_t next = lo + (int64_t)cnt * stride;
-    if (next < hi) hi = next;
-    if (stride == 1) break;
-    lo += (int64_t)(cnt - 1) * stride + 1;
+__device__ float4 fold_segment(const SgnsArgs& a, const LongRun& r, int q,
+                               int cb, int pass, float4 base, float4 den,
+                               float neg_lr, bool adagrad, int lane,
+                               float (*rows)[kBlock]) {
+  const int64_t j0 = r.s + (int64_t)(q - r.base) * kSeg;
+  const int n = r.e - j0 < kSeg ? (int)(r.e - j0) : kSeg;
+  float4 acc = base;
+  for (int b0 = 0; b0 < n; b0 += 32) {  // 32 lanes' entries a load
+    const int nb = n - b0 < 32 ? n - b0 : 32;
+    const int32_t p = lane < nb ? r.sd.perm[j0 + b0 + lane] : 0;
+    const int32_t rb_l = r.sd.out ? pair_of(p, a.chunk, a.k) : p;
+    const float cf_l = (lane < nb && r.sd.out) ? a.coef[p] : 1.f;
+    for (int i0 = 0; i0 < nb; i0 += kStaged)
+      acc = fold_staged<VEC>(acc, r.sd.src, rb_l, cf_l, i0,
+                             i0 + kStaged < nb ? i0 + kStaged : nb, cb, a.d,
+                             pass, den, neg_lr, adagrad, lane, rows);
   }
-  const int64_t e = hi;
-  const int rq = lane >> 2, qd = lane & 3;
-  auto entry = [&](int64_t j) { return j < e ? sd.perm[j] : 0; };
-  float* w = sd.w + (int64_t)row * d;
-  float* g2 = sd.g2 + (int64_t)row * d;
-  for (int cb = 0; cb < d; cb += kBlock) {
-    const int c0 = cb + 16 * wib + 4 * qd;
-    float4 acc = adagrad ? load_quad<VEC>(g2, c0, d) : zero4();
-    float4 wv = load_quad<VEC>(w, c0, d);
-    float4 den = zero4();
-    for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
-      if (pass == 1 && adagrad) den = den4(acc);
-      int32_t pa = entry(s + lane), pb = entry(s + 32 + lane);
-      for (int64_t j0 = s; j0 < e; j0 += kLongRows) {
-        const int n = e - j0 < kLongRows ? (int)(e - j0) : kLongRows;
-        const int32_t na = entry(j0 + kLongRows + lane);
-        const int32_t nb = entry(j0 + kLongRows + 32 + lane);
-        const int32_t ra = out ? pair_of(pa, C, K) : pa;
-        const int32_t rb = out ? pair_of(pb, C, K) : pb;
-        const float fa = (out && lane < n) ? a.coef[pa] : 1.f;
-        const float fb = (out && 32 + lane < n) ? a.coef[pb] : 1.f;
-        float4 x[kLongRows / 8];
+  return acc;
+}
+
+// base + (P_0 - base) + (P_1 - base) + ... over a run's segments, in
+// segment order: each P_q is base with its segment's terms added one by
+// one, so each term is rounded onto a sum of base's size, as it is when a
+// run's lanes are added one by one (the plain version's order, and the
+// bias of its roundings). P_q - base is exact while P_q <= 2 base.
+template <int VEC>
+__device__ float4 combine(const float* part, const LongRun& r, float4 base,
+                          int cb, int d, int lane) {
+  float4 tot = base;
+  for (int q0 = 0; q0 < r.nseg; q0 += 8) {
+    float4 v[8];
 #pragma unroll
-        for (int b = 0; b < kLongRows / 8; ++b) {
-          const int r = 8 * b + rq;
-          const int32_t src = __shfl_sync(kFull, b < 4 ? ra : rb, r & 31);
-          x[b] = r < n ? load_quad<VEC>(sd.src + (int64_t)src * d, c0, d)
-                       : zero4();
-        }
+    for (int j = 0; j < 8; ++j)
+      if (q0 + j < r.nseg)
+        v[j] = WarpCols<VEC>::load(part + (int64_t)(r.base + q0 + j) * d, cb,
+                                   lane, d);
 #pragma unroll
-        for (int b = 0; b < kLongRows / 8; ++b) {
-          const int r = 8 * b + rq;
-          const float4 v =
-              mul4(__shfl_sync(kFull, b < 4 ? fa : fb, r & 31), x[b]);
-          x[b] = pass == 0 ? make_float4(__fmul_rn(v.x, v.x),
-                                         __fmul_rn(v.y, v.y),
-                                         __fmul_rn(v.z, v.z),
-                                         __fmul_rn(v.w, v.w))
-                           : step4(neg_lr, v, den, adagrad);
-        }
-#pragma unroll
-        for (int b = 0; b < kLongRows / 8; ++b) {
-#pragma unroll
-          for (int k = 0; k < 8; ++k) {
-            const float4 y = shfl4(x[b], 4 * k + qd);
-            if (8 * b + k < n) {
-              if (pass == 0)
-                acc = add4(acc, y);
-              else
-                wv = add4(wv, y);
-            }
-          }
-        }
-        pa = na;
-        pb = nb;
-      }
-      if (pass == 0 && lane < 4) store_quad<VEC>(g2, c0, d, acc);
-    }
-    if (lane < 4) store_quad<VEC>(w, c0, d, wv);
+    for (int j = 0; j < 8; ++j)
+      if (q0 + j < r.nseg)
+        tot = add4(tot, make_float4(__fsub_rn(v[j].x, base.x),
+                                    __fsub_rn(v[j].y, base.y),
+                                    __fsub_rn(v[j].z, base.z),
+                                    __fsub_rn(v[j].w, base.w)));
   }
+  return tot;
 }
 
 // One tile of 32 sorted slots (tiles [0, tiles_in) are the in slots, the
@@ -754,6 +705,32 @@ __device__ __forceinline__ float ns_math(float dpos, float (&dneg)[KMAX],
   return (s_pos - 1.f) * m;
 }
 
+// The end of the run of `r` that starts at sorted slot s and holds at
+// least kLongRun lanes: lane i probes slot s + kLongRun * 2^i, then 32
+// probes a step split the span that brackets the end (the ids are sorted,
+// so the probes that still hold `r` are a prefix): 3 round trips for a
+// run of ~800 lanes.
+__device__ int64_t run_end(const int32_t* ids, int64_t s, int64_t n,
+                           int32_t r, int lane) {
+  const int64_t g = lane < 26 ? s + ((int64_t)kLongRun << lane) : n;
+  const int cnt = __popc(__ballot_sync(kFull, g < n && ids[g] == r));
+  if (cnt == 0) return s + kLongRun;
+  int64_t lo = s + ((int64_t)kLongRun << (cnt - 1)) + 1;
+  int64_t hi = s + ((int64_t)kLongRun << cnt);
+  if (hi > n) hi = n;
+  while (lo < hi) {
+    const int64_t stride = (hi - lo + 31) / 32;
+    const int64_t q = lo + lane * stride;
+    const int c = __popc(__ballot_sync(kFull, q < hi && ids[q] == r));
+    if (c == 0) return lo;
+    const int64_t next = lo + c * stride;
+    if (next < hi) hi = next;
+    if (stride == 1) break;
+    lo += (c - 1) * stride + 1;
+  }
+  return hi;
+}
+
 // Pair p's ids spread over a warp: lane k < K holds negative k, lane K the
 // center, lane K + 1 the context.
 __device__ __forceinline__ int32_t pair_ids(const SgnsArgs& a, int64_t p,
@@ -764,44 +741,19 @@ __device__ __forceinline__ int32_t pair_ids(const SgnsArgs& a, int64_t p,
   return 0;
 }
 
-// A barrier over every CTA of the cooperative launch (all are resident).
-// The CTAs that arrive early sleep between their polls of one word:
-// cg::grid_group::sync() polls without pause, and 263 CTAs doing so held
-// the one CTA still applying a chunk's longest run to a fraction of the
-// memory system (bar[0] counts arrivals, bar[1] is the generation; both
-// zero at launch).
-__device__ __forceinline__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(128);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 template <int VEC, int KMAX>
 __global__ void __launch_bounds__(kThreads, SGNS_MIN_BLOCKS)
 sgns_block_kernel(SgnsArgs a) {
   using L = Ld<VEC>;
   using T = typename L::T;
-  unsigned* bar = reinterpret_cast<unsigned*>(a.counts + 2 * a.n_chunks);
+  cg::grid_group grid = cg::this_grid();
   __shared__ float warp_pos[kWarps];
   __shared__ float warp_neg[kWarps];
   extern __shared__ __align__(16) unsigned char smem[];
-  float(*rows)[kBlock] = reinterpret_cast<RunShared*>(smem)->rows[
-      threadIdx.x >> 5];
 
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
+  float(*rows)[kBlock] = reinterpret_cast<RunShared*>(smem)->rows[wib];
   const int64_t gwarp = (int64_t)blockIdx.x * kWarps + wib;
   const int64_t nwarps = (int64_t)gridDim.x * kWarps;
   const int C = a.chunk, K = a.k, D = a.d, dv = D / VEC;
@@ -898,31 +850,43 @@ sgns_block_kernel(SgnsArgs a) {
         if (k < K && lane == k + 1) a.coef[C + b * K + k] = dneg[k];
       ids = next_ids;
     }
-    // The chunk's long runs, for phase 2: the first sorted slot (in slots,
-    // then C + out slots) of every run of at least kLongRun equal
-    // in-range ids. The list's order does not matter: each run is applied
-    // whole by one CTA.
+    // The chunk's long runs, for phase 2: every run of at least kLongRun
+    // equal in-range ids, with its length (a search from its start) and
+    // kSeg-lane segments numbered from an atomic counter. The list's order
+    // does not matter: a run's result does not depend on where it is.
     for (int64_t t = gwarp; t < n_tiles; t += nwarps) {
       const bool out = t >= tiles_in;
       const int32_t* sids = out ? a.out_ids + ci * n_out_lanes
                                 : a.in_ids + ci * C;
       const int64_t n = out ? n_out_lanes : C;
       const int64_t rows = out ? a.v_out : a.v_in;
-      const int64_t s = (out ? t - tiles_in : t) * 32 + lane;
+      const int64_t t0 = (out ? t - tiles_in : t) * 32;
+      const int64_t s = t0 + lane;
       const int64_t last = s + kLongRun - 1;
       const int32_t r = s < n ? sids[s] : 0;
       const int32_t prev = (s < n && s > 0) ? sids[s - 1] : 0;
       const int32_t tail = last < n ? sids[last] : 0;
       const bool is_long = last < n && (s == 0 || prev != r) && tail == r &&
                            r >= 0 && r < rows;
-      const unsigned longs = __ballot_sync(kFull, is_long);
-      if (longs) {
-        int first = 0;
-        if (lane == 0) first = atomicAdd(a.counts + ci, __popc(longs));
-        first = __shfl_sync(kFull, first, 0);
-        if (is_long)
-          a.long_runs[first + __popc(longs & ((1u << lane) - 1u))] =
-              (int32_t)(out ? C + s : s);
+      unsigned longs = __ballot_sync(kFull, is_long);
+      while (longs) {
+        const int src = __ffs(longs) - 1;
+        longs &= longs - 1;
+        const int64_t start = t0 + src;
+        const int32_t rr = __shfl_sync(kFull, r, src);
+        const int64_t len = run_end(sids, start, n, rr, lane) - start;
+        const int nseg = (int)((len + kSeg - 1) / kSeg);
+        int idx = 0, base = 0;
+        if (lane == 0) {
+          idx = atomicAdd(a.counts + ci, 1);
+          base = atomicAdd(a.counts + a.n_chunks + ci, nseg);
+          reinterpret_cast<int4*>(a.long_runs)[idx] =
+              make_int4((int)(out ? C + start : start), (int)len, base,
+                        rr);
+        }
+        idx = __shfl_sync(kFull, idx, 0);
+        base = __shfl_sync(kFull, base, 0);
+        for (int q = lane; q < nseg; q += 32) a.seg_run[base + q] = idx;
       }
     }
     if (lane == 0) {
@@ -939,7 +903,7 @@ sgns_block_kernel(SgnsArgs a) {
       a.loss_partials[2 * blockIdx.x] = sp;
       a.loss_partials[2 * blockIdx.x + 1] = sn;
     }
-    grid_barrier(bar);
+    grid.sync();
 
     // -- phase 2: the updates, one owner per run -------------------------
     if (loss_warp) {  // the CTAs' partials in a fixed order
@@ -952,35 +916,73 @@ sgns_block_kernel(SgnsArgs a) {
       sn = warp_sum(sn);
       total = total + (-sp - sn);
     }
+    // Phase 2a: each long run's segments, folded onto the row's g2 (w for
+    // SGD), and the tiles of short and medium runs, one item a warp (a
+    // tile split over 2 warps while the grid has warps to spare).
     const int n_long = a.counts[ci];
-    for (int q = blockIdx.x; q < n_long; q += gridDim.x)
-      apply_long<VEC>(a, ci, a.long_runs[q], neg_lr, adagrad, lane, wib);
-    // Tiles of short runs: the warps of the CTAs without a long run take
-    // one each (a tile split over wpt warps while there are warps to
-    // spare); tiles beyond those go to whichever warp asks the chunk's
-    // counter first, the long-run CTAs' included.
-    const int long_ctas = n_long < (int)gridDim.x ? n_long : (int)gridDim.x;
-    const int64_t short_warps = (int64_t)(gridDim.x - long_ctas) * kWarps;
-    int wpt = 1;
-    while (wpt < kGroups && n_tiles * wpt * 2 <= short_warps) wpt *= 2;
-    const int64_t n_virtual = n_tiles * wpt;
-    if ((int)blockIdx.x >= long_ctas) {
-      const int64_t v = (int64_t)(blockIdx.x - long_ctas) * kWarps + wib;
-      if (v < n_virtual)
-        apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
-                        neg_lr, adagrad, lane, rows);
-    }
-    if (n_virtual > short_warps) {
-      for (;;) {
-        int taken = 0;
-        if (lane == 0) taken = atomicAdd(a.counts + a.n_chunks + ci, 1);
-        const int64_t v = short_warps + __shfl_sync(kFull, taken, 0);
-        if (v >= n_virtual) break;
+    const int n_seg = a.counts[a.n_chunks + ci];
+    float* part0 = a.part;
+    float* part1 = a.part + (int64_t)a.long_cap * D;
+    const int wpt = n_seg + 2 * n_tiles <= nwarps ? 2 : 1;
+    const int64_t items = n_seg + n_tiles * wpt;
+    for (int64_t it = gwarp; it < items; it += nwarps) {
+      if (it < n_seg) {
+        const LongRun r = long_run(a, ci, a.seg_run[it]);
+        float* wr = r.sd.w + (int64_t)r.row * D;
+        float* gr = r.sd.g2 + (int64_t)r.row * D;
+        for (int cb = 0; cb < D; cb += kBlock) {
+          const float4 base = WarpCols<VEC>::load(adagrad ? gr : wr, cb,
+                                                  lane, D);
+          WarpCols<VEC>::store(
+              (adagrad ? part0 : part1) + it * D, cb, lane, D,
+              fold_segment<VEC>(a, r, (int)it, cb, adagrad ? 0 : 1, base,
+                                zero4(), neg_lr, adagrad, lane, rows));
+        }
+      } else {
+        const int64_t v = it - n_seg;
         apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
                         neg_lr, adagrad, lane, rows);
       }
     }
-    grid_barrier(bar);
+    if (n_long > 0) {
+      // Phase 2b (AdaGrad): each segment's steps against the run's final
+      // g2, folded onto w. Nothing writes a long run's row before 2c.
+      if (adagrad) {
+        grid.sync();
+        for (int64_t q = gwarp; q < n_seg; q += nwarps) {
+          const LongRun r = long_run(a, ci, a.seg_run[q]);
+          float* wr = r.sd.w + (int64_t)r.row * D;
+          float* gr = r.sd.g2 + (int64_t)r.row * D;
+          for (int cb = 0; cb < D; cb += kBlock) {
+            const float4 g0 = WarpCols<VEC>::load(gr, cb, lane, D);
+            const float4 den = den4(combine<VEC>(part0, r, g0, cb, D, lane));
+            WarpCols<VEC>::store(
+                part1 + q * D, cb, lane, D,
+                fold_segment<VEC>(a, r, (int)q, cb, 1,
+                                  WarpCols<VEC>::load(wr, cb, lane, D), den,
+                                  neg_lr, adagrad, lane, rows));
+          }
+        }
+      }
+      // Phase 2c: one warp a long run writes its g2 and w.
+      grid.sync();
+      for (int64_t q = gwarp; q < n_long; q += nwarps) {
+        const LongRun r = long_run(a, ci, (int)q);
+        float* wr = r.sd.w + (int64_t)r.row * D;
+        float* gr = r.sd.g2 + (int64_t)r.row * D;
+        for (int cb = 0; cb < D; cb += kBlock) {
+          if (adagrad) {
+            const float4 g0 = WarpCols<VEC>::load(gr, cb, lane, D);
+            WarpCols<VEC>::store(gr, cb, lane, D,
+                                 combine<VEC>(part0, r, g0, cb, D, lane));
+          }
+          const float4 w0 = WarpCols<VEC>::load(wr, cb, lane, D);
+          WarpCols<VEC>::store(wr, cb, lane, D,
+                               combine<VEC>(part1, r, w0, cb, D, lane));
+        }
+      }
+    }
+    grid.sync();
   }
   if (loss_warp && lane == 0) *a.loss_out = total;
 }
@@ -1043,13 +1045,14 @@ int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
                   const int32_t* n_pairs, float* grad_u, float* u_snap,
                   float* coef, float* loss_partials, float* loss_out,
                   int64_t n_chunks, int chunk, int k, int d, float lr,
-                  int adagrad, int grid, int32_t* long_runs, int32_t* counts,
-                  void* stream) {
+                  int adagrad, int grid, int32_t* long_runs,
+                  int32_t* seg_run, float* part, int32_t* counts,
+                  int long_cap, void* stream) {
   SgnsArgs a{w_in,      w_out,    g_in,     g_out,    v_in,     v_out,
              centers,   contexts, negatives, in_ids,  in_perm,  out_ids,
              out_perm,  n_pairs,  grad_u,   u_snap,   coef,     loss_partials,
              loss_out,  n_chunks, chunk,    k,        d,        lr,
-             adagrad,   long_runs, counts};
+             adagrad,   long_runs, seg_run, part,     counts,   long_cap};
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d % 4 == 0)
     return k <= kSmallNeg ? launch<4, kSmallNeg>(a, grid, st)
