@@ -341,7 +341,8 @@ def sgns_layouts(chunk: int, negative: int, vocab: int, long_run: int,
     """Id layouts that cross the edges of B5's partition
     (``csrc/sgns.cu``): a warp owns a tile of 32 sorted slots and reads 64;
     lane groups apply runs of up to 2 lanes from registers; a warp stages
-    the rows of runs shorter than ``long_run`` in shared memory; a CTA
+    the rows of runs shorter than ``long_run``, 16 a round trip, in shared
+    memory; a CTA
     streams each longer run through a ring of 4 tiles of 32 lanes (a run
     of at most 128 lanes stays there for both passes) after a k-ary search
     of its end with 256 probes a step. name -> (centers [n, C], contexts
@@ -354,7 +355,7 @@ def sgns_layouts(chunk: int, negative: int, vocab: int, long_run: int,
     - ``long_edges``: runs of long_run - 1, long_run, long_run + 1, twice
       and eight times long_run (+-1, +3) and 257 lanes;
     - ``held_edges``: runs of 1-4, 7-9, 15-17 and 24-25 lanes (around the
-      register-held runs and the long-run threshold);
+      register-held runs and a warp's 16-row staging batches);
     - ``tile_edges{s}``: a run starts at every slot 32k + s (k >= 1) and at
       random slots between, so runs cross each tile edge at every offset;
     - ``tail_one_lane``: n_pairs leaves one live lane in the last chunk;
@@ -363,6 +364,7 @@ def sgns_layouts(chunk: int, negative: int, vocab: int, long_run: int,
       ones among them.
 
     Every other layout ends in a tail chunk of C // 2 + 3 live lanes."""
+    import zlib
     import numpy as np
     L, C, K = long_run, chunk, negative
     n_out = C * (1 + K)
@@ -389,7 +391,7 @@ def sgns_layouts(chunk: int, negative: int, vocab: int, long_run: int,
     specs["out_of_range"] = (longs, held, (1, 3, 7, 9, 12))
     out = {}
     for name, (o_spec, i_spec, oor) in specs.items():
-        rng = np.random.default_rng(zlib_crc(name))
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
         centers, contexts, negatives = [], [], []
         for _ in range(n_chunks):
             o_len = edges(o_spec, n_out, rng) if isinstance(o_spec, int) \
@@ -407,11 +409,6 @@ def sgns_layouts(chunk: int, negative: int, vocab: int, long_run: int,
                      np.stack(contexts).astype(np.int32),
                      np.stack(negatives).astype(np.int32), n_pairs)
     return out
-
-
-def zlib_crc(name: str) -> int:
-    import zlib
-    return zlib.crc32(name.encode())
 
 
 def zipf_corpus(vocab: int, n_sent: int, sent_len: int, seed: int = 0):

@@ -23,7 +23,11 @@
 // written; the tables are 102 MB, twice the 50 MB L2), ~29 MB of gathered
 // rows (mostly L2 hits), the chain of dependent loads of the longest run
 // of one row (Zipf negatives: up to ~900 lanes of one id), and the two grid
-// barriers. At ~10 flops per byte moved, arithmetic never bounds it.
+// barriers. At ~10 flops per byte moved, arithmetic never bounds it. On an
+// H100 a chunk with uniform ids takes ~57 us (phase 1 ~15, the tiles of
+// phase 2 ~25-40, barriers); with the flagship's Zipf ids the CTA that
+// applies the longest run (~820 lanes) holds the second barrier longer
+// (scripts/torch_sgns_profile.py reads each phase).
 //
 // Phase 1 (one warp per pair, 16-byte loads): the pair's ids come in one
 // load spread over the warp's lanes, fetched one pair ahead; the warp
@@ -53,30 +57,38 @@
 //     groups of kRunLanes, 2 runs a warp at once, each lane holding 8
 //     floats of the row: the row's w and g2 and the lanes' gradient rows
 //     all load in one round trip and stay in registers for both passes.
-//     Longer runs take the whole warp: all of their gradient rows go out
-//     in one round trip (cp.async) into the warp's rows of shared memory,
-//     beside the row's w and g2. All fold in lane order, as the JAX
-//     scatter-adds do.
-//   - Long runs (>= kLongRun lanes): phase 1 lists each with its length
-//     (a search from its start, 3 round trips for ~800 lanes) and cuts it
-//     into segments of kSeg lanes, which phase 2a spreads over the grid's
-//     warps beside the tiles. Each warp folds its segment in lane order
-//     onto the row's g2 as the chunk found it (P_q), staging 16 rows a
-//     round trip. After a grid barrier (2b), each segment's warp takes
-//     the run's g2 as g2 + (P_0 - g2) + (P_1 - g2) + ..., in segment
-//     order, and folds its steps against that onto the row's w (Q_q);
-//     after another (2c), one warp a run writes g2 and w + (Q_0 - w) +
-//     ... A chunk without long runs skips 2b and 2c.
-//   Short and medium runs fold in lane order, bitwise as the parent
-//   kernel did. A long run's terms are each added onto a sum of the
-//   row's size, as in lane order, but the segments' increments are added
-//   in segment order, which rounds differently (fixed, so deterministic).
-//   That matters here: the plain version adds a run's lanes one by one
-//   onto g2 (in no fixed order, with atomics), and adding small squares
-//   one by one onto a large sum rounds with a bias that a sum taken in
-//   segments from zero does not share: such a version drifted 1.9e-5 of
-//   g_out's largest value from the plain version over the flagship
-//   block, twice the tolerance chip_smoke.py holds the kernel to.
+//     Longer runs take the whole warp: their gradient rows go out kStaged
+//     a round trip (cp.async) into the warp's rows of shared memory,
+//     beside the row's w and g2; a run of at most kStaged lanes keeps them
+//     for both passes.
+//   - Long runs (>= kLongRun lanes, listed in phase 1): one CTA each. A
+//     k-ary search with one probe a thread finds the run's end in one or
+//     two round trips. The run's gradient rows then stream through a ring
+//     of kRing tiles of kRingLanes rows in shared memory (cp.async, so
+//     kRing - 1 tiles are in flight without holding registers). One
+//     thread per column reads its column of a landed tile into registers
+//     and turns all 32 values into terms (squares, or steps against the
+//     column's denominator) before it adds them in lane order, so only
+//     the adds form a chain: the 4 warps that fold hide no latency behind
+//     other warps, and a fold that read, scaled and added lane by lane
+//     held a chunk's longest run to ~135-140 ns a lane. A run that fits
+//     the ring keeps its tiles for the second pass. The CTAs that hold a
+//     long run take no tiles while the other warps suffice; tiles beyond
+//     those go to any warp that asks the chunk's counter.
+//   Every run, long runs included, folds in lane order onto the row's own
+//   g2 and w, as the earlier one-warp-per-run design of this kernel did,
+//   so the tables come out bitwise as from it (scripts/torch_sgns_steps.py
+//   compares two trees' tables on the card). The order
+//   is held because the tolerance needs it, not only for determinism: the
+//   plain version adds a run's lanes one by one onto g2 (in no fixed
+//   order, with atomics), and adding small squares one by one onto a large
+//   sum rounds with a bias that other orders do not share. A version that
+//   summed each long run in 8 segments from zero drifted 1.9e-5 of g_out's
+//   largest value from the plain version over the flagship block, twice
+//   the tolerance chip_smoke.py holds the kernel to; one that folded 32-
+//   or 128-lane segments onto the row's g2 and w across the whole grid and
+//   added the increments in segment order moved g_in by 1.2x and 1.4x the
+//   tolerance where one id fills every out-lane.
 // The glue sorts the masked lanes (exact zero gradients) to the end as an
 // out-of-range id, which is dropped like any other (mode="drop"). The
 // w_in runs and the w_out runs touch different tables, so they share one
@@ -93,27 +105,26 @@
 
 namespace cg = cooperative_groups;
 
-// CTAs per SM the registers are sized for (__launch_bounds__).
-#ifndef SGNS_MIN_BLOCKS
-#define SGNS_MIN_BLOCKS 2
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 2;     // CTAs an SM the registers are sized for
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxNeg = 16;
 constexpr int kSmallNeg = 8;      // the variant for negative <= 8
 constexpr float kEps = 1e-7f;     // model.py _EPS
 constexpr float kAdaEps = 1e-6f;  // _apply_update's sqrt(g2 + 1e-6)
-constexpr int kLongRun = 16;      // runs this long or longer: a whole CTA
+constexpr int kLongRun = 32;      // runs this long or longer: a whole CTA
 constexpr int kRunLanes = 16;     // lanes of a group that applies a short run
 constexpr int kGroups = 32 / kRunLanes;
 constexpr int kHeld = 2;          // a short run's lanes held in registers
 constexpr int kBlock = 128;       // floats of a row per pass over a run
 constexpr int kQuads = kBlock / (4 * kRunLanes);  // a group lane's float4s
-constexpr int kStaged = kLongRun;  // rows a warp stages at once
-constexpr int kSeg = 128;         // lanes of a long run's segment
+constexpr int kStaged = 16;       // rows a warp stages at once
+constexpr int kRingLanes = 32;    // lanes of a long run per ring tile
+constexpr int kRing = 4;          // ring tiles (kRing - 1 in flight)
+constexpr int kPermBlock = 1024;  // lanes whose rows and coefficients a
+                                  // long run holds in shared memory at once
 constexpr unsigned kFull = 0xffffffffu;
 
 struct SgnsArgs {
@@ -142,14 +153,9 @@ struct SgnsArgs {
   int d;
   float lr;
   int adagrad;
-  int32_t* long_runs;        // [cap, 4]: a long run's first slot, length,
-                             // first segment, row
-  int32_t* seg_run;          // [cap]: the long run of each segment
-  float* part;               // [2, cap, D]: each segment's pass-0 and
-                             // pass-1 fold
+  int32_t* long_runs;        // [cap]: the chunk's long runs' first slots
   int32_t* counts;           // [2, n_chunks], zero at launch: long runs
-                             // and segments listed
-  int long_cap;              // rows of long_runs, seg_run and part
+                             // listed, tiles taken from the counter
 };
 
 __device__ __forceinline__ int64_t clip(int64_t r, int64_t n) {
@@ -415,12 +421,19 @@ __device__ void apply_short(const Side& sd, const float* coef, int C, int K,
   }
 }
 
-// Each warp's rows of shared memory (dynamic: 64 KB a CTA): the gradient
-// rows of a medium run, or of a batch of a long run's segment.
-struct RunShared {
-  float rows[kWarps][kStaged][kBlock];
+// Shared memory of the run paths (dynamic: it can be more than 48 KB): a
+// ring of tiles of a long run's gradient rows, or, in the tile path, each
+// warp's staged rows of a medium run; and the row indices and
+// coefficients of a block of a long run's lanes.
+struct LongShared {
+  union {
+    float stage[kRing][kRingLanes][kBlock];
+    float med[kWarps][kStaged][kBlock];
+  };
+  int32_t rb[kPermBlock];  // the row of u_snap (out) or grad_u (in)
+  float cf[kPermBlock];    // the lane's coefficient (out) or 1 (in)
 };
-constexpr int kRunSmem = (int)sizeof(RunShared);
+constexpr int kLongSmem = (int)sizeof(LongShared);
 
 // One 4- or 16-byte copy from global to shared memory, asynchronous.
 template <int BYTES>
@@ -433,14 +446,17 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// Wait until at most kRing - 2 of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 2) : "memory");
+}
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // This lane's 4 floats of block cb of a global row, copied asynchronously
 // to the same places of a 128-float row in shared memory (WarpCols'
-// layout), and read back. Each lane reads back only what it copied, so a
-// warp needs no barrier between the two.
+// layout), and read back.
 template <int VEC>
 __device__ __forceinline__ void stage_row(float* dst, const float* row,
                                           int cb, int lane, int d) {
@@ -462,24 +478,29 @@ __device__ __forceinline__ float4 staged(const float* src, int lane) {
                      src[lane + 96]);
 }
 
-// Fold lanes [i0, i1) of a run (i1 - i0 <= kStaged; lane l of the warp
-// holds lane l's row of src and coefficient) into acc, in lane order:
-// squares (pass 0) or steps against den (pass 1). The rows go out in one
-// round trip into the warp's rows of shared memory.
+// The run's lanes [i0, i1) (at most kStaged; lane l of the warp holds
+// lane l's row of src and coefficient): every row goes out in one round
+// trip into the warp's rows of shared memory (each lane copies, and later
+// reads back, only its own 4 floats of each, so no barrier).
 template <int VEC>
-__device__ __forceinline__ float4 fold_staged(float4 acc, const float* src,
-                                              int32_t rb_l, float cf_l,
-                                              int i0, int i1, int cb, int d,
-                                              int pass, float4 den,
-                                              float neg_lr, bool adagrad,
-                                              int lane,
-                                              float (*rows)[kBlock]) {
+__device__ __forceinline__ void stage_rows(const float* src, int32_t rb_l,
+                                           int i0, int i1, int cb, int d,
+                                           int lane, float (*rows)[kBlock]) {
   for (int i = i0; i < i1; ++i) {
     const int32_t rb = __shfl_sync(kFull, rb_l, i);
     stage_row<VEC>(rows[i - i0], src + (int64_t)rb * d, cb, lane, d);
   }
   cp_commit();
-  cp_wait_all();
+}
+
+// Fold staged lanes [i0, i1) into acc in lane order: squares (pass 0) or
+// steps against den (pass 1).
+template <int VEC>
+__device__ __forceinline__ float4 fold_rows(float4 acc, float cf_l, int i0,
+                                            int i1, int pass, float4 den,
+                                            float neg_lr, bool adagrad,
+                                            int lane,
+                                            float (*rows)[kBlock]) {
   for (int i = i0; i < i1; ++i) {
     const float cf = __shfl_sync(kFull, cf_l, i);
     const float4 x = mul4(cf, staged<VEC>(rows[i - i0], lane));
@@ -490,9 +511,9 @@ __device__ __forceinline__ float4 fold_staged(float4 acc, const float* src,
 }
 
 // A run of kHeld < len < kLongRun lanes by the whole warp; lane l holds
-// the permutation entry of the run's lane l. All of its gradient rows go
-// out in one round trip beside the row's w and g2; both passes fold them
-// from shared memory in lane order.
+// the permutation entry of the run's lane l. Its gradient rows go out
+// beside the row's w and g2, kStaged a round trip; a run of at most
+// kStaged lanes keeps them for both passes. Lane order, as apply_short.
 template <int VEC>
 __device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
                              int d, int32_t row, int32_t pl, int len,
@@ -505,103 +526,192 @@ __device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
   const float cf_l = (mine && sd.out) ? coef[p] : 1.f;
   float* w = sd.w + (int64_t)row * d;
   float* g2 = sd.g2 + (int64_t)row * d;
+  const bool kept = len <= kStaged;
   for (int cb = 0; cb < d; cb += kBlock) {
-    for (int i = 0; i < len; ++i) {
-      const int32_t rb = __shfl_sync(kFull, rb_l, i);
-      stage_row<VEC>(rows[i], sd.src + (int64_t)rb * d, cb, lane, d);
-    }
-    cp_commit();
+    if (kept) stage_rows<VEC>(sd.src, rb_l, 0, len, cb, d, lane, rows);
     float4 wv = Cols::load(w, cb, lane, d);
     float4 acc = adagrad ? Cols::load(g2, cb, lane, d) : zero4();
-    cp_wait_all();
-    if (adagrad) {
-      for (int i = 0; i < len; ++i) {
-        const float cf = __shfl_sync(kFull, cf_l, i);
-        acc = sq_acc4(acc, mul4(cf, staged<VEC>(rows[i], lane)));
+    for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
+      for (int i0 = 0; i0 < len; i0 += kStaged) {
+        const int i1 = i0 + kStaged < len ? i0 + kStaged : len;
+        if (!kept) stage_rows<VEC>(sd.src, rb_l, i0, i1, cb, d, lane, rows);
+        cp_wait_all();
+        if (pass == 0)
+          acc = fold_rows<VEC>(acc, cf_l, i0, i1, 0, acc, neg_lr, adagrad,
+                               lane, rows);
+        else
+          wv = fold_rows<VEC>(wv, cf_l, i0, i1, 1, acc, neg_lr, adagrad,
+                              lane, rows);
       }
-      Cols::store(g2, cb, lane, d, acc);
-      acc = den4(acc);
-    }
-    for (int i = 0; i < len; ++i) {
-      const float cf = __shfl_sync(kFull, cf_l, i);
-      wv = add4(wv, step4(neg_lr, mul4(cf, staged<VEC>(rows[i], lane)), acc,
-                          adagrad));
+      if (pass == 0) {
+        Cols::store(g2, cb, lane, d, acc);
+        acc = den4(acc);
+      }
     }
     Cols::store(w, cb, lane, d, wv);
   }
 }
 
-// A long run, as phase 1 listed it: its first sorted slot (in slots, then
-// C + out slots), its length, its first segment and its row.
-struct LongRun {
-  Side sd;
-  int64_t s, e;
-  int32_t row;
-  int base, nseg;
-};
-
-__device__ __forceinline__ LongRun long_run(const SgnsArgs& a, int64_t ci,
-                                            int idx) {
-  const int4 rec = reinterpret_cast<const int4*>(a.long_runs)[idx];
-  LongRun r;
-  const bool out = rec.x >= a.chunk;
-  r.sd = side_of(a, ci, out);
-  r.s = out ? rec.x - a.chunk : rec.x;
-  r.e = r.s + rec.y;
-  r.row = rec.w;
-  r.base = rec.z;
-  r.nseg = (rec.y + kSeg - 1) / kSeg;
-  return r;
+// Copy the rows of tile q of the lane block (block lanes
+// [q * kRingLanes, ...) < n) into ring slot q % kRing: warp wib takes
+// kRingLanes / kWarps of the tile's lanes.
+template <int VEC>
+__device__ __forceinline__ void ring_issue(LongShared& sh, const float* src,
+                                           int q, int n, int cb, int d,
+                                           int lane, int wib) {
+  constexpr int kPerWarp = kRingLanes / kWarps;
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int tl = kPerWarp * wib + i;  // lane of the tile
+    const int l = q * kRingLanes + tl;  // lane of the block
+    if (l < n)
+      stage_row<VEC>(sh.stage[q % kRing][tl], src + (int64_t)sh.rb[l] * d,
+                     cb, lane, d);
+  }
 }
 
-// Segment q of a long run: its lanes, folded in lane order onto the row's
-// value at the start of the chunk (base: g2 in pass 0, w in pass 1).
+// A long run (first sorted slot `slot`: in slots, then C + out slots) by
+// the whole CTA, folded in lane order as the other runs are. The run's
+// gradient rows stream through a ring of kRing tiles of kRingLanes rows
+// (cp.async: kRing - 1 tiles in flight, no registers held); one thread per
+// column turns each landed tile into its terms (squares, or steps against
+// the column's denominator) and adds them in lane order. A run that fits
+// the ring keeps its tiles for the second pass.
 template <int VEC>
-__device__ float4 fold_segment(const SgnsArgs& a, const LongRun& r, int q,
-                               int cb, int pass, float4 base, float4 den,
-                               float neg_lr, bool adagrad, int lane,
-                               float (*rows)[kBlock]) {
-  const int64_t j0 = r.s + (int64_t)(q - r.base) * kSeg;
-  const int n = r.e - j0 < kSeg ? (int)(r.e - j0) : kSeg;
-  float4 acc = base;
-  for (int b0 = 0; b0 < n; b0 += 32) {  // 32 lanes' entries a load
-    const int nb = n - b0 < 32 ? n - b0 : 32;
-    const int32_t p = lane < nb ? r.sd.perm[j0 + b0 + lane] : 0;
-    const int32_t rb_l = r.sd.out ? pair_of(p, a.chunk, a.k) : p;
-    const float cf_l = (lane < nb && r.sd.out) ? a.coef[p] : 1.f;
-    for (int i0 = 0; i0 < nb; i0 += kStaged)
-      acc = fold_staged<VEC>(acc, r.sd.src, rb_l, cf_l, i0,
-                             i0 + kStaged < nb ? i0 + kStaged : nb, cb, a.d,
-                             pass, den, neg_lr, adagrad, lane, rows);
+__device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
+                           float neg_lr, bool adagrad, int lane, int wib,
+                           LongShared& sh) {
+  const int C = a.chunk, K = a.k, d = a.d;
+  const bool out = slot >= C;
+  const Side sd = side_of(a, ci, out);
+  const int64_t s = out ? slot - C : slot;
+  const int32_t row = sd.ids[s];
+  // The run's end, by a k-ary search over [s + kLongRun, n): every thread
+  // probes one slot a step (the ids are sorted, so the probes that still
+  // hold `row` are a prefix), which narrows the span kThreads-fold.
+  int64_t lo = s + kLongRun, hi = sd.n;
+  while (lo < hi) {
+    const int64_t stride = (hi - lo + kThreads - 1) / kThreads;
+    const int64_t q = lo + (int64_t)threadIdx.x * stride;
+    const int cnt = __syncthreads_count(q < hi && sd.ids[q] == row);
+    if (cnt == 0) {
+      hi = lo;
+      break;
+    }
+    const int64_t next = lo + (int64_t)cnt * stride;
+    if (next < hi) hi = next;
+    if (stride == 1) break;
+    lo += (int64_t)(cnt - 1) * stride + 1;
   }
-  return acc;
-}
-
-// base + (P_0 - base) + (P_1 - base) + ... over a run's segments, in
-// segment order: each P_q is base with its segment's terms added one by
-// one, so each term is rounded onto a sum of base's size, as it is when a
-// run's lanes are added one by one (the plain version's order, and the
-// bias of its roundings). P_q - base is exact while P_q <= 2 base.
-template <int VEC>
-__device__ float4 combine(const float* part, const LongRun& r, float4 base,
-                          int cb, int d, int lane) {
-  float4 tot = base;
-  for (int q0 = 0; q0 < r.nseg; q0 += 8) {
-    float4 v[8];
+  const int64_t e = hi;
+  const int t = threadIdx.x;
+  // The row index and coefficient of each lane of a block of the run.
+  // Each thread's permutation loads go out together, then its
+  // coefficient loads: two round trips a block.
+  auto index_block = [&](int64_t pb, int n) {
+    constexpr int kEach = kPermBlock / kThreads;
+    __syncthreads();  // the previous block's are done with
+    int32_t p[kEach];
+    float cf[kEach];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (q0 + j < r.nseg)
-        v[j] = WarpCols<VEC>::load(part + (int64_t)(r.base + q0 + j) * d, cb,
-                                   lane, d);
+    for (int j = 0; j < kEach; ++j) {
+      const int i = t + j * kThreads;
+      p[j] = i < n ? sd.perm[pb + i] : 0;
+    }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (q0 + j < r.nseg)
-        tot = add4(tot, make_float4(__fsub_rn(v[j].x, base.x),
-                                    __fsub_rn(v[j].y, base.y),
-                                    __fsub_rn(v[j].z, base.z),
-                                    __fsub_rn(v[j].w, base.w)));
+    for (int j = 0; j < kEach; ++j)
+      cf[j] = (out && t + j * kThreads < n) ? a.coef[p[j]] : 1.f;
+#pragma unroll
+    for (int j = 0; j < kEach; ++j) {
+      const int i = t + j * kThreads;
+      if (i < n) {
+        sh.rb[i] = out ? pair_of(p[j], C, K) : p[j];
+        sh.cf[i] = cf[j];
+      }
+    }
+    __syncthreads();
+  };
+  const bool one_block = e - s <= kPermBlock;
+  const bool resident = e - s <= kRing * kRingLanes;
+  if (one_block) index_block(s, (int)(e - s));
+  float* w = sd.w + (int64_t)row * d;
+  float* g2 = sd.g2 + (int64_t)row * d;
+  for (int cb = 0; cb < d; cb += kBlock) {
+    const bool folder = t < kBlock && cb + t < d;
+    float acc = (folder && adagrad) ? g2[cb + t] : 0.f;
+    float wv = folder ? w[cb + t] : 0.f;
+    for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
+      const float den = __fsqrt_rn(__fadd_rn(acc, kAdaEps));
+      const bool kept = resident && pass == 1 && adagrad;
+      for (int64_t pb = s; pb < e; pb += kPermBlock) {
+        const int n = e - pb < kPermBlock ? (int)(e - pb) : kPermBlock;
+        if (!one_block) index_block(pb, n);
+        const int tiles = (n + kRingLanes - 1) / kRingLanes;
+        if (!kept) {
+          __syncthreads();  // the ring's last tiles are folded
+#pragma unroll
+          for (int q = 0; q < kRing - 1; ++q) {
+            if (q < tiles)
+              ring_issue<VEC>(sh, sd.src, q, n, cb, d, lane, wib);
+            cp_commit();
+          }
+        }
+        for (int q = 0; q < tiles; ++q) {
+          if (!kept) {
+            cp_wait_ring();  // tile q has landed (this thread's copies)
+            __syncthreads();  // everyone's copies; tile q - 1 is folded
+            if (q + kRing - 1 < tiles)
+              ring_issue<VEC>(sh, sd.src, q + kRing - 1, n, cb, d, lane,
+                              wib);
+            cp_commit();
+          }
+          if (folder) {
+            float(*tile)[kBlock] = sh.stage[q % kRing];
+            const float* cf = sh.cf + q * kRingLanes;
+            const int m = n - q * kRingLanes < kRingLanes ? n - q * kRingLanes
+                                                            : kRingLanes;
+            if (m == kRingLanes) {
+              // A whole tile: every load and every term first, so only
+              // the adds form a chain.
+              float x[kRingLanes];
+#pragma unroll
+              for (int l = 0; l < kRingLanes; ++l) x[l] = tile[l][t];
+              if (pass == 0) {
+#pragma unroll
+                for (int l = 0; l < kRingLanes; ++l) {
+                  const float v = __fmul_rn(cf[l], x[l]);
+                  x[l] = __fmul_rn(v, v);
+                }
+#pragma unroll
+                for (int l = 0; l < kRingLanes; ++l)
+                  acc = __fadd_rn(acc, x[l]);
+              } else {
+#pragma unroll
+                for (int l = 0; l < kRingLanes; ++l)
+                  x[l] = step1(neg_lr, __fmul_rn(cf[l], x[l]), den, adagrad);
+#pragma unroll
+                for (int l = 0; l < kRingLanes; ++l) wv = __fadd_rn(wv, x[l]);
+              }
+            } else {
+              for (int l = 0; l < m; ++l) {
+                const float v = __fmul_rn(cf[l], tile[l][t]);
+                if (pass == 0)
+                  acc = __fadd_rn(acc, __fmul_rn(v, v));
+                else
+                  wv = __fadd_rn(wv, step1(neg_lr, v, den, adagrad));
+              }
+            }
+          }
+        }
+        if (!kept) cp_wait_all();
+      }
+    }
+    if (folder) {
+      if (adagrad) g2[cb + t] = acc;
+      w[cb + t] = wv;
+    }
+    __syncthreads();  // the ring is free for the next block or run
   }
-  return tot;
 }
 
 // One tile of 32 sorted slots (tiles [0, tiles_in) are the in slots, the
@@ -705,32 +815,6 @@ __device__ __forceinline__ float ns_math(float dpos, float (&dneg)[KMAX],
   return (s_pos - 1.f) * m;
 }
 
-// The end of the run of `r` that starts at sorted slot s and holds at
-// least kLongRun lanes: lane i probes slot s + kLongRun * 2^i, then 32
-// probes a step split the span that brackets the end (the ids are sorted,
-// so the probes that still hold `r` are a prefix): 3 round trips for a
-// run of ~800 lanes.
-__device__ int64_t run_end(const int32_t* ids, int64_t s, int64_t n,
-                           int32_t r, int lane) {
-  const int64_t g = lane < 26 ? s + ((int64_t)kLongRun << lane) : n;
-  const int cnt = __popc(__ballot_sync(kFull, g < n && ids[g] == r));
-  if (cnt == 0) return s + kLongRun;
-  int64_t lo = s + ((int64_t)kLongRun << (cnt - 1)) + 1;
-  int64_t hi = s + ((int64_t)kLongRun << cnt);
-  if (hi > n) hi = n;
-  while (lo < hi) {
-    const int64_t stride = (hi - lo + 31) / 32;
-    const int64_t q = lo + lane * stride;
-    const int c = __popc(__ballot_sync(kFull, q < hi && ids[q] == r));
-    if (c == 0) return lo;
-    const int64_t next = lo + c * stride;
-    if (next < hi) hi = next;
-    if (stride == 1) break;
-    lo += (c - 1) * stride + 1;
-  }
-  return hi;
-}
-
 // Pair p's ids spread over a warp: lane k < K holds negative k, lane K the
 // center, lane K + 1 the context.
 __device__ __forceinline__ int32_t pair_ids(const SgnsArgs& a, int64_t p,
@@ -742,7 +826,7 @@ __device__ __forceinline__ int32_t pair_ids(const SgnsArgs& a, int64_t p,
 }
 
 template <int VEC, int KMAX>
-__global__ void __launch_bounds__(kThreads, SGNS_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 sgns_block_kernel(SgnsArgs a) {
   using L = Ld<VEC>;
   using T = typename L::T;
@@ -750,10 +834,10 @@ sgns_block_kernel(SgnsArgs a) {
   __shared__ float warp_pos[kWarps];
   __shared__ float warp_neg[kWarps];
   extern __shared__ __align__(16) unsigned char smem[];
+  LongShared& long_sh = *reinterpret_cast<LongShared*>(smem);
 
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
-  float(*rows)[kBlock] = reinterpret_cast<RunShared*>(smem)->rows[wib];
   const int64_t gwarp = (int64_t)blockIdx.x * kWarps + wib;
   const int64_t nwarps = (int64_t)gridDim.x * kWarps;
   const int C = a.chunk, K = a.k, D = a.d, dv = D / VEC;
@@ -850,43 +934,31 @@ sgns_block_kernel(SgnsArgs a) {
         if (k < K && lane == k + 1) a.coef[C + b * K + k] = dneg[k];
       ids = next_ids;
     }
-    // The chunk's long runs, for phase 2: every run of at least kLongRun
-    // equal in-range ids, with its length (a search from its start) and
-    // kSeg-lane segments numbered from an atomic counter. The list's order
-    // does not matter: a run's result does not depend on where it is.
+    // The chunk's long runs, for phase 2: the first sorted slot (in slots,
+    // then C + out slots) of every run of at least kLongRun equal
+    // in-range ids. The list's order does not matter: each run is applied
+    // whole by one CTA.
     for (int64_t t = gwarp; t < n_tiles; t += nwarps) {
       const bool out = t >= tiles_in;
       const int32_t* sids = out ? a.out_ids + ci * n_out_lanes
                                 : a.in_ids + ci * C;
       const int64_t n = out ? n_out_lanes : C;
       const int64_t rows = out ? a.v_out : a.v_in;
-      const int64_t t0 = (out ? t - tiles_in : t) * 32;
-      const int64_t s = t0 + lane;
+      const int64_t s = (out ? t - tiles_in : t) * 32 + lane;
       const int64_t last = s + kLongRun - 1;
       const int32_t r = s < n ? sids[s] : 0;
       const int32_t prev = (s < n && s > 0) ? sids[s - 1] : 0;
       const int32_t tail = last < n ? sids[last] : 0;
       const bool is_long = last < n && (s == 0 || prev != r) && tail == r &&
                            r >= 0 && r < rows;
-      unsigned longs = __ballot_sync(kFull, is_long);
-      while (longs) {
-        const int src = __ffs(longs) - 1;
-        longs &= longs - 1;
-        const int64_t start = t0 + src;
-        const int32_t rr = __shfl_sync(kFull, r, src);
-        const int64_t len = run_end(sids, start, n, rr, lane) - start;
-        const int nseg = (int)((len + kSeg - 1) / kSeg);
-        int idx = 0, base = 0;
-        if (lane == 0) {
-          idx = atomicAdd(a.counts + ci, 1);
-          base = atomicAdd(a.counts + a.n_chunks + ci, nseg);
-          reinterpret_cast<int4*>(a.long_runs)[idx] =
-              make_int4((int)(out ? C + start : start), (int)len, base,
-                        rr);
-        }
-        idx = __shfl_sync(kFull, idx, 0);
-        base = __shfl_sync(kFull, base, 0);
-        for (int q = lane; q < nseg; q += 32) a.seg_run[base + q] = idx;
+      const unsigned longs = __ballot_sync(kFull, is_long);
+      if (longs) {
+        int first = 0;
+        if (lane == 0) first = atomicAdd(a.counts + ci, __popc(longs));
+        first = __shfl_sync(kFull, first, 0);
+        if (is_long)
+          a.long_runs[first + __popc(longs & ((1u << lane) - 1u))] =
+              (int32_t)(out ? C + s : s);
       }
     }
     if (lane == 0) {
@@ -916,70 +988,33 @@ sgns_block_kernel(SgnsArgs a) {
       sn = warp_sum(sn);
       total = total + (-sp - sn);
     }
-    // Phase 2a: each long run's segments, folded onto the row's g2 (w for
-    // SGD), and the tiles of short and medium runs, one item a warp (a
-    // tile split over 2 warps while the grid has warps to spare).
     const int n_long = a.counts[ci];
-    const int n_seg = a.counts[a.n_chunks + ci];
-    float* part0 = a.part;
-    float* part1 = a.part + (int64_t)a.long_cap * D;
-    const int wpt = n_seg + 2 * n_tiles <= nwarps ? 2 : 1;
-    const int64_t items = n_seg + n_tiles * wpt;
-    for (int64_t it = gwarp; it < items; it += nwarps) {
-      if (it < n_seg) {
-        const LongRun r = long_run(a, ci, a.seg_run[it]);
-        float* wr = r.sd.w + (int64_t)r.row * D;
-        float* gr = r.sd.g2 + (int64_t)r.row * D;
-        for (int cb = 0; cb < D; cb += kBlock) {
-          const float4 base = WarpCols<VEC>::load(adagrad ? gr : wr, cb,
-                                                  lane, D);
-          WarpCols<VEC>::store(
-              (adagrad ? part0 : part1) + it * D, cb, lane, D,
-              fold_segment<VEC>(a, r, (int)it, cb, adagrad ? 0 : 1, base,
-                                zero4(), neg_lr, adagrad, lane, rows));
-        }
-      } else {
-        const int64_t v = it - n_seg;
+    for (int q = blockIdx.x; q < n_long; q += gridDim.x)
+      apply_long<VEC>(a, ci, a.long_runs[q], neg_lr, adagrad, lane, wib,
+                      long_sh);
+    // Tiles of short runs: the warps of the CTAs without a long run take
+    // one each (a tile split over wpt warps while there are warps to
+    // spare); tiles beyond those go to whichever warp asks the chunk's
+    // counter first, the long-run CTAs' included.
+    const int long_ctas = n_long < (int)gridDim.x ? n_long : (int)gridDim.x;
+    const int64_t short_warps = (int64_t)(gridDim.x - long_ctas) * kWarps;
+    int wpt = 1;
+    while (wpt < kGroups && n_tiles * wpt * 2 <= short_warps) wpt *= 2;
+    const int64_t n_virtual = n_tiles * wpt;
+    if ((int)blockIdx.x >= long_ctas) {
+      const int64_t v = (int64_t)(blockIdx.x - long_ctas) * kWarps + wib;
+      if (v < n_virtual)
         apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
-                        neg_lr, adagrad, lane, rows);
-      }
+                        neg_lr, adagrad, lane, long_sh.med[wib]);
     }
-    if (n_long > 0) {
-      // Phase 2b (AdaGrad): each segment's steps against the run's final
-      // g2, folded onto w. Nothing writes a long run's row before 2c.
-      if (adagrad) {
-        grid.sync();
-        for (int64_t q = gwarp; q < n_seg; q += nwarps) {
-          const LongRun r = long_run(a, ci, a.seg_run[q]);
-          float* wr = r.sd.w + (int64_t)r.row * D;
-          float* gr = r.sd.g2 + (int64_t)r.row * D;
-          for (int cb = 0; cb < D; cb += kBlock) {
-            const float4 g0 = WarpCols<VEC>::load(gr, cb, lane, D);
-            const float4 den = den4(combine<VEC>(part0, r, g0, cb, D, lane));
-            WarpCols<VEC>::store(
-                part1 + q * D, cb, lane, D,
-                fold_segment<VEC>(a, r, (int)q, cb, 1,
-                                  WarpCols<VEC>::load(wr, cb, lane, D), den,
-                                  neg_lr, adagrad, lane, rows));
-          }
-        }
-      }
-      // Phase 2c: one warp a long run writes its g2 and w.
-      grid.sync();
-      for (int64_t q = gwarp; q < n_long; q += nwarps) {
-        const LongRun r = long_run(a, ci, (int)q);
-        float* wr = r.sd.w + (int64_t)r.row * D;
-        float* gr = r.sd.g2 + (int64_t)r.row * D;
-        for (int cb = 0; cb < D; cb += kBlock) {
-          if (adagrad) {
-            const float4 g0 = WarpCols<VEC>::load(gr, cb, lane, D);
-            WarpCols<VEC>::store(gr, cb, lane, D,
-                                 combine<VEC>(part0, r, g0, cb, D, lane));
-          }
-          const float4 w0 = WarpCols<VEC>::load(wr, cb, lane, D);
-          WarpCols<VEC>::store(wr, cb, lane, D,
-                               combine<VEC>(part1, r, w0, cb, D, lane));
-        }
+    if (n_virtual > short_warps) {
+      for (;;) {
+        int taken = 0;
+        if (lane == 0) taken = atomicAdd(a.counts + a.n_chunks + ci, 1);
+        const int64_t v = short_warps + __shfl_sync(kFull, taken, 0);
+        if (v >= n_virtual) break;
+        apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
+                        neg_lr, adagrad, lane, long_sh.med[wib]);
       }
     }
     grid.sync();
@@ -987,7 +1022,7 @@ sgns_block_kernel(SgnsArgs a) {
   if (loss_warp && lane == 0) *a.loss_out = total;
 }
 
-// Let each instance take kRunSmem bytes of dynamic shared memory, once
+// Let each instance take kLongSmem bytes of dynamic shared memory, once
 // per device.
 template <int VEC, int KMAX>
 void allow_smem() {
@@ -997,7 +1032,7 @@ void allow_smem() {
   if (dev < 0 || dev >= 64 || !done[dev]) {
     cudaFuncSetAttribute(sgns_block_kernel<VEC, KMAX>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kRunSmem);
+                         kLongSmem);
     if (dev >= 0 && dev < 64) done[dev] = true;
   }
 }
@@ -1007,7 +1042,7 @@ int launch(SgnsArgs a, int grid, cudaStream_t st) {
   allow_smem<VEC, KMAX>();
   void* params[] = {&a};
   cudaLaunchCooperativeKernel((const void*)sgns_block_kernel<VEC, KMAX>,
-                              dim3(grid), dim3(kThreads), params, kRunSmem,
+                              dim3(grid), dim3(kThreads), params, kLongSmem,
                               st);
   return (int)cudaGetLastError();
 }
@@ -1019,7 +1054,7 @@ int occupancy_grid() {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   allow_smem<VEC, KMAX>();
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sgns_block_kernel<VEC, KMAX>, kThreads, kRunSmem);
+      &per_sm, sgns_block_kernel<VEC, KMAX>, kThreads, kLongSmem);
   return per_sm * sms;
 }
 
@@ -1045,14 +1080,13 @@ int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
                   const int32_t* n_pairs, float* grad_u, float* u_snap,
                   float* coef, float* loss_partials, float* loss_out,
                   int64_t n_chunks, int chunk, int k, int d, float lr,
-                  int adagrad, int grid, int32_t* long_runs,
-                  int32_t* seg_run, float* part, int32_t* counts,
-                  int long_cap, void* stream) {
+                  int adagrad, int grid, int32_t* long_runs, int32_t* counts,
+                  void* stream) {
   SgnsArgs a{w_in,      w_out,    g_in,     g_out,    v_in,     v_out,
              centers,   contexts, negatives, in_ids,  in_perm,  out_ids,
              out_perm,  n_pairs,  grad_u,   u_snap,   coef,     loss_partials,
              loss_out,  n_chunks, chunk,    k,        d,        lr,
-             adagrad,   long_runs, seg_run, part,     counts,   long_cap};
+             adagrad,   long_runs, counts};
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d % 4 == 0)
     return k <= kSmallNeg ? launch<4, kSmallNeg>(a, grid, st)

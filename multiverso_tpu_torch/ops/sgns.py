@@ -41,7 +41,7 @@ from multiverso_tpu_torch.ops import _build
 LAUNCHES: Dict[str, int] = {"sgns_block": 0}
 
 MAX_NEGATIVE = 16              # csrc/sgns.cu kMaxNeg
-LONG_RUN = 16                  # csrc/sgns.cu kLongRun: runs this long are
+LONG_RUN = 32                  # csrc/sgns.cu kLongRun: runs this long are
                                # applied by a whole CTA
 
 _grid_cache: Dict[tuple, int] = {}
@@ -51,13 +51,11 @@ def sgns_grid_bytes(in_rows: int, out_rows: int, dim: int, chunk: int,
                     negative: int, param_dtype) -> int:
     """Device bytes one block step needs: the four tables (embeddings in
     ``param_dtype``, f32 accumulators), the gradient scratch (``grad_u``
-    and the snapshot of ``u``, [chunk, dim] each, one coefficient per
-    out-lane, and two rows per long-run segment) and the sorted
-    id/permutation streams of one chunk."""
+    and the snapshot of ``u``, [chunk, dim] each, and one coefficient per
+    out-lane) and the sorted id/permutation streams of one chunk."""
     p = np.dtype(param_dtype).itemsize
     tables = (in_rows + out_rows) * dim * (p + 4)
-    scratch = (chunk * 2 * dim + chunk * (1 + negative)
-               + 2 * long_run_capacity(chunk, negative) * dim) * 4
+    scratch = (chunk * 2 * dim + chunk * (1 + negative)) * 4
     streams = chunk * (2 + negative) * 4 * 3
     return tables + scratch + streams
 
@@ -107,8 +105,7 @@ def _lib():
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_sgns_block.argtypes = (
             [c] * 4 + [i64, i64] + [c] * 13 +
-            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, c, c, c, i32,
-             c])
+            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, c, c])
         lib.mv_sgns_block.restype = ctypes.c_int
         lib.mv_sgns_grid_size.argtypes = [i32, i32]
         lib.mv_sgns_grid_size.restype = ctypes.c_int
@@ -156,9 +153,7 @@ class SgnsLaunch(NamedTuple):
     sorted_streams: tuple  # in_ids, in_perm, out_ids, out_perm (int32)
     n_pairs: torch.Tensor  # [1] int32 on the card
     scratch: tuple         # grad_u, u snapshot, coefficients, loss partials
-    long_runs: tuple       # the kernel's long-run lists: [cap, 4] runs,
-                           # [cap] segments' runs, [2, cap, D] segment
-                           # folds, [2, n] counters
+    long_runs: tuple       # [cap] run starts, [2, n] counters (the kernel's)
     loss: torch.Tensor     # [1] float32
     lr: float
     adagrad: bool
@@ -166,10 +161,8 @@ class SgnsLaunch(NamedTuple):
 
 
 def long_run_capacity(chunk: int, negative: int) -> int:
-    """Most runs of at least ``LONG_RUN`` lanes one chunk can hold (its
-    ``chunk`` center slots and ``chunk * (1 + negative)`` out slots), which
-    is also the most segments they can have: a run of L >= LONG_RUN lanes
-    has ceil(L / 128) <= L / LONG_RUN of them."""
+    """Most runs of at least ``LONG_RUN`` lanes one chunk can hold: its
+    ``chunk`` center slots and ``chunk * (1 + negative)`` out slots."""
     return chunk // LONG_RUN + chunk * (1 + negative) // LONG_RUN
 
 
@@ -213,7 +206,7 @@ def prepare_sgns_block(w_in, w_out, g_in, g_out, centers2d, contexts2d,
     only."""
     _check(w_in, w_out, g_in, g_out, centers2d, contexts2d, negatives3d)
     dev = w_in.device
-    n, chunk = centers2d.shape
+    chunk = centers2d.shape[1]
     k = negatives3d.shape[2]
     d = w_in.shape[1]
     n_pairs = torch.as_tensor(n_pairs, dtype=torch.int32,
@@ -228,10 +221,8 @@ def prepare_sgns_block(w_in, w_out, g_in, g_out, centers2d, contexts2d,
                torch.empty((chunk, d), dtype=torch.float32, device=dev),
                torch.empty(chunk * (1 + k), dtype=torch.float32, device=dev),
                torch.empty(2 * grid, dtype=torch.float32, device=dev))
-    cap = long_run_capacity(chunk, k)
-    long_runs = (torch.empty((cap, 4), dtype=torch.int32, device=dev),
-                 torch.empty(cap, dtype=torch.int32, device=dev),
-                 torch.empty((2, cap, d), dtype=torch.float32, device=dev),
+    long_runs = (torch.empty(long_run_capacity(chunk, k), dtype=torch.int32,
+                             device=dev),
                  torch.zeros((2, n_live), dtype=torch.int32, device=dev))
     return SgnsLaunch((w_in, w_out, g_in, g_out),
                       (centers[:n_live], contexts[:n_live],
@@ -246,7 +237,7 @@ def launch_sgns_block(p: SgnsLaunch) -> torch.Tensor:
     w_in, w_out, g_in, g_out = p.tables
     n, chunk = p.streams[0].shape
     k = p.streams[2].shape[2]
-    runs, seg_run, part, counts = p.long_runs
+    runs, counts = p.long_runs
     counts.zero_()                   # the kernel's per-chunk counters
     ptrs = [t.data_ptr() for t in (*p.streams, *p.sorted_streams)]
     err = _lib().mv_sgns_block(
@@ -254,8 +245,7 @@ def launch_sgns_block(p: SgnsLaunch) -> torch.Tensor:
         w_in.shape[0], w_out.shape[0], *ptrs, p.n_pairs.data_ptr(),
         *[t.data_ptr() for t in p.scratch], p.loss.data_ptr(), n,
         chunk, k, w_in.shape[1], p.lr, int(p.adagrad), p.grid,
-        runs.data_ptr(), seg_run.data_ptr(), part.data_ptr(),
-        counts.data_ptr(), runs.shape[0], _build.stream(w_in))
+        runs.data_ptr(), counts.data_ptr(), _build.stream(w_in))
     _build.check_launch(err, "sgns_block")
     LAUNCHES["sgns_block"] += 1
     return p.loss[0]

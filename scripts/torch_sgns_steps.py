@@ -30,8 +30,8 @@ registers of the main instance (from the build's
 ``--flagship`` it also runs ``chip_smoke.py``'s phase 4 (``Word2Vec.train``
 at bench width: a warm-up block, then 3 timed blocks) and prints
 words/sec and pairs/sec. A version named in ``--sort-all`` runs this
-checkout's wrapper with the glue sorting every chunk of a block, as the
-parent did, instead of the live chunks only (no host read of n_pairs).
+checkout's wrapper with the glue sorting every chunk of a block (no host
+read of n_pairs) instead of the live chunks only.
 One JSON record per version goes to ``--out``; every line is printed
 with the card's name and power limit.
 """

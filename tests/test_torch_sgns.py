@@ -124,16 +124,12 @@ def test_eligibility_reckons_device_memory(card):
                                    card)
     assert sgns.sgns_grid_bytes(50_000, 50_000, 128, 8192, 5,
                                 np.float32) < 2**28
-    # The gradient scratch: grad_u and the snapshot of u, [C, D] each, one
-    # coefficient per out-lane (C * (1 + K)) and two rows of D per
-    # long-run segment (at most C * (2 + K) / LONG_RUN), in float32.
+    # The gradient scratch: grad_u and the snapshot of u, [C, D] each, and
+    # one coefficient per out-lane (C * (1 + K)), in float32.
     tables = 2 * 50_000 * 128 * 8
     streams = 8192 * 7 * 4 * 3
-    segments = sgns.long_run_capacity(8192, 5)
-    assert segments == 8192 * 7 // sgns.LONG_RUN
     assert sgns.sgns_grid_bytes(50_000, 50_000, 128, 8192, 5, np.float32) \
-        == tables + (2 * 8192 * 128 + 8192 * 6 + 2 * segments * 128) * 4 \
-        + streams
+        == tables + (2 * 8192 * 128 + 8192 * 6) * 4 + streams
 
 def test_glue_sorts_every_chunk_and_drops_dead_lanes():
     """The glue before the launch sorts each LIVE chunk's ids stably, with

@@ -39,7 +39,7 @@ C, N = 64, 3
 # JAX's and the port's, drift ~1.5e-5 from the same chain in float64,
 # more than the tolerance. The SGD cases take lr 0.005.
 LR = {True: 0.05, False: 0.005}
-LONG_RUN = 16          # ops/sgns.py LONG_RUN (asserted below)
+LONG_RUN = 32          # ops/sgns.py LONG_RUN (asserted below)
 _LAYOUTS = {}          # (K, V) -> chip_smoke.sgns_layouts(...)
 _JAX_STEPS = {}        # (K, adagrad) -> the jitted interpret-mode step
 
