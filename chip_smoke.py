@@ -1093,15 +1093,20 @@ def check_variants(dev) -> dict:
 
 def check_sgns_layouts(dev) -> list:
     """B5 against its plain version on ``sgns_layouts`` (C=512, K=5,
-    V=6,144, D=128, AdaGrad), then a few layouts with D=126, with SGD and
-    with K=1, and K=16 at the flagship's chunk and vocabulary with Zipf
-    ids (more tiles of 32 slots than the grid has warps, so tiles are also
-    taken from the chunk's counter), each table within ``SGNS_RTOL`` and
-    the loss within ``SGNS_LOSS_RTOL``. Returns the variant records."""
+    V=6,144, D=128, AdaGrad; runs around the built kernel's long-run
+    length, which must be ``sgns.LONG_RUN``), then a few layouts with
+    D=126, with SGD and with K=1, and K=16 at the flagship's chunk and
+    vocabulary with Zipf ids (more tiles of 32 slots than the grid has
+    warps, so tiles are also taken from the chunk's counter), each table
+    within ``SGNS_RTOL`` and the loss within ``SGNS_LOSS_RTOL``. Returns
+    the variant records."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.ops import sgns
 
+    # The layouts put runs at the built kernel's long-run edge.
+    assert sgns.kernel_long_run() == sgns.LONG_RUN, (
+        sgns.kernel_long_run(), sgns.LONG_RUN)
     g = torch.Generator(device=dev).manual_seed(6)
     c = 512
 

@@ -27,7 +27,7 @@
 // H100 a chunk with uniform ids takes ~57 us (phase 1 ~15, the tiles of
 // phase 2 ~25-40, barriers); with the flagship's Zipf ids the CTA that
 // applies the longest run (~820 lanes) holds the second barrier longer
-// (scripts/torch_sgns_profile.py reads each phase).
+// (scripts/torch_sgns_steps.py --phases reads each phase).
 //
 // Phase 1 (one warp per pair, 16-byte loads): the pair's ids come in one
 // load spread over the warp's lanes, fetched one pair ahead; the warp
@@ -104,6 +104,29 @@
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
+
+// Phase marks, for scripts/torch_sgns_steps.py --phases, which builds this
+// file with -DMV_SGNS_PROFILE: at each mark thread 0 of every CTA adds the
+// clock64() cycles since its last mark to g_prof[k] and keeps the largest
+// in g_prof[8 + k] (mv_sgns_profile reads and clears them). Without the
+// define the marks are empty.
+#ifdef MV_SGNS_PROFILE
+__device__ unsigned long long g_prof[16];
+#define PROF_START long long prof_t = clock64()
+#define PROF_MARK(k)                                               \
+  do {                                                             \
+    if (threadIdx.x == 0) {                                        \
+      const long long now_ = clock64();                            \
+      const auto dt_ = (unsigned long long)(now_ - prof_t);        \
+      atomicAdd(&g_prof[k], dt_);                                  \
+      atomicMax(&g_prof[8 + (k)], dt_);                            \
+      prof_t = now_;                                               \
+    }                                                              \
+  } while (0)
+#else
+#define PROF_START
+#define PROF_MARK(k)
+#endif
 
 namespace {
 
@@ -719,6 +742,9 @@ __device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
 // kLongRun; this warp takes rounds sub, sub + wpt, ... of its short runs
 // and its medium runs sub, sub + wpt, ... A run shorter than kLongRun
 // that starts in the tile ends within the 64 slots read.
+static_assert(kLongRun >= kHeld + 1 && kLongRun <= 33,
+              "a run shorter than kLongRun that starts in a tile of 32 "
+              "slots must end within the 64 slots apply_tile reads");
 template <int VEC>
 __device__ void apply_tile(const SgnsArgs& a, int64_t ci, int64_t tile,
                            int sub, int wpt, int64_t tiles_in, float neg_lr,
@@ -851,6 +877,7 @@ sgns_block_kernel(SgnsArgs a) {
   const bool adagrad = a.adagrad != 0;
   const bool loss_warp = blockIdx.x == gridDim.x - 1 && wib == 0;
   float total = 0.f;  // meaningful in the loss warp only
+  PROF_START;
 
   for (int64_t ci = 0; ci < n_live; ++ci) {
     // -- phase 1: gather, loss, gradient scratch; one warp per pair ------
@@ -934,6 +961,7 @@ sgns_block_kernel(SgnsArgs a) {
         if (k < K && lane == k + 1) a.coef[C + b * K + k] = dneg[k];
       ids = next_ids;
     }
+    PROF_MARK(0);
     // The chunk's long runs, for phase 2: the first sorted slot (in slots,
     // then C + out slots) of every run of at least kLongRun equal
     // in-range ids. The list's order does not matter: each run is applied
@@ -961,6 +989,7 @@ sgns_block_kernel(SgnsArgs a) {
               (int32_t)(out ? C + s : s);
       }
     }
+    PROF_MARK(1);
     if (lane == 0) {
       warp_pos[wib] = sum_pos;
       warp_neg[wib] = sum_neg;
@@ -975,7 +1004,9 @@ sgns_block_kernel(SgnsArgs a) {
       a.loss_partials[2 * blockIdx.x] = sp;
       a.loss_partials[2 * blockIdx.x + 1] = sn;
     }
+    PROF_MARK(2);
     grid.sync();
+    PROF_MARK(3);
 
     // -- phase 2: the updates, one owner per run -------------------------
     if (loss_warp) {  // the CTAs' partials in a fixed order
@@ -988,10 +1019,12 @@ sgns_block_kernel(SgnsArgs a) {
       sn = warp_sum(sn);
       total = total + (-sp - sn);
     }
+    PROF_MARK(4);
     const int n_long = a.counts[ci];
     for (int q = blockIdx.x; q < n_long; q += gridDim.x)
       apply_long<VEC>(a, ci, a.long_runs[q], neg_lr, adagrad, lane, wib,
                       long_sh);
+    PROF_MARK(5);
     // Tiles of short runs: the warps of the CTAs without a long run take
     // one each (a tile split over wpt warps while there are warps to
     // spare); tiles beyond those go to whichever warp asks the chunk's
@@ -1017,7 +1050,9 @@ sgns_block_kernel(SgnsArgs a) {
                         neg_lr, adagrad, lane, long_sh.med[wib]);
       }
     }
+    PROF_MARK(6);
     grid.sync();
+    PROF_MARK(7);
   }
   if (loss_warp && lane == 0) *a.loss_out = total;
 }
@@ -1062,6 +1097,9 @@ int occupancy_grid() {
 
 extern "C" {
 
+// Lanes from which a run of equal ids is applied by a whole CTA.
+int mv_sgns_long_run() { return kLongRun; }
+
 // CTAs of the cooperative grid for this D and K (every CTA resident).
 int mv_sgns_grid_size(int d, int k) {
   if (d % 4 == 0)
@@ -1071,7 +1109,9 @@ int mv_sgns_grid_size(int d, int k) {
                         : occupancy_grid<1, kMaxNeg>();
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue, launching nothing, when long_cap (the length of
+// long_runs) is short of the most long runs one chunk can list.
 int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
                   int64_t v_in, int64_t v_out, const int32_t* centers,
                   const int32_t* contexts, const int32_t* negatives,
@@ -1080,8 +1120,10 @@ int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
                   const int32_t* n_pairs, float* grad_u, float* u_snap,
                   float* coef, float* loss_partials, float* loss_out,
                   int64_t n_chunks, int chunk, int k, int d, float lr,
-                  int adagrad, int grid, int32_t* long_runs, int32_t* counts,
-                  void* stream) {
+                  int adagrad, int grid, int32_t* long_runs, int64_t long_cap,
+                  int32_t* counts, void* stream) {
+  if (long_cap < chunk / kLongRun + (int64_t)chunk * (1 + k) / kLongRun)
+    return (int)cudaErrorInvalidValue;
   SgnsArgs a{w_in,      w_out,    g_in,     g_out,    v_in,     v_out,
              centers,   contexts, negatives, in_ids,  in_perm,  out_ids,
              out_perm,  n_pairs,  grad_u,   u_snap,   coef,     loss_partials,
@@ -1094,5 +1136,16 @@ int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
   return k <= kSmallNeg ? launch<1, kSmallNeg>(a, grid, st)
                         : launch<1, kMaxNeg>(a, grid, st);
 }
+
+#ifdef MV_SGNS_PROFILE
+// The phase marks' counters: [0, 8) cycle sums, [8, 16) the largest on one
+// CTA; cleared after the read.
+int mv_sgns_profile(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+  unsigned long long zero[16] = {0};
+  cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+  return (int)cudaGetLastError();
+}
+#endif
 
 }  // extern "C"

@@ -41,8 +41,11 @@ from multiverso_tpu_torch.ops import _build
 LAUNCHES: Dict[str, int] = {"sgns_block": 0}
 
 MAX_NEGATIVE = 16              # csrc/sgns.cu kMaxNeg
-LONG_RUN = 32                  # csrc/sgns.cu kLongRun: runs this long are
-                               # applied by a whole CTA
+#: csrc/sgns.cu's kLongRun: runs this long are applied by a whole CTA.
+#: The kernel refuses a long-run buffer sized with a smaller value
+#: (``mv_sgns_block``), and ``chip_smoke.py`` holds this one to the
+#: library's (``kernel_long_run``).
+LONG_RUN = 32
 
 _grid_cache: Dict[tuple, int] = {}
 
@@ -105,8 +108,10 @@ def _lib():
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_sgns_block.argtypes = (
             [c] * 4 + [i64, i64] + [c] * 13 +
-            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, c, c])
+            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, i64, c, c])
         lib.mv_sgns_block.restype = ctypes.c_int
+        lib.mv_sgns_long_run.argtypes = []
+        lib.mv_sgns_long_run.restype = ctypes.c_int
         lib.mv_sgns_grid_size.argtypes = [i32, i32]
         lib.mv_sgns_grid_size.restype = ctypes.c_int
         lib._mv_typed = True
@@ -122,6 +127,11 @@ def grid_size(dim: int, negative: int, device: torch.device) -> int:
     if _grid_cache[key] < 1:
         raise RuntimeError("the sg-ns kernel fits no CTA on an SM")
     return _grid_cache[key]
+
+
+def kernel_long_run() -> int:
+    """The built kernel's kLongRun."""
+    return int(_lib().mv_sgns_long_run())
 
 
 def _check(w_in, w_out, g_in, g_out, centers2d, contexts2d, negatives3d):
@@ -245,7 +255,8 @@ def launch_sgns_block(p: SgnsLaunch) -> torch.Tensor:
         w_in.shape[0], w_out.shape[0], *ptrs, p.n_pairs.data_ptr(),
         *[t.data_ptr() for t in p.scratch], p.loss.data_ptr(), n,
         chunk, k, w_in.shape[1], p.lr, int(p.adagrad), p.grid,
-        runs.data_ptr(), counts.data_ptr(), _build.stream(w_in))
+        runs.data_ptr(), runs.numel(), counts.data_ptr(),
+        _build.stream(w_in))
     _build.check_launch(err, "sgns_block")
     LAUNCHES["sgns_block"] += 1
     return p.loss[0]

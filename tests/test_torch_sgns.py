@@ -130,6 +130,15 @@ def test_eligibility_reckons_device_memory(card):
     streams = 8192 * 7 * 4 * 3
     assert sgns.sgns_grid_bytes(50_000, 50_000, 128, 8192, 5, np.float32) \
         == tables + (2 * 8192 * 128 + 8192 * 6) * 4 + streams
+    assert not sgns.sgns_grid_eligible(50_000, 50_000, 128, 8192, 5,
+                                       np.dtype("float16"), card)
+    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 17, np.float32,
+                                       card)
+    assert not sgns.sgns_grid_eligible(10**8, 10**8, 128, 8192, 5,
+                                       np.float32, card)
+    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 5, np.float32,
+                                       torch.device("cpu"))
+
 
 def test_glue_sorts_every_chunk_and_drops_dead_lanes():
     """The glue before the launch sorts each LIVE chunk's ids stably, with
