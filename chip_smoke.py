@@ -92,10 +92,16 @@ with offsets, fully masked, with a bias, in bfloat16 and at D = 8 and
 256, within ``ATTN_TOL``; and B7 (``paged_decode_attn``) at the
 serving shape (8 slots, 12 heads, dh 64, page 16, bucket 512, max_new 64:
 36 pages per slot) over one layer of a pool of the serving phase's size,
-with a page table from real page plans of the workload's lengths, timed
-with the byte bound and SDPA over the pre-gathered cache as a yardstick,
-then with a bfloat16 pool, a page that does not divide the bucket, an
-idle slot on the garbage page, t = 0 and dh = 128, within ``PAGED_TOL``.
+with a page table from real page plans of the workload's lengths, and at
+a long-context shape (8 full prompts at bucket 2,048: 132 pages per
+slot), each timed with the byte bound and SDPA over the pre-gathered
+cache as a yardstick, held with NaN in every page the mask wholly
+excludes (the kernel skips them; the plain version gets clean pages), and
+launched twice (bitwise equal) and from a CUDA graph (equal to the eager
+launch); then with a bfloat16 pool, a page that does not divide the
+bucket, an idle slot on the garbage page, t = 0, dh = 128, B x H that
+fills the card, and one small case per template instance
+(``PAGED_INSTANCES``), within ``PAGED_TOL``.
 
 Every launch count is set to 0 just before each main-path run of phases
 3, 4, 6 and 7 and read just after it, so the comparisons of phase 2 do
@@ -1414,20 +1420,56 @@ def paged_bound(q, kp, ptab, lengths, t, bucket, page):
     return bound_ms(n_bytes, 4.0 * dh * keys * H)
 
 
-def check_paged_kernel(dev) -> dict:
-    """B7 at the serving phase's shape (8 slots, 12 heads, dh 64, page 16,
-    bucket 512, max_new 64: G = 36 pages) over one layer of a pool of the
-    serving phase's size, a page table from real page plans of the
-    serving workload's mixed lengths and mixed t; timed with events and
-    in a CUDA graph, against the plain version and the SDPA yardstick.
-    Then small variants: a bfloat16 pool, a page that does not divide the
-    bucket, an idle slot on the garbage page, t = 0 and dh = 128."""
+PAGED_LONG_BUCKET = 2048   # B7's long-context shape: 8 full prompts
+
+#: (head size, pool dtype) of one small B7 case per template instance of
+#: ``csrc/paged_attention.cu``: the 16-byte vector instances at 4, 8, 16
+#: and 32 lanes a key row (and 32 x 2 vectors at float32 dh 256), then the
+#: narrow ones (rows not whole 16-byte vectors) at 1, 2, 4 and 8 values a
+#: lane.
+PAGED_INSTANCES = (
+    (8, "float32"), (32, "float32"), (64, "float32"), (128, "float32"),
+    (256, "float32"), (8, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"),
+    (256, "bfloat16"), (6, "float32"), (63, "float32"), (102, "float32"),
+    (255, "float32"), (6, "bfloat16"), (60, "bfloat16"), (100, "bfloat16"),
+    (250, "bfloat16"))
+
+
+def paged_poisoned(args, bucket, page):
+    """``args`` with NaN in every K and V row of the physical pages that
+    only wholly masked logical pages point at (the pages a kernel that
+    reads only live pages skips), and their count. A logical page is
+    wholly masked when the mask admits none of its positions; every slot
+    must admit one, and no page may be both skipped and read."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-    from multiverso_tpu_torch.ops import attention
-    from multiverso_tpu_torch.serving import default_pool_pages
+    q, kp, vp, ptab, lens, ts = args
+    B, G = ptab.shape
+    pos = np.arange(G * page)[None, :]
+    lens_h, ts_h = lens.cpu().numpy()[:, None], ts.cpu().numpy()[:, None]
+    admitted = (pos < lens_h) | ((pos >= bucket) & (pos <= bucket + ts_h))
+    assert admitted.any(axis=1).all()
+    live = torch.as_tensor(admitted.reshape(B, G, page).any(axis=2),
+                           device=ptab.device)
+    dead = torch.unique(ptab[~live].long())
+    assert not bool(torch.isin(dead, ptab[live].long()).any())
+    kn, vn = kp.clone(), vp.clone()
+    kn[dead] = float("nan")
+    vn[dead] = float("nan")
+    return (q, kn, vn, ptab, lens, ts), int(dead.numel())
 
+
+def paged_shapes(dev):
+    """B7's two main-path shapes, one at a time: (what, bucket, args).
+    The serving phase's shape (8 slots, 12 heads, dh 64, page 16, bucket
+    512, max_new 64: G = 36) over one layer of a pool of the serving
+    phase's size, a page table from real page plans of the serving
+    workload's mixed lengths (one full prompt) and mixed t; then a
+    long-context shape: 8 full prompts at bucket 2,048 (G = 132), one
+    layer of a pool that holds them."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.serving import default_pool_pages
     g = torch.Generator(device=dev).manual_seed(9)
     rng = np.random.default_rng(7)
     S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
@@ -1437,11 +1479,64 @@ def check_paged_kernel(dev) -> dict:
     lengths[0] = S                        # one full prompt
     t = rng.integers(0, N, SERVE_BATCH).tolist()
     n_phys = default_pool_pages(SERVE_BUCKETS, SERVE_BATCH, N, P) + 1
+    yield "at the serving shape", S, paged_inputs(
+        g, dev, lengths, t, S, N, P, H, dh, n_phys, layers=LM["layers"])
+    L = PAGED_LONG_BUCKET
+    t = rng.integers(0, N, SERVE_BATCH).tolist()
+    n_phys = SERVE_BATCH * -(-(L + N) // P) + 1
+    yield "at the long-context shape", L, paged_inputs(
+        g, dev, [L] * SERVE_BATCH, t, L, N, P, H, dh, n_phys,
+        layers=LM["layers"])
 
-    def pair(what, args, page, bucket, scale):
+
+def paged_yardstick(args, bucket, page):
+    """SDPA over the cache gathered beforehand (the gather not timed),
+    with the serving mask: B7's yardstick. Not the same function: it
+    reads a contiguous cache, and the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    q, kp, vp, ptab, lens, ts = args
+    (B, G), (H, dh) = ptab.shape, q.shape[1:]
+    idx = ptab.long().reshape(-1)
+    kf = kp.index_select(0, idx).reshape(B, G, H, page, dh) \
+        .transpose(1, 2).reshape(B, H, G * page, dh)
+    vf = vp.index_select(0, idx).reshape(B, G, H, page, dh) \
+        .transpose(1, 2).reshape(B, H, G * page, dh)
+    pos = torch.arange(G * page, device=q.device)[None, :]
+    mask = ((pos < lens[:, None]) | ((pos >= bucket)
+                                     & (pos <= bucket + ts[:, None])))
+    mask = mask[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q[:, :, None], kf, vf,
+                                                  attn_mask=mask)
+
+
+def check_paged_kernel(dev) -> dict:
+    """B7 at the serving phase's shape (8 slots, 12 heads, dh 64, page 16,
+    bucket 512, max_new 64: G = 36 pages) over one layer of a pool of the
+    serving phase's size, a page table from real page plans of the
+    serving workload's mixed lengths and mixed t; and at a long-context
+    shape (8 full prompts of 2,048, G = 132). Each is timed with events
+    and in a CUDA graph, against the plain version and the SDPA
+    yardstick, held against the plain version with NaN in every page the
+    mask wholly excludes, and launched twice (bitwise equal) and from a
+    CUDA graph (equal to the eager launch). Then small variants: a
+    bfloat16 pool, a page that does not divide the bucket, an idle slot
+    on the garbage page, t = 0, dh = 128, B x H that fills the card (one
+    CTA a slot and head), and one case per template instance."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    rng = np.random.default_rng(8)
+    S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
+    H, dh = LM["heads"], LM["dim"] // LM["heads"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def pair(what, args, page, bucket, scale, want_args=None):
         kw = dict(bucket=bucket, page=page, scale=scale)
         got = attention.paged_decode_attn(*args, **kw)
-        want = attention.paged_decode_attn_plain(*args, **kw)
+        want = attention.paged_decode_attn_plain(*(want_args or args), **kw)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all()), what
         err = float((got - want).abs().max())
@@ -1451,74 +1546,115 @@ def check_paged_kernel(dev) -> dict:
         assert ok, (what, err)
         return err
 
-    args = paged_inputs(g, dev, lengths, t, S, N, P, H, dh, n_phys,
-                        layers=LM["layers"])
-    scale = dh ** -0.5
-    err = pair(f"B7 at the serving shape (B {SERVE_BATCH}, H {H}, dh {dh}, "
-               f"page {P}, bucket {S}, max_new {N})", args, P, S, scale)
-    kw = dict(bucket=S, page=P, scale=scale)
-    q, kp, vp, ptab, lens, ts = args
-    # The yardstick: SDPA over the cache gathered beforehand (the gather
-    # not timed), with the serving mask. Not the same function: it reads
-    # a contiguous cache, and the port never calls it.
-    G = ptab.shape[1]
-    idx = ptab.long().reshape(-1)
-    kf = kp.index_select(0, idx).reshape(SERVE_BATCH, G, H, P, dh) \
-        .transpose(1, 2).reshape(SERVE_BATCH, H, G * P, dh)
-    vf = vp.index_select(0, idx).reshape(SERVE_BATCH, G, H, P, dh) \
-        .transpose(1, 2).reshape(SERVE_BATCH, H, G * P, dh)
-    pos = torch.arange(G * P, device=dev)[None, :]
-    mask = ((pos < lens[:, None]) | ((pos >= S)
-                                     & (pos <= S + ts[:, None])))
-    mask = mask[:, None, None, :]
-    rec = {
-        "ms": cuda_ms(lambda: attention.paged_decode_attn(*args, **kw), 50),
-        "graph_ms": graph_ms(lambda: attention.paged_decode_attn(*args,
-                                                                 **kw)),
-        "plain_ms": cuda_ms(lambda: attention.paged_decode_attn_plain(
-            *args, **kw), 50),
-        "library_ms": None,
-        "library": "none: no single PyTorch call reads through a page "
-                   "table",
-        "yardstick_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kf, vf, attn_mask=mask), 50),
-        "yardstick": "scaled_dot_product_attention over the cache "
-                     "gathered beforehand, with the mask (float32; not the "
-                     "same function, never called by the port)"}
-    bound = paged_bound(q, kp, ptab, lens, ts, S, P)
-    log(f"B7 paged_decode_attn (8, 12, 64), page {P}, G {G}: kernel "
-        f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
-        f"plain {rec['plain_ms']:.4f} ms, yardstick SDPA over the "
-        f"pre-gathered cache {rec['yardstick_ms']:.4f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]})")
-    del args, q, kp, vp, kf, vf
-    torch.cuda.empty_cache()
+    def repeatable(what, args, kw):
+        """Two launches bitwise equal; a graph replay equal to them."""
+        first = attention.paged_decode_attn(*args, **kw)
+        second = attention.paged_decode_attn(*args, **kw)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            attention.paged_decode_attn(*args, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = attention.paged_decode_attn(*args, **kw)
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), what
+        assert torch.equal(captured, first), what
+        log(f"  {what}: two launches bitwise equal, a graph replay equal "
+            "to them")
+
+    def shape(what, bucket, args):
+        """Checks and times of B7 at one main-path shape."""
+        G = args[3].shape[1]
+        scale = dh ** -0.5
+        kw = dict(bucket=bucket, page=P, scale=scale)
+        err = pair(f"B7 {what} (B {SERVE_BATCH}, H {H}, dh {dh}, page {P}, "
+                   f"bucket {bucket}, max_new {N}, G {G})", args, P, bucket,
+                   scale)
+        poisoned, n_dead = paged_poisoned(args, bucket, P)
+        nan_err = pair(f"B7 {what}, NaN in the {n_dead} pages only wholly "
+                       "masked logical pages point at", poisoned, P, bucket,
+                       scale, want_args=args)
+        del poisoned
+        repeatable(f"B7 {what}", args, kw)
+        rec = {
+            "ms": cuda_ms(lambda: attention.paged_decode_attn(*args, **kw),
+                          50),
+            "graph_ms": graph_ms(lambda: attention.paged_decode_attn(
+                *args, **kw)),
+            "plain_ms": cuda_ms(lambda: attention.paged_decode_attn_plain(
+                *args, **kw), 50),
+            "yardstick_ms": cuda_ms(paged_yardstick(args, bucket, P), 50)}
+        q, kp, vp, ptab, lens, ts = args
+        bound = paged_bound(q, kp, ptab, lens, ts, bucket, P)
+        splits = attention.paged_splits(SERVE_BATCH * H, G, sms)
+        log(f"B7 paged_decode_attn {what} ({SERVE_BATCH}, {H}, {dh}), page "
+            f"{P}, G {G}, {splits} CTAs a slot and head: kernel "
+            f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
+            f"plain {rec['plain_ms']:.4f} ms, yardstick SDPA over the "
+            f"pre-gathered cache {rec['yardstick_ms']:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]})")
+        return {"max_abs_err": err, "nan_excluded_pages_max_abs_err":
+                nan_err, "pages_per_slot": G, "splits": splits, **rec,
+                "bound_ms": bound[0], "bound_by": bound[1]}
+
+    recs = []
+    for what, bucket, args in paged_shapes(dev):
+        recs.append(shape(what, bucket, args))
+        del args
+        torch.cuda.empty_cache()
+    serving, long = recs
 
     variants = []
     small = dict(heads=4, n_phys=64)
-    for case, lens_v, t_v, bucket, mx, page, d, dt in (
-            ("bfloat16 pool", [3, 60, 128, 17], [0, 5, 63, 20], 128, 64,
-             16, 64, torch.bfloat16),
-            ("page 3 does not divide bucket 8", [3, 1, 8, 7], [0, 2, 5, 3],
-             8, 6, 3, 64, None),
-            ("idle slot on the garbage page", [1, 40, 100, 7],
-             [0, 10, 63, 1], 128, 64, 16, 64, None),
-            ("t = 0", [5, 128, 64, 1], [0, 0, 0, 0], 128, 64, 16, 64,
-             None),
-            ("dh = 128", [3, 60, 128, 17], [0, 5, 63, 20], 128, 64, 16,
-             128, None)):
+    cases = [
+        ("bfloat16 pool", [3, 60, 128, 17], [0, 5, 63, 20], 128, 64, 16, 64,
+         torch.bfloat16),
+        ("page 3 does not divide bucket 8", [3, 1, 8, 7], [0, 2, 5, 3], 8,
+         6, 3, 64, None),
+        ("idle slot on the garbage page", [1, 40, 100, 7], [0, 10, 63, 1],
+         128, 64, 16, 64, None),
+        ("t = 0", [5, 128, 64, 1], [0, 0, 0, 0], 128, 64, 16, 64, None),
+        ("dh = 128", [3, 60, 128, 17], [0, 5, 63, 20], 128, 64, 16, 128,
+         None)]
+    for d, dt in PAGED_INSTANCES:
+        cases.append((f"instance dh = {d}, {dt}", [3, 60, 128, 17],
+                      [0, 5, 63, 20], 128, 64, 16, d, getattr(torch, dt)))
+    for case, lens_v, t_v, bucket, mx, page, d, dt in cases:
         a = paged_inputs(g, dev, lens_v, t_v, bucket, mx, page,
                          small["heads"], d, small["n_phys"], dtype=dt)
         if case.startswith("idle"):
             a[3][0] = 0                     # every page the garbage page
         e = pair(f"B7 {case}", a, page, bucket, d ** -0.5)
         variants.append({"case": case, "max_abs_err": e})
+    # B x H past PAGED_CTAS_PER_SM CTAs an SM: one CTA a slot and head.
+    heads = 12
+    slots = -(-attention.PAGED_CTAS_PER_SM * sms // heads)
+    lens_v = rng.integers(1, 129, slots).tolist()
+    t_v = rng.integers(0, 64, slots).tolist()
+    a = paged_inputs(g, dev, lens_v, t_v, 128, 64, 16, heads, 64,
+                     slots * 12 + 1)
+    assert attention.paged_splits(slots * heads, 12, sms) == 1
+    e = pair(f"B7 {slots} slots x {heads} heads (one CTA a slot and head)",
+             a, 16, 128, 0.125)
+    variants.append({"case": "B x H fills the card: one CTA a slot and "
+                             "head", "max_abs_err": e})
     return {"name": "paged_decode_attn", "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/paged_attention.cu",
             "replaces": "multiverso_tpu/ops/pallas_attention.py:253",
+            "redesigned": "PR 9",
             "shape": [SERVE_BATCH, H, dh], "page": P, "bucket": S,
-            "pages_per_slot": G, "max_abs_err": err, **rec,
-            "bound_ms": bound[0], "bound_by": bound[1],
+            **serving, "library_ms": None,
+            "library": "none: no single PyTorch call reads through a page "
+                       "table",
+            "yardstick": "scaled_dot_product_attention over the cache "
+                         "gathered beforehand, with the mask (float32; not "
+                         "the same function, never called by the port)",
+            "bitwise_repeat": True, "graph_equals_eager": True,
+            "long_context": {"bucket": PAGED_LONG_BUCKET, **long},
             "variants": variants}
 
 

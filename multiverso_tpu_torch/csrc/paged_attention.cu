@@ -12,10 +12,8 @@
 //   o     = sum_r exp(s_r - m) v_r / sum_r exp(s_r - m)
 //
 // the TPU kernel's online softmax across pages (_paged_kernel,
-// pallas_attention.py:201-245): per page, m_new = max(m, pagemax(s)),
-// alpha = exp(m - m_new), l = alpha * l + sum(exp(s - m_new)),
-// acc = alpha * acc + exp(s - m_new) . V, with m starting at -1e30 (not
-// -inf: a fully masked page before a valid one is wiped by
+// pallas_attention.py:201-245), with m starting at -1e30 (not -inf: a
+// fully masked stretch before a valid key is wiped by
 // alpha = exp(-1e30 - m) = 0, and -inf - -inf would give NaN). The
 // output is normalised, o = acc / l, float32. Pages are float32 or
 // bfloat16 and every operation is float32 (expf, no fast math, no tensor
@@ -28,24 +26,57 @@
 // of each key the mask admits (a masked key adds exactly 0) for 4 * dh
 // flops per key, about 0.5 flop per byte in float32, far below the
 // card's ~20 flops per byte of float32 HBM balance. At the serving shape
-// (8 slots, 12 heads, dh 64, page 16, G 36) this kernel reads every row
-// of all G pages, 28.3 MB of float32 pages a step, while the admitted
-// keys of chip_smoke.py's serving inputs need 8.4 MB, ~2.5 us at
-// 3.35 TB/s.
+// (8 slots, 12 heads, dh 64, page 16, G 36) the admitted keys of
+// chip_smoke.py's serving inputs need 8.4 MB, ~2.5 us at 3.35 TB/s, out
+// of the 28.3 MB that all G pages hold.
 //
-// Design, a simple first version. The TPU kernel walks a sequential
-// (slot, page) grid whose page axis carries (acc, m, l) in VMEM scratch.
-// Here one CTA of 4 warps owns one (slot, head); warp w takes logical
-// pages j = w, w + 4, ... and keeps its own (acc, m, l):
-//   * it stages the page's K and V rows [P, dh] into its shared memory as
-//     float32, rows padded to dh + 1 floats so that lanes reading
-//     different rows at one column fall on distinct banks;
-//   * lane p computes key p's score (a sequential dot over dh), the warp
-//     takes the page max and sum by xor shuffles, and writes exp(s - m)
-//     to shared memory;
-//   * lane owns output columns lane + 32 c and accumulates p . V there.
-// The four warps then merge their (acc, m, l) through shared memory and
-// write acc / l. Every page is read, masked or not, as on the TPU.
+// Design.
+//   * Only live pages are read. Page j of slot b is live iff j * P <
+//     lengths[b] or [j * P, j * P + P - 1] meets [bucket, bucket + t[b]]:
+//     at most two runs of logical pages, [0, n1) and [s2, e2) (live_runs
+//     below), computed by every CTA from lengths and t on the card, so the
+//     launch needs no read on the host and can be captured in a CUDA
+//     graph. A skipped page's table entry and rows are never read; a key
+//     of a live page that the mask excludes still scores -1e30. Every
+//     page a skipped page could have added is exactly 0: its scores are
+//     q.k * scale - 1e30, whose exp underflows against any admitted
+//     score, and the serving path always admits position `bucket`. Where
+//     a slot admits no key at all (not reachable from the serving path),
+//     the kernel reads all G pages, every score is -1e30 and the result
+//     is the mean of V over all G * P rows, as the kernel before this one
+//     and the TPU kernel give.
+//   * A slot's live pages are split over `splits` CTAs of each (slot,
+//     head) (flash-decoding): CTA s takes the contiguous live pages
+//     [s * n / splits, (s + 1) * n / splits) of the slot's n, keeps a
+//     partial (acc, m, l) and writes it to `part`. The last CTA of a
+//     (slot, head) to finish, found by a ticket counter that it resets to
+//     0 (so a launch captured in a CUDA graph replays), merges the
+//     partials in split order into acc / l. Float atomics never touch the
+//     values: two launches are bitwise equal. The wrapper chooses
+//     `splits` from B * H and G so that the grid covers the SMs
+//     (ops/attention.py::paged_splits); the live count per slot is known
+//     only on the card, so a short slot's later CTAs find no page and only
+//     take their ticket. A CTA covers one head, not all heads of a page:
+//     the page's [H, P, dh] block is contiguous too, but one head's [P, dh]
+//     block is already 4 KB of 16-byte loads, and a per-head CTA keeps 96
+//     x splits CTAs at the serving shape where a per-page CTA would have 8
+//     x splits.
+//   * Pages are staged in tiles of up to kTileBytes of K and as much of V
+//     (one page's rows of one head at dh 64, page 16, float32) through a
+//     ring of kRing tiles in shared memory, by 16-byte cp.async (float4,
+//     or 8 bfloat16 values), so tiles i + 1 .. i + kRing - 1 arrive while
+//     tile i is computed. A head size whose rows are not whole 16-byte
+//     vectors, or a pool not 16-byte aligned, takes the narrow instance
+//     of the same kernel (one value a vector; bfloat16 then copied by
+//     plain loads).
+//   * Every lane works on the dot products: LK lanes hold one key row (at
+//     dh 64 in float32, 16 lanes of 4 columns), so a warp scores 32 / LK
+//     keys at once and reduces each in log2(LK) xor shuffles within its
+//     group. Each group keeps its own online softmax (one expf a key:
+//     exp(s - m), or exp(m - s) where s is the new max) and p . V goes by
+//     the same columns. The groups, then the warps, then the CTAs merge
+//     (m, l, acc) in a fixed order.
+// One wrapper call is one launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,226 +88,472 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxD = 256;
-constexpr int kMaxSmem = 232448;        // H100: 227 KB a block may opt in
+#ifndef MV_PAGED_RING
+#define MV_PAGED_RING 4
+#endif
+#ifndef MV_PAGED_TILE_BYTES
+#define MV_PAGED_TILE_BYTES 4096
+#endif
+constexpr int kRing = MV_PAGED_RING;            // tiles in flight a CTA
+constexpr int kTileBytes = MV_PAGED_TILE_BYTES; // K bytes of a tile (V too)
+constexpr int kMaxTickets = 1 << 16;    // (slot, head) pairs that can split
 constexpr float kNegInf = -1e30f;       // pallas_attention.py NEG_INF
+
+static_assert(kRing >= 2, "the ring needs a tile in flight");
+static_assert(kWarps * (kMaxD + 2) * 4 <= kRing * 2 * kTileBytes,
+              "the warps' merge reuses the ring");
+
+// One ticket counter per (slot, head), zero when the module loads; the
+// last CTA of a (slot, head) sets its counter back to 0.
+__device__ int g_tickets[kMaxTickets];
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// E values of type T from shared memory at p into x, as float32: one
+// 16-byte load for the vector instances.
+template <typename T, int E>
+__device__ __forceinline__ void load_vec(const T* p, float (&x)[E]) {
+  if constexpr (E == 1) {
+    x[0] = to_f(*p);
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(E == 4, "float32 vectors are float4");
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    static_assert(E == 8, "bfloat16 vectors are 8 values");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
-  return x;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-  return x;
+// One vector of BYTES bytes from global to shared memory: cp.async for 4
+// and 16 bytes (landed after the next wait), a plain copy for 2.
+template <int BYTES>
+__device__ __forceinline__ void copy_vec(void* dst, const void* src) {
+  if constexpr (BYTES == 2) {
+    *static_cast<unsigned short*>(dst) =
+        __ldg(static_cast<const unsigned short*>(src));
+  } else {
+    static_assert(BYTES == 4 || BYTES == 16, "cp.async takes 4 or 16");
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    if constexpr (BYTES == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(src));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                   "l"(src));
+  }
 }
 
-// Floats of dynamic shared memory: q, each warp's K, V and p tiles, and
-// the merge area (m, l and acc of each warp).
-size_t smem_floats(int page, int d) {
-  return static_cast<size_t>(d) +
-         static_cast<size_t>(kWarps) * (2 * page * (d + 1) + page) +
-         2 * kWarps + static_cast<size_t>(kWarps) * d;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// NC: output columns per lane, ceil(d / 32).
-template <typename T, int NC>
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The live logical pages of a slot, as two runs [0, n1) and [s2, e2):
+// the prompt's pages and the pages that meet [bucket, bucket + t]. Where
+// no page is live, every page is taken (every score is then -1e30).
+struct Live {
+  int n1, s2, e2;
+  __device__ __forceinline__ int count() const { return n1 + e2 - s2; }
+  // The logical page of the k-th live page.
+  __device__ __forceinline__ int page(int k) const {
+    return k < n1 ? k : s2 + (k - n1);
+  }
+};
+
+__device__ __forceinline__ Live live_runs(int length, int t, int bucket,
+                                          int page, int n_pages) {
+  const long long span = static_cast<long long>(n_pages) * page;
+  long long len = length < 0 ? 0 : length;
+  if (len > span) len = span;
+  Live r;
+  r.n1 = static_cast<int>((len + page - 1) / page);
+  const long long lo = bucket < 0 ? 0 : bucket;
+  long long hi = static_cast<long long>(bucket) + t;
+  if (hi > span - 1) hi = span - 1;
+  int a2 = 0, b2 = 0;
+  if (lo <= hi) {
+    a2 = static_cast<int>(lo / page);
+    b2 = static_cast<int>(hi / page) + 1;
+  }
+  r.s2 = max(a2, r.n1);
+  r.e2 = max(b2, r.s2);
+  if (r.count() == 0) r.n1 = r.s2 = r.e2 = n_pages;
+  return r;
+}
+
+// E: values a vector (16 bytes, or 1 value in the narrow instances); LK:
+// lanes that hold one key row; NV: vectors a lane holds of a row.
+template <typename T, int E, int LK, int NV>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ ptab,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tstep, float* __restrict__ o,
-                    int heads, int n_pages, int page, int d,
-                    int64_t page_stride, int n_phys, int bucket,
-                    float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int rs = d + 1;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* qs = smem;
-  float* ks = qs + d + warp * (2 * page * rs + page);
-  float* vs = ks + page * rs;
-  float* ps = vs + page * rs;
-  float* wm = qs + d + kWarps * (2 * page * rs + page);
-  float* wl = wm + kWarps;
-  float* wacc = wl + kWarps;
+                    float* __restrict__ part, int heads, int n_pages,
+                    int page, int d, int64_t page_stride, int n_phys,
+                    int bucket, float scale, int splits, int tile_rows) {
+  constexpr int GK = 32 / LK;                  // keys a warp scores at once
+  constexpr int VB = E * static_cast<int>(sizeof(T));
+  constexpr int kTileElems = kTileBytes / static_cast<int>(sizeof(T));
+  __shared__ __align__(16) unsigned char ring_raw[kRing * 2 * kTileBytes];
+  __shared__ int last;
+  T* ring = reinterpret_cast<T*>(ring_raw);
 
-  const int64_t bh = blockIdx.x;
+  const int64_t bh = blockIdx.x / splits;
+  const int split = static_cast<int>(blockIdx.x - bh * splits);
   const int b = static_cast<int>(bh / heads);
   const int h = static_cast<int>(bh - static_cast<int64_t>(b) * heads);
-  for (int i = threadIdx.x; i < d; i += kThreads) qs[i] = q[bh * d + i];
-  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int li = lane % LK;
+  const int grp = lane / LK;
+  const int nvec = d / E;
 
   const int length = lengths[b];
   const int t = tstep[b];
+  const Live live = live_runs(length, t, bucket, page, n_pages);
+  const int n_live = live.count();
+  const int k0 = static_cast<int>(static_cast<int64_t>(split) * n_live /
+                                  splits);
+  const int k1 = static_cast<int>(static_cast<int64_t>(split + 1) * n_live /
+                                  splits);
+  const int tpp = (page + tile_rows - 1) / tile_rows;   // tiles a page
+  const int n_tiles = (k1 - k0) * tpp;
+  const int* prow = ptab + static_cast<int64_t>(b) * n_pages;
   const int64_t head_off = static_cast<int64_t>(h) * page * d;
-  const int pd = page * d;
+
+  float qr[NV][E];
+#pragma unroll
+  for (int n = 0; n < NV; ++n) {
+    const int v = li + LK * n;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      qr[n][e] = v < nvec ? q[bh * d + v * E + e] : 0.f;
+  }
+
+  // The physical page of tile i (its live page's table entry, clamped).
+  auto phys_of = [&](int i) {
+    const int p = prow[live.page(k0 + i / tpp)];
+    return min(max(p, 0), n_phys - 1);
+  };
+  auto issue = [&](int i, int phys) {
+    const int c = i % tpp;
+    const int r0 = c * tile_rows;
+    const int n = min(tile_rows, page - r0) * nvec;
+    const int64_t off = phys * page_stride + head_off +
+                        static_cast<int64_t>(r0) * d;
+    T* kd = ring + (i % kRing) * 2 * kTileElems;
+    T* vd = kd + kTileElems;
+    for (int v = threadIdx.x; v < n; v += kThreads) {
+      copy_vec<VB>(kd + v * E, kp + off + v * E);
+      copy_vec<VB>(vd + v * E, vp + off + v * E);
+    }
+  };
+
   float m = kNegInf;
   float l = 0.f;
-  float acc[NC];
+  float acc[NV][E];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[n][e] = 0.f;
 
-  for (int j = warp; j < n_pages; j += kWarps) {
-    int phys = ptab[static_cast<int64_t>(b) * n_pages + j];
-    phys = min(max(phys, 0), n_phys - 1);
-    const T* kb = kp + phys * page_stride + head_off;
-    const T* vb = vp + phys * page_stride + head_off;
-    for (int i = lane; i < pd; i += 32) {
-      const int r = i / d;
-      const int c = i - r * d;
-      ks[r * rs + c] = to_f(kb[i]);
-      vs[r * rs + c] = to_f(vb[i]);
-    }
-    __syncwarp();
-    float lmax = -INFINITY;
-    for (int p = lane; p < page; p += 32) {
-      const float* kr = ks + p * rs;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s = fmaf(qs[c], kr[c], s);
-      s *= scale;
-      const int pos = j * page + p;
-      const bool valid =
-          pos < length || (pos >= bucket && pos <= bucket + t);
-      s += valid ? 0.f : kNegInf;
-      ps[p] = s;
-      lmax = fmaxf(lmax, s);
-    }
-    const float m_new = fmaxf(m, warp_max(lmax));
-    const float alpha = expf(m - m_new);
-    float lsum = 0.f;
-    for (int p = lane; p < page; p += 32) {
-      const float e = expf(ps[p] - m_new);
-      ps[p] = e;
-      lsum += e;
-    }
-    l = alpha * l + warp_sum(lsum);
-    __syncwarp();
+  // Prologue: the first kRing - 1 tiles, their page ids read together.
+  int ph[kRing - 1];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) {
-        float a = 0.f;
-        for (int p = 0; p < page; ++p) a = fmaf(ps[p], vs[p * rs + col], a);
-        acc[c] = acc[c] * alpha + a;
+  for (int i = 0; i < kRing - 1; ++i) ph[i] = i < n_tiles ? phys_of(i) : 0;
+#pragma unroll
+  for (int i = 0; i < kRing - 1; ++i) {
+    if (i < n_tiles) issue(i, ph[i]);
+    cp_async_commit();
+  }
+  int nphys = kRing - 1 < n_tiles ? phys_of(kRing - 1) : 0;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();        // tile i landed; every warp is done with i - 1
+    const int nx = i + kRing - 1;
+    if (nx < n_tiles) issue(nx, nphys);
+    cp_async_commit();
+    if (nx + 1 < n_tiles) nphys = phys_of(nx + 1);
+
+    const int pi = i / tpp;
+    const int r0 = (i - pi * tpp) * tile_rows;
+    const int rows = min(tile_rows, page - r0);
+    const int pos0 = live.page(k0 + pi) * page + r0;
+    const T* kt = ring + (i % kRing) * 2 * kTileElems;
+    const T* vt = kt + kTileElems;
+    for (int kb = warp * GK; kb < rows; kb += kWarps * GK) {
+      const int r = kb + grp;
+      const bool valid = r < rows;
+      float s = 0.f;
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const int v = li + LK * n;
+        if (valid && v < nvec) {
+          float x[E];
+          load_vec<T, E>(kt + r * d + v * E, x);
+#pragma unroll
+          for (int e = 0; e < E; ++e) s = fmaf(qr[n][e], x[e], s);
+        }
+      }
+#pragma unroll
+      for (int off = LK / 2; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (!valid) continue;
+      s *= scale;
+      const int pos = pos0 + r;
+      s += (pos < length || (pos >= bucket && pos <= bucket + t)) ? 0.f
+                                                                  : kNegInf;
+      float alpha = 1.f;
+      float p = 1.f;
+      if (s > m) {
+        alpha = expf(m - s);
+        m = s;
+      } else {
+        p = expf(s - m);
+      }
+      l = l * alpha + p;
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const int v = li + LK * n;
+        if (v < nvec) {
+          float x[E];
+          load_vec<T, E>(vt + r * d + v * E, x);
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[n][e] = fmaf(p, x[e], acc[n][e] * alpha);
+        }
       }
     }
-    m = m_new;
-    __syncwarp();       // the next page overwrites this warp's tiles
+  }
+  cp_async_wait<0>();
+
+  // Merge the warp's groups (xor over the lane bits above LK), in order.
+#pragma unroll
+  for (int off = LK; off < 32; off <<= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mx = fmaxf(m, m2);
+    const float a1 = expf(m - mx);
+    const float a2 = expf(m2 - mx);
+    l = l * a1 + l2 * a2;
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float x = __shfl_xor_sync(0xffffffffu, acc[n][e], off);
+        acc[n][e] = acc[n][e] * a1 + x * a2;
+      }
+    m = mx;
   }
 
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
+  // Then the warps, through the ring's memory: (m, l, acc[d]) each.
+  __syncthreads();
+  float* wacc = reinterpret_cast<float*>(ring_raw);
+  float* wm = wacc + kWarps * d;
+  float* wl = wm + kWarps;
+  if (grp == 0) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int col = lane + 32 * c;
-    if (col < d) wacc[warp * d + col] = acc[c];
+    for (int n = 0; n < NV; ++n) {
+      const int v = li + LK * n;
+      if (v < nvec)
+#pragma unroll
+        for (int e = 0; e < E; ++e) wacc[warp * d + v * E + e] = acc[n][e];
+    }
+    if (li == 0) {
+      wm[warp] = m;
+      wl[warp] = l;
+    }
   }
   __syncthreads();
   float mx = wm[0];
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wm[w]);
-  for (int col = threadIdx.x; col < d; col += kThreads) {
-    float sum_l = 0.f;
-    float sum_o = 0.f;
+  float aw[kWarps];
+  float sum_l = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float a = expf(wm[w] - mx);
-      sum_l += wl[w] * a;
-      sum_o += wacc[w * d + col] * a;
-    }
-    o[bh * d + col] = sum_o / sum_l;
+  for (int w = 0; w < kWarps; ++w) {
+    aw[w] = expf(wm[w] - mx);
+    sum_l += wl[w] * aw[w];
   }
+  if (splits == 1) {
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum_o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum_o += wacc[w * d + c] * aw[w];
+      o[bh * d + c] = sum_o / sum_l;
+    }
+    return;
+  }
+
+  // Split: write this CTA's partial, take a ticket; the last CTA of the
+  // (slot, head) merges every non-empty split's partial in split order.
+  const int stride = d + 2;
+  float* mine = part + (bh * splits + split) * stride;
+  if (k1 > k0) {
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum_o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum_o += wacc[w * d + c] * aw[w];
+      mine[c] = sum_o;
+    }
+    if (threadIdx.x == 0) {
+      mine[d] = mx;
+      mine[d + 1] = sum_l;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&g_tickets[bh], 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* all = part + bh * splits * stride;
+  auto empty = [&](int s) {
+    return static_cast<int64_t>(s) * n_live / splits ==
+           static_cast<int64_t>(s + 1) * n_live / splits;
+  };
+  float gm = kNegInf;
+  for (int s = 0; s < splits; ++s)
+    if (!empty(s)) gm = fmaxf(gm, __ldcg(all + s * stride + d));
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float sum_o = 0.f;
+    float sum = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      if (empty(s)) continue;
+      const float* ps = all + s * stride;
+      const float a = expf(__ldcg(ps + d) - gm);
+      sum += __ldcg(ps + d + 1) * a;
+      sum_o += __ldcg(ps + c) * a;
+    }
+    o[bh * d + c] = sum_o / sum;
+  }
+  if (threadIdx.x == 0) g_tickets[bh] = 0;
 }
 
-template <typename T, int NC>
+template <typename T, int E, int LK, int NV>
 int launch(const float* q, const void* kp, const void* vp, const int* ptab,
-           const int* lengths, const int* t, float* o, int batch, int heads,
-           int n_pages, int page, int d, int64_t page_stride, int n_phys,
-           int bucket, float scale, cudaStream_t st) {
-  // Set once per instance, to the most any launch may use (the attribute
-  // is per device: one card per process), so that no launch captured in
-  // a CUDA graph makes the call.
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, NC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  const size_t smem = smem_floats(page, d) * sizeof(float);
-  const unsigned grid = static_cast<unsigned>(batch) * heads;
-  paged_decode_kernel<T, NC><<<grid, kThreads, smem, st>>>(
+           const int* lengths, const int* t, float* o, float* part,
+           int64_t bh, int heads, int n_pages, int page, int d,
+           int64_t page_stride, int n_phys, int bucket, float scale,
+           int splits, cudaStream_t st) {
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  const int tile_rows = min(page, max(1, kTileBytes / row_bytes));
+  const unsigned grid = static_cast<unsigned>(bh * splits);
+  paged_decode_kernel<T, E, LK, NV><<<grid, kThreads, 0, st>>>(
       q, static_cast<const T*>(kp), static_cast<const T*>(vp), ptab, lengths,
-      t, o, heads, n_pages, page, d, page_stride, n_phys, bucket, scale);
+      t, o, part, heads, n_pages, page, d, page_stride, n_phys, bucket,
+      scale, splits, tile_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+#define MV_PAGED_ARGS                                                     \
+  q, kp, vp, ptab, lengths, t, o, part, bh, heads, n_pages, page, d,       \
+      page_stride, n_phys, bucket, scale, splits, st
+
+// The vector instances: E values a 16-byte vector, LK the power of two
+// >= d / E (at least 4, at most 32) lanes a row.
+template <typename T>
+int dispatch_vec(const float* q, const void* kp, const void* vp,
+                 const int* ptab, const int* lengths, const int* t, float* o,
+                 float* part, int64_t bh, int heads, int n_pages, int page,
+                 int d, int64_t page_stride, int n_phys, int bucket,
+                 float scale, int splits, cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  const int nvec = d / E;
+  if (nvec <= 4) return launch<T, E, 4, 1>(MV_PAGED_ARGS);
+  if (nvec <= 8) return launch<T, E, 8, 1>(MV_PAGED_ARGS);
+  if (nvec <= 16) return launch<T, E, 16, 1>(MV_PAGED_ARGS);
+  if (nvec <= 32) return launch<T, E, 32, 1>(MV_PAGED_ARGS);
+  if constexpr (E == 4) return launch<T, E, 32, 2>(MV_PAGED_ARGS);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The narrow instances: one value a vector, 32 lanes a row.
+template <typename T>
+int dispatch_narrow(const float* q, const void* kp, const void* vp,
+                    const int* ptab, const int* lengths, const int* t,
+                    float* o, float* part, int64_t bh, int heads,
+                    int n_pages, int page, int d, int64_t page_stride,
+                    int n_phys, int bucket, float scale, int splits,
+                    cudaStream_t st) {
+  if (d <= 32) return launch<T, 1, 32, 1>(MV_PAGED_ARGS);
+  if (d <= 64) return launch<T, 1, 32, 2>(MV_PAGED_ARGS);
+  if (d <= 128) return launch<T, 1, 32, 4>(MV_PAGED_ARGS);
+  return launch<T, 1, 32, 8>(MV_PAGED_ARGS);
 }
 
 template <typename T>
 int dispatch(const float* q, const void* kp, const void* vp, const int* ptab,
-             const int* lengths, const int* t, float* o, int batch,
-             int heads, int n_pages, int page, int d, int64_t page_stride,
-             int n_phys, int bucket, float scale, cudaStream_t st) {
-#define MV_PAGED_CASE(NC)                                                   \
-  return launch<T, NC>(q, kp, vp, ptab, lengths, t, o, batch, heads,        \
-                       n_pages, page, d, page_stride, n_phys, bucket, scale, \
-                       st)
-  switch ((d + 31) / 32) {
-    case 1: MV_PAGED_CASE(1);
-    case 2: MV_PAGED_CASE(2);
-    case 3:
-    case 4: MV_PAGED_CASE(4);
-    default: MV_PAGED_CASE(8);
-  }
-#undef MV_PAGED_CASE
+             const int* lengths, const int* t, float* o, float* part,
+             int64_t bh, int heads, int n_pages, int page, int d,
+             int64_t page_stride, int n_phys, int bucket, float scale,
+             int splits, cudaStream_t st) {
+  const int64_t row_bytes = static_cast<int64_t>(d) * sizeof(T);
+  const bool vec = row_bytes % 16 == 0 &&
+                   (page_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(vp) % 16 == 0;
+  if (vec) return dispatch_vec<T>(MV_PAGED_ARGS);
+  return dispatch_narrow<T>(MV_PAGED_ARGS);
 }
+
+#undef MV_PAGED_ARGS
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one launch takes at this page and head
-// size (the wrapper refuses what the card cannot give a block).
-int64_t mv_paged_decode_attn_smem_bytes(int page, int d) {
-  return static_cast<int64_t>(smem_floats(page, d) * sizeof(float));
-}
-
 // q [batch, heads, d] float32; kp and vp one layer of the page pool,
 // [n_phys, heads, page, d] with rows of a page contiguous per head and
 // page_stride elements between pages, float32 (bf16 == 0) or bfloat16
 // (bf16 == 1); ptab [batch, n_pages], lengths and t [batch], int32.
-// Writes o [batch, heads, d] float32. Returns cudaGetLastError() after the
-// launch (0 = launched); shapes the kernel does not take return
+// splits CTAs take each (slot, head); with splits > 1, part holds
+// batch * heads * splits * (d + 2) floats of scratch. Writes o
+// [batch, heads, d] float32. Returns cudaGetLastError() after the launch
+// (0 = launched); shapes the kernel does not take return
 // cudaErrorInvalidValue and launch nothing.
 int mv_paged_decode_attn(const float* q, const void* kp, const void* vp,
                          const int* ptab, const int* lengths, const int* t,
-                         float* o, int batch, int heads, int n_pages,
-                         int page, int d, int64_t page_stride, int n_phys,
-                         int bucket, float scale, int bf16, void* stream) {
+                         float* o, float* part, int batch, int heads,
+                         int n_pages, int page, int d, int64_t page_stride,
+                         int n_phys, int bucket, float scale, int bf16,
+                         int splits, void* stream) {
   if (batch <= 0 || heads <= 0) return 0;
+  const int64_t bh = static_cast<int64_t>(batch) * heads;
   if (n_pages <= 0 || page <= 0 || d <= 0 || d > kMaxD || n_phys <= 0 ||
-      static_cast<int64_t>(batch) * heads > 0x7fffffffLL ||
-      mv_paged_decode_attn_smem_bytes(page, d) > kMaxSmem)
+      splits <= 0 || splits > n_pages || bh * splits > 0x7fffffffLL ||
+      (splits > 1 && (part == nullptr || bh > kMaxTickets)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, kp, vp, ptab, lengths, t, o, batch,
+    return dispatch<__nv_bfloat16>(q, kp, vp, ptab, lengths, t, o, part, bh,
                                    heads, n_pages, page, d, page_stride,
-                                   n_phys, bucket, scale, st);
-  return dispatch<float>(q, kp, vp, ptab, lengths, t, o, batch, heads,
+                                   n_phys, bucket, scale, splits, st);
+  return dispatch<float>(q, kp, vp, ptab, lengths, t, o, part, bh, heads,
                          n_pages, page, d, page_stride, n_phys, bucket,
-                         scale, st);
+                         scale, splits, st);
 }
 
 }  // extern "C"

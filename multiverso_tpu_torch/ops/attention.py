@@ -28,7 +28,10 @@ layer's page pool through a page table, with the serving step's mask
 returns the normalised float32 output. On CUDA tensors it launches the
 kernel of ``csrc/paged_attention.cu`` (or raises); on CPU tensors it runs
 :func:`paged_decode_attn_plain`, the JAX serving step's gather, mask and
-softmax line for line, which is also the kernel's oracle.
+softmax line for line, which is also the kernel's oracle. The kernel
+reads only the pages that the mask admits some key of
+(:func:`paged_live_pages`), split over :func:`paged_splits` CTAs per
+(slot, head).
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ NEG_INF = -1e30
 BLOCK = 128          # the TPU kernel's tile; Sq and Sk must divide by it
 MAX_HEAD_DIM = 256   # csrc/attention.cu kMaxD
 PAGED_MAX_HEAD_DIM = 256   # csrc/paged_attention.cu kMaxD
-PAGED_MAX_SMEM = 232448    # csrc/paged_attention.cu kMaxSmem
+PAGED_MAX_TICKETS = 1 << 16   # csrc/paged_attention.cu kMaxTickets
+#: B7's grid aims at this many CTAs an SM (``paged_splits``).
+PAGED_CTAS_PER_SM = 4
 
 #: Kernel launches, counted where the kernel is launched.
 LAUNCHES: Dict[str, int] = {"flash_block_attn": 0, "paged_decode_attn": 0}
@@ -178,8 +183,7 @@ def _launch(q, k, v, bias, scale: float, causal: bool, q_off: int,
         bias.data_ptr() if bias is not None else None,
         o.data_ptr(), m.data_ptr(), l.data_ptr(), B * H, sq, sk, d,
         float(scale), int(bool(causal)), q_off, k_off,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(q.dtype == torch.bfloat16), _build.stream(q))
     _build.check_launch(err, "flash_block_attn")
     LAUNCHES["flash_block_attn"] += 1
     return o, m, l
@@ -252,16 +256,51 @@ def paged_decode_attn_plain(q: torch.Tensor, kp: torch.Tensor,
     return torch.einsum("bhk,bhkd->bhd", probs, vf)
 
 
+def paged_live_pages(lengths: torch.Tensor, t: torch.Tensor, *,
+                     bucket: int, page: int, n_pages: int) -> torch.Tensor:
+    """``[B, G]`` bool: the logical pages the kernel reads. Page ``j`` of
+    slot ``b`` is live iff ``j*P < lengths[b]`` or ``[j*P, j*P + P - 1]``
+    meets ``[bucket, bucket + t[b]]``; every other page holds only keys
+    the mask excludes, whose weight is exactly 0. A slot with no live
+    page reads all of them (``csrc/paged_attention.cu::live_runs``)."""
+    j = torch.arange(n_pages, device=lengths.device)[None, :] * page
+    lengths = lengths.long()[:, None]
+    hi = bucket + t.long()[:, None]
+    live = (j < lengths) | ((j <= hi) & (j + page - 1 >= bucket)
+                            & (hi >= bucket))
+    return live | ~live.any(dim=1, keepdim=True)
+
+
+_SMS: Dict[int, int] = {}
+
+
+def paged_splits(bh: int, n_pages: int, sms: int) -> int:
+    """CTAs per (slot, head) of one B7 launch: enough that ``bh`` x splits
+    CTAs make ``PAGED_CTAS_PER_SM`` an SM, at most one per page of the
+    table (the live count of a slot is known only on the card). One where
+    ``bh`` already fills the card or passes the kernel's ticket
+    counters."""
+    if bh > PAGED_MAX_TICKETS:
+        return 1
+    return max(1, min(n_pages, -(-PAGED_CTAS_PER_SM * sms // bh)))
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
 def _paged_lib():
     lib = _build.load("paged_attention")
     if not getattr(lib, "_mv_typed", False):
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_paged_decode_attn.argtypes = [
-            c, c, c, c, c, c, c, i32, i32, i32, i32, i32, i64, i32, i32,
-            ctypes.c_float, i32, c]
+            c, c, c, c, c, c, c, c, i32, i32, i32, i32, i32, i64, i32, i32,
+            ctypes.c_float, i32, i32, c]
         lib.mv_paged_decode_attn.restype = ctypes.c_int
-        lib.mv_paged_decode_attn_smem_bytes.argtypes = [i32, i32]
-        lib.mv_paged_decode_attn_smem_bytes.restype = i64
         lib._mv_typed = True
     return lib
 
@@ -306,12 +345,6 @@ def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
             raise NotImplementedError(
                 f"paged_decode_attn on a card takes dh <= "
                 f"{PAGED_MAX_HEAD_DIM}; got dh={dh} (ROADMAP B7)")
-        smem = _paged_lib().mv_paged_decode_attn_smem_bytes(page, dh)
-        if smem > PAGED_MAX_SMEM:
-            raise NotImplementedError(
-                f"paged_decode_attn on a card stages a page of {page} x "
-                f"{dh} in shared memory; that needs {smem} bytes, more "
-                f"than a block's {PAGED_MAX_SMEM} (ROADMAP B7)")
         inner = (page * dh, dh, 1)
         if tuple(kp.stride()[1:]) != inner or kp.stride() != vp.stride():
             raise ValueError(
@@ -324,18 +357,25 @@ def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
 def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
                   scale: float) -> torch.Tensor:
     B, H, dh = q.shape
-    o = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
-        return o
+    G = ptab.shape[1]
+    n = B * H * dh
+    if n == 0:
+        return torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
+    splits = paged_splits(B * H, G, _sm_count(q.device))
+    # The output and, where the slots split, the partials of every CTA
+    # (acc, m, l), in one allocation.
+    buf = torch.empty(n + (B * H * splits * (dh + 2) if splits > 1 else 0),
+                      dtype=torch.float32, device=q.device)
+    o = buf[:n].view(B, H, dh)
     q = q.contiguous()
     ptab, lengths, t = (x.to(torch.int32).contiguous()
                         for x in (ptab, lengths, t))
     err = _paged_lib().mv_paged_decode_attn(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptab.data_ptr(),
-        lengths.data_ptr(), t.data_ptr(), o.data_ptr(), B, H,
-        ptab.shape[1], page, dh, kp.stride(0), kp.shape[0], int(bucket),
-        float(scale), int(kp.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), t.data_ptr(), o.data_ptr(),
+        buf.data_ptr() + 4 * n if splits > 1 else None, B, H, G, page, dh,
+        kp.stride(0), kp.shape[0], int(bucket), float(scale),
+        int(kp.dtype == torch.bfloat16), splits, _build.stream(q))
     _build.check_launch(err, "paged_decode_attn")
     LAUNCHES["paged_decode_attn"] += 1
     return o
