@@ -1423,10 +1423,10 @@ def paged_bound(q, kp, ptab, lengths, t, bucket, page):
 PAGED_LONG_BUCKET = 2048   # B7's long-context shape: 8 full prompts
 
 #: (head size, pool dtype) of one small B7 case per template instance of
-#: ``csrc/paged_attention.cu``: the 16-byte vector instances at 4, 8, 16
-#: and 32 lanes a key row (and 32 x 2 vectors at float32 dh 256), then the
-#: narrow ones (rows not whole 16-byte vectors) at 1, 2, 4 and 8 values a
-#: lane.
+#: ``csrc/paged_attention.cu``: the 16-byte vector instances (4 lanes a
+#: key row, then 8 lanes with 1, 2, 4 or 8 vectors a lane), then the
+#: narrow ones (rows not whole 16-byte vectors: 32 lanes a row with 1, 2,
+#: 4 or 8 values a lane).
 PAGED_INSTANCES = (
     (8, "float32"), (32, "float32"), (64, "float32"), (128, "float32"),
     (256, "float32"), (8, "bfloat16"), (64, "bfloat16"), (128, "bfloat16"),

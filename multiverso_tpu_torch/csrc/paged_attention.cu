@@ -70,9 +70,10 @@
 //     of the same kernel (one value a vector; bfloat16 then copied by
 //     plain loads).
 //   * Every lane works on the dot products: LK lanes hold one key row (at
-//     dh 64 in float32, 16 lanes of 4 columns), so a warp scores 32 / LK
-//     keys at once and reduces each in log2(LK) xor shuffles within its
-//     group. Each group keeps its own online softmax (one expf a key:
+//     dh 64 in float32, 8 lanes of two float4 each), so a warp scores
+//     32 / LK keys at once, a CTA a page of 16 in one pass, and each score
+//     is reduced in log2(LK) xor shuffles within its group. Each group
+//     keeps its own online softmax (one expf a key, no divergence:
 //     exp(s - m), or exp(m - s) where s is the new max) and p . V goes by
 //     the same columns. The groups, then the warps, then the CTAs merge
 //     (m, l, acc) in a fixed order.
@@ -85,17 +86,24 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxD = 256;
+// Build-time knobs, overridden only to hold variants side by side
+// (scripts/torch_paged_steps.py --flags): warps a CTA, tiles in flight,
+// and the CTAs an SM that __launch_bounds__ asks registers for.
+#ifndef MV_PAGED_WARPS
+#define MV_PAGED_WARPS 4
+#endif
 #ifndef MV_PAGED_RING
 #define MV_PAGED_RING 4
 #endif
-#ifndef MV_PAGED_TILE_BYTES
-#define MV_PAGED_TILE_BYTES 4096
+#ifndef MV_PAGED_MIN_CTAS
+#define MV_PAGED_MIN_CTAS 1
 #endif
-constexpr int kRing = MV_PAGED_RING;            // tiles in flight a CTA
-constexpr int kTileBytes = MV_PAGED_TILE_BYTES; // K bytes of a tile (V too)
+constexpr int kWarps = MV_PAGED_WARPS;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRing = MV_PAGED_RING;    // tiles in flight a CTA
+constexpr int kTileBytes = 4096;        // K bytes of a tile (V as many)
+constexpr int kMaxD = 256;
+constexpr int kRowCap = 512;            // page-table entries kept in smem
 constexpr int kMaxTickets = 1 << 16;    // (slot, head) pairs that can split
 constexpr float kNegInf = -1e30f;       // pallas_attention.py NEG_INF
 
@@ -203,7 +211,7 @@ __device__ __forceinline__ Live live_runs(int length, int t, int bucket,
 // E: values a vector (16 bytes, or 1 value in the narrow instances); LK:
 // lanes that hold one key row; NV: vectors a lane holds of a row.
 template <typename T, int E, int LK, int NV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, MV_PAGED_MIN_CTAS)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ ptab,
                     const int* __restrict__ lengths,
@@ -215,6 +223,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   constexpr int VB = E * static_cast<int>(sizeof(T));
   constexpr int kTileElems = kTileBytes / static_cast<int>(sizeof(T));
   __shared__ __align__(16) unsigned char ring_raw[kRing * 2 * kTileBytes];
+  __shared__ int row[kRowCap];
   __shared__ int last;
   T* ring = reinterpret_cast<T*>(ring_raw);
 
@@ -228,19 +237,16 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   const int grp = lane / LK;
   const int nvec = d / E;
 
+  // The slot's mask scalars, its page-table row (into shared memory,
+  // clamped; a row longer than kRowCap is read from global memory tile by
+  // tile) and the lane's query columns are read together.
   const int length = lengths[b];
   const int t = tstep[b];
-  const Live live = live_runs(length, t, bucket, page, n_pages);
-  const int n_live = live.count();
-  const int k0 = static_cast<int>(static_cast<int64_t>(split) * n_live /
-                                  splits);
-  const int k1 = static_cast<int>(static_cast<int64_t>(split + 1) * n_live /
-                                  splits);
-  const int tpp = (page + tile_rows - 1) / tile_rows;   // tiles a page
-  const int n_tiles = (k1 - k0) * tpp;
   const int* prow = ptab + static_cast<int64_t>(b) * n_pages;
-  const int64_t head_off = static_cast<int64_t>(h) * page * d;
-
+  const bool row_s = n_pages <= kRowCap;
+  if (row_s)
+    for (int j = threadIdx.x; j < n_pages; j += kThreads)
+      row[j] = min(max(prow[j], 0), n_phys - 1);
   float qr[NV][E];
 #pragma unroll
   for (int n = 0; n < NV; ++n) {
@@ -249,11 +255,21 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     for (int e = 0; e < E; ++e)
       qr[n][e] = v < nvec ? q[bh * d + v * E + e] : 0.f;
   }
+  const Live live = live_runs(length, t, bucket, page, n_pages);
+  const int n_live = live.count();
+  const int k0 = static_cast<int>(static_cast<int64_t>(split) * n_live /
+                                  splits);
+  const int k1 = static_cast<int>(static_cast<int64_t>(split + 1) * n_live /
+                                  splits);
+  const int tpp = (page + tile_rows - 1) / tile_rows;   // tiles a page
+  const int n_tiles = (k1 - k0) * tpp;
+  const int64_t head_off = static_cast<int64_t>(h) * page * d;
+  __syncthreads();
 
   // The physical page of tile i (its live page's table entry, clamped).
   auto phys_of = [&](int i) {
-    const int p = prow[live.page(k0 + i / tpp)];
-    return min(max(p, 0), n_phys - 1);
+    const int j = live.page(k0 + i / tpp);
+    return row_s ? row[j] : min(max(prow[j], 0), n_phys - 1);
   };
   auto issue = [&](int i, int phys) {
     const int c = i % tpp;
@@ -305,7 +321,8 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     for (int kb = warp * GK; kb < rows; kb += kWarps * GK) {
       const int r = kb + grp;
       const bool valid = r < rows;
-      float s = 0.f;
+      // Two partial sums (even and odd vectors) halve the FMA chain.
+      float sp[2] = {0.f, 0.f};
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
         const int v = li + LK * n;
@@ -313,9 +330,11 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           float x[E];
           load_vec<T, E>(kt + r * d + v * E, x);
 #pragma unroll
-          for (int e = 0; e < E; ++e) s = fmaf(qr[n][e], x[e], s);
+          for (int e = 0; e < E; ++e)
+            sp[n & 1] = fmaf(qr[n][e], x[e], sp[n & 1]);
         }
       }
+      float s = sp[0] + sp[1];
 #pragma unroll
       for (int off = LK / 2; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -324,14 +343,14 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       const int pos = pos0 + r;
       s += (pos < length || (pos >= bucket && pos <= bucket + t)) ? 0.f
                                                                   : kNegInf;
-      float alpha = 1.f;
-      float p = 1.f;
-      if (s > m) {
-        alpha = expf(m - s);
-        m = s;
-      } else {
-        p = expf(s - m);
-      }
+      // One expf a key and no divergence between the warp's groups: a new
+      // max rescales the sums by exp(m - s) and weighs the key 1, any
+      // other key weighs exp(s - m).
+      const bool grows = s > m;
+      const float e = expf(grows ? m - s : s - m);
+      const float alpha = grows ? e : 1.f;
+      const float p = grows ? 1.f : e;
+      m = grows ? s : m;
       l = l * alpha + p;
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
@@ -422,30 +441,52 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       mine[d + 1] = sum_l;
     }
   }
-  __threadfence();
+  // As a cooperative grid barrier: the CTA's barrier, then one thread's
+  // fence and atomic publish every thread's writes; the last CTA's fence
+  // orders its reads of the partials after them.
   __syncthreads();
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0) {
+    __threadfence();
     last = atomicAdd(&g_tickets[bh], 1) == splits - 1;
+    if (last) __threadfence();
+  }
   __syncthreads();
   if (!last) return;
-  __threadfence();
+  // Each column merges the splits in order, 8 at a time: their m, l and
+  // the column's acc loaded together (a split with no page was never
+  // written and is skipped), the running max and sums rescaled per 8.
   const float* all = part + bh * splits * stride;
-  auto empty = [&](int s) {
-    return static_cast<int64_t>(s) * n_live / splits ==
-           static_cast<int64_t>(s + 1) * n_live / splits;
-  };
-  float gm = kNegInf;
-  for (int s = 0; s < splits; ++s)
-    if (!empty(s)) gm = fmaxf(gm, __ldcg(all + s * stride + d));
   for (int c = threadIdx.x; c < d; c += kThreads) {
-    float sum_o = 0.f;
+    float gm = kNegInf;
     float sum = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      if (empty(s)) continue;
-      const float* ps = all + s * stride;
-      const float a = expf(__ldcg(ps + d) - gm);
-      sum += __ldcg(ps + d + 1) * a;
-      sum_o += __ldcg(ps + c) * a;
+    float sum_o = 0.f;
+    for (int s0 = 0; s0 < splits; s0 += 8) {
+      float pm[8], pl[8], pa[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int sj = s0 + j;
+        const bool some = sj < splits &&
+                          static_cast<int64_t>(sj) * n_live / splits <
+                              static_cast<int64_t>(sj + 1) * n_live / splits;
+        const float* ps = all + sj * stride;
+        pm[j] = some ? __ldcg(ps + d) : -INFINITY;
+        pl[j] = some ? __ldcg(ps + d + 1) : 0.f;
+        pa[j] = some ? __ldcg(ps + c) : 0.f;
+      }
+      float cm = gm;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cm = fmaxf(cm, pm[j]);
+      const float r = expf(gm - cm);
+      sum *= r;
+      sum_o *= r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (pm[j] == -INFINITY) continue;
+        const float a = expf(pm[j] - cm);
+        sum += pl[j] * a;
+        sum_o += pa[j] * a;
+      }
+      gm = cm;
     }
     o[bh * d + c] = sum_o / sum;
   }
@@ -472,8 +513,9 @@ int launch(const float* q, const void* kp, const void* vp, const int* ptab,
   q, kp, vp, ptab, lengths, t, o, part, bh, heads, n_pages, page, d,       \
       page_stride, n_phys, bucket, scale, splits, st
 
-// The vector instances: E values a 16-byte vector, LK the power of two
-// >= d / E (at least 4, at most 32) lanes a row.
+// The vector instances: E values a 16-byte vector. A key row takes 8
+// lanes (4 where it has 4 vectors or fewer), so a warp scores 4 keys at
+// once and a CTA a page of 16 in one pass; a lane holds NV vectors.
 template <typename T>
 int dispatch_vec(const float* q, const void* kp, const void* vp,
                  const int* ptab, const int* lengths, const int* t, float* o,
@@ -484,9 +526,9 @@ int dispatch_vec(const float* q, const void* kp, const void* vp,
   const int nvec = d / E;
   if (nvec <= 4) return launch<T, E, 4, 1>(MV_PAGED_ARGS);
   if (nvec <= 8) return launch<T, E, 8, 1>(MV_PAGED_ARGS);
-  if (nvec <= 16) return launch<T, E, 16, 1>(MV_PAGED_ARGS);
-  if (nvec <= 32) return launch<T, E, 32, 1>(MV_PAGED_ARGS);
-  if constexpr (E == 4) return launch<T, E, 32, 2>(MV_PAGED_ARGS);
+  if (nvec <= 16) return launch<T, E, 8, 2>(MV_PAGED_ARGS);
+  if (nvec <= 32) return launch<T, E, 8, 4>(MV_PAGED_ARGS);
+  if constexpr (E == 4) return launch<T, E, 8, 8>(MV_PAGED_ARGS);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

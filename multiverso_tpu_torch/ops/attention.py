@@ -307,26 +307,29 @@ def _paged_lib():
 
 def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
     """Validate; True when the tensors lie on one CUDA device (launch the
-    kernel), False when all lie on the CPU (run the plain version)."""
-    tensors = (q, kp, vp, ptab, lengths, t)
-    devs = {x.device for x in tensors}
-    on_card = len(devs) == 1 and next(iter(devs)).type == "cuda"
-    if not on_card and {d.type for d in devs} != {"cpu"}:
+    kernel), False when all lie on the CPU (run the plain version). Every
+    test reads tensor attributes directly: this runs on every decode step
+    of every layer."""
+    dev = q.device
+    if not (kp.device == dev and vp.device == dev and ptab.device == dev
+            and lengths.device == dev and t.device == dev) or \
+            dev.type not in ("cuda", "cpu"):
+        devs = {x.device for x in (q, kp, vp, ptab, lengths, t)}
         raise ValueError("paged_decode_attn takes tensors on one CUDA "
                          "device or all on the CPU; got "
                          f"{sorted(map(str, devs))}")
     if kp.dtype == torch.int8 or vp.dtype == torch.int8:
         raise NotImplementedError(INT8_PAGES)
-    if q.dim() != 3 or kp.dim() != 4 or vp.shape != kp.shape or \
-            kp.shape[1] != q.shape[1] or kp.shape[3] != q.shape[2] or \
-            kp.shape[2] != page:
+    qs, ks = q.shape, kp.shape
+    if len(qs) != 3 or len(ks) != 4 or vp.shape != ks or ks[1] != qs[1] \
+            or ks[3] != qs[2] or ks[2] != page:
         raise ValueError(
             "paged_decode_attn takes q [B,H,dh] and kp, vp [n_phys,H,page,"
-            f"dh] with page={page}; got {tuple(q.shape)}, "
-            f"{tuple(kp.shape)}, {tuple(vp.shape)}")
-    B = q.shape[0]
-    if ptab.dim() != 2 or ptab.shape[0] != B or \
-            tuple(lengths.shape) != (B,) or tuple(t.shape) != (B,):
+            f"dh] with page={page}; got {tuple(qs)}, {tuple(ks)}, "
+            f"{tuple(vp.shape)}")
+    B = qs[0]
+    if ptab.dim() != 2 or ptab.shape[0] != B or lengths.shape != (B,) or \
+            t.shape != (B,):
         raise ValueError(
             f"paged_decode_attn takes ptab [B,G] and lengths, t [B] with "
             f"B={B}; got {tuple(ptab.shape)}, {tuple(lengths.shape)}, "
@@ -339,42 +342,65 @@ def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
     for x in (ptab, lengths, t):
         if x.dtype.is_floating_point or x.dtype == torch.bool:
             raise ValueError("ptab, lengths and t must be integer tensors")
-    if on_card:
-        dh = q.shape[2]
-        if dh > PAGED_MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"paged_decode_attn on a card takes dh <= "
-                f"{PAGED_MAX_HEAD_DIM}; got dh={dh} (ROADMAP B7)")
-        inner = (page * dh, dh, 1)
-        if tuple(kp.stride()[1:]) != inner or kp.stride() != vp.stride():
-            raise ValueError(
-                "paged_decode_attn on a card needs each page's [H, page, "
-                "dh] block contiguous and kp, vp with equal strides; got "
-                f"{kp.stride()}, {vp.stride()}")
-    return on_card
+    if dev.type == "cpu":
+        return False
+    dh = qs[2]
+    if dh > PAGED_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"paged_decode_attn on a card takes dh <= "
+            f"{PAGED_MAX_HEAD_DIM}; got dh={dh} (ROADMAP B7)")
+    stride = kp.stride()
+    if stride[1:] != (page * dh, dh, 1) or stride != vp.stride():
+        raise ValueError(
+            "paged_decode_attn on a card needs each page's [H, page, "
+            "dh] block contiguous and kp, vp with equal strides; got "
+            f"{stride}, {vp.stride()}")
+    return True
+
+
+# Scratch of the split launches' partials, one buffer per card, grown as
+# needed. Launches on one card run in stream order (the serving path has
+# one stream), so one buffer serves them all, as one set of ticket
+# counters does in the kernel. An outgrown buffer is kept: a CUDA graph
+# captured with it may still replay.
+_SCRATCH: Dict[int, torch.Tensor] = {}
+_SCRATCH_KEPT = []
+
+
+def _paged_scratch(dev: torch.device, n: int) -> int:
+    buf = _SCRATCH.get(dev.index)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _SCRATCH_KEPT.append(buf)
+        buf = _SCRATCH[dev.index] = torch.empty(n, dtype=torch.float32,
+                                                device=dev)
+    return buf.data_ptr()
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.int32 and x.is_contiguous():
+        return x
+    return x.to(torch.int32).contiguous()
 
 
 def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
                   scale: float) -> torch.Tensor:
     B, H, dh = q.shape
     G = ptab.shape[1]
-    n = B * H * dh
-    if n == 0:
-        return torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
-    splits = paged_splits(B * H, G, _sm_count(q.device))
-    # The output and, where the slots split, the partials of every CTA
-    # (acc, m, l), in one allocation.
-    buf = torch.empty(n + (B * H * splits * (dh + 2) if splits > 1 else 0),
-                      dtype=torch.float32, device=q.device)
-    o = buf[:n].view(B, H, dh)
-    q = q.contiguous()
-    ptab, lengths, t = (x.to(torch.int32).contiguous()
-                        for x in (ptab, lengths, t))
+    dev = q.device
+    o = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+    if B * H * dh == 0:
+        return o
+    splits = paged_splits(B * H, G, _sm_count(dev))
+    part = (_paged_scratch(dev, B * H * splits * (dh + 2)) if splits > 1
+            else None)
+    if not q.is_contiguous():
+        q = q.contiguous()
+    ptab, lengths, t = _int32(ptab), _int32(lengths), _int32(t)
     err = _paged_lib().mv_paged_decode_attn(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptab.data_ptr(),
-        lengths.data_ptr(), t.data_ptr(), o.data_ptr(),
-        buf.data_ptr() + 4 * n if splits > 1 else None, B, H, G, page, dh,
-        kp.stride(0), kp.shape[0], int(bucket), float(scale),
+        lengths.data_ptr(), t.data_ptr(), o.data_ptr(), part, B, H, G, page,
+        dh, kp.stride(0), kp.shape[0], int(bucket), float(scale),
         int(kp.dtype == torch.bfloat16), splits, _build.stream(q))
     _build.check_launch(err, "paged_decode_attn")
     LAUNCHES["paged_decode_attn"] += 1

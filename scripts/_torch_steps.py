@@ -10,7 +10,8 @@ the port's ``nvcc`` flags for that source plus the version's
 run through this checkout's wrapper. With neither, the checkout itself
 is the one version. ``--order`` runs them in turns, repeats allowed
 (``parent,new,new,parent``). A script passes its own readings as
-``child``; each child prints one JSON record as its last line, and the
+``child`` (``child_spec`` reads its version); each child prints one JSON
+record as its last line, and the
 records, with the version's name and the card's name and power limit,
 go to ``--out``.
 """
@@ -38,8 +39,7 @@ def add_arguments(ap: argparse.ArgumentParser) -> None:
                     metavar="NAME=FLAGS")
     ap.add_argument("--order", default=None)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--child", nargs=3, metavar=("TREE", "CU", "FLAGS"),
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
 
 
 def versions(args) -> Dict[str, Tuple[str, str, str]]:
@@ -53,6 +53,11 @@ def versions(args) -> Dict[str, Tuple[str, str, str]]:
         name, path = spec.split("=", 1)
         out[name] = (REPO, os.path.abspath(path), flags.get(name, ""))
     return out or {"checkout": (REPO, "", "")}
+
+
+def child_spec(args) -> Tuple[str, str, str]:
+    """(tree, variant source or "", extra flags or "") of a child."""
+    return tuple(json.loads(args.child))
 
 
 def variant_library(source: str, cu: str, flags: str = "") -> str:
@@ -87,10 +92,12 @@ def build_variants(source: str, variants: Sequence[Tuple[str, str]]
 
 
 def import_from(tree: str, module: str):
-    """Import ``multiverso_tpu_torch.<module>`` from ``tree`` (this
-    checkout stays importable for ``chip_smoke``'s helpers)."""
+    """Import ``multiverso_tpu_torch.<module>`` from ``tree``. This
+    checkout's ``chip_smoke`` (inputs, timing helpers, tolerances) is
+    imported first, so a tree's own copy never replaces it."""
     import importlib
     sys.path.insert(0, REPO)
+    import chip_smoke  # noqa: F401
     sys.path.insert(0, tree)
     mod = importlib.import_module(f"multiverso_tpu_torch.{module}")
     root = os.path.dirname(os.path.dirname(os.path.dirname(mod.__file__)))
@@ -118,7 +125,7 @@ def run(script: str, args, child_args: Sequence[str] = (),
         timeout: int = 900, on_record: Callable[[dict], None] = None
         ) -> List[dict]:
     """Run every version of ``args`` in the order asked, each as
-    ``python <script> <child_args> --child TREE CU FLAGS``; the records,
+    ``python <script> <child_args> --child=[TREE, CU, FLAGS]``; the records,
     each with ``version`` and ``card``. Raises if a version fails."""
     sys.path.insert(0, REPO)
     import chip_smoke as cs
@@ -130,8 +137,8 @@ def run(script: str, args, child_args: Sequence[str] = (),
         tree, cu, flags = vs[name]
         proc = subprocess.run(
             [sys.executable, os.path.abspath(script), *child_args,
-             "--child", tree, cu, flags], capture_output=True, text=True,
-            timeout=timeout)
+             "--child=" + json.dumps([tree, cu, flags])],
+            capture_output=True, text=True, timeout=timeout)
         if proc.returncode != 0:
             raise RuntimeError(f"{name} failed:\n{proc.stdout[-3000:]}\n"
                                f"{proc.stderr[-3000:]}")

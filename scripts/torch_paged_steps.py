@@ -46,8 +46,9 @@ import _torch_steps as steps  # noqa: E402
 
 ENTRY = "mv_paged_decode_attn"
 # The serving shape's instance (float32, dh 64): this kernel's (16-byte
-# vectors, 16 lanes a key row) and the PR 5 kernel's (2 columns a lane).
-MAIN = ("paged_decode_kernelIfLi4ELi16ELi1EE", "paged_decode_kernelIfLi2EE")
+# vectors, 8 lanes a key row, 2 vectors a lane) and the PR 5 kernel's (2
+# columns a lane).
+MAIN = ("paged_decode_kernelIfLi4ELi8ELi2EE", "paged_decode_kernelIfLi2EE")
 
 
 def host_ms(fn, calls: int = 200, readings: int = 5) -> float:
@@ -205,7 +206,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     splits = [int(x) for x in args.splits.split(",") if x]
     if args.child:
-        print(json.dumps(child(*args.child, args.reps, splits)))
+        print(json.dumps(child(*steps.child_spec(args), args.reps, splits)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -214,6 +215,7 @@ def main(argv=None) -> int:
         return 2
     variants = [(cu, flags) for _, cu, flags in steps.versions(args).values()
                 if cu]
+    sys.path.insert(0, steps.REPO)
     import chip_smoke as cs
     for (cu, flags), log in steps.build_variants("paged_attention",
                                                  variants).items():
