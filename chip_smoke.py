@@ -99,9 +99,9 @@ cache as a yardstick, held with NaN in every page the mask wholly
 excludes (the kernel skips them; the plain version gets clean pages), and
 launched twice (bitwise equal) and from a CUDA graph (equal to the eager
 launch); then with a bfloat16 pool, a page that does not divide the
-bucket, an idle slot on the garbage page, t = 0, dh = 128, B x H that
-fills the card, and one small case per template instance
-(``PAGED_INSTANCES``), within ``PAGED_TOL``.
+bucket, an idle slot on the garbage page, t = 0, dh = 128, one small case
+per template instance (``PAGED_INSTANCES``), a table of 604 one-row pages
+and B x H that fills the card, within ``PAGED_TOL``.
 
 Every launch count is set to 0 just before each main-path run of phases
 3, 4, 6 and 7 and read just after it, so the comparisons of phase 2 do
@@ -268,18 +268,30 @@ def spread(r: dict) -> str:
     return f"{r['median']:.4f} [{r['min']:.4f}-{r['max']:.4f}]"
 
 
-def kernels_launched(fn) -> list:
+def kernels_launched(fn, sessions: int = 3) -> list:
     """The names of the device activities (kernels, copies) that one call
-    of ``fn`` starts, traced by ``torch.profiler``."""
+    of ``fn`` starts, traced by ``torch.profiler``. A session that records
+    no device activity at all saw nothing: on the H100's machines a
+    session now and then comes back empty, in this script's first check
+    and in the same calls of earlier trees, while 60 sessions of one B2
+    call in a loop came back whole. ``fn`` is then traced again in a new
+    session, at most ``sessions`` times; an empty list is returned only if
+    every session came back empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+        log("  torch.profiler recorded no device activity; tracing again")
+    return []
 
 
 def bound_ms(n_bytes: float, n_ops: float = 0.0,
@@ -1521,8 +1533,9 @@ def check_paged_kernel(dev) -> dict:
     mask wholly excludes, and launched twice (bitwise equal) and from a
     CUDA graph (equal to the eager launch). Then small variants: a
     bfloat16 pool, a page that does not divide the bucket, an idle slot
-    on the garbage page, t = 0, dh = 128, B x H that fills the card (one
-    CTA a slot and head), and one case per template instance."""
+    on the garbage page, t = 0, dh = 128, one case per template instance,
+    a table of 604 pages of 1 row, and B x H that fills the card (one
+    CTA a slot and head)."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.ops import attention
@@ -1630,6 +1643,14 @@ def check_paged_kernel(dev) -> dict:
             a[3][0] = 0                     # every page the garbage page
         e = pair(f"B7 {case}", a, page, bucket, d ** -0.5)
         variants.append({"case": case, "max_abs_err": e})
+    # A table longer than the kernel keeps in shared memory (512 entries):
+    # page 1, G 604, the page-table row read from global memory.
+    a = paged_inputs(g, dev, [3, 600, 17, 1], [0, 3, 2, 1], 600, 4, 1, 4,
+                     64, 700)
+    e = pair("B7 page 1, G 604 (the page-table row from global memory)", a,
+             1, 600, 0.125)
+    variants.append({"case": "page 1, G 604: the page-table row from "
+                             "global memory", "max_abs_err": e})
     # B x H past PAGED_CTAS_PER_SM CTAs an SM: one CTA a slot and head.
     heads = 12
     slots = -(-attention.PAGED_CTAS_PER_SM * sms // heads)

@@ -28,7 +28,11 @@
 // card's ~20 flops per byte of float32 HBM balance. At the serving shape
 // (8 slots, 12 heads, dh 64, page 16, G 36) the admitted keys of
 // chip_smoke.py's serving inputs need 8.4 MB, ~2.5 us at 3.35 TB/s, out
-// of the 28.3 MB that all G pages hold.
+// of the 28.3 MB that all G pages hold. There the kernel is bound by
+// latency, not bytes: one slot holds 33 of the 91 live pages, and its
+// CTAs' chain of start-up (the mask scalars and page-table row, then the
+// first tiles), tiles and merge sets the time. At a long-context shape
+// (8 slots of G 132, ~100 MB) it streams near the HBM rate.
 //
 // Design.
 //   * Only live pages are read. Page j of slot b is live iff j * P <
@@ -51,24 +55,27 @@
 //     partial (acc, m, l) and writes it to `part`. The last CTA of a
 //     (slot, head) to finish, found by a ticket counter that it resets to
 //     0 (so a launch captured in a CUDA graph replays), merges the
-//     partials in split order into acc / l. Float atomics never touch the
-//     values: two launches are bitwise equal. The wrapper chooses
-//     `splits` from B * H and G so that the grid covers the SMs
-//     (ops/attention.py::paged_splits); the live count per slot is known
-//     only on the card, so a short slot's later CTAs find no page and only
-//     take their ticket. A CTA covers one head, not all heads of a page:
-//     the page's [H, P, dh] block is contiguous too, but one head's [P, dh]
-//     block is already 4 KB of 16-byte loads, and a per-head CTA keeps 96
-//     x splits CTAs at the serving shape where a per-page CTA would have 8
-//     x splits.
+//     partials in split order into acc / l, each column loading 8
+//     partials at a time. Float atomics never touch the values: two
+//     launches are bitwise equal. The tickets (and the wrapper's scratch)
+//     are one set per card: B7's launches on a card run in stream order,
+//     as the serving path's do. The wrapper chooses `splits` from B * H
+//     and G so that the grid makes PAGED_CTAS_PER_SM CTAs an SM
+//     (ops/attention.py::paged_splits; 6 at the serving shape); the live
+//     count of a slot is known only on the card, so a short slot's later
+//     CTAs find no page and only take their ticket. A CTA covers one
+//     head, not all heads of a page: the page's [H, P, dh] block is
+//     contiguous too, but one head's [P, dh] block is already 4 KB of
+//     16-byte loads, and a per-head CTA keeps 96 x splits CTAs at the
+//     serving shape where a per-page CTA would have 8 x splits.
 //   * Pages are staged in tiles of up to kTileBytes of K and as much of V
 //     (one page's rows of one head at dh 64, page 16, float32) through a
 //     ring of kRing tiles in shared memory, by 16-byte cp.async (float4,
 //     or 8 bfloat16 values), so tiles i + 1 .. i + kRing - 1 arrive while
-//     tile i is computed. A head size whose rows are not whole 16-byte
-//     vectors, or a pool not 16-byte aligned, takes the narrow instance
-//     of the same kernel (one value a vector; bfloat16 then copied by
-//     plain loads).
+//     tile i is computed; the slot's page-table row sits in shared memory.
+//     A head size whose rows are not whole 16-byte vectors, or a pool not
+//     16-byte aligned, takes the narrow instance of the same kernel (one
+//     value a vector; bfloat16 then copied by plain loads).
 //   * Every lane works on the dot products: LK lanes hold one key row (at
 //     dh 64 in float32, 8 lanes of two float4 each), so a warp scores
 //     32 / LK keys at once, a CTA a page of 16 in one pass, and each score
@@ -86,34 +93,43 @@
 
 namespace {
 
-// Build-time knobs, overridden only to hold variants side by side
-// (scripts/torch_paged_steps.py --flags): warps a CTA, tiles in flight,
-// and the CTAs an SM that __launch_bounds__ asks registers for.
-#ifndef MV_PAGED_WARPS
-#define MV_PAGED_WARPS 4
-#endif
-#ifndef MV_PAGED_RING
-#define MV_PAGED_RING 4
-#endif
-#ifndef MV_PAGED_MIN_CTAS
-#define MV_PAGED_MIN_CTAS 1
-#endif
-constexpr int kWarps = MV_PAGED_WARPS;
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRing = MV_PAGED_RING;    // tiles in flight a CTA
+constexpr int kRing = 4;                // tiles in flight a CTA
 constexpr int kTileBytes = 4096;        // K bytes of a tile (V as many)
 constexpr int kMaxD = 256;
 constexpr int kRowCap = 512;            // page-table entries kept in smem
 constexpr int kMaxTickets = 1 << 16;    // (slot, head) pairs that can split
 constexpr float kNegInf = -1e30f;       // pallas_attention.py NEG_INF
 
-static_assert(kRing >= 2, "the ring needs a tile in flight");
 static_assert(kWarps * (kMaxD + 2) * 4 <= kRing * 2 * kTileBytes,
               "the warps' merge reuses the ring");
 
 // One ticket counter per (slot, head), zero when the module loads; the
 // last CTA of a (slot, head) sets its counter back to 0.
 __device__ int g_tickets[kMaxTickets];
+
+// Phase marks: built with -DMV_PAGED_PROFILE (scripts/torch_paged_steps.py
+// --phases), thread 0 of each of the first kProfCtas CTAs stores
+// %globaltimer at its start (0), after its start-up loads (1), after its
+// pages (2) and at its exit (3); mv_paged_decode_attn_profile reads them.
+// Empty in the real build.
+#ifdef MV_PAGED_PROFILE
+constexpr int kProfCtas = 1 << 16;
+__device__ unsigned long long g_prof[kProfCtas][4];
+#define PROF_MARK(k)                                                   \
+  do {                                                                 \
+    if (threadIdx.x == 0 && blockIdx.x < kProfCtas) {                  \
+      unsigned long long ns;                                           \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));           \
+      g_prof[blockIdx.x][k] = ns;                                      \
+    }                                                                  \
+  } while (0)
+#else
+#define PROF_MARK(k) \
+  do {               \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -211,7 +227,7 @@ __device__ __forceinline__ Live live_runs(int length, int t, int bucket,
 // E: values a vector (16 bytes, or 1 value in the narrow instances); LK:
 // lanes that hold one key row; NV: vectors a lane holds of a row.
 template <typename T, int E, int LK, int NV>
-__global__ void __launch_bounds__(kThreads, MV_PAGED_MIN_CTAS)
+__global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ ptab,
                     const int* __restrict__ lengths,
@@ -236,6 +252,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   const int li = lane % LK;
   const int grp = lane / LK;
   const int nvec = d / E;
+  PROF_MARK(0);
 
   // The slot's mask scalars, its page-table row (into shared memory,
   // clamped; a row longer than kRowCap is read from global memory tile by
@@ -265,15 +282,14 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   const int n_tiles = (k1 - k0) * tpp;
   const int64_t head_off = static_cast<int64_t>(h) * page * d;
   __syncthreads();
+  PROF_MARK(1);
 
-  // The physical page of tile i (its live page's table entry, clamped).
-  auto phys_of = [&](int i) {
+  // Tile i into its ring slot: its live page's physical page (the table
+  // entry, clamped), rows [r0, r0 + tile_rows) of it.
+  auto issue = [&](int i) {
     const int j = live.page(k0 + i / tpp);
-    return row_s ? row[j] : min(max(prow[j], 0), n_phys - 1);
-  };
-  auto issue = [&](int i, int phys) {
-    const int c = i % tpp;
-    const int r0 = c * tile_rows;
+    const int phys = row_s ? row[j] : min(max(prow[j], 0), n_phys - 1);
+    const int r0 = (i % tpp) * tile_rows;
     const int n = min(tile_rows, page - r0) * nvec;
     const int64_t off = phys * page_stride + head_off +
                         static_cast<int64_t>(r0) * d;
@@ -293,24 +309,19 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[n][e] = 0.f;
 
-  // Prologue: the first kRing - 1 tiles, their page ids read together.
-  int ph[kRing - 1];
-#pragma unroll
-  for (int i = 0; i < kRing - 1; ++i) ph[i] = i < n_tiles ? phys_of(i) : 0;
+  // Prologue: the first kRing - 1 tiles.
 #pragma unroll
   for (int i = 0; i < kRing - 1; ++i) {
-    if (i < n_tiles) issue(i, ph[i]);
+    if (i < n_tiles) issue(i);
     cp_async_commit();
   }
-  int nphys = kRing - 1 < n_tiles ? phys_of(kRing - 1) : 0;
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<kRing - 2>();
     __syncthreads();        // tile i landed; every warp is done with i - 1
     const int nx = i + kRing - 1;
-    if (nx < n_tiles) issue(nx, nphys);
+    if (nx < n_tiles) issue(nx);
     cp_async_commit();
-    if (nx + 1 < n_tiles) nphys = phys_of(nx + 1);
 
     const int pi = i / tpp;
     const int r0 = (i - pi * tpp) * tile_rows;
@@ -366,6 +377,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     }
   }
   cp_async_wait<0>();
+  PROF_MARK(2);
 
   // Merge the warp's groups (xor over the lane bits above LK), in order.
 #pragma unroll
@@ -422,6 +434,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       for (int w = 0; w < kWarps; ++w) sum_o += wacc[w * d + c] * aw[w];
       o[bh * d + c] = sum_o / sum_l;
     }
+    PROF_MARK(3);
     return;
   }
 
@@ -451,7 +464,10 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     if (last) __threadfence();
   }
   __syncthreads();
-  if (!last) return;
+  if (!last) {
+    PROF_MARK(3);
+    return;
+  }
   // Each column merges the splits in order, 8 at a time: their m, l and
   // the column's acc loaded together (a split with no page was never
   // written and is skipped), the running max and sums rescaled per 8.
@@ -491,6 +507,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     o[bh * d + c] = sum_o / sum;
   }
   if (threadIdx.x == 0) g_tickets[bh] = 0;
+  PROF_MARK(3);
 }
 
 template <typename T, int E, int LK, int NV>
@@ -597,5 +614,15 @@ int mv_paged_decode_attn(const float* q, const void* kp, const void* vp,
                          n_pages, page, d, page_stride, n_phys, bucket,
                          scale, splits, st);
 }
+
+#ifdef MV_PAGED_PROFILE
+// The phase marks of the first n CTAs of the last launch, 4 each, into
+// host memory.
+int mv_paged_decode_attn_profile(unsigned long long* host, int n) {
+  if (n < 0 || n > kProfCtas) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, g_prof, sizeof(unsigned long long) * 4 * n));
+}
+#endif
 
 }  // extern "C"

@@ -70,23 +70,26 @@ def variant_library(source: str, cu: str, flags: str = "") -> str:
                         ".so")
 
 
-def build_variants(source: str, variants: Sequence[Tuple[str, str]]
-                   ) -> Dict[Tuple[str, str], str]:
+def build_variants(source: str, variants: Sequence[Tuple[str, str]],
+                   strict: bool = True) -> Dict[Tuple[str, str], str]:
     """Compile every (variant source, extra flags) at once with the
-    port's flags for ``csrc/<source>.cu``; {(cu, flags): ptxas output}."""
+    port's flags for ``csrc/<source>.cu``; {(cu, flags): compiler output}.
+    A failed build raises, or with ``strict`` false leaves no library."""
     sys.path.insert(0, REPO)
     from multiverso_tpu_torch.ops import _build
     procs, logs = {}, {}
     for cu, flags in dict.fromkeys(variants):
         lib = variant_library(source, cu, flags)
         os.makedirs(os.path.dirname(lib), exist_ok=True)
+        if os.path.exists(lib):
+            os.remove(lib)
         procs[cu, flags] = subprocess.Popen(
             [_build._nvcc(), *_build._flags(source), *shlex.split(flags),
              "-o", lib, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for key, proc in procs.items():
         logs[key], _ = proc.communicate()
-        if proc.returncode != 0:
+        if proc.returncode != 0 and strict:
             raise RuntimeError(f"nvcc failed for {key}:\n{logs[key][-3000:]}")
     return logs
 
@@ -106,13 +109,16 @@ def import_from(tree: str, module: str):
 
 
 def use_library(wrapper, path: str, names: Sequence[str],
-                lib_attr: str = "_lib"):
+                lib_attr: str = "_lib", keep: Sequence[str] = ()):
     """Point ``wrapper.<lib_attr>()`` at the library ``path``, a variant
-    build with the same C interface: the entry points ``names`` take the
-    real library's argument types; the others stay the real library's."""
+    build with the same C interface: its entry points ``names`` take the
+    real library's argument types, and the entry points ``keep`` stay the
+    real library's."""
     import ctypes
     lib = ctypes.CDLL(path)
     real = getattr(wrapper, lib_attr)()
+    for name in keep:
+        setattr(lib, name, getattr(real, name))
     for name in names:
         fn = getattr(lib, name)
         fn.argtypes = getattr(real, name).argtypes
@@ -121,12 +127,13 @@ def use_library(wrapper, path: str, names: Sequence[str],
     return lib
 
 
-def run(script: str, args, child_args: Sequence[str] = (),
-        timeout: int = 900, on_record: Callable[[dict], None] = None
-        ) -> List[dict]:
+def run(script: str, args, child_args=(), timeout: int = 900,
+        on_record: Callable[[dict], None] = None) -> List[dict]:
     """Run every version of ``args`` in the order asked, each as
-    ``python <script> <child_args> --child=[TREE, CU, FLAGS]``; the records,
-    each with ``version`` and ``card``. Raises if a version fails."""
+    ``python <script> <child_args> --child=[TREE, CU, FLAGS]``
+    (``child_args`` a list, or a function of the version's name giving
+    one); the records, each with ``version`` and ``card``. Raises if a
+    version fails."""
     sys.path.insert(0, REPO)
     import chip_smoke as cs
     vs = versions(args)
@@ -135,8 +142,9 @@ def run(script: str, args, child_args: Sequence[str] = (),
     records = []
     for name in order:
         tree, cu, flags = vs[name]
+        extra = child_args(name) if callable(child_args) else child_args
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(script), *child_args,
+            [sys.executable, os.path.abspath(script), *extra,
              "--child=" + json.dumps([tree, cu, flags])],
             capture_output=True, text=True, timeout=timeout)
         if proc.returncode != 0:

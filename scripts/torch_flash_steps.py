@@ -7,8 +7,7 @@ hold them side by side on one card (card only).
 
 With no version given it takes the checkout's ``csrc/attention.cu``. Each
 source is compiled with the port's own ``nvcc`` flags (``-Xptxas -v``;
-its registers and spills are printed), one ``nvcc`` per source, all
-started together. Each version then runs, against the plain version
+its registers and spills are printed) by ``scripts/_torch_steps.py``. Each version then runs, against the plain version
 ``flash_block_attn_plain`` on the same inputs, at the LM's eval shape
 (8 x 12 x 1,024 x 64, causal), on those inputs with NaN in the K and V
 rows that no query sees (q 256, k 384 at offsets (0, 0)), at the
@@ -27,30 +26,27 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_steps as steps  # noqa: E402
+
+REPO = steps.REPO
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402  (the card's timing helpers and tolerances)
 
 
-def build(versions: dict, out_dir: str) -> dict:
-    """Compile every source, all at once; name -> (library or None,
-    compiler output)."""
-    from multiverso_tpu_torch.ops import _build
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, src in versions.items():
-        lib = os.path.join(out_dir, f"lib{name}.so")
-        cmd = [_build._nvcc(), *_build._flags("attention"), "-o", lib, src]
-        procs[name] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+def build(versions: dict) -> dict:
+    """Compile every source, all at once (``scripts/_torch_steps.py``);
+    name -> (library or None, compiler output)."""
+    logs = steps.build_variants("attention",
+                                [(src, "") for src in versions.values()],
+                                strict=False)
     built = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        built[name] = (lib if proc.returncode == 0 else None, log)
+    for name, src in versions.items():
+        lib = steps.variant_library("attention", src)
+        built[name] = (lib if os.path.exists(lib) else None, logs[src, ""])
     return built
 
 
@@ -167,7 +163,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    built = build(versions, os.path.join(REPO, "build", "flash_steps"))
+    built = build({n: os.path.abspath(v) for n, v in versions.items()})
     libs, rec = {}, {"card": card, "versions": {}}
     for name, (path, log) in built.items():
         regs = [f"{kernel}: {line}"

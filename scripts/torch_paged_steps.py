@@ -8,7 +8,7 @@ and ordered).
 
     python3 scripts/torch_paged_steps.py [--tree NAME=DIR ...] \\
         [--cu NAME=FILE ...] [--flags NAME=FLAGS ...] [--order NAMES] \\
-        [--splits N,N,...] [--reps N] [--out FILE]
+        [--splits N,N,...] [--reps N] [--phases] [--out FILE]
 
 Each version runs, in a process of its own, at B7's two main-path shapes
 of ``chip_smoke.paged_shapes`` (the serving shape, G 36, and the
@@ -28,8 +28,15 @@ stream's handle through ``torch.cuda.current_stream`` and through
 ``ops/_build.py::stream``. It also holds the kernel on the small cases
 of ``chip_smoke.py``'s B7 check (one per template instance). With
 ``--splits``, a version whose wrapper has ``paged_splits`` is also timed
-at each main-path shape with that many CTAs a slot and head. Every line
-is printed with the card's name and power limit.
+at each main-path shape with that many CTAs a slot and head.
+
+``--phases`` then builds this checkout's ``csrc/paged_attention.cu`` with
+``-DMV_PAGED_PROFILE`` (thread 0 of each CTA stores ``%globaltimer`` at
+its start, after its start-up loads, after its pages and at its exit)
+and, after a few launches at each main-path shape, prints per slot the
+CTAs' start-up, pages (median and most) and merge-or-exit times and when
+its last CTA ended, from the launch's first CTA start. Every line is
+printed with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -45,6 +53,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_steps as steps  # noqa: E402
 
 ENTRY = "mv_paged_decode_attn"
+PROFILE = "-DMV_PAGED_PROFILE"          # csrc/paged_attention.cu's marks
 # The serving shape's instance (float32, dh 64): this kernel's (16-byte
 # vectors, 8 lanes a key row, 2 vectors a lane) and the PR 5 kernel's (2
 # columns a lane).
@@ -170,6 +179,69 @@ def child(tree: str, cu: str, flags: str, reps: int, splits) -> dict:
     return out
 
 
+def phases() -> dict:
+    """Per-CTA phase times of this checkout's kernel built with its marks,
+    at each main-path shape, summarised per slot, in this process."""
+    import ctypes
+    import numpy as np
+    import torch
+    attention = steps.import_from(steps.REPO, "ops.attention")
+    import chip_smoke as cs
+    src = os.path.join(steps.CSRC, "paged_attention.cu")
+    lib = steps.use_library(attention, steps.variant_library(
+        "paged_attention", src, PROFILE), [ENTRY], "_paged_lib")
+    lib.mv_paged_decode_attn_profile.argtypes = [ctypes.c_void_p,
+                                                 ctypes.c_int]
+    lib.mv_paged_decode_attn_profile.restype = ctypes.c_int
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for what, bucket, args in cs.paged_shapes(dev):
+        kw = dict(bucket=bucket, page=cs.SERVE_PAGE,
+                  scale=args[0].shape[2] ** -0.5)
+        for _ in range(5):
+            attention.paged_decode_attn(*args, **kw)
+        torch.cuda.synchronize()
+        B, H = args[0].shape[:2]
+        G = args[3].shape[1]
+        S = attention.paged_splits(B * H, G, sms)
+        n = B * H * S
+        buf = (ctypes.c_ulonglong * (4 * n))()
+        if lib.mv_paged_decode_attn_profile(buf, n) != 0:
+            raise RuntimeError("reading the phase marks failed")
+        t = np.frombuffer(buf, dtype=np.uint64).reshape(n, 4).astype(
+            np.int64)
+        t = (t - t[:, 0].min()) / 1e3
+        live = attention.paged_live_pages(
+            args[4], args[5], bucket=bucket, page=cs.SERVE_PAGE,
+            n_pages=G).sum(1).tolist()
+        rows = []
+        for b in range(B):
+            c = t[b * H * S:(b + 1) * H * S]
+            rows.append({"live_pages": live[b],
+                         "start_up_us": float(np.median(c[:, 1] - c[:, 0])),
+                         "pages_us": float(np.median(c[:, 2] - c[:, 1])),
+                         "pages_most_us": float(np.max(c[:, 2] - c[:, 1])),
+                         "after_pages_most_us": float(
+                             np.max(c[:, 3] - c[:, 2])),
+                         "end_us": float(c[:, 3].max())})
+        out[what] = {"ctas": n, "splits": S, "span_us": float(t[:, 3].max()),
+                     "slots": rows}
+        print(f"phases {what}: {n} CTAs ({S} a slot and head), the launch "
+              f"spans {t[:, 3].max():.2f} us from its first CTA's start "
+              f"[{card}]", flush=True)
+        for b, r in enumerate(rows):
+            print(f"   slot {b}, {r['live_pages']} live pages: start-up "
+                  f"{r['start_up_us']:.2f} us, pages {r['pages_us']:.2f} "
+                  f"(most {r['pages_most_us']:.2f}), after its pages at "
+                  f"most {r['after_pages_most_us']:.2f} (the merge), last "
+                  f"CTA ended at {r['end_us']:.2f} us", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return {"version": "phases", "card": card, "phases": out}
+
+
 def report(rec: dict) -> None:
     import chip_smoke as cs
     name, card = rec["version"], rec["card"]
@@ -203,7 +275,12 @@ def main(argv=None) -> int:
     steps.add_arguments(ap)
     ap.add_argument("--splits", default="")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.probe:
+        print(json.dumps(phases()))
+        return 0
     splits = [int(x) for x in args.splits.split(",") if x]
     if args.child:
         print(json.dumps(child(*steps.child_spec(args), args.reps, splits)))
@@ -215,6 +292,9 @@ def main(argv=None) -> int:
         return 2
     variants = [(cu, flags) for _, cu, flags in steps.versions(args).values()
                 if cu]
+    if args.phases:
+        variants.append((os.path.join(steps.CSRC, "paged_attention.cu"),
+                         PROFILE))
     sys.path.insert(0, steps.REPO)
     import chip_smoke as cs
     for (cu, flags), log in steps.build_variants("paged_attention",
@@ -224,7 +304,19 @@ def main(argv=None) -> int:
             if k in MAIN:
                 print(f"  {k}: {line}", flush=True)
     child_args = ["--reps", str(args.reps), "--splits", args.splits]
-    steps.run(__file__, args, child_args, on_record=report)
+    records = steps.run(__file__, args, child_args, on_record=report)
+    if args.phases:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--probe"], capture_output=True, text=True,
+                              timeout=600)
+        print(proc.stdout.rsplit("\n", 2)[0], flush=True)
+        if proc.returncode != 0:
+            print(f"phases: failed\n{proc.stderr[-3000:]}", flush=True)
+            return 1
+        records.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(records, f, indent=1)
     return 0
 
 

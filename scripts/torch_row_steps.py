@@ -5,15 +5,16 @@ card (card only): trees of the repository (each with its own wrapper,
 run through this checkout's wrapper.
 
     python3 scripts/torch_row_steps.py [--tree NAME=DIR ...] \\
-        [--cu NAME=FILE ...] [--order NAMES] [--out FILE]
+        [--cu NAME=FILE ...] [--flags NAME=FLAGS ...] [--order NAMES] \\
+        [--out FILE]
 
 ``--tree`` takes a checkout of the repository (for example the parent
 commit unpacked by ``git archive`` into ``build/``); ``--cu`` a variant of
 ``csrc/rows.cu`` with this checkout's C interface, built with the port's
 own ``nvcc`` flags. With neither, the checkout itself is timed. Each
 version runs in a process of its own, in the order given by ``--order``
-(comma-separated names, repeats allowed: ``parent,new,new,parent``), at
-the main path's shapes: B2 with 100,000 int64 sorted ids into 1,000,000
+(comma-separated names, repeats allowed: ``parent,new,new,parent``;
+``scripts/_torch_steps.py`` runs them), at the main path's shapes: B2 with 100,000 int64 sorted ids into 1,000,000
 x 50 (the table plane's Add), B4 with 8,192 int64 sorted ids into 100,000
 x 128 (``bench.py``'s leg). Each reading holds the version against the
 plain version on the card (bitwise, both signs), then times, per call:
@@ -33,11 +34,16 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_steps as steps  # noqa: E402
+
+# The main paths' instances: B2 at D = 50 (float2, 8 lanes a row, int64
+# ids) and B4 at D = 128 (float4).
+MAIN = ("scatter_runs_kernelILi0ELi2ELi8ElEE",
+        "scatter_runs_kernelILi1ELi4ELi8ElEE")
 
 
 def host_ms(fn, calls: int = 200, readings: int = 5) -> float:
@@ -57,59 +63,16 @@ def host_ms(fn, calls: int = 200, readings: int = 5) -> float:
     return statistics.median(got)
 
 
-def variant_library(cu: str) -> str:
-    """Where the library of the variant source ``cu`` is built."""
-    import hashlib
-    tag = hashlib.sha256(open(cu, "rb").read()).hexdigest()[:12]
-    return os.path.join(REPO, "build", "row_steps",
-                        f"{os.path.basename(cu)}-{tag}.so")
-
-
-def build_variants(sources) -> None:
-    """Compile every variant source at once, with the port's flags for
-    ``csrc/rows.cu``; prints each build's registers and spills."""
-    sys.path.insert(0, REPO)
-    from multiverso_tpu_torch.ops import _build
-    import chip_smoke as cs
-    procs = {}
-    for cu in sources:
-        lib = variant_library(cu)
-        os.makedirs(os.path.dirname(lib), exist_ok=True)
-        procs[cu] = subprocess.Popen(
-            [_build._nvcc(), *_build._flags("rows"), "-o", lib, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for cu, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {cu}:\n{log[-3000:]}")
-        for kernel, line in cs.ptxas_lines(log):
-            # The main paths' instances: B2 at D = 50 (float2, 8 lanes a
-            # row, int64 ids) and B4 at D = 128 (float4).
-            if "registers" in line and kernel in (
-                    "scatter_runs_kernelILi0ELi2ELi8ElEE",
-                    "scatter_runs_kernelILi1ELi4ELi8ElEE"):
-                print(f"  {os.path.basename(cu)}: {kernel}: {line}")
-
-
-def child(tree: str, cu: str | None) -> dict:
+def child(tree: str, cu: str, flags: str) -> dict:
     """One version's readings, in this process."""
-    sys.path.insert(0, REPO)
+    rows = steps.import_from(tree, "ops.rows")
+    _build = steps.import_from(tree, "ops._build")
     import chip_smoke as cs        # this checkout's timing helpers
-    sys.path.insert(0, tree)       # the version's package
     import torch
-    from multiverso_tpu_torch.ops import _build, rows
-    assert os.path.dirname(os.path.dirname(os.path.dirname(
-        rows.__file__))) == os.path.abspath(tree), rows.__file__
     if cu:
-        import ctypes
-        variant = ctypes.CDLL(variant_library(cu))
-        real = rows._lib()
-        variant.mv_gather_rows = real.mv_gather_rows
-        for name in rows._SCATTER.values():
-            fn = getattr(variant, name)
-            fn.argtypes = getattr(real, name).argtypes
-            fn.restype = ctypes.c_int
-        rows._lib = lambda: variant
+        steps.use_library(rows, steps.variant_library("rows", cu, flags),
+                          list(rows._SCATTER.values()),
+                          keep=("mv_gather_rows",))
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(1)
     out = {}
@@ -160,66 +123,45 @@ def child(tree: str, cu: str | None) -> dict:
     return out
 
 
+def report(rec: dict) -> None:
+    import chip_smoke as cs
+    name, card = rec["version"], rec["card"]
+    for kernel in ("scatter_add_sorted_rows",
+                   "tiled_scatter_add_sorted_rows"):
+        r = rec[kernel]
+        print(f"{name} {kernel}: events {cs.spread(r['ms'])} ms "
+              f"(index_add_ {cs.spread(r['index_add_ms'])}), graph "
+              f"{r['graph_ms']:.4f} (index_add_ "
+              f"{r['index_add_graph_ms']:.4f}), host per call "
+              f"{r['host_ms'] * 1e3:.2f} us (index_add_ "
+              f"{r['index_add_host_ms'] * 1e3:.2f} us; the C entry "
+              f"point alone {r['entry_host_ms'] * 1e3:.2f} us), bound "
+              f"{r['bound_ms']:.4f} ms [{card}]", flush=True)
+    print(f"{name}: stream handle {rec['stream_helper_us']} us per call "
+          f"(helper), {rec['current_stream_us']:.3f} us "
+          f"(torch.cuda.current_stream)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", action="append", default=[])
-    ap.add_argument("--cu", action="append", default=[])
-    ap.add_argument("--order", default=None)
-    ap.add_argument("--out", default=None)
-    ap.add_argument("--child", nargs=2, metavar=("TREE", "CU"),
-                    help=argparse.SUPPRESS)
+    steps.add_arguments(ap)
     args = ap.parse_args(argv)
     if args.child:
-        tree, cu = args.child
-        print(json.dumps(child(tree, cu or None)))
+        print(json.dumps(child(*steps.child_spec(args))))
         return 0
     import torch
     if not torch.cuda.is_available():
         print("torch_row_steps: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, steps.REPO)
     import chip_smoke as cs
-    versions = {}
-    for spec in args.tree:
-        name, path = spec.split("=", 1)
-        versions[name] = (os.path.abspath(path), "")
-    for spec in args.cu:
-        name, path = spec.split("=", 1)
-        versions[name] = (REPO, os.path.abspath(path))
-    if not versions:
-        versions["checkout"] = (REPO, "")
-    order = args.order.split(",") if args.order else list(versions)
-    build_variants([os.path.abspath(p.split("=", 1)[1]) for p in args.cu])
-    card = cs.card_line()
-    records = []
-    for name in order:
-        tree, cu = versions[name]
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", tree, cu],
-            capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            print(f"{name}: failed\n{proc.stderr[-3000:]}", flush=True)
-            return 1
-        rec = {"version": name, "card": card,
-               **json.loads(proc.stdout.strip().splitlines()[-1])}
-        records.append(rec)
-        for kernel in ("scatter_add_sorted_rows",
-                       "tiled_scatter_add_sorted_rows"):
-            r = rec[kernel]
-            print(f"{name} {kernel}: events {cs.spread(r['ms'])} ms "
-                  f"(index_add_ {cs.spread(r['index_add_ms'])}), graph "
-                  f"{r['graph_ms']:.4f} (index_add_ "
-                  f"{r['index_add_graph_ms']:.4f}), host per call "
-                  f"{r['host_ms'] * 1e3:.2f} us (index_add_ "
-                  f"{r['index_add_host_ms'] * 1e3:.2f} us; the C entry "
-                  f"point alone {r['entry_host_ms'] * 1e3:.2f} us), bound "
-                  f"{r['bound_ms']:.4f} ms [{card}]", flush=True)
-        print(f"{name}: stream handle {rec['stream_helper_us']} us per call "
-              f"(helper), {rec['current_stream_us']:.3f} us "
-              f"(torch.cuda.current_stream)", flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(records, f, indent=1)
+    variants = [(cu, flags) for _, cu, flags in steps.versions(args).values()
+                if cu]
+    for (cu, _), log in steps.build_variants("rows", variants).items():
+        for kernel, line in cs.ptxas_lines(log):
+            if "registers" in line and kernel in MAIN:
+                print(f"  {os.path.basename(cu)}: {kernel}: {line}")
+    steps.run(__file__, args, timeout=600, on_record=report)
     return 0
 
 

@@ -5,15 +5,17 @@
 run through this checkout's wrapper; and probe this checkout's kernel.
 
     python3 scripts/torch_sgns_steps.py [--tree NAME=DIR ...] \\
-        [--cu NAME=FILE ...] [--sort-all NAME ...] [--order NAMES] \\
-        [--launches N] [--flagship] [--spread] [--phases] [--out FILE]
+        [--cu NAME=FILE ...] [--flags NAME=FLAGS ...] [--sort-all NAME ...] \\
+        [--order NAMES] [--launches N] [--flagship] [--spread] [--phases] \\
+        [--out FILE]
 
 ``--tree`` takes a checkout of the repository (for example the parent
 commit unpacked by ``git archive`` into ``build/``); ``--cu`` a variant of
 ``csrc/sgns.cu`` with this checkout's C interface, built with the port's
 own ``nvcc`` flags. With neither, the checkout itself is timed. Each
 version runs in a process of its own, in the order given by ``--order``
-(comma-separated names, repeats allowed: ``parent,new,new,parent``).
+(comma-separated names, repeats allowed: ``parent,new,new,parent``;
+``scripts/_torch_steps.py`` runs them).
 
 Each version takes one flagship block (``chip_smoke.flagship_block``:
 V=50,000, D=128, C=8192, K=5, the block's Zipf ids), then the same block
@@ -71,44 +73,16 @@ import statistics
 import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_steps as steps  # noqa: E402
+
 MAIN = "sgns_block_kernelILi4ELi8EE"    # VEC 4, up to 8 negatives
 
 
-CSRC = os.path.join(REPO, "multiverso_tpu_torch", "csrc", "sgns.cu")
+CSRC = os.path.join(steps.CSRC, "sgns.cu")
 PROFILE = "-DMV_SGNS_PROFILE"           # csrc/sgns.cu's phase marks
 PHASES = ("pairs", "long-run listing", "CTA loss partial", "barrier 1",
           "loss sum", "long runs", "tiles", "barrier 2")
-
-
-def variant_library(cu: str, extra=()) -> str:
-    """Where the library of the variant source ``cu`` (built with the
-    flags ``extra`` besides the port's) is built."""
-    digest = hashlib.sha256(open(cu, "rb").read())
-    digest.update(" ".join(extra).encode())
-    return os.path.join(REPO, "build", "sgns_steps",
-                        f"{os.path.basename(cu)}-{digest.hexdigest()[:12]}"
-                        ".so")
-
-
-def build_variants(sources, extra=()) -> dict:
-    """Compile every variant source at once with the port's flags for
-    ``csrc/sgns.cu`` and ``extra``; returns {source: the build's ptxas
-    output}."""
-    sys.path.insert(0, REPO)
-    from multiverso_tpu_torch.ops import _build
-    procs, logs = {}, {}
-    for cu in sources:
-        lib = variant_library(cu, extra)
-        os.makedirs(os.path.dirname(lib), exist_ok=True)
-        procs[cu] = subprocess.Popen(
-            [_build._nvcc(), *_build._flags("sgns"), *extra, "-o", lib, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for cu, proc in procs.items():
-        logs[cu], _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {cu}:\n{logs[cu][-3000:]}")
-    return logs
 
 
 def event_ms(fn) -> float:
@@ -132,14 +106,7 @@ def use_library(sgns, path: str, names=("mv_sgns_block",
                                          "mv_sgns_grid_size")):
     """Point the wrapper ``sgns`` at the library ``path`` (a variant build
     with the same C interface)."""
-    import ctypes
-    lib = ctypes.CDLL(path)
-    real = sgns._lib()
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = getattr(real, name).argtypes
-        fn.restype = ctypes.c_int
-    sgns._lib = lambda: lib
+    lib = steps.use_library(sgns, path, names)
     sgns._grid_cache.clear()
     return lib
 
@@ -198,19 +165,16 @@ def device_idle(cs, sgns, sents, d) -> dict:
             "read_gap_us": [a.elapsed_time(b) * 1e3 for a, b in reads]}
 
 
-def child(tree: str, cu: str | None, launches: int, flagship: bool,
+def child(tree: str, cu: str, flags: str, launches: int, flagship: bool,
           sort_all: bool) -> dict:
     """One version's readings, in this process."""
-    sys.path.insert(0, REPO)
+    sgns = steps.import_from(tree, "ops.sgns")
+    _build = steps.import_from(tree, "ops._build")
     import chip_smoke as cs        # this checkout's inputs and helpers
-    sys.path.insert(0, tree)       # the version's package
     import torch
     import multiverso_tpu_torch as mv
-    from multiverso_tpu_torch.ops import _build, sgns
-    assert os.path.dirname(os.path.dirname(os.path.dirname(
-        sgns.__file__))) == os.path.abspath(tree), sgns.__file__
     if cu:
-        use_library(sgns, variant_library(cu))
+        use_library(sgns, steps.variant_library("sgns", cu, flags))
     if sort_all:
         sgns._n_live = lambda n_pairs, chunk, n: n
     dev = torch.device("cuda", 0)
@@ -373,7 +337,7 @@ def phases(cs, sgns, dev, card) -> dict:
     marks."""
     import ctypes
     import torch
-    lib = use_library(sgns, variant_library(CSRC, (PROFILE,)))
+    lib = use_library(sgns, steps.variant_library("sgns", CSRC, PROFILE))
     lib.mv_sgns_profile.argtypes = [ctypes.c_void_p]
     lib.mv_sgns_profile.restype = ctypes.c_int
     mhz = subprocess.run(
@@ -416,7 +380,7 @@ def phases(cs, sgns, dev, card) -> dict:
 
 def probe(what) -> dict:
     """--spread and --phases on this checkout's kernel, in this process."""
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, steps.REPO)
     import chip_smoke as cs
     import torch
     import multiverso_tpu_torch as mv
@@ -435,99 +399,86 @@ def probe(what) -> dict:
     return record
 
 
+def report(records: list, rec: dict) -> None:
+    import chip_smoke as cs
+    name, card = rec["version"], rec["card"]
+    records.append(rec)
+    for ids in ("zipf", "uniform"):
+        r = rec[ids]
+        same = r["tables_sha256"] == records[0][ids]["tables_sha256"]
+        print(f"{name} {ids} ids: kernel {cs.spread(r['ms'])} ms per "
+              f"block ({len(r['ms']['readings'])} launches), glue "
+              f"{r['glue_ms']['median']:.4f} ms, max |kernel - plain| "
+              + ", ".join(f"{k} {v:.3e}"
+                          for k, v in r["max_abs_err"].items())
+              + f" (within SGNS_RTOL and SGNS_LOSS_RTOL: "
+              f"{r['within_tolerance']}); tables after one launch "
+              f"bitwise equal to "
+              f"{records[0]['version']}'s: {same} [{card}]", flush=True)
+    print(f"{name}: {rec['grid']} CTAs, {rec['warps_per_sm']:g} warps "
+          f"an SM; {MAIN}: {'; '.join(rec['ptxas'])}", flush=True)
+    if "flagship" in rec:
+        f = rec["flagship"]
+        print(f"{name} flagship: {f['words_per_sec']:.6g} words/sec, "
+              f"{f['pairs_per_sec']:.6g} pairs/sec over {f['blocks']} "
+              f"blocks in {f['seconds']:.4f} s [{card}]", flush=True)
+        i = f["idle"]
+        idle = ("not measured (the profiler recorded no device time)"
+                if i["idle_ms_per_block"] is None else
+                f"{i['idle_ms_per_block']:.4f} ms per block idle "
+                f"({i['busy_ms']:.4f} ms busy of a {i['span_ms']:.4f} "
+                f"ms span, {i['device_events']} device events)")
+        gaps = ", ".join(f"{g:.1f}" for g in i["read_gap_us"])
+        print(f"{name} flagship under the profiler, {i['blocks']} "
+              f"blocks: card {idle}; gap at each host read of n_pairs: "
+              f"{gaps or 'no read'} us [{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", action="append", default=[])
-    ap.add_argument("--cu", action="append", default=[])
+    steps.add_arguments(ap)
     ap.add_argument("--sort-all", action="append", default=[])
-    ap.add_argument("--order", default=None)
     ap.add_argument("--launches", type=int, default=7)
     ap.add_argument("--flagship", action="store_true")
     ap.add_argument("--spread", action="store_true")
     ap.add_argument("--phases", action="store_true")
-    ap.add_argument("--out", default=None)
-    ap.add_argument("--child", nargs=3, metavar=("TREE", "CU", "SORT_ALL"),
-                    help=argparse.SUPPRESS)
     ap.add_argument("--probe", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.probe:
         print(json.dumps(probe(args.probe.split(","))))
         return 0
     if args.child:
-        tree, cu, sort_all = args.child
-        print(json.dumps(child(tree, cu or None, args.launches,
-                               args.flagship, sort_all == "1")))
+        print(json.dumps(child(*steps.child_spec(args), args.launches,
+                               args.flagship, bool(args.sort_all))))
         return 0
     import torch
     if not torch.cuda.is_available():
         print("torch_sgns_steps: no CUDA device is available",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, steps.REPO)
     import chip_smoke as cs
-    versions = {}
-    for spec in args.tree:
-        name, path = spec.split("=", 1)
-        versions[name] = (os.path.abspath(path), "")
-    for spec in args.cu:
-        name, path = spec.split("=", 1)
-        versions[name] = (REPO, os.path.abspath(path))
-    if not versions:
-        versions["checkout"] = (REPO, "")
-    order = args.order.split(",") if args.order else list(versions)
+    variants = [(cu, flags) for _, cu, flags in steps.versions(args).values()
+                if cu]
     if args.phases:
-        build_variants([CSRC], (PROFILE,))
-    logs = build_variants([cu for _, cu in versions.values() if cu])
-    card = cs.card_line()
+        variants.append((CSRC, PROFILE))
+    logs = steps.build_variants("sgns", variants)
+    vs = steps.versions(args)
     records = []
-    for name in order:
-        tree, cu = versions[name]
-        cmd = [sys.executable, os.path.abspath(__file__), "--launches",
-               str(args.launches), "--child", tree, cu,
-               "1" if name in args.sort_all else "0"]
-        if args.flagship:
-            cmd.insert(2, "--flagship")
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        if proc.returncode != 0:
-            print(f"{name}: failed\n{proc.stdout[-3000:]}\n"
-                  f"{proc.stderr[-3000:]}", flush=True)
-            return 1
-        rec = {"version": name, "card": card,
-               **json.loads(proc.stdout.strip().splitlines()[-1])}
+
+    def on_record(rec):
+        _, cu, flags = vs[rec["version"]]
         if cu:
-            rec["ptxas"] = [line for kernel, line in cs.ptxas_lines(logs[cu])
-                            if kernel == MAIN]
-        records.append(rec)
-        for ids in ("zipf", "uniform"):
-            r = rec[ids]
-            same = r["tables_sha256"] == records[0][ids]["tables_sha256"]
-            print(f"{name} {ids} ids: kernel {cs.spread(r['ms'])} ms per "
-                  f"block ({len(r['ms']['readings'])} launches), glue "
-                  f"{r['glue_ms']['median']:.4f} ms, max |kernel - plain| "
-                  + ", ".join(f"{k} {v:.3e}"
-                              for k, v in r["max_abs_err"].items())
-                  + f" (within SGNS_RTOL and SGNS_LOSS_RTOL: "
-                  f"{r['within_tolerance']}); tables after one launch "
-                  f"bitwise equal to "
-                  f"{records[0]['version']}'s: {same} [{card}]", flush=True)
-        print(f"{name}: {rec['grid']} CTAs, {rec['warps_per_sm']:g} warps "
-              f"an SM; {MAIN}: {'; '.join(rec['ptxas'])}", flush=True)
-        if "flagship" in rec:
-            f = rec["flagship"]
-            print(f"{name} flagship: {f['words_per_sec']:.6g} words/sec, "
-                  f"{f['pairs_per_sec']:.6g} pairs/sec over {f['blocks']} "
-                  f"blocks in {f['seconds']:.4f} s [{card}]", flush=True)
-            i = f["idle"]
-            idle = ("not measured (the profiler recorded no device time)"
-                    if i["idle_ms_per_block"] is None else
-                    f"{i['idle_ms_per_block']:.4f} ms per block idle "
-                    f"({i['busy_ms']:.4f} ms busy of a {i['span_ms']:.4f} "
-                    f"ms span, {i['device_events']} device events)")
-            gaps = ", ".join(f"{g:.1f}" for g in i["read_gap_us"])
-            print(f"{name} flagship under the profiler, {i['blocks']} "
-                  f"blocks: card {idle}; gap at each host read of n_pairs: "
-                  f"{gaps or 'no read'} us [{card}]", flush=True)
+            rec["ptxas"] = [line for kernel, line in
+                            cs.ptxas_lines(logs[cu, flags]) if kernel == MAIN]
+        report(records, rec)
+
+    def child_args(name):
+        return (["--launches", str(args.launches)]
+                + (["--flagship"] if args.flagship else [])
+                + (["--sort-all", name] if name in args.sort_all else []))
+
+    steps.run(__file__, args, child_args, on_record=on_record)
     if args.spread or args.phases:
         what = [w for w in ("spread", "phases") if getattr(args, w)]
         proc = subprocess.run(

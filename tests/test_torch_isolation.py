@@ -29,6 +29,10 @@ def _py_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    scripts = os.path.join(REPO, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith(("torch_", "_torch_")) and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def test_no_jax_or_jax_package_imports_in_the_source():
