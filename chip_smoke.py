@@ -30,14 +30,21 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    ``sgns_block`` on one full flagship block (V=50,000, D=128, C=8192,
    K=5, masked tail chunk), each table within ``SGNS_RTOL[table]`` of its
    largest value and the loss within ``SGNS_LOSS_RTOL``, and a second
-   launch on the same block bitwise equal to the first; then every other
-   compiled variant of each kernel once at a small shape (row widths 128
-   and 25, B3 with 2 workers at worker 1, all-sentinel and empty batches,
-   B5 with 10 negatives and with D=126, and SGD), at the same tolerances;
-   B5 on every ``sgns_layouts`` layout (runs around its tile, batch and
-   long-run edges, one id in every out-lane, a one-lane tail, n_pairs a
-   multiple of C, out-of-range ids), some with D=126, SGD and K=1, and
-   K=16 at the flagship's chunk with Zipf ids;
+   launch on the same block bitwise equal to the first; B5's bfloat16
+   instance on the same block with bfloat16 embeddings, held chunk by
+   chunk (each chunk from the plain version's tables) within
+   ``SGNS_BF16_RTOL`` beside the plain version's own spread (the card's
+   against the CPU's), the whole block's loss within ``SGNS_LOSS_RTOL``,
+   two launches bitwise equal, timed with its byte and operations
+   bounds; then every other compiled variant of each kernel once at a
+   small shape (row widths 128 and 25, B3 with 2 workers at worker 1,
+   all-sentinel and empty batches, B5 with 10 negatives and with D=126,
+   and SGD, in float32 and bfloat16), at the same tolerances; B5 on every
+   ``sgns_layouts`` layout (runs around its tile, batch and long-run
+   edges, one id in every out-lane, a one-lane tail, n_pairs a multiple
+   of C, out-of-range ids), some with D=126, SGD and K=1, and K=16 at the
+   flagship's chunk with Zipf ids (against the plain version on the CPU),
+   each in float32 and in bfloat16;
 3. the table plane: ``mv.init()`` on the card, 1,000,000 x 50
    ``use_pallas`` tables: default and sgd updaters (row Adds/Gets at 10%
    coverage against a numpy replay and bitwise against the plain version
@@ -48,12 +55,20 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    and within ``MODEL_RTOL``/``MODEL_ATOL`` of a float64 numpy model; the
    fold, B3 and B1 launched; param updates/sec per updater); then
    bench.py's row scatter leg, 21 calls of ``tiled_scatter_add_rows``
-   (B4 launched 21 times, exact counts);
+   (B4 launched 21 times, exact counts); and a 1,000,000 x 50 bfloat16
+   table with the default updater, 10 row Adds of 100,000 ids with
+   duplicates bitwise against the same Adds replayed on the CPU;
 4. the word2vec flagship through ``Word2Vec.train`` at bench width on a
    synthetic Zipf corpus: one warm-up block, then 3 full blocks with the B5
    kernel launched once per block and a finite loss; words/sec, pairs/sec;
+   the same with bfloat16 embeddings (B5's bfloat16 instance) and with
+   ``compact_pairs=False`` (bench.py:147-156's legs); then one block each
+   of sg-hs, cbow-ns and cbow-hs (the plain block step) and the host
+   batch path (``device_pipeline=False``), each a finite loss and no B5
+   launch;
 5. the CLI (``python -m multiverso_tpu_torch.apps.word2vec_main``) on a
-   two-topic corpus: intra-topic cosine must exceed cross-topic cosine;
+   two-topic corpus, skip-gram/NS and ``-cbow -hs``: intra-topic cosine
+   must exceed cross-topic cosine;
 6. the attention LM (``models/attention_lm.py``) at GPT-2-small widths
    (OpenAI's 124M ``hparams.json``: vocab 50,257, dim 768, 12 heads, 12
    layers, seq 1,024; the repo's own block), batch 8 of cyclic tokens
@@ -135,6 +150,26 @@ TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 # update of one lane moves a row by about lr = 0.025.
 SGNS_RTOL = {"w_in": 2e-3, "w_out": 2e-3, "g_in": 1e-5, "g_out": 1e-5}
 SGNS_LOSS_RTOL = 1e-4
+# B5's bfloat16 instance, per table, the same measure, held chunk by chunk
+# (hold_bf16_by_chunk). Kernel and plain version both round each step to
+# bfloat16 and add a row's lanes in lane order with a rounding after every
+# add; their float32 steps differ as in float32 (the dot products' order;
+# the plain version's AdaGrad sums add by atomics on the card), and a step
+# that lands on a bfloat16 rounding edge rounds the other way: one
+# bfloat16 ulp of the row, which is at most 2^-7 of the table's largest
+# value, the limit of w_in and w_out (0.0081 at a largest value of 1.04,
+# a third of a 0.025 lr-sized step). Over a whole block no such limit
+# holds: a frequent row's AdaGrad steps sit near half an ulp of the row,
+# so which of them move it is decided at rounding edges, and each
+# difference changes every later gradient. On the flagship block (H100
+# 80GB HBM3, 700 W) the card's plain version against itself spread 0.22
+# (w_in) and 0.61 (w_out) of the largest value, against the CPU's 0.35
+# and 0.64; chunk by chunk, from the same tables, the card's plain
+# version against the CPU's at most 2.3e-3, 4.0e-3, 3.1e-7 (g_in) and
+# 4.3e-7 (g_out), the kernel against the card's 2.3e-3, 4.3e-5, 3.1e-7
+# and 4.3e-7.
+SGNS_BF16_RTOL = {"w_in": 2**-7, "w_out": 2**-7, "g_in": 1e-5,
+                  "g_out": 1e-5}
 
 V, D, CHUNK, NEG = 50_000, 128, 8192, 5
 # Row widths of the B2/B4 layout checks: 4-byte, 8-byte and 16-byte loads,
@@ -438,15 +473,18 @@ def zipf_corpus(vocab: int, n_sent: int, sent_len: int, seed: int = 0):
     return d, list(mat)
 
 
-def flagship_config():
+def flagship_config(param_dtype: str = "float32", compact: bool = True,
+                    **over):
     from multiverso_tpu_torch.models.word2vec import Word2VecConfig
-    # bench.py's headline configuration (bench.py:106-112).
-    return Word2VecConfig(embedding_size=D, window=5, negative=NEG,
-                          batch_size=CHUNK, sample=1e-3, sg=True, hs=False,
-                          optimizer="adagrad", epochs=1, pipeline=True,
-                          device_pipeline=True, block_sentences=512,
-                          pad_sentence_length=512, param_dtype="float32",
-                          compact_pairs=True, dispatch_mode=None, seed=0)
+    # bench.py's headline configuration (bench.py:106-112; its bfloat16
+    # and uncompacted legs, bench.py:147-156, through the arguments).
+    kw = dict(embedding_size=D, window=5, negative=NEG, batch_size=CHUNK,
+              sample=1e-3, sg=True, hs=False, optimizer="adagrad", epochs=1,
+              pipeline=True, device_pipeline=True, block_sentences=512,
+              pad_sentence_length=512, param_dtype=param_dtype,
+              compact_pairs=compact, dispatch_mode=None, seed=0)
+    kw.update(over)
+    return Word2VecConfig(**kw)
 
 
 # ---------------------------------------------------------------------------
@@ -901,16 +939,17 @@ def check_scatter_layouts(dev) -> dict:
     return out
 
 
-def flagship_block(dev):
+def flagship_block(dev, param_dtype: str = "float32"):
     """One block of the flagship's main path: a Word2Vec at bench width
-    builds the block's pair streams exactly as ``train`` does."""
+    builds the block's pair streams exactly as ``train`` does. The
+    embeddings are ``param_dtype``."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.models.word2vec import Word2Vec
     from multiverso_tpu_torch.models.word2vec.model import (pair_gen,
                                                             pair_stream_shape)
     d, sents = zipf_corpus(V, 512, 500, seed=3)
-    w2v = Word2Vec(flagship_config(), d)
+    w2v = Word2Vec(flagship_config(param_dtype), d)
     mat, lens, _ = next(w2v._sentence_blocks(iter(sents)))
     cfg = w2v.cfg
     n, rows_needed, rows_tbl = pair_stream_shape(
@@ -921,17 +960,21 @@ def flagship_block(dev):
                        torch.as_tensor(lens, device=dev), keep_u, wpos, ridx,
                        cfg.window, CHUNK, NEG)
     g = torch.Generator(device=dev).manual_seed(2)
-    tables = (w2v.input_table.store.data.clone(),
-              0.1 * torch.randn((V, D), generator=g, device=dev),
+    w_in = w2v.input_table.store.data.clone()
+    tables = (w_in,
+              (0.1 * torch.randn((V, D), generator=g, device=dev)).to(
+                  w_in.dtype),
               torch.zeros((V, D), device=dev),
               torch.zeros((V, D), device=dev))
     return tables, streams, np.float32(cfg.learning_rate)
 
 
-def sgns_bound(streams, n_live: int):
+def sgns_bound(streams, n_live: int, param_bytes: int = 4):
     """Least time for one block: each live lane's ids once, each touched
-    row of the four tables read and written once, and the arithmetic of
-    the live pairs (dots, gradients, AdaGrad updates) at float32 rate."""
+    row of the four tables read and written once (embeddings of
+    ``param_bytes`` a value, float32 AdaGrad sums), and the arithmetic of
+    the live pairs (dots, gradients, AdaGrad updates) at float32 rate.
+    Returns ``(ms, "bytes" or "operations", bytes ms, operations ms)``."""
     import torch
     centers, contexts, negs, n_pairs = streams
     c = centers[:n_live].reshape(-1)[:int(n_pairs)]
@@ -940,10 +983,11 @@ def sgns_bound(streams, n_live: int):
     u_in = int(torch.unique(c).numel())
     u_out = int(torch.unique(torch.cat([o, k.reshape(-1)])).numel())
     p = int(n_pairs)
-    n_bytes = p * (2 + NEG) * 4 + 2 * 2 * (u_in + u_out) * D * 4
+    n_bytes = p * (2 + NEG) * 4 + 2 * (u_in + u_out) * D * (param_bytes + 4)
     flops_per_pair = (2 * D * (1 + NEG) + D * (2 * NEG + 2) + D * (1 + NEG)
                       + 7 * D * (2 + NEG))
-    return bound_ms(n_bytes, p * flops_per_pair)
+    return (*bound_ms(n_bytes, p * flops_per_pair), bound_ms(n_bytes)[0],
+            bound_ms(0.0, p * flops_per_pair)[0])
 
 
 TABLES = ("w_in", "w_out", "g_in", "g_out")
@@ -965,6 +1009,16 @@ def sgns_table_errs(kern, plain, what: str) -> dict:
         assert errs[name] <= SGNS_RTOL[name] * float(b.abs().max()), \
             f"{what}: {name} differs by {errs[name]}"
     return errs
+
+
+def table_spread(a_tables, b_tables) -> str:
+    """Each table's max |a - b| over b's largest |value| (the measure of
+    ``SGNS_RTOL``)."""
+    out = []
+    for name, a, b in zip(TABLES, a_tables, b_tables):
+        a, b = a.float().cpu(), b.float().cpu()
+        out.append(f"{name} {float((a - b).abs().max()) / float(b.abs().max()):.3e}")
+    return ", ".join(out)
 
 
 def check_sgns_kernel(dev) -> dict:
@@ -1018,7 +1072,8 @@ def check_sgns_kernel(dev) -> dict:
     log(f"B5 sgns_block: kernel {ms:.4f} ms per block ({launch.grid} CTAs "
         f"x 256 threads, cooperative: {launch.grid * 8 / sms:g} warps an "
         f"SM), glue sort {glue_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]})")
+        f"{bound[0]:.4f} ms ({bound[1]}; bytes {bound[2]:.4f}, operations "
+        f"{bound[3]:.4f})")
     # Where the time goes: the same block with every row id redrawn
     # uniformly keeps the work per lane and removes the long runs of one
     # frequent id that a single warp applies lane after lane.
@@ -1041,7 +1096,151 @@ def check_sgns_kernel(dev) -> dict:
             "replaces": "multiverso_tpu/ops/pallas_sgns.py:122",
             "max_abs_err": err, "max_abs_err_tables": errs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_bytes_ms": bound[2], "bound_ops_ms": bound[3],
             "library_ms": None}
+
+
+def hold_bf16_by_chunk(tables, streams, n_pairs, lr, adagrad, what: str,
+                       cpu_spread: bool = False) -> dict:
+    """B5's bfloat16 instance held against its plain version chunk by
+    chunk: for each live chunk of the block, kernel and plain version
+    start from the same tables (the plain version's after the chunks
+    before), train that chunk alone, and must agree within
+    ``SGNS_BF16_RTOL`` (each table's max |kernel - plain| over its largest
+    |value|) and the chunk's loss within ``SGNS_LOSS_RTOL``. A whole
+    block cannot be held so: there one rounding edge that the two cross
+    differently changes the steps of every later chunk (see
+    ``SGNS_BF16_RTOL``). With ``cpu_spread`` the same chunk also runs
+    through the plain version on the CPU, and the card's plain version is
+    measured against it (the spread the tolerance is set from). Returns
+    the worst of each over the chunks, per table."""
+    import torch
+    from multiverso_tpu_torch.ops import sgns
+
+    chunk = streams[0].shape[1]
+    n_pairs = int(n_pairs)
+    ref = [t.clone() for t in tables]
+    worst = {name: 0.0 for name in TABLES}
+    worst_abs = {name: 0.0 for name in TABLES}
+    spread_cpu = {name: 0.0 for name in TABLES}
+    worst_loss = 0.0
+    for i in range((n_pairs + chunk - 1) // chunk):
+        part = [s[i:i + 1] for s in streams[:3]]
+        live = torch.tensor(min(n_pairs - i * chunk, chunk),
+                            dtype=torch.int32, device=ref[0].device)
+        kern = [t.clone() for t in ref]
+        cpu = [t.cpu() for t in ref] if cpu_spread else None
+        lk = float(sgns.sgns_block_cuda(*kern, *part, live, lr, adagrad))
+        lp = float(sgns.sgns_block_plain(*ref, *part, live, lr, adagrad))
+        if lp:
+            worst_loss = max(worst_loss, abs(lk - lp) / abs(lp))
+        for name, a, b in zip(TABLES, kern, ref):
+            a, b = a.float(), b.float()
+            assert bool(torch.isfinite(a).all()), (what, i, name)
+            err = float((a - b).abs().max())
+            worst_abs[name] = max(worst_abs[name], err)
+            scale = float(b.abs().max())
+            if scale:
+                worst[name] = max(worst[name], err / scale)
+        if cpu_spread:
+            sgns.sgns_block_plain(*cpu, *[x.cpu() for x in part],
+                                  int(live), lr, adagrad)
+            for name, a, b in zip(TABLES, ref, cpu):
+                a, b = a.float().cpu(), b.float()
+                scale = float(b.abs().max())
+                if scale:
+                    spread_cpu[name] = max(spread_cpu[name], float(
+                        (a - b).abs().max()) / scale)
+    log(f"{what}, chunk by chunk: kernel vs plain, worst over chunks of "
+        f"max|err| / max|value|: " + ", ".join(
+            f"{k} {v:.3e} (limit {SGNS_BF16_RTOL[k]:.2g})"
+            for k, v in worst.items()) + f"; loss {worst_loss:.3e}"
+        + ("; the card's plain vs the CPU's: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in spread_cpu.items())
+           if cpu_spread else ""))
+    for name in TABLES:
+        assert worst[name] <= SGNS_BF16_RTOL[name], (what, name, worst)
+    assert worst_loss <= SGNS_LOSS_RTOL, (what, worst_loss)
+    out = {"max_rel_err_tables": worst, "max_abs_err_tables": worst_abs,
+           "max_loss_rel_err": worst_loss}
+    if cpu_spread:
+        out["plain_card_vs_cpu"] = spread_cpu
+    return out
+
+
+def check_sgns_kernel_bf16(dev) -> dict:
+    """B5's bfloat16 instance on the flagship block with bfloat16
+    embeddings (bench.py's ``w2v_words_per_sec_bf16`` leg): held against
+    the card's plain version chunk by chunk (``hold_bf16_by_chunk``, with
+    the spread of the card's plain version against the CPU's); the whole
+    block once through each, the loss within ``SGNS_LOSS_RTOL`` and the
+    tables' spread printed beside the plain version's own (on the card
+    twice, and the card's against the CPU's); two launches bitwise equal;
+    timed by events with the byte bound at 2-byte rows and the operations
+    bound."""
+    import torch
+    from multiverso_tpu_torch.ops import sgns
+
+    tables, streams, lr = flagship_block(dev, "bfloat16")
+    assert tables[0].dtype == tables[1].dtype == torch.bfloat16
+    centers, contexts, negs, n_pairs = streams
+    n_live = (int(n_pairs) + CHUNK - 1) // CHUNK
+    log(f"B5 bf16 sgns_block: {int(n_pairs)} pairs, {n_live} live chunks")
+    by_chunk = hold_bf16_by_chunk(tables, streams, n_pairs, lr, True,
+                                  "B5 bf16 flagship block",
+                                  cpu_spread=True)
+    kern = [t.clone() for t in tables]
+    plain = [t.clone() for t in tables]
+    loss_k = sgns.sgns_block_cuda(*kern, *streams[:3], n_pairs, lr, True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss_p = sgns.sgns_block_plain(*plain, *streams[:3], n_pairs, lr, True)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    lk, lp = float(loss_k), float(loss_p)
+    assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (lk, lp)
+    twice = [t.clone() for t in tables]
+    loss_2 = sgns.sgns_block_cuda(*twice, *streams[:3], n_pairs, lr, True)
+    torch.cuda.synchronize()
+    assert float(loss_2) == lk, (float(loss_2), lk)
+    for name, a, b in zip(TABLES, twice, kern):
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32)), name
+    again = [t.clone() for t in tables]
+    sgns.sgns_block_plain(*again, *streams[:3], n_pairs, lr, True)
+    cpu = [t.cpu() for t in tables]
+    sgns.sgns_block_plain(*cpu, *[s.cpu() for s in streams[:3]],
+                          int(n_pairs), lr, True)
+    whole = {"kernel_vs_plain": table_spread(kern, plain),
+             "plain_vs_plain": table_spread(again, plain),
+             "plain_card_vs_cpu": table_spread(plain, cpu),
+             "kernel_vs_cpu": table_spread(kern, cpu)}
+    log(f"B5 bf16 whole block: loss {lk} vs plain {lp}; two launches "
+        f"bitwise equal; max|a - b| / max|b| per table: " + "; ".join(
+            f"{k} {v}" for k, v in whole.items()))
+    launch = sgns.prepare_sgns_block(*[t.clone() for t in tables],
+                                     *streams[:3], n_pairs, lr, True)
+    ms = cuda_ms(lambda: sgns.launch_sgns_block(launch), 5, warmup=1)
+    glue_ms = cuda_ms(lambda: sgns.prepare_sgns_block(
+        *launch.tables, *streams[:3], n_pairs, lr, True), 5, warmup=1)
+    bound = sgns_bound(streams, n_live, param_bytes=2)
+    log(f"B5 bf16 sgns_block: kernel {ms:.4f} ms per block ({launch.grid} "
+        f"CTAs), glue sort {glue_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}; bytes {bound[2]:.4f} at 2-byte "
+        f"rows, operations {bound[3]:.4f})")
+    err = max(by_chunk["max_abs_err_tables"].values())
+    return {"name": "sgns_block_bf16", "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/sgns.cu",
+            "replaces": "multiverso_tpu/ops/pallas_sgns.py:122",
+            "max_abs_err": err, "by_chunk": by_chunk, "whole_block": whole,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "bound_bytes_ms": bound[2],
+            "bound_ops_ms": bound[3], "library_ms": None}
 
 
 def check_variants(dev) -> dict:
@@ -1050,7 +1249,8 @@ def check_variants(dev) -> dict:
     loads) and 25 (4-byte loads; the main path's 50 takes 8-byte loads),
     bitwise; B5 built for 16 negatives (K=10), for widths that are not a
     multiple of 4 (D=126, with K=5 and K=10), and SGD, with skewed ids so
-    long runs take the CTA path. Returns {kernel: [variant records]}."""
+    long runs take the CTA path, each with float32 and with bfloat16
+    embeddings. Returns {kernel: [variant records]}."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.ops import rows, sgns
@@ -1085,27 +1285,39 @@ def check_variants(dev) -> dict:
                                  generator=g).to(torch.int32).view(shape)
 
     out["sgns_block"] = []
-    for d, k, adagrad in ((128, 10, True), (126, 5, True), (126, 10, True),
-                          (128, 5, False)):
+    out["sgns_block_bf16"] = []
+    for d, k, adagrad, dt in [(*c, dt) for dt in (torch.float32,
+                                                  torch.bfloat16)
+                              for c in ((128, 10, True), (126, 5, True),
+                                        (126, 10, True), (128, 5, False))]:
         streams = (draw(n, c), draw(n, c), draw(n, c, k))
         n_pairs = torch.tensor(3 * c + 517, dtype=torch.int32, device=dev)
-        tables = (0.1 * torch.randn((v, d), generator=g, device=dev),
-                  0.1 * torch.randn((v, d), generator=g, device=dev),
+        tables = ((0.1 * torch.randn((v, d), generator=g, device=dev)
+                   ).to(dt),
+                  (0.1 * torch.randn((v, d), generator=g, device=dev)
+                   ).to(dt),
                   torch.zeros((v, d), device=dev),
                   torch.zeros((v, d), device=dev))
+        bf16 = dt == torch.bfloat16
+        what = (f"B5 variant D={d} K={k} {'adagrad' if adagrad else 'sgd'}"
+                f"{' bf16' if bf16 else ''}")
+        rec = {"d": d, "k": k, "adagrad": adagrad}
+        if bf16:
+            rec.update(hold_bf16_by_chunk(tables, streams, n_pairs, 0.025,
+                                          adagrad, what))
+            out["sgns_block_bf16"].append(rec)
+            continue
         kern = [t.clone() for t in tables]
         plain = [t.clone() for t in tables]
         lk = float(sgns.sgns_block_cuda(*kern, *streams, n_pairs, 0.025,
                                         adagrad))
         lp = float(sgns.sgns_block_plain(*plain, *streams, n_pairs, 0.025,
                                          adagrad))
-        what = f"B5 variant D={d} K={k} {'adagrad' if adagrad else 'sgd'}"
         log(f"{what}: V={v} C={c}, 3 full chunks + a tail of 517; loss "
             f"{lk} vs plain {lp}")
-        errs = sgns_table_errs(kern, plain, what)
+        rec["max_abs_err_tables"] = sgns_table_errs(kern, plain, what)
         assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (what, lk, lp)
-        out["sgns_block"].append({"d": d, "k": k, "adagrad": adagrad,
-                                  "max_abs_err_tables": errs})
+        out["sgns_block"].append(rec)
     return out
 
 
@@ -1115,9 +1327,11 @@ def check_sgns_layouts(dev) -> list:
     length, which must be ``sgns.LONG_RUN``), then a few layouts with
     D=126, with SGD and with K=1, and K=16 at the flagship's chunk and
     vocabulary with Zipf ids (more tiles of 32 slots than the grid has
-    warps, so tiles are also taken from the chunk's counter), each table
-    within ``SGNS_RTOL`` and the loss within ``SGNS_LOSS_RTOL``. Returns
-    the variant records."""
+    warps, so tiles are also taken from the chunk's counter; held against
+    the plain version on the CPU), each table within ``SGNS_RTOL`` and the
+    loss within ``SGNS_LOSS_RTOL``; then all of it again with bfloat16
+    embeddings, chunk by chunk within ``SGNS_BF16_RTOL``.
+    Returns the variant records (``bf16`` marks the instance)."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.ops import sgns
@@ -1128,24 +1342,32 @@ def check_sgns_layouts(dev) -> list:
     g = torch.Generator(device=dev).manual_seed(6)
     c = 512
 
-    def tables_for(vocab, d):
-        return (0.1 * torch.randn((vocab, d), generator=g, device=dev),
-                0.1 * torch.randn((vocab, d), generator=g, device=dev),
+    def tables_for(vocab, d, dtype=torch.float32):
+        return ((0.1 * torch.randn((vocab, d), generator=g, device=dev)
+                 ).to(dtype),
+                (0.1 * torch.randn((vocab, d), generator=g, device=dev)
+                 ).to(dtype),
                 torch.rand((vocab, d), generator=g, device=dev),
                 torch.rand((vocab, d), generator=g, device=dev))
 
-    def hold(what, tables, streams, n_pairs, adagrad):
+    def hold(what, tables, streams, n_pairs, adagrad, on_cpu=False):
+        if tables[0].dtype == torch.bfloat16:
+            return {"layout": what, "bf16": True, **hold_bf16_by_chunk(
+                tables, streams, n_pairs, 0.025, adagrad, what)}
         kern = [t.clone() for t in tables]
-        plain = [t.clone() for t in tables]
+        plain = [t.cpu() if on_cpu else t.clone() for t in tables]
         n_pairs = torch.tensor(n_pairs, dtype=torch.int32, device=dev)
         lk = float(sgns.sgns_block_cuda(*kern, *streams, n_pairs, 0.025,
                                         adagrad))
-        lp = float(sgns.sgns_block_plain(*plain, *streams, n_pairs, 0.025,
-                                         adagrad))
-        log(f"{what}: loss {lk} vs plain {lp}")
+        lp = float(sgns.sgns_block_plain(
+            *plain, *[s.to(plain[0].device) for s in streams],
+            n_pairs.to(plain[0].device), 0.025, adagrad))
+        kern = [t.cpu() for t in kern] if on_cpu else kern
+        log(f"{what}: loss {lk} vs plain {lp}"
+            f"{' (the plain version on the CPU)' if on_cpu else ''}")
         errs = sgns_table_errs(kern, plain, what)
         assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (what, lk, lp)
-        return {"layout": what, "max_abs_err_tables": errs}
+        return {"layout": what, "max_abs_err_tables": errs, "bf16": False}
 
     def vocab(k):                      # room for a run per out-lane
         return max(4096, 2 * c * (1 + k))
@@ -1158,12 +1380,17 @@ def check_sgns_layouts(dev) -> list:
               ("one_out_id", 5, 128, False), ("long_edges", 5, 128, False),
               ("held_edges", 1, 128, True), ("long_edges", 1, 128, True),
               ("tile_edges0", 16, 128, True), ("long_edges", 16, 128, True)]
-    for name, k, d, adagrad in cases:
+    # The bfloat16 instance on every layout and every case above.
+    cases = [(*c, dt) for dt in (torch.float32, torch.bfloat16)
+             for c in cases]
+    for name, k, d, adagrad, dt in cases:
         *np_streams, n_pairs = layouts[k][name]
         streams = [torch.as_tensor(x, device=dev) for x in np_streams]
         out.append(hold(f"B5 layout {name} K={k} D={d} "
-                        f"{'adagrad' if adagrad else 'sgd'}",
-                        tables_for(vocab(k), d), streams, n_pairs, adagrad))
+                        f"{'adagrad' if adagrad else 'sgd'}"
+                        f"{' bf16' if dt == torch.bfloat16 else ''}",
+                        tables_for(vocab(k), d, dt), streams, n_pairs,
+                        adagrad))
     zipf = 1.0 / np.arange(1, V + 1)
     zipf = torch.as_tensor(zipf / zipf.sum(), dtype=torch.float32,
                            device=dev)
@@ -1171,10 +1398,18 @@ def check_sgns_layouts(dev) -> list:
     streams = [torch.multinomial(zipf, int(np.prod(shape)), True,
                                  generator=g).to(torch.int32).view(shape)
                for shape in ((n, CHUNK), (n, CHUNK), (n, CHUNK, k))]
-    out.append(hold(f"B5 K={k} C={CHUNK} V={V} Zipf ids", tables_for(V, D),
-                    streams, CHUNK + 4097, True))
-    log(f"B5 layouts: {len(out)} cases within SGNS_RTOL and "
-        f"SGNS_LOSS_RTOL")
+    # Held against the plain version on the CPU, which adds each run's
+    # AdaGrad squares in lane order as the kernel does: on the card the
+    # plain version adds them by atomics in no fixed order, and over the
+    # run of ~2,700 lanes of the most frequent negative its g_in and g_out
+    # spread past SGNS_RTOL in some repeats.
+    for dt in (torch.float32, torch.bfloat16):
+        out.append(hold(f"B5 K={k} C={CHUNK} V={V} Zipf ids"
+                        f"{' bf16' if dt == torch.bfloat16 else ''}",
+                        tables_for(V, D, dt), streams, CHUNK + 4097, True,
+                        on_cpu=dt == torch.float32))
+    log(f"B5 layouts: {len(out)} cases (float32 and bfloat16) within "
+        f"SGNS_RTOL / SGNS_BF16_RTOL and SGNS_LOSS_RTOL")
     return out
 
 
@@ -1881,37 +2116,135 @@ def tiled_leg(dev) -> float:
     return ms
 
 
+def bf16_table_plane() -> dict:
+    """A 1,000,000 x 50 bfloat16 table with the default updater through
+    the user's calls: 10 row Adds of 100,000 ids (natural duplicates and a
+    run of 64 equal ids in each), bitwise against the same Adds replayed
+    on the CPU (each row's duplicates folded in lane order with a rounding
+    after every add, XLA's scatter order), and row Gets."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+
+    rng = np.random.default_rng(8)
+    n = ROWS // 10
+    t = mv.create_table(mv.MatrixTableOption(ROWS, COLS, dtype="bfloat16",
+                                             updater="default",
+                                             name="bf16_default"))
+    assert t.store.data.dtype == torch.bfloat16 and \
+        t.store.device.type == "cuda"
+    replay = ServerStore("replay_bf16", (ROWS, COLS), "bfloat16",
+                         get_updater("bfloat16", "default"),
+                         torch.device("cpu"), num_workers=1)
+    batches = []
+    for _ in range(10):
+        ids = rng.integers(0, ROWS, size=n).astype(np.int32)
+        ids[rng.permutation(n)[:64]] = ids[0]
+        batches.append((ids, (0.01 * rng.normal(size=(n, COLS))
+                              ).astype(np.float32)))
+    t.add_rows(*batches[0])                      # the first one untimed
+    replay.apply_rows(*batches[0], AddOption())
+    t.store.block()
+    t0 = time.perf_counter()
+    for ids, deltas in batches[1:]:
+        t.add_rows(ids, deltas)
+    t.store.block()
+    dt = time.perf_counter() - t0
+    for ids, deltas in batches[1:]:
+        replay.apply_rows(ids, deltas, AddOption())
+    assert torch.equal(t.store.data.cpu().view(torch.int16),
+                       replay.data.view(torch.int16)), \
+        "bf16 table: card differs from the CPU replay"
+    probe = rng.integers(0, ROWS, size=n).astype(np.int32)
+    got = t.get_rows(probe)
+    assert got.dtype == np.float32
+    assert np.array_equal(got, replay.read_rows(probe).float().numpy())
+    rate = 9 * n * COLS / dt
+    log(f"bf16 table plane [default]: 10 x {n} row Adds (a run of 64 equal "
+        f"ids in each) + {n} row Gets bitwise to the CPU replay; 9 Adds in "
+        f"{dt:.4f} s -> {rate:.6g} param updates/sec (host numpy ids and "
+        f"deltas, as the user passes them)")
+    return {"updates_per_sec": rate}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the flagship
 # ---------------------------------------------------------------------------
-def flagship(sents, d) -> dict:
+def flagship(sents, d, param_dtype: str = "float32",
+             compact: bool = True) -> dict:
+    """bench.py's word2vec leg through ``Word2Vec.train`` (AUTO: the B5
+    kernel of the embeddings' dtype): a warm-up block, then 3 blocks, B5
+    launched once per block and a finite loss."""
     import math
     from multiverso_tpu_torch.models.word2vec import Word2Vec
     from multiverso_tpu_torch.ops import sgns
 
-    w2v = Word2Vec(flagship_config(), d)
+    key = "sgns_block_bf16" if param_dtype == "bfloat16" else "sgns_block"
+    w2v = Word2Vec(flagship_config(param_dtype, compact), d)
     assert w2v.dispatch_mode == "pallas_grid", w2v.dispatch_mode
     w2v.train(sentences=sents[:512])            # warm-up block
     w2v.trained_words = 0
-    sgns.LAUNCHES["sgns_block"] = 0
+    for k in sgns.LAUNCHES:
+        sgns.LAUNCHES[k] = 0
     stats = w2v.train(sentences=sents[512:512 * 4])
-    launches = sgns.LAUNCHES["sgns_block"]
+    launches = dict(sgns.LAUNCHES)
     assert stats["blocks"] == 3, stats
-    assert launches == stats["blocks"], (launches, stats["blocks"])
+    assert launches[key] == stats["blocks"], (launches, stats["blocks"])
+    assert sum(launches.values()) == launches[key], launches
     assert math.isfinite(stats["loss"]), stats
-    log(f"flagship word2vec (V={V}, D={D}, window 5, negative {NEG}, chunk "
-        f"{CHUNK}, adagrad, pallas_grid): {stats['words']} words, "
-        f"{stats['pairs']} pairs in {stats['seconds']:.4f} s -> "
-        f"{stats['words_per_sec']:.6g} words/sec, "
-        f"{stats['pairs'] / stats['seconds']:.6g} pairs/sec, loss "
-        f"{stats['loss']:.4f}, sgns_block launches {launches}")
-    return stats
+    log(f"flagship word2vec {param_dtype}{'' if compact else ' uncompacted'}"
+        f" (V={V}, D={D}, window 5, negative {NEG}, chunk {CHUNK}, adagrad, "
+        f"pallas_grid): {stats['words']} words, {stats['pairs']} pairs in "
+        f"{stats['seconds']:.4f} s -> {stats['words_per_sec']:.6g} "
+        f"words/sec, {stats['pairs'] / stats['seconds']:.6g} pairs/sec, loss "
+        f"{stats['loss']:.4f}, {key} launches {launches[key]}")
+    return dict(stats, launches=launches[key])
+
+
+def other_paths(sents, d) -> dict:
+    """The flagship's other single-process paths at bench width (widths of
+    bench.py's config, the same corpus): one block each of sg-hs, cbow-ns
+    and cbow-hs on the device pipeline (the plain block step: the JAX
+    package has no kernel for them), and the host batch path
+    (``device_pipeline=False``) over 512 sentences; each a finite loss
+    and no B5 launch. Returns {path: stats}."""
+    import math
+    from multiverso_tpu_torch.models.word2vec import Word2Vec
+    from multiverso_tpu_torch.ops import sgns
+
+    legs = {"sg-hs": dict(hs=True), "cbow-ns": dict(sg=False),
+            "cbow-hs": dict(sg=False, hs=True),
+            "host sg-ns": dict(device_pipeline=False)}
+    out = {}
+    for name, over in legs.items():
+        for k in sgns.LAUNCHES:
+            sgns.LAUNCHES[k] = 0
+        w2v = Word2Vec(flagship_config(**over), d)
+        stats = w2v.train(sentences=sents[:512])
+        assert math.isfinite(stats["loss"]) and stats["pairs"] > 0, \
+            (name, stats)
+        assert sum(sgns.LAUNCHES.values()) == 0, (name, sgns.LAUNCHES)
+        assert w2v.dispatch_mode == (None if "host" in name
+                                     else "in_graph"), w2v.dispatch_mode
+        log(f"word2vec {name} at bench width ("
+            f"{w2v.dispatch_mode or 'host batch path'}, one block of 512 "
+            f"sentences): {stats['words']} words, {stats['pairs']} "
+            f"examples in {stats['seconds']:.4f} s -> "
+            f"{stats['words_per_sec']:.6g} words/sec, loss "
+            f"{stats['loss']:.4f}, no B5 launch")
+        out[name] = stats
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the CLI
 # ---------------------------------------------------------------------------
-def cli_topics() -> None:
+def cli_topics(flags=(), mode: str = "pallas_grid") -> None:
+    """The CLI on a two-topic corpus (``flags`` added; ``mode`` the
+    chunk-loop mode it must report)."""
     import numpy as np
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus.txt")
@@ -1926,7 +2259,7 @@ def cli_topics() -> None:
                f"-train_file={corpus}", f"-output_file={vectors}",
                "-size=128", "-sample=0", "-min_count=1", "-epoch=3",
                "-batch_size=512", "-block_sentences=64",
-               "-pad_sentence_length=16"]
+               "-pad_sentence_length=16", *flags]
         proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                               timeout=600)
         tail = "\n".join(proc.stdout.splitlines()[-4:])
@@ -1943,9 +2276,9 @@ def cli_topics() -> None:
         b = [w for w in emb if w.startswith("b")]
         intra = np.mean([emb[x] @ emb[y] for x in a for y in a if x != y])
         inter = np.mean([emb[x] @ emb[y] for x in a for y in b])
-        assert "pallas_grid" in proc.stdout and "cuda" in proc.stdout, tail
-        log(f"CLI word2vec_main on the card: intra-topic cosine {intra:.4f}"
-            f", cross-topic {inter:.4f}")
+        assert mode in proc.stdout and "cuda" in proc.stdout, tail
+        log(f"CLI word2vec_main {' '.join(flags)} on the card ({mode}): "
+            f"intra-topic cosine {intra:.4f}, cross-topic {inter:.4f}")
         assert intra > inter + 0.1, (intra, inter)
 
 
@@ -2408,10 +2741,13 @@ def main() -> int:
     kernels += check_stateful_kernels(dev)
     kernels.append(check_tiled_kernel(dev))
     kernels.append(check_sgns_kernel(dev))
+    kernels.append(check_sgns_kernel_bf16(dev))
     kernels.append(check_attention_kernel(dev))
     kernels.append(check_paged_kernel(dev))
     variants = check_variants(dev)
-    variants["sgns_block"] += check_sgns_layouts(dev)
+    for rec in check_sgns_layouts(dev):
+        variants["sgns_block_bf16" if rec["bf16"] else "sgns_block"].append(
+            rec)
     layouts = check_scatter_layouts(dev)
     for k in kernels:
         k.setdefault("variants", variants.get(k["name"], []))
@@ -2442,18 +2778,27 @@ def main() -> int:
                                    "gather_rows")}
         assert counts["fused_stateful_rows"] > 0, (name, counts)
         assert counts["fold_sorted_runs"] > 0, (name, counts)
+    bf16_plane = bf16_table_plane()
     mv.shutdown()
     leg_ms, leg = on_path(tiled_leg, dev)
     assert leg["tiled_scatter_add_sorted_rows"] == 21, leg
 
-    # Phase 4: the flagship (counts read for B5).
+    # Phase 4: the flagship (counts read for B5), float32 and bfloat16;
+    # float32 uncompacted; the other variants and the host batch path.
     d, sents = zipf_corpus(V, 512 * 4, 500)
     mv.init([])
-    _, flag = on_path(flagship, sents, d)
+    f32, flag = on_path(flagship, sents, d)
+    bf16, flag_bf16 = on_path(flagship, sents, d, "bfloat16")
+    on_path(flagship, sents, d, "float32", False)
+    log(f"flagship bf16 / float32 in this run: words/sec "
+        f"{bf16['words_per_sec'] / f32['words_per_sec']:.4f}x, pairs/sec "
+        f"{(bf16['pairs'] / bf16['seconds']) / (f32['pairs'] / f32['seconds']):.4f}x")
+    other = other_paths(sents, d)
     mv.shutdown()
 
-    # Phase 5: the CLI.
+    # Phase 5: the CLI, skip-gram/NS (B5) and CBOW/HS (the plain block).
     cli_topics()
+    cli_topics(("-cbow=true", "-hs=true"), "in_graph")
 
     # Phase 6: the attention LM (its runs read B6's count one by one).
     small_lm_against_cpu(dev)
@@ -2472,6 +2817,7 @@ def main() -> int:
         "tiled_scatter_add_sorted_rows":
             leg["tiled_scatter_add_sorted_rows"],
         "sgns_block": flag["sgns_block"],
+        "sgns_block_bf16": flag_bf16["sgns_block_bf16"],
         "flash_block_attn": lm["b6_launches"],
         "paged_decode_attn": served["b7_launches"]}
     for k in kernels:
@@ -2486,6 +2832,14 @@ def main() -> int:
                     v["model_max_abs_err"] = path["model_max_abs_err"]
         if k["name"] == "tiled_scatter_add_sorted_rows":
             k["leg_ms_per_call"] = leg_ms
+        if k["name"] in ("sgns_block", "sgns_block_bf16"):
+            st = f32 if k["name"] == "sgns_block" else bf16
+            k["flagship_words_per_sec"] = st["words_per_sec"]
+            k["flagship_pairs_per_sec"] = st["pairs"] / st["seconds"]
+        if k["name"] == "sgns_block_bf16":
+            k["bf16_table_updates_per_sec"] = bf16_plane["updates_per_sec"]
+            k["other_paths_words_per_sec"] = {
+                name: st["words_per_sec"] for name, st in other.items()}
         if k["name"] == "flash_block_attn":
             k["launches_by_run"] = {r["run"]: r["launches"]
                                     for r in lm["runs"]}

@@ -3,7 +3,9 @@
 
 Parity with ``Applications/WordEmbedding/src/main.cpp``: train word
 vectors from a text corpus, flags named after the reference/word2vec
-conventions, rank-0 embedding export. Runs on the CUDA card unless
+conventions, rank-0 embedding export. All four variants (``-cbow``,
+``-hs``) and both paths (``-use_device_pipeline=true`` on-device example
+generation, ``false`` the host batch path). Runs on the CUDA card unless
 ``-w2v_device=cpu`` (or ``-platform=cpu``) is given. Multi-rank training
 (``-world_size>1``) waits (ROADMAP A7).
 
@@ -109,7 +111,8 @@ def _body(argv: List[str]) -> int:
     w2v = Word2Vec(_cfg_from_flags(), dictionary)
     stats = w2v.train(corpus_path=train_file)
     log.info("trained on %s (%s): %.0f words/sec, loss %.4f", w2v.device,
-             w2v.dispatch_mode, stats["words_per_sec"], stats["loss"])
+             w2v.dispatch_mode or "host batch path", stats["words_per_sec"],
+             stats["loss"])
     w2v.save(configure.get_flag("output_file"))
     Dashboard.display(echo=True)
     return 0

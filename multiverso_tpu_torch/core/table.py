@@ -22,6 +22,16 @@ duplicate combine and then the fused gather-update-scatter kernel (B3);
 row Gets go to the gather kernel (B1). On the CPU each kernel's plain
 version runs. Cross-replica state sharding (``-state_sharding=on``) waits
 for several cards (ROADMAP A7).
+
+bfloat16 tables (``dtype="bfloat16"``, or a numpy dtype named so) are
+stored as ``torch.bfloat16``. numpy knows that type only through
+``ml_dtypes``, which the port does not need, so on the host such a table
+takes and returns float32: deltas are rounded to bfloat16 on the way in
+(round to nearest even, as the JAX package's ``np.asarray(delta,
+bfloat16)``), and reads widen exactly. The row kernels stay float32-only,
+as in the JAX package; the default and sgd updaters fold a row Add's
+duplicate rows in lane order with a rounding after every add, as XLA's
+scatter does. A stateful updater on such a table waits (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.core.options import AddOption, GetOption
-from multiverso_tpu_torch.core.updater import (Updater,
+from multiverso_tpu_torch.core.updater import (SGDUpdater, Updater,
                                                combine_duplicate_rows,
                                                pallas_row_capability)
 from multiverso_tpu_torch.ops import rows
@@ -52,14 +62,44 @@ _TORCH_DTYPES = {
 }
 
 
+def is_bfloat16(dtype: Any) -> bool:
+    """True for ``"bfloat16"``, ``torch.bfloat16`` and a numpy dtype
+    named ``bfloat16``, without making numpy build that dtype (it can
+    only with ``ml_dtypes`` loaded)."""
+    if isinstance(dtype, str):
+        return dtype == "bfloat16"
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    try:
+        return np.dtype(dtype).name == "bfloat16"
+    except TypeError:
+        return False
+
+
+def host_dtype(dtype: Any) -> np.dtype:
+    """The numpy dtype a table of ``dtype`` takes and returns on the host:
+    float32 for a bfloat16 table (an exact widening), else ``dtype``."""
+    return np.dtype(np.float32) if is_bfloat16(dtype) else np.dtype(dtype)
+
+
 def torch_dtype(dtype: Any) -> torch.dtype:
-    """The torch dtype of a numpy dtype (tables are declared in numpy)."""
+    """The torch dtype of a numpy dtype (tables are declared in numpy), or
+    of ``"bfloat16"``."""
+    if is_bfloat16(dtype):
+        return torch.bfloat16
     try:
         return _TORCH_DTYPES[np.dtype(dtype)]
     except (KeyError, TypeError):
         raise NotImplementedError(
-            f"table dtype {dtype} is not ported yet (bfloat16 tables: "
-            "ROADMAP A3)") from None
+            f"table dtype {dtype} is not ported yet") from None
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16 widens to float32
+    (numpy has no bfloat16 without ``ml_dtypes``)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
 
 
 class ServerStore:
@@ -72,8 +112,15 @@ class ServerStore:
                  state_sharding: Optional[str] = None):
         self.name = name
         self.logical_shape = tuple(int(s) for s in shape)
-        self.dtype = np.dtype(dtype)
-        self.torch_dtype = torch_dtype(self.dtype)
+        #: The host-side dtype (float32 for a bfloat16 table).
+        self.dtype = host_dtype(dtype)
+        self.torch_dtype = torch_dtype(dtype)
+        if self.torch_dtype == torch.bfloat16 and \
+                type(updater) not in (Updater, SGDUpdater):
+            raise NotImplementedError(
+                f"table '{name}': the {updater.name} updater on a bfloat16 "
+                "table is not ported yet (default and sgd only): ROADMAP "
+                "A13")
         self.updater = updater
         self.device = torch.device(device)
         self.shard_axis = shard_axis
@@ -89,7 +136,8 @@ class ServerStore:
             check(tuple(init_array.shape) == self.logical_shape,
                   f"init shape {init_array.shape} != {self.logical_shape}")
             self.data = torch.as_tensor(
-                np.array(init_array, dtype=self.dtype), device=self.device)
+                np.array(init_array, dtype=self.dtype),
+                device=self.device).to(self.torch_dtype)
 
         mode = (state_sharding if state_sharding is not None
                 else get_flag("state_sharding"))
@@ -108,7 +156,7 @@ class ServerStore:
         # eligibility: 2-D float32 tables, one shard, unsharded state.
         self._pallas_cap = None
         if (use_pallas_rows and len(self.padded_shape) == 2
-                and self.dtype == np.dtype(np.float32)
+                and self.torch_dtype == torch.float32
                 and self.num_servers == 1):
             cap = pallas_row_capability(updater)
             if cap in ("scatter_add", "scatter_sub") or (
@@ -180,7 +228,8 @@ class ServerStore:
         values = np.asarray(values, dtype=self.dtype)
         check(tuple(values.shape) == self.logical_shape,
               f"publish shape {values.shape} != {self.logical_shape}")
-        new = torch.as_tensor(np.array(values), device=self.device)
+        new = torch.as_tensor(np.array(values), device=self.device).to(
+            self.torch_dtype)
         with self._lock:
             self.data = new
 
@@ -203,11 +252,12 @@ class ServerStore:
 
     def store_state(self) -> Dict[str, np.ndarray]:
         """The JAX package's payload format: ``data`` plus one
-        ``state/<leaf>`` entry per updater-state leaf, logical extents."""
+        ``state/<leaf>`` entry per updater-state leaf, logical extents (a
+        bfloat16 table's ``data`` widened to float32)."""
         with self._lock:
-            out = {"data": self.data.cpu().numpy().copy()}
+            out = {"data": host_array(self.data).copy()}
             for key, leaf in self.state.items():
-                out[f"state/{key}"] = leaf.cpu().numpy().copy()
+                out[f"state/{key}"] = host_array(leaf).copy()
         return out
 
     def load_state(self, payload: Dict[str, np.ndarray]) -> None:
@@ -216,7 +266,7 @@ class ServerStore:
               f"checkpoint data shape {tuple(data.shape)} incompatible "
               f"with table '{self.name}' {self.logical_shape}")
         new_data = torch.as_tensor(np.array(data, dtype=self.dtype),
-                                   device=self.device)
+                                   device=self.device).to(self.torch_dtype)
         logical = self.logical_shape[self.shard_axis]
         new_state = dict(self.state)
         for key, leaf in self.state.items():

@@ -106,7 +106,11 @@ class Updater:
         return data + delta, state
 
     def _row_add(self, data, rows, delta):
-        """``data.at[rows].add(delta, mode="drop")``, in place."""
+        """``data.at[rows].add(delta, mode="drop")``, in place. A bfloat16
+        table folds duplicate rows in lane order with a rounding after
+        every add (``ops/rows.add_rows_lane_order``), as XLA does."""
+        if data.dtype == torch.bfloat16:
+            return _rows.add_rows_lane_order(data, rows, delta)
         keep = _drop_mask(rows, data.shape[0])
         safe = torch.where(keep, rows, torch.zeros_like(rows))
         delta = torch.where(keep.view(-1, *([1] * (delta.dim() - 1))),
@@ -389,7 +393,11 @@ def pallas_row_capability(updater: Updater) -> Optional[str]:
 def get_updater(dtype: Any, updater_type: Optional[str] = None) -> Updater:
     """Factory (ref src/updater/updater.cpp:45-57). Integer tables always
     get the plain adder (ref updater.cpp:40-43)."""
-    if np.issubdtype(np.dtype(dtype), np.integer):
+    try:
+        integer = np.issubdtype(np.dtype(dtype), np.integer)
+    except TypeError:       # "bfloat16", which numpy knows via ml_dtypes
+        integer = False
+    if integer:
         return Updater()
     if updater_type is None:
         updater_type = get_flag("updater_type")

@@ -1,5 +1,18 @@
 // Whole-block skip-gram / negative-sampling trainer for Hopper (sm_90a).
 //
+// Built for two embedding element types, as the TPU kernel takes either:
+// float tables (mv_sgns_block) and bfloat16 tables (mv_sgns_block_bf16);
+// the AdaGrad sums g_in/g_out, the scratch and all the math are float in
+// both. A bfloat16 instance widens every gathered row to float, rounds
+// each lane's step to bfloat16 (__float2bfloat16_rn, as the JAX step's
+// astype) and adds it to its row in lane order with a rounding to
+// bfloat16 after every add, which is what XLA's scatter-add does on a
+// bfloat16 table; in every run class the terms may be made ahead, but
+// they are never summed in float and rounded once. A bfloat16 row of
+// D % 4 == 0 is read 4 elements (8 bytes) a lane; other widths take the
+// narrow instance, as float rows do. The float instance is the code below
+// with the rounding hooks (Elt<float>) the identity.
+//
 // mv_sgns_block replaces multiverso_tpu/ops/pallas_sgns.py::
 // build_sgns_grid_step (B5, its pl.pallas_call at :170): one launch trains
 // every live chunk of a block, in order, each chunk being raw_sg_ns_step
@@ -100,6 +113,7 @@
 // plain torch chain does.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -151,8 +165,8 @@ constexpr int kPermBlock = 1024;  // lanes whose rows and coefficients a
 constexpr unsigned kFull = 0xffffffffu;
 
 struct SgnsArgs {
-  float* w_in;
-  float* w_out;
+  void* w_in;                // [v_in, D] float or __nv_bfloat16
+  void* w_out;               // [v_out, D] of the same type
   float* g_in;
   float* g_out;
   int64_t v_in;
@@ -195,10 +209,71 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// Phase 1's row access: float4 where D % 4 == 0, else float.
+// An embedding row's elements, read as float (a bfloat16 widens exactly)
+// and written from float values the update has already rounded to the
+// element type; rnd() rounds a float to it, add() is what the table holds
+// after a step is added to a value it held.
+template <typename E> struct Elt;
+template <> struct Elt<float> {
+  // Vector c (4 elements) of a row.
+  __device__ static float4 vec4(const float* row, int c) {
+    return reinterpret_cast<const float4*>(row)[c];
+  }
+  __device__ static float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  __device__ static void store4(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  __device__ static float load1(const float* p) { return *p; }
+  __device__ static void store1(float* p, float v) { *p = v; }
+  __device__ static float rnd(float x) { return x; }
+  __device__ static float add(float w, float s) { return __fadd_rn(w, s); }
+};
+template <> struct Elt<__nv_bfloat16> {
+  __device__ static float4 widen(uint2 r) {
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  __device__ static float4 vec4(const __nv_bfloat16* row, int c) {
+    return widen(reinterpret_cast<const uint2*>(row)[c]);
+  }
+  __device__ static float4 load4(const __nv_bfloat16* p) {
+    return widen(*reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static void store4(__nv_bfloat16* p, float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 r;
+    r.x = *reinterpret_cast<const unsigned*>(&lo);
+    r.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = r;
+  }
+  __device__ static float load1(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ static void store1(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+  __device__ static float rnd(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  __device__ static float add(float w, float s) {
+    return rnd(__fadd_rn(w, rnd(s)));
+  }
+};
+
+// Phase 1's row access: 4 elements a load where D % 4 == 0, else 1.
 template <int VEC> struct Ld;
 template <> struct Ld<4> {
   using T = float4;
+  template <typename E>
+  __device__ static T at(const E* row, int c) {
+    return Elt<E>::vec4(row, c);
+  }
   __device__ static float dot(T a, T b) {
     return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
   }
@@ -214,6 +289,10 @@ template <> struct Ld<4> {
 };
 template <> struct Ld<1> {
   using T = float;
+  template <typename E>
+  __device__ static T at(const E* row, int c) {
+    return Elt<E>::load1(row + c);
+  }
   __device__ static float dot(T a, T b) { return a * b; }
   __device__ static T scale(float s, T a) { return __fmul_rn(s, a); }
   __device__ static T add(T a, T b) { return __fadd_rn(a, b); }
@@ -227,6 +306,12 @@ __device__ __forceinline__ float4 zero4() {
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+// A row's 4 values after 4 steps are added (add4 for float rows).
+template <typename E>
+__device__ __forceinline__ float4 addw4(float4 w, float4 s) {
+  return make_float4(Elt<E>::add(w.x, s.x), Elt<E>::add(w.y, s.y),
+                     Elt<E>::add(w.z, s.z), Elt<E>::add(w.w, s.w));
 }
 __device__ __forceinline__ float4 mul4(float s, float4 a) {
   return make_float4(__fmul_rn(s, a.x), __fmul_rn(s, a.y),
@@ -264,32 +349,35 @@ __device__ __forceinline__ float4 step4(float neg_lr, float4 g, float4 den,
 // past d load a valid element and are never stored.
 template <int VEC> struct WarpCols;
 template <> struct WarpCols<4> {
-  __device__ static float4 load(const float* row, int cb, int lane, int d) {
+  template <typename E>
+  __device__ static float4 load(const E* row, int cb, int lane, int d) {
     const int o = cb + 4 * lane;
-    return *reinterpret_cast<const float4*>(row + (o < d ? o : d - 4));
+    return Elt<E>::load4(row + (o < d ? o : d - 4));
   }
-  __device__ static void store(float* row, int cb, int lane, int d,
-                               float4 v) {
+  template <typename E>
+  __device__ static void store(E* row, int cb, int lane, int d, float4 v) {
     const int o = cb + 4 * lane;
-    if (o < d) *reinterpret_cast<float4*>(row + o) = v;
+    if (o < d) Elt<E>::store4(row + o, v);
   }
 };
 template <> struct WarpCols<1> {
-  __device__ static float at(const float* row, int o, int d) {
-    return row[o < d ? o : d - 1];
+  template <typename E>
+  __device__ static float at(const E* row, int o, int d) {
+    return Elt<E>::load1(row + (o < d ? o : d - 1));
   }
-  __device__ static float4 load(const float* row, int cb, int lane, int d) {
+  template <typename E>
+  __device__ static float4 load(const E* row, int cb, int lane, int d) {
     const int o = cb + lane;
     return make_float4(at(row, o, d), at(row, o + 32, d), at(row, o + 64, d),
                        at(row, o + 96, d));
   }
-  __device__ static void store(float* row, int cb, int lane, int d,
-                               float4 v) {
+  template <typename E>
+  __device__ static void store(E* row, int cb, int lane, int d, float4 v) {
     const int o = cb + lane;
-    if (o < d) row[o] = v.x;
-    if (o + 32 < d) row[o + 32] = v.y;
-    if (o + 64 < d) row[o + 64] = v.z;
-    if (o + 96 < d) row[o + 96] = v.w;
+    if (o < d) Elt<E>::store1(row + o, v.x);
+    if (o + 32 < d) Elt<E>::store1(row + o + 32, v.y);
+    if (o + 64 < d) Elt<E>::store1(row + o + 64, v.z);
+    if (o + 96 < d) Elt<E>::store1(row + o + 96, v.w);
   }
 };
 
@@ -298,33 +386,35 @@ template <> struct WarpCols<1> {
 // cb + gl + G*(4q + m), m < 4 (VEC 1).
 template <int VEC> struct GroupCols;
 template <> struct GroupCols<4> {
-  __device__ static float4 load(const float* row, int cb, int gl, int q,
-                                int d) {
+  template <typename E>
+  __device__ static float4 load(const E* row, int cb, int gl, int q, int d) {
     const int o = cb + 4 * (gl + kRunLanes * q);
-    return *reinterpret_cast<const float4*>(row + (o < d ? o : d - 4));
+    return Elt<E>::load4(row + (o < d ? o : d - 4));
   }
-  __device__ static void store(float* row, int cb, int gl, int q, int d,
+  template <typename E>
+  __device__ static void store(E* row, int cb, int gl, int q, int d,
                                float4 v) {
     const int o = cb + 4 * (gl + kRunLanes * q);
-    if (o < d) *reinterpret_cast<float4*>(row + o) = v;
+    if (o < d) Elt<E>::store4(row + o, v);
   }
 };
 template <> struct GroupCols<1> {
-  __device__ static float4 load(const float* row, int cb, int gl, int q,
-                                int d) {
+  template <typename E>
+  __device__ static float4 load(const E* row, int cb, int gl, int q, int d) {
     const int o = cb + gl + 4 * kRunLanes * q;
     return make_float4(WarpCols<1>::at(row, o, d),
                        WarpCols<1>::at(row, o + kRunLanes, d),
                        WarpCols<1>::at(row, o + 2 * kRunLanes, d),
                        WarpCols<1>::at(row, o + 3 * kRunLanes, d));
   }
-  __device__ static void store(float* row, int cb, int gl, int q, int d,
+  template <typename E>
+  __device__ static void store(E* row, int cb, int gl, int q, int d,
                                float4 v) {
     const int o = cb + gl + 4 * kRunLanes * q;
-    if (o < d) row[o] = v.x;
-    if (o + kRunLanes < d) row[o + kRunLanes] = v.y;
-    if (o + 2 * kRunLanes < d) row[o + 2 * kRunLanes] = v.z;
-    if (o + 3 * kRunLanes < d) row[o + 3 * kRunLanes] = v.w;
+    if (o < d) Elt<E>::store1(row + o, v.x);
+    if (o + kRunLanes < d) Elt<E>::store1(row + o + kRunLanes, v.y);
+    if (o + 2 * kRunLanes < d) Elt<E>::store1(row + o + 2 * kRunLanes, v.z);
+    if (o + 3 * kRunLanes < d) Elt<E>::store1(row + o + 3 * kRunLanes, v.w);
   }
 };
 
@@ -332,27 +422,29 @@ template <> struct GroupCols<1> {
 // the table and its AdaGrad sums, and where a lane's gradient row comes
 // from (grad_u for centers; the center's u snapshot for out-lanes, scaled
 // by the lane's coefficient).
+template <typename E>
 struct Side {
   const int32_t* ids;
   const int32_t* perm;
   int64_t n;
-  float* w;
+  E* w;
   float* g2;
   int64_t rows;
   const float* src;
   bool out;
 };
 
-__device__ __forceinline__ Side side_of(const SgnsArgs& a, int64_t ci,
-                                        bool out) {
+template <typename E>
+__device__ __forceinline__ Side<E> side_of(const SgnsArgs& a, int64_t ci,
+                                           bool out) {
   const int64_t C = a.chunk, n_out = C * (1 + a.k);
-  Side s;
+  Side<E> s;
   s.out = out;
   if (out) {
     s.ids = a.out_ids + ci * n_out;
     s.perm = a.out_perm + ci * n_out;
     s.n = n_out;
-    s.w = a.w_out;
+    s.w = static_cast<E*>(a.w_out);
     s.g2 = a.g_out;
     s.rows = a.v_out;
     s.src = a.u_snap;
@@ -360,7 +452,7 @@ __device__ __forceinline__ Side side_of(const SgnsArgs& a, int64_t ci,
     s.ids = a.in_ids + ci * C;
     s.perm = a.in_perm + ci * C;
     s.n = C;
-    s.w = a.w_in;
+    s.w = static_cast<E*>(a.w_in);
     s.g2 = a.g_in;
     s.rows = a.v_in;
     s.src = a.grad_u;
@@ -383,12 +475,13 @@ __device__ __forceinline__ int nth_bit(unsigned m, int k) {
 // A short run of row `row` (len <= kHeld lanes, permutation entries pi),
 // by one lane group, lane gl of it. Every load of the run goes out in one
 // round trip; both passes read the held rows.
-template <int VEC>
-__device__ void apply_short(const Side& sd, const float* coef, int C, int K,
-                            int d, int32_t row, const int32_t (&pi)[kHeld],
-                            int len, float neg_lr, bool adagrad, int gl) {
+template <typename E, int VEC>
+__device__ void apply_short(const Side<E>& sd, const float* coef, int C,
+                            int K, int d, int32_t row,
+                            const int32_t (&pi)[kHeld], int len,
+                            float neg_lr, bool adagrad, int gl) {
   using Cols = GroupCols<VEC>;
-  float* w = sd.w + (int64_t)row * d;
+  E* w = sd.w + (int64_t)row * d;
   float* g2 = sd.g2 + (int64_t)row * d;
   const float* src[kHeld];
   float cf[kHeld];
@@ -437,7 +530,7 @@ __device__ void apply_short(const Side& sd, const float* coef, int C, int K,
       if (i < len) {
 #pragma unroll
         for (int q = 0; q < kQuads; ++q)
-          wv[q] = add4(wv[q], step4(neg_lr, g[i][q], acc[q], adagrad));
+          wv[q] = addw4<E>(wv[q], step4(neg_lr, g[i][q], acc[q], adagrad));
       }
 #pragma unroll
     for (int q = 0; q < kQuads; ++q) Cols::store(w, cb, gl, q, d, wv[q]);
@@ -518,7 +611,7 @@ __device__ __forceinline__ void stage_rows(const float* src, int32_t rb_l,
 
 // Fold staged lanes [i0, i1) into acc in lane order: squares (pass 0) or
 // steps against den (pass 1).
-template <int VEC>
+template <typename E, int VEC>
 __device__ __forceinline__ float4 fold_rows(float4 acc, float cf_l, int i0,
                                             int i1, int pass, float4 den,
                                             float neg_lr, bool adagrad,
@@ -528,7 +621,7 @@ __device__ __forceinline__ float4 fold_rows(float4 acc, float cf_l, int i0,
     const float cf = __shfl_sync(kFull, cf_l, i);
     const float4 x = mul4(cf, staged<VEC>(rows[i - i0], lane));
     acc = pass == 0 ? sq_acc4(acc, x)
-                    : add4(acc, step4(neg_lr, x, den, adagrad));
+                    : addw4<E>(acc, step4(neg_lr, x, den, adagrad));
   }
   return acc;
 }
@@ -537,9 +630,9 @@ __device__ __forceinline__ float4 fold_rows(float4 acc, float cf_l, int i0,
 // the permutation entry of the run's lane l. Its gradient rows go out
 // beside the row's w and g2, kStaged a round trip; a run of at most
 // kStaged lanes keeps them for both passes. Lane order, as apply_short.
-template <int VEC>
-__device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
-                             int d, int32_t row, int32_t pl, int len,
+template <typename E, int VEC>
+__device__ void apply_medium(const Side<E>& sd, const float* coef, int C,
+                             int K, int d, int32_t row, int32_t pl, int len,
                              float neg_lr, bool adagrad, int lane,
                              float (*rows)[kBlock]) {
   using Cols = WarpCols<VEC>;
@@ -547,7 +640,7 @@ __device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
   const int32_t p = mine ? pl : 0;
   const int32_t rb_l = sd.out ? pair_of(p, C, K) : p;
   const float cf_l = (mine && sd.out) ? coef[p] : 1.f;
-  float* w = sd.w + (int64_t)row * d;
+  E* w = sd.w + (int64_t)row * d;
   float* g2 = sd.g2 + (int64_t)row * d;
   const bool kept = len <= kStaged;
   for (int cb = 0; cb < d; cb += kBlock) {
@@ -560,11 +653,11 @@ __device__ void apply_medium(const Side& sd, const float* coef, int C, int K,
         if (!kept) stage_rows<VEC>(sd.src, rb_l, i0, i1, cb, d, lane, rows);
         cp_wait_all();
         if (pass == 0)
-          acc = fold_rows<VEC>(acc, cf_l, i0, i1, 0, acc, neg_lr, adagrad,
-                               lane, rows);
+          acc = fold_rows<E, VEC>(acc, cf_l, i0, i1, 0, acc, neg_lr,
+                                  adagrad, lane, rows);
         else
-          wv = fold_rows<VEC>(wv, cf_l, i0, i1, 1, acc, neg_lr, adagrad,
-                              lane, rows);
+          wv = fold_rows<E, VEC>(wv, cf_l, i0, i1, 1, acc, neg_lr, adagrad,
+                                 lane, rows);
       }
       if (pass == 0) {
         Cols::store(g2, cb, lane, d, acc);
@@ -600,13 +693,14 @@ __device__ __forceinline__ void ring_issue(LongShared& sh, const float* src,
 // column turns each landed tile into its terms (squares, or steps against
 // the column's denominator) and adds them in lane order. A run that fits
 // the ring keeps its tiles for the second pass.
-template <int VEC>
+template <typename E, int VEC>
 __device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
                            float neg_lr, bool adagrad, int lane, int wib,
                            LongShared& sh) {
+  using El = Elt<E>;
   const int C = a.chunk, K = a.k, d = a.d;
   const bool out = slot >= C;
-  const Side sd = side_of(a, ci, out);
+  const Side<E> sd = side_of<E>(a, ci, out);
   const int64_t s = out ? slot - C : slot;
   const int32_t row = sd.ids[s];
   // The run's end, by a k-ary search over [s + kLongRun, n): every thread
@@ -657,12 +751,12 @@ __device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
   const bool one_block = e - s <= kPermBlock;
   const bool resident = e - s <= kRing * kRingLanes;
   if (one_block) index_block(s, (int)(e - s));
-  float* w = sd.w + (int64_t)row * d;
+  E* w = sd.w + (int64_t)row * d;
   float* g2 = sd.g2 + (int64_t)row * d;
   for (int cb = 0; cb < d; cb += kBlock) {
     const bool folder = t < kBlock && cb + t < d;
     float acc = (folder && adagrad) ? g2[cb + t] : 0.f;
-    float wv = folder ? w[cb + t] : 0.f;
+    float wv = folder ? El::load1(w + cb + t) : 0.f;
     for (int pass = adagrad ? 0 : 1; pass < 2; ++pass) {
       const float den = __fsqrt_rn(__fadd_rn(acc, kAdaEps));
       const bool kept = resident && pass == 1 && adagrad;
@@ -711,9 +805,11 @@ __device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
               } else {
 #pragma unroll
                 for (int l = 0; l < kRingLanes; ++l)
-                  x[l] = step1(neg_lr, __fmul_rn(cf[l], x[l]), den, adagrad);
+                  x[l] = El::rnd(
+                      step1(neg_lr, __fmul_rn(cf[l], x[l]), den, adagrad));
 #pragma unroll
-                for (int l = 0; l < kRingLanes; ++l) wv = __fadd_rn(wv, x[l]);
+                for (int l = 0; l < kRingLanes; ++l)
+                  wv = El::rnd(__fadd_rn(wv, x[l]));
               }
             } else {
               for (int l = 0; l < m; ++l) {
@@ -721,7 +817,7 @@ __device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
                 if (pass == 0)
                   acc = __fadd_rn(acc, __fmul_rn(v, v));
                 else
-                  wv = __fadd_rn(wv, step1(neg_lr, v, den, adagrad));
+                  wv = El::add(wv, step1(neg_lr, v, den, adagrad));
               }
             }
           }
@@ -731,7 +827,7 @@ __device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
     }
     if (folder) {
       if (adagrad) g2[cb + t] = acc;
-      w[cb + t] = wv;
+      El::store1(w + cb + t, wv);
     }
     __syncthreads();  // the ring is free for the next block or run
   }
@@ -745,13 +841,13 @@ __device__ void apply_long(const SgnsArgs& a, int64_t ci, int32_t slot,
 static_assert(kLongRun >= kHeld + 1 && kLongRun <= 33,
               "a run shorter than kLongRun that starts in a tile of 32 "
               "slots must end within the 64 slots apply_tile reads");
-template <int VEC>
+template <typename E, int VEC>
 __device__ void apply_tile(const SgnsArgs& a, int64_t ci, int64_t tile,
                            int sub, int wpt, int64_t tiles_in, float neg_lr,
                            bool adagrad, int lane, float (*rows)[kBlock]) {
   const int C = a.chunk, K = a.k, d = a.d;
   const bool out = tile >= tiles_in;
-  const Side sd = side_of(a, ci, out);
+  const Side<E> sd = side_of<E>(a, ci, out);
   const int64_t s0 = (out ? tile - tiles_in : tile) * 32 + lane;
   const int64_t s1 = s0 + 32;
   const bool in0 = s0 < sd.n, in1 = s1 < sd.n;
@@ -798,8 +894,8 @@ __device__ void apply_tile(const SgnsArgs& a, int64_t ci, int64_t tile,
       pi[i] = sl < 32 ? lo : hi;
     }
     if (k < n_short)
-      apply_short<VEC>(sd, a.coef, C, K, d, row, pi, rlen, neg_lr, adagrad,
-                       gl);
+      apply_short<E, VEC>(sd, a.coef, C, K, d, row, pi, rlen, neg_lr,
+                          adagrad, gl);
     __syncwarp();
   }
   const int n_med = __popc(mediums);
@@ -810,8 +906,8 @@ __device__ void apply_tile(const SgnsArgs& a, int64_t ci, int64_t tile,
     const int sl = src + lane < 63 ? src + lane : 63;
     const int32_t lo = __shfl_sync(kFull, pm0, sl & 31);
     const int32_t hi = __shfl_sync(kFull, pm1, sl & 31);
-    apply_medium<VEC>(sd, a.coef, C, K, d, row, sl < 32 ? lo : hi, rlen,
-                      neg_lr, adagrad, lane, rows);
+    apply_medium<E, VEC>(sd, a.coef, C, K, d, row, sl < 32 ? lo : hi, rlen,
+                         neg_lr, adagrad, lane, rows);
   }
 }
 
@@ -851,7 +947,7 @@ __device__ __forceinline__ int32_t pair_ids(const SgnsArgs& a, int64_t p,
   return 0;
 }
 
-template <int VEC, int KMAX>
+template <typename E, int VEC, int KMAX>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sgns_block_kernel(SgnsArgs a) {
   using L = Ld<VEC>;
@@ -896,8 +992,9 @@ sgns_block_kernel(SgnsArgs a) {
         const int32_t x = __shfl_sync(kFull, ids, k);
         nr[k] = k < K ? (int32_t)clip(x, a.v_out) : 0;
       }
-      const T* u = reinterpret_cast<const T*>(a.w_in + cr * D);
-      const T* vp = reinterpret_cast<const T*>(a.w_out + orow * D);
+      const E* w_out = static_cast<const E*>(a.w_out);
+      const E* u = static_cast<const E*>(a.w_in) + cr * D;
+      const E* vp = w_out + orow * D;
       T* gu = reinterpret_cast<T*>(a.grad_u + b * D);
       T* us = reinterpret_cast<T*>(a.u_snap + b * D);
       float dpos = 0.f, dneg[KMAX], g_pos;
@@ -906,13 +1003,11 @@ sgns_block_kernel(SgnsArgs a) {
       if (dv <= 32) {  // a row in one pass: every row loaded once
         const bool col = lane < dv;
         const int c = col ? lane : 0;
-        const T uu = u[c], vv = vp[c];
+        const T uu = L::at(u, c), vv = L::at(vp, c);
         T vn[KMAX];
 #pragma unroll
         for (int k = 0; k < KMAX; ++k)
-          vn[k] = k < K ? reinterpret_cast<const T*>(
-                              a.w_out + (int64_t)nr[k] * D)[c]
-                        : L::zero();
+          vn[k] = k < K ? L::at(w_out + (int64_t)nr[k] * D, c) : L::zero();
         if (col) {
           dpos = L::dot(uu, vv);
 #pragma unroll
@@ -930,26 +1025,24 @@ sgns_block_kernel(SgnsArgs a) {
         }
       } else {
         for (int c = lane; c < dv; c += 32) {
-          const T uu = u[c];
-          dpos += L::dot(uu, vp[c]);
+          const T uu = L::at(u, c);
+          dpos += L::dot(uu, L::at(vp, c));
 #pragma unroll
           for (int k = 0; k < KMAX; ++k)
             if (k < K)
-              dneg[k] += L::dot(uu, reinterpret_cast<const T*>(
-                                        a.w_out + (int64_t)nr[k] * D)[c]);
+              dneg[k] += L::dot(uu, L::at(w_out + (int64_t)nr[k] * D, c));
         }
         g_pos = ns_math<KMAX>(dpos, dneg, K, m, sum_pos, sum_neg);
         for (int c = lane; c < dv; c += 32) {
-          const T uu = u[c];
+          const T uu = L::at(u, c);
           T acc = L::zero();
 #pragma unroll
           for (int k = 0; k < KMAX; ++k)
             if (k < K)
-              acc = L::add(acc, L::scale(dneg[k], reinterpret_cast<const T*>(
-                                                      a.w_out +
-                                                      (int64_t)nr[k] *
-                                                          D)[c]));
-          gu[c] = L::add(L::scale(g_pos, vp[c]), acc);
+              acc = L::add(acc, L::scale(dneg[k],
+                                         L::at(w_out + (int64_t)nr[k] * D,
+                                               c)));
+          gu[c] = L::add(L::scale(g_pos, L::at(vp, c)), acc);
           us[c] = uu;
         }
       }
@@ -1022,8 +1115,8 @@ sgns_block_kernel(SgnsArgs a) {
     PROF_MARK(4);
     const int n_long = a.counts[ci];
     for (int q = blockIdx.x; q < n_long; q += gridDim.x)
-      apply_long<VEC>(a, ci, a.long_runs[q], neg_lr, adagrad, lane, wib,
-                      long_sh);
+      apply_long<E, VEC>(a, ci, a.long_runs[q], neg_lr, adagrad, lane, wib,
+                         long_sh);
     PROF_MARK(5);
     // Tiles of short runs: the warps of the CTAs without a long run take
     // one each (a tile split over wpt warps while there are warps to
@@ -1037,8 +1130,8 @@ sgns_block_kernel(SgnsArgs a) {
     if ((int)blockIdx.x >= long_ctas) {
       const int64_t v = (int64_t)(blockIdx.x - long_ctas) * kWarps + wib;
       if (v < n_virtual)
-        apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
-                        neg_lr, adagrad, lane, long_sh.med[wib]);
+        apply_tile<E, VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
+                           neg_lr, adagrad, lane, long_sh.med[wib]);
     }
     if (n_virtual > short_warps) {
       for (;;) {
@@ -1046,8 +1139,8 @@ sgns_block_kernel(SgnsArgs a) {
         if (lane == 0) taken = atomicAdd(a.counts + a.n_chunks + ci, 1);
         const int64_t v = short_warps + __shfl_sync(kFull, taken, 0);
         if (v >= n_virtual) break;
-        apply_tile<VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
-                        neg_lr, adagrad, lane, long_sh.med[wib]);
+        apply_tile<E, VEC>(a, ci, v / wpt, (int)(v % wpt), wpt, tiles_in,
+                           neg_lr, adagrad, lane, long_sh.med[wib]);
       }
     }
     PROF_MARK(6);
@@ -1059,69 +1152,62 @@ sgns_block_kernel(SgnsArgs a) {
 
 // Let each instance take kLongSmem bytes of dynamic shared memory, once
 // per device.
-template <int VEC, int KMAX>
+template <typename E, int VEC, int KMAX>
 void allow_smem() {
   static bool done[64];
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64 || !done[dev]) {
-    cudaFuncSetAttribute(sgns_block_kernel<VEC, KMAX>,
+    cudaFuncSetAttribute(sgns_block_kernel<E, VEC, KMAX>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kLongSmem);
     if (dev >= 0 && dev < 64) done[dev] = true;
   }
 }
 
-template <int VEC, int KMAX>
+template <typename E, int VEC, int KMAX>
 int launch(SgnsArgs a, int grid, cudaStream_t st) {
-  allow_smem<VEC, KMAX>();
+  allow_smem<E, VEC, KMAX>();
   void* params[] = {&a};
-  cudaLaunchCooperativeKernel((const void*)sgns_block_kernel<VEC, KMAX>,
+  cudaLaunchCooperativeKernel((const void*)sgns_block_kernel<E, VEC, KMAX>,
                               dim3(grid), dim3(kThreads), params, kLongSmem,
                               st);
   return (int)cudaGetLastError();
 }
 
-template <int VEC, int KMAX>
+template <typename E, int VEC, int KMAX>
 int occupancy_grid() {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  allow_smem<VEC, KMAX>();
+  allow_smem<E, VEC, KMAX>();
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sgns_block_kernel<VEC, KMAX>, kThreads, kLongSmem);
+      &per_sm, sgns_block_kernel<E, VEC, KMAX>, kThreads, kLongSmem);
   return per_sm * sms;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Lanes from which a run of equal ids is applied by a whole CTA.
-int mv_sgns_long_run() { return kLongRun; }
-
-// CTAs of the cooperative grid for this D and K (every CTA resident).
-int mv_sgns_grid_size(int d, int k) {
+template <typename E>
+int grid_size(int d, int k) {
   if (d % 4 == 0)
-    return k <= kSmallNeg ? occupancy_grid<4, kSmallNeg>()
-                          : occupancy_grid<4, kMaxNeg>();
-  return k <= kSmallNeg ? occupancy_grid<1, kSmallNeg>()
-                        : occupancy_grid<1, kMaxNeg>();
+    return k <= kSmallNeg ? occupancy_grid<E, 4, kSmallNeg>()
+                          : occupancy_grid<E, 4, kMaxNeg>();
+  return k <= kSmallNeg ? occupancy_grid<E, 1, kSmallNeg>()
+                        : occupancy_grid<E, 1, kMaxNeg>();
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue, launching nothing, when long_cap (the length of
 // long_runs) is short of the most long runs one chunk can list.
-int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
-                  int64_t v_in, int64_t v_out, const int32_t* centers,
-                  const int32_t* contexts, const int32_t* negatives,
-                  const int32_t* in_ids, const int32_t* in_perm,
-                  const int32_t* out_ids, const int32_t* out_perm,
-                  const int32_t* n_pairs, float* grad_u, float* u_snap,
-                  float* coef, float* loss_partials, float* loss_out,
-                  int64_t n_chunks, int chunk, int k, int d, float lr,
-                  int adagrad, int grid, int32_t* long_runs, int64_t long_cap,
-                  int32_t* counts, void* stream) {
+template <typename E>
+int block(void* w_in, void* w_out, float* g_in, float* g_out, int64_t v_in,
+          int64_t v_out, const int32_t* centers, const int32_t* contexts,
+          const int32_t* negatives, const int32_t* in_ids,
+          const int32_t* in_perm, const int32_t* out_ids,
+          const int32_t* out_perm, const int32_t* n_pairs, float* grad_u,
+          float* u_snap, float* coef, float* loss_partials, float* loss_out,
+          int64_t n_chunks, int chunk, int k, int d, float lr, int adagrad,
+          int grid, int32_t* long_runs, int64_t long_cap, int32_t* counts,
+          void* stream) {
   if (long_cap < chunk / kLongRun + (int64_t)chunk * (1 + k) / kLongRun)
     return (int)cudaErrorInvalidValue;
   SgnsArgs a{w_in,      w_out,    g_in,     g_out,    v_in,     v_out,
@@ -1131,10 +1217,48 @@ int mv_sgns_block(float* w_in, float* w_out, float* g_in, float* g_out,
              adagrad,   long_runs, counts};
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d % 4 == 0)
-    return k <= kSmallNeg ? launch<4, kSmallNeg>(a, grid, st)
-                          : launch<4, kMaxNeg>(a, grid, st);
-  return k <= kSmallNeg ? launch<1, kSmallNeg>(a, grid, st)
-                        : launch<1, kMaxNeg>(a, grid, st);
+    return k <= kSmallNeg ? launch<E, 4, kSmallNeg>(a, grid, st)
+                          : launch<E, 4, kMaxNeg>(a, grid, st);
+  return k <= kSmallNeg ? launch<E, 1, kSmallNeg>(a, grid, st)
+                        : launch<E, 1, kMaxNeg>(a, grid, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Lanes from which a run of equal ids is applied by a whole CTA.
+int mv_sgns_long_run() { return kLongRun; }
+
+// CTAs of the cooperative grid for this D and K (every CTA resident), for
+// float and for bfloat16 embeddings.
+int mv_sgns_grid_size(int d, int k) { return grid_size<float>(d, k); }
+int mv_sgns_grid_size_bf16(int d, int k) {
+  return grid_size<__nv_bfloat16>(d, k);
+}
+
+// One launch on float embeddings (w_in, w_out: float*) or on bfloat16
+// embeddings (__nv_bfloat16*); see block() for the return value.
+#define MV_SGNS_BLOCK_ARGS                                                   \
+  void *w_in, void *w_out, float *g_in, float *g_out, int64_t v_in,          \
+      int64_t v_out, const int32_t *centers, const int32_t *contexts,        \
+      const int32_t *negatives, const int32_t *in_ids,                       \
+      const int32_t *in_perm, const int32_t *out_ids,                        \
+      const int32_t *out_perm, const int32_t *n_pairs, float *grad_u,        \
+      float *u_snap, float *coef, float *loss_partials, float *loss_out,     \
+      int64_t n_chunks, int chunk, int k, int d, float lr, int adagrad,      \
+      int grid, int32_t *long_runs, int64_t long_cap, int32_t *counts,       \
+      void *stream
+#define MV_SGNS_BLOCK_PASS                                                   \
+  w_in, w_out, g_in, g_out, v_in, v_out, centers, contexts, negatives,       \
+      in_ids, in_perm, out_ids, out_perm, n_pairs, grad_u, u_snap, coef,     \
+      loss_partials, loss_out, n_chunks, chunk, k, d, lr, adagrad, grid,     \
+      long_runs, long_cap, counts, stream
+int mv_sgns_block(MV_SGNS_BLOCK_ARGS) {
+  return block<float>(MV_SGNS_BLOCK_PASS);
+}
+int mv_sgns_block_bf16(MV_SGNS_BLOCK_ARGS) {
+  return block<__nv_bfloat16>(MV_SGNS_BLOCK_PASS);
 }
 
 #ifdef MV_SGNS_PROFILE

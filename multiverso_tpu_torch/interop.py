@@ -9,7 +9,9 @@ device arrays), so this module needs neither JAX nor the JAX package:
   port's own ``store_state`` writes;
 * :func:`load_word2vec_tables` writes the four word2vec table arrays
   (input/output embeddings and their AdaGrad accumulators) into a port
-  ``Word2Vec``;
+  ``Word2Vec``; bfloat16 embeddings arrive as float32 values, as uint16
+  bit patterns or as the JAX package's own bfloat16 arrays, and load bit
+  for bit;
 * :func:`load_attention_lm_params` writes the JAX ``AttentionLM.params``
   into a port ``AttentionLM``; :func:`check_attention_lm_params` is its
   check, which the serving runner applies to the same dict.
@@ -38,15 +40,41 @@ def load_store_payload(store, payload: Mapping[str, np.ndarray]) -> None:
     store.load_state({k: np.array(v, copy=True) for k, v in payload.items()})
 
 
+def _bfloat16_values(name: str, values: np.ndarray) -> np.ndarray:
+    """A bfloat16 table's values as float32 (an exact widening): from
+    uint16 bit patterns, from an array of a numpy dtype named
+    ``bfloat16`` (by its bits), or from float32 values that are exactly
+    bfloat16."""
+    import torch
+
+    if values.dtype == np.uint16 or values.dtype.name == "bfloat16":
+        bits = np.array(values, copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).float().numpy()
+    check(values.dtype == np.float32,
+          f"{name}: dtype {values.dtype} is not float32, uint16 bit "
+          "patterns or bfloat16")
+    t = torch.from_numpy(np.array(values, copy=True))
+    check(bool((t.bfloat16().float() == t).all()),
+          f"{name}: float32 values that are not bfloat16 would be rounded")
+    return values
+
+
 def load_word2vec_tables(w2v, w_in: np.ndarray, w_out: np.ndarray,
                          g_in: np.ndarray, g_out: np.ndarray) -> None:
-    """Write the four word2vec tables of the JAX package into ``w2v``."""
+    """Write the four word2vec tables of the JAX package into ``w2v``,
+    bit for bit: float32 tables as float32, and bfloat16 embeddings
+    (``param_dtype="bfloat16"``) as float32 values, uint16 bit patterns
+    or bfloat16 arrays."""
+    import torch
+
     for table, values in ((w2v.input_table, w_in), (w2v.output_table, w_out),
                           (w2v.adagrad_in, g_in), (w2v.adagrad_out, g_out)):
         values = np.asarray(values)
         check(values.shape == table.store.logical_shape,
               f"{table.name}: shape {values.shape} != "
               f"{table.store.logical_shape}")
+        if table.store.torch_dtype == torch.bfloat16:
+            values = _bfloat16_values(table.name, values)
         check(values.dtype == np.float32,
               f"{table.name}: dtype {values.dtype} != float32")
         table.store.load_state({"data": values})

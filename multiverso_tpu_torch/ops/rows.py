@@ -131,22 +131,46 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # B2: sorted scatter-add (in place)
 # ---------------------------------------------------------------------------
-def _add_in_rounds(table: torch.Tensor, sorted_ids: torch.Tensor,
-                   values: torch.Tensor) -> torch.Tensor:
-    """``table[ids[i]] += values[i]`` for sorted ids, in place, each row
-    taking its values one at a time in order: round r adds every id's
-    r-th value with one ``index_add_`` of unique ids, so the adds are
-    deterministic on any device."""
-    if sorted_ids.numel() == 0:
+def add_rows_lane_order(table: torch.Tensor, ids: torch.Tensor,
+                        values: torch.Tensor) -> torch.Tensor:
+    """``table.at[ids].add(values.astype(table.dtype), mode="drop")`` of
+    the JAX package, in place and deterministic on any device: each value
+    is rounded to the table's dtype, and each row takes its values one at
+    a time in lane order, rounded to the table's dtype after every add,
+    which is what XLA's scatter does. For a bfloat16 table ``index_add_``
+    does not: on the CPU it differs in most elements, and on the card it
+    adds by atomics in no fixed order. Ids outside ``[0, rows)`` are
+    dropped. Vectorised by rounds: a stable sort by id gives each lane its
+    rank within its run, and round r adds every run's r-th lane (unique
+    rows) in float32 (or the table's wider dtype) and rounds back; the
+    rounds number the longest run."""
+    ids = ids.to(torch.int64).reshape(-1)
+    if ids.numel() == 0:
         return table
+    keep = (ids >= 0) & (ids < table.shape[0])
+    ids, values = ids[keep], values.reshape(ids.shape[0], -1)[keep]
+    if ids.numel() == 0:
+        return table
+    sorted_ids, order = torch.sort(ids, stable=True)
+    vals = values.index_select(0, order).to(table.dtype)
     new = torch.ones_like(sorted_ids, dtype=torch.bool)
     new[1:] = sorted_ids[1:] != sorted_ids[:-1]
     pos = torch.arange(sorted_ids.numel(), device=sorted_ids.device)
-    first = torch.cummax(torch.where(new, pos, torch.zeros_like(pos)), 0)[0]
-    rank = pos - first
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
-        table.index_add_(0, sorted_ids[sel], values[sel])
+    rank = pos - torch.cummax(torch.where(new, pos, torch.zeros_like(pos)),
+                              0)[0]
+    # Lanes grouped by rank (stable: ascending ids within a round).
+    by_rank = torch.sort(rank, stable=True)[1]
+    sizes = torch.bincount(rank).tolist()
+    flat = table.view(table.shape[0], -1)
+    wide = torch.promote_types(table.dtype, torch.float32)
+    start = 0
+    for size in sizes:
+        sel = by_rank[start:start + size]
+        start += size
+        rows = sorted_ids.index_select(0, sel)
+        summed = flat.index_select(0, rows).to(wide) + \
+            vals.index_select(0, sel).reshape(size, -1).to(wide)
+        flat.index_copy_(0, rows, summed.to(table.dtype))
     return table
 
 
@@ -191,7 +215,7 @@ def scatter_add_sorted_rows_plain(table: torch.Tensor, sorted_ids: torch.Tensor,
         f_acc = -f_acc
     keep = (f_ids >= 0) & (f_ids < table.shape[0])
     f_ids, f_acc = f_ids[keep], f_acc[keep]
-    return _add_in_rounds(table, f_ids, f_acc)
+    return add_rows_lane_order(table, f_ids, f_acc)
 
 
 def _launch_sorted(kernel: str, table: torch.Tensor, sorted_ids: torch.Tensor,
@@ -274,11 +298,9 @@ def tiled_scatter_add_sorted_rows_plain(table: torch.Tensor,
     sign*delta`` (the sign applied to each delta before its add); ids out
     of range are dropped."""
     sign = _check_sign(sign)
-    ids = sorted_ids.to(torch.int64)
     deltas = sorted_deltas.to(table.dtype)
-    keep = (ids >= 0) & (ids < table.shape[0])
-    ids, deltas = ids[keep], deltas[keep]
-    return _add_in_rounds(table, ids, deltas if sign > 0 else -deltas)
+    return add_rows_lane_order(table, sorted_ids,
+                               deltas if sign > 0 else -deltas)
 
 
 def tiled_scatter_add_sorted_rows(table: torch.Tensor,

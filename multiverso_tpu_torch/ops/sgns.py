@@ -22,6 +22,13 @@ the glue reads ``n_pairs`` on the host once per block: a block's stream
 has room for every pair its sentences could give, and subsampling leaves
 about a third of its chunks live at the flagship's settings.
 
+The embeddings ``w_in``/``w_out`` may be float32 or bfloat16, as in the
+JAX function; the AdaGrad sums ``g_in``/``g_out`` and all the math stay
+float32. With bfloat16 tables the gathered rows widen to float32, each
+lane's step is rounded to bfloat16 and added to its row in lane order
+with a rounding after every add (the plain version does the same through
+``ops/rows.add_rows_lane_order``): the kernel's bfloat16 instance.
+
 On the TPU the kernel kept all four tables in VMEM, so it was only
 eligible for small vocabularies. Here the tables stay in HBM, and
 :func:`sgns_grid_eligible` reckons device memory.
@@ -32,13 +39,14 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, NamedTuple
 
-import numpy as np
 import torch
 
+from multiverso_tpu_torch.core.table import torch_dtype
 from multiverso_tpu_torch.ops import _build
 
-#: Kernel launches, counted where the kernel is launched.
-LAUNCHES: Dict[str, int] = {"sgns_block": 0}
+#: Kernel launches, counted where the kernel is launched: the float32
+#: instance and the bfloat16 one.
+LAUNCHES: Dict[str, int] = {"sgns_block": 0, "sgns_block_bf16": 0}
 
 MAX_NEGATIVE = 16              # csrc/sgns.cu kMaxNeg
 #: csrc/sgns.cu's kLongRun: runs this long are applied by a whole CTA.
@@ -46,6 +54,10 @@ MAX_NEGATIVE = 16              # csrc/sgns.cu kMaxNeg
 #: (``mv_sgns_block``), and ``chip_smoke.py`` holds this one to the
 #: library's (``kernel_long_run``).
 LONG_RUN = 32
+
+#: The embedding dtypes the kernel is built for (``csrc/sgns.cu``'s
+#: element type); the AdaGrad sums are float32.
+EMBEDDING_DTYPES = (torch.float32, torch.bfloat16)
 
 _grid_cache: Dict[tuple, int] = {}
 
@@ -56,7 +68,7 @@ def sgns_grid_bytes(in_rows: int, out_rows: int, dim: int, chunk: int,
     ``param_dtype``, f32 accumulators), the gradient scratch (``grad_u``
     and the snapshot of ``u``, [chunk, dim] each, and one coefficient per
     out-lane) and the sorted id/permutation streams of one chunk."""
-    p = np.dtype(param_dtype).itemsize
+    p = torch_dtype(param_dtype).itemsize
     tables = (in_rows + out_rows) * dim * (p + 4)
     scratch = (chunk * 2 * dim + chunk * (1 + negative)) * 4
     streams = chunk * (2 + negative) * 4 * 3
@@ -67,11 +79,12 @@ def sgns_grid_eligible(in_rows: int, out_rows: int, dim: int, chunk: int,
                        negative: int, param_dtype,
                        device: torch.device) -> bool:
     """True when the kernel takes this configuration on ``device``: a CUDA
-    device, float32 tables, ``negative <= MAX_NEGATIVE``, and the working
-    set within the device's memory."""
+    device, float32 or bfloat16 embeddings (``param_dtype`` read by name),
+    ``negative <= MAX_NEGATIVE``, and the working set within the device's
+    memory."""
     if device.type != "cuda":
         return False
-    if np.dtype(param_dtype) != np.dtype(np.float32):
+    if torch_dtype(param_dtype) not in EMBEDDING_DTYPES:
         return False
     if not 1 <= negative <= MAX_NEGATIVE:
         return False
@@ -88,42 +101,46 @@ def sgns_block_plain(w_in, w_out, g_in, g_out, centers2d, contexts2d,
                      negatives3d, n_pairs, lr, adagrad: bool) -> torch.Tensor:
     """The plain version: the chunk loop over ``raw_sg_ns_step``, in place.
     Returns the loss summed over the live chunks (in chunk order)."""
-    from multiverso_tpu_torch.models.word2vec.model import raw_sg_ns_step
-    raw = raw_sg_ns_step(adagrad)
-    n, chunk = centers2d.shape
-    n_pairs = torch.as_tensor(n_pairs, device=centers2d.device)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=w_in.device)
-    lane = torch.arange(chunk, device=centers2d.device)
-    loss = torch.zeros((), dtype=torch.float32, device=w_in.device)
-    for i in range(_n_live(n_pairs, chunk, n)):
-        m = ((i * chunk + lane) < n_pairs).to(torch.float32)
-        loss = loss + raw(w_in, w_out, g_in, g_out, centers2d[i],
-                          contexts2d[i], negatives3d[i], m, lr)
-    return loss
+    from multiverso_tpu_torch.models.word2vec.model import (chunk_loop,
+                                                            raw_sg_ns_step)
+    return chunk_loop(raw_sg_ns_step(adagrad), (w_in, w_out, g_in, g_out),
+                      (centers2d, contexts2d), negatives3d, None, n_pairs,
+                      lr)
 
 
 def _lib():
     lib = _build.load("sgns")
     if not getattr(lib, "_mv_typed", False):
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.mv_sgns_block.argtypes = (
-            [c] * 4 + [i64, i64] + [c] * 13 +
-            [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, i64, c, c])
-        lib.mv_sgns_block.restype = ctypes.c_int
+        for sfx in ("", "_bf16"):
+            fn = getattr(lib, "mv_sgns_block" + sfx)
+            fn.argtypes = (
+                [c] * 4 + [i64, i64] + [c] * 13 +
+                [i64, i32, i32, i32, ctypes.c_float, i32, i32, c, i64, c, c])
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, "mv_sgns_grid_size" + sfx)
+            fn.argtypes = [i32, i32]
+            fn.restype = ctypes.c_int
         lib.mv_sgns_long_run.argtypes = []
         lib.mv_sgns_long_run.restype = ctypes.c_int
-        lib.mv_sgns_grid_size.argtypes = [i32, i32]
-        lib.mv_sgns_grid_size.restype = ctypes.c_int
         lib._mv_typed = True
     return lib
 
 
-def grid_size(dim: int, negative: int, device: torch.device) -> int:
-    """CTAs of the cooperative grid (every CTA resident on the card)."""
-    key = (device.index, dim % 4 == 0, negative <= 8)
+def _suffix(dtype: torch.dtype) -> str:
+    """The C entry points' suffix of an embedding dtype's instance."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
+def grid_size(dim: int, negative: int, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> int:
+    """CTAs of the cooperative grid (every CTA resident on the card) of
+    the instance for embeddings of ``dtype``."""
+    key = (device.index, dim % 4 == 0, negative <= 8, dtype)
     if key not in _grid_cache:
         with torch.cuda.device(device):
-            _grid_cache[key] = int(_lib().mv_sgns_grid_size(dim, negative))
+            _grid_cache[key] = int(getattr(
+                _lib(), "mv_sgns_grid_size" + _suffix(dtype))(dim, negative))
     if _grid_cache[key] < 1:
         raise RuntimeError("the sg-ns kernel fits no CTA on an SM")
     return _grid_cache[key]
@@ -141,9 +158,14 @@ def _check(w_in, w_out, g_in, g_out, centers2d, contexts2d, negatives3d):
         raise ValueError(f"the sg-ns kernel takes tensors on one CUDA "
                          f"device; got {sorted(str(d) for d in devs)}")
     for t in (w_in, w_out, g_in, g_out):
-        if t.dtype != torch.float32 or t.dim() != 2 or \
-                not t.is_contiguous():
-            raise ValueError("sg-ns tables must be contiguous 2-D float32")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError("sg-ns tables must be contiguous 2-D tensors")
+    if w_in.dtype not in EMBEDDING_DTYPES or w_out.dtype != w_in.dtype or \
+            g_in.dtype != torch.float32 or g_out.dtype != torch.float32:
+        raise ValueError(f"the sg-ns kernel takes float32 or bfloat16 "
+                         f"embeddings of one dtype and float32 AdaGrad sums; "
+                         f"got {w_in.dtype}, {w_out.dtype}, {g_in.dtype}, "
+                         f"{g_out.dtype}")
     if w_in.shape[1] != w_out.shape[1] or g_in.shape != w_in.shape or \
             g_out.shape != w_out.shape:
         raise ValueError("sg-ns table shapes disagree")
@@ -226,7 +248,7 @@ def prepare_sgns_block(w_in, w_out, g_in, g_out, centers2d, contexts2d,
     negatives = negatives3d.to(torch.int32).contiguous()
     n_live, *sorted_ids = sorted_row_ids(centers, contexts, negatives,
                                          n_pairs)
-    grid = grid_size(d, k, dev)
+    grid = grid_size(d, k, dev, w_in.dtype)
     scratch = (torch.empty((chunk, d), dtype=torch.float32, device=dev),
                torch.empty((chunk, d), dtype=torch.float32, device=dev),
                torch.empty(chunk * (1 + k), dtype=torch.float32, device=dev),
@@ -250,15 +272,16 @@ def launch_sgns_block(p: SgnsLaunch) -> torch.Tensor:
     runs, counts = p.long_runs
     counts.zero_()                   # the kernel's per-chunk counters
     ptrs = [t.data_ptr() for t in (*p.streams, *p.sorted_streams)]
-    err = _lib().mv_sgns_block(
+    err = getattr(_lib(), "mv_sgns_block" + _suffix(w_in.dtype))(
         w_in.data_ptr(), w_out.data_ptr(), g_in.data_ptr(), g_out.data_ptr(),
         w_in.shape[0], w_out.shape[0], *ptrs, p.n_pairs.data_ptr(),
         *[t.data_ptr() for t in p.scratch], p.loss.data_ptr(), n,
         chunk, k, w_in.shape[1], p.lr, int(p.adagrad), p.grid,
         runs.data_ptr(), runs.numel(), counts.data_ptr(),
         _build.stream(w_in))
-    _build.check_launch(err, "sgns_block")
-    LAUNCHES["sgns_block"] += 1
+    name = "sgns_block" + _suffix(w_in.dtype)
+    _build.check_launch(err, name)
+    LAUNCHES[name] += 1
     return p.loss[0]
 
 

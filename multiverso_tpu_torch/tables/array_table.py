@@ -20,7 +20,8 @@ import torch
 
 from multiverso_tpu_torch.core.options import (AddOption, ArrayTableOption,
                                                GetOption)
-from multiverso_tpu_torch.core.table import ServerStore, WorkerTable
+from multiverso_tpu_torch.core.table import (ServerStore, WorkerTable,
+                                             host_array)
 from multiverso_tpu_torch.core.updater import get_updater
 from multiverso_tpu_torch.core.zoo import Zoo
 from multiverso_tpu_torch.parallel.device import (check_comm_policy,
@@ -48,7 +49,7 @@ class ArrayTable(WorkerTable):
     def get_async(self, option: Optional[GetOption] = None) -> int:
         with self._bsp_get(option):
             arr = self.store.read()
-        return self._register(lambda: arr.cpu().numpy())
+        return self._register(lambda: host_array(arr))
 
     def get(self, option: Optional[GetOption] = None) -> np.ndarray:
         with monitor("WORKER_TABLE_SYNC_GET"):

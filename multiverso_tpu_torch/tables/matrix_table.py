@@ -11,6 +11,11 @@ Storage is a [rows, cols] tensor on the Zoo's device. Row Get is a gather
 (the B1 kernel on a ``use_pallas`` table); row Add is one updater call (on
 a ``use_pallas`` table, the B2 kernel for the default/sgd updaters and the
 fused B3 kernel for momentum_sgd/adagrad/ftrl).
+
+A bfloat16 table (``dtype="bfloat16"``) returns float32 from ``get`` and
+``get_rows`` (an exact widening: numpy has no bfloat16 without
+``ml_dtypes``, so ``t.cpu().numpy()`` would raise) and takes float32
+deltas, rounded to bfloat16 on the way in.
 """
 
 from __future__ import annotations
@@ -22,16 +27,13 @@ import torch
 
 from multiverso_tpu_torch.core.options import (AddOption, GetOption,
                                                MatrixTableOption)
-from multiverso_tpu_torch.core.table import ServerStore, WorkerTable
+from multiverso_tpu_torch.core.table import (ServerStore, WorkerTable,
+                                             host_array, host_dtype)
 from multiverso_tpu_torch.core.updater import get_updater
 from multiverso_tpu_torch.core.zoo import Zoo
 from multiverso_tpu_torch.parallel.device import check_comm_policy
 from multiverso_tpu_torch.utils.dashboard import monitor
 from multiverso_tpu_torch.utils.log import check
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
 
 
 class MatrixTable(WorkerTable):
@@ -46,7 +48,7 @@ class MatrixTable(WorkerTable):
             rng = np.random.default_rng(option.seed)
             init = rng.uniform(option.init_low, option.init_high,
                                size=(option.num_row, option.num_col)
-                               ).astype(option.dtype)
+                               ).astype(host_dtype(option.dtype))
         store = ServerStore(name, (option.num_row, option.num_col),
                             option.dtype, updater, zoo.device,
                             zoo.num_workers(), shard_axis=0, init_array=init,
@@ -62,7 +64,7 @@ class MatrixTable(WorkerTable):
     def get_async(self, option: Optional[GetOption] = None) -> int:
         with self._bsp_get(option):
             arr = self.store.read()
-        return self._register(lambda: _host(arr))
+        return self._register(lambda: host_array(arr))
 
     def get(self, option: Optional[GetOption] = None) -> np.ndarray:
         with monitor("WORKER_TABLE_SYNC_GET"):
@@ -89,7 +91,7 @@ class MatrixTable(WorkerTable):
         row_ids = np.asarray(row_ids, dtype=np.int32)
         with self._bsp_get(option):
             arr = self.store.read_rows(row_ids)
-        return self._register(lambda: _host(arr))
+        return self._register(lambda: host_array(arr))
 
     def get_rows(self, row_ids, option: Optional[GetOption] = None
                  ) -> np.ndarray:

@@ -76,7 +76,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_steps as steps  # noqa: E402
 
-MAIN = "sgns_block_kernelILi4ELi8EE"    # VEC 4, up to 8 negatives
+# The main instance (float embeddings, VEC 4, up to 8 negatives), by its
+# label in this tree and in trees from before the bfloat16 instance.
+MAIN = ("sgns_block_kernelIfLi4ELi8EE", "sgns_block_kernelILi4ELi8EE")
 
 
 CSRC = os.path.join(steps.CSRC, "sgns.cu")
@@ -217,7 +219,7 @@ def child(tree: str, cu: str, flags: str, launches: int, flagship: bool,
     if not cu:
         out["ptxas"] = [line for kernel, line in
                         cs.ptxas_lines(_build.build_log("sgns"))
-                        if kernel == MAIN]
+                        if kernel in MAIN]
     if flagship:
         d, sents = cs.zipf_corpus(cs.V, 512 * 4, 500)
         stats = cs.flagship(sents, d)
@@ -416,7 +418,7 @@ def report(records: list, rec: dict) -> None:
               f"bitwise equal to "
               f"{records[0]['version']}'s: {same} [{card}]", flush=True)
     print(f"{name}: {rec['grid']} CTAs, {rec['warps_per_sm']:g} warps "
-          f"an SM; {MAIN}: {'; '.join(rec['ptxas'])}", flush=True)
+          f"an SM; {MAIN[0]}: {'; '.join(rec['ptxas'])}", flush=True)
     if "flagship" in rec:
         f = rec["flagship"]
         print(f"{name} flagship: {f['words_per_sec']:.6g} words/sec, "
@@ -470,7 +472,8 @@ def main(argv=None) -> int:
         _, cu, flags = vs[rec["version"]]
         if cu:
             rec["ptxas"] = [line for kernel, line in
-                            cs.ptxas_lines(logs[cu, flags]) if kernel == MAIN]
+                            cs.ptxas_lines(logs[cu, flags])
+                            if kernel in MAIN]
         report(records, rec)
 
     def child_args(name):

@@ -142,3 +142,46 @@ def test_cli_raises_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
     assert not (tmp_path / "v.txt").exists()
     assert word2vec_main.main(args + ["-w2v_device=cpu"]) == 0
     assert (tmp_path / "v.txt").read_text().startswith("3 8\n")
+
+
+def test_bfloat16_runs_without_ml_dtypes():
+    """bfloat16 tables and a bfloat16 sg-ns block (the B5 wrapper's plain
+    version on the CPU) run where numpy has no bfloat16: the card's
+    machine has no ``ml_dtypes``, which here only ``jax`` loads."""
+    code = ("import sys\n"
+            "sys.modules['ml_dtypes'] = None\n"
+            "import numpy as np, torch\n"
+            "try:\n"
+            "    np.dtype('bfloat16')\n"
+            "    raise SystemExit('numpy knows bfloat16')\n"
+            "except TypeError:\n"
+            "    pass\n"
+            "import multiverso_tpu_torch as mv\n"
+            "from multiverso_tpu_torch.models.word2vec import (\n"
+            "    Dictionary, Word2Vec, Word2VecConfig)\n"
+            "mv.init(['-platform=cpu'])\n"
+            "d, zipf = Dictionary.synthetic_zipf(50, 5000)\n"
+            "rng = np.random.default_rng(0)\n"
+            "sents = [rng.choice(50, 12, p=zipf) for _ in range(8)]\n"
+            "w = Word2Vec(Word2VecConfig(\n"
+            "    embedding_size=8, batch_size=16, param_dtype='bfloat16',\n"
+            "    device_pipeline=True, block_sentences=8,\n"
+            "    pad_sentence_length=12, dispatch_mode='pallas_grid'), d)\n"
+            "assert w.input_table.store.data.dtype == torch.bfloat16\n"
+            "s = w.train(sentences=sents)\n"
+            "assert np.isfinite(s['loss']) and s['pairs'] > 0, s\n"
+            "assert w.embeddings().dtype == np.float32\n"
+            "t = mv.create_table(mv.MatrixTableOption(4, 3, "
+            "dtype='bfloat16'))\n"
+            "t.add_rows([1, 1], np.ones((2, 3), np.float32))\n"
+            "assert t.get()[1, 0] == 2.0\n"
+            "mv.shutdown()\n"
+            "bad = [m for m, v in sys.modules.items() if v is not None and "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'multiverso_tpu', "
+            "'ml_dtypes')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")

@@ -7,7 +7,9 @@ and the loss ``rtol=1e-5`` — the two frameworks implement sigmoid, log
 and sqrt separately and sum the dot products (``einsum`` in JAX, an
 elementwise product and ``sum`` here) in different orders; everything
 else is the same op sequence. The CUDA kernel is held against this plain
-version on the card by ``chip_smoke.py``.
+version on the card by ``chip_smoke.py``. bfloat16 embedding tables (the
+JAX function's other dtype) go through both as well, with the tolerance
+stated in their test.
 """
 
 import numpy as np
@@ -43,20 +45,27 @@ def _inputs(seed=0):
     return tables, streams
 
 
-def _jax(tables, streams, n_pairs, lr, adagrad):
+def _jax(tables, streams, n_pairs, lr, adagrad, bf16=False):
     step = jax_grid_step(chunk=C, negative=K, adagrad=adagrad, interpret=True)
-    out = step(*[jnp.asarray(t.copy()) for t in tables],
+    emb = jnp.bfloat16 if bf16 else jnp.float32
+    out = step(*[jnp.asarray(t.copy(), emb if i < 2 else jnp.float32)
+                 for i, t in enumerate(tables)],
                *[jnp.asarray(s) for s in streams], jnp.int32(n_pairs),
                jnp.float32(lr))
-    return [np.asarray(t) for t in out[:4]], float(out[4])
+    return [np.asarray(t).astype(np.float32) for t in out[:4]], \
+        float(out[4])
 
 
-def _port(tables, streams, n_pairs, lr, adagrad):
+def _port(tables, streams, n_pairs, lr, adagrad, bf16=False):
     step = sgns.build_sgns_grid_step(chunk=C, negative=K, adagrad=adagrad)
-    out = step(*[torch.as_tensor(t.copy()) for t in tables],
+    emb = torch.bfloat16 if bf16 else torch.float32
+    out = step(*[torch.as_tensor(t.copy()).to(emb if i < 2 else
+                                              torch.float32)
+                 for i, t in enumerate(tables)],
                *[torch.as_tensor(s) for s in streams],
                torch.tensor(n_pairs, dtype=torch.int32), np.float32(lr))
-    return [t.numpy() for t in out[:4]], float(out[4])
+    assert out[0].dtype == out[1].dtype == emb
+    return [t.float().numpy() for t in out[:4]], float(out[4])
 
 
 @pytest.mark.parametrize("adagrad", [True, False])
@@ -71,6 +80,32 @@ def test_plain_block_matches_jax_grid_step(adagrad):
     assert np.isfinite(got_loss)
     assert not np.array_equal(got[0], tables[0])    # it trained
     assert sgns.LAUNCHES["sgns_block"] == 0          # CPU: plain version
+
+
+@pytest.mark.parametrize("adagrad", [True, False])
+def test_plain_block_bfloat16_matches_jax_grid_step(adagrad):
+    """bfloat16 w_in/w_out (float32 AdaGrad sums and math), as the JAX
+    package's ``test_grid_step_bfloat16_tables``. Both round each step to
+    bfloat16 and fold duplicate rows in lane order with a rounding after
+    every add, but their float32 dot products sum in different orders, so
+    a step on a bfloat16 rounding edge may round the other way: each
+    embedding element must be within one bfloat16 ulp of JAX's (2^-7 of
+    its magnitude, at least 2^-7 * 2^-10), the AdaGrad sums within
+    ``rtol=1e-5, atol=1e-6`` and the loss within ``rtol=1e-5``."""
+    tables, streams = _inputs(seed=3)
+    tables[0] *= 0.1
+    n_pairs = N * C - 5
+    want, want_loss = _jax(tables, streams, n_pairs, 0.05, adagrad, True)
+    got, got_loss = _port(tables, streams, n_pairs, 0.05, adagrad, True)
+    for i, (w, g) in enumerate(zip(want, got)):
+        if i < 2:
+            assert not np.array_equal(g, torch.as_tensor(
+                tables[i]).bfloat16().float().numpy())   # it trained
+            ulp = np.maximum(np.abs(w), 2.0 ** -10) * 2.0 ** -7
+            assert (np.abs(w - g) <= ulp).all(), i
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
 
 
 def test_dead_chunks_are_noops():

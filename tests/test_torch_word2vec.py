@@ -205,11 +205,15 @@ def test_dispatch_and_waits():
     with pytest.raises(FatalError):
         tmodel.resolve_dispatch_mode(
             Word2VecConfig(**_cfg_kwargs(dispatch_mode="bogus")), V, V, cpu)
-    for over in (dict(hs=True), dict(sg=False), dict(device_pipeline=False),
-                 dict(mesh_data=2), dict(comm_policy="ps"),
-                 dict(param_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    for over in (dict(mesh_data=2), dict(comm_policy="ps")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
             Word2Vec(Word2VecConfig(**_cfg_kwargs(**over)), d)
+    # hs, CBOW, the host batch path and bfloat16 tables train.
+    for over in (dict(hs=True), dict(sg=False), dict(device_pipeline=False),
+                 dict(param_dtype="bfloat16")):
+        w = Word2Vec(Word2VecConfig(**_cfg_kwargs(**over)), d)
+        stats = w.train(sentences=sents)
+        assert np.isfinite(stats["loss"]) and stats["pairs"] > 0, over
 
 
 def test_dispatch_on_a_card_never_falls_back_to_the_plain_loop(monkeypatch):
