@@ -20,11 +20,22 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    timed by events in 5 readings of 200 calls in turns with its library
    call (median and range) and in a CUDA graph, the library call too;
    the stateful combine's ``fold_sorted_runs`` on the same ids, bitwise
-   to the CPU's lane-order fold; B3 ``fused_stateful_rows`` for
-   momentum_sgd, adagrad and ftrl from that combined input into a 1,000,000 x 50 table and its
-   state, bitwise; B4 ``tiled_scatter_add_sorted_rows`` (both signs and
+   to the CPU's lane-order fold, in float32 and float64 on every
+   ``stateful_layouts`` layout too; the fused route
+   ``fused_stateful_sorted_rows`` (B3 with the combine in it: one stable
+   sort, one kernel) for momentum_sgd, adagrad and ftrl from those raw ids
+   into a 1,000,000 x 50 table and its state, bitwise against its plain
+   version on the CPU, two launches bitwise equal, the kernel, the whole
+   Add and the old chain (sort, gather, fold, sentinel ids, B3 on the
+   combined lanes) timed in this run, the sort with int32 and int64 keys;
+   B3's own signature ``fused_stateful_rows`` (the same kernel, the fold
+   off) on the combined input, bitwise; the fused route on every
+   ``stateful_layouts`` layout at D = 50 and some at D = 128 and 25, with
+   2 workers at worker 1, on all-sentinel and empty batches; B4 ``tiled_scatter_add_sorted_rows`` (both signs and
    id types) with 8,192 sorted ids into 100,000 x 128 (bench.py's shape),
-   bitwise, timed as B2; B2 and B4 on every ``scatter_layouts`` layout at
+   bitwise, timed as B2, and on runs of up to 20,000 lanes of one row (its
+   block-wide ring) at D = 128, 50 and 1,000, bitwise against the plain
+   version on the CPU; B2 and B4 on every ``scatter_layouts`` layout at
    row widths ``LAYOUT_COLS`` with int32 and int64 ids, with deltas at an
    odd element offset, with no ids and with out-of-range ids, bitwise; B5
    ``sgns_block`` on one full flagship block (V=50,000, D=128, C=8192,
@@ -43,8 +54,9 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    ``sgns_layouts`` layout (runs around its tile, batch and long-run
    edges, one id in every out-lane, a one-lane tail, n_pairs a multiple
    of C, out-of-range ids), some with D=126, SGD and K=1, and K=16 at the
-   flagship's chunk with Zipf ids (against the plain version on the CPU),
-   each in float32 and in bfloat16;
+   flagship's chunk with Zipf ids, each in float32 and in bfloat16; the
+   plain block step (B5's oracle) run twice on the flagship block,
+   bitwise equal;
 3. the table plane: ``mv.init()`` on the card, 1,000,000 x 50
    ``use_pallas`` tables: default and sgd updaters (row Adds/Gets at 10%
    coverage against a numpy replay and bitwise against the plain version
@@ -53,7 +65,13 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    non-default option scalars, bitwise against the same Adds replayed
    through the port's plain path on the CPU, data and every state leaf,
    and within ``MODEL_RTOL``/``MODEL_ATOL`` of a float64 numpy model; the
-   fold, B3 and B1 launched; param updates/sec per updater); then
+   fused route launched once an Add, the fold and B3 on combined lanes
+   never, and one Add traced by ``torch.profiler`` with one fused launch,
+   no fold and no gather of the deltas; B1 launched; param updates/sec
+   per updater); float32 tables without the row kernels (default, sgd,
+   adagrad, dcasgd: 3 row Adds each with duplicates and out-of-range
+   ids, bitwise against the CPU replay; B4 or the fold launched 3
+   times); then
    bench.py's row scatter leg, 21 calls of ``tiled_scatter_add_rows``
    (B4 launched 21 times, exact counts); and a 1,000,000 x 50 bfloat16
    table with the default updater, 10 row Adds of 100,000 ids with
@@ -64,8 +82,8 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    the same with bfloat16 embeddings (B5's bfloat16 instance) and with
    ``compact_pairs=False`` (bench.py:147-156's legs); then one block each
    of sg-hs, cbow-ns and cbow-hs (the plain block step) and the host
-   batch path (``device_pipeline=False``), each a finite loss and no B5
-   launch;
+   batch path (``device_pipeline=False``), each a finite loss, no B5
+   launch and B4 launched (the plain steps' lane-order row adds);
 5. the CLI (``python -m multiverso_tpu_torch.apps.word2vec_main``) on a
    two-topic corpus, skip-gram/NS and ``-cbow -hs``: intra-topic cosine
    must exceed cross-topic cosine;
@@ -139,30 +157,31 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 # B5 tolerance, per table: max |kernel - plain| <= SGNS_RTOL[table] *
 # max |plain|. The kernel reduces the dot products with warp shuffles and
-# the plain version with torch sums, and the plain version's index_add_ on
-# the card adds a row's duplicate lanes with atomics in no fixed order;
-# the block's 111 chunks carry those roundings on. The AdaGrad sums only
-# grow (sums of squares), so they stay close in relative terms; an
-# embedding row is a sum of hundreds of steps of both signs per chunk, so
-# its rounding differences are large against its value. One flagship
-# block on an H100 measured 9.4e-5 (w_in, largest |value| 0.54), 2.4e-4
-# (w_out, 0.83), 1.5e-4 (g_in, 229) and 1.8e-4 (g_out, 405). A wrong
-# update of one lane moves a row by about lr = 0.025.
+# the plain version with torch sums (both add a row's duplicate lanes in
+# lane order); the block's 111 chunks carry those roundings on. The
+# AdaGrad sums only grow (sums of squares), so they stay close in
+# relative terms; an embedding row is a sum of hundreds of steps of both
+# signs per chunk, so its rounding differences are large against its
+# value. One flagship block on an H100 measured, while the plain version
+# still added duplicates by index_add_'s atomics on the card, 9.4e-5
+# (w_in, largest |value| 0.54), 2.4e-4 (w_out, 0.83), 1.5e-4 (g_in, 229)
+# and 1.8e-4 (g_out, 405). A wrong update of one lane moves a row by
+# about lr = 0.025.
 SGNS_RTOL = {"w_in": 2e-3, "w_out": 2e-3, "g_in": 1e-5, "g_out": 1e-5}
 SGNS_LOSS_RTOL = 1e-4
 # B5's bfloat16 instance, per table, the same measure, held chunk by chunk
 # (hold_bf16_by_chunk). Kernel and plain version both round each step to
 # bfloat16 and add a row's lanes in lane order with a rounding after every
-# add; their float32 steps differ as in float32 (the dot products' order;
-# the plain version's AdaGrad sums add by atomics on the card), and a step
-# that lands on a bfloat16 rounding edge rounds the other way: one
+# add; their float32 steps differ as in float32 (the dot products' order),
+# and a step that lands on a bfloat16 rounding edge rounds the other way: one
 # bfloat16 ulp of the row, which is at most 2^-7 of the table's largest
 # value, the limit of w_in and w_out (0.0081 at a largest value of 1.04,
 # a third of a 0.025 lr-sized step). Over a whole block no such limit
 # holds: a frequent row's AdaGrad steps sit near half an ulp of the row,
 # so which of them move it is decided at rounding edges, and each
 # difference changes every later gradient. On the flagship block (H100
-# 80GB HBM3, 700 W) the card's plain version against itself spread 0.22
+# 80GB HBM3, 700 W), with the plain version's AdaGrad sums still added by
+# atomics on the card, the card's plain version against itself spread 0.22
 # (w_in) and 0.61 (w_out) of the largest value, against the CPU's 0.35
 # and 0.64; chunk by chunk, from the same tables, the card's plain
 # version against the CPU's at most 2.3e-3, 4.0e-3, 3.1e-7 (g_in) and
@@ -624,30 +643,80 @@ def stateful_inputs(g, updater, rows_n, cols, workers, dev):
     return table, state
 
 
-def stateful_pair(updater, table, state, ids, deltas, opt):
-    """B3 and its plain version from the same inputs on the card; returns
-    the largest |difference| after asserting that every buffer is equal
-    (the table and each leaf)."""
+def stateful_layouts(rows_n: int = 2_000, n: int = 4_000) -> dict:
+    """Row id layouts of the fused stateful route
+    (``fused_stateful_sorted_rows``), in lane order: name -> int64 ids.
+    All unique; a run of 2,700 equal ids among uniform ones; Zipf ids;
+    every lane one id; ids below 0 and at or past ``rows_n`` (some past
+    2^31, which would wrap into range if cast to int32); the
+    ``scatter_layouts`` runs around the edges of a warp's tile of 32
+    slots, shuffled; no ids. ``stateful_deltas`` gives the deltas."""
+    import numpy as np
+    rng = np.random.default_rng(300)
+    out = {"all_unique": rng.permutation(rows_n)[:min(n, rows_n)]}
+    long_run = rng.integers(0, rows_n, n)
+    long_run[rng.permutation(n)[:2_700]] = 11
+    out["run_2700"] = long_run
+    out["zipf"] = (rng.zipf(1.3, n) - 1) % rows_n
+    out["one_id"] = np.full(n, 5)
+    oor = rng.integers(-40, rows_n + 40, n)
+    far = rng.permutation(n)[:64]
+    oor[far[:16]] = 2 ** 32 + 5           # 5 once cut to 32 bits
+    oor[far[16:32]] = -2 ** 32 + 7        # 7 once cut to 32 bits
+    oor[far[32:48]] = 2 ** 31
+    oor[far[48:]] = -2 ** 31 - 1
+    out["out_of_range"] = oor
+    out["negative_zero"] = rng.integers(0, rows_n // 4, n)
+    for name, ids in scatter_layouts().items():
+        out[f"edge_{name}"] = rng.permutation(ids)
+    out["empty"] = np.zeros(0)
+    return {k: v.astype(np.int64) for k, v in out.items()}
+
+
+def stateful_deltas(layout: str, n: int, cols: int, rng):
+    """Deltas of a ``stateful_layouts`` case: normal, with -0.0 in about
+    one lane of 8 (every lane for ``negative_zero``), which the combine's
+    fold from 0 turns into +0.0."""
+    import numpy as np
+    out = rng.normal(size=(n, cols)).astype(np.float32)
+    zero = (np.ones(n, bool) if layout == "negative_zero"
+            else rng.random(n) < 0.125)
+    out[zero] = -0.0
+    return out
+
+
+def stateful_route_pair(updater, table, state, ids, deltas, opt) -> float:
+    """The fused route on the card against its plain version on the CPU,
+    from the same inputs: every buffer (table and each leaf) must be
+    bitwise equal; returns the largest |difference| (0.0)."""
     import torch
     from multiverso_tpu_torch.ops import rows
     a = (table.clone(), {k: v.clone() for k, v in state.items()})
-    b = (table.clone(), {k: v.clone() for k, v in state.items()})
-    rows.fused_stateful_rows(a[0], a[1], ids, deltas, opt, updater)
-    rows.fused_stateful_rows_plain(b[0], b[1], ids, deltas, opt, updater)
-    torch.cuda.synchronize()
-    pairs = [("data", a[0], b[0])] + [(k, a[1][k], b[1][k]) for k in state]
+    b = (table.cpu(), {k: v.cpu() for k, v in state.items()})
+    rows.fused_stateful_sorted_rows(a[0], a[1], ids, deltas, opt, updater)
+    rows.fused_stateful_sorted_rows_plain(b[0], b[1], ids.cpu(),
+                                          deltas.cpu(), opt, updater)
+    pairs = [("data", a[0].cpu(), b[0])] + [(k, a[1][k].cpu(), b[1][k])
+                                            for k in state]
     err = max(float((x - y).abs().max()) for _, x, y in pairs)
     for key, x, y in pairs:
-        assert torch.equal(x, y), (updater.name, key, err)
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), \
+            (updater.name, key, err)
     return err
 
 
 def check_stateful_kernels(dev) -> list:
-    """The combine's fold and B3 at the table plane's width: 100,000 ids
-    (the B1/B2 draw) into a 1,000,000 x 50 table, each updater bitwise
-    against its plain version from one combined input; then B3's other
-    compiled variants, per-worker indexing, sentinel and empty batches at
-    small shapes."""
+    """The fused route (B3 redesigned, with the combine in it), B3's own
+    signature and the combine's fold, at the table plane's width: 100,000
+    ids (the B1/B2 draw) into a 1,000,000 x 50 table, each updater bitwise
+    against its plain version on the CPU from the same inputs, two
+    launches bitwise equal; every ``stateful_layouts`` layout at D = 50
+    and some at D = 128 and 25, adagrad with 2 workers at worker 1,
+    sentinel and empty batches; the fold in float32 and float64 on the
+    main draw and every layout. Times the whole stateful Add both ways in
+    this run: the new route (one stable sort, one kernel) and the old
+    chain (sort, gather, fold, sentinel ids, B3), and the sort's keys in
+    int64 and in int32."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.core.options import AddOption
@@ -668,14 +737,20 @@ def check_stateful_kernels(dev) -> list:
     want = rows.fold_sorted_runs_plain(sorted_ids.cpu(), sorted_deltas.cpu())
     err_fold = float((got.cpu() - want).abs().max())
     assert torch.equal(got.cpu(), want), f"fold differs: {err_fold}"
-    # The fold's float64 variant (stateful tables of float64), small.
-    ids_f64 = torch.sort(torch.randint(0, 300, (2_000,), generator=g,
-                                       device=dev))[0]
-    d_f64 = torch.randn((2_000, 7), generator=g, device=dev,
-                        dtype=torch.float64)
-    assert torch.equal(rows.fold_sorted_runs(ids_f64, d_f64).cpu(),
-                       rows.fold_sorted_runs_plain(ids_f64.cpu(),
-                                                   d_f64.cpu()))
+    fold_variants = []
+    lay_rng = np.random.default_rng(301)
+    for name, lay in stateful_layouts().items():
+        for dt in (torch.float32, torch.float64):
+            sid = torch.sort(torch.as_tensor(lay, device=dev))[0]
+            sd = torch.as_tensor(stateful_deltas(name, len(lay), 7, lay_rng),
+                                 device=dev).to(dt)
+            assert torch.equal(rows.fold_sorted_runs(sid, sd).cpu(),
+                               rows.fold_sorted_runs_plain(sid.cpu(),
+                                                           sd.cpu())), \
+                (name, dt)
+        fold_variants.append({"layout": name, "cols": 7,
+                              "dtypes": ["float32", "float64"],
+                              "max_abs_err": 0.0})
     r_eff, d_c = combine_duplicate_rows(ids, deltas, ROWS)
     r_cpu, d_cpu = combine_duplicate_rows(ids.cpu(), deltas.cpu(), ROWS)
     assert torch.equal(r_eff.cpu(), r_cpu) and torch.equal(d_c.cpu(), d_cpu)
@@ -693,7 +768,8 @@ def check_stateful_kernels(dev) -> list:
         f"({fold_graph:.4f} ms in a CUDA graph), "
         f"plain {fold_plain:.4f} ms (index_add_, atomics), whole combine "
         f"(sort, gather, fold) {glue_ms:.4f} ms, bound {fold_bound[0]:.4f} "
-        f"ms ({fold_bound[1]}); float64 variant bitwise")
+        f"ms ({fold_bound[1]}); float32 and float64 bitwise on "
+        f"{len(fold_variants)} layouts")
     fold = {"name": "fold_sorted_runs", "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/stateful_rows.cu",
             "replaces": "multiverso_tpu/core/updater.py:124",
@@ -704,57 +780,129 @@ def check_stateful_kernels(dev) -> list:
             "plain_ms": fold_plain,
             "bound_ms": fold_bound[0], "bound_by": fold_bound[1],
             "library_ms": None, "combine_ms": glue_ms,
-            "variants": [{"dtype": "float64", "cols": 7,
-                          "max_abs_err": 0.0}]}
+            "variants": fold_variants}
+
+    # The sort before the fused kernel: int32 keys after mapping
+    # out-of-range ids to -1 / ROWS (sort_rows), against the int64 sort.
+    k32, o32 = rows.sort_rows(ids, ROWS)
+    k64, o64 = torch.sort(ids, stable=True)
+    assert k32.dtype == torch.int32 and torch.equal(o32, o64)
+    sorts = {"int32": lambda: rows.sort_rows(ids, ROWS),
+             "int64": lambda: torch.sort(ids, stable=True)}
+    sort_ms = {key: cuda_ms(fn, 50) for key, fn in sorts.items()}
+    sort_graph = {key: graph_ms(fn) for key, fn in sorts.items()}
+    log(f"sort before the fused kernel: int32 keys (clamp, cast, sort) "
+        f"{sort_ms['int32']:.4f} ms ({sort_graph['int32']:.4f} in a "
+        f"graph), int64 keys {sort_ms['int64']:.4f} ms "
+        f"({sort_graph['int64']:.4f}); the same permutation")
 
     opt = AddOption(**STATEFUL_OPT).scalars()
-    r32 = r_eff.to(torch.int32)
     variants = []
     for name in STATEFUL:
         up = get_updater(np.float32, name)
         table, state = stateful_inputs(g, up, ROWS, COLS, 1, dev)
-        err = stateful_pair(up, table, state, r_eff, d_c, opt)
-        ms = cuda_ms(lambda: rows.fused_stateful_rows(table, state, r32,
-                                                      d_c, opt, up), 20)
-        graph = graph_ms(lambda: rows.fused_stateful_rows(table, state, r32,
-                                                          d_c, opt, up))
-        plain = cuda_ms(lambda: rows.fused_stateful_rows_plain(
-            table, state, r_eff, d_c, opt, up), 5)
-        n_bytes = (N_IDS * 4 + uniq * COLS * 4
-                   + 2 * (1 + len(state)) * uniq * COLS * 4)
-        bound = bound_ms(n_bytes, uniq * COLS * STATEFUL_OPS[name])
-        log(f"B3 fused_stateful_rows [{name}]: {ROWS} x {COLS}, {N_IDS} "
-            f"combined lanes ({uniq} unique), bitwise (max_abs_err {err}), "
-            f"kernel {ms:.4f} ms ({graph:.4f} ms in a CUDA graph), plain "
-            f"{plain:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}, {n_bytes / 1e6:.1f} MB)")
+        err = stateful_route_pair(up, table, state, ids, deltas, opt)
+        # Each run has one owner and a fixed order: a second launch on
+        # the same inputs gives the same bits.
+        once = (table.clone(), {k: v.clone() for k, v in state.items()})
+        twice = (table.clone(), {k: v.clone() for k, v in state.items()})
+        rows.fused_stateful_sorted_rows(*once, ids, deltas, opt, up)
+        rows.fused_stateful_sorted_rows(*twice, ids, deltas, opt, up)
+        for x, y in zip([once[0], *once[1].values()],
+                        [twice[0], *twice[1].values()]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32)), \
+                name
+        del once, twice
+        # B3's signature (the fold off) from the combined input.
+        b3_err = stateful_pair(up, table, state, r_eff, d_c, opt)
+
+        def new():
+            rows.fused_stateful_sorted_rows(table, state, ids, deltas, opt,
+                                            up)
+
+        def old():
+            r, d = combine_duplicate_rows(ids, deltas, ROWS)
+            rows.fused_stateful_rows(table, state, r, d, opt, up)
+
+        ev = repeat_ms({"new": new, "old": old}, readings=3, calls=50)
+        graph = {"new": graph_ms(new), "old": graph_ms(old)}
+        ms = cuda_ms(lambda: rows.fused_stateful_sorted_rows(
+            table, state, ids, deltas, opt, up, sort=(k32, o32)), 50)
+        kernel_graph = graph_ms(lambda: rows.fused_stateful_sorted_rows(
+            table, state, ids, deltas, opt, up, sort=(k32, o32)))
+        b3_ms = cuda_ms(lambda: rows.fused_stateful_rows(
+            table, state, r_eff, d_c, opt, up), 20)
+        b3_graph = graph_ms(lambda: rows.fused_stateful_rows(
+            table, state, r_eff, d_c, opt, up))
+        plain = cuda_ms(lambda: rows.fused_stateful_sorted_rows_plain(
+            table, state, ids, deltas, opt, up), 5)
+        leaves = 2 * (1 + len(state)) * uniq * COLS * 4
+        n_bytes = N_IDS * (4 + 8) + N_IDS * COLS * 4 + leaves
+        bound = bound_ms(n_bytes, N_IDS * COLS + uniq * COLS
+                         * STATEFUL_OPS[name])
+        b3_bytes = N_IDS * 8 + uniq * COLS * 4 + leaves
+        b3_bound = bound_ms(b3_bytes, uniq * COLS * STATEFUL_OPS[name])
+        log(f"fused_stateful_sorted_rows [{name}]: {ROWS} x {COLS}, "
+            f"{N_IDS} ids ({uniq} unique), bitwise to the CPU plain route, "
+            f"two launches bitwise equal; kernel {ms:.4f} ms "
+            f"({kernel_graph:.4f} ms in a CUDA graph), bound "
+            f"{bound[0]:.4f} ms ({bound[1]}, {n_bytes / 1e6:.1f} MB), plain "
+            f"route {plain:.4f} ms; the whole Add {spread(ev['new'])} ms "
+            f"({graph['new']:.4f} in a graph) against the old chain (sort, "
+            f"gather, fold, sentinel ids, B3) {spread(ev['old'])} ms "
+            f"({graph['old']:.4f} in a graph)")
+        log(f"B3 fused_stateful_rows [{name}] (the fold off, combined "
+            f"lanes): bitwise (max_abs_err {b3_err}), {b3_ms:.4f} ms "
+            f"({b3_graph:.4f} in a graph), bound {b3_bound[0]:.4f} ms "
+            f"({b3_bytes / 1e6:.1f} MB)")
         variants.append({"updater": name, "cols": COLS, "max_abs_err": err,
-                         "ms": ms, "graph_ms": graph, "plain_ms": plain,
-                         "bound_ms": bound[0],
-                         "bound_by": bound[1], "library_ms": None})
+                         "ms": ms, "graph_ms": kernel_graph,
+                         "plain_ms": plain,
+                         "bound_ms": bound[0], "bound_by": bound[1],
+                         "library_ms": None,
+                         "add_ms": ev["new"]["median"],
+                         "add_ms_readings": ev["new"]["readings"],
+                         "add_graph_ms": graph["new"],
+                         "old_chain_ms": ev["old"]["median"],
+                         "old_chain_ms_readings": ev["old"]["readings"],
+                         "old_chain_graph_ms": graph["old"],
+                         "fold_off_ms": b3_ms, "fold_off_graph_ms": b3_graph,
+                         "fold_off_bound_ms": b3_bound[0],
+                         "two_launches_bitwise": True})
         del table, state
 
-    # The other compiled widths (16- and 4-byte loads), per-worker
-    # indexing, sentinel lanes and the empty batch, at small shapes.
+    # Every layout at D = 50 (the 8-byte loads), some at D = 128 (16-byte)
+    # and 25 (4-byte), against the plain route on the CPU.
     small = 2_000
-    for cols in (128, 25):
-        for name in STATEFUL:
-            up = get_updater(np.float32, name)
+    lay_rng = np.random.default_rng(302)
+    layouts = stateful_layouts(small)
+    cases = [(name, COLS) for name in layouts]
+    cases += [(name, cols) for cols in (128, 25)
+              for name in ("zipf", "run_2700", "out_of_range", "empty")]
+    for name, cols in cases:
+        for upd in STATEFUL:
+            up = get_updater(np.float32, upd)
             table, state = stateful_inputs(g, up, small, cols, 1, dev)
-            sid = torch.randint(0, small, (1_500,), generator=g, device=dev)
-            sd = torch.randn((1_500, cols), generator=g, device=dev)
-            r, d = combine_duplicate_rows(sid, sd, small)
-            stateful_pair(up, table, state, r, d, opt)
-            variants.append({"updater": name, "cols": cols,
-                             "max_abs_err": 0.0})
+            lay = layouts[name]
+            stateful_route_pair(
+                up, table, state, torch.as_tensor(lay, device=dev),
+                torch.as_tensor(stateful_deltas(name, len(lay), cols,
+                                                lay_rng), device=dev),
+                opt)
+        variants.append({"layout": name, "cols": cols,
+                         "updaters": list(STATEFUL), "max_abs_err": 0.0})
+    log(f"fused_stateful_sorted_rows layouts: {len(cases)} cases x "
+        f"{len(STATEFUL)} updaters bitwise to the CPU plain route")
     up = get_updater(np.float32, "adagrad")
     table, state = stateful_inputs(g, up, small, COLS, 2, dev)
     sid = torch.randint(0, small, (1_500,), generator=g, device=dev)
-    r, d = combine_duplicate_rows(
-        sid, torch.randn((1_500, COLS), generator=g, device=dev), small)
+    sd = torch.randn((1_500, COLS), generator=g, device=dev)
     opt1 = AddOption(**dict(STATEFUL_OPT, worker_id=1)).scalars()
+    stateful_route_pair(up, table, state, sid, sd, opt1)
+    r, d = combine_duplicate_rows(sid, sd, small)
     stateful_pair(up, table, state, r, d, opt1)
     plane0 = state["g2"][0].clone()
+    rows.fused_stateful_sorted_rows(table, state, sid, sd, opt1, up)
     rows.fused_stateful_rows(table, state, r, d, opt1, up)
     assert torch.equal(state["g2"][0], plane0), "worker 0's g2 moved"
     variants.append({"updater": "adagrad", "workers": 2, "worker_id": 1,
@@ -764,24 +912,31 @@ def check_stateful_kernels(dev) -> list:
         table, state = stateful_inputs(g, up, small, COLS, 1, dev)
         before = [table.clone()] + [v.clone() for v in state.values()]
         sentinel = torch.full((64,), small, device=dev, dtype=torch.int64)
-        launched = rows.LAUNCHES["fused_stateful_rows"]
-        rows.fused_stateful_rows(table, state, sentinel,
-                                 torch.randn((64, COLS), device=dev), opt, up)
-        rows.fused_stateful_rows(table, state, sentinel[:0],
-                                 torch.zeros((0, COLS), device=dev), opt, up)
+        launched = dict(rows.LAUNCHES)
+        for fn in (rows.fused_stateful_rows, rows.fused_stateful_sorted_rows):
+            fn(table, state, sentinel, torch.randn((64, COLS), device=dev),
+               opt, up)
+            fn(table, state, sentinel[:0], torch.zeros((0, COLS), device=dev),
+               opt, up)
         torch.cuda.synchronize()
-        assert rows.LAUNCHES["fused_stateful_rows"] == launched + 1
+        for key in ("fused_stateful_rows", "fused_stateful_sorted_rows"):
+            assert rows.LAUNCHES[key] == launched[key] + 1, key
         for x, y in zip(before, [table] + list(state.values())):
             assert torch.equal(x, y), f"{name}: a sentinel lane wrote"
-    log("B3 variants: D=128 and D=25 for each updater bitwise; adagrad "
-        "with 2 workers at worker 1 bitwise, worker 0's g2 untouched; an "
+    log("fused stateful variants: adagrad with 2 workers at worker 1 "
+        "bitwise (both signatures), worker 0's g2 untouched; an "
         "all-sentinel batch and the empty batch leave table and state as "
         "they were")
     # The adagrad line at the main path's width stands for the kernel.
-    top = next(v for v in variants if v["updater"] == "adagrad")
-    b3 = {"name": "fused_stateful_rows", "route": "cuda",
+    top = next(v for v in variants if v.get("updater") == "adagrad")
+    b3 = {"name": "fused_stateful_sorted_rows", "route": "cuda",
           "source": "multiverso_tpu_torch/csrc/stateful_rows.cu",
           "replaces": "multiverso_tpu/ops/pallas_rows.py:324",
+          "note": "B3 with the duplicate combine in it (after one "
+                  "stable sort, timed alone as ms; the whole Add, sort "
+                  "included, as add_ms); B3's own signature, "
+                  "fused_stateful_rows, launches the same kernel with the "
+                  "fold off (fold_off_ms)",
           "top_level": "adagrad",
           "library_ms_reason": "no single PyTorch call gathers, updates "
                                "and scatters a table and its state",
@@ -789,8 +944,28 @@ def check_stateful_kernels(dev) -> list:
           "ms": top["ms"], "graph_ms": top["graph_ms"],
           "plain_ms": top["plain_ms"],
           "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-          "library_ms": None, "variants": variants}
+          "library_ms": None, "sort_ms": sort_ms,
+          "sort_graph_ms": sort_graph, "variants": variants}
     return [b3, fold]
+
+
+def stateful_pair(updater, table, state, ids, deltas, opt):
+    """B3's signature (combined lanes, the fold off) and its plain version
+    from the same inputs on the card; returns the largest |difference|
+    after asserting that every buffer is equal (the table and each
+    leaf)."""
+    import torch
+    from multiverso_tpu_torch.ops import rows
+    a = (table.clone(), {k: v.clone() for k, v in state.items()})
+    b = (table.clone(), {k: v.clone() for k, v in state.items()})
+    rows.fused_stateful_rows(a[0], a[1], ids, deltas, opt, updater)
+    rows.fused_stateful_rows_plain(b[0], b[1], ids, deltas, opt, updater)
+    torch.cuda.synchronize()
+    pairs = [("data", a[0], b[0])] + [(k, a[1][k], b[1][k]) for k in state]
+    err = max(float((x - y).abs().max()) for _, x, y in pairs)
+    for key, x, y in pairs:
+        assert torch.equal(x, y), (updater.name, key, err)
+    return err
 
 
 def check_tiled_kernel(dev) -> dict:
@@ -845,6 +1020,36 @@ def check_tiled_kernel(dev) -> dict:
             rows.tiled_scatter_add_sorted_rows_plain(b, sid, sd, sign)
             assert torch.equal(a, b), (cols, sign)
         variants.append({"cols": cols, "max_abs_err": 0.0})
+    # Runs long enough for the block's ring (more than 32 lanes): a word2vec
+    # step's pad lanes and frequent ids, up to 20,000 lanes of one row,
+    # beside short runs, at the word2vec width (16-byte loads), D = 50 and
+    # D = 1,000 (one column a thread in 4 passes of 256), against the
+    # plain version on the CPU.
+    long_ms = {}
+    for cols in (B4_COLS, 50, 1_000):
+        t = torch.randn((2_000, cols), generator=g, device=dev)
+        lengths = [20_000, 8_192, 4_096, 33, 32, 31, 700]
+        ids_l = torch.cat([torch.full((k,), 3 + 5 * i, device=dev)
+                           for i, k in enumerate(lengths)]
+                          + [torch.randint(0, 2_000, (20_000,), generator=g,
+                                           device=dev)])
+        sid = torch.sort(ids_l)[0]
+        sd = torch.randn((sid.shape[0], cols), generator=g, device=dev)
+        for sign in (1.0, -1.0):
+            a, b = t.clone(), t.cpu()
+            rows.tiled_scatter_add_sorted_rows(a, sid, sd, sign)
+            rows.tiled_scatter_add_sorted_rows_plain(b, sid.cpu(), sd.cpu(),
+                                                     sign)
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32)), ("long runs", cols, sign)
+        long_ms[cols] = graph_ms(lambda: rows.tiled_scatter_add_sorted_rows(
+            t, sid, sd), reps=3, calls=3)
+        variants.append({"cols": cols, "long_runs": lengths,
+                         "max_abs_err": 0.0, "graph_ms": long_ms[cols]})
+    log(f"B4 long runs ({', '.join(map(str, lengths))} lanes of one row "
+        f"among 20,000 random ids) bitwise to the plain version on the CPU; "
+        f"in a CUDA graph " + ", ".join(f"D={c} {v:.4f} ms"
+                                        for c, v in long_ms.items()))
     log(f"B4 tiled_scatter_add_sorted_rows (int64 and int32 ids, signs +1, "
         f"-1): {B4_IDS} sorted ids ({uniq} unique) into {B4_ROWS} x "
         f"{B4_COLS}, bitwise, kernel {spread(ev['kernel'])} ms by events "
@@ -1052,13 +1257,18 @@ def check_sgns_kernel(dev) -> dict:
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
     log("B5 sgns_block: a second launch on the same block gives bitwise-"
         "equal tables and loss")
-    # The reference's own spread: the plain version again on the same
-    # inputs (its index_add_ atomics add duplicates in another order).
+    # The plain block step adds a row's duplicates in lane order on the
+    # card too (ops/rows.add_rows_sorted: a stable sort and B4, never
+    # index_add_'s float atomics), so a second run gives the same bits.
     again = [t.clone() for t in tables]
-    sgns.sgns_block_plain(*again, *streams[:3], n_pairs, lr, True)
-    log("B5 plain vs plain: " + ", ".join(
-        f"{name} {float((a - b).abs().max()):.3e}"
-        for name, a, b in zip(TABLES, again, plain)))
+    loss_again = sgns.sgns_block_plain(*again, *streams[:3], n_pairs, lr,
+                                       True)
+    torch.cuda.synchronize()
+    assert float(loss_again) == lp, (float(loss_again), lp)
+    for name, a, b in zip(TABLES, again, plain):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+    log("B5 plain vs plain: the plain block step run twice on the card "
+        "gives bitwise-equal tables and loss")
     launch = sgns.prepare_sgns_block(*[t.clone() for t in tables],
                                      *streams[:3], n_pairs, lr, True)
     ms = cuda_ms(lambda: sgns.launch_sgns_block(launch), 5, warmup=1)
@@ -1327,8 +1537,8 @@ def check_sgns_layouts(dev) -> list:
     length, which must be ``sgns.LONG_RUN``), then a few layouts with
     D=126, with SGD and with K=1, and K=16 at the flagship's chunk and
     vocabulary with Zipf ids (more tiles of 32 slots than the grid has
-    warps, so tiles are also taken from the chunk's counter; held against
-    the plain version on the CPU), each table within ``SGNS_RTOL`` and the
+    warps, so tiles are also taken from the chunk's counter), each table
+    within ``SGNS_RTOL`` and the
     loss within ``SGNS_LOSS_RTOL``; then all of it again with bfloat16
     embeddings, chunk by chunk within ``SGNS_BF16_RTOL``.
     Returns the variant records (``bf16`` marks the instance)."""
@@ -1350,21 +1560,18 @@ def check_sgns_layouts(dev) -> list:
                 torch.rand((vocab, d), generator=g, device=dev),
                 torch.rand((vocab, d), generator=g, device=dev))
 
-    def hold(what, tables, streams, n_pairs, adagrad, on_cpu=False):
+    def hold(what, tables, streams, n_pairs, adagrad):
         if tables[0].dtype == torch.bfloat16:
             return {"layout": what, "bf16": True, **hold_bf16_by_chunk(
                 tables, streams, n_pairs, 0.025, adagrad, what)}
         kern = [t.clone() for t in tables]
-        plain = [t.cpu() if on_cpu else t.clone() for t in tables]
+        plain = [t.clone() for t in tables]
         n_pairs = torch.tensor(n_pairs, dtype=torch.int32, device=dev)
         lk = float(sgns.sgns_block_cuda(*kern, *streams, n_pairs, 0.025,
                                         adagrad))
-        lp = float(sgns.sgns_block_plain(
-            *plain, *[s.to(plain[0].device) for s in streams],
-            n_pairs.to(plain[0].device), 0.025, adagrad))
-        kern = [t.cpu() for t in kern] if on_cpu else kern
-        log(f"{what}: loss {lk} vs plain {lp}"
-            f"{' (the plain version on the CPU)' if on_cpu else ''}")
+        lp = float(sgns.sgns_block_plain(*plain, *streams, n_pairs, 0.025,
+                                         adagrad))
+        log(f"{what}: loss {lk} vs plain {lp}")
         errs = sgns_table_errs(kern, plain, what)
         assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (what, lk, lp)
         return {"layout": what, "max_abs_err_tables": errs, "bf16": False}
@@ -1398,16 +1605,15 @@ def check_sgns_layouts(dev) -> list:
     streams = [torch.multinomial(zipf, int(np.prod(shape)), True,
                                  generator=g).to(torch.int32).view(shape)
                for shape in ((n, CHUNK), (n, CHUNK), (n, CHUNK, k))]
-    # Held against the plain version on the CPU, which adds each run's
-    # AdaGrad squares in lane order as the kernel does: on the card the
-    # plain version adds them by atomics in no fixed order, and over the
-    # run of ~2,700 lanes of the most frequent negative its g_in and g_out
-    # spread past SGNS_RTOL in some repeats.
+    # A run of ~2,700 lanes of the most frequent negative: the plain
+    # version on the card adds its AdaGrad squares in lane order, as the
+    # kernel does (before the repair of ROADMAP C4 it added them by
+    # atomics, and its g_in and g_out spread past SGNS_RTOL in some
+    # repeats, so this case was held on the CPU).
     for dt in (torch.float32, torch.bfloat16):
         out.append(hold(f"B5 K={k} C={CHUNK} V={V} Zipf ids"
                         f"{' bf16' if dt == torch.bfloat16 else ''}",
-                        tables_for(V, D, dt), streams, CHUNK + 4097, True,
-                        on_cpu=dt == torch.float32))
+                        tables_for(V, D, dt), streams, CHUNK + 4097, True))
     log(f"B5 layouts: {len(out)} cases (float32 and bfloat16) within "
         f"SGNS_RTOL / SGNS_BF16_RTOL and SGNS_LOSS_RTOL")
     return out
@@ -2084,6 +2290,94 @@ def stateful_table_plane(name) -> dict:
         f"the card)")
     return {"updater": name, "updates_per_sec": rate,
             "model_max_abs_err": worst}
+
+
+def stateful_add_kernels() -> list:
+    """The device work of one stateful row Add of a ``use_pallas`` adagrad
+    table (100,000 ids into 1,000,000 x 50), traced by ``torch.profiler``:
+    the stable sort's kernels and exactly one launch of the fused kernel;
+    no fold, no gather of the deltas (``index_select``). Returns the
+    names."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+
+    dev = torch.device("cuda", 0)
+    store = ServerStore("kernels_adagrad", (ROWS, COLS), np.float32,
+                        get_updater(np.float32, "adagrad"), dev,
+                        num_workers=1, use_pallas_rows=True)
+    g = torch.Generator(device=dev).manual_seed(10)
+    ids = torch.randint(0, ROWS, (N_IDS,), generator=g, device=dev)
+    deltas = torch.randn((N_IDS, COLS), generator=g, device=dev)
+    opt = AddOption(**STATEFUL_OPT)
+    store.apply_rows(ids, deltas, opt)
+    names = kernels_launched(lambda: store.apply_rows(ids, deltas, opt))
+    assert names, "torch.profiler recorded no device activity"
+    fused = [n for n in names if "stateful_runs_kernel" in n]
+    assert len(fused) == 1, names
+    assert not any(key in n.lower() for n in names
+                   for key in ("fold_runs", "indexselect", "index_select")), \
+        names
+    short = [n.split("::", 1)[-1].split("(")[0][:60] for n in names]
+    log(f"one stateful row Add (adagrad, use_pallas) starts {len(names)} "
+        f"device activities, the fused kernel once and no fold or gather "
+        f"of the deltas (torch.profiler): {short}")
+    return names
+
+
+def plain_tables() -> dict:
+    """Tables without the row kernels (``use_pallas`` off, the default) on
+    the card, through the user's calls: float32 tables with the default,
+    sgd, adagrad and dcasgd updaters, 3 row Adds each of 100,000 ids with
+    duplicates (a run of 64 equal ids in each) and out-of-range ids, bitwise
+    against the same Adds replayed on the CPU. Default and sgd add each
+    row's duplicates in lane order by a stable sort and B4 (ROADMAP C4:
+    never index_add_'s float atomics); adagrad and dcasgd combine them by
+    the fold. Returns {updater: {"launches": ...}}."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+    from multiverso_tpu_torch.ops import rows
+
+    rng = np.random.default_rng(9)
+    n = ROWS // 10
+    opt = AddOption(**STATEFUL_OPT)
+    out = {}
+    for name in ("default", "sgd", "adagrad", "dcasgd"):
+        before = dict(rows.LAUNCHES)
+        t = mv.create_table(mv.MatrixTableOption(ROWS, COLS, updater=name,
+                                                 name=f"plain_{name}"))
+        assert not t.store._pallas_rows and t.store.device.type == "cuda"
+        replay = ServerStore(f"replay_plain_{name}", (ROWS, COLS),
+                             np.float32, get_updater(np.float32, name),
+                             torch.device("cpu"), num_workers=1)
+        for _ in range(3):
+            ids = rng.integers(0, ROWS, size=n)
+            ids[rng.permutation(n)[:64]] = ids[0]
+            ids[rng.permutation(n)[:8]] = ROWS + 3
+            deltas = rng.normal(size=(n, COLS)).astype(np.float32)
+            t.add_rows(ids, deltas, opt)
+            replay.apply_rows(ids, deltas, opt)
+        got, want = t.store.store_state(), replay.store_state()
+        for key in want:
+            assert np.array_equal(got[key].view(np.uint32),
+                                  want[key].view(np.uint32)), \
+                f"{name}: card {key} differs from the CPU replay"
+        launched = {k: rows.LAUNCHES[k] - before[k] for k in rows.LAUNCHES}
+        kernel = ("tiled_scatter_add_sorted_rows"
+                  if name in ("default", "sgd") else "fold_sorted_runs")
+        assert launched[kernel] == 3, (name, launched)
+        log(f"plain table [{name}] (no row kernels): 3 x {n} row Adds with "
+            f"duplicates and out-of-range ids bitwise to the CPU replay "
+            f"({', '.join(sorted(want))}); {kernel} launched 3 times")
+        out[name] = {"launches": launched}
+        del t, replay, got, want
+    return out
 
 
 def tiled_leg(dev) -> float:
@@ -2764,7 +3058,9 @@ def main() -> int:
         return out, {**rows.LAUNCHES, **sgns.LAUNCHES, **attention.LAUNCHES}
 
     # Phase 3: the table plane: stateless (B1, B2), then each stateful
-    # updater (the combine's fold, B3 and B1), then bench.py's row
+    # updater (the fused route and B1: one stable sort and one kernel an
+    # Add, no fold and no B3 on combined lanes), tables without the row
+    # kernels (B4's lane-order adds, the fold), then bench.py's row
     # scatter leg (B4).
     mv.init([])
     _, plane = on_path(table_plane)
@@ -2774,10 +3070,15 @@ def main() -> int:
     for name in STATEFUL:
         stateful[name], counts = on_path(stateful_table_plane, name)
         stateful[name]["launches"] = {
-            k: counts[k] for k in ("fold_sorted_runs", "fused_stateful_rows",
+            k: counts[k] for k in ("fused_stateful_sorted_rows",
+                                   "fused_stateful_rows", "fold_sorted_runs",
                                    "gather_rows")}
-        assert counts["fused_stateful_rows"] > 0, (name, counts)
-        assert counts["fold_sorted_runs"] > 0, (name, counts)
+        # 3 checked Adds + the untimed and 10 timed ones.
+        assert counts["fused_stateful_sorted_rows"] == 14, (name, counts)
+        assert counts["fold_sorted_runs"] == 0, (name, counts)
+        assert counts["fused_stateful_rows"] == 0, (name, counts)
+    store_kernels = stateful_add_kernels()
+    plain_runs, plain_counts = on_path(plain_tables)
     bf16_plane = bf16_table_plane()
     mv.shutdown()
     leg_ms, leg = on_path(tiled_leg, dev)
@@ -2793,7 +3094,9 @@ def main() -> int:
     log(f"flagship bf16 / float32 in this run: words/sec "
         f"{bf16['words_per_sec'] / f32['words_per_sec']:.4f}x, pairs/sec "
         f"{(bf16['pairs'] / bf16['seconds']) / (f32['pairs'] / f32['seconds']):.4f}x")
-    other = other_paths(sents, d)
+    other, other_counts = on_path(other_paths, sents, d)
+    # The plain block steps add duplicate rows by a stable sort and B4.
+    assert other_counts["tiled_scatter_add_sorted_rows"] > 0, other_counts
     mv.shutdown()
 
     # Phase 5: the CLI, skip-gram/NS (B5) and CBOW/HS (the plain block).
@@ -2807,15 +3110,18 @@ def main() -> int:
     # Phase 7: the LM served (each mode reads the counts one by one).
     served = serve_lm(dev, card)
 
+    b4_runs = {"bench.py leg": leg["tiled_scatter_add_sorted_rows"],
+               "plain tables": plain_counts["tiled_scatter_add_sorted_rows"],
+               "word2vec plain steps":
+                   other_counts["tiled_scatter_add_sorted_rows"]}
     launches = {
         "gather_rows": plane["gather_rows"],
         "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"],
-        "fused_stateful_rows": sum(r["launches"]["fused_stateful_rows"]
-                                   for r in stateful.values()),
-        "fold_sorted_runs": sum(r["launches"]["fold_sorted_runs"]
-                                for r in stateful.values()),
-        "tiled_scatter_add_sorted_rows":
-            leg["tiled_scatter_add_sorted_rows"],
+        "fused_stateful_sorted_rows": sum(
+            r["launches"]["fused_stateful_sorted_rows"]
+            for r in stateful.values()),
+        "fold_sorted_runs": plain_counts["fold_sorted_runs"],
+        "tiled_scatter_add_sorted_rows": sum(b4_runs.values()),
         "sgns_block": flag["sgns_block"],
         "sgns_block_bf16": flag_bf16["sgns_block_bf16"],
         "flash_block_attn": lm["b6_launches"],
@@ -2823,15 +3129,22 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
-        if k["name"] == "fused_stateful_rows":
+        if k["name"] == "fused_stateful_sorted_rows":
+            k["store_add_kernels"] = store_kernels
             for v in k["variants"]:
-                if v.get("cols") == COLS and "workers" not in v:
+                if v.get("cols") == COLS and "ms" in v:
                     path = stateful[v["updater"]]
-                    v["launches"] = path["launches"]["fused_stateful_rows"]
+                    v["launches"] = path["launches"][
+                        "fused_stateful_sorted_rows"]
                     v["updates_per_sec"] = path["updates_per_sec"]
                     v["model_max_abs_err"] = path["model_max_abs_err"]
+        if k["name"] == "fold_sorted_runs":
+            k["launches_by_run"] = {
+                name: r["launches"]["fold_sorted_runs"]
+                for name, r in plain_runs.items()}
         if k["name"] == "tiled_scatter_add_sorted_rows":
             k["leg_ms_per_call"] = leg_ms
+            k["launches_by_run"] = b4_runs
         if k["name"] in ("sgns_block", "sgns_block_bf16"):
             st = f32 if k["name"] == "sgns_block" else bf16
             k["flagship_words_per_sec"] = st["words_per_sec"]

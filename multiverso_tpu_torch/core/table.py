@@ -46,7 +46,6 @@ import torch
 
 from multiverso_tpu_torch.core.options import AddOption, GetOption
 from multiverso_tpu_torch.core.updater import (SGDUpdater, Updater,
-                                               combine_duplicate_rows,
                                                pallas_row_capability)
 from multiverso_tpu_torch.ops import rows
 from multiverso_tpu_torch.telemetry import gauge
@@ -195,12 +194,12 @@ class ServerStore:
                 rows.scatter_add_rows(self.data, ids, delta, sign=sign)
             elif self._pallas_cap == "fused_stateful":
                 # As the XLA path: duplicates folded (set semantics must
-                # combine, not race), then ONE in-place dispatch over the
-                # table and every state leaf.
-                ids, delta = combine_duplicate_rows(ids, delta,
-                                                    self.data.shape[0])
-                rows.fused_stateful_rows(self.data, self.state, ids, delta,
-                                         opt.scalars(), self.updater)
+                # combine, not race), then one in-place update of the
+                # table and every state leaf; here one stable sort and ONE
+                # kernel over the sorted runs.
+                rows.fused_stateful_sorted_rows(self.data, self.state, ids,
+                                                delta, opt.scalars(),
+                                                self.updater)
             else:
                 self.data, self.state = self.updater.update_rows(
                     self.data, self.state, ids, delta, opt.scalars())

@@ -81,10 +81,6 @@ def combine_duplicate_rows(rows: torch.Tensor, delta: torch.Tensor,
     return r_eff, d_comb
 
 
-def _drop_mask(rows: torch.Tensor, num_rows: int) -> torch.Tensor:
-    return (rows >= 0) & (rows < num_rows)
-
-
 class Updater:
     """Base: plain accumulate — ``data += delta`` (ref updater.cpp:19-29).
 
@@ -105,17 +101,13 @@ class Updater:
         del opt
         return data + delta, state
 
-    def _row_add(self, data, rows, delta):
-        """``data.at[rows].add(delta, mode="drop")``, in place. A bfloat16
-        table folds duplicate rows in lane order with a rounding after
-        every add (``ops/rows.add_rows_lane_order``), as XLA does."""
-        if data.dtype == torch.bfloat16:
-            return _rows.add_rows_lane_order(data, rows, delta)
-        keep = _drop_mask(rows, data.shape[0])
-        safe = torch.where(keep, rows, torch.zeros_like(rows))
-        delta = torch.where(keep.view(-1, *([1] * (delta.dim() - 1))),
-                            delta, torch.zeros_like(delta))
-        return data.index_add_(0, safe.to(torch.int64), delta)
+    def _row_add(self, data, rows, delta, sign=1.0):
+        """``data.at[rows].add(sign * delta, mode="drop")``, in place, each
+        row's duplicates folded in lane order on any device, as XLA does
+        (``ops/rows.add_rows_sorted``: ``index_add_`` on the CPU, a stable
+        sort and B4's kernel for a float32 table on the card, with the
+        CPU's bits; a bfloat16 table rounds after every add)."""
+        return _rows.add_rows_sorted(data, rows, delta, sign=sign)
 
     def update_rows(self, data, state, rows, delta, opt):
         del opt
@@ -149,7 +141,7 @@ class SGDUpdater(Updater):
 
     def update_rows(self, data, state, rows, delta, opt):
         del opt
-        return self._row_add(data, rows, -delta), state
+        return self._row_add(data, rows, delta, sign=-1.0), state
 
 
 class MomentumUpdater(Updater):
@@ -358,8 +350,9 @@ _REGISTRY: Dict[str, Callable[[], Updater]] = {
 # the same dispatch decision).
 #   "scatter_add"/"scatter_sub" — the sorted-run scatter kernel
 #       (ops/rows.scatter_add_rows, sign +/-1);
-#   "fused_stateful"            — duplicates combined, then the fused
-#       gather-update-scatter kernel (ops/rows.fused_stateful_rows).
+#   "fused_stateful"            — duplicates combined and the fused
+#       gather-update-scatter applied in one stable sort and one kernel
+#       (ops/rows.fused_stateful_sorted_rows).
 PALLAS_ROW_CAPABILITY: Dict[str, str] = {
     "default": "scatter_add",
     "sgd": "scatter_sub",

@@ -26,13 +26,9 @@
 // Scatters (B2, B4). The TPU kernels move 8 rows per grid step by
 // per-row DMA with the ids prefetched into scalar memory. Here a warp
 // owns a tile of 32 consecutive sorted id slots:
-// - Finding runs: lane l loads ids t0 + l and t0 + 32 + l, coalesced,
-//   with the id before the tile, all at once; __shfl_up_sync and
-//   __ballot_sync mark where ids change, and the warp owns the runs of
-//   equal ids that START in its tile (a run has exactly one owner, so no
-//   float atomics). A run that reaches past the 64 slots read is followed
-//   32 ids at a time with one load and one ballot each. The runs go to a
-//   small per-warp list in shared memory.
+// - Finding runs (runs.cuh): ballots over the tile mark where ids change,
+//   and the warp owns the runs of equal ids that START in its tile (a run
+//   has exactly one owner, so no float atomics).
 // - Runs in flight: the warp's lanes form groups of G lanes, sized to the
 //   row (G = 8 at D = 50: 25 float2 per row, 4 per lane; G = 8 at D = 128:
 //   32 float4), so one warp updates 32 / G runs at once. Every lane issues
@@ -56,6 +52,15 @@
 //   vector loads of 8 bytes (16 when D % 4 == 0 and the pointers are
 //   16-byte aligned) fit any row.
 //
+// - Long runs (B4): a run of more than kLong lanes (pad lanes and
+//   frequent ids of a word2vec step: tens of thousands of lanes of one
+//   row) would hold one lane group for a memory latency per delta. The
+//   group skips it; after the block's warps finish their tiles, the whole
+//   block streams each such run's deltas (contiguous rows) through a ring
+//   of kStages stages in shared memory by cp.async, kStages - 1 stages in
+//   flight, and one thread per column adds them in order from there: the
+//   same chain row + sign*delta_j, so the same bits.
+//
 // B2's arithmetic is the TPU kernel's, bit for bit: it folds each aligned
 // group of 8 lanes (acc = delta[k] + acc; a run that starts inside a
 // group folds onto the kernel's zero, delta + 0) and adds each group's
@@ -68,6 +73,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "runs.cuh"
 
 namespace {
 
@@ -99,11 +106,19 @@ template <> struct Vec<4> {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 8;   // the TPU kernel's sublane group of 4-byte rows
-constexpr int kTile = 32;   // sorted id slots a warp owns: one per lane
 constexpr int kChunks = 4;  // vector chunks of a row per lane and pass
-constexpr unsigned kFull = 0xffffffffu;
 
 enum Fold { kGroupFold = 0, kEachDelta = 1 };  // B2, B4
+
+// B4's long runs: runs of more than kLong lanes go through the block's
+// ring, kStages stages of up to kRingRows rows in kRingBytes of dynamic
+// shared memory (under 48 KB with the static), one thread per column, at
+// most kMaxCols columns a thread (wider rows keep the lane-group path).
+constexpr int kLong = 32;
+constexpr int kStages = 4;
+constexpr int kRingRows = 32;
+constexpr int kRingBytes = 40 << 10;
+constexpr int kMaxCols = 4;
 
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -122,66 +137,6 @@ gather_rows_kernel(const float* __restrict__ table,
     V* dst = reinterpret_cast<V*>(out + i * d);
     for (int c = lane; c < dv; c += 32) dst[c] = __ldg(src + c);
   }
-}
-
-// The runs that start in one tile, in order (per warp, in shared memory).
-template <typename IdT> struct Runs {
-  IdT id[kTile];
-  int64_t end[kTile];  // one past the run's last slot
-  int start[kTile];    // the run's first slot, from the tile's start
-};
-
-// Finds the runs of equal ids that start in the tile [t0, t0 + 32),
-// writes them to `runs` and returns how many. Warp-uniform: every lane
-// calls it.
-template <typename IdT>
-__device__ int find_runs(const IdT* __restrict__ ids, int64_t n, int64_t t0,
-                         int lane, Runs<IdT>& runs) {
-  const int64_t s0 = t0 + lane, s1 = s0 + kTile;
-  const IdT a = s0 < n ? ids[s0] : IdT(0);
-  const IdT b = s1 < n ? ids[s1] : IdT(0);
-  const IdT before = t0 > 0 ? ids[t0 - 1] : IdT(0);
-  IdT pa = __shfl_up_sync(kFull, a, 1);
-  IdT pb = __shfl_up_sync(kFull, b, 1);
-  const IdT last_a = __shfl_sync(kFull, a, kTile - 1);
-  if (lane == 0) {
-    pa = before;
-    pb = last_a;
-  }
-  // An edge is a slot that starts a run or lies past the ids' end.
-  const bool edge_a = s0 >= n || s0 == 0 || a != pa;
-  const bool edge_b = s1 >= n || b != pb;
-  const bool starts_here = edge_a && s0 < n;
-  const unsigned starts = __ballot_sync(kFull, starts_here);
-  if (starts == 0) return 0;
-  const uint64_t edges = (uint64_t)__ballot_sync(kFull, edge_a) |
-                         ((uint64_t)__ballot_sync(kFull, edge_b) << kTile);
-  // A run starting at this lane ends at the next edge after it.
-  const uint64_t after = edges >> (lane + 1);
-  int64_t end = s0 + __ffsll((long long)after);
-  // Only the tile's last run can reach past the 64 slots read.
-  const int last = 31 - __clz(starts);
-  if ((edges >> (last + 1)) == 0) {
-    const IdT r = __shfl_sync(kFull, a, last);
-    int64_t e = t0 + 2 * kTile;
-    for (;; e += kTile) {
-      const int64_t s = e + lane;
-      const unsigned hit = __ballot_sync(kFull, s >= n || ids[s] != r);
-      if (hit) {
-        e += __ffs(hit) - 1;
-        break;
-      }
-    }
-    if (lane == last) end = e;
-  }
-  if (starts_here) {
-    const int k = __popc(starts & ((1u << lane) - 1));
-    runs.id[k] = a;
-    runs.end[k] = end;
-    runs.start[k] = lane;
-  }
-  __syncwarp();
-  return __popc(starts);
 }
 
 // One run [s, e) of row r, by one lane group of G lanes (lane gl of it):
@@ -261,47 +216,146 @@ __device__ void add_run(float* __restrict__ table,
   }
 }
 
+// cp.async of BYTES (4, 8 or 16) from global to shared memory.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(BYTES));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Ring stage `slot` <- the delta rows [base, min(base + rows, e)), by the
+// whole block; one commit group (empty past e).
+template <int VEC>
+__device__ void load_stage(float* ring, const float* __restrict__ deltas,
+                           int64_t base, int64_t e, int rows, int d,
+                           int slot) {
+  const int dv = d / VEC;
+  const int64_t left = e - base;
+  const int live = left <= 0 ? 0 : (left < rows ? (int)left : rows);
+  float* dst = ring + slot * rows * d;
+  const float* src = deltas + base * d;
+  for (int k = threadIdx.x; k < live * dv; k += kThreads) {
+    const int i = k / dv, c = (k - i * dv) * VEC;
+    cp_async<VEC * 4>(dst + i * d + c, src + (int64_t)i * d + c);
+  }
+  cp_async_commit();
+}
+
+// One long run [s, e) of row r by the whole block (B4's fold): thread t
+// holds columns t, t + 256, ... of the row and adds each delta row of the
+// ring to them in order.
+template <int VEC>
+__device__ void add_long_run(float* __restrict__ table,
+                             const float* __restrict__ deltas, int64_t r,
+                             int64_t s, int64_t e, int d, bool negate,
+                             float* ring, int rows) {
+  float* row = table + r * d;
+  float acc[kMaxCols];
+#pragma unroll
+  for (int q = 0; q < kMaxCols; ++q) {
+    const int c = threadIdx.x + q * kThreads;
+    acc[q] = c < d ? row[c] : 0.f;
+  }
+  const int64_t stages = (e - s + rows - 1) / rows;
+  for (int k = 0; k < kStages - 1; ++k)
+    load_stage<VEC>(ring, deltas, s + (int64_t)k * rows, e, rows, d, k);
+  for (int64_t k = 0; k < stages; ++k) {
+    load_stage<VEC>(ring, deltas, s + (k + kStages - 1) * rows, e, rows, d,
+                    (int)((k + kStages - 1) % kStages));
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const float* stage = ring + (int)(k % kStages) * rows * d;
+    const int64_t left = e - (s + k * rows);
+    const int live = left < rows ? (int)left : rows;
+#pragma unroll
+    for (int q = 0; q < kMaxCols; ++q) {
+      const int c = threadIdx.x + q * kThreads;
+      if (c < d) {
+#pragma unroll 4
+        for (int i = 0; i < live; ++i) {
+          const float x = stage[i * d + c];
+          acc[q] = acc[q] + (negate ? -x : x);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < kMaxCols; ++q) {
+    const int c = threadIdx.x + q * kThreads;
+    if (c < d) row[c] = acc[q];
+  }
+}
+
 // B2 (FOLD = kGroupFold) and B4 (kEachDelta). Global warp w works on tile
 // w / wpt and takes the rounds sub, sub + wpt, ... of its runs (sub = w %
-// wpt); a round is 32 / G runs, one per lane group.
+// wpt); a round is 32 / G runs, one per lane group. The block's warps
+// step through the tiles together, so that B4's long runs (ring_rows > 0:
+// at most one a tile, its last) can be taken by the whole block after
+// each step.
 template <int FOLD, int VEC, int G, typename IdT>
 __global__ void __launch_bounds__(kThreads)
 scatter_runs_kernel(float* __restrict__ table, const IdT* __restrict__ ids,
                     const float* __restrict__ deltas, int64_t n,
-                    int64_t num_rows, int d, int wpt, bool negate) {
+                    int64_t num_rows, int d, int wpt, bool negate,
+                    int ring_rows) {
   constexpr int kPerRound = 32 / G;
   __shared__ Runs<IdT> runs[kWarps];
+  __shared__ int64_t long_id[kWarps], long_s[kWarps], long_e[kWarps];
+  __shared__ int n_long;
+  extern __shared__ __align__(16) float ring[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int group = lane / G, gl = lane % G;
   const int64_t total = (n + kTile - 1) / kTile * wpt;
   const int64_t stride = (int64_t)gridDim.x * kWarps;
+  const bool defer = FOLD == kEachDelta && ring_rows > 0;
   Runs<IdT>& mine = runs[warp];
-  for (int64_t w = (int64_t)blockIdx.x * kWarps + warp; w < total;
-       w += stride) {
-    const int64_t t0 = w / wpt * kTile;
-    const int sub = (int)(w % wpt);
-    const int count = find_runs(ids, n, t0, lane, mine);
-    for (int k = sub * kPerRound + group; k < count; k += wpt * kPerRound) {
-      const int64_t r = mine.id[k];
-      if (r >= 0 && r < num_rows)
-        add_run<FOLD, VEC, G>(table, deltas, r, t0 + mine.start[k],
-                              mine.end[k], n, d, negate, gl);
+  for (int64_t w0 = (int64_t)blockIdx.x * kWarps; w0 < total; w0 += stride) {
+    if (defer) {
+      if (threadIdx.x == 0) n_long = 0;
+      __syncthreads();
     }
-    __syncwarp();
+    const int64_t w = w0 + warp;
+    if (w < total) {
+      const int64_t t0 = w / wpt * kTile;
+      const int sub = (int)(w % wpt);
+      const int count = find_runs(ids, n, t0, lane, mine);
+      for (int k = sub * kPerRound + group; k < count;
+           k += wpt * kPerRound) {
+        const int64_t r = mine.id[k];
+        if (r < 0 || r >= num_rows) continue;
+        const int64_t s = t0 + mine.start[k], e = mine.end[k];
+        if (defer && e - s > kLong) {
+          if (gl == 0) {
+            const int slot = atomicAdd(&n_long, 1);
+            long_id[slot] = r;
+            long_s[slot] = s;
+            long_e[slot] = e;
+          }
+          continue;
+        }
+        add_run<FOLD, VEC, G>(table, deltas, r, s, e, n, d, negate, gl);
+      }
+      __syncwarp();
+    }
+    if (defer) {
+      __syncthreads();
+      for (int k = 0; k < n_long; ++k)
+        add_long_run<VEC>(table, deltas, long_id[k], long_s[k], long_e[k],
+                          d, negate, ring, ring_rows);
+      __syncthreads();
+    }
   }
-}
-
-// Each device's SM count, read once.
-int sm_count() {
-  static int cached[64];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
-  int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (sms <= 0) sms = 132;
-  if (dev >= 0 && dev < 64) cached[dev] = sms;
-  return sms;
 }
 
 int grid_for(int64_t warps_needed) {
@@ -328,23 +382,25 @@ int lanes_per_row(int dv) {
 template <int FOLD, int VEC, typename IdT>
 void launch_width(int g, int grid, cudaStream_t st, float* table,
                   const IdT* ids, const float* deltas, int64_t n,
-                  int64_t num_rows, int d, int wpt, bool negate) {
+                  int64_t num_rows, int d, int wpt, bool negate,
+                  int ring_rows) {
+  const size_t smem = (size_t)ring_rows * kStages * d * sizeof(float);
   switch (g) {
     case 1:
-      scatter_runs_kernel<FOLD, VEC, 1, IdT><<<grid, kThreads, 0, st>>>(
-          table, ids, deltas, n, num_rows, d, wpt, negate);
+      scatter_runs_kernel<FOLD, VEC, 1, IdT><<<grid, kThreads, smem, st>>>(
+          table, ids, deltas, n, num_rows, d, wpt, negate, ring_rows);
       break;
     case 4:
-      scatter_runs_kernel<FOLD, VEC, 4, IdT><<<grid, kThreads, 0, st>>>(
-          table, ids, deltas, n, num_rows, d, wpt, negate);
+      scatter_runs_kernel<FOLD, VEC, 4, IdT><<<grid, kThreads, smem, st>>>(
+          table, ids, deltas, n, num_rows, d, wpt, negate, ring_rows);
       break;
     case 8:
-      scatter_runs_kernel<FOLD, VEC, 8, IdT><<<grid, kThreads, 0, st>>>(
-          table, ids, deltas, n, num_rows, d, wpt, negate);
+      scatter_runs_kernel<FOLD, VEC, 8, IdT><<<grid, kThreads, smem, st>>>(
+          table, ids, deltas, n, num_rows, d, wpt, negate, ring_rows);
       break;
     default:
-      scatter_runs_kernel<FOLD, VEC, 32, IdT><<<grid, kThreads, 0, st>>>(
-          table, ids, deltas, n, num_rows, d, wpt, negate);
+      scatter_runs_kernel<FOLD, VEC, 32, IdT><<<grid, kThreads, smem, st>>>(
+          table, ids, deltas, n, num_rows, d, wpt, negate, ring_rows);
   }
 }
 
@@ -364,18 +420,24 @@ int scatter_sorted(float* table, const IdT* ids, const float* deltas,
   while (wpt < g && tiles * wpt < fill) wpt *= 2;
   const int grid = grid_for(tiles * wpt);
   const bool negate = sign < 0.f;
+  // B4's long runs go through the block's ring where a row fits it.
+  int ring_rows = 0;
+  if (FOLD == kEachDelta && d <= kThreads * kMaxCols) {
+    ring_rows = kRingBytes / (kStages * d * (int)sizeof(float));
+    if (ring_rows > kRingRows) ring_rows = kRingRows;
+  }
   switch (vec) {
     case 4:
       launch_width<FOLD, 4>(g, grid, st, table, ids, deltas, n, num_rows, d,
-                            wpt, negate);
+                            wpt, negate, ring_rows);
       break;
     case 2:
       launch_width<FOLD, 2>(g, grid, st, table, ids, deltas, n, num_rows, d,
-                            wpt, negate);
+                            wpt, negate, ring_rows);
       break;
     default:
       launch_width<FOLD, 1>(g, grid, st, table, ids, deltas, n, num_rows, d,
-                            wpt, negate);
+                            wpt, negate, ring_rows);
   }
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@ linear lr decay for SGD and batched embedding export. The embeddings may
 be stored in bfloat16 (``param_dtype``); the math and the AdaGrad
 accumulators stay float32, and each step is rounded to the table's dtype
 before it is added (duplicate rows fold in lane order, rounding after
-every add, as XLA's scatter does: ``ops/rows.add_rows_lane_order``).
+every add, as XLA's scatter does: ``ops/rows.add_rows_sorted``).
 
 Two training paths, as in the JAX package:
 
@@ -62,7 +62,7 @@ from multiverso_tpu_torch.models.word2vec.data import (BatchGenerator,
 from multiverso_tpu_torch.models.word2vec.dictionary import (Dictionary,
                                                              HuffmanEncoder,
                                                              Sampler)
-from multiverso_tpu_torch.ops.rows import add_rows_lane_order
+from multiverso_tpu_torch.ops.rows import add_rows_sorted, sort_rows
 from multiverso_tpu_torch.ops.sgns import (MAX_NEGATIVE,
                                            build_sgns_grid_step,
                                            sgns_grid_eligible)
@@ -285,30 +285,38 @@ def block_streams(neg_table, keep_prob, sents, lengths, keep_u, wpos, ridx,
 # ---------------------------------------------------------------------------
 # The steps (plain torch; the chunk loop's body and B5's oracle)
 # ---------------------------------------------------------------------------
-def _apply_update(w, g2, rows, grad, lr, adagrad: bool) -> None:
+def _apply_update(w, g2, rows, grad, lr, adagrad: bool, live=None) -> None:
     """In place: scatter an embedding update (+AdaGrad) for possibly
     duplicated rows — ``g2[rows] += grad^2`` over all duplicates (float32),
     then ``w[rows] += -lr*grad/sqrt(g2[rows] + 1e-6)`` with the summed g2
     (``-lr*grad`` for SGD). The step is rounded to ``w``'s dtype before
-    it is added; a bfloat16 table takes a row's duplicates in lane order
-    with a rounding after every add (``add_rows_lane_order``). Out-of-range
-    rows are dropped."""
+    it is added. Each row takes its duplicates one at a time in lane
+    order, as XLA's scatter does, on any device (``add_rows_sorted``: on
+    the card a stable sort, made once for both tables, and B4's kernel; a
+    bfloat16 table rounds after every add). Out-of-range rows are
+    dropped, and so are the lanes outside ``live`` (the masks of the
+    caller's examples, nodes or contexts, where the gradient is +-0):
+    adding +-0 leaves every element as it was, since none of these tables
+    holds -0.0 (the AdaGrad sums and ``w_out`` start at +0.0, ``w_in`` at
+    random values, and a sum is -0.0 only if both terms are), so the
+    tables keep their bits, and the pad lanes of a padded layout (every
+    Huffman path padded to the longest with node 0) make no long run of
+    one row on the card."""
     num_rows = w.shape[0]
     rows = rows.to(torch.int64)
-    keep = ((rows >= 0) & (rows < num_rows))[:, None]
-    safe = torch.where(keep[:, 0], rows, torch.zeros_like(rows))
-    zero = torch.zeros_like(grad)
+    if live is not None:
+        rows = torch.where(live.reshape(rows.shape) > 0, rows,
+                           torch.full_like(rows, -1))
+    sort = (sort_rows(rows, num_rows) if w.is_cuda and
+            (adagrad or w.dtype == torch.float32) else None)
     if adagrad:
-        g2.index_add_(0, safe, torch.where(keep, torch.square(grad), zero))
+        add_rows_sorted(g2, rows, torch.square(grad), sort=sort)
         denom = _sqrt(g2.index_select(0, rows.clamp(0, num_rows - 1))
                       + 1e-6)
         step = -lr * grad / denom
     else:
         step = -lr * grad
-    if w.dtype == torch.float32:
-        w.index_add_(0, safe, torch.where(keep, step, zero))
-    else:
-        add_rows_lane_order(w, rows, step)
+    add_rows_sorted(w, rows, step, sort=sort)
 
 
 def _ns_grads(u, v_pos, v_neg, mask):
@@ -360,7 +368,13 @@ def _cbow_spread(w_in, g_in, contexts, cmask, counts, grad_u, lr, adagrad):
     B, C = contexts.shape
     gctx = grad_u[:, None, :] * cmask[..., None] / counts[..., None]
     _apply_update(w_in, g_in, contexts.reshape(B * C),
-                  gctx.reshape(B * C, -1), lr, adagrad)
+                  gctx.reshape(B * C, -1), lr, adagrad, live=cmask)
+
+
+def _ns_live(mask, k: int):
+    """The live lanes of an ns output update: each example's positive row,
+    then its ``k`` negatives (the rows' order in the steps)."""
+    return torch.cat([mask, mask[:, None].expand(-1, k).reshape(-1)])
 
 
 def raw_sg_ns_step(adagrad: bool):
@@ -373,12 +387,13 @@ def raw_sg_ns_step(adagrad: bool):
         v_pos = _take(w_out, contexts)
         v_neg = _take(w_out, negatives)
         loss, grad_u, grad_vpos, grad_vneg = _ns_grads(u, v_pos, v_neg, mask)
-        _apply_update(w_in, g_in, centers, grad_u, lr, adagrad)
+        _apply_update(w_in, g_in, centers, grad_u, lr, adagrad, live=mask)
         B, K, D = grad_vneg.shape
         rows = torch.cat([contexts.to(torch.int64),
                           negatives.to(torch.int64).reshape(B * K)])
         grads = torch.cat([grad_vpos, grad_vneg.reshape(B * K, D)])
-        _apply_update(w_out, g_out, rows, grads, lr, adagrad)
+        _apply_update(w_out, g_out, rows, grads, lr, adagrad,
+                      live=_ns_live(mask, K))
         return loss
 
     return step
@@ -389,10 +404,11 @@ def raw_sg_hs_step(adagrad: bool):
         u = _take(w_in, centers)
         v = _take(w_out, points)
         loss, grad_u, grad_v = _hs_grads(u, v, codes, lmask)
-        _apply_update(w_in, g_in, centers, grad_u, lr, adagrad)
+        _apply_update(w_in, g_in, centers, grad_u, lr, adagrad,
+                      live=lmask[:, 0])
         B, L, D = grad_v.shape
         _apply_update(w_out, g_out, points.reshape(B * L),
-                      grad_v.reshape(B * L, D), lr, adagrad)
+                      grad_v.reshape(B * L, D), lr, adagrad, live=lmask)
         return loss
 
     return step
@@ -411,7 +427,8 @@ def raw_cbow_ns_step(adagrad: bool):
         rows = torch.cat([centers.to(torch.int64),
                           negatives.to(torch.int64).reshape(B * K)])
         grads = torch.cat([grad_vpos, grad_vneg.reshape(B * K, D)])
-        _apply_update(w_out, g_out, rows, grads, lr, adagrad)
+        _apply_update(w_out, g_out, rows, grads, lr, adagrad,
+                      live=_ns_live(mask, K))
         return loss
 
     return step
@@ -427,7 +444,7 @@ def raw_cbow_hs_step(adagrad: bool):
                      adagrad)
         B, L, D = grad_v.shape
         _apply_update(w_out, g_out, points.reshape(B * L),
-                      grad_v.reshape(B * L, D), lr, adagrad)
+                      grad_v.reshape(B * L, D), lr, adagrad, live=lmask)
         return loss
 
     return step

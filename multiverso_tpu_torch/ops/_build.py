@@ -7,8 +7,9 @@ with ``ctypes``. Nothing here runs at import time: a host without
 ``nvcc`` or a card imports the package cleanly and only the first kernel
 launch needs the toolkit.
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. :func:`build_all`
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. :func:`build_all`
 starts one ``nvcc`` per source, all together, and waits for them.
 """
 
@@ -57,7 +58,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

@@ -7,18 +7,21 @@ Port of ``multiverso_tpu/ops/pallas_rows.py``: ``gather_rows``,
 ``scatter_add_rows``), ``fused_stateful_rows`` and
 ``tiled_scatter_add_sorted_rows`` (with ``tiled_scatter_add_rows`` and
 ``tiled_scatter_eligible``), plus ``fold_sorted_runs``, the fold of the
-stateful updaters' duplicate combine. The kernels are CUDA C++ in
-``csrc/rows.cu`` (B1, B2, B4) and ``csrc/stateful_rows.cu`` (B3 and the
-fold); each wrapper launches its kernel for CUDA tensors (or raises) and
-runs its plain PyTorch twin, defined beside it, for CPU tensors. Each
-wrapper counts its kernel launches in ``LAUNCHES``. B2 and B4 read int32
-or int64 sorted ids as they are given.
+stateful updaters' duplicate combine, ``fused_stateful_sorted_rows``, the
+combine and B3 in one pass over sorted runs (the table plane's stateful
+row Add), and ``add_rows_sorted``, a row Add whose duplicates fold in lane
+order on any device. The kernels are CUDA C++ in ``csrc/rows.cu`` (B1,
+B2, B4) and ``csrc/stateful_rows.cu`` (B3, the fused route and the fold);
+each wrapper launches its kernel for CUDA tensors (or raises) and runs its
+plain PyTorch twin, defined beside it, for CPU tensors. Each wrapper
+counts its kernel launches in ``LAUNCHES``. B2 and B4 read int32 or int64
+sorted ids as they are given.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +33,8 @@ GROUP = 8   # the TPU kernel's fold group for 4-byte rows
 #: Kernel launches per wrapper, counted where the kernel is launched.
 LAUNCHES: Dict[str, int] = {"gather_rows": 0, "scatter_add_sorted_rows": 0,
                              "tiled_scatter_add_sorted_rows": 0,
-                             "fold_sorted_runs": 0, "fused_stateful_rows": 0}
+                             "fold_sorted_runs": 0, "fused_stateful_rows": 0,
+                             "fused_stateful_sorted_rows": 0}
 
 _c = ctypes.c_void_p
 _i64 = ctypes.c_int64
@@ -62,14 +66,24 @@ def _lib():
     return lib
 
 
+#: The fused route's C entry points, by the type of the sorted ids.
+_FUSED_SORTED = {torch.int32: "mv_fused_stateful_sorted_rows",
+                 torch.int64: "mv_fused_stateful_sorted_rows_i64"}
+
+
 def _stateful_lib():
     lib = _build.load("stateful_rows")
     if not getattr(lib, "_mv_typed", False):
+        scalars = [ctypes.c_float] * 4
         lib.mv_fused_stateful_rows.argtypes = [
             ctypes.c_int, _c, _c, _c, _c, _c, _i64, _i64, ctypes.c_int, _i64,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            _c]
+            *scalars, _c]
         lib.mv_fused_stateful_rows.restype = ctypes.c_int
+        for name in _FUSED_SORTED.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_int, _c, _c, _c, _c, _c, _c, _i64, _i64,
+                           ctypes.c_int, _i64, *scalars, _c]
+            fn.restype = ctypes.c_int
         lib.mv_fold_sorted_runs_f32.argtypes = [_c, _c, _c, _i64,
                                                 ctypes.c_int, _c]
         lib.mv_fold_sorted_runs_f32.restype = ctypes.c_int
@@ -181,6 +195,63 @@ def _check_sign(sign: float) -> float:
     return float(sign)
 
 
+def sort_rows(ids: torch.Tensor, num_rows: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stable sort before the sorted kernels: ``(sorted keys,
+    permutation)``. Where ``num_rows`` fits int32, the keys are int32: ids
+    below 0 become -1 and ids at or past ``num_rows`` become ``num_rows``
+    first, so no int64 id wraps into range, and CUB's radix sort makes half
+    the passes. The in-range lanes then keep the int64 sort's positions and
+    order (its permutation there, exactly), and the kernels drop the others
+    as they drop them from an int64 sort."""
+    ids = ids.reshape(-1)
+    if num_rows < 2 ** 31:
+        keys = ids.clamp(-1, num_rows)
+        if keys.dtype != torch.int32:
+            keys = keys.to(torch.int32)
+    else:
+        keys = ids.to(torch.int64)
+    return torch.sort(keys, stable=True)
+
+
+def add_rows_sorted(table: torch.Tensor, ids: torch.Tensor,
+                    values: torch.Tensor, sign: float = 1.0,
+                    sort: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """``table.at[ids].add(sign * values, mode="drop")`` of the JAX package,
+    in place, with the CPU's bits on any device: each row takes its values
+    one at a time in lane order, and ids outside ``[0, rows)`` are
+    dropped. On the CPU, and for integer tables anywhere (exact in any
+    order), that is ``index_add_`` over the kept lanes. On the card, a
+    float32 table takes a stable sort and B4's kernel, which adds one
+    delta at a time in sorted order (``row + sign*delta``, the bits of
+    ``row + (-delta)``); never ``index_add_``, which adds floats by
+    atomics there. bfloat16 tables (anywhere) and other float tables on
+    the card go through :func:`add_rows_lane_order`. ``sort`` is
+    :func:`sort_rows` of these ids, made already by a caller that adds
+    them to two tables."""
+    sign = _check_sign(sign)
+    ids = ids.reshape(-1)
+    if ids.numel() == 0:
+        return table
+    rows = table.shape[0]
+    values = values.reshape(ids.shape[0], -1)
+    signed = values if sign > 0 else -values
+    if table.dtype == torch.bfloat16:
+        return add_rows_lane_order(table, ids, signed)
+    if not table.is_cuda or not table.is_floating_point():
+        keep = (ids >= 0) & (ids < rows)
+        table.view(rows, -1).index_add_(0, ids[keep].to(torch.int64),
+                                        signed[keep].to(table.dtype))
+        return table
+    if table.dtype != torch.float32:
+        return add_rows_lane_order(table, ids, signed)
+    keys, order = sort if sort is not None else sort_rows(ids, rows)
+    tiled_scatter_add_sorted_rows(table.view(rows, -1), keys,
+                                  values.index_select(0, order), sign)
+    return table
+
+
 def scatter_add_sorted_rows_plain(table: torch.Tensor, sorted_ids: torch.Tensor,
                                   sorted_deltas: torch.Tensor,
                                   sign: float = 1.0) -> torch.Tensor:
@@ -267,8 +338,8 @@ def scatter_add_sorted_rows(table: torch.Tensor, sorted_ids: torch.Tensor,
 def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                      deltas: torch.Tensor, sign: float = 1.0) -> torch.Tensor:
     """Unsorted wrapper: a stable sort (glue, as XLA's argsort is in the
-    JAX package), then the sorted kernel. In place."""
-    sorted_ids, order = torch.sort(ids.to(torch.int64), stable=True)
+    JAX package; :func:`sort_rows`), then the sorted kernel. In place."""
+    sorted_ids, order = sort_rows(ids, table.shape[0])
     return scatter_add_sorted_rows(table, sorted_ids,
                                    deltas.index_select(0, order), sign=sign)
 
@@ -324,8 +395,8 @@ def tiled_scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
                            deltas: torch.Tensor,
                            sign: float = 1.0) -> torch.Tensor:
     """Unsorted wrapper: a stable sort (glue, as ``jnp.argsort`` is in the
-    JAX package), then the tiled kernel. In place."""
-    sorted_ids, order = torch.sort(ids.to(torch.int64), stable=True)
+    JAX package; :func:`sort_rows`), then the tiled kernel. In place."""
+    sorted_ids, order = sort_rows(ids, table.shape[0])
     return tiled_scatter_add_sorted_rows(
         table, sorted_ids, deltas.index_select(0, order), sign=sign)
 
@@ -362,6 +433,8 @@ def fold_sorted_runs(sorted_ids: torch.Tensor,
     if fn is None:
         raise ValueError("fold_sorted_runs takes float32 or float64 deltas "
                          f"on the card; got {sorted_deltas.dtype}")
+    if n == 0:
+        return sorted_deltas.clone()
     ids64 = sorted_ids.to(torch.int64).contiguous()
     deltas = sorted_deltas.contiguous()
     out = torch.empty_like(deltas)
@@ -420,33 +493,18 @@ def _stateful_args(updater, opt, state):
     return kind, state["z"], state["n"], (f[0], f[1], f[2], f[3])
 
 
-def fused_stateful_rows(table: torch.Tensor, state: Dict[str, torch.Tensor],
-                        ids: torch.Tensor, deltas: torch.Tensor, opt,
-                        updater) -> Tuple[torch.Tensor, Dict]:
-    """One in-place gather-update-scatter over the table and every state
-    leaf of a momentum_sgd, adagrad or ftrl updater.
-
-    ``ids``/``deltas`` must already be duplicate-combined
-    (:func:`multiverso_tpu_torch.core.updater.combine_duplicate_rows`):
-    unique ids, dropped lanes remapped to the sentinel ``table.shape[0]``,
-    which write nothing. ``opt`` is ``AddOption.scalars()``. Returns
-    ``(table, state)``, both updated in place."""
-    _check_table(table)
-    if not state:
-        raise ValueError("fused_stateful_rows needs at least one state "
-                         "leaf; stateless updaters use scatter_add_rows")
-    if not _on_card(table, ids, deltas, *state.values()):
-        return fused_stateful_rows_plain(table, state, ids, deltas, opt,
-                                         updater)
+def _check_stateful(table, state, ids, deltas, opt, updater) -> None:
+    """Raise on what the fused kernel does not take (card tensors only)."""
     from multiverso_tpu_torch.core.updater import pallas_row_capability
     if updater.name not in STATEFUL_KINDS or \
             pallas_row_capability(updater) != "fused_stateful":
-        raise ValueError(f"fused_stateful_rows has a kernel for "
+        raise ValueError(f"the fused stateful kernel serves "
                          f"{sorted(STATEFUL_KINDS)} only; got "
                          f"{type(updater).__name__} '{updater.name}'")
     n, d = ids.shape[0], table.shape[1]
-    if deltas.shape != (n, d):
-        raise ValueError(f"deltas {tuple(deltas.shape)} != ({n}, {d})")
+    if ids.dim() != 1 or deltas.shape != (n, d):
+        raise ValueError(f"ids {tuple(ids.shape)} and deltas "
+                         f"{tuple(deltas.shape)} are not [n] and [n, {d}]")
     wid = int(opt[0])
     for key, leaf in state.items():
         lead = ((leaf.shape[0],) if key in updater.per_worker_state else ())
@@ -457,16 +515,100 @@ def fused_stateful_rows(table: torch.Tensor, state: Dict[str, torch.Tensor],
         if lead and not 0 <= wid < lead[0]:
             raise ValueError(f"worker id {wid} outside the {lead[0]} "
                              f"planes of state leaf '{key}'")
-    if n == 0:
-        return table, state
+
+
+def _launch_stateful(entry: str, table, state, ids, order, deltas, opt,
+                     updater) -> None:
+    """Launch the fused kernel through the C entry point ``entry``
+    (``order`` None: B3's combined lanes, the fold off)."""
     kind, leaf_a, leaf_b, p = _stateful_args(updater, opt, state)
-    ids32 = ids.to(torch.int32).contiguous()
     deltas = deltas.to(torch.float32).contiguous()
-    err = _stateful_lib().mv_fused_stateful_rows(
+    lead = [] if order is None else [order.data_ptr()]
+    err = getattr(_stateful_lib(), entry)(
         kind, table.data_ptr(), leaf_a.data_ptr(),
-        None if leaf_b is None else leaf_b.data_ptr(), ids32.data_ptr(),
-        deltas.data_ptr(), n, table.shape[0], d, wid, *p,
-        _build.stream(table))
-    _build.check_launch(err, "fused_stateful_rows")
+        None if leaf_b is None else leaf_b.data_ptr(), ids.data_ptr(),
+        *lead, deltas.data_ptr(), ids.shape[0], table.shape[0],
+        table.shape[1], int(opt[0]), *p, _build.stream(table))
+    _build.check_launch(err, entry)
+
+
+def fused_stateful_rows(table: torch.Tensor, state: Dict[str, torch.Tensor],
+                        ids: torch.Tensor, deltas: torch.Tensor, opt,
+                        updater) -> Tuple[torch.Tensor, Dict]:
+    """One in-place gather-update-scatter over the table and every state
+    leaf of a momentum_sgd, adagrad or ftrl updater.
+
+    ``ids``/``deltas`` must already be duplicate-combined
+    (:func:`multiverso_tpu_torch.core.updater.combine_duplicate_rows`):
+    unique ids, dropped lanes remapped to the sentinel ``table.shape[0]``,
+    which write nothing. ``opt`` is ``AddOption.scalars()``. Returns
+    ``(table, state)``, both updated in place. The kernel is the fused
+    route's with the fold off: each lane its own run, its delta as it
+    is."""
+    _check_table(table)
+    if not state:
+        raise ValueError("fused_stateful_rows needs at least one state "
+                         "leaf; stateless updaters use scatter_add_rows")
+    if not _on_card(table, ids, deltas, *state.values()):
+        return fused_stateful_rows_plain(table, state, ids, deltas, opt,
+                                         updater)
+    _check_stateful(table, state, ids, deltas, opt, updater)
+    if ids.shape[0] == 0:
+        return table, state
+    _launch_stateful("mv_fused_stateful_rows", table, state,
+                     ids.to(torch.int64).contiguous(), None, deltas, opt,
+                     updater)
     LAUNCHES["fused_stateful_rows"] += 1
+    return table, state
+
+
+def fused_stateful_sorted_rows_plain(table: torch.Tensor,
+                                     state: Dict[str, torch.Tensor],
+                                     ids: torch.Tensor, deltas: torch.Tensor,
+                                     opt, updater
+                                     ) -> Tuple[torch.Tensor, Dict]:
+    """The plain version of the fused route: the duplicate combine
+    (``core/updater.combine_duplicate_rows``), then
+    :func:`fused_stateful_rows_plain`."""
+    from multiverso_tpu_torch.core.updater import combine_duplicate_rows
+    ids, deltas = combine_duplicate_rows(ids.to(torch.int64).reshape(-1),
+                                         deltas, table.shape[0])
+    return fused_stateful_rows_plain(table, state, ids, deltas, opt, updater)
+
+
+def fused_stateful_sorted_rows(table: torch.Tensor,
+                               state: Dict[str, torch.Tensor],
+                               ids: torch.Tensor, deltas: torch.Tensor, opt,
+                               updater,
+                               sort: Optional[Tuple[torch.Tensor,
+                                                    torch.Tensor]] = None
+                               ) -> Tuple[torch.Tensor, Dict]:
+    """A stateful row Add in one stable sort and one kernel: what
+    ``combine_duplicate_rows`` followed by :func:`fused_stateful_rows`
+    computes, bit for bit, with no sorted or folded copy of the deltas.
+
+    ``ids`` are raw row ids (any order, duplicates, ids outside ``[0,
+    rows)`` dropped), ``deltas`` ``[n, D]`` in the ids' order. The kernel
+    folds each run of equal sorted ids from 0 in lane order, reading the
+    deltas through the sort's permutation, and updates each touched row
+    of the table and of every state leaf once. No host reads. ``sort`` is
+    :func:`sort_rows` of these ids, made already. Returns ``(table,
+    state)``, both updated in place."""
+    _check_table(table)
+    if not state:
+        raise ValueError("fused_stateful_sorted_rows needs at least one "
+                         "state leaf; stateless updaters use "
+                         "scatter_add_rows")
+    ids = ids.reshape(-1)
+    if not _on_card(table, ids, deltas, *state.values()):
+        return fused_stateful_sorted_rows_plain(table, state, ids, deltas,
+                                                opt, updater)
+    _check_stateful(table, state, ids, deltas, opt, updater)
+    if ids.shape[0] == 0:
+        return table, state
+    keys, order = sort if sort is not None else sort_rows(ids,
+                                                          table.shape[0])
+    _launch_stateful(_FUSED_SORTED[keys.dtype], table, state, keys, order,
+                     deltas, opt, updater)
+    LAUNCHES["fused_stateful_sorted_rows"] += 1
     return table, state

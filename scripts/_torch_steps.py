@@ -6,7 +6,8 @@ example the parent commit unpacked by ``git archive`` into ``build/``:
 its own wrapper and kernel source) or a variant of this checkout's kernel
 source with this checkout's C interface (``--cu NAME=FILE``), built with
 the port's ``nvcc`` flags for that source plus the version's
-``--flags NAME=FLAGS`` (``-DNAME=VALUE`` overrides, space-separated) and
+``--flags NAME=FLAGS`` (``-DNAME=VALUE`` overrides, space-separated),
+with this checkout's ``csrc/`` on the include path (``runs.cuh``), and
 run through this checkout's wrapper. With neither, the checkout itself
 is the one version. ``--order`` runs them in turns, repeats allowed
 (``parent,new,new,parent``). A script passes its own readings as
@@ -84,8 +85,8 @@ def build_variants(source: str, variants: Sequence[Tuple[str, str]],
         if os.path.exists(lib):
             os.remove(lib)
         procs[cu, flags] = subprocess.Popen(
-            [_build._nvcc(), *_build._flags(source), *shlex.split(flags),
-             "-o", lib, cu],
+            [_build._nvcc(), *_build._flags(source), "-I", CSRC,
+             *shlex.split(flags), "-o", lib, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for key, proc in procs.items():
         logs[key], _ = proc.communicate()

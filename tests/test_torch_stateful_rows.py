@@ -1,6 +1,7 @@
 """Port parity: the plain versions of the fused stateful row kernel (B3),
-the tiled scatter-add (B4) and the duplicate combine's fold, against the
-JAX package on the CPU.
+the fused route (the combine and B3 in one pass over sorted runs), the
+tiled scatter-add (B4), the lane-order row Add built on it and the
+duplicate combine's fold, against the JAX package on the CPU.
 
 Both sides get the same numpy inputs. Tolerance: BITWISE throughout.
 
@@ -12,6 +13,20 @@ Both sides get the same numpy inputs. Tolerance: BITWISE throughout.
 * B4: the JAX kernel in interpret mode. Both fold a row's deltas into it
   one at a time in sorted order.
 * The fold: a run's deltas summed in lane order, ``0 + d0 + d1 + ...``.
+* The fused route (``fused_stateful_sorted_rows``): on every
+  ``chip_smoke.stateful_layouts`` layout, the JAX package's
+  ``combine_duplicate_rows`` and ``rows_math`` on the raw ids. The JAX
+  side takes int32 ids (no x64), so ids past the int32 range reach it
+  clipped to that range: still out of range on the same side, and
+  dropped alike. Bitwise by the bits (uint32 views), so -0.0 shows.
+* The sort before the kernels (``sort_rows``): int32 keys give the int64
+  sort's permutation on the in-range lanes.
+* ``add_rows_sorted``, the row Add of the plain updaters and of the
+  word2vec step: its card route (a stable sort, then B4) through B4's
+  plain version, its CPU route (``index_add_``) and JAX's
+  ``.at[].add(mode="drop")``, bitwise. JAX's ``.at[]`` wraps ids in
+  ``[-rows, 0)`` to the end of the table (NumPy indexing) where the port
+  drops every negative id, so the JAX side gets the non-negative lanes.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
@@ -25,6 +40,7 @@ import pytest
 import jax.numpy as jnp
 
 import _torch_port
+import chip_smoke
 from multiverso_tpu.core import updater as jupd
 from multiverso_tpu.ops.pallas_rows import (
     tiled_scatter_add_rows as jax_tiled,
@@ -34,6 +50,8 @@ from multiverso_tpu.ops.pallas_rows import (
 torch = rows = tupd = AddOption = None   # set by _load_port
 
 STATEFUL = ["momentum_sgd", "adagrad", "ftrl"]
+LAYOUTS = chip_smoke.stateful_layouts()
+LAYOUT_ROWS = 2_000     # stateful_layouts' default table
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -370,3 +388,147 @@ def test_store_stateful_row_add_is_in_place(name, use_pallas):
     for key in before:                   # and every buffer was written
         assert not np.array_equal(now[key], before[key]), (name, key)
     mv.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The fused route: the combine and B3 in one pass over sorted runs
+# ---------------------------------------------------------------------------
+def _bits(a):
+    return np.asarray(a).view(np.uint32)
+
+
+def _int32_range(ids):
+    """The ids as the JAX package (int32, no x64) can take them: clipped
+    to the int32 range, so each id stays in range or out of it, on its
+    side."""
+    return np.clip(ids, -2 ** 31, 2 ** 31 - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("name", STATEFUL)
+def test_fused_sorted_route_bitwise_vs_jax_pieces(name, layout):
+    """The route's plain version (what the kernel is held to on the card)
+    against the JAX pieces on the raw ids: duplicates, runs across tile
+    edges, a run of 2,700 lanes, Zipf, one id in every lane, ids out of
+    range, -0.0 deltas, no ids."""
+    ids = LAYOUTS[layout]
+    rng = np.random.default_rng(zlib.crc32(f"{name}/{layout}".encode()))
+    cols = 8
+    deltas = chip_smoke.stateful_deltas(layout, len(ids), cols, rng)
+    data = rng.normal(size=(LAYOUT_ROWS, cols)).astype(np.float32)
+    state = _init_state(name, rng, (LAYOUT_ROWS, cols), 1)
+    opt = _opt(0)
+    r_eff, d_c = jupd.combine_duplicate_rows(jnp.asarray(_int32_range(ids)),
+                                             jnp.asarray(deltas),
+                                             LAYOUT_ROWS)
+    want_d, want_s = _jax_fused_reference(name, data, state,
+                                          np.asarray(r_eff),
+                                          np.asarray(d_c), opt)
+    got_d, got_s = _t(data), {k: _t(v) for k, v in state.items()}
+    out = rows.fused_stateful_sorted_rows(got_d, got_s, _t(ids), _t(deltas),
+                                          opt, tupd._REGISTRY[name]())
+    assert out[0] is got_d and out[1] is got_s              # in place
+    assert np.array_equal(_bits(got_d.numpy()), _bits(want_d)), name
+    for k in want_s:
+        assert np.array_equal(_bits(got_s[k].numpy()), _bits(want_s[k])), k
+    assert rows.LAUNCHES["fused_stateful_sorted_rows"] == 0  # CPU: plain
+
+
+def test_fused_sorted_route_per_worker_plane():
+    """AdaGrad with 2 workers at worker 1: only plane 1 of g2 moves, and
+    the route is bitwise the JAX pieces."""
+    ids = LAYOUTS["zipf"]
+    rng = np.random.default_rng(5)
+    cols = 8
+    deltas = chip_smoke.stateful_deltas("zipf", len(ids), cols, rng)
+    data = rng.normal(size=(LAYOUT_ROWS, cols)).astype(np.float32)
+    state = _init_state("adagrad", rng, (LAYOUT_ROWS, cols), 2)
+    opt = _opt(1)
+    r_eff, d_c = jupd.combine_duplicate_rows(jnp.asarray(_int32_range(ids)),
+                                             jnp.asarray(deltas),
+                                             LAYOUT_ROWS)
+    want_d, want_s = _jax_fused_reference("adagrad", data, state,
+                                          np.asarray(r_eff),
+                                          np.asarray(d_c), opt)
+    got_d, got_s = _t(data), {k: _t(v) for k, v in state.items()}
+    rows.fused_stateful_sorted_rows(got_d, got_s, _t(ids), _t(deltas), opt,
+                                    tupd._REGISTRY["adagrad"]())
+    assert np.array_equal(_bits(got_d.numpy()), _bits(want_d))
+    assert np.array_equal(_bits(got_s["g2"].numpy()), _bits(want_s["g2"]))
+    assert np.array_equal(got_s["g2"][0].numpy(), state["g2"][0])
+    assert not np.array_equal(got_s["g2"][1].numpy(), state["g2"][1])
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_sort_rows_int32_keys_keep_the_int64_permutation(layout):
+    """Out-of-range ids become -1 or ``rows`` before the cast, so no id
+    past 2^31 wraps into range; the in-range lanes keep the int64 sort's
+    positions, order and ids."""
+    ids = _t(LAYOUTS[layout])
+    keys, order = rows.sort_rows(ids, LAYOUT_ROWS)
+    k64, o64 = torch.sort(ids, stable=True)
+    assert keys.dtype == torch.int32 and order.dtype == torch.int64
+    keep = (k64 >= 0) & (k64 < LAYOUT_ROWS)
+    assert torch.equal(order[keep], o64[keep])
+    assert torch.equal(keys[keep].to(torch.int64), k64[keep])
+    low, high = keys[~keep & (k64 < 0)], keys[~keep & (k64 >= LAYOUT_ROWS)]
+    assert (low == -1).all() and (high == LAYOUT_ROWS).all()
+    assert sorted(order[~keep].tolist()) == sorted(o64[~keep].tolist())
+    # A table past the int32 range sorts int64 keys as they are.
+    wide_keys, wide_order = rows.sort_rows(ids, 2 ** 31)
+    assert wide_keys.dtype == torch.int64
+    assert torch.equal(wide_keys, k64) and torch.equal(wide_order, o64)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_add_rows_sorted_routes_bitwise(layout, sign):
+    """The card's route (a stable sort of int32 keys, then B4's plain
+    version), the CPU's (``index_add_`` over the kept lanes) and JAX's
+    ``.at[ids].add(sign * values, mode="drop")``: one set of bits."""
+    ids = LAYOUTS[layout]
+    rng = np.random.default_rng(zlib.crc32(f"add/{layout}".encode()))
+    cols = 8
+    table = rng.normal(size=(LAYOUT_ROWS, cols)).astype(np.float32)
+    table[rng.random(LAYOUT_ROWS) < 0.1] = -0.0
+    values = chip_smoke.stateful_deltas(layout, len(ids), cols, rng)
+    card = _t(table)
+    keys, order = rows.sort_rows(_t(ids), LAYOUT_ROWS)
+    rows.tiled_scatter_add_sorted_rows_plain(
+        card, keys, _t(values).index_select(0, order), sign)
+    cpu = rows.add_rows_sorted(_t(table), _t(ids), _t(values), sign)
+    keep = (ids >= 0) & (ids < LAYOUT_ROWS)
+    plain = _t(table).index_add_(0, _t(ids[keep]),
+                                 _t(values[keep]) * sign)
+    # JAX's .at[] wraps an id in [-rows, 0) to the end (NumPy indexing,
+    # before mode="drop"); the port drops every negative id, so those
+    # lanes are left out of the JAX side.
+    lanes = ids >= 0
+    want = np.asarray(jnp.asarray(table).at[_int32_range(ids[lanes])].add(
+        sign * jnp.asarray(values[lanes]), mode="drop"))
+    for got in (card, cpu, plain):
+        assert np.array_equal(_bits(got.numpy()), _bits(want)), layout
+    assert rows.LAUNCHES["tiled_scatter_add_sorted_rows"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int32", "bfloat16"])
+def test_add_rows_sorted_other_dtypes(dtype):
+    """float64 (lane order, the CPU's index_add_), int32 (exact) and
+    bfloat16 (a rounding after every add, XLA's order) tables, 1-D too."""
+    rng = np.random.default_rng(9)
+    ids = rng.integers(-3, 43, 300)
+    ids[:90] = 7
+    tdt = getattr(torch, dtype)
+    table = torch.as_tensor(rng.normal(size=(40, 5))).to(tdt)
+    values = torch.as_tensor(rng.normal(size=(300, 5)) * 4).to(tdt)
+    keep = (ids >= 0) & (ids < 40)
+    got = rows.add_rows_sorted(table.clone(), _t(ids), values)
+    if dtype == "bfloat16":
+        want = rows.add_rows_lane_order(table.clone(), _t(ids), values)
+    else:
+        want = table.clone().index_add_(0, _t(ids[keep]), values[_t(keep)])
+    assert torch.equal(got, want)
+    flat = rows.add_rows_sorted(table[:, 0].clone(), _t(ids), values[:, 0],
+                                sign=-1.0)
+    assert torch.equal(flat, rows.add_rows_sorted(
+        table.clone(), _t(ids), values, sign=-1.0)[:, 0])

@@ -23,6 +23,12 @@ hierarchical softmax and CBOW on the device pipeline, the host batch path
   within the port only: that JAX test flickers).
 * **CLI**: ``-cbow``, ``-hs`` and ``-use_device_pipeline=false`` train the
   port's CLI to topic separation.
+* **Lane-order duplicate adds** (ROADMAP C4): ``_apply_update`` on a
+  float32 table is BITWISE JAX's too, and the block step of every variant
+  trains to the same bits as before the repair (``index_add_`` over every
+  lane, masked ones and dropped ones adding zero), kept here as
+  ``_apply_update_before``: on the CPU both add a row's duplicates in
+  lane order; on the card only the repaired one does.
 """
 
 import numpy as np
@@ -334,6 +340,108 @@ def test_bfloat16_apply_update_bitwise(adagrad):
     assert np.array_equal(np.asarray(jw).view(np.uint16),
                           tw.view(torch.int16).numpy().view(np.uint16))
     assert np.array_equal(np.asarray(jg), tg.numpy())
+
+
+@pytest.mark.parametrize("adagrad", [True, False], ids=["adagrad", "sgd"])
+def test_float32_apply_update_bitwise(adagrad):
+    rng = np.random.default_rng(4)
+    rows_n, d, n = 30, 8, 500
+    w = rng.normal(size=(rows_n, d)).astype(np.float32)
+    g2 = rng.random((rows_n, d)).astype(np.float32)
+    rows = rng.integers(0, rows_n + 2, n).astype(np.int32)  # some dropped
+    rows[:80] = 4                                           # a long run
+    grad = (rng.normal(size=(n, d)) * 0.3).astype(np.float32)
+    lr = np.float32(0.025)
+    jw, jg = jmodel._apply_update(jnp.asarray(w), jnp.asarray(g2),
+                                  jnp.asarray(rows), jnp.asarray(grad), lr,
+                                  adagrad)
+    tw, tg = torch.as_tensor(w), torch.as_tensor(g2)
+    tmodel._apply_update(tw, tg, torch.as_tensor(rows),
+                         torch.as_tensor(grad), torch.tensor(lr), adagrad)
+    assert np.array_equal(np.asarray(jw).view(np.uint32),
+                          tw.numpy().view(np.uint32))
+    assert np.array_equal(np.asarray(jg).view(np.uint32),
+                          tg.numpy().view(np.uint32))
+
+
+def _apply_update_before(w, g2, rows, grad, lr, adagrad: bool,
+                         live=None) -> None:
+    """``models/word2vec/model.py::_apply_update`` before the lane-order
+    repair: ``index_add_`` over every lane (float atomics on a card), the
+    lanes the masks exclude (``live``) too, the dropped lanes adding zero
+    to row 0."""
+    del live
+    from multiverso_tpu_torch.core.updater import _sqrt
+    from multiverso_tpu_torch.ops.rows import add_rows_lane_order
+    num_rows = w.shape[0]
+    rows = rows.to(torch.int64)
+    keep = ((rows >= 0) & (rows < num_rows))[:, None]
+    safe = torch.where(keep[:, 0], rows, torch.zeros_like(rows))
+    zero = torch.zeros_like(grad)
+    if adagrad:
+        g2.index_add_(0, safe, torch.where(keep, torch.square(grad), zero))
+        denom = _sqrt(g2.index_select(0, rows.clamp(0, num_rows - 1))
+                      + 1e-6)
+        step = -lr * grad / denom
+    else:
+        step = -lr * grad
+    if w.dtype == torch.float32:
+        w.index_add_(0, safe, torch.where(keep, step, zero))
+    else:
+        add_rows_lane_order(w, rows, step)
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("adagrad", [True, False], ids=["adagrad", "sgd"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_apply_update_repair_keeps_the_cpu_bits(variant, adagrad,
+                                                param_dtype, monkeypatch):
+    """One block of each variant through the chunk loop: the repaired
+    ``_apply_update``, which also skips the lanes the masks exclude (the
+    Huffman paths' pad lanes, masked contexts and examples), trains the
+    tables and the loss to the bits of the one before the repair, on the
+    CPU."""
+    from multiverso_tpu_torch.models.word2vec.dictionary import \
+        HuffmanEncoder
+    sg, hs = VARIANTS[variant]
+    rng = np.random.default_rng(12)
+    V_, D_, S_, L_ = 50, 16, 4, 12
+    counts = rng.integers(1, 100, size=V_)
+    huff = tmodel.HuffmanRows(HuffmanEncoder(counts, 16),
+                              torch.device("cpu")) if hs else None
+    neg_table = torch.as_tensor(rng.integers(0, V_, 997).astype(np.int32))
+    sents = torch.as_tensor(rng.integers(0, V_, (S_, L_)).astype(np.int32))
+    lengths = torch.as_tensor(rng.integers(4, L_ + 1, S_).astype(np.int32))
+    chunk = 16 if sg else 8
+    out_rows = V_ - 1 if hs else V_
+    n, rows_needed, rows_tbl = tmodel.pair_stream_shape(
+        S_, L_, 2, chunk, 0 if hs else 3, 997, sg=sg)
+    drawn = tmodel.draw_pair_randoms(torch.Generator().manual_seed(7), S_,
+                                     L_, 2, rows_needed, rows_tbl,
+                                     torch.device("cpu"))
+    streams, negs, mask, n_ex = tmodel.block_streams(
+        neg_table, torch.ones(V_), sents, lengths, *drawn, 2, chunk,
+        0 if hs else 3, sg=sg, hs=hs, compact=True)
+    dtype = getattr(torch, param_dtype)
+    init = np.random.default_rng(1).normal(size=(V_, D_)).astype(np.float32)
+    raw = tmodel.raw_step(sg, hs, adagrad)
+    outs = []
+    for update in (tmodel._apply_update, _apply_update_before):
+        monkeypatch.setattr(tmodel, "_apply_update", update)
+        tables = (torch.tensor(init).to(dtype),
+                  (0.1 * torch.tensor(init[:out_rows])).to(dtype),
+                  torch.zeros(V_, D_), torch.zeros(out_rows, D_))
+        loss = tmodel.chunk_loop(raw, tables, streams, negs, mask, n_ex,
+                                 np.float32(0.05), sg=sg, hs=hs,
+                                 huffman=huff)
+        outs.append((tables, loss))
+    assert int(n_ex) > 0
+    for a, b in zip(outs[0][0], outs[1][0]):
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32))
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 def test_bfloat16_loss_close_to_float32():
