@@ -73,9 +73,18 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    ids, bitwise against the CPU replay; B4 or the fold launched 3
    times); then
    bench.py's row scatter leg, 21 calls of ``tiled_scatter_add_rows``
-   (B4 launched 21 times, exact counts); and a 1,000,000 x 50 bfloat16
+   (B4 launched 21 times, exact counts); a 1,000,000 x 50 bfloat16
    table with the default updater, 10 row Adds of 100,000 ids with
-   duplicates bitwise against the same Adds replayed on the CPU;
+   duplicates bitwise against the same Adds replayed on the CPU; a
+   1,000,000 x 50 bfloat16 table for each of momentum_sgd, adagrad,
+   ftrl, dcasgd and dcasgda (3 row Adds of 100,000 ids with duplicates and
+   a dense Add, bitwise against the CPU replay, data and every state
+   leaf; no fold, fused or B2 launch: the combine folds bfloat16 deltas
+   in lane order by a sort and index ops, no float atomics); and one
+   1,000,000 x 50 table on each route of a row Add with negative ids
+   (default without the row kernels: wrapped; ``use_pallas`` sgd and
+   adagrad, plain dcasgd and bfloat16 momentum_sgd: dropped) plus Gets
+   with negative ids (clamped), bitwise against the CPU replay;
 4. the word2vec flagship through ``Word2Vec.train`` at bench width on a
    synthetic Zipf corpus: one warm-up block, then 3 full blocks with the B5
    kernel launched once per block and a finite loss; words/sec, pairs/sec;
@@ -106,12 +115,24 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    ``max_new`` 64, 8 slots per engine, buckets 128 and 512, pages of 16,
    in continuous paged mode (B7 launched exactly 12 times per engine
    step), then drain preallocated and drain paged (B7 12 x 63 times per
-   batch). Every request must be answered; every served token must be
-   the argmax of the port's teacher-forced full ``forward`` on the card
-   or within ``TIE_ATOL`` of its largest logit; the drain modes' tokens
-   must equal the continuous ones up to such a tie. Per mode: served
-   tokens/sec, first-token and per-token latency p50/p99 (device clock),
-   request latency, the pool's high-water pages, the pipeline depth;
+   batch), then continuous paged and drain paged with int8 pages (B7's
+   int8 instance launched exactly 12 times per engine step, and 12 x 63
+   per batch; no float32 B7 launch); then, on a variant of the workload
+   whose repeated prompt (124 tokens) ends in the straddle page of
+   24-position pages at bucket 128, continuous paged without and with the
+   prefix cache (8 entries). Every request must be answered; every
+   float32 mode's served token must be the argmax of the port's
+   teacher-forced full ``forward`` on the card or within ``TIE_ATOL`` of
+   its largest logit; the drain modes' tokens must equal the continuous
+   ones up to such a tie, drain int8's continuous int8's (ties judged in
+   the int8 teacher-forced logits: generated rows attend over K and V
+   round-tripped through the codec), and the prefix cache's those of the
+   same prompts without it; the prefix run must hit the store, skip
+   prefills and copy a straddle page on extend, and leave every page the
+   store does not hold free. Per mode: served tokens/sec, first-token and
+   per-token latency p50/p99 (device clock), request latency, the pool's
+   high-water pages, the pipeline depth; for int8, the share of tokens
+   equal to the float32 continuous run's (not gated);
 8. a JSON line of the kernels, the card line, and the result line.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
@@ -134,7 +155,12 @@ launched twice (bitwise equal) and from a CUDA graph (equal to the eager
 launch); then with a bfloat16 pool, a page that does not divide the
 bucket, an idle slot on the garbage page, t = 0, dh = 128, one small case
 per template instance (``PAGED_INSTANCES``), a table of 604 one-row pages
-and B x H that fills the card, within ``PAGED_TOL``.
+and B x H that fills the card, within ``PAGED_TOL``. B7's int8 instance
+(int8 pages read through their float32 scale planes) is held the same
+way at both shapes (payloads of 127 and NaN scales in the wholly
+excluded pages), timed with its byte bound (dh + 4 bytes a row), and run
+once per int8 template instance (``PAGED_INT8_INSTANCES``) and on a page
+that does not divide the bucket, an idle slot and t = 0.
 
 Every launch count is set to 0 just before each main-path run of phases
 3, 4, 6 and 7 and read just after it, so the comparisons of phase 2 do
@@ -218,6 +244,10 @@ RING_SHAPES = ((1, 8, 2048, 128), (1, 8, 4096, 128), (2, 16, 2048, 64))
 SERVE_BUCKETS = (128, 512)
 SERVE_MAX_NEW, SERVE_BATCH, SERVE_PAGE = 64, 8, 16
 SERVE_REQUESTS, SERVE_IN_FLIGHT = 32, 8
+# The prefix-cache mode's pages: 24 positions do not divide bucket 128, so
+# the variant workload's repeated 124-token prompt ends in a straddle page
+# that a sharer copies on extend; and the store's capacity.
+SERVE_PREFIX_PAGE, SERVE_PREFIX_ENTRIES = 24, 8
 # B7 against its plain version: the JAX package's tolerances for its
 # paged kernel against the gather formulation
 # (tests/test_pallas_attention.py:163-199); the kernel sums page by page.
@@ -1823,13 +1853,17 @@ def decode_workload(rng, n_req: int, bucket: int, prefix_frac: float,
 
 
 def paged_inputs(g, dev, lengths, t, bucket, max_new, page, heads, dh,
-                 n_phys, layers=1, dtype=None):
+                 n_phys, layers=1, dtype=None, scales=None):
     """B7's inputs as the serving step hands them: q [B, H, dh]; one
     layer (the middle one) of a ``[n_phys, layers, H, page, dh]`` pool,
     random; a page table from ``page_plan`` of each length, pages drawn
-    in order from 1 (pad pages on the garbage page 0); lengths and t."""
+    in order from 1 (pad pages on the garbage page 0); lengths and t. For
+    an int8 pool the random float pool is encoded by the serving codec
+    (``serving/quant.encode_rows``, a scale a row), and ``scales`` (a
+    dict) receives the layer's scale planes ``ks``/``vs``."""
     import torch
     from multiverso_tpu_torch.serving import page_plan, pages_of
+    from multiverso_tpu_torch.serving.quant import encode_rows
 
     G = pages_of(bucket + max_new, page)
     ptab = torch.zeros((len(lengths), G), dtype=torch.int32)
@@ -1842,10 +1876,15 @@ def paged_inputs(g, dev, lengths, t, bucket, max_new, page, heads, dh,
     assert nxt <= n_phys, (nxt, n_phys)
     shape = (n_phys, layers, heads, page, dh)
     dt = dtype or torch.float32
-    kp = torch.randn(shape, generator=g, device=dev).to(dt)
-    vp = torch.randn(shape, generator=g, device=dev).to(dt)
-    q = torch.randn((len(lengths), heads, dh), generator=g, device=dev)
+    kp = torch.randn(shape, generator=g, device=dev)
+    vp = torch.randn(shape, generator=g, device=dev)
     i = layers // 2
+    if dt == torch.int8:
+        (kp, ks), (vp, vs) = encode_rows(kp, "int8"), encode_rows(vp, "int8")
+        scales.update(ks=ks[:, i], vs=vs[:, i])
+    else:
+        kp, vp = kp.to(dt), vp.to(dt)
+    q = torch.randn((len(lengths), heads, dh), generator=g, device=dev)
     return (q, kp[:, i], vp[:, i], ptab.to(dev),
             torch.as_tensor(lengths, dtype=torch.int32, device=dev),
             torch.as_tensor(t, dtype=torch.int32, device=dev))
@@ -1854,10 +1893,13 @@ def paged_inputs(g, dev, lengths, t, bucket, max_new, page, heads, dh,
 def paged_bound(q, kp, ptab, lengths, t, bucket, page):
     """The bytes B7 must move for these inputs: the K and V row of each
     key a slot's mask admits (a masked key adds exactly 0, and each row
-    is a contiguous dh-element line), q read and o written, the page
-    table entries of the pages holding admitted keys, lengths and t. The
-    work, 4 dh flops per admitted key, is far below the bytes' time."""
+    is a contiguous dh-element line; an int8 row with its 4-byte float32
+    scale), q read and o written, the page table entries of the pages
+    holding admitted keys, lengths and t. The work, 4 dh flops per
+    admitted key (2 more per element for int8's dequantization), is far
+    below the bytes' time."""
     import numpy as np
+    import torch
     B, H, dh = q.shape
     G = ptab.shape[1]
     lens, ts = lengths.cpu().numpy(), t.cpu().numpy()
@@ -1868,9 +1910,11 @@ def paged_bound(q, kp, ptab, lengths, t, bucket, page):
         pages += int(valid.reshape(G, page).any(axis=1).sum())
         keys += int(valid.sum())
     elem = kp.element_size()
-    n_bytes = (2 * keys * H * dh * elem + 2 * B * H * dh * 4
+    quant = kp.dtype == torch.int8
+    row = dh * elem + (4 if quant else 0)
+    n_bytes = (2 * keys * H * row + 2 * B * H * dh * 4
                + (pages + 2 * B) * 4)
-    return bound_ms(n_bytes, 4.0 * dh * keys * H)
+    return bound_ms(n_bytes, (6.0 if quant else 4.0) * dh * keys * H)
 
 
 PAGED_LONG_BUCKET = 2048   # B7's long-context shape: 8 full prompts
@@ -1888,12 +1932,14 @@ PAGED_INSTANCES = (
     (250, "bfloat16"))
 
 
-def paged_poisoned(args, bucket, page):
+def paged_poisoned(args, bucket, page, scales=None):
     """``args`` with NaN in every K and V row of the physical pages that
     only wholly masked logical pages point at (the pages a kernel that
     reads only live pages skips), and their count. A logical page is
     wholly masked when the mask admits none of its positions; every slot
-    must admit one, and no page may be both skipped and read."""
+    must admit one, and no page may be both skipped and read. An int8
+    pool's such pages get payloads of 127 (an int8 has no NaN) and NaN
+    scales, the poisoned scale planes returned in ``scales``' place."""
     import numpy as np
     import torch
     q, kp, vp, ptab, lens, ts = args
@@ -1907,19 +1953,26 @@ def paged_poisoned(args, bucket, page):
     dead = torch.unique(ptab[~live].long())
     assert not bool(torch.isin(dead, ptab[live].long()).any())
     kn, vn = kp.clone(), vp.clone()
-    kn[dead] = float("nan")
-    vn[dead] = float("nan")
+    poison = 127 if kp.dtype == torch.int8 else float("nan")
+    kn[dead] = poison
+    vn[dead] = poison
+    if scales is not None:
+        scales = {k: v.clone() for k, v in scales.items()}
+        for v in scales.values():
+            v[dead] = float("nan")
+        return (q, kn, vn, ptab, lens, ts), int(dead.numel()), scales
     return (q, kn, vn, ptab, lens, ts), int(dead.numel())
 
 
-def paged_shapes(dev):
+def paged_shapes(dev, dtype=None, scales=None):
     """B7's two main-path shapes, one at a time: (what, bucket, args).
     The serving phase's shape (8 slots, 12 heads, dh 64, page 16, bucket
     512, max_new 64: G = 36) over one layer of a pool of the serving
     phase's size, a page table from real page plans of the serving
     workload's mixed lengths (one full prompt) and mixed t; then a
     long-context shape: 8 full prompts at bucket 2,048 (G = 132), one
-    layer of a pool that holds them."""
+    layer of a pool that holds them. ``dtype`` int8: the pools encoded by
+    the serving codec, their scale planes into ``scales``."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.serving import default_pool_pages
@@ -1933,13 +1986,14 @@ def paged_shapes(dev):
     t = rng.integers(0, N, SERVE_BATCH).tolist()
     n_phys = default_pool_pages(SERVE_BUCKETS, SERVE_BATCH, N, P) + 1
     yield "at the serving shape", S, paged_inputs(
-        g, dev, lengths, t, S, N, P, H, dh, n_phys, layers=LM["layers"])
+        g, dev, lengths, t, S, N, P, H, dh, n_phys, layers=LM["layers"],
+        dtype=dtype, scales=scales)
     L = PAGED_LONG_BUCKET
     t = rng.integers(0, N, SERVE_BATCH).tolist()
     n_phys = SERVE_BATCH * -(-(L + N) // P) + 1
     yield "at the long-context shape", L, paged_inputs(
         g, dev, [L] * SERVE_BATCH, t, L, N, P, H, dh, n_phys,
-        layers=LM["layers"])
+        layers=LM["layers"], dtype=dtype, scales=scales)
 
 
 def paged_yardstick(args, bucket, page):
@@ -1961,6 +2015,53 @@ def paged_yardstick(args, bucket, page):
     mask = mask[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(q[:, :, None], kf, vf,
                                                   attn_mask=mask)
+
+
+def paged_pair(what, args, kw, want=None, counter="paged_decode_attn"):
+    """B7 (the wrapper on the card) against its plain version within
+    ``PAGED_TOL``: ``args`` and ``kw`` the wrapper's, ``want`` the plain
+    version's ``(args, kw)`` where they differ (clean pages for a poisoned
+    launch); the launch must count one on ``counter``. Returns the max
+    abs error."""
+    import torch
+    from multiverso_tpu_torch.ops import attention
+    before = attention.LAUNCHES[counter]
+    got = attention.paged_decode_attn(*args, **kw)
+    assert attention.LAUNCHES[counter] == before + 1, what
+    want_args, want_kw = want or (args, kw)
+    ref = attention.paged_decode_attn_plain(*want_args, **want_kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()), what
+    err = float((got - ref).abs().max())
+    ok = bool(((got - ref).abs() <= PAGED_TOL["atol"]
+               + PAGED_TOL["rtol"] * ref.abs()).all())
+    log(f"  {what}: max |kernel - plain| {err:.3e}")
+    assert ok, (what, err)
+    return err
+
+
+def paged_repeatable(what, args, kw) -> None:
+    """Two B7 launches bitwise equal, one on a side stream, and a CUDA
+    graph replay equal to them."""
+    import torch
+    from multiverso_tpu_torch.ops import attention
+    first = attention.paged_decode_attn(*args, **kw)
+    second = attention.paged_decode_attn(*args, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        attention.paged_decode_attn(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = attention.paged_decode_attn(*args, **kw)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second), what
+    assert torch.equal(captured, first), what
+    log(f"  {what}: two launches bitwise equal, a graph replay equal "
+        "to them")
 
 
 def check_paged_kernel(dev) -> dict:
@@ -1989,36 +2090,8 @@ def check_paged_kernel(dev) -> dict:
 
     def pair(what, args, page, bucket, scale, want_args=None):
         kw = dict(bucket=bucket, page=page, scale=scale)
-        got = attention.paged_decode_attn(*args, **kw)
-        want = attention.paged_decode_attn_plain(*(want_args or args), **kw)
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(got).all()), what
-        err = float((got - want).abs().max())
-        ok = bool(((got - want).abs() <= PAGED_TOL["atol"]
-                   + PAGED_TOL["rtol"] * want.abs()).all())
-        log(f"  {what}: max |kernel - plain| {err:.3e}")
-        assert ok, (what, err)
-        return err
-
-    def repeatable(what, args, kw):
-        """Two launches bitwise equal; a graph replay equal to them."""
-        first = attention.paged_decode_attn(*args, **kw)
-        second = attention.paged_decode_attn(*args, **kw)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            attention.paged_decode_attn(*args, **kw)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            captured = attention.paged_decode_attn(*args, **kw)
-        graph.replay()
-        graph.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(first, second), what
-        assert torch.equal(captured, first), what
-        log(f"  {what}: two launches bitwise equal, a graph replay equal "
-            "to them")
+        return paged_pair(what, args, kw,
+                          want=(want_args, kw) if want_args else None)
 
     def shape(what, bucket, args):
         """Checks and times of B7 at one main-path shape."""
@@ -2033,7 +2106,7 @@ def check_paged_kernel(dev) -> dict:
                        "masked logical pages point at", poisoned, P, bucket,
                        scale, want_args=args)
         del poisoned
-        repeatable(f"B7 {what}", args, kw)
+        paged_repeatable(f"B7 {what}", args, kw)
         rec = {
             "ms": cuda_ms(lambda: attention.paged_decode_attn(*args, **kw),
                           50),
@@ -2115,6 +2188,111 @@ def check_paged_kernel(dev) -> dict:
             "yardstick": "scaled_dot_product_attention over the cache "
                          "gathered beforehand, with the mask (float32; not "
                          "the same function, never called by the port)",
+            "bitwise_repeat": True, "graph_equals_eager": True,
+            "long_context": {"bucket": PAGED_LONG_BUCKET, **long},
+            "variants": variants}
+
+
+#: (head size) of one small case per template instance of B7's int8
+#: pages: the 16-byte vector instances (16 int8 values a vector: 4 lanes a
+#: key row with 1 vector, then 8 lanes with 1 or 2), then the narrow ones
+#: (32 lanes a row with 1, 2, 4 or 8 values a lane).
+PAGED_INT8_INSTANCES = (16, 64, 128, 256, 8, 60, 100, 250)
+
+
+def check_paged_kernel_int8(dev) -> dict:
+    """B7's int8 instance: int8 pages with their float32 scale planes
+    (``ks``/``vs``, a scale a row), at the serving shape and the
+    long-context shape of :func:`check_paged_kernel`, the pools encoded
+    by the serving codec. Each is held against the plain int8 version
+    (gather, ``payload.float() * scale``, softmax) within ``PAGED_TOL``,
+    again with payloads of 127 and NaN scales in every page the mask
+    wholly excludes (the plain version gets the clean pool), launched
+    twice (bitwise equal) and from a CUDA graph (equal to the eager
+    launch), and timed by events and in a graph beside the plain version
+    and its byte bound (int8 rows: dh + 4 bytes). Then a page that does
+    not divide the bucket, an idle slot on the garbage page, t = 0, and
+    one small case per template instance."""
+    import torch
+    from multiverso_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
+    H, dh = LM["heads"], LM["dim"] // LM["heads"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def pair(what, args, sc, page, bucket, scale, want=None):
+        kw = dict(bucket=bucket, page=page, scale=scale)
+        return paged_pair(what, args, {**kw, **sc},
+                          want=want and (want[0], {**kw, **want[1]}),
+                          counter="paged_decode_attn_int8")
+
+    recs = []
+    sc = {}
+    for what, bucket, args in paged_shapes(dev, torch.int8, sc):
+        G = args[3].shape[1]
+        scale = dh ** -0.5
+        kw = dict(bucket=bucket, page=P, scale=scale, **sc)
+        label = (f"B7 int8 {what} (B {SERVE_BATCH}, H {H}, dh {dh}, page "
+                 f"{P}, bucket {bucket}, max_new {N}, G {G})")
+        err = pair(label, args, sc, P, bucket, scale)
+        poisoned, n_dead, bad_sc = paged_poisoned(args, bucket, P, sc)
+        nan_err = pair(f"B7 int8 {what}, payload 127 and NaN scales in the "
+                       f"{n_dead} pages only wholly masked logical pages "
+                       "point at", poisoned, bad_sc, P, bucket, scale,
+                       want=(args, sc))
+        del poisoned, bad_sc
+        paged_repeatable(f"B7 int8 {what}", args, kw)
+        rec = {
+            "ms": cuda_ms(lambda: attention.paged_decode_attn(*args, **kw),
+                          50),
+            "graph_ms": graph_ms(lambda: attention.paged_decode_attn(
+                *args, **kw)),
+            "plain_ms": cuda_ms(lambda: attention.paged_decode_attn_plain(
+                *args, **kw), 50)}
+        q, kp, vp, ptab, lens, ts = args
+        bound = paged_bound(q, kp, ptab, lens, ts, bucket, P)
+        splits = attention.paged_splits(SERVE_BATCH * H, G, sms)
+        log(f"B7 paged_decode_attn int8 {what} ({SERVE_BATCH}, {H}, {dh}), "
+            f"page {P}, G {G}, {splits} CTAs a slot and head: kernel "
+            f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
+            f"plain {rec['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]})")
+        recs.append({"max_abs_err": err, "nan_excluded_pages_max_abs_err":
+                     nan_err, "pages_per_slot": G, "splits": splits, **rec,
+                     "bound_ms": bound[0], "bound_by": bound[1]})
+        del args, q, kp, vp
+        sc.clear()
+        torch.cuda.empty_cache()
+    serving, long = recs
+
+    variants = []
+    cases = [("page 3 does not divide bucket 8", [3, 1, 8, 7], [0, 2, 5, 3],
+              8, 6, 3, 64),
+             ("idle slot on the garbage page", [1, 40, 100, 7],
+              [0, 10, 63, 1], 128, 64, 16, 64),
+             ("t = 0", [5, 128, 64, 1], [0, 0, 0, 0], 128, 64, 16, 64)]
+    for d in PAGED_INT8_INSTANCES:
+        cases.append((f"instance dh = {d}", [3, 60, 128, 17],
+                      [0, 5, 63, 20], 128, 64, 16, d))
+    for case, lens_v, t_v, bucket, mx, page, d in cases:
+        a = paged_inputs(g, dev, lens_v, t_v, bucket, mx, page, 4, d, 64,
+                         dtype=torch.int8, scales=sc)
+        if case.startswith("idle"):
+            a[3][0] = 0                     # every page the garbage page
+        e = pair(f"B7 int8 {case}", a, sc, page, bucket, d ** -0.5)
+        variants.append({"case": case, "max_abs_err": e})
+        sc.clear()
+    return {"name": "paged_decode_attn_int8", "route": "cuda",
+            "source": "multiverso_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "multiverso_tpu/ops/pallas_attention.py:253",
+            "dequantizes_as": "multiverso_tpu/serving/quant.py:94 "
+                              "(decode_rows, after the JAX step's gather)",
+            "instance_of": "paged_decode_attn",
+            "shape": [SERVE_BATCH, H, dh], "page": P, "bucket": S,
+            **serving, "library_ms": None,
+            "library": "none: no single PyTorch call reads int8 pages "
+                       "through a page table",
             "bitwise_repeat": True, "graph_equals_eager": True,
             "long_context": {"bucket": PAGED_LONG_BUCKET, **long},
             "variants": variants}
@@ -2462,6 +2640,160 @@ def bf16_table_plane() -> dict:
         f"{dt:.4f} s -> {rate:.6g} param updates/sec (host numpy ids and "
         f"deltas, as the user passes them)")
     return {"updates_per_sec": rate}
+
+
+#: The stateful updaters a bfloat16 table runs (ROADMAP A13).
+BF16_STATEFUL = ("momentum_sgd", "adagrad", "ftrl", "dcasgd", "dcasgda")
+
+
+def replay_equal(name, card_store, cpu_store) -> list:
+    """The card store's ``store_state()`` bitwise the CPU replay's (data
+    and every state leaf, uint32 views: a bfloat16 table's payload widens
+    exactly); returns the keys."""
+    import numpy as np
+    got, want = card_store.store_state(), cpu_store.store_state()
+    assert sorted(got) == sorted(want), (name, sorted(got), sorted(want))
+    for key in want:
+        assert got[key].dtype == want[key].dtype, (name, key)
+        assert np.array_equal(got[key].view(np.uint32),
+                              want[key].view(np.uint32)), \
+            f"{name}: card {key} differs from the CPU replay"
+    return sorted(want)
+
+
+def bf16_stateful_tables() -> dict:
+    """A13 on the card: a 1,000,000 x 50 bfloat16 table for each stateful
+    updater, through the user's calls: 3 row Adds of 100,000 ids with
+    duplicates (a run of 64 equal ids in each) and one dense Add, with
+    non-default option scalars, bitwise against the same Adds replayed
+    through the port on the CPU, data and every state leaf (each leaf in
+    the dtype the JAX ``init_state`` gives it). The duplicate combine
+    folds bfloat16 deltas in lane order with a rounding after every add
+    (``ops/rows.fold_runs_lane_order``: a sort and index ops, no float
+    atomics); the fold kernel and the fused route are never launched (the
+    row kernels take float32 tables only, as in the JAX package). Returns
+    {updater: {"leaves": ..., "updates_per_sec": ...}}."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+    from multiverso_tpu_torch.ops import rows
+
+    rng = np.random.default_rng(12)
+    n = ROWS // 10
+    opt = AddOption(**STATEFUL_OPT)
+    out = {}
+    for name in BF16_STATEFUL:
+        before = dict(rows.LAUNCHES)
+        t = mv.create_table(mv.MatrixTableOption(
+            ROWS, COLS, dtype="bfloat16", updater=name, use_pallas=True,
+            name=f"bf16_{name}"))
+        assert t.store.data.dtype == torch.bfloat16 and \
+            t.store.device.type == "cuda" and not t.store._pallas_rows
+        replay = ServerStore(f"replay_bf16_{name}", (ROWS, COLS),
+                             "bfloat16", get_updater("bfloat16", name),
+                             torch.device("cpu"), num_workers=1)
+        batches = []
+        for _ in range(3):
+            ids = rng.integers(0, ROWS, size=n)
+            ids[rng.permutation(n)[:64]] = ids[0]
+            batches.append((ids, (0.1 * rng.normal(size=(n, COLS)))
+                            .astype(np.float32)))
+        t.store.block()
+        t0 = time.perf_counter()
+        for ids, deltas in batches:
+            t.add_rows(ids, deltas, opt)
+        t.store.block()
+        dt = time.perf_counter() - t0
+        for ids, deltas in batches:
+            replay.apply_rows(ids, deltas, opt)
+        dense = (0.01 * rng.normal(size=(ROWS, COLS))).astype(np.float32)
+        t.add(dense, opt)
+        replay.apply_dense(dense, opt)
+        leaves = replay_equal(f"bf16 {name}", t.store, replay)
+        launched = {k: rows.LAUNCHES[k] - before[k] for k in rows.LAUNCHES}
+        for k in ("fold_sorted_runs", "fused_stateful_sorted_rows",
+                  "fused_stateful_rows", "scatter_add_sorted_rows"):
+            assert launched[k] == 0, (name, launched)
+        rate = 3 * n * COLS / dt
+        # (the first Add of each table is in the timed window: the rate is
+        # of a cold table, host numpy ids and deltas, as the user passes)
+        dtypes = {k: str(v.dtype).replace("torch.", "")
+                  for k, v in t.store.state.items()}
+        log(f"bf16 stateful table [{name}]: 3 x {n} row Adds (a run of 64 "
+            f"equal ids in each) and a dense Add bitwise to the CPU replay "
+            f"({', '.join(leaves)}; leaves {dtypes}); no fold or fused "
+            f"launch; 3 Adds in {dt:.4f} s -> {rate:.6g} param updates/sec")
+        out[name] = {"leaves": dtypes, "updates_per_sec": rate}
+        del t, replay
+        torch.cuda.empty_cache()
+    return out
+
+
+def negative_id_tables() -> dict:
+    """ROADMAP C5 on the card: one 1,000,000 x 50 table on each route of
+    a row Add, 100,000 ids with negative ones (in [-rows, 0), below
+    -rows) and ids past the end, bitwise against the same Add replayed on
+    the CPU: a float32 default table without the row kernels (negative
+    ids wrap to the table's end, as JAX's ``.at[].add``), a ``use_pallas``
+    sgd table (B2: dropped), a ``use_pallas`` adagrad table (the fused
+    route: dropped), a dcasgd and a bfloat16 momentum_sgd table (the plain
+    stateful route: dropped); then Gets with negative ids (clamped, -1 to
+    row 0) through B1 and without it."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+
+    rng = np.random.default_rng(13)
+    n = ROWS // 10
+    opt = AddOption(**STATEFUL_OPT)
+    routes = (("default", "float32", False, "wrap"),
+              ("sgd", "float32", True, "drop (B2)"),
+              ("adagrad", "float32", True, "drop (fused route)"),
+              ("dcasgd", "float32", False, "drop (plain stateful)"),
+              ("momentum_sgd", "bfloat16", False, "drop (plain stateful)"))
+    out = {}
+    for name, dtype, pallas, rule in routes:
+        t = mv.create_table(mv.MatrixTableOption(
+            ROWS, COLS, dtype=dtype, updater=name, use_pallas=pallas,
+            name=f"neg_{name}"))
+        replay = ServerStore(f"replay_neg_{name}", (ROWS, COLS), dtype,
+                             get_updater(dtype, name), torch.device("cpu"),
+                             num_workers=1, use_pallas_rows=pallas)
+        ids = rng.integers(0, ROWS, size=n)
+        ids[rng.permutation(n)[:64]] = ids[0]
+        neg = rng.permutation(n)[:2_000]
+        ids[neg[:1_000]] = -rng.integers(1, ROWS + 1, 1_000)
+        ids[neg[1_000:1_500]] = -ROWS - rng.integers(1, 100, 500)
+        ids[neg[1_500:]] = ROWS + rng.integers(0, 100, 500)
+        ids[neg[0]] = -1
+        deltas = (0.1 * rng.normal(size=(n, COLS))).astype(np.float32)
+        t.add_rows(ids, deltas, opt)
+        replay.apply_rows(ids, deltas, opt)
+        replay_equal(f"negative ids {name}", t.store, replay)
+        out[name] = {"dtype": dtype, "use_pallas": pallas, "rule": rule}
+        log(f"negative ids [{name}, {dtype}, use_pallas={pallas}]: {n} row "
+            f"ids, 1,500 of them negative, bitwise to the CPU replay "
+            f"({rule})")
+        if name in ("default", "sgd"):
+            probe = np.concatenate([[-1, -ROWS, -ROWS - 5, ROWS + 2],
+                                    ids[:1_000]])
+            got = t.get_rows(probe)
+            assert np.array_equal(got, replay.read_rows(probe)
+                                  .float().numpy()), name
+            assert np.array_equal(got[0], got[1]) and \
+                np.array_equal(got[0], t.get_rows([0])[0])
+            log(f"  Gets of {len(probe)} ids with negative ones "
+                f"({'B1' if pallas else 'index_select'}): bitwise the CPU, "
+                "-1 read as row 0")
+        del t, replay
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2861,17 +3193,76 @@ def agree(base, other, rows_other):
     return diverged
 
 
+def teacher_forced_int8(params, cfg, prompts, served, dev):
+    """The logits of int8-KV decoding under teacher forcing: each request's
+    prompt + served tokens through the model on the card, where the
+    prompt's rows attend over exact K and V (the prefill) and every
+    generated row over K and V round-tripped through the int8 codec
+    (``encode_rows`` then ``decode_rows``, a scale per head row): what the
+    paged int8 decode reads. Returns the per-request logits rows of the
+    served tokens ([max_new, vocab] each) and the count of served tokens
+    that are neither the argmax nor within ``TIE_ATOL`` of the largest
+    logit there (not gated: the codec's rounding edges turn float32
+    summing-order differences into whole quantization steps)."""
+    import torch
+    from multiverso_tpu_torch.models.attention_lm import _ln, _posenc
+    from multiverso_tpu_torch.serving.quant import decode_rows, encode_rows
+    from multiverso_tpu_torch.serving.runners import attn_scale
+
+    H, D = cfg.heads, cfg.dim
+    dh = D // H
+    scale = attn_scale(dh)
+    rows, off = [], 0
+    with torch.no_grad():
+        for p, s in zip(prompts, served):
+            toks = torch.as_tensor(p + s[:-1], device=dev)
+            S, n = toks.shape[0], len(p)
+            x = params["embed"][toks] + _posenc(S, D, dev)
+            causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+            for i in range(cfg.layers):
+                h = _ln(x)
+                q, k, v = (t.reshape(S, H, dh).transpose(0, 1) for t in
+                           torch.split(h @ params[f"qkv_{i}"], D, dim=-1))
+                kq = decode_rows(*encode_rows(k, "int8"), "int8")
+                vq = decode_rows(*encode_rows(v, "int8"), "int8")
+                o = torch.empty_like(q)
+                for rows_, kk, vv in ((slice(0, n), k, v),
+                                      (slice(n, S), kq, vq)):
+                    sc = (q[:, rows_] @ kk.transpose(1, 2)) * scale
+                    sc = sc.masked_fill(~causal[rows_], float("-inf"))
+                    o[:, rows_] = torch.softmax(sc, dim=-1) @ vv
+                x = x + o.transpose(0, 1).reshape(S, D) \
+                    @ params[f"attn_out_{i}"]
+                x = x + torch.nn.functional.gelu(
+                    _ln(x) @ params[f"mlp_in_{i}"], approximate="tanh") \
+                    @ params[f"mlp_out_{i}"]
+            lg = (_ln(x) @ params["out"])[n - 1:n - 1 + len(s)]
+            s_t = torch.as_tensor(s, device=dev)
+            mx = lg.max(dim=-1).values
+            chosen = lg.gather(1, s_t[:, None])[:, 0]
+            off += int(((lg.argmax(dim=-1) != s_t)
+                        & (chosen < mx - TIE_ATOL)).sum())
+            rows.append(lg)
+    return rows, off
+
+
 def serve_lm(dev, card) -> dict:
     """The attention LM served on the card through ``ServingService`` and
     ``ServingClient`` (see the module's docstring). Each mode's run sets
-    every launch count to 0 just before it and reads them just after."""
+    every launch count to 0 just before it and reads them just after.
+    Modes: continuous paged, drain preallocated, drain paged (float32
+    pages); continuous paged and drain paged with int8 pages (B7's int8
+    instance); and, on a variant of the workload whose repeated prompt
+    reaches into the straddle page of 24-position pages at bucket 128,
+    continuous paged without and with the prefix cache."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.models.attention_lm import (LMConfig,
                                                           init_params)
     from multiverso_tpu_torch.ops import attention, rows, sgns
     from multiverso_tpu_torch.serving import (AttentionLMRunner,
-                                              ServingClient, ServingService)
+                                              ServingClient, ServingService,
+                                              page_plan)
     from multiverso_tpu_torch.serving.pipeline import \
         measured_dispatch_latency_ms
     from multiverso_tpu_torch.telemetry import get_registry
@@ -2883,6 +3274,16 @@ def serve_lm(dev, card) -> dict:
     shared = rng.integers(1, 60, SERVE_BUCKETS[-1] // 3).tolist()
     prompts = decode_workload(rng, SERVE_REQUESTS, SERVE_BUCKETS[-1], 0.5,
                               shared)
+    # The prefix variant: the same draw with a repeated prompt of 124
+    # tokens (bucket 128), whose tail lies in the straddle page of
+    # 24-position pages: a sharer copies that page on extend.
+    shared_p = np.random.default_rng(17).integers(1, 60, 124).tolist()
+    prefix_prompts = decode_workload(np.random.default_rng(7),
+                                     SERVE_REQUESTS, SERVE_BUCKETS[-1], 0.5,
+                                     shared_p)
+    plan = page_plan(len(shared_p), SERVE_BUCKETS[0], SERVE_MAX_NEW,
+                     SERVE_PREFIX_PAGE)
+    assert plan.straddle_has_prompt, plan
     n_tail = sum(len(p) > SERVE_BUCKETS[0] for p in prompts)
     log(f"serving: GPT-2-small widths {LM}, weights from seed 0 "
         f"({init_s:.2f} s), max_new {SERVE_MAX_NEW}, max_batch "
@@ -2890,18 +3291,38 @@ def serve_lm(dev, card) -> dict:
         f"{len(prompts)} prompts (serve_bench's _decode_workload, seed 7): "
         f"{sum(p == shared for p in prompts)} repeats of one "
         f"{len(shared)}-token prompt, {n_tail} over {SERVE_BUCKETS[0]} "
-        f"tokens, lengths {min(map(len, prompts))}..{max(map(len, prompts))}")
-    modes = (("continuous paged", dict(paged=True, page=SERVE_PAGE),
-              dict(continuous=True, paged=True, kv_page=SERVE_PAGE)),
-             ("drain preallocated", {}, dict(pipeline_depth="auto")),
-             ("drain paged", dict(paged=True, page=SERVE_PAGE),
-              dict(pipeline_depth="auto")))
+        f"tokens, lengths {min(map(len, prompts))}..{max(map(len, prompts))}"
+        f"; the prefix variant: {sum(p == shared_p for p in prefix_prompts)}"
+        f" repeats of one {len(shared_p)}-token prompt, pages of "
+        f"{SERVE_PREFIX_PAGE}")
+    paged = dict(paged=True, page=SERVE_PAGE)
+    cont = dict(continuous=True, paged=True, kv_page=SERVE_PAGE)
+    pre_page = dict(paged=True, page=SERVE_PREFIX_PAGE)
+    pre_cont = dict(continuous=True, paged=True, kv_page=SERVE_PREFIX_PAGE)
+    # (name, runner kwargs, register_runner kwargs, workload, B7 counter)
+    modes = (("continuous paged", paged, cont, "main", "paged_decode_attn"),
+             ("drain preallocated", {}, dict(pipeline_depth="auto"), "main",
+              None),
+             ("drain paged", paged, dict(pipeline_depth="auto"), "main",
+              "paged_decode_attn"),
+             ("continuous paged int8", dict(paged, kv_dtype="int8"),
+              dict(cont, kv_dtype="int8"), "main",
+              "paged_decode_attn_int8"),
+             ("drain paged int8", dict(paged, kv_dtype="int8"),
+              dict(pipeline_depth="auto"), "main",
+              "paged_decode_attn_int8"),
+             ("continuous paged, prefix workload", pre_page, pre_cont,
+              "prefix", "paged_decode_attn"),
+             ("continuous paged, prefix cache", pre_page,
+              dict(pre_cont, prefix_entries=SERVE_PREFIX_ENTRIES), "prefix",
+              "paged_decode_attn"))
+    workloads = {"main": prompts, "prefix": prefix_prompts}
     svc = ServingService()
     cli = None
     out = {"modes": {}}
     try:
         runners = []
-        for rid, (name, rkw, skw) in enumerate(modes):
+        for rid, (name, rkw, skw, _, _) in enumerate(modes):
             runner = AttentionLMRunner(params, cfg, max_new=SERVE_MAX_NEW,
                                        max_batch=SERVE_BATCH, **rkw)
             svc.register_runner(runner, runner_id=rid,
@@ -2916,30 +3337,36 @@ def serve_lm(dev, card) -> dict:
             f"\"auto\" chose depth {depth} [{card}]")
         cli = ServingClient(*svc.address)
         lm_params = runners[0].params_ref()
-        served = {}
+        served, int8_rows = {}, {}
         reg = get_registry()
-        for rid, (name, _, _) in enumerate(modes):
+
+        def count(name):
+            return reg.counter(name).snapshot()["value"]
+
+        for rid, (name, _, _, load, b7) in enumerate(modes):
             b = svc.batcher(rid)
+            mode_prompts = workloads[load]
             h_first = HistWindow("serve.latency.first_token")
             h_per_token = HistWindow("serve.latency.per_token")
-            steps0 = reg.counter("serve.continuous.steps").snapshot()["value"]
-            batches0 = reg.counter("serve.batches").snapshot()["value"]
+            c0 = {k: count(k) for k in (
+                "serve.continuous.steps", "serve.batches",
+                "serve.prefix.hits", "serve.prefix.prefill_skipped",
+                "serve.prefix.copy_on_extend", "serve.continuous.joins")}
             for counts in (rows.LAUNCHES, sgns.LAUNCHES, attention.LAUNCHES):
                 for key in counts:
                     counts[key] = 0
-            tokens, lat, wall, errors = drive(cli, rid, prompts,
+            tokens, lat, wall, errors = drive(cli, rid, mode_prompts,
                                               SERVE_IN_FLIGHT)
             launches = dict(attention.LAUNCHES)
-            steps = reg.counter("serve.continuous.steps").snapshot()[
-                "value"] - steps0
-            batches = reg.counter("serve.batches").snapshot()["value"] \
-                - batches0
+            delta = {k: count(k) - v for k, v in c0.items()}
+            steps, batches = (delta["serve.continuous.steps"],
+                              delta["serve.batches"])
             assert not errors, (name, errors[:3])
             assert all(t is not None and len(t) == SERVE_MAX_NEW
                        for t in tokens), name
-            n_tok = SERVE_MAX_NEW * len(prompts)
+            n_tok = SERVE_MAX_NEW * len(mode_prompts)
             rec = {"tokens_per_sec": n_tok / wall, "seconds": wall,
-                   "requests": len(prompts), "errors": len(errors),
+                   "requests": len(mode_prompts), "errors": len(errors),
                    "latency_ms_p50": pct(lat, 50),
                    "latency_ms_p99": pct(lat, 99),
                    "first_token_ms_p50": h_first.pct(50),
@@ -2947,15 +3374,16 @@ def serve_lm(dev, card) -> dict:
                    "per_token_ms_p50": h_per_token.pct(50),
                    "per_token_ms_p99": h_per_token.pct(99),
                    "b7_launches": launches["paged_decode_attn"],
+                   "b7_int8_launches": launches["paged_decode_attn_int8"],
                    "b6_launches": launches["flash_block_attn"]}
-            assert h_first.read()[0] == len(prompts), name
+            assert h_first.read()[0] == len(mode_prompts), name
             assert rec["b6_launches"] == 0, rec
-            if name == "continuous paged":
+            if name.startswith("continuous"):
                 rec["engine_steps"] = steps
                 rec["pool_high_water_pages"] = b.pool.max_used
                 rec["pool_pages"] = b.pool.capacity
                 want = LM["layers"] * steps
-            elif name == "drain paged":
+            elif name.startswith("drain paged"):
                 rec["batches"] = batches
                 rec["pool_high_water_pages"] = runners[rid].pool_high_water()
                 rec["pipeline_depth"] = b.pipeline_depth
@@ -2964,19 +3392,73 @@ def serve_lm(dev, card) -> dict:
                 rec["batches"] = batches
                 rec["pipeline_depth"] = b.pipeline_depth
                 want = 0
-            assert rec["b7_launches"] == want, (name, rec, want)
+            other = ("paged_decode_attn_int8" if b7 == "paged_decode_attn"
+                     else "paged_decode_attn")
+            assert (launches[b7] if b7 else 0) == want, (name, rec, want)
+            assert b7 is None or launches[other] == 0, (name, launches)
             assert want > 0 or name == "drain preallocated"
             served[name] = tokens
-            lg_rows, ties = teacher_forced(lm_params, cfg, prompts, tokens,
-                                           dev)
-            rec["ties"] = ties
-            if name != "continuous paged":
-                rec["diverged_at_a_tie"] = agree(served["continuous paged"],
-                                                 tokens, lg_rows)
-            del lg_rows
+            if "int8" in name:
+                # The int8 modes' logits are not the float32 forward's:
+                # their check reads the int8 teacher-forced logits.
+                int8_rows[name], off = teacher_forced_int8(
+                    lm_params, cfg, mode_prompts, tokens, dev)
+                rec["off_int8_teacher_forced"] = off
+                base = served["continuous paged"]
+                same = sum(a == c for x, y in zip(base, tokens)
+                           for a, c in zip(x, y))
+                rec["share_equal_to_f32_continuous"] = same / n_tok
+                if name == "drain paged int8":
+                    rec["diverged_at_a_tie"] = agree(
+                        served["continuous paged int8"], tokens,
+                        int8_rows[name])
+            else:
+                lg_rows, ties = teacher_forced(lm_params, cfg, mode_prompts,
+                                               tokens, dev)
+                rec["ties"] = ties
+                base = {"main": "continuous paged",
+                        "prefix": "continuous paged, prefix workload"}[load]
+                if name != base:
+                    rec["diverged_at_a_tie"] = agree(served[base], tokens,
+                                                     lg_rows)
+                del lg_rows
+            if name == "continuous paged, prefix cache":
+                rec["prefix_hits"] = delta["serve.prefix.hits"]
+                rec["prefill_skipped"] = delta["serve.prefix.prefill_skipped"]
+                rec["copied_on_extend"] = \
+                    delta["serve.prefix.copy_on_extend"]
+                rec["joins"] = delta["serve.continuous.joins"]
+                assert rec["prefix_hits"] > 0, rec
+                assert rec["prefill_skipped"] > 0, rec
+                assert rec["copied_on_extend"] > 0, rec
+                held = sum(len(e.pages())
+                           for e in b.prefix._entries.values())
+                rec["store_entries"] = len(b.prefix)
+                rec["store_pages"] = held
+                assert b.pool.free_pages() == b.pool.capacity - held, (
+                    b.pool.free_pages(), b.pool.capacity, held)
             out["modes"][name] = rec
-            log(f"serving {name}: {len(prompts)} requests, {n_tok} tokens "
-                f"in {wall:.3f} s -> {rec['tokens_per_sec']:.6g} "
+            extra = ""
+            if "ties" in rec:
+                extra += (f"full-forward check: every token passes, "
+                          f"{rec['ties']} ties")
+            if "off_int8_teacher_forced" in rec:
+                extra += (f"{rec['off_int8_teacher_forced']} tokens off the "
+                          "int8 teacher-forced argmax beyond TIE_ATOL (not "
+                          "gated), share of tokens equal to continuous "
+                          f"paged f32 {rec['share_equal_to_f32_continuous']}")
+            if "diverged_at_a_tie" in rec:
+                extra += (f", {rec['diverged_at_a_tie']} requests diverge "
+                          "at a tie")
+            if "prefix_hits" in rec:
+                extra += (f"; prefix hits {rec['prefix_hits']}, prefills "
+                          f"skipped {rec['prefill_skipped']}, straddle pages "
+                          f"copied on extend {rec['copied_on_extend']}, "
+                          f"{rec['store_entries']} entries hold "
+                          f"{rec['store_pages']} pages, every other page "
+                          "back in the pool")
+            log(f"serving {name}: {len(mode_prompts)} requests, {n_tok} "
+                f"tokens in {wall:.3f} s -> {rec['tokens_per_sec']:.6g} "
                 f"tokens/sec; first token p50 "
                 f"{rec['first_token_ms_p50']:.3f} ms p99 "
                 f"{rec['first_token_ms_p99']:.3f} ms; per token p50 "
@@ -2984,16 +3466,14 @@ def serve_lm(dev, card) -> dict:
                 f"{rec['per_token_ms_p99']:.4f} ms; request p50 "
                 f"{rec['latency_ms_p50']:.3f} ms p99 "
                 f"{rec['latency_ms_p99']:.3f} ms; B7 launches "
-                f"{rec['b7_launches']}; "
+                f"{rec['b7_launches']}, B7 int8 launches "
+                f"{rec['b7_int8_launches']}; "
                 + (f"engine steps {steps}, " if "engine_steps" in rec
                    else f"batches {batches}, pipeline depth "
                    f"{rec['pipeline_depth']}, ")
                 + (f"pool high-water {rec['pool_high_water_pages']} pages, "
                    if "pool_high_water_pages" in rec else "")
-                + f"full-forward check: every token passes, {ties} ties"
-                + (f", {rec['diverged_at_a_tie']} requests diverge from "
-                   "continuous at a tie" if "diverged_at_a_tie" in rec
-                   else "") + f" [{card}]")
+                + extra + f" [{card}]")
         out["pipeline_probe_ms"] = probe
         out["pipeline_depth_auto"] = depth
     finally:
@@ -3002,6 +3482,8 @@ def serve_lm(dev, card) -> dict:
         svc.close()
     torch.cuda.empty_cache()
     out["b7_launches"] = sum(m["b7_launches"] for m in out["modes"].values())
+    out["b7_int8_launches"] = sum(m["b7_int8_launches"]
+                                  for m in out["modes"].values())
     return out
 
 
@@ -3038,6 +3520,7 @@ def main() -> int:
     kernels.append(check_sgns_kernel_bf16(dev))
     kernels.append(check_attention_kernel(dev))
     kernels.append(check_paged_kernel(dev))
+    kernels.append(check_paged_kernel_int8(dev))
     variants = check_variants(dev)
     for rec in check_sgns_layouts(dev):
         variants["sgns_block_bf16" if rec["bf16"] else "sgns_block"].append(
@@ -3080,6 +3563,8 @@ def main() -> int:
     store_kernels = stateful_add_kernels()
     plain_runs, plain_counts = on_path(plain_tables)
     bf16_plane = bf16_table_plane()
+    bf16_stateful, _ = on_path(bf16_stateful_tables)
+    negative, _ = on_path(negative_id_tables)
     mv.shutdown()
     leg_ms, leg = on_path(tiled_leg, dev)
     assert leg["tiled_scatter_add_sorted_rows"] == 21, leg
@@ -3125,7 +3610,8 @@ def main() -> int:
         "sgns_block": flag["sgns_block"],
         "sgns_block_bf16": flag_bf16["sgns_block_bf16"],
         "flash_block_attn": lm["b6_launches"],
-        "paged_decode_attn": served["b7_launches"]}
+        "paged_decode_attn": served["b7_launches"],
+        "paged_decode_attn_int8": served["b7_int8_launches"]}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
@@ -3139,6 +3625,9 @@ def main() -> int:
                     v["updates_per_sec"] = path["updates_per_sec"]
                     v["model_max_abs_err"] = path["model_max_abs_err"]
         if k["name"] == "fold_sorted_runs":
+            # bfloat16 stateful tables fold by the lane-order route
+            # instead (no launch of this kernel).
+            k["bf16_stateful_tables"] = bf16_stateful
             k["launches_by_run"] = {
                 name: r["launches"]["fold_sorted_runs"]
                 for name, r in plain_runs.items()}
@@ -3149,6 +3638,8 @@ def main() -> int:
             st = f32 if k["name"] == "sgns_block" else bf16
             k["flagship_words_per_sec"] = st["words_per_sec"]
             k["flagship_pairs_per_sec"] = st["pairs"] / st["seconds"]
+        if k["name"] == "gather_rows":
+            k["negative_id_routes"] = negative
         if k["name"] == "sgns_block_bf16":
             k["bf16_table_updates_per_sec"] = bf16_plane["updates_per_sec"]
             k["other_paths_words_per_sec"] = {
@@ -3160,6 +3651,9 @@ def main() -> int:
             k["launches_by_mode"] = {name: m["b7_launches"] for name, m
                                      in served["modes"].items()}
             k["serving"] = served
+        if k["name"] == "paged_decode_attn_int8":
+            k["launches_by_mode"] = {name: m["b7_int8_launches"] for name, m
+                                     in served["modes"].items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

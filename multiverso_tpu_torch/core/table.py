@@ -29,9 +29,21 @@ stored as ``torch.bfloat16``. numpy knows that type only through
 takes and returns float32: deltas are rounded to bfloat16 on the way in
 (round to nearest even, as the JAX package's ``np.asarray(delta,
 bfloat16)``), and reads widen exactly. The row kernels stay float32-only,
-as in the JAX package; the default and sgd updaters fold a row Add's
-duplicate rows in lane order with a rounding after every add, as XLA's
-scatter does. A stateful updater on such a table waits (ROADMAP A13).
+as in the JAX package: a ``use_pallas`` bfloat16 table takes the plain
+route. Every updater runs on it with the JAX package's math: the default
+and sgd updaters fold a row Add's duplicate rows in lane order with a
+rounding after every add, as XLA's scatter does; the stateful updaters
+combine duplicates the same way (XLA's bfloat16 ``segment_sum``), keep
+each state leaf in the dtype the JAX ``init_state`` gives it, and round
+their float32 math to bfloat16 where the JAX package does.
+
+Negative row ids (ROADMAP C5): the default and sgd row Adds of a table
+without the row kernels wrap ids in ``[-rows, 0)`` to the table's end, as
+JAX's ``.at[].add(mode="drop")`` does (``ops/rows.add_rows_sorted``); the
+row kernels' routes (``use_pallas``) and every stateful route drop
+negative ids, as the JAX package's Pallas kernels do (its stateful XLA
+route reads row 0 and writes the last row, ROADMAP C7: not copied); Gets
+clamp ids into range, -1 to row 0, as ``mode="clip"`` does.
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.core.options import AddOption, GetOption
-from multiverso_tpu_torch.core.updater import (SGDUpdater, Updater,
+from multiverso_tpu_torch.core.updater import (Updater,
                                                pallas_row_capability)
 from multiverso_tpu_torch.ops import rows
 from multiverso_tpu_torch.telemetry import gauge
@@ -114,12 +126,6 @@ class ServerStore:
         #: The host-side dtype (float32 for a bfloat16 table).
         self.dtype = host_dtype(dtype)
         self.torch_dtype = torch_dtype(dtype)
-        if self.torch_dtype == torch.bfloat16 and \
-                type(updater) not in (Updater, SGDUpdater):
-            raise NotImplementedError(
-                f"table '{name}': the {updater.name} updater on a bfloat16 "
-                "table is not ported yet (default and sgd only): ROADMAP "
-                "A13")
         self.updater = updater
         self.device = torch.device(device)
         self.shard_axis = shard_axis

@@ -66,15 +66,19 @@ def combine_duplicate_rows(rows: torch.Tensor, delta: torch.Tensor,
     Stateful updaters gather-compute-set, so duplicates must combine
     rather than race. Stable sort by id, sum each run in lane order
     (``0 + d0 + d1 + ...``: ``index_add_`` on the CPU, the fold kernel of
-    ``ops/rows.fold_sorted_runs`` on the card, with the same bits), give
-    every lane its run's total, and remap all but the run's first lane to
-    the out-of-range sentinel ``num_rows`` so the write-back drops them.
+    ``ops/rows.fold_sorted_runs`` on the card, with the same bits;
+    bfloat16 deltas round after every add, as XLA's ``segment_sum`` does,
+    through ``ops/rows.fold_runs_lane_order`` on any device), give every
+    lane its run's total, and remap all but the run's first lane to the
+    out-of-range sentinel ``num_rows`` so the write-back drops them.
     Returns ``(rows_eff, delta_combined)`` in sorted order, both the shapes
     of the inputs."""
     if rows.shape[0] == 0:
         return rows, delta
     r, order = torch.sort(rows, stable=True)
-    d_comb = _rows.fold_sorted_runs(r, delta.index_select(0, order))
+    fold = (_rows.fold_runs_lane_order if delta.dtype == torch.bfloat16
+            else _rows.fold_sorted_runs)
+    d_comb = fold(r, delta.index_select(0, order))
     is_start = torch.ones_like(r, dtype=torch.bool)
     is_start[1:] = r[1:] != r[:-1]
     r_eff = torch.where(is_start, r, torch.full_like(r, num_rows))

@@ -15,9 +15,15 @@
 // pallas_attention.py:201-245), with m starting at -1e30 (not -inf: a
 // fully masked stretch before a valid key is wiped by
 // alpha = exp(-1e30 - m) = 0, and -inf - -inf would give NaN). The
-// output is normalised, o = acc / l, float32. Pages are float32 or
-// bfloat16 and every operation is float32 (expf, no fast math, no tensor
-// cores). Page-table entries are clamped into [0, n_phys) as the JAX
+// output is normalised, o = acc / l, float32. Pages are float32, bfloat16
+// or int8 and every operation is float32 (expf, no fast math, no tensor
+// cores). An int8 page comes with its scale planes ks and vs, one float32
+// a key or value row ([n_phys, heads, page, 1] of one layer): each element
+// is dequantized as float(k8) * ks[row] before it enters the dot product,
+// and as float(v8) * vs[row] before it enters the accumulator, which is
+// the JAX step's decode_rows after its gather (serving/continuous.py:
+// 448-454); the TPU kernel has no scale planes. Page-table entries are
+// clamped into [0, n_phys) as the JAX
 // step's mode="clip" gather does, so an idle slot whose row points at
 // the garbage page 0 computes a finite row and never reads outside the
 // pool.
@@ -25,7 +31,8 @@
 // What bounds it on this card: bytes. The function needs the K and V row
 // of each key the mask admits (a masked key adds exactly 0) for 4 * dh
 // flops per key, about 0.5 flop per byte in float32, far below the
-// card's ~20 flops per byte of float32 HBM balance. At the serving shape
+// card's ~20 flops per byte of float32 HBM balance. An int8 row is dh + 4
+// bytes with its scale (68 at dh 64, against float32's 256). At the serving shape
 // (8 slots, 12 heads, dh 64, page 16, G 36) the admitted keys of
 // chip_smoke.py's serving inputs need 8.4 MB, ~2.5 us at 3.35 TB/s, out
 // of the 28.3 MB that all G pages hold. There the kernel is bound by
@@ -75,7 +82,11 @@
 //     tile i is computed; the slot's page-table row sits in shared memory.
 //     A head size whose rows are not whole 16-byte vectors, or a pool not
 //     16-byte aligned, takes the narrow instance of the same kernel (one
-//     value a vector; bfloat16 then copied by plain loads).
+//     value a vector; bfloat16 and int8 then copied by plain loads). An
+//     int8 tile's rows (16 int8 values a vector: 4 loads a row at dh 64)
+//     come with their K and V scales, staged by 4-byte cp.async into a
+//     ring of their own in the same commit group, so a row's scale lands
+//     with the row.
 //   * Every lane works on the dot products: LK lanes hold one key row (at
 //     dh 64 in float32, 8 lanes of two float4 each), so a warp scores
 //     32 / LK keys at once, a CTA a page of 16 in one pass, and each score
@@ -100,6 +111,7 @@ constexpr int kTileBytes = 4096;        // K bytes of a tile (V as many)
 constexpr int kMaxD = 256;
 constexpr int kRowCap = 512;            // page-table entries kept in smem
 constexpr int kMaxTickets = 1 << 16;    // (slot, head) pairs that can split
+constexpr int kMaxScaleRows = 256;      // rows of an int8 tile (its scales)
 constexpr float kNegInf = -1e30f;       // pallas_attention.py NEG_INF
 
 static_assert(kWarps * (kMaxD + 2) * 4 <= kRing * 2 * kTileBytes,
@@ -135,6 +147,9 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 
 // E values of type T from shared memory at p into x, as float32: one
 // 16-byte load for the vector instances.
@@ -142,6 +157,16 @@ template <typename T, int E>
 __device__ __forceinline__ void load_vec(const T* p, float (&x)[E]) {
   if constexpr (E == 1) {
     x[0] = to_f(*p);
+  } else if constexpr (sizeof(T) == 1) {
+    static_assert(E == 16, "int8 vectors are 16 values");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[4 * i + j] = static_cast<float>(
+            static_cast<int8_t>(static_cast<uint8_t>(w[i] >> (8 * j))));
   } else if constexpr (sizeof(T) == 4) {
     static_assert(E == 4, "float32 vectors are float4");
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -164,10 +189,13 @@ __device__ __forceinline__ void load_vec(const T* p, float (&x)[E]) {
 }
 
 // One vector of BYTES bytes from global to shared memory: cp.async for 4
-// and 16 bytes (landed after the next wait), a plain copy for 2.
+// and 16 bytes (landed after the next wait), a plain copy for 1 and 2.
 template <int BYTES>
 __device__ __forceinline__ void copy_vec(void* dst, const void* src) {
-  if constexpr (BYTES == 2) {
+  if constexpr (BYTES == 1) {
+    *static_cast<unsigned char*>(dst) =
+        __ldg(static_cast<const unsigned char*>(src));
+  } else if constexpr (BYTES == 2) {
     *static_cast<unsigned short*>(dst) =
         __ldg(static_cast<const unsigned short*>(src));
   } else {
@@ -229,16 +257,23 @@ __device__ __forceinline__ Live live_runs(int length, int t, int bucket,
 template <typename T, int E, int LK, int NV>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ ptab,
+                    const T* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int* __restrict__ ptab,
                     const int* __restrict__ lengths,
                     const int* __restrict__ tstep, float* __restrict__ o,
                     float* __restrict__ part, int heads, int n_pages,
-                    int page, int d, int64_t page_stride, int n_phys,
-                    int bucket, float scale, int splits, int tile_rows) {
+                    int page, int d, int64_t page_stride,
+                    int64_t scale_stride, int n_phys, int bucket,
+                    float scale, int splits, int tile_rows) {
   constexpr int GK = 32 / LK;                  // keys a warp scores at once
   constexpr int VB = E * static_cast<int>(sizeof(T));
   constexpr int kTileElems = kTileBytes / static_cast<int>(sizeof(T));
+  // int8 pages: a tile's K and V row scales, in a ring of their own.
+  constexpr bool kQuant = sizeof(T) == 1;
+  constexpr int kScaleRows = kQuant ? kMaxScaleRows : 1;
   __shared__ __align__(16) unsigned char ring_raw[kRing * 2 * kTileBytes];
+  __shared__ __align__(16) float sring[kRing * 2 * kScaleRows];
   __shared__ int row[kRowCap];
   __shared__ int last;
   T* ring = reinterpret_cast<T*>(ring_raw);
@@ -290,7 +325,8 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     const int j = live.page(k0 + i / tpp);
     const int phys = row_s ? row[j] : min(max(prow[j], 0), n_phys - 1);
     const int r0 = (i % tpp) * tile_rows;
-    const int n = min(tile_rows, page - r0) * nvec;
+    const int nr = min(tile_rows, page - r0);
+    const int n = nr * nvec;
     const int64_t off = phys * page_stride + head_off +
                         static_cast<int64_t>(r0) * d;
     T* kd = ring + (i % kRing) * 2 * kTileElems;
@@ -298,6 +334,15 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     for (int v = threadIdx.x; v < n; v += kThreads) {
       copy_vec<VB>(kd + v * E, kp + off + v * E);
       copy_vec<VB>(vd + v * E, vp + off + v * E);
+    }
+    if constexpr (kQuant) {
+      const int64_t soff = phys * scale_stride +
+                           static_cast<int64_t>(h) * page + r0;
+      float* ksd = sring + (i % kRing) * 2 * kScaleRows;
+      for (int r = threadIdx.x; r < nr; r += kThreads) {
+        copy_vec<4>(ksd + r, ks + soff + r);
+        copy_vec<4>(ksd + kScaleRows + r, vs + soff + r);
+      }
     }
   };
 
@@ -329,9 +374,18 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     const int pos0 = live.page(k0 + pi) * page + r0;
     const T* kt = ring + (i % kRing) * 2 * kTileElems;
     const T* vt = kt + kTileElems;
+    const float* kst = sring + (i % kRing) * 2 * kScaleRows;
     for (int kb = warp * GK; kb < rows; kb += kWarps * GK) {
       const int r = kb + grp;
       const bool valid = r < rows;
+      // The row's scales (int8 pages; 1 and unread otherwise).
+      float sk = 1.f, sv = 1.f;
+      if constexpr (kQuant) {
+        if (valid) {
+          sk = kst[r];
+          sv = kst[kScaleRows + r];
+        }
+      }
       // Two partial sums (even and odd vectors) halve the FMA chain.
       float sp[2] = {0.f, 0.f};
 #pragma unroll
@@ -341,8 +395,10 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           float x[E];
           load_vec<T, E>(kt + r * d + v * E, x);
 #pragma unroll
-          for (int e = 0; e < E; ++e)
+          for (int e = 0; e < E; ++e) {
+            if constexpr (kQuant) x[e] *= sk;
             sp[n & 1] = fmaf(qr[n][e], x[e], sp[n & 1]);
+          }
         }
       }
       float s = sp[0] + sp[1];
@@ -370,8 +426,10 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           float x[E];
           load_vec<T, E>(vt + r * d + v * E, x);
 #pragma unroll
-          for (int e = 0; e < E; ++e)
+          for (int e = 0; e < E; ++e) {
+            if constexpr (kQuant) x[e] *= sv;
             acc[n][e] = fmaf(p, x[e], acc[n][e] * alpha);
+          }
         }
       }
     }
@@ -511,52 +569,55 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
 }
 
 template <typename T, int E, int LK, int NV>
-int launch(const float* q, const void* kp, const void* vp, const int* ptab,
-           const int* lengths, const int* t, float* o, float* part,
-           int64_t bh, int heads, int n_pages, int page, int d,
-           int64_t page_stride, int n_phys, int bucket, float scale,
+int launch(const float* q, const void* kp, const void* vp, const float* ks,
+           const float* vs, const int* ptab, const int* lengths,
+           const int* t, float* o, float* part, int64_t bh, int heads,
+           int n_pages, int page, int d, int64_t page_stride,
+           int64_t scale_stride, int n_phys, int bucket, float scale,
            int splits, cudaStream_t st) {
   const int row_bytes = d * static_cast<int>(sizeof(T));
-  const int tile_rows = min(page, max(1, kTileBytes / row_bytes));
+  int tile_rows = min(page, max(1, kTileBytes / row_bytes));
+  if (sizeof(T) == 1) tile_rows = min(tile_rows, kMaxScaleRows);
   const unsigned grid = static_cast<unsigned>(bh * splits);
   paged_decode_kernel<T, E, LK, NV><<<grid, kThreads, 0, st>>>(
-      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ptab, lengths,
-      t, o, part, heads, n_pages, page, d, page_stride, n_phys, bucket,
-      scale, splits, tile_rows);
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs, ptab,
+      lengths, t, o, part, heads, n_pages, page, d, page_stride,
+      scale_stride, n_phys, bucket, scale, splits, tile_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define MV_PAGED_ARGS                                                     \
-  q, kp, vp, ptab, lengths, t, o, part, bh, heads, n_pages, page, d,       \
-      page_stride, n_phys, bucket, scale, splits, st
+  q, kp, vp, ks, vs, ptab, lengths, t, o, part, bh, heads, n_pages, page,  \
+      d, page_stride, scale_stride, n_phys, bucket, scale, splits, st
+
+#define MV_PAGED_PARAMS                                                   \
+  const float *q, const void *kp, const void *vp, const float *ks,         \
+      const float *vs, const int *ptab, const int *lengths, const int *t,  \
+      float *o, float *part, int64_t bh, int heads, int n_pages, int page, \
+      int d, int64_t page_stride, int64_t scale_stride, int n_phys,        \
+      int bucket, float scale, int splits, cudaStream_t st
 
 // The vector instances: E values a 16-byte vector. A key row takes 8
 // lanes (4 where it has 4 vectors or fewer), so a warp scores 4 keys at
-// once and a CTA a page of 16 in one pass; a lane holds NV vectors.
+// once and a CTA a page of 16 in one pass; a lane holds NV vectors. int8
+// rows (E = 16) have at most 16 vectors at kMaxD.
 template <typename T>
-int dispatch_vec(const float* q, const void* kp, const void* vp,
-                 const int* ptab, const int* lengths, const int* t, float* o,
-                 float* part, int64_t bh, int heads, int n_pages, int page,
-                 int d, int64_t page_stride, int n_phys, int bucket,
-                 float scale, int splits, cudaStream_t st) {
+int dispatch_vec(MV_PAGED_PARAMS) {
   constexpr int E = 16 / sizeof(T);
   const int nvec = d / E;
   if (nvec <= 4) return launch<T, E, 4, 1>(MV_PAGED_ARGS);
   if (nvec <= 8) return launch<T, E, 8, 1>(MV_PAGED_ARGS);
   if (nvec <= 16) return launch<T, E, 8, 2>(MV_PAGED_ARGS);
-  if (nvec <= 32) return launch<T, E, 8, 4>(MV_PAGED_ARGS);
+  if constexpr (E <= 8) {
+    if (nvec <= 32) return launch<T, E, 8, 4>(MV_PAGED_ARGS);
+  }
   if constexpr (E == 4) return launch<T, E, 8, 8>(MV_PAGED_ARGS);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The narrow instances: one value a vector, 32 lanes a row.
 template <typename T>
-int dispatch_narrow(const float* q, const void* kp, const void* vp,
-                    const int* ptab, const int* lengths, const int* t,
-                    float* o, float* part, int64_t bh, int heads,
-                    int n_pages, int page, int d, int64_t page_stride,
-                    int n_phys, int bucket, float scale, int splits,
-                    cudaStream_t st) {
+int dispatch_narrow(MV_PAGED_PARAMS) {
   if (d <= 32) return launch<T, 1, 32, 1>(MV_PAGED_ARGS);
   if (d <= 64) return launch<T, 1, 32, 2>(MV_PAGED_ARGS);
   if (d <= 128) return launch<T, 1, 32, 4>(MV_PAGED_ARGS);
@@ -564,11 +625,7 @@ int dispatch_narrow(const float* q, const void* kp, const void* vp,
 }
 
 template <typename T>
-int dispatch(const float* q, const void* kp, const void* vp, const int* ptab,
-             const int* lengths, const int* t, float* o, float* part,
-             int64_t bh, int heads, int n_pages, int page, int d,
-             int64_t page_stride, int n_phys, int bucket, float scale,
-             int splits, cudaStream_t st) {
+int dispatch(MV_PAGED_PARAMS) {
   const int64_t row_bytes = static_cast<int64_t>(d) * sizeof(T);
   const bool vec = row_bytes % 16 == 0 &&
                    (page_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
@@ -579,40 +636,47 @@ int dispatch(const float* q, const void* kp, const void* vp, const int* ptab,
 }
 
 #undef MV_PAGED_ARGS
+#undef MV_PAGED_PARAMS
 
 }  // namespace
+
+#define MV_ENTRY_ARGS                                                     \
+  q, kp, vp, ks, vs, ptab, lengths, t, o, part, bh, heads, n_pages, page,  \
+      d, page_stride, scale_stride, n_phys, bucket, scale, splits, st
 
 extern "C" {
 
 // q [batch, heads, d] float32; kp and vp one layer of the page pool,
 // [n_phys, heads, page, d] with rows of a page contiguous per head and
-// page_stride elements between pages, float32 (bf16 == 0) or bfloat16
-// (bf16 == 1); ptab [batch, n_pages], lengths and t [batch], int32.
-// splits CTAs take each (slot, head); with splits > 1, part holds
-// batch * heads * splits * (d + 2) floats of scratch. Writes o
-// [batch, heads, d] float32. Returns cudaGetLastError() after the launch
-// (0 = launched); shapes the kernel does not take return
-// cudaErrorInvalidValue and launch nothing.
+// page_stride elements between pages, float32 (kind 0), bfloat16 (kind 1)
+// or int8 (kind 2); for int8, ks and vs the layer's scale planes,
+// [n_phys, heads, page, 1] float32 with a page's rows contiguous per head
+// and scale_stride elements between pages (unread otherwise); ptab
+// [batch, n_pages], lengths and t [batch], int32. splits CTAs take each
+// (slot, head); with splits > 1, part holds batch * heads * splits *
+// (d + 2) floats of scratch. Writes o [batch, heads, d] float32. Returns
+// cudaGetLastError() after the launch (0 = launched); shapes the kernel
+// does not take return cudaErrorInvalidValue and launch nothing.
 int mv_paged_decode_attn(const float* q, const void* kp, const void* vp,
-                         const int* ptab, const int* lengths, const int* t,
-                         float* o, float* part, int batch, int heads,
-                         int n_pages, int page, int d, int64_t page_stride,
-                         int n_phys, int bucket, float scale, int bf16,
-                         int splits, void* stream) {
+                         const float* ks, const float* vs, const int* ptab,
+                         const int* lengths, const int* t, float* o,
+                         float* part, int batch, int heads, int n_pages,
+                         int page, int d, int64_t page_stride,
+                         int64_t scale_stride, int n_phys, int bucket,
+                         float scale, int kind, int splits, void* stream) {
   if (batch <= 0 || heads <= 0) return 0;
   const int64_t bh = static_cast<int64_t>(batch) * heads;
   if (n_pages <= 0 || page <= 0 || d <= 0 || d > kMaxD || n_phys <= 0 ||
       splits <= 0 || splits > n_pages || bh * splits > 0x7fffffffLL ||
-      (splits > 1 && (part == nullptr || bh > kMaxTickets)))
+      (splits > 1 && (part == nullptr || bh > kMaxTickets)) || kind < 0 ||
+      kind > 2 ||
+      (kind == 2 && (ks == nullptr || vs == nullptr || scale_stride <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, kp, vp, ptab, lengths, t, o, part, bh,
-                                   heads, n_pages, page, d, page_stride,
-                                   n_phys, bucket, scale, splits, st);
-  return dispatch<float>(q, kp, vp, ptab, lengths, t, o, part, bh, heads,
-                         n_pages, page, d, page_stride, n_phys, bucket,
-                         scale, splits, st);
+  if (kind == 1)
+    return dispatch<__nv_bfloat16>(MV_ENTRY_ARGS);
+  if (kind == 2) return dispatch<int8_t>(MV_ENTRY_ARGS);
+  return dispatch<float>(MV_ENTRY_ARGS);
 }
 
 #ifdef MV_PAGED_PROFILE
@@ -626,3 +690,5 @@ int mv_paged_decode_attn_profile(unsigned long long* host, int n) {
 #endif
 
 }  // extern "C"
+
+#undef MV_ENTRY_ARGS

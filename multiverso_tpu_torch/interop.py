@@ -30,14 +30,31 @@ from multiverso_tpu_torch.utils.log import check
 
 
 def load_store_payload(store, payload: Mapping[str, np.ndarray]) -> None:
-    """Load a JAX package ``store_state()`` payload into a port store."""
+    """Load a JAX package ``store_state()`` payload into a port store.
+    Each entry crosses in its own dtype: a bfloat16 table's ``data`` and
+    its bfloat16 state leaves (momentum_sgd's ``smooth``) as bfloat16
+    arrays, uint16 bit patterns or float32 values that are exactly
+    bfloat16, bit for bit; float32 leaves (AdaGrad's ``g2``, FTRL's ``z``
+    and ``n``, DC-ASGD's ``backup`` and ``m``) as float32."""
+    import torch
+
     check("data" in payload, "store payload needs a 'data' entry")
-    for key in payload:
+    loaded = {}
+    for key, values in payload.items():
         check(key == "data" or (key.startswith("state/")
                                 and key[len("state/"):] in store.state),
               f"payload entry {key!r} has no counterpart in table "
               f"'{store.name}' (leaves {sorted(store.state)})")
-    store.load_state({k: np.array(v, copy=True) for k, v in payload.items()})
+        live = (store.data if key == "data"
+                else store.state[key[len("state/"):]])
+        values = np.asarray(values)
+        if live.dtype == torch.bfloat16:
+            values = _bfloat16_values(f"{store.name}/{key}", values)
+        elif live.dtype == torch.float32:
+            check(values.dtype == np.float32,
+                  f"{store.name}/{key}: dtype {values.dtype} != float32")
+        loaded[key] = np.array(values, copy=True)
+    store.load_state(loaded)
 
 
 def _bfloat16_values(name: str, values: np.ndarray) -> np.ndarray:

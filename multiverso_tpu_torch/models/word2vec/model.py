@@ -62,7 +62,8 @@ from multiverso_tpu_torch.models.word2vec.data import (BatchGenerator,
 from multiverso_tpu_torch.models.word2vec.dictionary import (Dictionary,
                                                              HuffmanEncoder,
                                                              Sampler)
-from multiverso_tpu_torch.ops.rows import add_rows_sorted, sort_rows
+from multiverso_tpu_torch.ops.rows import (add_rows_sorted, sort_rows,
+                                          wrap_row_ids)
 from multiverso_tpu_torch.ops.sgns import (MAX_NEGATIVE,
                                            build_sgns_grid_step,
                                            sgns_grid_eligible)
@@ -293,8 +294,11 @@ def _apply_update(w, g2, rows, grad, lr, adagrad: bool, live=None) -> None:
     it is added. Each row takes its duplicates one at a time in lane
     order, as XLA's scatter does, on any device (``add_rows_sorted``: on
     the card a stable sort, made once for both tables, and B4's kernel; a
-    bfloat16 table rounds after every add). Out-of-range rows are
-    dropped, and so are the lanes outside ``live`` (the masks of the
+    bfloat16 table rounds after every add). The adds wrap rows in
+    ``[-rows, 0)`` to the table's end and drop rows still out of range,
+    as ``.at[].add(mode="drop")`` does, while the AdaGrad sums are read
+    with rows clamped into range, as ``take(mode="clip")`` does (ROADMAP
+    C5). The lanes outside ``live`` are dropped too (the masks of the
     caller's examples, nodes or contexts, where the gradient is +-0):
     adding +-0 leaves every element as it was, since none of these tables
     holds -0.0 (the AdaGrad sums and ``w_out`` start at +0.0, ``w_in`` at
@@ -306,9 +310,9 @@ def _apply_update(w, g2, rows, grad, lr, adagrad: bool, live=None) -> None:
     rows = rows.to(torch.int64)
     if live is not None:
         rows = torch.where(live.reshape(rows.shape) > 0, rows,
-                           torch.full_like(rows, -1))
-    sort = (sort_rows(rows, num_rows) if w.is_cuda and
-            (adagrad or w.dtype == torch.float32) else None)
+                           torch.full_like(rows, num_rows))
+    sort = (sort_rows(wrap_row_ids(rows, num_rows), num_rows) if w.is_cuda
+            and (adagrad or w.dtype == torch.float32) else None)
     if adagrad:
         add_rows_sorted(g2, rows, torch.square(grad), sort=sort)
         denom = _sqrt(g2.index_select(0, rows.clamp(0, num_rows - 1))

@@ -25,13 +25,18 @@ B7 is the port of ``paged_decode_attn`` of the same JAX module:
 :func:`paged_decode_attn` attends one decode token per slot over ONE
 layer's page pool through a page table, with the serving step's mask
 (key ``r`` valid iff ``r < len`` or ``bucket <= r <= bucket + t``), and
-returns the normalised float32 output. On CUDA tensors it launches the
-kernel of ``csrc/paged_attention.cu`` (or raises); on CPU tensors it runs
-:func:`paged_decode_attn_plain`, the JAX serving step's gather, mask and
-softmax line for line, which is also the kernel's oracle. The kernel
-reads only the pages that the mask admits some key of
-(:func:`paged_live_pages`), split over :func:`paged_splits` CTAs per
-(slot, head).
+returns the normalised float32 output. Pages are float32, bfloat16 or
+int8; int8 pages come with their per-row float32 scale planes, which the
+TPU kernel does not have (the JAX step gathers int8 pages and then
+dequantizes them with ``decode_rows``): here the read dequantizes each
+row by its scale inside B7, so every paged read on a card stays in one
+kernel. On CUDA tensors it launches the kernel of
+``csrc/paged_attention.cu`` (or raises); on CPU tensors it runs
+:func:`paged_decode_attn_plain`, the JAX serving step's gather,
+dequantization, mask and softmax line for line, which is also the
+kernel's oracle. The kernel reads only the pages that the mask admits
+some key of (:func:`paged_live_pages`), split over :func:`paged_splits`
+CTAs per (slot, head).
 """
 
 from __future__ import annotations
@@ -51,13 +56,14 @@ PAGED_MAX_TICKETS = 1 << 16   # csrc/paged_attention.cu kMaxTickets
 #: B7's grid aims at this many CTAs an SM (``paged_splits``).
 PAGED_CTAS_PER_SM = 4
 
-#: Kernel launches, counted where the kernel is launched.
-LAUNCHES: Dict[str, int] = {"flash_block_attn": 0, "paged_decode_attn": 0}
+#: Kernel launches, counted where the kernel is launched (B7's int8
+#: instance apart from its float32 and bfloat16 ones).
+LAUNCHES: Dict[str, int] = {"flash_block_attn": 0, "paged_decode_attn": 0,
+                            "paged_decode_attn_int8": 0}
 
-INT8_PAGES = (
-    "paged_decode_attn reads float32 or bfloat16 pages; int8 pages with "
-    "their scale planes are not ported yet: ROADMAP B7 (B7 with int8 "
-    "scale planes)")
+#: B7's page types, by the code of their instance in
+#: ``csrc/paged_attention.cu``.
+PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 NO_BACKWARD = (
     "flash_block_attn has no backward: the JAX package cannot "
@@ -230,21 +236,29 @@ def flash_block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def paged_decode_attn_plain(q: torch.Tensor, kp: torch.Tensor,
                             vp: torch.Tensor, ptab: torch.Tensor,
                             lengths: torch.Tensor, t: torch.Tensor, *,
-                            bucket: int, page: int,
-                            scale: float) -> torch.Tensor:
+                            bucket: int, page: int, scale: float,
+                            ks: Optional[torch.Tensor] = None,
+                            vs: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """The JAX serving step's read (``serving/continuous.py:442-454,
     472-477``): gather every slot's pages into a ``[B, H, G*P, dh]``
     logical cache (page ids clipped into the pool, as ``mode="clip"``),
-    mask, softmax with ``-inf``, product with V. Float32 out."""
+    dequantize int8 pages by their gathered scales as ``decode_rows``
+    does (``payload.float() * scale``), mask, softmax with ``-inf``,
+    product with V. Float32 out."""
     B, H, dh = q.shape
     G = ptab.shape[1]
     idx = ptab.long().clamp(0, kp.shape[0] - 1).reshape(-1)
 
-    def gather(pool):
-        g = pool.index_select(0, idx).reshape(B, G, H, page, dh)
-        return g.transpose(1, 2).reshape(B, H, G * page, dh).float()
+    def logical(pool, width):
+        g = pool.index_select(0, idx).reshape(B, G, H, page, width)
+        return g.transpose(1, 2).reshape(B, H, G * page, width)
 
-    kf, vf = gather(kp), gather(vp)
+    def gather(pool, sc):
+        g = logical(pool, dh).float()
+        return g * logical(sc, 1) if pool.dtype == torch.int8 else g
+
+    kf, vf = gather(kp, ks), gather(vp, vs)
     key_slot = torch.arange(G * page, device=q.device)[None, :]
     lengths = lengths.to(key_slot.dtype)[:, None]
     t = t.to(key_slot.dtype)[:, None]
@@ -298,35 +312,43 @@ def _paged_lib():
     if not getattr(lib, "_mv_typed", False):
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_paged_decode_attn.argtypes = [
-            c, c, c, c, c, c, c, c, i32, i32, i32, i32, i32, i64, i32, i32,
-            ctypes.c_float, i32, i32, c]
+            c, c, c, c, c, c, c, c, c, c, i32, i32, i32, i32, i32, i64, i64,
+            i32, i32, ctypes.c_float, i32, i32, c]
         lib.mv_paged_decode_attn.restype = ctypes.c_int
         lib._mv_typed = True
     return lib
 
 
-def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
+def _check_paged(q, kp, vp, ptab, lengths, t, page: int, ks, vs) -> bool:
     """Validate; True when the tensors lie on one CUDA device (launch the
     kernel), False when all lie on the CPU (run the plain version). Every
     test reads tensor attributes directly: this runs on every decode step
     of every layer."""
     dev = q.device
+    quant = kp.dtype == torch.int8
+    scales = (ks, vs) if quant else ()
     if not (kp.device == dev and vp.device == dev and ptab.device == dev
-            and lengths.device == dev and t.device == dev) or \
-            dev.type not in ("cuda", "cpu"):
-        devs = {x.device for x in (q, kp, vp, ptab, lengths, t)}
+            and lengths.device == dev and t.device == dev
+            and all(x is not None and x.device == dev for x in scales)) \
+            or dev.type not in ("cuda", "cpu"):
+        devs = {str(x.device) if x is not None else "None"
+                for x in (q, kp, vp, ptab, lengths, t, *scales)}
         raise ValueError("paged_decode_attn takes tensors on one CUDA "
-                         "device or all on the CPU; got "
-                         f"{sorted(map(str, devs))}")
-    if kp.dtype == torch.int8 or vp.dtype == torch.int8:
-        raise NotImplementedError(INT8_PAGES)
-    qs, ks = q.shape, kp.shape
-    if len(qs) != 3 or len(ks) != 4 or vp.shape != ks or ks[1] != qs[1] \
-            or ks[3] != qs[2] or ks[2] != page:
+                         "device or all on the CPU (int8 pages with their "
+                         f"scale planes ks, vs); got {sorted(devs)}")
+    qs, kshape = q.shape, kp.shape
+    if len(qs) != 3 or len(kshape) != 4 or vp.shape != kshape or \
+            kshape[1] != qs[1] or kshape[3] != qs[2] or kshape[2] != page:
         raise ValueError(
             "paged_decode_attn takes q [B,H,dh] and kp, vp [n_phys,H,page,"
-            f"dh] with page={page}; got {tuple(qs)}, {tuple(ks)}, "
+            f"dh] with page={page}; got {tuple(qs)}, {tuple(kshape)}, "
             f"{tuple(vp.shape)}")
+    sshape = kshape[:3] + (1,)
+    for x in scales:
+        if x.shape != sshape or x.dtype != torch.float32:
+            raise ValueError(
+                f"paged_decode_attn takes int8 pages' scales ks, vs "
+                f"{tuple(sshape)} float32; got {tuple(x.shape)} {x.dtype}")
     B = qs[0]
     if ptab.dim() != 2 or ptab.shape[0] != B or lengths.shape != (B,) or \
             t.shape != (B,):
@@ -335,10 +357,10 @@ def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
             f"B={B}; got {tuple(ptab.shape)}, {tuple(lengths.shape)}, "
             f"{tuple(t.shape)}")
     if q.dtype != torch.float32 or kp.dtype != vp.dtype or \
-            kp.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("paged_decode_attn takes float32 q and float32 or "
-                         f"bfloat16 pages; got {q.dtype}, {kp.dtype}, "
-                         f"{vp.dtype}")
+            kp.dtype not in PAGE_KINDS:
+        raise ValueError("paged_decode_attn takes float32 q and float32, "
+                         f"bfloat16 or int8 pages; got {q.dtype}, "
+                         f"{kp.dtype}, {vp.dtype}")
     for x in (ptab, lengths, t):
         if x.dtype.is_floating_point or x.dtype == torch.bool:
             raise ValueError("ptab, lengths and t must be integer tensors")
@@ -355,6 +377,12 @@ def _check_paged(q, kp, vp, ptab, lengths, t, page: int) -> bool:
             "paged_decode_attn on a card needs each page's [H, page, "
             "dh] block contiguous and kp, vp with equal strides; got "
             f"{stride}, {vp.stride()}")
+    if quant and (ks.stride()[1:3] != (page, 1)
+                  or ks.stride()[:3] != vs.stride()[:3]):
+        raise ValueError(
+            "paged_decode_attn on a card needs each page's [H, page, 1] "
+            "scale block contiguous and ks, vs with equal strides; got "
+            f"{ks.stride()}, {vs.stride()}")
     return True
 
 
@@ -384,7 +412,7 @@ def _int32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
-                  scale: float) -> torch.Tensor:
+                  scale: float, ks, vs) -> torch.Tensor:
     B, H, dh = q.shape
     G = ptab.shape[1]
     dev = q.device
@@ -397,32 +425,40 @@ def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
     if not q.is_contiguous():
         q = q.contiguous()
     ptab, lengths, t = _int32(ptab), _int32(lengths), _int32(t)
+    kind = PAGE_KINDS[kp.dtype]
+    quant = kind == PAGE_KINDS[torch.int8]
     err = _paged_lib().mv_paged_decode_attn(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptab.data_ptr(),
-        lengths.data_ptr(), t.data_ptr(), o.data_ptr(), part, B, H, G, page,
-        dh, kp.stride(0), kp.shape[0], int(bucket), float(scale),
-        int(kp.dtype == torch.bfloat16), splits, _build.stream(q))
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+        ptab.data_ptr(), lengths.data_ptr(), t.data_ptr(), o.data_ptr(),
+        part, B, H, G, page, dh, kp.stride(0),
+        ks.stride(0) if quant else 0, kp.shape[0], int(bucket),
+        float(scale), kind, splits, _build.stream(q))
     _build.check_launch(err, "paged_decode_attn")
-    LAUNCHES["paged_decode_attn"] += 1
+    LAUNCHES["paged_decode_attn_int8" if quant else "paged_decode_attn"] += 1
     return o
 
 
 def paged_decode_attn(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                       ptab: torch.Tensor, lengths: torch.Tensor,
                       t: torch.Tensor, *, bucket: int, page: int,
-                      scale: float) -> torch.Tensor:
+                      scale: float, ks: Optional[torch.Tensor] = None,
+                      vs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step of attention over paged KV storage.
 
     ``q`` [B, H, dh] float32, this step's queries (one token per slot);
-    ``kp``/``vp`` [n_phys, H, page, dh] float32 or bfloat16, ONE layer of
-    the pool (``pool.kp[:, i]``: a strided view, each page's block
-    contiguous); ``ptab`` [B, G] the logical-to-physical page table;
-    ``lengths``/``t`` [B] the prompt lengths and per-slot step counters.
-    Returns the normalised attention output [B, H, dh] float32: a softmax
-    over each slot's valid keys (prompt, then generated so far). int8
-    pages raise ``NotImplementedError`` (ROADMAP B7)."""
-    if _check_paged(q, kp, vp, ptab, lengths, t, page):
+    ``kp``/``vp`` [n_phys, H, page, dh] float32, bfloat16 or int8, ONE
+    layer of the pool (``pool.kp[:, i]``: a strided view, each page's
+    block contiguous); ``ks``/``vs`` [n_phys, H, page, 1] float32, the
+    same layer's scale planes (``pool.ks[:, i]``), read for int8 pages
+    only (each row dequantized as ``float(k8) * scale``); ``ptab`` [B, G]
+    the logical-to-physical page table; ``lengths``/``t`` [B] the prompt
+    lengths and per-slot step counters. Returns the normalised attention
+    output [B, H, dh] float32: a softmax over each slot's valid keys
+    (prompt, then generated so far)."""
+    if _check_paged(q, kp, vp, ptab, lengths, t, page, ks, vs):
         return _launch_paged(q, kp, vp, ptab, lengths, t, bucket, page,
-                             scale)
+                             scale, ks, vs)
     return paged_decode_attn_plain(q, kp, vp, ptab, lengths, t,
-                                   bucket=bucket, page=page, scale=scale)
+                                   bucket=bucket, page=page, scale=scale,
+                                   ks=ks, vs=vs)

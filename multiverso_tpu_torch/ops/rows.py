@@ -214,27 +214,36 @@ def sort_rows(ids: torch.Tensor, num_rows: int
     return torch.sort(keys, stable=True)
 
 
+def wrap_row_ids(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Ids in ``[-num_rows, 0)`` wrapped to ``id + num_rows``, every other
+    id as it is: how JAX's ``.at[ids]`` reads a negative index before
+    ``mode="drop"`` drops what is still out of range."""
+    return torch.where(ids < 0, ids + num_rows, ids)
+
+
 def add_rows_sorted(table: torch.Tensor, ids: torch.Tensor,
                     values: torch.Tensor, sign: float = 1.0,
                     sort: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                     ) -> torch.Tensor:
     """``table.at[ids].add(sign * values, mode="drop")`` of the JAX package,
-    in place, with the CPU's bits on any device: each row takes its values
-    one at a time in lane order, and ids outside ``[0, rows)`` are
-    dropped. On the CPU, and for integer tables anywhere (exact in any
-    order), that is ``index_add_`` over the kept lanes. On the card, a
-    float32 table takes a stable sort and B4's kernel, which adds one
-    delta at a time in sorted order (``row + sign*delta``, the bits of
-    ``row + (-delta)``); never ``index_add_``, which adds floats by
-    atomics there. bfloat16 tables (anywhere) and other float tables on
+    in place, with the CPU's bits on any device: ids in ``[-rows, 0)``
+    wrap to the table's end (:func:`wrap_row_ids`), each row takes its
+    values one at a time in lane order, and ids still outside ``[0,
+    rows)`` are dropped. On the CPU, and for integer tables anywhere
+    (exact in any order), that is ``index_add_`` over the kept lanes. On
+    the card, a float32 table takes a stable sort and B4's kernel, which
+    adds one delta at a time in sorted order (``row + sign*delta``, the
+    bits of ``row + (-delta)``); never ``index_add_``, which adds floats
+    by atomics there. bfloat16 tables (anywhere) and other float tables on
     the card go through :func:`add_rows_lane_order`. ``sort`` is
-    :func:`sort_rows` of these ids, made already by a caller that adds
-    them to two tables."""
+    :func:`sort_rows` of the wrapped ids, made already by a caller that
+    adds them to two tables."""
     sign = _check_sign(sign)
     ids = ids.reshape(-1)
     if ids.numel() == 0:
         return table
     rows = table.shape[0]
+    ids = wrap_row_ids(ids, rows)
     values = values.reshape(ids.shape[0], -1)
     signed = values if sign > 0 else -values
     if table.dtype == torch.bfloat16:
@@ -404,6 +413,23 @@ def tiled_scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 # The fold of the stateful updaters' duplicate combine
 # ---------------------------------------------------------------------------
+def fold_runs_lane_order(sorted_ids: torch.Tensor,
+                         sorted_deltas: torch.Tensor) -> torch.Tensor:
+    """Each lane's run total, every run folded from 0 in lane order with a
+    rounding to the deltas' dtype after every add: XLA's ``segment_sum``
+    of bfloat16 deltas. Plain PyTorch on any device, deterministic
+    (:func:`add_rows_lane_order` over the runs); no kernel. A new
+    tensor."""
+    if sorted_ids.numel() == 0:
+        return sorted_deltas.clone()
+    is_start = torch.ones_like(sorted_ids, dtype=torch.bool)
+    is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    seg = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    totals = torch.zeros_like(sorted_deltas)
+    add_rows_lane_order(totals, seg, sorted_deltas)
+    return totals.index_select(0, seg)
+
+
 def fold_sorted_runs_plain(sorted_ids: torch.Tensor,
                            sorted_deltas: torch.Tensor) -> torch.Tensor:
     """The plain version: each run of equal sorted ids sums its deltas with

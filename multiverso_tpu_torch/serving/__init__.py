@@ -8,12 +8,15 @@ Port of ``multiverso_tpu/serving`` for the LM decode path:
 * ``pipeline`` — the depth-N dispatch window of the drain path;
 * ``runners`` — :class:`AttentionLMRunner`, KV-cached greedy decode with
   a preallocated or a paged cache;
-* ``paged``/``quant`` — the page pool and its storage codecs (f32, bf16);
+* ``paged``/``quant`` — the page pool and its storage codecs (f32, bf16,
+  int8 with per-row scales);
+* ``prefix`` — the prefix store: requests with one prompt share prefill
+  work and KV pages;
 * ``service``/``client`` — the DCN-framed request plane with concurrent
   in-flight requests.
 
-The lookup runners, the hot-row cache, the checkpoint replica, the prefix
-store, int8 KV and shard routing wait (ROADMAP A9).
+The lookup runners, the hot-row cache, the checkpoint replica and shard
+routing wait (ROADMAP A9).
 """
 
 from multiverso_tpu_torch.serving.batcher import (BucketLadder,
@@ -28,6 +31,7 @@ from multiverso_tpu_torch.serving.paged import (PagePlan, PagePool,
                                                 page_plan, pages_of)
 from multiverso_tpu_torch.serving.pipeline import (DispatchPipeline,
                                                    resolve_pipeline_depth)
+from multiverso_tpu_torch.serving.prefix import PrefixStore
 from multiverso_tpu_torch.serving.runners import (AttentionLMRunner,
                                                   ServingRunner)
 from multiverso_tpu_torch.serving.service import ServingService
@@ -35,7 +39,7 @@ from multiverso_tpu_torch.serving.service import ServingService
 __all__ = [
     "AttentionLMRunner", "BucketLadder", "ContinuousBatcher",
     "DispatchPipeline", "DynamicBatcher", "PagePlan", "PagePool",
-    "ReplicaUnavailableError", "ServeRequest", "ServeResult",
+    "PrefixStore", "ReplicaUnavailableError", "ServeRequest", "ServeResult",
     "ServingClient", "ServingRunner", "ServingService", "ShedError",
     "connect_with_backoff", "default_pool_pages", "page_plan", "pages_of",
     "resolve_pipeline_depth",

@@ -28,17 +28,27 @@ PAGED mode (``paged=True`` / ``-serve_paged_kv``): every engine draws
 fixed-size KV pages from ONE shared :class:`~multiverso_tpu_torch.
 serving.paged.PagePool` through per-slot page tables; pool exhaustion
 QUEUES the request at admission, and a request that can never fit is
-shed. On a card the step reads the pool through B7
-(``ops/attention.py::paged_decode_attn``), one launch per layer; on the
-CPU through its plain gather formulation. The prefix store
-(``prefix_entries > 0``) raises ``NotImplementedError`` (ROADMAP A9), and
-so do int8 pages (ROADMAP B7).
+shed. The pages hold ``kv_dtype`` payloads (f32, bf16, or int8 with a
+float32 scale a row, ``serving/quant.py``), encoded at prefill and at
+every step. On a card the step reads the pool through B7
+(``ops/attention.py::paged_decode_attn``), one launch per layer, int8
+pages dequantized by their scale planes inside it; on the CPU through its
+plain gather formulation.
+
+A :class:`~multiverso_tpu_torch.serving.prefix.PrefixStore`
+(``prefix_entries > 0``, paged only) shares prefill work and KV pages
+between requests with the same prompt: a claim probes the store and pins
+a hit's pages, the join aliases the shared prompt pages, copies the
+straddle page on extend (payload and scales, every layer) and skips the
+prefill; a fresh prefill publishes its prompt pages and first token when
+it is delivered. A dry pool first reclaims the store's retention, and a
+weights swap (the runner's monotonic version) invalidates it.
 
 Telemetry: ``serve.continuous.active`` gauge (occupied slots),
 ``serve.continuous.joins`` / ``serve.continuous.steps`` /
-``serve.continuous.batched_reads`` counters, ``serve.kv.*`` (pool), and
-the first-token / per-token latency histograms read from the device
-clock.
+``serve.continuous.batched_reads`` counters, ``serve.kv.*`` (pool),
+``serve.prefix.*`` (sharing), and the first-token / per-token latency
+histograms read from the device clock.
 """
 
 from __future__ import annotations
@@ -50,18 +60,19 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from multiverso_tpu_torch.ops.attention import paged_decode_attn
 from multiverso_tpu_torch.serving.batcher import (DynamicBatcher,
                                                   ServeRequest, ShedError)
 from multiverso_tpu_torch.serving.device_clock import DeviceClock
 from multiverso_tpu_torch.serving.paged import (GARBAGE_PAGE, PagePlan,
                                                 PagePool, default_pool_pages,
                                                 page_plan, pages_of)
-from multiverso_tpu_torch.serving.quant import INT8_KV, storage_dtype
-from multiverso_tpu_torch.serving.runners import (PREFIX_CACHE, attn_scale,
-                                                  cache_read, decode_step,
-                                                  key_mask, paged_write,
-                                                  paginate, prefill)
+from multiverso_tpu_torch.serving.prefix import PrefixEntry, PrefixStore
+from multiverso_tpu_torch.serving.quant import storage_dtype
+from multiverso_tpu_torch.serving.runners import (attn_scale, cache_read,
+                                                  decode_step, key_mask,
+                                                  paged_read, paged_write,
+                                                  prefill,
+                                                  write_prompt_pages)
 from multiverso_tpu_torch.telemetry import child_of, counter, emit_span, gauge
 from multiverso_tpu_torch.utils.log import check, log
 
@@ -118,10 +129,13 @@ class _PagedEngine(_SlotEngine):
     maps this engine's logical cache positions into the shared pool.
     ``slot_pages[s]`` is every physical page slot ``s`` holds a reference
     on (freed at delivery); idle slots' rows point at the garbage page so
-    their confined-garbage step writes land nowhere."""
+    their confined-garbage step writes land nowhere. ``pending_publish[s]``
+    is the prefix store's record of a fresh prefill (payload, shared
+    pages, straddle page, weights token), published at delivery, when the
+    first token is on the host anyway."""
 
     __slots__ = ("n_logical", "ptab", "ptab_dev", "ptab_dirty",
-                 "slot_pages")
+                 "slot_pages", "pending_publish")
 
     def __init__(self, bucket: int, max_batch: int, max_new: int,
                  page: int, device):
@@ -131,6 +145,7 @@ class _PagedEngine(_SlotEngine):
         self.ptab_dev = None
         self.ptab_dirty = True
         self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
+        self.pending_publish: List[Optional[tuple]] = [None] * max_batch
 
     def device_ptab(self, device) -> torch.Tensor:
         """The page table on ``device``: a copy, remade when dirty."""
@@ -141,13 +156,16 @@ class _PagedEngine(_SlotEngine):
 
 
 class _PagedClaim:
-    """Pages reserved for one queued request at claim time (under the
-    batcher cv). Released on every shed path, consumed by the join."""
+    """Pages and the prefix pin reserved for one queued request at claim
+    time (under the batcher cv). Released on every shed path, consumed by
+    the join."""
 
-    __slots__ = ("plan", "pages")
+    __slots__ = ("plan", "entry", "pages")
 
-    def __init__(self, plan, pages):
+    def __init__(self, plan: PagePlan, entry: Optional[PrefixEntry],
+                 pages: List[int]):
         self.plan = plan
+        self.entry = entry
         self.pages = pages
 
 
@@ -162,12 +180,12 @@ class ContinuousBatcher(DynamicBatcher):
     per iteration. ``max_wait_ms`` is pinned to 0.
 
     Paged-mode knobs: ``paged`` switches the engines onto the shared page
-    pool; ``kv_dtype`` ('f32'|'bf16') the page storage; ``page`` the page
-    size in token positions; ``pool_pages`` the pool capacity (None =
-    auto: full backing for every bucket engine; set LOWER to enforce a
-    memory budget, exhaustion queues). ``kv_dtype="int8"`` and
-    ``prefix_entries > 0`` raise ``NotImplementedError`` (ROADMAP B7,
-    A9). The engines live on the runner's device."""
+    pool; ``kv_dtype`` ('f32'|'bf16'|'int8') the page storage codec;
+    ``page`` the page size in token positions; ``pool_pages`` the pool
+    capacity (None = auto: full backing for every bucket engine; set LOWER
+    to enforce a memory budget, exhaustion queues); ``prefix_entries``
+    the prefix store's capacity (0 = off; needs ``paged``). The engines
+    live on the runner's device."""
 
     def __init__(self, runner, buckets: Sequence[int],
                  max_batch: int = 8, max_queue: int = 64,
@@ -191,10 +209,6 @@ class ContinuousBatcher(DynamicBatcher):
         check(prefix_entries == 0 or self.paged,
               "the prefix cache shares KV pages and requires the paged "
               "cache (-serve_paged_kv)")
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(INT8_KV)
-        if prefix_entries > 0:
-            raise NotImplementedError(PREFIX_CACHE)
         self.device = runner.device
         self.clock = DeviceClock(self.device)
         # Engines + slot accounting exist BEFORE super().__init__ starts
@@ -206,7 +220,9 @@ class ContinuousBatcher(DynamicBatcher):
         self._c_steps = counter("serve.continuous.steps")
         self._c_batched_reads = counter("serve.continuous.batched_reads")
         self._c_pool_exhausted = counter("serve.kv.pool_exhausted")
+        self._c_cow = counter("serve.prefix.copy_on_extend")
         self.pool: Optional[PagePool] = None
+        self.prefix: Optional[PrefixStore] = None
         if self.paged:
             n_pages = int(pool_pages) if pool_pages else \
                 default_pool_pages(buckets, max_batch, self.max_new,
@@ -214,6 +230,8 @@ class ContinuousBatcher(DynamicBatcher):
             self.pool = PagePool(n_pages, cfg.layers, cfg.heads,
                                  self.page, cfg.dim // cfg.heads,
                                  self.kv_dtype, device=self.device)
+            if prefix_entries > 0:
+                self.prefix = PrefixStore(self.pool, prefix_entries)
         super().__init__(runner, buckets, max_batch=max_batch,
                          max_wait_ms=0.0, max_queue=max_queue,
                          pipeline_depth=0)
@@ -269,12 +287,14 @@ class ContinuousBatcher(DynamicBatcher):
         """One prompt into its pages: ``pages`` [ceil(bucket/page)] are
         the slot's physical ids for the prompt-region logical pages
         (garbage page 0 for unbacked pad pages, whose writes are never
-        attended). The scale planes ``ks``/``vs`` stay ones (f32/bf16)."""
+        attended). K and V are encoded in ``kv_dtype``; int8 writes each
+        row's scale into ``ks``/``vs``."""
         pages = pages.long()
+        pool = (kp, vp, ks, vs)
 
         def write(i, k, v):
-            kp[:, i][pages] = paginate(k, self.page).to(kp.dtype)
-            vp[:, i][pages] = paginate(v, self.page).to(vp.dtype)
+            write_prompt_pages(pool, i, pages, k, v, self.page,
+                               self.kv_dtype)
 
         first = prefill(params, self.cfg, tokens, length.clamp(min=1),
                         self.runner_ref.posenc(bucket), write)
@@ -284,26 +304,38 @@ class ContinuousBatcher(DynamicBatcher):
 
     def _step_paged_fn(self, bucket, params, lengths, t, ptab, kp, vp,
                        ks, vs, out, tok):
-        """The per-slot-counter step over paged storage: store the new
-        token's K/V in each slot's CURRENT generated page (idle slots'
-        tables point at the garbage page), then read the slot's pages
-        through ``paged_decode_attn`` (B7 on a card)."""
+        """The per-slot-counter step over paged storage: encode the new
+        token's K/V and store it in each slot's CURRENT generated page
+        (idle slots' tables point at the garbage page), then read the
+        slot's pages through ``paged_decode_attn`` (B7 on a card, with
+        the scale planes for int8)."""
         S, N, P = bucket, self.max_new, self.page
         B = tok.shape[0]
         scale = attn_scale(self.cfg.dim // self.cfg.heads)
         rows = torch.arange(B, device=tok.device)
         gphys = ptab.gather(1, ((S + t) // P).long()[:, None])[:, 0]
         goff = (S + t) % P
+        pool = (kp, vp, ks, vs)
 
         def attend(i, q, k, v):
-            paged_write(kp[:, i], vp[:, i], gphys, goff, k, v)
-            return paged_decode_attn(q, kp[:, i], vp[:, i], ptab, lengths,
-                                     t, bucket=S, page=P, scale=scale)
+            paged_write(pool, i, gphys, goff, k, v, self.kv_dtype)
+            return paged_read(pool, i, q, ptab, lengths, t, bucket=S,
+                              page=P, scale=scale)
 
         nxt = decode_step(params, self.cfg, tok, lengths + t,
                           self.runner_ref.posenc(S), attend)
         out[rows, (t + 1).clamp(0, N - 1).long()] = nxt
         return kp, vp, ks, vs, out, nxt
+
+    @staticmethod
+    def _copy_page_fn(src: int, dst: int, kp, vp, ks, vs):
+        """Copy-on-extend: clone physical page ``src`` into ``dst`` (a
+        prefix sharer's straddle page), payload and scale planes of every
+        layer, in place, in stream order after every launch queued
+        before it."""
+        for t in (kp, vp, ks, vs):
+            t[dst].copy_(t[src])
+        return kp, vp, ks, vs
 
     # -- engine management ---------------------------------------------------
     def _engine_for(self, bucket: int) -> _SlotEngine:
@@ -432,7 +464,7 @@ class ContinuousBatcher(DynamicBatcher):
                     req._paged_doomed = True
                     claims.append(req)
                     continue
-                if pool_blocked or not self._reserve_paged(req, plan):
+                if pool_blocked or not self._reserve_paged(req, b, plan):
                     if not pool_blocked:
                         pool_blocked = True
                         self._c_pool_exhausted.inc()
@@ -446,13 +478,39 @@ class ContinuousBatcher(DynamicBatcher):
             self._active[b] += n
         return claims
 
-    def _reserve_paged(self, req: ServeRequest, plan: PagePlan) -> bool:
-        """Allocate the backed pages the slot will own. False = the pool
-        is exhausted; the request keeps its queue position."""
-        pages = self.pool.alloc(len(plan.shared) + len(plan.private))
+    def _params_token(self) -> int:
+        """The prefix store's weights token: the runner's MONOTONIC swap
+        version (object identity would be unsound: a freed dict's address
+        can come back after two swaps)."""
+        fn = getattr(self.runner_ref, "params_versioned", None)
+        if fn is None:          # foreign runner: identity is best-effort
+            return id(self.runner_ref.params_ref())
+        return int(fn()[1])
+
+    def _reserve_paged(self, req: ServeRequest, bucket: int,
+                       plan: PagePlan) -> bool:
+        """Pin the prefix entry (when the store knows this prompt) and
+        allocate the pages the slot will own. A dry pool first RECLAIMS
+        the store's retention (cache bytes yield to live admissions:
+        retained pages could otherwise starve the pool, since the store
+        evicts only on publish and a publish needs a completed request).
+        False = the pool is exhausted; the request keeps its queue
+        position."""
+        entry = None
+        if self.prefix is not None:
+            entry = self.prefix.probe(req.payload, bucket,
+                                      self._params_token())
+        need = len(plan.private) if entry is not None \
+            else len(plan.shared) + len(plan.private)
+        pages = self.pool.alloc(need)
+        if pages is None and self.prefix is not None:
+            if self.prefix.reclaim(need - self.pool.free_pages()) > 0:
+                pages = self.pool.alloc(need)
         if pages is None:
+            if entry is not None:
+                self.prefix.release(entry)
             return False
-        req._paged_claim = _PagedClaim(plan, pages)
+        req._paged_claim = _PagedClaim(plan, entry, pages)
         return True
 
     def _release_claim(self, req: ServeRequest) -> None:
@@ -461,6 +519,8 @@ class ContinuousBatcher(DynamicBatcher):
         if claim is None:
             return
         req._paged_claim = None
+        if claim.entry is not None:
+            self.prefix.release(claim.entry)
         if claim.pages:
             self.pool.decref(claim.pages)
 
@@ -508,7 +568,9 @@ class ContinuousBatcher(DynamicBatcher):
         """Prefill one prompt into a free KV-cache slot. The join is a
         device launch like any step, so it lands exactly at a step
         boundary of everything already decoding in this engine. Paged
-        joins wire the slot's page table first."""
+        joins wire the slot's page table first; a prefix hit skips the
+        prefill (the shared pages hold the prompt's K/V and the entry the
+        first greedy token)."""
         eng = self._engine_for(bucket)
         slot = eng.free_slot()
         try:
@@ -519,11 +581,10 @@ class ContinuousBatcher(DynamicBatcher):
             tokens = torch.tensor(tokens, device=self.device)
             length = torch.tensor([max(n, 1)], dtype=torch.int32,
                                   device=self.device)
-            params = self.runner_ref.params_ref()
             if self.paged:
-                self._join_paged(req, eng, slot, bucket, params, tokens,
-                                 length)
+                self._join_paged(req, eng, slot, bucket, tokens, length)
             else:
+                params = self.runner_ref.params_ref()
                 eng.ck, eng.cv, eng.out, eng.tok = self._prefill_fn(
                     params, tokens, length, slot, eng.ck, eng.cv, eng.out,
                     eng.tok)
@@ -544,22 +605,61 @@ class ContinuousBatcher(DynamicBatcher):
         self._g_inflight.set(self._total_active())
 
     def _join_paged(self, req: ServeRequest, eng: _PagedEngine, slot: int,
-                    bucket: int, params, tokens, length) -> None:
+                    bucket: int, tokens, length) -> None:
         claim: Optional[_PagedClaim] = getattr(req, "_paged_claim", None)
         check(claim is not None, "paged join without a page claim")
         # The claim stays ON the request until the slot owns everything:
         # a failure below propagates to _join's handler, whose
-        # _release_claim gives the pages back exactly once.
-        plan, pages = claim.plan, claim.pages
+        # _release_claim gives the pinned entry and the pages back exactly
+        # once. Only the last line hands them to the slot.
+        plan, entry, pages = claim.plan, claim.entry, claim.pages
         row = np.zeros(eng.n_logical, dtype=np.int32)
-        for logical, phys in zip((*plan.shared, *plan.private), pages):
-            row[logical] = phys
-        prompt_pages = torch.tensor(row[:plan.n_prompt], device=self.device)
+        versioned = getattr(self.runner_ref, "params_versioned", None)
+        if versioned is not None:
+            params, params_token = versioned()
+        else:
+            params = self.runner_ref.params_ref()
+            params_token = id(params)
         kp, vp, ks, vs = self.pool.arrays()
-        _, _, _, _, eng.out, eng.tok = self._prefill_paged_fn(
-            bucket, params, tokens, length, slot, prompt_pages, kp, vp, ks,
-            vs, eng.out, eng.tok)
-        eng.slot_pages[slot] = list(pages)
+        if entry is not None:
+            # Prefix hit: alias the shared prompt pages, own the private
+            # generated pages; the straddle page (prompt tail + generated
+            # head) copies on extend when it holds real prompt tokens.
+            for logical, phys in zip(plan.shared, entry.shared_pages):
+                row[logical] = phys
+            for logical, phys in zip(plan.private, pages):
+                row[logical] = phys
+            if plan.straddle_has_prompt:
+                check(entry.straddle_page is not None,
+                      "prefix entry lost its straddle page")
+                dst = pages[plan.private.index(plan.straddle)]
+                self._copy_page_fn(entry.straddle_page, dst, kp, vp, ks, vs)
+                self._c_cow.inc()
+            eng.out[slot, 0] = entry.first_token
+            eng.tok[slot] = entry.first_token
+            eng.slot_pages[slot] = list(entry.pages()) + list(pages)
+            self.prefix.consume(entry)
+        else:
+            shared = pages[:len(plan.shared)]
+            private = pages[len(plan.shared):]
+            for logical, phys in zip(plan.shared, shared):
+                row[logical] = phys
+            for logical, phys in zip(plan.private, private):
+                row[logical] = phys
+            prompt_pages = torch.tensor(row[:plan.n_prompt],
+                                        device=self.device)
+            _, _, _, _, eng.out, eng.tok = self._prefill_paged_fn(
+                bucket, params, tokens, length, slot, prompt_pages, kp, vp,
+                ks, vs, eng.out, eng.tok)
+            eng.slot_pages[slot] = list(pages)
+            if self.prefix is not None:
+                straddle_phys = None
+                if plan.straddle_has_prompt:
+                    straddle_phys = private[plan.private.index(
+                        plan.straddle)]
+                eng.pending_publish[slot] = (
+                    np.array(req.payload, np.int32, copy=True), shared,
+                    straddle_phys, params_token)
         eng.ptab[slot] = row
         eng.ptab_dirty = True
         req._paged_claim = None         # the slot owns the pages now
@@ -586,12 +686,30 @@ class ContinuousBatcher(DynamicBatcher):
                 if r is not None:
                     eng.t[i] += 1
 
+    def _publish_pending(self, eng, slot: int, row) -> None:
+        """The deferred prefix publish at delivery: the first token is in
+        the delivered row on the host, and the store takes its page
+        references BEFORE the slot drops its own (below), so an entry
+        never holds freed pages."""
+        pending = eng.pending_publish[slot]
+        eng.pending_publish[slot] = None
+        if pending is None or self.prefix is None \
+                or not isinstance(row, np.ndarray):
+            return
+        payload, shared, straddle_phys, params_token = pending
+        try:
+            self.prefix.publish(payload, eng.bucket, int(row[0]), shared,
+                                straddle_phys, params_token)
+        except Exception as e:  # noqa: BLE001 - a publish failure loses
+            log.error("prefix publish failed: %s", e)  # only reuse
+
     def _free_slot_pages(self, eng, slot: int) -> None:
         """Return a paged slot's page references and point its table row
         at the garbage page (an idle slot's confined-garbage step writes
         must never land in a page someone else now owns)."""
         if not self.paged:
             return
+        eng.pending_publish[slot] = None
         pages = eng.slot_pages[slot]
         eng.slot_pages[slot] = []
         eng.ptab[slot, :] = GARBAGE_PAGE
@@ -660,6 +778,8 @@ class ContinuousBatcher(DynamicBatcher):
                 eng.reqs[i] = None
                 eng.lengths[i] = 1
                 eng.t[i] = 0
+                if self.paged:
+                    self._publish_pending(eng, i, row)
                 self._free_slot_pages(eng, i)
                 self._unclaim(eng.bucket)
                 if r.ctx is not None and r.ctx.sampled:

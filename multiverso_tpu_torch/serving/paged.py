@@ -25,12 +25,15 @@ arithmetic, copied so that the plans come out identical. Pages are
 host-refcounted; physical page 0 is the garbage sink for unbacked logical
 pages (its keys are always masked). On a card the decode step reads the
 pool through B7 (``ops/attention.py::paged_decode_attn``), which takes
-float32 or bfloat16 pages; int8 pages raise ``NotImplementedError``
-(ROADMAP B7). The scale planes ``ks``/``vs`` keep the JAX layout and stay
-ones: f32 and bf16 carry no real scale.
+float32, bfloat16 or int8 pages. The scale planes ``ks``/``vs`` keep the
+JAX layout: an int8 pool's per-row float32 scales, which B7 reads beside
+each key and value row; ones for f32 and bf16, which carry no real
+scale. Prefix sharing (``serving/prefix.py``) aliases the shared prompt
+pages and copies a straddle page, payload and scales, on extend.
 
-Telemetry: ``serve.kv.pages_used`` / ``serve.kv.pages_free`` gauges and
-the ``serve.kv.pool_grows`` counter.
+Telemetry: ``serve.kv.pages_used`` / ``serve.kv.pages_free`` gauges,
+``serve.kv.page_evictions`` counter (prefix-store evictions returning
+pages) and the ``serve.kv.pool_grows`` counter.
 """
 
 
@@ -42,8 +45,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from multiverso_tpu_torch.parallel.device import resolve_device
-from multiverso_tpu_torch.serving.quant import (INT8_KV, has_scale,
-                                                storage_dtype, torch_dtype)
+from multiverso_tpu_torch.serving.quant import (has_scale, storage_dtype,
+                                                torch_dtype)
 from multiverso_tpu_torch.telemetry import counter, gauge
 from multiverso_tpu_torch.utils.configure import flag_or
 from multiverso_tpu_torch.utils.locks import make_lock
@@ -121,7 +124,8 @@ class PagePool:
 
     Tensors: ``kp``/``vp`` payload ``[capacity+1, layers, heads, page,
     dh]`` in the storage dtype, ``ks``/``vs`` scale planes ``[capacity+1,
-    layers, heads, page, 1]`` (float32 ones). Index 0 is the reserved
+    layers, heads, page, 1]`` (float32: int8's per-row scales, ones for
+    f32 and bf16). Index 0 is the reserved
     garbage page. The tensors are OWNED by whoever is dispatching (the
     single batcher worker thread), which updates them in place; the
     allocator (:meth:`alloc`/:meth:`incref`/:meth:`decref`) is
@@ -136,8 +140,6 @@ class PagePool:
         self.page = int(page)
         self.layers, self.heads, self.dh = int(layers), int(heads), int(dh)
         self.kv_dtype = storage_dtype(kv_dtype)
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(INT8_KV)
         self.device = resolve_device(flag_or("platform", ""), device)
         shape = (self.capacity + 1, layers, heads, page, dh)
         dt = torch_dtype(self.kv_dtype)
@@ -155,6 +157,7 @@ class PagePool:
         self._g_used = gauge("serve.kv.pages_used")
         self._g_free = gauge("serve.kv.pages_free")
         self._c_grow = counter("serve.kv.pool_grows")
+        self._c_evict = counter("serve.kv.page_evictions")
         self._publish_locked()
 
     # -- device tensors ------------------------------------------------------
@@ -235,9 +238,10 @@ class PagePool:
                 check(p in self._ref, f"incref of unallocated page {p}")
                 self._ref[p] += 1
 
-    def decref(self, pages) -> int:
+    def decref(self, pages, evicting: bool = False) -> int:
         """Drop one reference per page; pages reaching zero return to
-        the free list. Returns how many freed."""
+        the free list. Returns how many freed. ``evicting`` tags the
+        frees as prefix-store evictions for the counter."""
         freed = 0
         with self._lock:
             for p in pages:
@@ -251,6 +255,8 @@ class PagePool:
                     freed += 1
             if freed:
                 self._publish_locked()
+        if freed and evicting:
+            self._c_evict.inc(freed)
         return freed
 
     def _publish_locked(self) -> None:

@@ -15,10 +15,13 @@ Two cache layouts, as in the JAX package:
   K and V cache per bucket, updated in place call over call (the JAX
   package donates it back to itself);
 * paged (``paged=True``): one shared :class:`~multiverso_tpu_torch.
-  serving.paged.PagePool` and a per-row page table. The step writes the
-  new token's K/V into its page, then reads the pool through
-  ``ops/attention.py::paged_decode_attn``: B7 on a card, the plain
-  gather formulation on the CPU.
+  serving.paged.PagePool` and a per-row page table. The step encodes the
+  new token's K/V in the pool's storage codec (``kv_dtype``: f32, bf16,
+  or int8 with per-row scales, ``serving/quant.py``), writes payload and
+  scale into its page, then reads the pool through
+  ``ops/attention.py::paged_decode_attn``: B7 on a card (int8 pages
+  dequantized by their scale planes inside it), the plain gather
+  formulation on the CPU.
 
 The decode math lives here once (:func:`prefill`, :func:`decode_step`,
 the two attention reads) and ``serving/continuous.py`` calls it too: the
@@ -48,7 +51,8 @@ from multiverso_tpu_torch.ops.attention import paged_decode_attn
 from multiverso_tpu_torch.parallel.device import resolve_device
 from multiverso_tpu_torch.serving.device_clock import DeviceClock
 from multiverso_tpu_torch.serving.paged import PagePool, page_plan, pages_of
-from multiverso_tpu_torch.serving.quant import INT8_KV, storage_dtype
+from multiverso_tpu_torch.serving.quant import (encode_rows, has_scale,
+                                                storage_dtype)
 from multiverso_tpu_torch.utils.configure import flag_or
 from multiverso_tpu_torch.utils.locks import make_lock
 from multiverso_tpu_torch.utils.log import check
@@ -59,9 +63,6 @@ except ImportError:      # pragma: no cover - ancient interpreter
     Protocol = object
 
 Params = Dict[str, torch.Tensor]
-
-PREFIX_CACHE = ("the prefix cache (prefix_entries > 0, -serve_prefix_cache) "
-                "is not ported yet: ROADMAP A9 (serving/prefix.py)")
 
 
 class ServingRunner(Protocol):
@@ -198,14 +199,47 @@ def paginate(t: torch.Tensor, page: int) -> torch.Tensor:
     return w.transpose(2, 3).reshape(B * n_pp, H, page, dh)
 
 
-def paged_write(kp_i: torch.Tensor, vp_i: torch.Tensor, gphys: torch.Tensor,
-                goff: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Store the new token's K/V [B, H, dh] of every row at row ``goff``
-    of page ``gphys`` (both [B]) of one layer's pool, in place."""
+def write_prompt_pages(pool, i: int, pages: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, page: int, kv_dtype: str) -> None:
+    """Store layer ``i``'s prompt K/V [B, H, S, dh] in the codec
+    ``kv_dtype``, page-major (:func:`paginate`), into the physical
+    ``pages`` [B * ceil(S/page)] (long) of ``pool`` = ``(kp, vp, ks, vs)``,
+    payload and, for int8, scale, in place: the JAX prefill's
+    ``encode_rows`` then ``.at[pages, i].set``."""
+    kp, vp, ks, vs = pool
+    for pay, sc, x in ((kp, ks, k), (vp, vs, v)):
+        q, scale = encode_rows(paginate(x, page), kv_dtype)
+        pay[:, i][pages] = q
+        if has_scale(kv_dtype):
+            sc[:, i][pages] = scale
+
+
+def paged_write(pool, i: int, gphys: torch.Tensor, goff: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor, kv_dtype: str) -> None:
+    """Store the new token's K/V [B, H, dh] of every row in the codec
+    ``kv_dtype`` at row ``goff`` of page ``gphys`` (both [B]) of layer
+    ``i`` of ``pool`` = ``(kp, vp, ks, vs)``, payload and, for int8,
+    scale, in place."""
+    kp, vp, ks, vs = pool
     heads = torch.arange(k.shape[1], device=k.device)[None, :]
     idx = (gphys.long()[:, None], heads, goff.long()[:, None])
-    kp_i[idx] = k.to(kp_i.dtype)
-    vp_i[idx] = v.to(vp_i.dtype)
+    for pay, sc, x in ((kp, ks, k), (vp, vs, v)):
+        q, scale = encode_rows(x, kv_dtype)
+        pay[:, i][idx] = q
+        if has_scale(kv_dtype):
+            sc[:, i][idx] = scale
+
+
+def paged_read(pool, i: int, q: torch.Tensor, ptab: torch.Tensor,
+               lengths: torch.Tensor, t: torch.Tensor, *, bucket: int,
+               page: int, scale: float) -> torch.Tensor:
+    """Layer ``i``'s attention read of ``pool`` = ``(kp, vp, ks, vs)``:
+    B7 on a card (int8 pages with their scale planes), its plain version
+    on the CPU."""
+    kp, vp, ks, vs = pool
+    return paged_decode_attn(q, kp[:, i], vp[:, i], ptab, lengths, t,
+                             bucket=bucket, page=page, scale=scale,
+                             ks=ks[:, i], vs=vs[:, i])
 
 
 class AttentionLMRunner:
@@ -216,8 +250,7 @@ class AttentionLMRunner:
     ``mlp_in_i``, ``mlp_out_i``, ``out``), checked by name, shape and
     dtype before anything is moved to ``device`` (the card unless
     ``device`` or ``-platform=cpu`` says otherwise). ``kv_dtype``
-    "f32"/"bf16" (bf16 needs ``paged``); "int8" raises
-    ``NotImplementedError`` (ROADMAP B7)."""
+    "f32", "bf16" or "int8" (the last two need ``paged``)."""
 
     name = "attention_lm"
     payload_dtype = np.int32
@@ -235,8 +268,6 @@ class AttentionLMRunner:
         self.max_batch = int(max_batch)
         self.paged = bool(paged)
         self.kv_dtype = storage_dtype(kv_dtype)
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(INT8_KV)
         self.page = int(page)
         self.pool_pages = pool_pages
         check(self.kv_dtype == "f32" or self.paged,
@@ -351,26 +382,29 @@ class AttentionLMRunner:
 
     def _decode_paged(self, params: Params, tokens: torch.Tensor,
                       lengths: torch.Tensor, ptab: torch.Tensor,
-                      kp: torch.Tensor, vp: torch.Tensor) -> tuple:
-        """The paged drain decode: prompt K/V scattered into the pages of
-        ``ptab``'s prompt region, then each step's K/V into its page and
-        the read through ``paged_decode_attn`` (B7 on a card)."""
+                      pool: PagePool) -> tuple:
+        """The paged drain decode: prompt K/V encoded and scattered into
+        the pages of ``ptab``'s prompt region, then each step's K/V into
+        its page and the read through ``paged_decode_attn`` (B7 on a
+        card)."""
         B, S = tokens.shape
         P = self.page
         n_pp = pages_of(S, P)
         scale = attn_scale(self.cfg.dim // self.cfg.heads)
         prompt_pages = ptab[:, :n_pp].reshape(-1).long()
 
+        arrays = pool.arrays()
+
         def write(i, k, v):
-            kp[:, i][prompt_pages] = paginate(k, P).to(kp.dtype)
-            vp[:, i][prompt_pages] = paginate(v, P).to(vp.dtype)
+            write_prompt_pages(arrays, i, prompt_pages, k, v, P,
+                               self.kv_dtype)
 
         def attend(t, tt, mask, i, q, k, v):
             gphys = ptab[:, (S + t) // P]
             goff = torch.full_like(gphys, (S + t) % P)
-            paged_write(kp[:, i], vp[:, i], gphys, goff, k, v)
-            return paged_decode_attn(q, kp[:, i], vp[:, i], ptab, lengths,
-                                     tt, bucket=S, page=P, scale=scale)
+            paged_write(arrays, i, gphys, goff, k, v, self.kv_dtype)
+            return paged_read(arrays, i, q, ptab, lengths, tt, bucket=S,
+                              page=P, scale=scale)
 
         return self._decode(params, tokens, lengths, ptab.shape[1] * P,
                             write, attend)
@@ -414,7 +448,7 @@ class AttentionLMRunner:
             tokens, lens = self._tensors(batch, lengths)
             out, first, last = self._decode_paged(
                 params, tokens, lens, torch.tensor(ptab, device=self.device),
-                pool.kp, pool.vp)
+                pool)
         except Exception:
             pool.decref(pages)      # a failed launch must not leak pages
             raise

@@ -105,9 +105,7 @@ class ServingService:
         ``kv_pages``/``prefix_entries``: the decode memory hierarchy
         (docs/SERVING.md) — None reads ``-serve_paged_kv`` /
         ``-serve_kv_dtype`` / ``-serve_kv_page`` / ``-serve_kv_pages`` /
-        ``-serve_prefix_cache``. int8 KV and the prefix cache raise
-        ``NotImplementedError`` here, before any batcher is built
-        (ROADMAP B7, A9)."""
+        ``-serve_prefix_cache``."""
         if pipeline_depth is None:
             pipeline_depth = _flag_or("serve_pipeline_depth", "auto")
         if continuous is None:
@@ -125,19 +123,13 @@ class ServingService:
         # Config validation OUTSIDE the degrade guard below: a bad flag
         # combination must fail bring-up loudly — only a genuine
         # checkpoint-layout incompatibility degrades to drain batching.
-        from multiverso_tpu_torch.serving.quant import (INT8_KV,
-                                                        storage_dtype)
-        from multiverso_tpu_torch.serving.runners import PREFIX_CACHE
+        from multiverso_tpu_torch.serving.quant import storage_dtype
         kv_dtype = storage_dtype(kv_dtype)
         check(int(kv_page) >= 1, "-serve_kv_page must be >= 1")
         check(kv_dtype == "f32" or paged,
               "-serve_kv_dtype requires -serve_paged_kv")
         check(int(prefix_entries) == 0 or paged,
               "-serve_prefix_cache requires -serve_paged_kv")
-        if kv_dtype == "int8":
-            raise NotImplementedError(INT8_KV)
-        if int(prefix_entries) > 0:
-            raise NotImplementedError(PREFIX_CACHE)
         # Reserve the id under the lock, BUILD OUTSIDE it, publish under
         # it again. Batcher construction spawns dispatcher threads and —
         # with pipeline_depth="auto" — runs a measured device-sync

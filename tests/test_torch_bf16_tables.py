@@ -7,8 +7,8 @@ on the uint16 patterns (the port's float32 read rounded back to bfloat16
 is exact). Covered: the numpy-seeded random init, dense Adds, and row
 Adds with duplicate rows (XLA folds each row's duplicates in lane order
 with a rounding after every add; ``index_add_`` does not), for the
-default and sgd updaters; the store payload; and the refusal of a
-stateful updater on such a table (ROADMAP A13).
+default and sgd updaters; the store payload; and the stateful updaters'
+tables (ROADMAP A13; their parity is ``test_torch_bf16_updaters.py``).
 """
 
 import numpy as np
@@ -128,7 +128,9 @@ def test_index_add_is_not_the_jax_fold(both):
 
 def test_dtype_is_read_by_name(both):
     """A numpy dtype named bfloat16 (the JAX package's) and the string
-    give the same table; a stateful updater on it waits (ROADMAP A13)."""
+    give the same table; every stateful updater runs on it (ROADMAP A13),
+    with the state leaves in the JAX ``init_state`` dtypes, and a
+    ``use_pallas`` one takes the plain route."""
     _, mvt = both
     a = mvt.create_table(mvt.MatrixTableOption(4, 3, dtype="bfloat16"))
     b = mvt.create_table(mvt.MatrixTableOption(
@@ -138,7 +140,19 @@ def test_dtype_is_read_by_name(both):
     c = mvt.create_table(mvt.MatrixTableOption(4, 3, dtype="bfloat16",
                                                use_pallas=True))
     assert not c.store._pallas_rows       # the row kernels take float32
-    for updater in ("adagrad", "momentum_sgd", "ftrl"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            mvt.create_table(mvt.MatrixTableOption(4, 3, dtype="bfloat16",
-                                                   updater=updater))
+    leaf_dtypes = {"momentum_sgd": {"smooth": torch.bfloat16},
+                   "adagrad": {"g2": torch.float32},
+                   "ftrl": {"z": torch.float32, "n": torch.float32},
+                   "dcasgd": {"backup": torch.float32},
+                   "dcasgda": {"backup": torch.float32, "m": torch.float32}}
+    for updater, leaves in leaf_dtypes.items():
+        for use_pallas in (False, True):
+            t = mvt.create_table(mvt.MatrixTableOption(
+                4, 3, dtype="bfloat16", updater=updater,
+                use_pallas=use_pallas))
+            assert t.store.torch_dtype == torch.bfloat16
+            assert not t.store._pallas_rows, updater
+            assert {k: v.dtype for k, v in t.store.state.items()} == leaves
+            t.add_rows([1, 1, 3], np.ones((3, 3), np.float32),
+                       mvt.AddOption(learning_rate=0.1, rho=0.1))
+            assert np.isfinite(t.get()).all() and (t.get()[[0, 2]] == 0).all()

@@ -179,10 +179,16 @@ def test_wrapper_refusals():
     T = torch.as_tensor
     kw = dict(bucket=bucket, page=page, scale=0.25)
     args = [T(q), T(kp), T(vp), T(ptab), T(lengths), T(t)]
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        attention.paged_decode_attn(
-            args[0], T(kp).to(torch.int8), T(vp).to(torch.int8),
-            *args[3:], **kw)
+    k8, v8 = T(kp).to(torch.int8), T(vp).to(torch.int8)
+    with pytest.raises(ValueError, match="scale planes"):
+        attention.paged_decode_attn(args[0], k8, v8, *args[3:], **kw)
+    ones = torch.ones(kp.shape[:3] + (1,))
+    with pytest.raises(ValueError, match="scales ks, vs"):
+        attention.paged_decode_attn(args[0], k8, v8, *args[3:], **kw,
+                                    ks=ones[:, :1], vs=ones)
+    with pytest.raises(ValueError, match="scales ks, vs"):
+        attention.paged_decode_attn(args[0], k8, v8, *args[3:], **kw,
+                                    ks=ones.double(), vs=ones)
     with pytest.raises(ValueError, match="page=3"):
         attention.paged_decode_attn(*args, bucket=bucket, page=3,
                                     scale=0.25)
@@ -214,6 +220,30 @@ def test_kernel_matches_plain_on_card(card):
         before = attention.LAUNCHES["paged_decode_attn"]
         got = attention.paged_decode_attn(*args, **kw)
         assert attention.LAUNCHES["paged_decode_attn"] == before + 1
+        want = attention.paged_decode_attn_plain(*args, **kw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_int8_kernel_matches_plain_on_card(card):
+    """B7's int8 instance against its plain version on the card: every
+    case's pool encoded by the serving codec, read through its scale
+    planes; every launch counted as an int8 one."""
+    from multiverso_tpu_torch.serving.quant import encode_rows
+    for name in CASES:
+        q, kp, vp, ptab, lengths, t, bucket, page, _ = _case(name)
+        (k8, ks), (v8, vs) = (encode_rows(torch.as_tensor(x).to(card),
+                                          "int8") for x in (kp, vp))
+        args = [torch.as_tensor(q).to(card), k8, v8,
+                *(torch.as_tensor(x).to(card) for x in (ptab, lengths, t))]
+        kw = dict(bucket=bucket, page=page, scale=0.35, ks=ks, vs=vs)
+        before = dict(attention.LAUNCHES)
+        got = attention.paged_decode_attn(*args, **kw)
+        assert attention.LAUNCHES["paged_decode_attn_int8"] == \
+            before["paged_decode_attn_int8"] + 1
+        assert attention.LAUNCHES["paged_decode_attn"] == \
+            before["paged_decode_attn"]
         want = attention.paged_decode_attn_plain(*args, **kw)
         torch.cuda.synchronize()
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),

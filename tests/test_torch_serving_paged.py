@@ -117,9 +117,21 @@ def test_page_pool_grows_keeping_pages_and_high_water(cpu):
 
 
 def test_int8_pool_raises(cpu):
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        paged.PagePool(2, layers=1, heads=1, page=2, dh=2, kv_dtype="int8",
-                       device=cpu)
+    """An int8 pool (a refusal until int8 KV was ported): int8 payloads,
+    float32 scale planes that growth carries (new pages' scales 1), and
+    page bytes that count the scales."""
+    pool = paged.PagePool(2, layers=1, heads=3, page=2, dh=4,
+                          kv_dtype="int8", device=cpu)
+    assert pool.kp.dtype == pool.vp.dtype == torch.int8
+    assert pool.ks.dtype == torch.float32 and pool.ks.shape == (3, 1, 3, 2, 1)
+    page = pool.alloc(1)[0]
+    pool.kp[page] = 7
+    pool.ks[page] = 0.5
+    pool.grow(4)
+    assert bool((pool.kp[page] == 7).all()) and \
+        bool((pool.ks[page] == 0.5).all())
+    assert bool((pool.ks[3:] == 1).all()) and bool((pool.kp[3:] == 0).all())
+    assert pool.page_bytes() == 2 * (1 * 3 * 2 * 4 * 1 + 1 * 3 * 2 * 4)
 
 
 def test_storage_codecs():
@@ -138,8 +150,11 @@ def test_storage_codecs():
     assert quant.bytes_per_element("int8") == 1.0
     assert quant.has_scale("int8") and not quant.has_scale("bf16")
     assert quant.STORAGE_DTYPES == ("f32", "bf16", "int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        quant.encode_rows(x, "int8")
+    payload, scale = quant.encode_rows(x, "int8")
+    assert payload.dtype == torch.int8 and scale.shape == (3, 4, 1)
+    back = quant.decode_rows(payload, scale, "int8")
+    assert float((back - x).abs().max()) <= \
+        quant.roundtrip_bound(x.numpy(), "int8") * (1 + 1e-6)
     from multiverso_tpu_torch.utils.log import FatalError
     with pytest.raises(FatalError):
         quant.storage_dtype("fp4")

@@ -295,25 +295,33 @@ def test_failed_launch_releases_pages(params, monkeypatch):
 
 
 def test_int8_kv_and_prefix_cache_raise(params):
+    """int8 KV and the prefix cache (refusals until they were ported)
+    build and serve on every surface: the drain runner, the continuous
+    batcher and ``ServingService.register_runner``."""
     from multiverso_tpu_torch.serving import (ContinuousBatcher,
                                               ServingService)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        ts.port_runner(params, paged=True, kv_dtype="int8")
+    drain = ts.port_runner(params, paged=True, kv_dtype="int8", page=4,
+                           max_new=3, max_batch=2)
+    assert len(ts.solo(drain, [5, 9, 2], 8)) == 3
+    assert drain._pool.kp.dtype == torch.int8
     runner = ts.port_runner(params, max_new=2, max_batch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP B7"):
-        ContinuousBatcher(runner, buckets=(8,), paged=True, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ContinuousBatcher(runner, buckets=(8,), paged=True,
-                          prefix_entries=8)
+    for kw in ({"kv_dtype": "int8"}, {"prefix_entries": 8},
+               {"kv_dtype": "int8", "prefix_entries": 8}):
+        cb = ContinuousBatcher(runner, buckets=(8,), paged=True, **kw)
+        try:
+            assert cb.pool.kv_dtype == kw.get("kv_dtype", "f32")
+            assert (cb.prefix is not None) == ("prefix_entries" in kw)
+        finally:
+            cb.close()
     svc = ServingService()
     try:
-        for kw, match in (({"kv_dtype": "int8"}, "ROADMAP B7"),
-                          ({"prefix_entries": 4}, "ROADMAP A9")):
-            with pytest.raises(NotImplementedError, match=match):
-                svc.register_runner(runner, buckets=(8,), max_batch=2,
-                                    continuous=True, paged=True,
-                                    pipeline_depth=0, **kw)
+        for rid, kw in enumerate(({"kv_dtype": "int8"},
+                                  {"prefix_entries": 4})):
+            svc.register_runner(runner, runner_id=rid, buckets=(8,),
+                                max_batch=2, continuous=True, paged=True,
+                                pipeline_depth=0, **kw)
+            assert isinstance(svc._batchers[rid], ContinuousBatcher)
     finally:
         svc.close()
 

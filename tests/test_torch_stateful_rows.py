@@ -25,8 +25,8 @@ Both sides get the same numpy inputs. Tolerance: BITWISE throughout.
   word2vec step: its card route (a stable sort, then B4) through B4's
   plain version, its CPU route (``index_add_``) and JAX's
   ``.at[].add(mode="drop")``, bitwise. JAX's ``.at[]`` wraps ids in
-  ``[-rows, 0)`` to the end of the table (NumPy indexing) where the port
-  drops every negative id, so the JAX side gets the non-negative lanes.
+  ``[-rows, 0)`` to the end of the table (NumPy indexing), and so does
+  ``add_rows_sorted`` (ROADMAP C5).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
@@ -483,9 +483,11 @@ def test_sort_rows_int32_keys_keep_the_int64_permutation(layout):
 @pytest.mark.parametrize("sign", [1.0, -1.0])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_add_rows_sorted_routes_bitwise(layout, sign):
-    """The card's route (a stable sort of int32 keys, then B4's plain
-    version), the CPU's (``index_add_`` over the kept lanes) and JAX's
-    ``.at[ids].add(sign * values, mode="drop")``: one set of bits."""
+    """The card's route (the ids wrapped, a stable sort of int32 keys,
+    then B4's plain version), the CPU's (``index_add_`` over the kept
+    lanes) and JAX's ``.at[ids].add(sign * values, mode="drop")``: one set
+    of bits. JAX wraps an id in [-rows, 0) to the table's end before
+    ``mode="drop"``, and so does the port's route (ROADMAP C5)."""
     ids = LAYOUTS[layout]
     rng = np.random.default_rng(zlib.crc32(f"add/{layout}".encode()))
     cols = 8
@@ -493,19 +495,16 @@ def test_add_rows_sorted_routes_bitwise(layout, sign):
     table[rng.random(LAYOUT_ROWS) < 0.1] = -0.0
     values = chip_smoke.stateful_deltas(layout, len(ids), cols, rng)
     card = _t(table)
-    keys, order = rows.sort_rows(_t(ids), LAYOUT_ROWS)
+    wrapped = np.where(ids < 0, ids + LAYOUT_ROWS, ids)
+    keys, order = rows.sort_rows(_t(wrapped), LAYOUT_ROWS)
     rows.tiled_scatter_add_sorted_rows_plain(
         card, keys, _t(values).index_select(0, order), sign)
     cpu = rows.add_rows_sorted(_t(table), _t(ids), _t(values), sign)
-    keep = (ids >= 0) & (ids < LAYOUT_ROWS)
-    plain = _t(table).index_add_(0, _t(ids[keep]),
+    keep = (wrapped >= 0) & (wrapped < LAYOUT_ROWS)
+    plain = _t(table).index_add_(0, _t(wrapped[keep]),
                                  _t(values[keep]) * sign)
-    # JAX's .at[] wraps an id in [-rows, 0) to the end (NumPy indexing,
-    # before mode="drop"); the port drops every negative id, so those
-    # lanes are left out of the JAX side.
-    lanes = ids >= 0
-    want = np.asarray(jnp.asarray(table).at[_int32_range(ids[lanes])].add(
-        sign * jnp.asarray(values[lanes]), mode="drop"))
+    want = np.asarray(jnp.asarray(table).at[_int32_range(ids)].add(
+        sign * jnp.asarray(values), mode="drop"))
     for got in (card, cpu, plain):
         assert np.array_equal(_bits(got.numpy()), _bits(want)), layout
     assert rows.LAUNCHES["tiled_scatter_add_sorted_rows"] == 0
@@ -521,12 +520,14 @@ def test_add_rows_sorted_other_dtypes(dtype):
     tdt = getattr(torch, dtype)
     table = torch.as_tensor(rng.normal(size=(40, 5))).to(tdt)
     values = torch.as_tensor(rng.normal(size=(300, 5)) * 4).to(tdt)
-    keep = (ids >= 0) & (ids < 40)
+    wrapped = np.where(ids < 0, ids + 40, ids)      # ROADMAP C5
+    keep = (wrapped >= 0) & (wrapped < 40)
     got = rows.add_rows_sorted(table.clone(), _t(ids), values)
     if dtype == "bfloat16":
-        want = rows.add_rows_lane_order(table.clone(), _t(ids), values)
+        want = rows.add_rows_lane_order(table.clone(), _t(wrapped), values)
     else:
-        want = table.clone().index_add_(0, _t(ids[keep]), values[_t(keep)])
+        want = table.clone().index_add_(0, _t(wrapped[keep]),
+                                        values[_t(keep)])
     assert torch.equal(got, want)
     flat = rows.add_rows_sorted(table[:, 0].clone(), _t(ids), values[:, 0],
                                 sign=-1.0)

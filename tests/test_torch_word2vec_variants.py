@@ -332,8 +332,10 @@ def test_bfloat16_apply_update_bitwise(adagrad):
     jw, jg = jmodel._apply_update(jnp.asarray(w, jnp.bfloat16),
                                   jnp.asarray(g2), jnp.asarray(rows),
                                   jnp.asarray(grad), lr, adagrad)
-    tw = torch.as_tensor(w).bfloat16()
-    tg = torch.as_tensor(g2)
+    # Copies: jnp.asarray may alias w and g2 on the CPU, and JAX may not
+    # have read them yet when the port's in-place update writes.
+    tw = torch.tensor(w).bfloat16()
+    tg = torch.tensor(g2)
     tmodel._apply_update(tw, tg, torch.as_tensor(rows),
                          torch.as_tensor(grad), torch.tensor(lr), adagrad)
     assert tw.dtype == torch.bfloat16
@@ -355,7 +357,7 @@ def test_float32_apply_update_bitwise(adagrad):
     jw, jg = jmodel._apply_update(jnp.asarray(w), jnp.asarray(g2),
                                   jnp.asarray(rows), jnp.asarray(grad), lr,
                                   adagrad)
-    tw, tg = torch.as_tensor(w), torch.as_tensor(g2)
+    tw, tg = torch.tensor(w), torch.tensor(g2)     # copies, as above
     tmodel._apply_update(tw, tg, torch.as_tensor(rows),
                          torch.as_tensor(grad), torch.tensor(lr), adagrad)
     assert np.array_equal(np.asarray(jw).view(np.uint32),
