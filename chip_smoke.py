@@ -133,7 +133,35 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    per-token latency p50/p99 (device clock), request latency, the pool's
    high-water pages, the pipeline depth; for int8, the share of tokens
    equal to the float32 continuous run's (not gated);
-8. a JSON line of the kernels, the card line, and the result line.
+8. the rest of the table family, its storage, logreg and LDA (the card
+   line printed first; ``--seed`` makes the data, default 0): in one
+   session with 2 local workers, a 1,000,000 x 50 sgd ``use_pallas``
+   sparse matrix table and its ``is_pipeline`` twin (4 slots), each
+   taking 10 row Adds of 100,000 ids from worker 1, after each of which
+   worker 0's incremental Get must find exactly the touched rows stale
+   and leave its cache equal to ``get_rows`` and to the CPU replay (B1,
+   B2; the rows crossed and the ms of the incremental Get beside a
+   whole-table Get); device KV tables of 1<<20 slots x 50 (default and
+   adagrad, host-dict and device directories), 10 Adds of 100,000 Zipf
+   int64 keys over the whole int64 range, then Gets of present and
+   absent keys, bitwise a CPU replay of the directory (``ops/
+   device_hash`` on the CPU: its arrays, slots and the payload's
+   ``kv_keys``/``kv_slots``) and of the slab (B4, the fold; insert
+   rounds and probe steps per batch); a 1,000,000 x 50 ``use_pallas``
+   adagrad table (3 Adds, the fused route) and a bfloat16 table; then
+   ``save_all`` of all of them, a restart, ``load_all`` into fresh
+   tables, every payload bitwise and the bfloat16 file 2 bytes an
+   element (MB and seconds of each); ``CheckpointManager`` retention and
+   ``restore_latest``; LDA at V = 1,000,000, K = 1,000 on a Zipf corpus
+   of 2^20 tokens over 10,000 documents, blocks of 16,384, 2 sweeps (the
+   first block's topics equal to the CPU replay's with the same Gumbel
+   noise; counts conserved and non-negative; B4 once a block and once to
+   seed; tokens/sec); logreg through ``PSModel`` for one epoch of 20,000
+   samples at minibatch 20, softmax at MNIST's widths and FTRL at
+   rcv1.binary's (from a libsvm file), each then replayed on the CPU:
+   finite losses, a falling loss, weights within ``LR_RTOL`` /
+   ``LR_ATOL`` (samples/sec);
+9. a JSON line of the kernels, the card line, and the result line.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
@@ -163,7 +191,7 @@ once per int8 template instance (``PAGED_INT8_INSTANCES``) and on a page
 that does not divide the bucket, an idle slot and t = 0.
 
 Every launch count is set to 0 just before each main-path run of phases
-3, 4, 6 and 7 and read just after it, so the comparisons of phase 2 do
+3, 4, 6, 7 and 8 and read just after it, so the comparisons of phase 2 do
 not count.
 """
 
@@ -3487,7 +3515,583 @@ def serve_lm(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the rest of the table family, checkpoints, LDA and logreg
+# ---------------------------------------------------------------------------
+# The device KV table: 1<<20 value slots (a 2^21-bucket directory), rows of
+# 50; 10 Adds of 100,000 keys drawn by Zipf rank from 600,000 distinct
+# int64 keys over the whole int64 range.
+KV_CAPACITY, KV_DIM, KV_UNIVERSE, KV_ADDS = 1 << 20, 50, 600_000, 10
+SPARSE_ADDS = 10
+# LDA at the scale models/lda.py:91-94 names (lightLDA's word-topic
+# table): V = 1,000,000, K = 1,000 (4 GB of float32 counts), a Zipf corpus
+# of 2^20 tokens over 10,000 documents, the config's 16,384-token blocks,
+# 2 sweeps.
+LDA_V, LDA_K, LDA_DOCS, LDA_TOKENS = 1_000_000, 1_000, 10_000, 1 << 20
+LDA_BLOCK, LDA_SWEEPS = 16_384, 2
+# logreg: one epoch of 20,000 samples at the config's default minibatch
+# (20) through PSModel, at MNIST's widths (784 features + bias, 10
+# classes, softmax) and at LIBSVM rcv1.binary's (47,236 features, about
+# 74 nonzeros a row, FTRL), weights within LR_RTOL / LR_ATOL of a CPU
+# replay of the same minibatches (the matrix products sum in other
+# orders on the card).
+LR_SAMPLES, LR_HELD = 20_000, 2_000
+MNIST_FEATURES, MNIST_CLASSES = 784, 10
+RCV1_FEATURES, RCV1_NNZ = 47_236, 74
+RCV1_FTRL = dict(ftrl_alpha=0.5, ftrl_beta=1.0, ftrl_l1=1e-3, ftrl_l2=1e-3)
+LR_RTOL, LR_ATOL = 1e-5, 1e-6
+
+
+def zipf_ranks(rng, n: int, size: int, s: float = 1.0):
+    """``n`` ranks in [0, size) with P(k) proportional to 1 / (k+1)^s."""
+    import numpy as np
+    p = 1.0 / np.arange(1, size + 1, dtype=np.float64) ** s
+    return rng.choice(size, size=n, p=p / p.sum())
+
+
+def phase8_specs(mv) -> list:
+    """The tables of phase 8's first session, in creation order: (name,
+    option). The checkpoint's second session makes them again from here."""
+    M, K = mv.MatrixTableOption, mv.KVTableOption
+    specs = [("sparse", M(ROWS, COLS, is_sparse=True, use_pallas=True,
+                          updater="sgd", name="sparse")),
+             ("sparse_pipe", M(ROWS, COLS, is_sparse=True, is_pipeline=True,
+                               use_pallas=True, updater="sgd",
+                               name="sparse_pipe"))]
+    for updater in ("default", "adagrad"):
+        for dd in (False, True):
+            name = f"kv_{updater}_{'dir' if dd else 'host'}"
+            specs.append((name, K(device=True, device_directory=dd,
+                                  capacity=KV_CAPACITY, value_dim=KV_DIM,
+                                  updater=updater, name=name)))
+    specs.append(("ckpt_adagrad", M(ROWS, COLS, use_pallas=True,
+                                    updater="adagrad", name="ckpt_adagrad")))
+    specs.append(("ckpt_bf16", M(ROWS, COLS, dtype="bfloat16",
+                                 name="ckpt_bf16")))
+    return specs
+
+
+def sparse_tables(tables, seed: int) -> dict:
+    """The sparse matrix table (bench.py:301-313's 1,000,000 x 50, sgd,
+    ``use_pallas``) with 2 local workers, and its ``is_pipeline`` twin (4
+    slots): worker 1 makes 10 row Adds of 100,000 ids; after each, worker
+    0's incremental Get must have exactly the touched rows stale, cross
+    them, and leave its cache equal to ``get_rows`` and to the same Adds
+    replayed on the CPU; the cache ends bitwise the replayed table."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.core.options import AddOption, GetOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+
+    rng = np.random.default_rng(seed + 80)
+    out = {}
+    for name, slots in (("sparse", 2), ("sparse_pipe", 4)):
+        t = tables[name]
+        assert t.store._pallas_cap == "scatter_sub", t.store._pallas_cap
+        assert t._stale.shape == (slots, ROWS), t._stale.shape
+        replay = ServerStore(f"replay_{name}", (ROWS, COLS), np.float32,
+                             get_updater(np.float32, "sgd"),
+                             torch.device("cpu"), num_workers=2,
+                             use_pallas_rows=True)
+        w0, add1 = GetOption(worker_id=0), AddOption(worker_id=1)
+        first = t.get(w0)                    # everything crosses once
+        assert not first.any() and len(t.stale_rows(0)) == 0
+        t.get_stale(GetOption(worker_id=1))  # and the writer's view
+        t0 = time.perf_counter()
+        whole = t.get()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        assert whole.shape == (ROWS, COLS)
+        crossed, inc_ms = [], []
+        for _ in range(SPARSE_ADDS):
+            ids = rng.integers(0, ROWS, size=N_IDS).astype(np.int32)
+            deltas = rng.normal(size=(N_IDS, COLS)).astype(np.float32)
+            t.add_rows(ids, deltas, add1)
+            replay.apply_rows(ids, deltas, add1)
+            touched = np.unique(ids)
+            assert np.array_equal(t.stale_rows(0), touched), name
+            assert len(t.stale_rows(1)) == 0, name     # the writer's bits
+            t0 = time.perf_counter()
+            cache = t.get(w0)
+            inc_ms.append((time.perf_counter() - t0) * 1e3)
+            assert len(t.stale_rows(0)) == 0, name
+            crossed.append(len(touched))
+            got = t.get_rows(touched)
+            assert np.array_equal(cache[touched], got), name
+            assert np.array_equal(got, replay.read_rows(touched).numpy()), \
+                f"{name}: card rows differ from the CPU replay"
+        assert np.array_equal(cache, replay.read().numpy()), name
+        out[name] = {"slots": slots, "rows_crossed": crossed,
+                     "incremental_get_ms": inc_ms,
+                     "whole_table_get_ms": whole_ms}
+        log(f"sparse table [{name}, {slots} slots]: {SPARSE_ADDS} x {N_IDS} "
+            f"row Adds by worker 1; worker 0's incremental Gets crossed "
+            f"{min(crossed)}-{max(crossed)} rows each (exactly the touched "
+            f"rows), cache bitwise the CPU replay; incremental Get "
+            f"{np.median(inc_ms):.2f} ms median [{min(inc_ms):.2f}-"
+            f"{max(inc_ms):.2f}] beside a whole-table Get {whole_ms:.2f} ms")
+    return out
+
+
+def kv_replay_slots(directory, keys):
+    """The CPU replay of a device KV table's directory: a dict (the host
+    backing) or a ``device_hash`` state on the CPU (the device backing,
+    padded as ``DeviceKVTable._resolve_device`` pads). Returns (slots,
+    directory)."""
+    import numpy as np
+    from multiverso_tpu_torch.ops import device_hash
+    if isinstance(directory, dict):
+        slots = np.empty(len(keys), np.int64)
+        for i, k in enumerate(keys.tolist()):
+            slots[i] = directory.setdefault(k, len(directory))
+        return slots, directory
+    padded = 1
+    while padded < len(keys):
+        padded *= 2
+    full = np.concatenate([keys, np.full(padded - len(keys), keys[0])])
+    hi, lo = device_hash.split_keys(full)
+    directory, slots, overflow = device_hash.insert(directory, hi, lo)
+    assert not overflow
+    return slots[:len(keys)].numpy(), directory
+
+
+def device_kv_tables(tables, seed: int) -> dict:
+    """The device KV table: 1<<20 slots of 50, default and adagrad
+    updaters, host-dict and device directories; 10 Adds of 100,000 Zipf
+    int64 keys (negative keys included), then Gets of present and absent
+    keys, all bitwise against a CPU replay (the directory through
+    ``ops/device_hash`` on the CPU, the slab through a CPU
+    ``ServerStore``): the directory's arrays and slots, the slab and its
+    state, the payload's ``kv_keys``/``kv_slots``."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+    from multiverso_tpu_torch.ops import device_hash
+
+    rng = np.random.default_rng(seed + 81)
+    info = np.iinfo(np.int64)
+    universe = np.unique(rng.integers(info.min, info.max, size=KV_UNIVERSE,
+                                      dtype=np.int64))
+    rng.shuffle(universe)
+    assert (universe < 0).any() and (universe > 0).any()
+    batches = [(universe[zipf_ranks(rng, N_IDS, len(universe))],
+                rng.normal(size=(N_IDS, KV_DIM)).astype(np.float32))
+               for _ in range(KV_ADDS)]
+    absent = np.setdiff1d(rng.integers(info.min, info.max, size=2_000,
+                                       dtype=np.int64), universe)
+    present = universe[zipf_ranks(rng, 20_000, len(universe))]
+    probe = np.concatenate([present, absent])
+    opt = AddOption(learning_rate=0.05, rho=0.1)
+    out = {}
+    for updater in ("default", "adagrad"):
+        for dd in (False, True):
+            name = f"kv_{updater}_{'dir' if dd else 'host'}"
+            t = tables[name]
+            assert t.store.device.type == "cuda" and t._device_dir == dd
+            replay = ServerStore(f"replay_{name}", (KV_CAPACITY, KV_DIM),
+                                 np.float32, get_updater(np.float32, updater),
+                                 torch.device("cpu"), num_workers=2)
+            directory = (device_hash.make_state(KV_CAPACITY) if dd else {})
+            add_ms, rounds = [], []
+            for keys, vals in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.add(keys, vals, opt)
+                torch.cuda.synchronize()
+                add_ms.append((time.perf_counter() - t0) * 1e3)
+                if dd:
+                    rounds.append(dict(device_hash.ROUNDS))
+                slots, directory = kv_replay_slots(directory, keys)
+                replay.apply_rows(slots, vals, opt)
+            t0 = time.perf_counter()
+            got = t.get(probe)
+            get_ms = (time.perf_counter() - t0) * 1e3
+            slots = (np.asarray([directory.get(k, -1) for k in probe.tolist()])
+                     if not dd else
+                     device_hash.lookup(directory,
+                                        *device_hash.split_keys(probe))
+                     .numpy())
+            want = replay.read_rows(np.maximum(slots, 0)).numpy()
+            want[slots < 0] = 0
+            assert np.array_equal(got, want), f"{name}: Gets differ"
+            assert not got[len(present):].any(), f"{name}: absent keys"
+            payload, ref = t.store_state(), replay.store_state()
+            for key in ref:
+                assert np.array_equal(payload[key], ref[key]), (name, key)
+            if dd:
+                s = t._dir_state
+                for arr in ("k_hi", "k_lo", "slot"):
+                    assert torch.equal(getattr(s, arr).cpu(),
+                                       getattr(directory, arr)), (name, arr)
+                assert s.next_slot == directory.next_slot, name
+                occ = directory.slot >= 0
+                ref_keys = device_hash.join_keys(directory.k_hi[occ].numpy(),
+                                                 directory.k_lo[occ].numpy())
+                ref_slots = directory.slot[occ].numpy()
+            else:
+                ref_keys = np.asarray(list(directory), np.int64)
+                ref_slots = np.asarray(list(directory.values()), np.int32)
+            assert np.array_equal(payload["kv_keys"], ref_keys), name
+            assert np.array_equal(payload["kv_slots"], ref_slots), name
+            out[name] = {"keys": len(t), "add_ms": add_ms, "get_ms": get_ms,
+                         "probe_rounds": rounds}
+            log(f"device KV [{name}]: {KV_ADDS} x {N_IDS} Zipf int64 keys -> "
+                f"{len(t)} slots of {KV_CAPACITY}; slab"
+                f"{' and state' if updater != 'default' else ''}, payload"
+                f"{', directory arrays' if dd else ''} and {len(probe)} Gets "
+                f"({len(absent)} absent) bitwise the CPU replay; Add "
+                f"{np.median(add_ms):.2f} ms median [{min(add_ms):.2f}-"
+                f"{max(add_ms):.2f}], Get {get_ms:.2f} ms"
+                + (f"; insert rounds per batch "
+                   f"{[r['insert_rounds'] for r in rounds]}, probe steps "
+                   f"{[r['probe_steps'] for r in rounds]}" if dd else ""))
+    return out
+
+
+def checkpoint_tables(tables, seed: int) -> None:
+    """The checkpoint's extra tables: a ``use_pallas`` adagrad table after
+    3 row Adds (B3's fused route, state included) and a bfloat16 table
+    after 3 row Adds."""
+    import numpy as np
+    from multiverso_tpu_torch.core.options import AddOption
+    rng = np.random.default_rng(seed + 82)
+    opt = AddOption(**STATEFUL_OPT)
+    assert tables["ckpt_adagrad"].store._pallas_cap == "fused_stateful"
+    for _ in range(3):
+        for name in ("ckpt_adagrad", "ckpt_bf16"):
+            ids = rng.integers(0, ROWS, size=N_IDS).astype(np.int32)
+            deltas = rng.normal(size=(N_IDS, COLS)).astype(np.float32)
+            tables[name].add_rows(ids, deltas, opt)
+
+
+def table_payloads(tables) -> dict:
+    """Every table's payload on the host; a KV table's directory as a
+    key -> slot dict (a restored device directory holds the same pairs,
+    not necessarily in the same buckets)."""
+    out = {}
+    for name, t in tables.items():
+        p = t.store_state() if hasattr(t, "store_state") \
+            else t.store.store_state()
+        if "kv_keys" in p:
+            p["kv_map"] = dict(zip(p.pop("kv_keys").tolist(),
+                                   p.pop("kv_slots").tolist()))
+        out[name] = p
+    return out
+
+
+def save_and_load(tables, directory: str) -> dict:
+    """``save_all`` phase 8's tables, shut down, start again, make fresh
+    tables and ``load_all`` them: every payload bitwise, the bfloat16
+    file 2 bytes an element, every sparse row stale again. MB and seconds
+    of the save and of the load."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core import checkpoint
+
+    before = table_payloads(tables)
+    probe = np.asarray(list(before["kv_adagrad_dir"]["kv_map"])[:1000]
+                       + [12345, -12345])
+    gets = {name: tables[name].get(probe)
+            for name in ("kv_adagrad_dir", "kv_adagrad_host")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    root = checkpoint.save_all(directory, step=8)
+    save_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(root, f))
+             for f in os.listdir(root)) / 1e6
+    with np.load(os.path.join(root, "ckpt_bf16.npz")) as f:
+        assert f["data"].dtype == np.uint16, f["data"].dtype
+        assert f["data"].nbytes == ROWS * COLS * 2
+    mv.shutdown()
+    mv.init([], num_local_workers=2)
+    fresh = {name: mv.create_table(opt) for name, opt in phase8_specs(mv)}
+    t0 = time.perf_counter()
+    step = checkpoint.load_all(root)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert step == 8, step
+    after = table_payloads(fresh)
+    for name, want in before.items():
+        got = after[name]
+        assert sorted(got) == sorted(want), (name, sorted(got))
+        for key in want:
+            if key == "kv_map":
+                assert got[key] == want[key], name
+            else:
+                assert np.array_equal(got[key], want[key]), (name, key)
+    assert fresh["ckpt_bf16"].store.data.dtype == torch.bfloat16
+    for name in ("sparse", "sparse_pipe"):
+        assert fresh[name]._stale.all(), name
+    for name in ("kv_adagrad_dir", "kv_adagrad_host"):
+        assert np.array_equal(fresh[name].get(probe), gets[name]), name
+    mv.shutdown()
+    log(f"checkpoint: save_all of {len(before)} tables ({mb:.1f} MB) in "
+        f"{save_s:.3f} s, load_all into fresh tables after a restart in "
+        f"{load_s:.3f} s; every payload bitwise, bfloat16 at 2 bytes an "
+        f"element")
+    return {"tables": len(before), "mb": mb, "save_s": save_s,
+            "load_s": load_s}
+
+
+def manager_retention(directory: str) -> dict:
+    """``CheckpointManager``: a save every step, ``keep_last`` 2; after 5
+    steps only the newest 2 checkpoints remain, and ``restore_latest``
+    returns the newest step and its values."""
+    import numpy as np
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core import checkpoint
+
+    mv.init([])
+    t = mv.create_table(mv.ArrayTableOption(size=1024, name="mgr_w"))
+    mgr = checkpoint.CheckpointManager(directory, save_every_steps=1,
+                                       keep_last=2)
+    for step in range(1, 6):
+        t.add(np.ones(1024, np.float32))
+        assert mgr.maybe_save(step)
+    kept = sorted(d for d in os.listdir(directory) if d.startswith("ckpt_"))
+    assert kept == ["ckpt_000000000004", "ckpt_000000000005"], kept
+    t.add(np.full(1024, 100.0, np.float32))
+    step = mgr.restore_latest()
+    assert step == 5, step
+    assert np.array_equal(t.get(), np.full(1024, 5.0, np.float32))
+    mv.shutdown()
+    log(f"checkpoint manager: keep_last 2 kept {kept}; restore_latest -> "
+        f"step {step}")
+    return {"kept": kept, "restored_step": step}
+
+
+def lda_corpus(seed: int):
+    """2^20 tokens over 10,000 documents (lengths from the seed), words by
+    Zipf rank over V = 1,000,000."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 83)
+    words = zipf_ranks(rng, LDA_TOKENS, LDA_V).astype(np.int64)
+    cuts = np.sort(rng.choice(np.arange(1, LDA_TOKENS), size=LDA_DOCS - 1,
+                              replace=False))
+    docs = np.repeat(np.arange(LDA_DOCS), np.diff(
+        np.concatenate([[0], cuts, [LDA_TOKENS]])))
+    return words, docs
+
+
+def lda_phase(seed: int) -> dict:
+    """LDA at V = 1,000,000, K = 1,000 on the card: the first block's
+    sampled topics equal a CPU replay of the Gibbs step on the same pulled
+    counts and the same Gumbel noise; then 2 sweeps of ``LDA.train``; the
+    word-topic rows sum to each word's token count, the topic totals are
+    the table's column sums, the doc-topic rows sum to each document's
+    length, every count is non-negative."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.lda import LDA, LDAConfig, gibbs_step
+
+    words, docs = lda_corpus(seed)
+    mv.init([])
+    cfg = LDAConfig(num_topics=LDA_K, iterations=LDA_SWEEPS,
+                    block_tokens=LDA_BLOCK, seed=seed)
+    lda = LDA(cfg, num_docs=LDA_DOCS, vocab_size=LDA_V)
+    assert lda.device.type == "cuda"
+    assert lda.word_topic.store.data.numel() * 4 == 4 * LDA_V * LDA_K
+    t0 = time.perf_counter()
+    topics = lda.init_assignments(words, docs)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dev = lda.device
+    w = torch.as_tensor(words[:LDA_BLOCK], device=dev)
+    d = torch.as_tensor(docs[:LDA_BLOCK], device=dev)
+    _, _, n_wk, n_k, n_dk = lda.block_counts(w, d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 84)
+    u = torch.rand((LDA_BLOCK, LDA_K), generator=gen, device=dev)
+    noise = -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+    t_blk = topics[:LDA_BLOCK]
+    card = gibbs_step(n_wk, n_k, n_dk, t_blk, noise, LDA_V, cfg.alpha,
+                      cfg.beta)
+    cpu = gibbs_step(n_wk.cpu(), n_k.cpu(), n_dk.cpu(), t_blk.cpu(),
+                     noise.cpu(), LDA_V, cfg.alpha, cfg.beta)
+    differ = int((card.cpu() != cpu).sum())
+    assert differ == 0, f"LDA first block: {differ} topics differ"
+    del n_wk, n_dk, u, noise
+    stats = lda.train(words, docs, topics=topics)
+    wt = lda.word_topic.store.data
+    counts = torch.bincount(torch.as_tensor(words, device=dev),
+                            minlength=LDA_V)
+    assert torch.equal(wt.sum(dim=1, dtype=torch.float64),
+                       counts.to(torch.float64)), "word-topic row sums"
+    assert torch.equal(lda.topic.raw().double(),
+                       wt.sum(dim=0, dtype=torch.float64)), "topic totals"
+    lengths = torch.bincount(torch.as_tensor(docs, device=dev),
+                             minlength=LDA_DOCS)
+    assert torch.equal(lda.doc_topic.sum(dim=1, dtype=torch.float64),
+                       lengths.to(torch.float64)), "doc-topic row sums"
+    assert bool((wt >= 0).all()) and bool((lda.doc_topic >= 0).all())
+    assert bool((lda.topic.raw() >= 0).all())
+    assert int(lda.topic.raw().sum()) == LDA_TOKENS
+    vocab = int((counts > 0).sum())
+    mv.shutdown()
+    log(f"LDA: V={LDA_V}, K={LDA_K} (word-topic table "
+        f"{LDA_V * LDA_K * 4 / 1e9:.1f} GB on the card), {LDA_TOKENS} tokens ({vocab} distinct words) "
+        f"over {LDA_DOCS} docs, blocks of {LDA_BLOCK}: the first block's "
+        f"topics equal the CPU replay's with the same Gumbel noise; "
+        f"{LDA_SWEEPS} sweeps at {stats['tokens_per_sec']:.6g} tokens/sec "
+        f"({stats['seconds']:.3f} s; seeding the tables {init_s:.3f} s); "
+        f"counts conserved and non-negative")
+    return {"tokens_per_sec": stats["tokens_per_sec"],
+            "seconds": stats["seconds"], "init_s": init_s,
+            "distinct_words": vocab, "blocks": lda.blocks}
+
+
+def mnist_like(seed: int):
+    """Dense samples at MNIST's widths: 784 pixels in [0, 1), about 19%
+    of them lit, labels of a planted linear model over 10 classes."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 85)
+    n = LR_SAMPLES
+    X = ((rng.random((n, MNIST_FEATURES)) < 0.19)
+         * rng.random((n, MNIST_FEATURES))).astype(np.float32)
+    W = rng.normal(size=(MNIST_FEATURES, MNIST_CLASSES))
+    y = (X @ W).argmax(axis=1).astype(np.float32)
+    return X, y
+
+
+def write_rcv1_like(path: str, seed: int) -> None:
+    """A libsvm file at rcv1.binary's width: 47,236 features, 74 distinct
+    nonzeros a row on average (Poisson), L2-normalised positive values as
+    its TF-IDF rows are, labels of a planted sparse linear model."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 86)
+    w = rng.normal(size=RCV1_FEATURES)
+    lines = []
+    for _ in range(LR_SAMPLES):
+        idx = np.unique(rng.integers(0, RCV1_FEATURES,
+                                     size=max(1, rng.poisson(RCV1_NNZ))))
+        val = rng.random(len(idx)) + 0.1
+        val /= np.linalg.norm(val)
+        label = int(val @ w[idx] > 0)
+        lines.append(f"{label} " + " ".join(
+            f"{i}:{v:.6f}" for i, v in zip(idx.tolist(), val.tolist())))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def logreg_run(cfg_kw: dict, batches, held) -> dict:
+    """One epoch through ``LogReg`` with a ``PSModel`` on the Zoo's device;
+    the loss on ``held`` (X, y) before and after."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.models.logreg import LogReg, LogRegConfig
+    from multiverso_tpu_torch.models.logreg.model import PSModel, make_step
+
+    cfg = LogRegConfig(**cfg_kw)
+    lr = LogReg(cfg)
+    assert isinstance(lr.model, PSModel)
+    step = make_step(cfg)
+    dev = lr.device
+    Xh = torch.as_tensor(held[0], device=dev)
+    yh = torch.as_tensor(held[1], device=dev)
+    zero = torch.zeros((cfg.width, cfg.num_class), device=dev)
+    before = float(step(zero, Xh, yh)[0])
+    t0 = time.perf_counter()
+    losses = lr.train(batches, epochs=1)
+    seconds = time.perf_counter() - t0
+    weights = np.array(lr.model.get_weights())
+    after = float(step(torch.as_tensor(weights, device=dev), Xh, yh)[0])
+    return {"weights": weights, "epoch_loss": losses[0], "before": before,
+            "after": after, "seconds": seconds,
+            "samples_per_sec": LR_SAMPLES / seconds}
+
+
+def logreg_phase(seed: int, directory: str) -> dict:
+    """logreg at MNIST's widths (softmax) and at rcv1.binary's (FTRL, from
+    a libsvm file through ``SampleReader``): one epoch of 20,000 samples
+    through ``PSModel`` on the card, then the same on the CPU; finite
+    losses, a falling loss on 2,000 of the samples, weights within
+    LR_RTOL / LR_ATOL of the CPU replay."""
+    import numpy as np
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.logreg import ArrayBatcher, SampleReader
+
+    X, y = mnist_like(seed)
+    Xb = np.concatenate([X, np.ones((len(X), 1), np.float32)], axis=1)
+    path = os.path.join(directory, "rcv1_like.svm")
+    t0 = time.perf_counter()
+    write_rcv1_like(path, seed)
+    write_s = time.perf_counter() - t0
+    rcv1_held = next(iter(SampleReader(path, RCV1_FEATURES, LR_HELD,
+                                       prefetch=False)))
+    configs = {
+        "mnist_softmax": (dict(objective="softmax",
+                               num_feature=MNIST_FEATURES,
+                               num_class=MNIST_CLASSES),
+                          lambda cfg: ArrayBatcher(X, y, 20),
+                          (Xb[:LR_HELD], y[:LR_HELD])),
+        "rcv1_ftrl": (dict(objective="ftrl", num_feature=RCV1_FEATURES,
+                           **RCV1_FTRL),
+                      lambda cfg: SampleReader(path, RCV1_FEATURES, 20),
+                      rcv1_held)}
+    out = {}
+    for name, (kw, batches, held) in configs.items():
+        runs = {}
+        for platform in ("cuda", "cpu"):
+            mv.init([] if platform == "cuda" else ["-platform=cpu"])
+            runs[platform] = logreg_run(kw, batches(kw), held)
+            mv.shutdown()
+        card, cpu = runs["cuda"], runs["cpu"]
+        for r in runs.values():
+            assert np.isfinite([r["epoch_loss"], r["before"],
+                                r["after"]]).all(), (name, r)
+            assert r["after"] < r["before"], (name, r["before"], r["after"])
+        err = np.abs(card["weights"] - cpu["weights"])
+        ok = err <= LR_ATOL + LR_RTOL * np.abs(cpu["weights"])
+        assert bool(ok.all()), (name, float(err.max()))
+        out[name] = {k: v for k, v in card.items() if k != "weights"}
+        out[name]["max_abs_err_vs_cpu"] = float(err.max())
+        out[name]["cpu_samples_per_sec"] = cpu["samples_per_sec"]
+        log(f"logreg [{name}]: 1 epoch of {LR_SAMPLES} samples at minibatch "
+            f"20 through PSModel: {card['samples_per_sec']:.6g} samples/sec "
+            f"on the card ({cpu['samples_per_sec']:.6g} on the CPU); epoch "
+            f"loss {card['epoch_loss']:.5f}, held loss {card['before']:.5f} "
+            f"-> {card['after']:.5f}; weights within rtol {LR_RTOL} / atol "
+            f"{LR_ATOL} of the CPU replay (max |err| {err.max():.3e})")
+    out["rcv1_file_write_s"] = write_s
+    return out
+
+
+def phase8(seed: int, on_path, card: str) -> dict:
+    """Phase 8: the sparse matrix table, the device KV table, npz
+    checkpoints across a restart, LDA and logreg, each at full width on
+    the card. Returns the readings and the kernel launches of each run."""
+    import multiverso_tpu_torch as mv
+    log(f"phase 8 on {card}")
+    out = {"launches": {}}
+    mv.init([], num_local_workers=2)
+    tables = {name: mv.create_table(opt) for name, opt in phase8_specs(mv)}
+    out["sparse"], out["launches"]["sparse"] = on_path(
+        sparse_tables, tables, seed)
+    out["device_kv"], out["launches"]["device_kv"] = on_path(
+        device_kv_tables, tables, seed)
+    _, out["launches"]["checkpoint_tables"] = on_path(
+        checkpoint_tables, tables, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["checkpoint"] = save_and_load(tables, tmp)
+    del tables
+    with tempfile.TemporaryDirectory() as tmp:
+        out["checkpoint_manager"] = manager_retention(tmp)
+    out["lda"], out["launches"]["lda"] = on_path(lda_phase, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["logreg"] = logreg_phase(seed, tmp)
+    return out
+
+
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase 8's synthetic data")
+    args = parser.parse_args()
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -3595,17 +4199,38 @@ def main() -> int:
     # Phase 7: the LM served (each mode reads the counts one by one).
     served = serve_lm(dev, card)
 
+    # Phase 8: the sparse matrix table (B1, B2), the device KV table (B4,
+    # the fold), checkpoints (the fused route) and LDA (B4), then logreg;
+    # each run reads the counts.
+    p8 = phase8(args.seed, on_path, card)
+    p8_runs = p8.pop("launches")
+    assert p8_runs["sparse"]["scatter_add_sorted_rows"] == 2 * SPARSE_ADDS
+    assert p8_runs["sparse"]["gather_rows"] > 0, p8_runs["sparse"]
+    assert p8_runs["device_kv"]["tiled_scatter_add_sorted_rows"] == \
+        2 * KV_ADDS, p8_runs["device_kv"]
+    assert p8_runs["device_kv"]["fold_sorted_runs"] == 2 * KV_ADDS
+    assert p8_runs["checkpoint_tables"]["fused_stateful_sorted_rows"] == 3
+    lda_blocks = LDA_SWEEPS * -(-LDA_TOKENS // LDA_BLOCK)
+    assert p8_runs["lda"]["tiled_scatter_add_sorted_rows"] == \
+        lda_blocks + 1, p8_runs["lda"]
+
     b4_runs = {"bench.py leg": leg["tiled_scatter_add_sorted_rows"],
                "plain tables": plain_counts["tiled_scatter_add_sorted_rows"],
                "word2vec plain steps":
-                   other_counts["tiled_scatter_add_sorted_rows"]}
+                   other_counts["tiled_scatter_add_sorted_rows"],
+               "phase 8 device KV":
+                   p8_runs["device_kv"]["tiled_scatter_add_sorted_rows"],
+               "phase 8 LDA": p8_runs["lda"]["tiled_scatter_add_sorted_rows"]}
     launches = {
-        "gather_rows": plane["gather_rows"],
-        "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"],
+        "gather_rows": plane["gather_rows"] + p8_runs["sparse"]["gather_rows"],
+        "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"]
+        + p8_runs["sparse"]["scatter_add_sorted_rows"],
         "fused_stateful_sorted_rows": sum(
             r["launches"]["fused_stateful_sorted_rows"]
-            for r in stateful.values()),
-        "fold_sorted_runs": plain_counts["fold_sorted_runs"],
+            for r in stateful.values())
+        + p8_runs["checkpoint_tables"]["fused_stateful_sorted_rows"],
+        "fold_sorted_runs": plain_counts["fold_sorted_runs"]
+        + p8_runs["device_kv"]["fold_sorted_runs"],
         "tiled_scatter_add_sorted_rows": sum(b4_runs.values()),
         "sgns_block": flag["sgns_block"],
         "sgns_block_bf16": flag_bf16["sgns_block_bf16"],
@@ -3615,6 +4240,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
+        k["phase8_launches"] = {run: c[k["name"]] for run, c in p8_runs.items()
+                                if c.get(k["name"])}
         if k["name"] == "fused_stateful_sorted_rows":
             k["store_add_kernels"] = store_kernels
             for v in k["variants"]:
@@ -3654,6 +4281,8 @@ def main() -> int:
         if k["name"] == "paged_decode_attn_int8":
             k["launches_by_mode"] = {name: m["b7_int8_launches"] for name, m
                                      in served["modes"].items()}
+        if k["name"] == "scatter_add_sorted_rows":
+            k["phase8"] = p8
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -6,9 +6,8 @@ barrier, rank/size/worker/server queries, flag override, table creation
 the tables on the CUDA card unless ``-platform=cpu`` is given, and raises
 when there is no card.
 
-Not ported yet (``NotImplementedError``): sparse matrix and device KV
-tables (ROADMAP A4); ``net_bind``/``net_connect`` and the
-``create_distributed_*`` tables (ROADMAP A7).
+Not ported yet (``NotImplementedError``): ``net_bind``/``net_connect``
+and the ``create_distributed_*`` tables (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -87,8 +86,11 @@ def get_flag(name: str) -> Any:
 def create_table(option: TableOption):
     """``MV_CreateTable`` + table_factory dispatch."""
     from multiverso_tpu_torch.tables.array_table import ArrayTable
+    from multiverso_tpu_torch.tables.device_kv_table import DeviceKVTable
     from multiverso_tpu_torch.tables.kv_table import KVTable
     from multiverso_tpu_torch.tables.matrix_table import MatrixTable
+    from multiverso_tpu_torch.tables.sparse_matrix_table import \
+        SparseMatrixTable
 
     zoo = Zoo.get()
     check(zoo.started, "call mv.init() first")
@@ -98,15 +100,11 @@ def create_table(option: TableOption):
     if isinstance(option, ArrayTableOption):
         table = ArrayTable(option)
     elif isinstance(option, MatrixTableOption):
-        if option.is_sparse:
-            raise NotImplementedError(
-                "SparseMatrixTable is not ported yet: ROADMAP A4")
-        table = MatrixTable(option)
+        table = (SparseMatrixTable(option) if option.is_sparse
+                 else MatrixTable(option))
     elif isinstance(option, KVTableOption):
-        if option.device:
-            raise NotImplementedError(
-                "the device KV table is not ported yet: ROADMAP A4")
-        table = KVTable(option)
+        table = (DeviceKVTable(option, value_dim=option.value_dim)
+                 if option.device else KVTable(option))
     else:
         raise TypeError(f"unknown table option {type(option).__name__}")
     barrier()  # ref multiverso.h:40: creation is followed by a barrier

@@ -899,11 +899,15 @@ class Word2Vec:
 
     def save(self, path: str, batch_rows: int = 100_000) -> None:
         """Rank-0 batched text export (ref :263-306 saves in 100K-row
-        batches). Local paths only (the URI stream layer waits: A4)."""
+        batches). Goes through the URI stream layer, so ``gs://`` targets
+        work exactly as they do for checkpoints (plain paths are
+        ``file://``)."""
         if not mv.is_master_worker():
             return
-        with open(path, "w") as f:
-            f.write(f"{len(self.dict)} {self.cfg.embedding_size}\n")
+        from multiverso_tpu_torch.utils.stream import open_stream
+        with open_stream(path, "w") as f:
+            f.write(f"{len(self.dict)} {self.cfg.embedding_size}\n"
+                    .encode())
             for start in range(0, len(self.dict), batch_rows):
                 rows = list(range(start,
                                   min(start + batch_rows, len(self.dict))))
@@ -912,7 +916,7 @@ class Word2Vec:
                 for r, vec in zip(rows, emb):
                     vec_s = " ".join(f"{x:.6f}" for x in vec)
                     chunk.append(f"{self.dict.words[r]} {vec_s}\n")
-                f.write("".join(chunk))
+                f.write("".join(chunk).encode())
 
     def analogy(self, a: str, b: str, c: str, topk: int = 5
                 ) -> List[Tuple[str, float]]:

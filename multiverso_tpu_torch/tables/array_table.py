@@ -61,9 +61,12 @@ class ArrayTable(WorkerTable):
 
     # -- add (ref array_table.cpp:48-66) -----------------------------------
     def add_async(self, delta, option: Optional[AddOption] = None) -> int:
-        delta = np.asarray(delta, dtype=self.store.dtype)
-        check(delta.shape == (self.size,),
-              f"delta shape {delta.shape} != ({self.size},)")
+        """``delta``: a host array, or a tensor (kept on its device until
+        the store takes it)."""
+        if not torch.is_tensor(delta):
+            delta = np.asarray(delta, dtype=self.store.dtype)
+        check(tuple(delta.shape) == (self.size,),
+              f"delta shape {tuple(delta.shape)} != ({self.size},)")
         with self._bsp_add(option) as opt:
             self.store.apply_dense(delta, opt)
         return self._register_add()

@@ -98,15 +98,25 @@ class MatrixTable(WorkerTable):
         with monitor("WORKER_TABLE_SYNC_GET"):
             return self.wait(self.get_rows_async(row_ids, option))
 
+    def raw_rows(self, row_ids, option: Optional[GetOption] = None
+                 ) -> torch.Tensor:
+        """Rows by id as a tensor on the table's device (a fresh buffer):
+        ``get_rows`` without the copy to the host. ``row_ids`` may be a
+        tensor on that device."""
+        with self._bsp_get(option):
+            return self.store.read_rows(row_ids)
+
     def get_row(self, row_id: int) -> np.ndarray:
         return self.get_rows([row_id])[0]
 
     def add_rows_async(self, row_ids, deltas,
                        option: Optional[AddOption] = None) -> int:
-        row_ids = np.asarray(row_ids, dtype=np.int32)
-        deltas = np.asarray(deltas, dtype=self.store.dtype)
-        check(deltas.shape == (len(row_ids), self.num_col),
-              f"row delta shape {deltas.shape} != "
+        if not torch.is_tensor(row_ids):
+            row_ids = np.asarray(row_ids, dtype=np.int32)
+        if not torch.is_tensor(deltas):
+            deltas = np.asarray(deltas, dtype=self.store.dtype)
+        check(tuple(deltas.shape) == (len(row_ids), self.num_col),
+              f"row delta shape {tuple(deltas.shape)} != "
               f"{(len(row_ids), self.num_col)}")
         with self._bsp_add(option) as opt:
             self.store.apply_rows(row_ids, deltas, opt)

@@ -154,11 +154,17 @@ def test_port_table_surface_and_waits():
                                                   use_pallas=True))
     assert not ints.store._pallas_rows            # f32 tables only
     assert np.array_equal(mvt.aggregate([1, 2]), [1, 2])
-    for make in (lambda: mvt.MatrixTableOption(4, 4, is_sparse=True),
-                 lambda: mvt.KVTableOption(device=True),
-                 lambda: mvt.MatrixTableOption(4, 4, comm_policy="allreduce")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            mvt.create_table(make())
+    # The sparse matrix and device KV tables are ported (A4).
+    from multiverso_tpu_torch.tables.device_kv_table import DeviceKVTable
+    from multiverso_tpu_torch.tables.sparse_matrix_table import \
+        SparseMatrixTable
+    assert isinstance(mvt.create_table(
+        mvt.MatrixTableOption(4, 4, is_sparse=True)), SparseMatrixTable)
+    assert isinstance(mvt.create_table(mvt.KVTableOption(device=True)),
+                      DeviceKVTable)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        mvt.create_table(mvt.MatrixTableOption(4, 4,
+                                               comm_policy="allreduce"))
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mvt.net_bind()
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
