@@ -160,8 +160,39 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    samples at minibatch 20, softmax at MNIST's widths and FTRL at
    rcv1.binary's (from a libsvm file), each then replayed on the CPU:
    finite losses, a falling loss, weights within ``LR_RTOL`` /
-   ``LR_ATOL`` (samples/sec);
-9. a JSON line of the kernels, the card line, and the result line.
+   ``LR_ATOL`` (samples/sec); in the same session, before the npz save,
+   phase 9's async checkpoint (c);
+9. the lookup serving plane, the async checkpoint and DLRM: (a) in sync
+   mode with 2 local workers, bench.py's 1,000,000 x 50 ``use_pallas`` sgd
+   table after 10 row Adds of 100,000 ids, served by ``serving_runner``
+   with a ``HotRowCache`` of 8,192 rows at staleness 0 behind
+   ``ServingService``/``ServingClient`` (serve_bench's lookup shape: 8
+   keys a request, buckets 8-64, max batch 8): 2,000 requests of Zipf(1.2)
+   keys in 10 bursts with a round of Adds between bursts, every reply
+   bitwise the table at its stamped clock (requests/sec, p50/p99, cache
+   hits, B1 launches); (b) that table checkpointed and served through
+   ``CheckpointReplica`` + ``ReplicaLookupRunner`` at f32 (bitwise the
+   checkpoint), bf16 and int8 (within ``roundtrip_bound``, bitwise the CPU
+   replay of the decode gather), a hot swap to a newer checkpoint while
+   requests run (each reply the bytes of its stamped step, all later
+   ones the new bytes), and a ``RoutedLookupClient`` over two half-table
+   services by ``row_offset``, bitwise the whole table; (c) phase 8's
+   tables saved twice by ``CheckpointManager(backend="orbax")`` with 3
+   in-place row Adds (the fused route, B2) issued right after each
+   ``maybe_save`` returns, the restored tables bitwise the snapshot
+   before them (staged and whole-write seconds beside the npz save's);
+   (d) DLRM at the Criteo Kaggle widths (``DLRM_WIDTHS``): a PS model and
+   its local twin bitwise after 20 steps, the fold kernel bitwise its
+   plain version on every push of those steps, within ``DLRM_RTOL`` of a
+   CPU replay (of how far the replay moved each tensor), which a card
+   twin with TF32 switched on must exceed; then the online loop, 240
+   steps of 128 with a publish every 40, freshness lanes 1 and 4,
+   ``ServeLoad`` on field 0's live table, an f32 and an int8 replica
+   scoring held-out batches (examples/sec, publishes, AUC per lane,
+   achieved/offered requests/sec, p50/p99, the loop's time split between
+   steps and publishes), and ``ServeLoad``'s runner bitwise the plain
+   gather once training stops;
+10. a JSON line of the kernels, the card line, and the result line.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
@@ -191,7 +222,7 @@ once per int8 template instance (``PAGED_INT8_INSTANCES``) and on a page
 that does not divide the bucket, an idle slot and t = 0.
 
 Every launch count is set to 0 just before each main-path run of phases
-3, 4, 6, 7 and 8 and read just after it, so the comparisons of phase 2 do
+3, 4, 6, 7, 8 and 9 and read just after it, so the comparisons of phase 2 do
 not count.
 """
 
@@ -4036,9 +4067,14 @@ def logreg_phase(seed: int, directory: str) -> dict:
     for name, (kw, batches, held) in configs.items():
         runs = {}
         for platform in ("cuda", "cpu"):
-            mv.init([] if platform == "cuda" else ["-platform=cpu"])
+            # Named each time: the flags outlive mv.shutdown(), so the CPU
+            # replay's -platform=cpu would otherwise carry into the next
+            # card run (it did, for rcv1, before this was named).
+            mv.init([f"-platform={platform}"])
+            assert (mv.get_flag("platform") == "cpu") == (platform == "cpu")
             runs[platform] = logreg_run(kw, batches(kw), held)
             mv.shutdown()
+        mv.set_flag("platform", "")
         card, cpu = runs["cuda"], runs["cpu"]
         for r in runs.values():
             assert np.isfinite([r["epoch_loss"], r["before"],
@@ -4075,6 +4111,8 @@ def phase8(seed: int, on_path, card: str) -> dict:
         device_kv_tables, tables, seed)
     _, out["launches"]["checkpoint_tables"] = on_path(
         checkpoint_tables, tables, seed)
+    with tempfile.TemporaryDirectory() as tmp:      # phase 9 (c)
+        out["async_checkpoint"] = async_checkpoint(tables, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         out["checkpoint"] = save_and_load(tables, tmp)
     del tables
@@ -4083,6 +4121,595 @@ def phase8(seed: int, on_path, card: str) -> dict:
     out["lda"], out["launches"]["lda"] = on_path(lda_phase, seed)
     with tempfile.TemporaryDirectory() as tmp:
         out["logreg"] = logreg_phase(seed, tmp)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the lookup serving plane, the async checkpoint, DLRM online
+# ---------------------------------------------------------------------------
+# Live lookups: serve_bench's lookup shape (8 keys a request, buckets
+# 8-64, max batch 8) with Zipf(1.2) keys over bench.py:301-313's table.
+LOOKUP_KEYS, LOOKUP_BUCKETS, LOOKUP_BATCH = 8, (8, 16, 32, 64), 8
+LOOKUP_REQUESTS, LOOKUP_BURSTS, LOOKUP_IN_FLIGHT = 2_000, 10, 16
+LOOKUP_ZIPF, LOOKUP_CACHE_ROWS = 1.2, 8_192
+REPLICA_REQUESTS = 600
+# DLRM at the published Criteo Kaggle widths of facebookresearch/dlrm
+# bench/dlrm_s_criteo_kaggle.sh (26 sparse fields, 13 dense features,
+# embedding 16, bottom MLP 512-256-64 then 16, top MLP 512-256 then 1,
+# mini-batch 128), each field's vocabulary cut to 100,000 ids (Kaggle's
+# largest tables hold ~10M).
+DLRM_WIDTHS = dict(fields=26, vocab=100_000, embed_dim=16, dense_dim=13,
+                   bottom_mlp=(512, 256, 64), top_mlp=(512, 256))
+DLRM_BATCH, DLRM_STEPS, DLRM_PUBLISH, DLRM_EVAL = 128, 240, 40, 4
+DLRM_LANES, DLRM_PARITY_STEPS, DLRM_SERVE_QPS = (1, 4), 20, 400.0
+DLRM_SERVE_CHECKS = 64
+# Card against a CPU replay of the same 20 steps, float32 products in full
+# float32 (no TF32): for each dense parameter and each embedding table,
+# max |card - replay| over max |replay - initial value| (float32 matrix
+# products and reductions sum in other orders on the card; the AdaGrad
+# steps carry the differences on). A card twin with TF32 switched on must
+# exceed it.
+DLRM_RTOL = 5e-4
+
+
+def lookup_burst(cli, queries, in_flight: int, runner_id: int = 0):
+    """Send every query over ``cli`` with ``in_flight`` outstanding;
+    returns (values, reply clocks, request latencies in ms, wall s)."""
+    import queue
+    import threading
+
+    todo = queue.Queue()
+    for i in range(len(queries)):
+        todo.put(i)
+    values = [None] * len(queries)
+    clocks = [None] * len(queries)
+    lat = [0.0] * len(queries)
+    errors = []
+
+    def worker():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue.Empty:
+                return
+            t0 = time.perf_counter()
+            try:
+                values[i], clocks[i] = cli.request_async(
+                    queries[i], 60_000, runner_id).wait(120)
+            except Exception as e:  # noqa: BLE001 - counted, then failed
+                errors.append((i, repr(e)))
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=worker) for _ in range(in_flight)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive(), "a lookup client thread hung"
+    assert not errors, errors[:3]
+    return values, clocks, lat, time.perf_counter() - t0
+
+
+def zipf_queries(rng, n: int, rows: int):
+    from multiverso_tpu_torch.models.dlrm.stream import zipf_ids
+    return list(zipf_ids(rng, LOOKUP_ZIPF, n * LOOKUP_KEYS, rows)
+                .reshape(n, LOOKUP_KEYS))
+
+
+def live_lookups(seed: int) -> dict:
+    """(a) Live lookups in sync mode (2 local workers): the 1,000,000 x
+    50 ``use_pallas`` sgd table after 10 row Adds of 100,000 ids (5 BSP
+    rounds of both workers), served through ``serving_runner`` with a
+    ``HotRowCache`` of 8,192 rows at staleness 0 behind ``ServingService``
+    and ``ServingClient``: 2,000 requests of 8 Zipf(1.2) keys in 10 bursts
+    with a round of Adds between bursts. Every reply must be bitwise the
+    table's rows at the clock it is stamped with."""
+    import numpy as np
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.serving import (HotRowCache, ServingClient,
+                                              ServingService)
+    from multiverso_tpu_torch.telemetry import get_registry
+
+    rng = np.random.default_rng(seed + 90)
+    mv.init(["-sync=true"], num_local_workers=2)
+    t = mv.create_table(mv.MatrixTableOption(ROWS, COLS, use_pallas=True,
+                                             updater="sgd", name="live"))
+    assert t.store.device.type == "cuda", t.store.device
+
+    def add_round():
+        for w in (0, 1):
+            ids = rng.integers(0, ROWS, size=N_IDS).astype(np.int32)
+            t.add_rows(ids, rng.normal(size=(N_IDS, COLS)).astype(
+                np.float32), AddOption(worker_id=w))
+
+    for _ in range(5):
+        add_round()
+    runner = t.serving_runner(cache=HotRowCache(LOOKUP_CACHE_ROWS, 0))
+    svc = ServingService()
+    svc.register_runner(runner, buckets=LOOKUP_BUCKETS,
+                        max_batch=LOOKUP_BATCH, max_wait_ms=2.0,
+                        max_queue=64)
+    cli = ServingClient(*svc.address)
+    reg = get_registry()
+    hits0 = reg.counter("serve.cache.hit").value
+    per = LOOKUP_REQUESTS // LOOKUP_BURSTS
+    lat, wall, clocks_seen = [], 0.0, set()
+    try:
+        for burst in range(LOOKUP_BURSTS):
+            clock = runner.current_clock()
+            table = t.store.read().cpu().numpy()
+            queries = zipf_queries(rng, per, ROWS)
+            vals, clocks, ms, secs = lookup_burst(cli, queries,
+                                                  LOOKUP_IN_FLIGHT)
+            for q, v, c in zip(queries, vals, clocks):
+                assert c == clock, (c, clock)
+                assert np.array_equal(v, table[q]), \
+                    "a live lookup differs from the table at its clock"
+            clocks_seen.add(clock)
+            lat += ms
+            wall += secs
+            if burst + 1 < LOOKUP_BURSTS:
+                add_round()
+    finally:
+        cli.close()
+        svc.close()
+    hits = reg.counter("serve.cache.hit").value - hits0
+    assert len(clocks_seen) == LOOKUP_BURSTS, clocks_seen
+    assert hits > 0, "the hot-row cache never answered"
+    out = {"requests": LOOKUP_REQUESTS, "requests_per_sec":
+           LOOKUP_REQUESTS / wall, "p50_ms": pct(lat, 50),
+           "p99_ms": pct(lat, 99), "cache_hits": hits,
+           "clocks": sorted(clocks_seen)}
+    log(f"live lookups: {LOOKUP_REQUESTS} requests of {LOOKUP_KEYS} Zipf"
+        f"({LOOKUP_ZIPF}) keys over {ROWS:,} x {COLS} in {LOOKUP_BURSTS} "
+        f"bursts at clocks {out['clocks'][0]:.0f}-{out['clocks'][-1]:.0f}, "
+        f"every reply bitwise the table at its stamped clock: "
+        f"{out['requests_per_sec']:.1f} requests/sec, p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms, {hits} cache "
+        f"hits")
+    out["table"] = t
+    return out
+
+
+def replica_lookups(live: dict, seed: int, directory: str) -> dict:
+    """(b) The live table checkpointed (npz), then served through
+    ``CheckpointReplica`` + ``ReplicaLookupRunner`` at f32, bf16 and int8
+    (one service, three runners): f32 replies bitwise the checkpoint's
+    rows, bf16/int8 within ``roundtrip_bound`` of them and bitwise the
+    CPU replay of the decode gather; the f32 replica hot-swaps to a newer
+    checkpoint while requests run (each reply the bytes of the step it is
+    stamped with; every request after the swap the new bytes); then a
+    ``RoutedLookupClient`` over two services, each holding half the rows
+    by ``row_offset``, returns the whole table's rows bitwise."""
+    import threading
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core import checkpoint
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.serving import (CheckpointReplica,
+                                              ReplicaLookupRunner,
+                                              RoutedLookupClient,
+                                              ServingClient, ServingService,
+                                              SparseLookupRunner, quant)
+    from multiverso_tpu_torch.serving.runners import _dequant_gather
+
+    rng = np.random.default_rng(seed + 91)
+    t = live.pop("table")
+    checkpoint.save_all(directory, step=1)
+    data = {1: t.store.read().cpu().numpy()}
+    reps = {d: CheckpointReplica(directory, table_dtype=d)
+            for d in ("f32", "bf16", "int8")}
+    assert all(r.device.type == "cuda" for r in reps.values())
+    svc = ServingService()
+    for rid, d in enumerate(reps):
+        svc.register_runner(ReplicaLookupRunner(reps[d], "live"),
+                            runner_id=rid, buckets=LOOKUP_BUCKETS,
+                            max_batch=LOOKUP_BATCH, max_wait_ms=2.0)
+    cli = ServingClient(*svc.address)
+    out = {}
+    try:
+        for rid, d in enumerate(reps):
+            queries = zipf_queries(rng, REPLICA_REQUESTS, ROWS)
+            vals, clocks, ms, secs = lookup_burst(cli, queries,
+                                                  LOOKUP_IN_FLIGHT, rid)
+            assert set(clocks) == {1}, set(clocks)
+            bound = quant.roundtrip_bound(data[1], d)
+            err = 0.0
+            if d != "f32":
+                pay, scale = quant.encode_table(data[1], d,
+                                                torch.device("cpu"))
+            for q, v in zip(queries, vals):
+                want = data[1][q]
+                if d == "f32":
+                    assert np.array_equal(v, want), "f32 replica lookup"
+                    continue
+                err = max(err, float(np.abs(v - want).max()))
+                replay = _dequant_gather(pay, scale, torch.as_tensor(q))
+                assert np.array_equal(v, replay.numpy()), \
+                    f"{d} replica lookup differs from the CPU decode"
+            assert err <= bound, (d, err, bound)
+            out[d] = {"requests_per_sec": REPLICA_REQUESTS / secs,
+                      "p50_ms": pct(ms, 50), "p99_ms": pct(ms, 99),
+                      "max_abs_err": err, "bound": bound}
+            log(f"replica lookups [{d}]: {REPLICA_REQUESTS} requests, "
+                f"{out[d]['requests_per_sec']:.1f} requests/sec, p50 "
+                f"{out[d]['p50_ms']:.3f} ms, p99 {out[d]['p99_ms']:.3f} ms; "
+                f"max |reply - checkpoint| {err:.3g} (bound {bound:.3g})")
+
+        # Hot swap mid-run: a newer checkpoint lands while requests run.
+        for w in (0, 1):
+            ids = rng.integers(0, ROWS, size=N_IDS).astype(np.int32)
+            t.add_rows(ids, rng.normal(size=(N_IDS, COLS)).astype(
+                np.float32), AddOption(worker_id=w))
+        checkpoint.save_all(directory, step=2)
+        data[2] = t.store.read().cpu().numpy()
+        swapper = threading.Timer(0.05, reps["f32"].refresh)
+        swapper.start()
+        queries = zipf_queries(rng, REPLICA_REQUESTS, ROWS)
+        vals, during, _, _ = lookup_burst(cli, queries, LOOKUP_IN_FLIGHT, 0)
+        swapper.join()
+        assert reps["f32"].step == 2
+        for q, v, c in zip(queries, vals, during):
+            assert np.array_equal(v, data[c][q]), (c, "torn swap")
+        queries = zipf_queries(rng, 200, ROWS)
+        vals, clocks, _, _ = lookup_burst(cli, queries, LOOKUP_IN_FLIGHT, 0)
+        assert set(clocks) == {2}
+        for q, v in zip(queries, vals):
+            assert np.array_equal(v, data[2][q]), "stale after the swap"
+        out["swap"] = {"old_step_replies": during.count(1),
+                       "new_step_replies": during.count(2)}
+        log(f"replica hot swap while {REPLICA_REQUESTS} requests ran: "
+            f"{during.count(1)} replies of step 1, {during.count(2)} of "
+            f"step 2, each the bytes of its step; the next 200 all step 2")
+    finally:
+        cli.close()
+        svc.close()
+        for r in reps.values():
+            r.close()
+
+    # Two services, each over half the rows by row_offset.
+    half = ROWS // 2
+    halves, svcs = [], []
+    for lo in (0, half):
+        h = mv.create_table(mv.MatrixTableOption(half, COLS, use_pallas=True,
+                                                 name=f"half{lo}"))
+        h.publish(data[2][lo:lo + half])
+        s = ServingService()
+        s.register_runner(SparseLookupRunner(h.store, row_offset=lo),
+                          buckets=LOOKUP_BUCKETS, max_batch=LOOKUP_BATCH,
+                          max_wait_ms=2.0)
+        halves.append(h)
+        svcs.append(s)
+    routed = RoutedLookupClient([s.address for s in svcs],
+                                offsets=[0, half, ROWS])
+    try:
+        for _ in range(200):
+            q = rng.integers(0, ROWS, LOOKUP_KEYS)
+            assert np.array_equal(routed.lookup(q, deadline_ms=60_000),
+                                  data[2][q]), "routed lookup"
+    finally:
+        routed.close()
+        for s in svcs:
+            s.close()
+    mv.shutdown()
+    log(f"routed lookups: 200 requests over two half-table services "
+        f"(row_offset 0 and {half:,}), bitwise the whole table")
+    return out
+
+
+def async_checkpoint(tables, directory: str) -> dict:
+    """(c) Phase 8's tables saved by the async backend
+    (``CheckpointManager(backend="orbax")``) twice; right after each
+    ``maybe_save`` returns, 3 in-place row Adds into the ``use_pallas``
+    adagrad table (the fused route) and the sgd sparse table (B2). The
+    loaded checkpoint must be bitwise the snapshot before those Adds.
+    Seconds from the call to its return (staged) and to the commit (the
+    whole write), the first save with fresh pinned buffers, the second
+    reusing them."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.core import checkpoint
+    from multiverso_tpu_torch.core.options import AddOption
+
+    rng = np.random.default_rng(84)
+    mgr = checkpoint.CheckpointManager(directory, save_every_steps=1,
+                                       keep_last=1, backend="orbax")
+    readings = []
+    for step in (1, 2):
+        before = table_payloads(tables)
+        torch.cuda.synchronize()
+        root = mgr.maybe_save(step)
+        for _ in range(3):
+            ids = rng.integers(0, ROWS, size=N_IDS).astype(np.int32)
+            d = rng.normal(size=(N_IDS, COLS)).astype(np.float32)
+            tables["ckpt_adagrad"].add_rows(ids, d,
+                                            AddOption(**STATEFUL_OPT))
+            tables["sparse"].add_rows(ids, d, AddOption(worker_id=1))
+        mgr.finalize()
+        h = mgr.last_handle
+        mb = sum(os.path.getsize(os.path.join(dp, f))
+                 for dp, _, fs in os.walk(root) for f in fs) / 1e6
+        readings.append({"step": step, "staged_s": h.staged_s,
+                         "total_s": h.total_s, "mb": mb})
+        saved = {name: before[name] for name in ("ckpt_adagrad", "sparse",
+                                                 "ckpt_bf16")}
+        assert mgr.restore_latest() == step
+        after = table_payloads(tables)
+        for name, want in saved.items():
+            for key in want:
+                assert np.array_equal(after[name][key], want[key]), \
+                    (name, key, "an Add after maybe_save reached the save")
+        log(f"async checkpoint [save {step}]: {len(tables)} tables "
+            f"({mb:.1f} MB) staged in {h.staged_s:.3f} s, written and "
+            f"committed in {h.total_s:.3f} s; the Adds issued after "
+            f"maybe_save returned are absent from the restored tables")
+    return {"saves": readings,
+            "pinned_mb": mgr._staging.nbytes / 1e6}
+
+
+def moved_err(card, host, init) -> float:
+    """max |card - host| over max |host - init| of one tensor (how far
+    the card is from the replay, against how far the replay moved)."""
+    import numpy as np
+    card, host, init = (np.asarray(x.cpu() if hasattr(x, "cpu") else x,
+                                   dtype=np.float64)
+                        for x in (card, host, init))
+    return float(np.abs(card - host).max() / np.abs(host - init).max())
+
+
+def dlrm_parity(seed: int) -> dict:
+    """(d, first part) At the Criteo Kaggle widths: a PS model and its
+    local twin on the card, 20 steps on one impression stream, bitwise
+    equal (dense params, every embedding table and AdaGrad state, every
+    loss and score). Every push of the PS model (128 lanes x 16 columns a
+    field) is sorted and folded again by the fold kernel, bitwise its
+    plain version on the CPU copies. A local model on the CPU replays the
+    same steps: each of the card's dense params and embedding tables must
+    be within DLRM_RTOL of it by ``moved_err``, and a local twin on the
+    card with TF32 switched on must exceed DLRM_RTOL. Only the PS and
+    local steps count as the path's launches."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.dlrm import (DLRMConfig, DLRMModel,
+                                                  ImpressionStream,
+                                                  StreamConfig)
+    from multiverso_tpu_torch.ops import rows
+
+    cfg = DLRMConfig(**DLRM_WIDTHS, seed=seed)
+    scfg = StreamConfig(fields=cfg.fields, vocab=cfg.vocab,
+                        dense_dim=cfg.dense_dim, zipf=1.2, seed=seed)
+    mv.init([])
+    models = {"ps": DLRMModel(cfg, mode="ps"),
+              "local": DLRMModel(cfg, mode="local"),
+              "cpu": DLRMModel(cfg, mode="local",
+                               device=torch.device("cpu"))}
+    assert models["ps"].device.type == "cuda" == models["local"].device.type
+    pushes = []
+    push = models["ps"]._push_rows
+
+    def keep_push(f, ids, delta):
+        pushes.append((ids.clone(), delta.clone()))
+        push(f, ids, delta)
+
+    models["ps"]._push_rows = keep_push
+    streams = {k: ImpressionStream(scfg) for k in models}
+    folds0 = rows.LAUNCHES["fold_sorted_runs"]
+    for i in range(DLRM_PARITY_STEPS):
+        got = {}
+        for k in ("ps", "local"):
+            b = streams[k].batch(DLRM_BATCH)
+            got[k] = models[k].step(b.ids, b.dense, b.labels)
+        assert got["ps"][0] == got["local"][0], (i, got["ps"][0],
+                                                 got["local"][0])
+        assert np.array_equal(got["ps"][1], got["local"][1]), i
+    folds = rows.LAUNCHES["fold_sorted_runs"] - folds0
+    assert folds == 2 * cfg.fields * DLRM_PARITY_STEPS, folds
+    path_counts = dict(rows.LAUNCHES)
+
+    # The fold kernel at DLRM's shape, on every push the PS model made.
+    dup_lanes = 0
+    for ids, delta in pushes:
+        sid, order = torch.sort(ids, stable=True)
+        sd = delta.index_select(0, order)
+        assert torch.equal(rows.fold_sorted_runs(sid, sd).cpu(),
+                           rows.fold_sorted_runs_plain(sid.cpu(), sd.cpu()))
+        dup_lanes += int((sid[1:] == sid[:-1]).sum())
+    assert len(pushes) == cfg.fields * DLRM_PARITY_STEPS and dup_lanes > 0
+
+    # The CPU replay, and a card twin with TF32 switched on.
+    cpu = models["cpu"]
+    init = {"dense": [(w.clone(), b.clone()) for w, b in cpu.dense_params],
+            "emb": [cpu.local_rows(f).copy() for f in range(cfg.fields)]}
+    for _ in range(DLRM_PARITY_STEPS):
+        b = streams["cpu"].batch(DLRM_BATCH)
+        cpu.step(b.ids, b.dense, b.labels)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        models["tf32"] = DLRMModel(cfg, mode="local")
+        stream = ImpressionStream(scfg)
+        for _ in range(DLRM_PARITY_STEPS):
+            b = stream.batch(DLRM_BATCH)
+            models["tf32"].step(b.ids, b.dense, b.labels)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    rows.LAUNCHES.update(path_counts)
+
+    ps, local, tf32 = models["ps"], models["local"], models["tf32"]
+    for (w, b), (wl, bl) in zip(ps.dense_params, local.dense_params):
+        assert torch.equal(w, wl) and torch.equal(b, bl)
+    for f in range(cfg.fields):
+        t = ps.tables[f].store
+        assert torch.equal(t.data, local._emb[f]), f
+        assert torch.equal(t.state["g2"], local._emb_state[f]["g2"]), f
+    err = {}
+    for name, model, rows_of in (
+            ("card", ps, lambda f: ps.tables[f].store.data),
+            ("tf32", tf32, lambda f: tf32._emb[f])):
+        err[name] = {
+            "dense": max(moved_err(c, h, i)
+                         for cw, hw, iw in zip(model.dense_params,
+                                               cpu.dense_params,
+                                               init["dense"])
+                         for c, h, i in zip(cw, hw, iw)),
+            "emb": max(moved_err(rows_of(f), cpu.local_rows(f),
+                                 init["emb"][f])
+                       for f in range(cfg.fields))}
+    mv.shutdown()
+    log(f"DLRM parity: {DLRM_PARITY_STEPS} steps at the Criteo Kaggle "
+        f"widths, PS and local twin bitwise on the card ({folds} fold "
+        f"launches); the fold kernel bitwise its plain version on all "
+        f"{len(pushes)} pushes ({DLRM_BATCH} x {cfg.embed_dim}, "
+        f"{dup_lanes} lanes in runs of more than one); card against the "
+        f"CPU replay, of how far the replay moved: dense "
+        f"{err['card']['dense']:.3g}, embeddings {err['card']['emb']:.3g} "
+        f"(limit {DLRM_RTOL}); the TF32 twin: dense "
+        f"{err['tf32']['dense']:.3g}, embeddings {err['tf32']['emb']:.3g}")
+    assert max(err["card"].values()) <= DLRM_RTOL, err
+    assert max(err["tf32"].values()) > DLRM_RTOL, \
+        ("the tolerance cannot tell TF32 from float32", err)
+    return {"steps": DLRM_PARITY_STEPS, "fold_launches": folds,
+            "fold_checked_pushes": len(pushes), "dup_lanes": dup_lanes,
+            "card_vs_cpu": err["card"], "tf32_vs_cpu": err["tf32"]}
+
+
+def dlrm_online(seed: int, directory: str) -> dict:
+    """(d) The online loop at the Criteo Kaggle widths: 240 steps of 128
+    impressions, a publish (npz checkpoint + replica swap) every 40,
+    freshness lanes 1 and 4, with ``ServeLoad`` driving Zipf lookups of
+    16 keys into field 0's live table (a hot-row cache of 8,192 rows at
+    staleness 1) at a paced 400 requests/sec; then the final checkpoint
+    scored through an f32 and an int8 replica on 4 held-out batches.
+    Every served lookup answered; the fresh lane's AUC at least the
+    frozen lane's; once training stops, 64 batches of ``ServeLoad``'s
+    shape through its runner (B1 over 16-wide rows) bitwise the plain
+    gather of the table on the CPU. The loop's time split between steps,
+    publishes and the rest from the ``recsys.*`` histograms."""
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.dlrm.stream import zipf_ids
+    from multiverso_tpu_torch.ops import rows
+    from multiverso_tpu_torch.telemetry import get_registry
+    from multiverso_tpu_torch.models.dlrm import (DLRMConfig, DLRMModel,
+                                                  ImpressionStream,
+                                                  SnapshotScorer,
+                                                  StreamConfig, exact_auc)
+    from multiverso_tpu_torch.recsys import (OnlineConfig, OnlineLoop,
+                                             ServeLoad, make_live_runner)
+    from multiverso_tpu_torch.serving import CheckpointReplica
+
+    cfg = DLRMConfig(**DLRM_WIDTHS, seed=seed)
+    scfg = StreamConfig(fields=cfg.fields, vocab=cfg.vocab,
+                        dense_dim=cfg.dense_dim, zipf=1.2,
+                        drift_scale=0.3, seed=seed)
+    mv.init([])
+    model = DLRMModel(cfg, mode="ps")
+    assert model.device.type == "cuda", model.device
+    stream = ImpressionStream(scfg)
+    loop = OnlineLoop(model, stream, directory, OnlineConfig(
+        steps=DLRM_STEPS, batch=DLRM_BATCH, publish_every=DLRM_PUBLISH,
+        eval_every=DLRM_EVAL, lanes=DLRM_LANES))
+    load = ServeLoad(make_live_runner(model, field=0, cache_rows=8_192,
+                                      cache_staleness=1),
+                     vocab=cfg.vocab, qps=DLRM_SERVE_QPS, keys_per_req=16,
+                     max_batch=8, seed=seed + 7).start()
+    hists = {k: get_registry().histogram(f"recsys.{k}") for k in
+             ("train.step_ms", "publish.latency_ms")}
+    before = {k: (h.count, h.sum) for k, h in hists.items()}
+    try:
+        summary = loop.run()
+    finally:
+        serve = load.stop()
+    split = {k: {"count": h.count - before[k][0],
+                 "s": (h.sum - before[k][1]) / 1e3}
+             for k, h in hists.items()}
+    split["other_s"] = summary["elapsed_s"] - sum(
+        v["s"] for v in split.values())
+
+    # ServeLoad's runner on the trained table: B1 at its shape, bitwise.
+    table = model.tables[0].store.read().cpu()
+    b1 = rows.LAUNCHES["gather_rows"]
+    qrng = np.random.default_rng(seed + 8)
+    for _ in range(DLRM_SERVE_CHECKS):
+        keys = zipf_ids(qrng, 1.2, 8 * 16, cfg.vocab).reshape(8, 16)
+        got = load.runner.run(keys, np.full(8, 16, dtype=np.int64))
+        want = rows.gather_rows_plain(table, torch.as_tensor(keys.ravel()))
+        assert np.array_equal(got, want.numpy().reshape(got.shape)), \
+            "a live DLRM lookup differs from the plain gather"
+    assert rows.LAUNCHES["gather_rows"] - b1 == DLRM_SERVE_CHECKS
+    rows.LAUNCHES["gather_rows"] = b1
+    held = [stream.batch(DLRM_BATCH) for _ in range(4)]
+    labels = np.concatenate([b.labels for b in held])
+    quant = {}
+    for dtype in ("f32", "int8"):
+        rep = CheckpointReplica(directory, table_dtype=dtype)
+        scorer = SnapshotScorer.from_snapshot(cfg, rep.snapshot())
+        scores = np.concatenate([scorer.scores(b.ids, b.dense)
+                                 for b in held])
+        quant[dtype] = {"auc": exact_auc(scores, labels), "step": rep.step}
+        rep.close()
+    mv.shutdown()
+    lanes = {r["lane"]: r["auc"] for r in summary["freshness"]}
+    assert serve["errors"] == 0 and serve["requests"] > 0, serve
+    assert summary["publishes"] == 1 + DLRM_STEPS // DLRM_PUBLISH
+    assert np.isfinite(summary["final_loss"])
+    assert lanes["fresh"] >= lanes["frozen"], lanes
+    quant["auc_delta"] = abs(quant["f32"]["auc"] - quant["int8"]["auc"])
+    out = {"examples_per_sec": summary["examples_per_sec"],
+           "publishes": summary["publishes"], "lanes": lanes,
+           "train_auc": summary["train_auc"],
+           "final_loss": summary["final_loss"], "serve": serve,
+           "quant": quant, "elapsed_s": summary["elapsed_s"],
+           "split": split}
+    lat = serve["batch_latency_ms"]
+    log(f"DLRM online: {DLRM_STEPS} steps x {DLRM_BATCH} at "
+        f"{summary['examples_per_sec']:.1f} examples/sec, "
+        f"{summary['publishes']} publishes; AUC by lane "
+        + ", ".join(f"{k} {v:.4f}" for k, v in lanes.items())
+        + f"; serve {serve['achieved_qps']:.1f} of {serve['offered_qps']:.0f}"
+        f" requests/sec offered, {serve['requests']} answered, "
+        f"{serve['cache_hits']} cache hits, batch p50 {lat['p50']:.3f} ms, "
+        f"p99 {lat['p99']:.3f} ms; held-out AUC f32 "
+        f"{quant['f32']['auc']:.4f}, int8 {quant['int8']['auc']:.4f}; "
+        f"{DLRM_SERVE_CHECKS} runner batches of 8 x 16 keys bitwise the "
+        f"plain gather")
+    log(f"DLRM online split of {summary['elapsed_s']:.3f} s: "
+        f"{split['train.step_ms']['count']} steps "
+        f"{split['train.step_ms']['s']:.3f} s, "
+        f"{split['publish.latency_ms']['count']} publishes "
+        f"{split['publish.latency_ms']['s']:.3f} s, the rest (scoring the "
+        f"lanes, drawing batches) {split['other_s']:.3f} s")
+    return out
+
+
+def phase9(seed: int, on_path, card: str, async_ckpt: dict,
+           npz: dict) -> dict:
+    """Phase 9: the lookup serving plane (live, replica, routed), the
+    async checkpoint's readings (run in phase 8's session), DLRM and the
+    online loop. Returns the readings and each run's launch counts."""
+    log(f"phase 9 on {card}")
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        live, out["launches"]["live"] = on_path(live_lookups, seed)
+        out["replica"], out["launches"]["replica"] = on_path(
+            replica_lookups, live, seed, tmp)
+    out["live"] = live
+    out["async_checkpoint"] = dict(async_ckpt, npz_save_s=npz["save_s"],
+                                   npz_mb=npz["mb"])
+    log(f"async checkpoint against npz: staged "
+        + " / ".join(f"{s['staged_s']:.3f}" for s in async_ckpt["saves"])
+        + " s, whole write "
+        + " / ".join(f"{s['total_s']:.3f}" for s in async_ckpt["saves"])
+        + f" s; npz save_all {npz['save_s']:.3f} s ({npz['mb']:.1f} MB)")
+    out["dlrm_parity"], out["launches"]["dlrm_parity"] = on_path(
+        dlrm_parity, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["dlrm"], out["launches"]["dlrm"] = on_path(dlrm_online, seed,
+                                                       tmp)
     return out
 
 
@@ -4214,6 +4841,19 @@ def main() -> int:
     assert p8_runs["lda"]["tiled_scatter_add_sorted_rows"] == \
         lda_blocks + 1, p8_runs["lda"]
 
+    # Phase 9: the lookup serving plane (B1 under the live, replica and
+    # routed runners), the async checkpoint's readings, DLRM and the
+    # online loop (the fold under every embedding push).
+    p9 = phase9(args.seed, on_path, card, p8.pop("async_checkpoint"),
+                p8["checkpoint"])
+    p9_runs = p9.pop("launches")
+    for run in ("live", "replica"):
+        assert p9_runs[run]["gather_rows"] > 0, (run, p9_runs[run])
+    for run in ("dlrm_parity", "dlrm"):
+        assert p9_runs[run]["fold_sorted_runs"] > 0, (run, p9_runs[run])
+    # The PS pulls and ServeLoad's runner.
+    assert p9_runs["dlrm"]["gather_rows"] > 0, p9_runs["dlrm"]
+
     b4_runs = {"bench.py leg": leg["tiled_scatter_add_sorted_rows"],
                "plain tables": plain_counts["tiled_scatter_add_sorted_rows"],
                "word2vec plain steps":
@@ -4222,7 +4862,8 @@ def main() -> int:
                    p8_runs["device_kv"]["tiled_scatter_add_sorted_rows"],
                "phase 8 LDA": p8_runs["lda"]["tiled_scatter_add_sorted_rows"]}
     launches = {
-        "gather_rows": plane["gather_rows"] + p8_runs["sparse"]["gather_rows"],
+        "gather_rows": plane["gather_rows"] + p8_runs["sparse"]["gather_rows"]
+        + sum(c["gather_rows"] for c in p9_runs.values()),
         "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"]
         + p8_runs["sparse"]["scatter_add_sorted_rows"],
         "fused_stateful_sorted_rows": sum(
@@ -4230,7 +4871,8 @@ def main() -> int:
             for r in stateful.values())
         + p8_runs["checkpoint_tables"]["fused_stateful_sorted_rows"],
         "fold_sorted_runs": plain_counts["fold_sorted_runs"]
-        + p8_runs["device_kv"]["fold_sorted_runs"],
+        + p8_runs["device_kv"]["fold_sorted_runs"]
+        + sum(c["fold_sorted_runs"] for c in p9_runs.values()),
         "tiled_scatter_add_sorted_rows": sum(b4_runs.values()),
         "sgns_block": flag["sgns_block"],
         "sgns_block_bf16": flag_bf16["sgns_block_bf16"],
@@ -4241,6 +4883,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
         k["phase8_launches"] = {run: c[k["name"]] for run, c in p8_runs.items()
+                                if c.get(k["name"])}
+        k["phase9_launches"] = {run: c[k["name"]] for run, c in p9_runs.items()
                                 if c.get(k["name"])}
         if k["name"] == "fused_stateful_sorted_rows":
             k["store_add_kernels"] = store_kernels
@@ -4255,6 +4899,11 @@ def main() -> int:
             # bfloat16 stateful tables fold by the lane-order route
             # instead (no launch of this kernel).
             k["bf16_stateful_tables"] = bf16_stateful
+            k["variants"].append({
+                "layout": "DLRM's PS pushes (phase 9 (d))", "cols": 16,
+                "lanes": DLRM_BATCH,
+                "pushes": p9["dlrm_parity"]["fold_checked_pushes"],
+                "dtypes": ["float32"], "max_abs_err": 0.0})
             k["launches_by_run"] = {
                 name: r["launches"]["fold_sorted_runs"]
                 for name, r in plain_runs.items()}
@@ -4267,6 +4916,11 @@ def main() -> int:
             k["flagship_pairs_per_sec"] = st["pairs"] / st["seconds"]
         if k["name"] == "gather_rows":
             k["negative_id_routes"] = negative
+            k["variants"].append({
+                "layout": "ServeLoad's runner on DLRM field 0 (phase 9 (d))",
+                "cols": 16, "ids": 8 * 16, "batches": DLRM_SERVE_CHECKS,
+                "max_abs_err": 0.0})
+            k["phase9"] = p9
         if k["name"] == "sgns_block_bf16":
             k["bf16_table_updates_per_sec"] = bf16_plane["updates_per_sec"]
             k["other_paths_words_per_sec"] = {

@@ -23,9 +23,11 @@ has no bfloat16 without ``ml_dtypes``); the widening is exact, so
 :func:`read_table_payload` widens the stored pattern to float32 again,
 which the store narrows to ``torch.bfloat16`` exactly.
 
-Not ported: the async orbax backend (``backend="orbax"`` raises, ROADMAP
-A4). Its directory names (``orbax_<step>``) are still recognised, so a
-directory that holds such trees is pruned as the JAX package prunes it.
+``CheckpointManager(backend="orbax")`` runs the async backend of
+:mod:`multiverso_tpu_torch.core.checkpoint_orbax` (the port's own format
+under the JAX package's ``orbax_<step>`` layout and commit protocol); a
+directory that holds both backends' trees is pruned as the JAX package
+prunes it.
 """
 
 from __future__ import annotations
@@ -210,34 +212,63 @@ def latest_checkpoint(directory: str, prefix: str = "ckpt",
 
 
 class CheckpointManager:
-    """Periodic save + retention + resume, with the ``npz`` backend (one
-    synchronous npz stream per table). ``backend="orbax"`` (the JAX
-    package's async backend) is not ported: ROADMAP A4."""
+    """Periodic save + retention + resume.
+
+    ``backend="npz"`` (default) writes reference-style per-table npz
+    streams synchronously. ``backend="orbax"`` uses the async backend
+    (``core/checkpoint_orbax.py``): ``maybe_save`` returns once the tables
+    are staged and the writes land in background threads, so the periodic
+    trigger overlaps training; at most one save is in flight (the next
+    trigger, or ``finalize()``, joins the previous one first), and the
+    host staging buffers are reused from save to save."""
 
     def __init__(self, directory: str, save_every_steps: int = 1000,
                  keep_last: int = 3, backend: str = "npz"):
         check(backend in ("npz", "orbax"), f"unknown backend {backend!r}")
-        if backend == "orbax":
-            raise NotImplementedError(
-                "CheckpointManager(backend='orbax') (the async save "
-                "backend) is not ported yet: ROADMAP A4")
         self.directory = directory
         self.save_every_steps = max(1, save_every_steps)
         self.keep_last = max(1, keep_last)
         self.backend = backend
         self._last_saved_step = -1
+        self._pending = None     # in-flight async AsyncSaveHandle
+        self._staging = None     # the async backend's host buffers
+        #: The last async save's handle (its ``staged_s``/``total_s``).
+        self.last_handle = None
 
     def maybe_save(self, step: int) -> Optional[str]:
-        """Returns the checkpoint root when a save was triggered."""
+        """Returns the checkpoint root when a save was triggered. With the
+        orbax backend the returned root is still being written in the
+        background and is durable only once its ``manifest.json`` appears
+        (written by the join at the next trigger or ``finalize()``);
+        restore selects on that marker."""
         if step % self.save_every_steps != 0 or step == self._last_saved_step:
             return None
+        if self.backend == "orbax":
+            from multiverso_tpu_torch.core import checkpoint_orbax as co
+            self._join_pending()          # at most one save in flight
+            if self._staging is None:
+                self._staging = co.HostStaging()
+            handle = co.save_all_async(self.directory, step,
+                                       staging=self._staging)
+            self._pending = self.last_handle = handle
+            self._last_saved_step = step
+            return handle.root
         path = save_all(self.directory, step)
         self._last_saved_step = step
         self._prune()
         return path
 
+    def _join_pending(self) -> None:
+        if self._pending is not None:
+            try:
+                self._pending.wait_until_finished()
+            finally:
+                self._pending = None
+            self._prune()
+
     def finalize(self) -> None:
-        """Nothing is in flight with the synchronous backend."""
+        """Join the in-flight async save (call before shutdown/restore)."""
+        self._join_pending()
 
     def _is_complete(self, name: str) -> bool:
         selector = "manifest.json" if name.startswith("orbax_") \
@@ -313,8 +344,10 @@ class CheckpointManager:
 
     def _orbax_candidates(self):
         """Every MANIFESTED orbax dir — committed roots AND manifested
-        staging dirs. Returns [(step, is_plain_root, name)]; the port
-        reads none of them until the async backend is ported (A4)."""
+        staging dirs (a crash between 'manifest written' and 'rename
+        landed' leaves the complete checkpoint under its staging name;
+        the manifest, not the name, is the durability marker). Returns
+        [(step, is_plain_root, name)]."""
         if not os.path.isdir(self.directory):
             return []
         out = []
@@ -326,6 +359,15 @@ class CheckpointManager:
         return out
 
     def restore_latest(self) -> Optional[int]:
+        if self.backend == "orbax":
+            from multiverso_tpu_torch.core import checkpoint_orbax as co
+            self._join_pending()
+            cands = self._orbax_candidates()
+            if not cands:
+                return None
+            step, _, name = max(cands)   # newest step; plain root wins ties
+            co.load_all(os.path.join(self.directory, name))
+            return step
         path = latest_checkpoint(self.directory)
         if path is None:
             return None

@@ -216,10 +216,18 @@ class ServerStore:
             return self.data.clone()
 
     def read_rows(self, row_ids) -> torch.Tensor:
-        """Rows by id, ids clipped into range (``mode="clip"``)."""
+        """Rows by id, ids clipped into range (``mode="clip"``). A 2-D
+        float32 table gathers with B1 (``ops/rows.gather_rows``, bitwise
+        ``index_select``), whether or not it is ``use_pallas``; another
+        dtype with ``index_select``. The gather is issued under the lock,
+        on the stream the in-place Adds run on, so it reads one
+        consistent table and no later Add can overtake it (the JAX
+        package's donation guard); the lookup runners read through
+        here."""
         ids = self._clip(row_ids)
         with self._lock:
-            if self._pallas_rows:
+            if (self.data.dim() == 2 and self.shard_axis == 0
+                    and self.data.dtype == torch.float32):
                 return rows.gather_rows(self.data, ids)
             return self.data.index_select(self.shard_axis, ids)
 

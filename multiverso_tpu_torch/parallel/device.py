@@ -54,12 +54,11 @@ def reference_server_offsets(size: int, num_servers: int) -> Tuple[int, ...]:
     return tuple(offsets)
 
 
-def check_comm_policy(policy: Optional[str], table: str) -> str:
-    """Per-table communication policy. Only the default PS plane (``None``
-    or ``"ps"``) is ported; ``auto``/``allreduce``/``model_average`` need
-    the collective plane (ROADMAP A7)."""
-    if policy in (None, "", "ps"):
-        return "ps"
-    raise NotImplementedError(
-        f"comm_policy={policy!r} for table '{table}' is not ported yet "
-        "(collective planes): ROADMAP A7")
+def check_comm_policy(policy: Optional[str], table: str):
+    """Per-table communication policy, as the JAX tables resolve it: a
+    :class:`~multiverso_tpu_torch.parallel.comm_policy.CommPolicy` for
+    ``None``/``"ps"`` or a concrete ``allreduce``/``model_average`` (a
+    label and its counters at one rank); ``"auto"`` (the measured probe)
+    raises "ROADMAP A7"."""
+    from multiverso_tpu_torch.parallel.comm_policy import policy_for_option
+    return policy_for_option(policy, table)

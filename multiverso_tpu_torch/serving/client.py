@@ -1,7 +1,7 @@
 """Serving clients: threaded, concurrent in-flight requests.
 
-Port of ``multiverso_tpu/serving/client.py``. ``RoutedLookupClient``
-(shard routing for the lookup runners) waits with them (ROADMAP A9).
+Port of ``multiverso_tpu/serving/client.py``, with
+:class:`RoutedLookupClient`, the shard routing of the lookup runners.
 
 :class:`ServingClient` multiplexes any number of concurrent requests over
 ONE persistent connection — a reader thread routes replies to waiters by
@@ -21,7 +21,7 @@ import os
 import socket
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -354,3 +354,55 @@ class ServingClient:
         except OSError:
             pass
         self._reader.join(timeout=10.0)
+
+
+class RoutedLookupClient:
+    """Client-side shard routing over per-shard serving services.
+
+    ``offsets`` is the ``reference_server_offsets`` vector (length
+    world+1): global row r belongs to the shard whose
+    ``offsets[s] <= r < offsets[s+1]``."""
+
+    def __init__(self, addrs: Sequence[Tuple[str, int]],
+                 offsets: Sequence[int], runner_id: int = 0):
+        check(len(offsets) == len(addrs) + 1,
+              "offsets must have one more entry than shard addresses")
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.runner_id = runner_id
+        self._clients = [ServingClient(h, p) for h, p in addrs]
+
+    def lookup(self, rows, deadline_ms: float = 100.0,
+               timeout: Optional[float] = 60.0) -> np.ndarray:
+        """Gather global rows across shards; reply rows in request order.
+        Sub-lookups are issued concurrently (one async request per touched
+        shard) and stitched back by position."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.size == 0:
+            # A zero-row lookup still round-trips so the reply has the
+            # real column shape.
+            values, _ = self._clients[0].request_async(
+                rows.astype(np.int32), deadline_ms,
+                self.runner_id).wait(timeout)
+            return values
+        shard = np.searchsorted(self.offsets, rows, side="right") - 1
+        check(bool((shard >= 0).all()
+                   and (shard < len(self._clients)).all()),
+              "row id outside the sharded range")
+        parts = []
+        for s in np.unique(shard):
+            pos = np.flatnonzero(shard == s)
+            res = self._clients[int(s)].request_async(
+                rows[pos].astype(np.int32), deadline_ms, self.runner_id)
+            parts.append((pos, res))
+        out: Optional[np.ndarray] = None
+        for pos, res in parts:
+            values, _ = res.wait(timeout)
+            if out is None:
+                out = np.empty((len(rows),) + values.shape[1:],
+                               dtype=values.dtype)
+            out[pos] = values
+        return out
+
+    def close(self) -> None:
+        for c in self._clients:
+            c.close()

@@ -16,13 +16,15 @@ decode read (B7, ``ops/attention.py::paged_decode_attn``) takes:
   and scale are the JAX package's bit for bit); ``|x -
   decode(encode(x))| <= absmax(row) / 254``.
 
-``encode_table`` belongs to the replica tables and waits with them
-(ROADMAP A9).
+:func:`encode_table` converts one checkpointed replica table into its
+storage form on the device (``serving/replica.py``); the int8 payload and
+scale are computed in numpy exactly as the JAX package computes them, so
+they are its bytes bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,3 +105,29 @@ def roundtrip_bound(x: np.ndarray, dtype: str) -> float:
     absmax = np.max(np.abs(x), axis=-1, keepdims=True)
     # round() is within half a quantization step; scale = absmax/127.
     return float(np.max(absmax) / (2.0 * _INT8_MAX))
+
+
+def encode_table(data: np.ndarray, dtype: str,
+                 device: Optional[torch.device] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Host->device conversion of one 2-D replica table into storage
+    form (the once-per-checkpoint-swap amortization point). Returns
+    ``(device payload, device scale-or-None)``: f32 as is (the table's
+    own dtype), bf16 by a cast
+    (round to nearest even, as ``jnp.asarray(data, bfloat16)``), int8
+    with a float32 per-row absmax scale ``[rows, 1]`` (``np.round``,
+    clipped to +-127), both computed in numpy as the JAX package does."""
+    dtype = storage_dtype(dtype)
+    if dtype == "f32":
+        return torch.as_tensor(np.array(data), device=device), None
+    arr = np.asarray(data, np.float32)
+    if dtype == "bf16":
+        return torch.as_tensor(np.array(arr), device=device).to(
+            torch.bfloat16), None
+    absmax = np.max(np.abs(arr), axis=-1, keepdims=True)
+    scale = np.where(absmax > 0, absmax / _INT8_MAX, 1.0) \
+        .astype(np.float32)
+    q = np.clip(np.round(arr / scale), -_INT8_MAX, _INT8_MAX) \
+        .astype(np.int8)
+    return (torch.as_tensor(q, device=device),
+            torch.as_tensor(scale, device=device))

@@ -1,7 +1,28 @@
 """Model runners behind the serving batcher.
 
 Port of ``multiverso_tpu/serving/runners.py``: the :class:`ServingRunner`
-protocol and :class:`AttentionLMRunner`, greedy decode for an
+protocol, the two row-lookup runners and :class:`AttentionLMRunner`.
+
+* :class:`SparseLookupRunner` serves rows straight from a LIVE
+  :class:`~multiverso_tpu_torch.core.table.ServerStore` through
+  ``ServerStore.read_rows``: the gather is issued under the store's lock
+  on the stream its Adds run on, so a batch is one consistent table and
+  the values are bitwise a direct ``get_rows`` of the same rows at the
+  same clock.
+* :class:`ReplicaLookupRunner` serves the same lookup from a FROZEN
+  checkpoint replica (``serving/replica.py``), hot-swapped between
+  batches.
+
+Both gather float32 rows with B1 (``ops/rows.gather_rows``) on a card,
+whether or not the table is ``use_pallas``, with the ids clipped into
+range first: B1 is bitwise the JAX package's ``jnp.take(mode="clip")``. Replica
+tables stored as bf16 or int8 are read by a dequant gather in torch ops
+(gather, ``.float()``, times the gathered per-row scales), in the JAX
+package's order; the JAX package computes that in XLA, not Pallas. The
+JAX runners' ``jit_cache_size`` has no counterpart: the port compiles
+nothing per bucket.
+
+:class:`AttentionLMRunner` is greedy decode for an
 ``attention_lm`` checkpoint. The batcher hands a bucket-padded
 ``(max_batch, bucket)`` prompt matrix + per-row lengths; the runner
 prefills the prompts (plain causal attention, one pass), then runs a
@@ -30,9 +51,6 @@ the JAX package's math: the port's ``_ln``/``_posenc``, tanh-GELU, the
 mask ``key_slot < len`` or ``bucket <= key_slot <= bucket + t``, and the
 slot/position decoupling (generated token ``t`` sits at cache slot
 ``bucket + t`` and position ``len + t``).
-
-``SparseLookupRunner`` and ``ReplicaLookupRunner`` wait with the hot-row
-cache, the checkpoint replica and the traffic sketch (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -47,12 +65,16 @@ import torch.nn.functional as F
 from multiverso_tpu_torch.interop import check_attention_lm_params
 from multiverso_tpu_torch.models.attention_lm import (_ln, _posenc,
                                                       dense_param_shapes)
+from multiverso_tpu_torch.core.table import host_array
 from multiverso_tpu_torch.ops.attention import paged_decode_attn
+from multiverso_tpu_torch.ops.rows import gather_rows
 from multiverso_tpu_torch.parallel.device import resolve_device
+from multiverso_tpu_torch.serving.cache import HotRowCache
 from multiverso_tpu_torch.serving.device_clock import DeviceClock
 from multiverso_tpu_torch.serving.paged import PagePool, page_plan, pages_of
 from multiverso_tpu_torch.serving.quant import (encode_rows, has_scale,
                                                 storage_dtype)
+from multiverso_tpu_torch.telemetry.sketch import record_keys
 from multiverso_tpu_torch.utils.configure import flag_or
 from multiverso_tpu_torch.utils.locks import make_lock
 from multiverso_tpu_torch.utils.log import check
@@ -240,6 +262,193 @@ def paged_read(pool, i: int, q: torch.Tensor, ptab: torch.Tensor,
     return paged_decode_attn(q, kp[:, i], vp[:, i], ptab, lengths, t,
                              bucket=bucket, page=page, scale=scale,
                              ks=ks[:, i], vs=vs[:, i])
+
+
+# ---------------------------------------------------------------------------
+# Row lookups: a live table and a frozen checkpoint replica.
+# ---------------------------------------------------------------------------
+def _batch_keys(batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """The REAL keys of a padded batch (pad rows/columns excluded) — what
+    the traffic sketch must see: pad id 0 is a legitimate row id, so the
+    stream is cut by lengths, never by value."""
+    parts = [batch[i, :int(n)] for i, n in enumerate(lengths) if n]
+    if not parts:
+        return np.empty(0, dtype=batch.dtype)
+    return np.concatenate(parts) if len(parts) > 1 else parts[0]
+
+
+def _clipped_ids(flat: np.ndarray, rows: int, device) -> torch.Tensor:
+    """Row ids clipped into ``[0, rows)`` on the host (``mode="clip"``:
+    a pad id gathers a real row, which the per-request slice discards),
+    as int32 on ``device``."""
+    ids = np.clip(flat, 0, rows - 1).astype(np.int32)
+    return torch.from_numpy(ids).to(device)
+
+
+def _dequant_gather(data: torch.Tensor, scale: Optional[torch.Tensor],
+                    ids: torch.Tensor) -> torch.Tensor:
+    """The gather of a quantized replica table with its decode: rows
+    gathered, widened to float32, int8 rows times their gathered per-row
+    scales (the JAX package's order)."""
+    idx = ids.to(torch.int64)
+    rows = data.index_select(0, idx).to(torch.float32)
+    if scale is not None:
+        rows = rows * scale.index_select(0, idx)
+    return rows
+
+
+class SparseLookupRunner:
+    """Row lookup served from a live ServerStore shard.
+
+    ``row_offset`` maps GLOBAL row ids to this shard's local rows (the
+    same offset arithmetic the DCN tables route by); ``clock_fn`` (e.g.
+    ``sync_coordinator.clock``) stamps each batch with the snapshot
+    version it was served at."""
+
+    name = "lookup"
+    payload_dtype = np.int32
+    pad_id = 0
+
+    def __init__(self, store, row_offset: int = 0,
+                 clock_fn: Optional[Callable[[], Tuple[float, float]]]
+                 = None, cache: Optional[HotRowCache] = None):
+        check(len(store.padded_shape) == 2,
+              "SparseLookupRunner serves 2-D row tables")
+        self.store = store
+        self.row_offset = int(row_offset)
+        self._clock_fn = clock_fn
+        self.cache = cache
+        self.last_clock: float = -1.0
+
+    def current_clock(self) -> float:
+        """The live BSP clock (host read, no device work) — what stamps
+        cache entries and decides cache freshness."""
+        if self._clock_fn is None:
+            return -1.0
+        return float(self._clock_fn()[0])
+
+    def try_cached(self, payload: np.ndarray) -> Optional[np.ndarray]:
+        """Host-side answer for a fully-hot request (every key cached
+        within the staleness bound); None sends it down the device path.
+
+        A LIVE table without a clock (async mode, no SyncCoordinator)
+        never serves from cache: with no version to age entries by,
+        training writes would be masked forever — the staleness bound
+        is only meaningful against the BSP clock."""
+        if self.cache is None or payload.size == 0 \
+                or self._clock_fn is None:
+            return None
+        return self.cache.get_rows(payload, self.current_clock())
+
+    # -- two-phase dispatch (serving/pipeline.py contract) -----------------
+    def dispatch(self, batch: np.ndarray, lengths: np.ndarray):
+        # Stamp BEFORE the gather: the snapshot the guarded gather reads
+        # is at-or-after this clock, so a cache entry is never stamped
+        # NEWER than its data (a tick landing mid-dispatch would
+        # otherwise relabel clock-c rows as c+1, and a staleness-0 hit
+        # would then serve stale bytes as fresh).
+        clock = self.current_clock()
+        # Device-path half of the key stream (cache hits record at the
+        # cache).
+        keys = _batch_keys(batch, lengths)
+        record_keys("serve.lookup", keys,
+                    keys.size * int(self.store.padded_shape[1]) * 4)
+        # The store clips the ids into range and gathers under its lock
+        # (B1 for a float32 table).
+        values = self.store.read_rows(
+            (batch.astype(np.int64) - self.row_offset).reshape(-1))
+        return values, clock, batch, lengths.copy()
+
+    def collect(self, handle) -> np.ndarray:
+        values, clock, batch, lengths = handle
+        values = host_array(values)         # the device sync
+        out = values.reshape(batch.shape[0], batch.shape[1], -1)
+        # FIFO collection order (pipeline contract) keeps last_clock
+        # monotone with delivery order.
+        self.last_clock = clock
+        # Populate only under a clock: clockless live entries could
+        # never be aged out (see try_cached), so caching them is waste.
+        if self.cache is not None and self._clock_fn is not None:
+            for i in range(len(lengths)):
+                n = int(lengths[i])
+                if n:
+                    self.cache.put_rows(batch[i, :n], out[i, :n], clock)
+        return out
+
+    def run(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        return self.collect(self.dispatch(batch, lengths))
+
+    def slice_result(self, out: np.ndarray, i: int, length: int):
+        return out[i, :length]
+
+    def clock(self) -> float:
+        return self.last_clock
+
+
+class ReplicaLookupRunner:
+    """Row lookup from a frozen checkpoint replica (``replica.py``).
+
+    Captures one replica snapshot per batch, so a hot-swap between
+    batches is atomic from the client's point of view and NEVER blocks:
+    readers of the old snapshot finish against the old tensors."""
+
+    name = "replica_lookup"
+    payload_dtype = np.int32
+    pad_id = 0
+
+    def __init__(self, replica, table: str,
+                 cache: Optional[HotRowCache] = None):
+        self.replica = replica
+        self.table = table
+        self.cache = cache
+        self.last_clock: float = -1.0
+
+    def current_clock(self) -> float:
+        """The replica's checkpoint step: advancing on hot-swap, so a
+        swap invalidates older cache entries by arithmetic."""
+        return float(self.replica.snapshot().step)
+
+    def try_cached(self, payload: np.ndarray) -> Optional[np.ndarray]:
+        if self.cache is None or payload.size == 0:
+            return None
+        return self.cache.get_rows(payload, self.current_clock())
+
+    # -- two-phase dispatch (serving/pipeline.py contract) -----------------
+    def dispatch(self, batch: np.ndarray, lengths: np.ndarray):
+        snap = self.replica.snapshot()
+        data, scale = snap.storage(self.table)
+        keys = _batch_keys(batch, lengths)
+        record_keys("serve.lookup", keys,
+                    keys.size * int(data.shape[1]) * 4)
+        ids = _clipped_ids(batch.reshape(-1), data.shape[0], data.device)
+        if scale is None and data.dtype == torch.float32:
+            # f32 storage: EXACTLY the table's rows (B1), bitwise the
+            # checkpoint.
+            values = gather_rows(data, ids)
+        else:
+            values = _dequant_gather(data, scale, ids)
+        return values, float(snap.step), batch, lengths.copy()
+
+    def collect(self, handle) -> np.ndarray:
+        values, step, batch, lengths = handle
+        values = host_array(values)         # the device sync
+        out = values.reshape(batch.shape[0], batch.shape[1], -1)
+        self.last_clock = step
+        if self.cache is not None:
+            for i in range(len(lengths)):
+                n = int(lengths[i])
+                if n:
+                    self.cache.put_rows(batch[i, :n], out[i, :n], step)
+        return out
+
+    def run(self, batch: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        return self.collect(self.dispatch(batch, lengths))
+
+    def slice_result(self, out: np.ndarray, i: int, length: int):
+        return out[i, :length]
+
+    def clock(self) -> float:
+        return self.last_clock
 
 
 class AttentionLMRunner:

@@ -36,19 +36,21 @@ class ArrayTable(WorkerTable):
         check(zoo.started, "call mv.init() before creating tables")
         updater = get_updater(option.dtype, option.updater)
         name = option.name or f"array_{len(zoo.tables)}"
-        comm_policy = check_comm_policy(option.comm_policy, name)
+        comm = check_comm_policy(option.comm_policy, name)
         store = ServerStore(name, (option.size,), option.dtype, updater,
                             zoo.device, zoo.num_workers())
         super().__init__(store)
         self.size = option.size
         self.server_offsets = reference_server_offsets(option.size,
                                                        store.num_servers)
-        self.comm_policy = comm_policy
+        self.comm = comm
+        self.comm_policy = comm.policy
 
     # -- get (ref array_table.cpp:29-46) -----------------------------------
     def get_async(self, option: Optional[GetOption] = None) -> int:
         with self._bsp_get(option):
             arr = self.store.read()
+        self.comm.record_client_op(self.size * self.store.dtype.itemsize)
         return self._register(lambda: host_array(arr))
 
     def get(self, option: Optional[GetOption] = None) -> np.ndarray:
@@ -69,6 +71,7 @@ class ArrayTable(WorkerTable):
               f"delta shape {tuple(delta.shape)} != ({self.size},)")
         with self._bsp_add(option) as opt:
             self.store.apply_dense(delta, opt)
+        self.comm.record_client_op(self.size * self.store.dtype.itemsize)
         return self._register_add()
 
     def add(self, delta, option: Optional[AddOption] = None) -> None:
@@ -76,9 +79,11 @@ class ArrayTable(WorkerTable):
             self.wait(self.add_async(delta, option))
 
     def publish(self, values) -> None:
-        """Whole-replica publish: overwrite the stored params."""
-        self.store.write_dense(
-            np.asarray(values, dtype=self.store.dtype).reshape(-1))
+        """Whole-replica publish: overwrite the stored params, counted
+        under the table's own plane."""
+        values = np.asarray(values, dtype=self.store.dtype).reshape(-1)
+        self.store.write_dense(values)
+        self.comm.record_publish(values.nbytes)
 
     # -- parity helper (ref array_table.cpp:69-86) -------------------------
     def partition(self, values: np.ndarray) -> Dict[int, np.ndarray]:

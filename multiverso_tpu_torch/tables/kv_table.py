@@ -38,9 +38,9 @@ class KVTable:
         self._cache: Dict[int, float] = {}
         self._lock = threading.Lock()
         self.table_id = zoo.register_table(self)
-        # Per-table communication policy: only the default plane (None /
-        # "ps") is ported; the others wait (ROADMAP A7).
-        self.comm_policy = check_comm_policy(option.comm_policy, self.name)
+        # Per-table communication policy (a label and its counters).
+        self.comm = check_comm_policy(option.comm_policy, self.name)
+        self.comm_policy = self.comm.policy
 
     # -- worker cache (ref kv_table.h:30-40) -------------------------------
     def raw(self) -> Dict[int, float]:
@@ -57,6 +57,7 @@ class KVTable:
                 val = self._server_maps[sid].get(k, self.value_dtype.type(0))
                 self._cache[k] = val
                 out[i] = val
+        self.comm.record_client_op(keys.nbytes + out.nbytes)
         return out
 
     def add(self, keys, values) -> None:
@@ -69,6 +70,7 @@ class KVTable:
                 sid = self._route(k)
                 store = self._server_maps[sid]
                 store[k] = store.get(k, 0) + v
+        self.comm.record_client_op(keys.nbytes + values.nbytes)
 
     def _route(self, key: int) -> int:
         return int(key) % self.num_servers  # ref kv_table.h:48-50

@@ -20,6 +20,7 @@ deltas, rounded to bfloat16 on the way in.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -42,7 +43,7 @@ class MatrixTable(WorkerTable):
         check(zoo.started, "call mv.init() before creating tables")
         updater = get_updater(option.dtype, option.updater)
         name = option.name or f"matrix_{len(zoo.tables)}"
-        comm_policy = check_comm_policy(option.comm_policy, name)
+        comm = check_comm_policy(option.comm_policy, name)
         init = None
         if option.random_init:
             rng = np.random.default_rng(option.seed)
@@ -58,7 +59,10 @@ class MatrixTable(WorkerTable):
         self.num_col = option.num_col
         self.num_servers = store.num_servers
         self.num_row_each = max(1, self.num_row // self.num_servers)
-        self.comm_policy = comm_policy
+        # Per-table communication policy: client row ops record comm.ps.*
+        # (they ARE the ps plane), a publish records the table's plane.
+        self.comm = comm
+        self.comm_policy = comm.policy
 
     # -- whole-table ops (sentinel key -1 in the reference) ----------------
     def get_async(self, option: Optional[GetOption] = None) -> int:
@@ -89,8 +93,12 @@ class MatrixTable(WorkerTable):
     def get_rows_async(self, row_ids,
                        option: Optional[GetOption] = None) -> int:
         row_ids = np.asarray(row_ids, dtype=np.int32)
+        t0 = time.perf_counter()
         with self._bsp_get(option):
             arr = self.store.read_rows(row_ids)
+        self.comm.record_client_op(
+            len(row_ids) * self.num_col * self.store.dtype.itemsize,
+            (time.perf_counter() - t0) * 1e3)
         return self._register(lambda: host_array(arr))
 
     def get_rows(self, row_ids, option: Optional[GetOption] = None
@@ -118,8 +126,12 @@ class MatrixTable(WorkerTable):
         check(tuple(deltas.shape) == (len(row_ids), self.num_col),
               f"row delta shape {tuple(deltas.shape)} != "
               f"{(len(row_ids), self.num_col)}")
+        t0 = time.perf_counter()
         with self._bsp_add(option) as opt:
             self.store.apply_rows(row_ids, deltas, opt)
+        self.comm.record_client_op(
+            len(row_ids) * self.num_col * self.store.dtype.itemsize,
+            (time.perf_counter() - t0) * 1e3)
         return self._register_add()
 
     def add_rows(self, row_ids, deltas,
@@ -132,13 +144,30 @@ class MatrixTable(WorkerTable):
         self.add_rows([row_id], np.asarray(delta)[None, :], option)
 
     def publish(self, values) -> None:
-        """Whole-replica publish: overwrite the stored params."""
-        self.store.write_dense(np.asarray(values, dtype=self.store.dtype))
+        """Whole-replica publish: overwrite the stored params with a
+        worker replica at a sync point (how allreduce/model-average
+        tables reconcile with the PS surface), counted under the table's
+        own plane."""
+        values = np.asarray(values, dtype=self.store.dtype)
+        t0 = time.perf_counter()
+        self.store.write_dense(values)
+        self.comm.record_publish(values.nbytes,
+                                 (time.perf_counter() - t0) * 1e3)
 
+    # -- serving hook ---------------------------------------------------------
     def serving_runner(self, cache=None):
-        raise NotImplementedError(
-            "MatrixTable.serving_runner (the serving plane) is not ported "
-            "yet: ROADMAP A9")
+        """A :class:`~multiverso_tpu_torch.serving.SparseLookupRunner` over
+        this table's LIVE store: served values are bitwise :meth:`get_rows`
+        of the same rows; in sync mode each batch is stamped with the BSP
+        clock it was served at. ``cache`` (a
+        :class:`~multiverso_tpu_torch.serving.HotRowCache`) answers
+        fully-hot lookups host-side within its staleness bound, in sync
+        mode only: without the BSP clock there is no version to age
+        entries by, so an async-mode live table ignores the cache."""
+        from multiverso_tpu_torch.serving.runners import SparseLookupRunner
+        clock_fn = self._sync.clock if self._sync is not None else None
+        return SparseLookupRunner(self.store, clock_fn=clock_fn,
+                                  cache=cache)
 
     # -- parity helper (ref matrix_table.cpp:235-313) ----------------------
     def partition(self, row_ids: Sequence[int]) -> Dict[int, np.ndarray]:

@@ -71,6 +71,15 @@ def test_importing_the_port_loads_no_jax():
             "import multiverso_tpu_torch.core.actor\n"
             "import multiverso_tpu_torch.parallel.net\n"
             "import multiverso_tpu_torch.apps._runner\n"
+            "import multiverso_tpu_torch.core.checkpoint_orbax\n"
+            "import multiverso_tpu_torch.telemetry.sketch\n"
+            "import multiverso_tpu_torch.serving.cache\n"
+            "import multiverso_tpu_torch.serving.replica\n"
+            "import multiverso_tpu_torch.parallel.comm_policy\n"
+            "import multiverso_tpu_torch.models.dlrm\n"
+            "import multiverso_tpu_torch.recsys\n"
+            "import multiverso_tpu_torch.apps.serve_main\n"
+            "import multiverso_tpu_torch.apps.dlrm_main\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'multiverso_tpu')]\n"
             "assert not bad, bad\n"

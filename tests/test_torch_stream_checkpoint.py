@@ -1,9 +1,9 @@
 """Port parity: the URI stream layer (``utils/stream``) and npz checkpoints
 (``core/checkpoint``) on the CPU, against the JAX package.
 
-Mirrors ``tests/test_checkpoint.py`` except its orbax cases (the async
-backend is not ported: ``CheckpointManager(backend="orbax")`` raises,
-ROADMAP A4). The file format is shared, so checkpoints cross between the
+Mirrors ``tests/test_checkpoint.py`` except its orbax cases, which
+``tests/test_torch_async_checkpoint.py`` mirrors (the port's async
+backend). The npz file format is shared, so checkpoints cross between the
 packages in both directions and are compared BITWISE: every payload
 entry, bfloat16 included, which both packages store as its 16-bit pattern
 (2 bytes an element) under the ``__extension_dtypes__`` tag. The JAX
@@ -238,8 +238,18 @@ def test_restore_latest_empty_dir(port, tmp_path):
 
 
 def test_orbax_backend_raises_citing_a4(port, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tck.CheckpointManager(str(tmp_path), backend="orbax")
+    """The async backend that raised "ROADMAP A4" is ported: the manager
+    takes it, saves an ``orbax_<step>`` tree and restores it."""
+    t = mvt.create_table(mvt.ArrayTableOption(size=4, name="a4"))
+    mgr = tck.CheckpointManager(str(tmp_path), backend="orbax")
+    t.add(np.ones(4, dtype=np.float32))
+    assert mgr.maybe_save(1000).endswith("orbax_000000001000")
+    mgr.finalize()
+    t.add(np.ones(4, dtype=np.float32))
+    assert mgr.restore_latest() == 1000
+    np.testing.assert_array_equal(t.get(), np.ones(4))
+    with pytest.raises(Exception, match="unknown backend"):
+        tck.CheckpointManager(str(tmp_path), backend="zarr")
 
 
 def _layout(root):
