@@ -192,7 +192,35 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    achieved/offered requests/sec, p50/p99, the loop's time split between
    steps and publishes), and ``ServeLoad``'s runner bitwise the plain
    gather once training stops;
-10. a JSON line of the kernels, the card line, and the result line.
+10. the parameter server across processes: (a) two ``ps_shard_main``
+    seats on the card (separate processes, ``-wal`` with sync acks) hold
+    bench.py's 1,000,000 x 50 row plane split by
+    ``reference_server_offsets``, a ``use_pallas`` sgd table (B2) and a
+    default table without the row kernels (B4); the C client
+    (``mv_client.cpp`` through ``runtime/ffi.py::CClient``, a worker that
+    owns no shard) pushes 10 Adds of 100,000 ids with duplicates into
+    each, Gets the same ids back (B1) and reads every shard whole: all
+    bitwise the same Adds replayed through the port's store on the CPU
+    (rows/sec over the wire; each seat prints its B1/B2/B4 counts on
+    exit); (b) seat 1 killed with SIGKILL and the same command rerun: it
+    restores nothing, replays its WAL (records and seconds printed) and
+    its shards read back bitwise the bytes before the kill; (c)
+    ``word2vec_main -world_size=2`` at bench.py's word2vec config on a
+    synthetic Zipf corpus of ``W2V_DIST_WORDS`` words, ranks on the card
+    by default: exit 0, finite losses, the two ranks' ``embeddings()``
+    (pulled after both trained) within ``W2V_RANKS_RTOL``, words/sec per
+    rank; then one rank of ``DistributedWord2Vec`` against two in-process
+    seats on the card, every table within ``W2V_CARD_RTOL`` of the same
+    run on the CPU; (d) ``AsyncTableEngine``: 4 threads staging 5 Adds of
+    100,000 ids each into the 1,000,000 x 50 table, drained through B2
+    (``use_pallas`` sgd) and B4 (default), every element within its
+    recursive-summation bound of a float64 model; the stateful bypass
+    (adagrad with the fused route, and without the row kernels: the fold)
+    bitwise its CPU replay in the order the threads applied it; (e) the
+    C client of (a), and the ASGD convnet's 2 workers through
+    ``PyTreeParamManager`` on the card (finite losses, accuracy above
+    chance);
+11. a JSON line of the kernels, the card line, and the result line.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
@@ -222,8 +250,9 @@ once per int8 template instance (``PAGED_INT8_INSTANCES``) and on a page
 that does not divide the bucket, an idle slot and t = 0.
 
 Every launch count is set to 0 just before each main-path run of phases
-3, 4, 6, 7, 8 and 9 and read just after it, so the comparisons of phase 2 do
-not count.
+3, 4, 6, 7, 8, 9 and 10 and read just after it (phase 10's seats and word2vec
+ranks are processes of their own and print theirs), so the comparisons of
+phase 2 do not count.
 """
 
 from __future__ import annotations
@@ -4713,6 +4742,543 @@ def phase9(seed: int, on_path, card: str, async_ckpt: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the parameter server across processes
+# ---------------------------------------------------------------------------
+# bench.py's row plane (1,000,000 x 50, 10 Adds of 100,000 ids) on two
+# ps_shard_main seats: table PS_TABLE_ID is use_pallas sgd (B2), the next
+# one default without the row kernels (B4); reads take B1.
+PS_TABLE_ID, PS_ADDS, PS_SEATS = 900, 10, 2
+# Each seat's tables, in -ps_tables order: name -> (updater, use_pallas).
+PS_TABLES = {"sgd_pallas": ("sgd", True), "default": ("default", False)}
+# Distributed word2vec at bench.py's config (V, D, window 5, negative 5,
+# AdaGrad, chunk 8192; blocks of 100,000 words): the CLI's two ranks on
+# W2V_DIST_WORDS corpus words, and one rank in-process on one block.
+W2V_DIST_WORDS, W2V_ONE_RANK_WORDS, W2V_BLOCK = 200_000, 50_000, 100_000
+# One rank's tables on the card against the same run on the CPU, per
+# table, max |card - cpu| <= W2V_CARD_RTOL * max |cpu|: the row adds are
+# bitwise (B4 in lane order, as the CPU's index_add_), but the card's and
+# the CPU's sigmoid, log and square root differ in their last bits, and
+# each pushed delta carries such a difference into every later pull.
+W2V_CARD_RTOL = 1e-4
+# The two ranks' embeddings() (the JAX test's tolerance).
+W2V_RANKS_RTOL, W2V_RANKS_ATOL = 1e-5, 1e-6
+# AsyncTableEngine: threads staging Adds of N_IDS ids each; a drain every
+# ENGINE_FLUSH staged Adds.
+ENGINE_THREADS, ENGINE_ADDS, ENGINE_FLUSH, ENGINE_STATEFUL_ADDS = 4, 5, 4, 2
+# The ASGD convnet through PyTreeParamManager.
+CNN_WORKERS, CNN_EPOCHS = 2, 3
+
+
+def free_ports(n: int) -> list:
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class Seat:
+    """One ``ps_shard_main`` seat process (stdout and stderr to a file)."""
+
+    def __init__(self, rank: int, peers: list, tmp: str, rows: int,
+                 cols: int, extra=()):
+        self.rank, self.tmp = rank, tmp
+        self.addr_file = os.path.join(tmp, f"seat{rank}.addr")
+        self.cmd = [
+            sys.executable, "-m", "multiverso_tpu_torch.apps.ps_shard_main",
+            f"-rank={rank}",
+            "-ps_peers=" + ",".join(f"{h}:{p}" for h, p in peers),
+            "-ps_table_kind=matrix", f"-ps_table_id={PS_TABLE_ID}",
+            f"-ps_table_size={rows}", f"-ps_table_cols={cols}",
+            "-ps_tables=" + ",".join(
+                u + (":pallas" if k else "") for u, k in PS_TABLES.values()),
+            "-wal=true",
+            f"-wal_dir={os.path.join(tmp, 'wal')}", "-wal_sync_acks=true",
+            f"-ps_addr_file={self.addr_file}", *extra]
+        self.runs = []
+
+    def start(self) -> None:
+        if os.path.exists(self.addr_file):
+            os.remove(self.addr_file)
+        out = open(os.path.join(self.tmp,
+                                f"seat{self.rank}.{len(self.runs)}.log"),
+                   "w")
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, stdout=out,
+                                     stderr=subprocess.STDOUT)
+        self.runs.append((self.proc, out, time.perf_counter()))
+
+    def wait_announced(self, timeout_s: float = 300.0) -> float:
+        """Seconds from the start of this run to the addr file."""
+        t0 = self.runs[-1][2]
+        while not os.path.exists(self.addr_file):
+            assert self.proc.poll() is None, self.log_text()[-3000:]
+            assert time.perf_counter() - t0 < timeout_s, "seat never up"
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    def log_text(self, run: int = -1) -> str:
+        if not self.runs[run][1].closed:
+            self.runs[run][1].flush()
+        with open(self.runs[run][1].name) as f:
+            return f.read()
+
+    def line(self, tag: str, run: int = -1) -> dict:
+        for text in self.log_text(run).splitlines():
+            if text.startswith(tag + " "):
+                return json.loads(text[len(tag) + 1:])
+        raise AssertionError(f"seat {self.rank} printed no {tag}:\n"
+                             + self.log_text(run)[-3000:])
+
+    def kill9(self) -> None:
+        import signal
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=60)
+        self.runs[-1][1].close()
+
+    def stop(self) -> None:
+        """SIGTERM (see ``wait_stopped``)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+
+    def wait_stopped(self) -> None:
+        """The seat closes its service, prints its launch counts and must
+        exit 0."""
+        rc = self.proc.wait(timeout=120)
+        self.runs[-1][1].close()
+        assert rc == 0, (rc, self.log_text()[-3000:])
+
+
+def ps_replay_store(updater: str, use_pallas: bool, rows: int, cols: int,
+                    device):
+    import numpy as np
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+    return ServerStore("replay", (rows, cols), np.float32,
+                       get_updater(np.float32, updater), device, PS_SEATS,
+                       use_pallas_rows=use_pallas)
+
+
+def ps_row_plane(seed: int, rows: int = ROWS, cols: int = COLS,
+                 n_ids: int = N_IDS, n_adds: int = PS_ADDS,
+                 seat_args=(), cpu=None) -> dict:
+    """Phase 10 (a), (b), (e): two seats, the C client as the worker;
+    every shard read back bitwise the CPU replay; then seat 1 killed with
+    SIGKILL, rerun, and its shard bitwise the bytes before the kill."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.parallel.ps_service import \
+        reference_server_offsets
+    from multiverso_tpu_torch.runtime import ffi
+
+    cpu = cpu or torch.device("cpu")
+    ffi.load()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        peers = [("127.0.0.1", p) for p in free_ports(PS_SEATS)]
+        seats = [Seat(r, peers, tmp, rows, cols, seat_args)
+                 for r in range(PS_SEATS)]
+        try:
+            for s in seats:
+                s.start()
+            out["seat_start_s"] = [s.wait_announced() for s in seats]
+            offs = reference_server_offsets(rows, PS_SEATS)
+
+            def connect():
+                cli = ffi.CClient(peers)
+                return cli, {name: cli.matrix_table(PS_TABLE_ID + i, rows,
+                                                    cols)
+                             for i, name in enumerate(PS_TABLES)}
+
+            def read_shard(table, s):
+                return np.concatenate([
+                    table.get_rows(np.arange(lo, min(lo + n_ids,
+                                                     offs[s + 1]),
+                                             dtype=np.int32))
+                    for lo in range(offs[s], offs[s + 1], n_ids)])
+
+            cli, tables = connect()
+            replay = {name: [ps_replay_store(u, k, offs[s + 1] - offs[s],
+                                             cols, cpu)
+                             for s in range(PS_SEATS)]
+                      for name, (u, k) in PS_TABLES.items()}
+            from multiverso_tpu_torch.core.options import AddOption
+            opt = AddOption()
+            rng = np.random.default_rng(seed + 10)
+            adds = [(rng.integers(0, rows, size=n_ids).astype(np.int32),
+                     rng.normal(size=(n_ids, cols)).astype(np.float32))
+                    for _ in range(n_adds)]
+            out["duplicate_ids"] = [int(n_ids - len(np.unique(i)))
+                                    for i, _ in adds]
+            t0 = time.perf_counter()
+            for ids, d in adds:
+                for t in tables.values():
+                    t.add_rows(ids, d)
+            add_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = {name: [t.get_rows(ids) for ids, _ in adds]
+                   for name, t in tables.items()}
+            get_s = time.perf_counter() - t0
+            for ids, d in adds:
+                for name in tables:
+                    for s in range(PS_SEATS):
+                        keep = (ids >= offs[s]) & (ids < offs[s + 1])
+                        replay[name][s].apply_rows(ids[keep] - offs[s],
+                                                   d[keep], opt)
+            want = {name: np.concatenate([st.read().numpy() for st in sts])
+                    for name, sts in replay.items()}
+            for name in tables:
+                for (ids, _), g in zip(adds, got[name]):
+                    assert g.tobytes() == want[name][ids].tobytes(), name
+            # Every shard read back whole, bitwise the CPU replay.
+            before = {}
+            for name, t in tables.items():
+                for s in range(PS_SEATS):
+                    before[name, s] = read_shard(t, s)
+                    assert before[name, s].tobytes() == \
+                        want[name][offs[s]:offs[s + 1]].tobytes(), \
+                        (name, s)
+            cli.close()
+            out.update(
+                rows_added=2 * n_adds * n_ids, add_s=add_s,
+                add_rows_per_s=2 * n_adds * n_ids / add_s, get_s=get_s,
+                get_rows_per_s=2 * n_adds * n_ids / get_s, bitwise=True)
+            log(f"PS row plane over the wire (2 seats, C client): "
+                f"{2 * n_adds} Adds of {n_ids:,} ids in {add_s:.3f} s "
+                f"({out['add_rows_per_s']:,.0f} rows/s), Gets of the same "
+                f"ids in {get_s:.3f} s ({out['get_rows_per_s']:,.0f} "
+                f"rows/s); every shard bitwise the CPU replay")
+
+            # (b) recovery: kill -9 seat 1, rerun the same command.
+            victim = seats[1]
+            victim.kill9()
+            victim.start()
+            out["recovery_wall_s"] = victim.wait_announced()
+            rec = victim.line("PS_SHARD_RECOVERY")
+            cli, tables = connect()
+            for name, t in tables.items():
+                assert read_shard(t, 1).tobytes() == \
+                    before[name, 1].tobytes(), name
+            cli.close()
+            out["recovery"] = rec
+            assert rec["applied"] == 2 * n_adds, rec
+            log(f"seat 1 killed (SIGKILL) and rerun: {rec['applied']} WAL "
+                f"records replayed in {rec['seconds']:.3f} s, announced "
+                f"{out['recovery_wall_s']:.3f} s after the rerun started "
+                f"(process start included); its shards bitwise the bytes "
+                f"before the kill")
+        finally:
+            for s in seats:
+                s.stop()
+            for s in seats:
+                s.wait_stopped()
+        # Each run's counts, keyed "seat R run J" (a SIGKILL'd run prints
+        # none).
+        out["seat_launches"] = {
+            f"seat {s.rank} run {run}": s.line("PS_SHARD_LAUNCHES", run)
+            for s in seats for run in range(len(s.runs))
+            if "PS_SHARD_LAUNCHES" in s.log_text(run)}
+    log("seat launch counts (the killed run prints none): "
+        + json.dumps(out["seat_launches"]))
+    return out
+
+
+def w2v_corpus_file(path: str, words: int, seed: int) -> None:
+    """A synthetic Zipf corpus over V words in sentences of 500, with every
+    word present (so the CLI's dictionary has all V)."""
+    import numpy as np
+    from multiverso_tpu_torch.models.word2vec import Dictionary
+    _, zipf = Dictionary.synthetic_zipf(V, words)
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([rng.choice(V, size=words - V, p=zipf),
+                          rng.permutation(V)])
+    with open(path, "w") as f:
+        for lo in range(0, len(ids), 500):
+            f.write(" ".join(f"w{i}" for i in ids[lo:lo + 500]) + "\n")
+
+
+def w2v_two_ranks(seed: int, words: int = W2V_DIST_WORDS,
+                  extra=()) -> dict:
+    """Phase 10 (c): ``word2vec_main -world_size=2``, ranks on the card by
+    default; both ranks' embeddings() within the JAX test's tolerance."""
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus.txt")
+        w2v_corpus_file(corpus, words, seed)
+        summary = os.path.join(tmp, "summary")
+        cmd = [sys.executable, "-m", "multiverso_tpu_torch.apps.word2vec_main",
+               f"-train_file={corpus}",
+               f"-output_file={os.path.join(tmp, 'vectors.txt')}",
+               f"-size={D}", "-window=5", f"-negative={NEG}", "-min_count=1",
+               "-sample=1e-3", "-w2v_optimizer=adagrad",
+               f"-batch_size={CHUNK}", f"-data_block_size={W2V_BLOCK}",
+               "-world_size=2", f"-rendezvous_dir={tmp}",
+               f"-w2v_summary_dir={summary}", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=900)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, (proc.stdout[-3000:],
+                                      proc.stderr[-3000:])
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(summary, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            ranks[-1]["emb"] = np.load(os.path.join(summary, f"rank{r}.npy"))
+    e0, e1 = ranks[0].pop("emb"), ranks[1].pop("emb")
+    assert e0.shape == (V, D), e0.shape
+    assert np.isfinite(e0).all() and np.isfinite(e1).all()
+    np.testing.assert_allclose(e1, e0, rtol=W2V_RANKS_RTOL,
+                               atol=W2V_RANKS_ATOL)
+    for r in ranks:
+        assert np.isfinite(r["last_loss"]) and r["last_loss"] > 0, r
+    log("word2vec_main -world_size=2 (" + ", ".join(
+        f"rank {r['rank']} on {r['device']}: {r['words']:,} words, "
+        f"{r['words_per_sec']:,.0f} words/sec, last block loss "
+        f"{r['last_loss']:.4f}" for r in ranks)
+        + f"); {wall:.1f} s with start-up; the two ranks' embeddings() "
+        f"max |diff| {float(np.abs(e1 - e0).max()):.3g}")
+    return {"ranks": ranks, "wall_s": wall,
+            "ranks_max_abs_diff": float(np.abs(e1 - e0).max())}
+
+
+def w2v_one_rank(seed: int, platform: list, words: int = W2V_ONE_RANK_WORDS
+                 ) -> dict:
+    """One rank of ``DistributedWord2Vec`` against two in-process seats
+    (``platform`` the ``mv.init`` flags); returns its pulled tables."""
+    import numpy as np
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.word2vec.distributed import \
+        DistributedWord2Vec
+    from multiverso_tpu_torch.parallel.ps_service import PSService
+    d, sents = zipf_corpus(V, words // 500, 500, seed=seed + 3)
+    cfg = flagship_config(device_pipeline=False, block_words=W2V_BLOCK,
+                          pipeline=False)
+    mv.init(platform)
+    svcs = [PSService(), PSService()]
+    peers = [s.address for s in svcs]
+    try:
+        w0 = DistributedWord2Vec(cfg, d, svcs[0], peers, rank=0)
+        DistributedWord2Vec(cfg, d, svcs[1], peers, rank=1)
+        stats = w0.train(sents)
+        every = np.arange(V, dtype=np.int32)
+        tables = {"w_in": w0.w_in.get_rows(every),
+                  "w_out": w0.w_out.get_rows(every),
+                  "g_in": w0.g_in.get_rows(every),
+                  "g_out": w0.g_out.get_rows(every)}
+        stats["last_loss"] = w0.last_loss
+    finally:
+        for s in svcs:
+            s.close()
+        mv.shutdown()
+    return {"stats": stats, "tables": tables}
+
+
+def w2v_card_against_cpu(seed: int, on_path, card_platform=()) -> tuple:
+    import numpy as np
+    from multiverso_tpu_torch.utils.configure import reset_flags
+    card, counts = on_path(w2v_one_rank, seed, list(card_platform))
+    cpu = w2v_one_rank(seed, ["-platform=cpu"])
+    reset_flags()     # the flags outlive mv.shutdown(): drop -platform
+    errs = {}
+    for name, want in cpu["tables"].items():
+        got = card["tables"][name]
+        assert np.isfinite(got).all(), name
+        errs[name] = float(np.abs(got - want).max()
+                           / max(float(np.abs(want).max()), 1e-30))
+        assert errs[name] <= W2V_CARD_RTOL, (name, errs)
+    st = card["stats"]
+    log(f"DistributedWord2Vec, one rank against two in-process seats: card "
+        f"{st['words']:,} words at {st['words_per_sec']:,.0f} words/sec "
+        f"(CPU {cpu['stats']['words_per_sec']:,.0f}); card against CPU per "
+        f"table (of its largest value): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (limit {W2V_CARD_RTOL})")
+    return {"card": st, "cpu": cpu["stats"], "rel_err": errs}, counts
+
+
+def engine_phase(seed: int, rows: int = ROWS, cols: int = COLS,
+                 n_ids: int = N_IDS, cpu=None) -> dict:
+    """Phase 10 (d): ``AsyncTableEngine`` on the 1,000,000 x 50 table, 4
+    threads staging, drains through B2 (use_pallas sgd) and B4 (default
+    without the row kernels), against a float64 model within the
+    recursive-summation bound; then the stateful bypass (adagrad, with and
+    without the row kernels) bitwise its CPU replay."""
+    import threading
+    import numpy as np
+    import torch
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.options import AddOption
+    from multiverso_tpu_torch.core.table import ServerStore
+    from multiverso_tpu_torch.core.updater import get_updater
+    from multiverso_tpu_torch.parallel.async_engine import (AsyncTableEngine,
+                                                            WorkerPool)
+    cpu = cpu or torch.device("cpu")
+    out = {}
+    rng = np.random.default_rng(seed + 20)
+    stage = [[(rng.integers(0, rows, size=n_ids).astype(np.int32),
+               rng.normal(size=(n_ids, cols)).astype(np.float32))
+              for _ in range(ENGINE_ADDS)] for _ in range(ENGINE_THREADS)]
+    # float64 model and the bound: each element's staged terms are summed
+    # in float32 in some order (buffer, then table): |err| <= n u S with n
+    # the element's term count, S the sum of their magnitudes, u = 2^-24.
+    model = torch.zeros((rows, cols), dtype=torch.float64)
+    mag = torch.zeros((rows, cols), dtype=torch.float64)
+    cnt = torch.zeros(rows, dtype=torch.float64)
+    for adds in stage:
+        for ids, d in adds:
+            i, d = torch.as_tensor(ids).long(), torch.as_tensor(d).double()
+            model.index_add_(0, i, d)
+            mag.index_add_(0, i, d.abs())
+            cnt.index_add_(0, i, torch.ones(len(i), dtype=torch.float64))
+    model = model.numpy()
+    bound = (cnt[:, None] * 2.0 ** -24 * mag).numpy()
+    for updater, use_pallas, sign in (("sgd", True, -1.0),
+                                      ("default", False, 1.0)):
+        table = mv.create_table(mv.MatrixTableOption(
+            rows, cols, updater=updater, use_pallas=use_pallas))
+        eng = AsyncTableEngine(table, flush_pending=ENGINE_FLUSH,
+                               sparse_drain_max=rows)
+        t0 = time.perf_counter()
+        WorkerPool(ENGINE_THREADS).run(
+            lambda w: [eng.add_rows_async(i, d) for i, d in stage[w]])
+        eng.flush()
+        table.store.block()
+        secs = time.perf_counter() - t0
+        got = table.store.read().cpu().numpy().astype(np.float64)
+        err = np.abs(got - sign * model)
+        assert (err <= bound).all(), (updater, float(err.max()))
+        key = f"{updater}{'_pallas' if use_pallas else ''}"
+        out[key] = {"seconds": secs, "rows_per_s":
+                    ENGINE_THREADS * ENGINE_ADDS * n_ids / secs,
+                    "max_abs_err": float(err.max()),
+                    "max_bound": float(bound.max())}
+        log(f"AsyncTableEngine {key}: {ENGINE_THREADS} threads x "
+            f"{ENGINE_ADDS} Adds of {n_ids:,} ids staged and drained in "
+            f"{secs:.3f} s; max |table - float64 model| {err.max():.3g} "
+            f"(every element within its summation bound)")
+    # The stateful bypass, in the order the threads applied it.
+    opt = AddOption(learning_rate=0.05, rho=0.1)
+    for use_pallas in (True, False):
+        table = mv.create_table(mv.MatrixTableOption(
+            rows, cols, updater="adagrad", use_pallas=use_pallas))
+        eng = AsyncTableEngine(table)
+        order, lock = [], threading.Lock()
+
+        def bypass(w):
+            for ids, d in stage[w][:ENGINE_STATEFUL_ADDS]:
+                with lock:
+                    eng.add_rows_async(ids, d, opt)
+                    order.append((ids, d))
+                    assert eng.pending == 0
+
+        WorkerPool(ENGINE_THREADS).run(bypass)
+        replay = ServerStore("replay", (rows, cols), np.float32,
+                             get_updater(np.float32, "adagrad"), cpu, 1,
+                             use_pallas_rows=use_pallas)
+        for ids, d in order:
+            replay.apply_rows(ids, d, opt)
+        want, got = replay.store_state(), table.store.store_state()
+        assert set(want) == set(got)
+        for k in want:
+            assert want[k].tobytes() == got[k].tobytes(), (use_pallas, k)
+        log(f"AsyncTableEngine adagrad bypass "
+            f"({'use_pallas' if use_pallas else 'no row kernels'}): "
+            f"{len(order)} Adds applied as they came, data and state "
+            f"bitwise the CPU replay")
+    return out
+
+
+def convnet_asgd(seed: int) -> dict:
+    """Phase 10 (e): the ASGD convnet, 2 workers through one
+    ``PyTreeParamManager`` table on the card."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.binding.param_manager import PyTreeParamManager
+    from multiverso_tpu_torch.models import convnet as cn
+    from multiverso_tpu_torch.parallel.async_engine import WorkerPool
+
+    def images(n, s):
+        rng = np.random.default_rng(s)
+        y = rng.integers(0, 2, size=n)
+        phase = rng.integers(0, 4, size=n)
+        x = np.zeros((n, 16, 16, 1), np.float32)
+        for i in range(n):
+            img = np.tile((((np.arange(16) + phase[i]) // 2) % 2)[:, None],
+                          (1, 16))
+            x[i, :, :, 0] = (img.T if y[i] else img) + rng.normal(
+                0, 0.3, size=(16, 16))
+        return x, y.astype(np.int64)
+
+    cfg = cn.ConvNetConfig(seed=seed, learning_rate=0.03)
+    from multiverso_tpu_torch.core.zoo import Zoo
+    dev = Zoo.get().device
+    params = cn.init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    manager = PyTreeParamManager(params, name="cnn_asgd")
+    x, y = images(512, seed + 1)
+    workers = [cn.ASGDConvNetWorker(cfg, manager, sync_freq=2)
+               for _ in range(CNN_WORKERS)]
+    losses = [[] for _ in range(CNN_WORKERS)]
+
+    def run(w):
+        xs, ys = x[w::CNN_WORKERS], y[w::CNN_WORKERS]
+        batches = [(xs[i:i + 32], ys[i:i + 32])
+                   for i in range(0, len(xs), 32)]
+        for _ in range(CNN_EPOCHS):
+            losses[w] += workers[w].train(batches)
+
+    t0 = time.perf_counter()
+    WorkerPool(CNN_WORKERS).run(run)
+    secs = time.perf_counter() - t0
+    assert all(np.isfinite(l).all() for l in losses), losses
+    assert workers[0].device.type == dev.type
+    xt, yt = images(256, seed + 2)
+    acc = cn.ASGDConvNetWorker(cfg, manager).accuracy(xt, yt)
+    log(f"ASGD convnet, {CNN_WORKERS} workers x {CNN_EPOCHS} epochs through "
+        f"PyTreeParamManager on {dev}: {secs:.2f} s, loss "
+        f"{losses[0][0]:.4f} -> {losses[0][-1]:.4f}, held-out accuracy "
+        f"{acc:.3f} (chance 0.5)")
+    assert acc > 0.6, acc
+    return {"seconds": secs, "accuracy": acc,
+            "first_loss": losses[0][0], "last_loss": losses[0][-1]}
+
+
+def phase10(seed: int, on_path, card: str) -> dict:
+    """Phase 10: the parameter server across processes on the card.
+    Returns the readings and each run's launch counts (the seats' and the
+    CLI ranks' as they printed them)."""
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.utils.configure import reset_flags
+    log(f"phase 10 on {card}")
+    t0 = time.perf_counter()
+    reset_flags()     # no flag of an earlier phase (-sync) carries over
+    out = {"launches": {}, "part_s": {}}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        out["part_s"][name] = time.perf_counter() - t
+        return res
+
+    out["row_plane"] = part("row plane and recovery", ps_row_plane, seed)
+    out["w2v_ranks"] = part("word2vec_main -world_size=2", w2v_two_ranks,
+                            seed)
+    out["w2v_one_rank"], out["launches"]["w2v_one_rank"] = part(
+        "one rank, card and CPU", w2v_card_against_cpu, seed, on_path)
+    mv.init([])
+    out["engine"], out["launches"]["engine"] = part(
+        "AsyncTableEngine", on_path, engine_phase, seed)
+    out["convnet"], _ = part("convnet", on_path, convnet_asgd, seed)
+    mv.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["part_s"].items()) + ")")
+    return out
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4854,25 +5420,56 @@ def main() -> int:
     # The PS pulls and ServeLoad's runner.
     assert p9_runs["dlrm"]["gather_rows"] > 0, p9_runs["dlrm"]
 
+    # Phase 10: the parameter server across processes: two ps_shard_main
+    # seats (B1 under every Get, B2 under the use_pallas sgd table's Adds,
+    # B4 under the default table's, in the live run and in the WAL replay
+    # of the rerun seat), the CLI's two word2vec ranks and one in-process
+    # rank (B4 under the plain steps, B1 under the local shard's pulls),
+    # AsyncTableEngine's drains (B2, B4) and its stateful bypass (the
+    # fused route, the fold), the convnet (no row kernel).
+    p10 = phase10(args.seed, on_path, card)
+    p10_runs = p10.pop("launches")
+    p10_runs.update(p10["row_plane"].pop("seat_launches"))
+    for r in p10["w2v_ranks"]["ranks"]:
+        p10_runs[f"word2vec rank {r['rank']}"] = r.pop("launches")
+    for seat in ("seat 0 run 0", "seat 1 run 1"):
+        for kernel in ("gather_rows", "scatter_add_sorted_rows",
+                       "tiled_scatter_add_sorted_rows"):
+            assert p10_runs[seat][kernel] > 0, (seat, p10_runs[seat])
+    # The rerun seat replays its PS_ADDS Adds of each table.
+    assert p10_runs["seat 1 run 1"]["scatter_add_sorted_rows"] >= PS_ADDS
+    for run in ("word2vec rank 0", "word2vec rank 1", "w2v_one_rank"):
+        assert p10_runs[run]["tiled_scatter_add_sorted_rows"] > 0, run
+        assert p10_runs[run]["gather_rows"] > 0, run
+    for kernel in ("scatter_add_sorted_rows", "tiled_scatter_add_sorted_rows",
+                   "fused_stateful_sorted_rows", "fold_sorted_runs"):
+        assert p10_runs["engine"][kernel] > 0, (kernel, p10_runs["engine"])
+
     b4_runs = {"bench.py leg": leg["tiled_scatter_add_sorted_rows"],
                "plain tables": plain_counts["tiled_scatter_add_sorted_rows"],
                "word2vec plain steps":
                    other_counts["tiled_scatter_add_sorted_rows"],
                "phase 8 device KV":
                    p8_runs["device_kv"]["tiled_scatter_add_sorted_rows"],
-               "phase 8 LDA": p8_runs["lda"]["tiled_scatter_add_sorted_rows"]}
+               "phase 8 LDA": p8_runs["lda"]["tiled_scatter_add_sorted_rows"],
+               "phase 10": sum(c["tiled_scatter_add_sorted_rows"]
+                               for c in p10_runs.values())}
     launches = {
         "gather_rows": plane["gather_rows"] + p8_runs["sparse"]["gather_rows"]
-        + sum(c["gather_rows"] for c in p9_runs.values()),
+        + sum(c["gather_rows"] for c in p9_runs.values())
+        + sum(c["gather_rows"] for c in p10_runs.values()),
         "scatter_add_sorted_rows": plane["scatter_add_sorted_rows"]
-        + p8_runs["sparse"]["scatter_add_sorted_rows"],
+        + p8_runs["sparse"]["scatter_add_sorted_rows"]
+        + sum(c["scatter_add_sorted_rows"] for c in p10_runs.values()),
         "fused_stateful_sorted_rows": sum(
             r["launches"]["fused_stateful_sorted_rows"]
             for r in stateful.values())
-        + p8_runs["checkpoint_tables"]["fused_stateful_sorted_rows"],
+        + p8_runs["checkpoint_tables"]["fused_stateful_sorted_rows"]
+        + sum(c["fused_stateful_sorted_rows"] for c in p10_runs.values()),
         "fold_sorted_runs": plain_counts["fold_sorted_runs"]
         + p8_runs["device_kv"]["fold_sorted_runs"]
-        + sum(c["fold_sorted_runs"] for c in p9_runs.values()),
+        + sum(c["fold_sorted_runs"] for c in p9_runs.values())
+        + sum(c["fold_sorted_runs"] for c in p10_runs.values()),
         "tiled_scatter_add_sorted_rows": sum(b4_runs.values()),
         "sgns_block": flag["sgns_block"],
         "sgns_block_bf16": flag_bf16["sgns_block_bf16"],
@@ -4886,6 +5483,9 @@ def main() -> int:
                                 if c.get(k["name"])}
         k["phase9_launches"] = {run: c[k["name"]] for run, c in p9_runs.items()
                                 if c.get(k["name"])}
+        k["phase10_launches"] = {run: c[k["name"]]
+                                 for run, c in p10_runs.items()
+                                 if c.get(k["name"])}
         if k["name"] == "fused_stateful_sorted_rows":
             k["store_add_kernels"] = store_kernels
             for v in k["variants"]:
@@ -4937,6 +5537,7 @@ def main() -> int:
                                      in served["modes"].items()}
         if k["name"] == "scatter_add_sorted_rows":
             k["phase8"] = p8
+            k["phase10"] = p10
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -4,10 +4,10 @@ Parity with ``include/multiverso/multiverso.h:9-65``: init/shutdown/
 barrier, rank/size/worker/server queries, flag override, table creation
 (the ``table_factory`` dispatch) and allreduce aggregate. ``init`` puts
 the tables on the CUDA card unless ``-platform=cpu`` is given, and raises
-when there is no card.
-
-Not ported yet (``NotImplementedError``): ``net_bind``/``net_connect``
-and the ``create_distributed_*`` tables (ROADMAP A7).
+when there is no card. ``net_bind``/``net_connect`` and the
+``create_distributed_*`` tables share tables across processes through the
+host PS service (``parallel/ps_service.py``); each rank's shard lives on
+its Zoo's device.
 """
 
 from __future__ import annotations
@@ -118,21 +118,120 @@ def aggregate(data):
     return np.array(data, copy=True)
 
 
-def _waits_a7(what: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} (the host PS service) is not "
-                                  "ported yet: ROADMAP A7")
-    fn.__name__ = what
-    return fn
+def net_bind(host: str = "127.0.0.1", port: int = 0):
+    """``MV_NetBind`` analog (ref src/multiverso.cpp:58-62): start this
+    process's PS service listener; returns (host, port). With ``-wal``
+    the write-ahead delta log is armed before any table registers, in a
+    per-rank subdirectory of ``-wal_dir``."""
+    import os
+
+    from multiverso_tpu_torch.parallel.ps_service import PSService
+    from multiverso_tpu_torch.utils.configure import flag_or
+
+    zoo = Zoo.get()
+    check(zoo.started, "call mv.init() first")
+    check(zoo.ps_service is None, "service already bound")
+    zoo.ps_service = PSService(host, port)
+    if bool(flag_or("wal", False)):
+        wal_dir = str(flag_or("wal_dir", ""))
+        check(bool(wal_dir), "-wal=true requires -wal_dir=DIR")
+        zoo.ps_service.attach_wal(
+            os.path.join(wal_dir, f"rank{int(flag_or('rank', 0))}"),
+            flush_interval_ms=float(flag_or("wal_flush_ms", 25.0)),
+            sync_acks=bool(flag_or("wal_sync_acks", False)))
+    return zoo.ps_service.address
 
 
-net_bind = _waits_a7("net_bind")
-net_connect = _waits_a7("net_connect")
-create_distributed_array_table = _waits_a7("create_distributed_array_table")
-create_distributed_matrix_table = _waits_a7("create_distributed_matrix_table")
-create_distributed_kv_table = _waits_a7("create_distributed_kv_table")
-create_distributed_sparse_matrix_table = _waits_a7(
-    "create_distributed_sparse_matrix_table")
+def net_connect(peers) -> None:
+    """``MV_NetConnect`` analog (ref src/multiverso.cpp:64-68): record the
+    full peer list ((host, port) per rank, this process's own entry
+    included) used by distributed tables."""
+    zoo = Zoo.get()
+    check(zoo.started, "call mv.init() first")
+    zoo.ps_peers = [tuple(p) for p in peers]
+
+
+def _bound_service():
+    zoo = Zoo.get()
+    check(zoo.ps_service is not None, "call mv.net_bind() first")
+    check(len(zoo.ps_peers) > 0, "call mv.net_connect() first")
+    return zoo
+
+
+def create_distributed_array_table(table_id: int, size: int, rank: int,
+                                   dtype=None, updater: str = "default",
+                                   use_pallas: bool = False):
+    """Distributed (process-sharded) array table over the bound service +
+    connected peers; this rank's shard lives on the Zoo's device."""
+    from multiverso_tpu_torch.parallel.ps_service import \
+        DistributedArrayTable
+
+    zoo = _bound_service()
+    table = DistributedArrayTable(table_id, size, zoo.ps_service,
+                                  list(zoo.ps_peers), rank,
+                                  dtype=dtype or np.float32,
+                                  updater=updater, use_pallas=use_pallas)
+    zoo.register_table(table)   # so shutdown closes its peer connections
+    return table
+
+
+def create_distributed_matrix_table(table_id: int, num_row: int,
+                                    num_col: int, rank: int, dtype=None,
+                                    updater: str = "default",
+                                    use_pallas: bool = False):
+    """Distributed (row-sharded across processes) matrix table over the
+    bound service + connected peers (ref ``matrix_table.cpp:24-45`` row
+    sharding, served by the host PS service). ``use_pallas`` gives this
+    rank's shard the hand-written row kernels, as ``MatrixTableOption``
+    does a local table."""
+    from multiverso_tpu_torch.parallel.ps_service import \
+        DistributedMatrixTable
+
+    zoo = _bound_service()
+    table = DistributedMatrixTable(table_id, num_row, num_col,
+                                   zoo.ps_service, list(zoo.ps_peers), rank,
+                                   dtype=dtype or np.float32,
+                                   updater=updater, use_pallas=use_pallas)
+    zoo.register_table(table)
+    return table
+
+
+def create_distributed_kv_table(table_id: int, rank: int, dtype=None):
+    """Distributed (hash-partitioned across processes) key->value table
+    over the bound service + connected peers (ref
+    ``include/multiverso/table/kv_table.h:42-66``: key % num_servers
+    routing, += merge server-side, on the host)."""
+    from multiverso_tpu_torch.parallel.ps_service import DistributedKVTable
+
+    zoo = _bound_service()
+    table = DistributedKVTable(table_id, zoo.ps_service,
+                               list(zoo.ps_peers), rank,
+                               dtype=dtype or np.int64)
+    zoo.register_table(table)
+    return table
+
+
+def create_distributed_sparse_matrix_table(table_id: int, num_row: int,
+                                           num_col: int, rank: int,
+                                           dtype=None,
+                                           updater: str = "default",
+                                           use_pallas: bool = False):
+    """Distributed row-sharded matrix with SERVER-SIDE per-worker
+    staleness: incremental whole-table Gets ship only rows touched since
+    this worker's last pull (ref ``src/table/sparse_matrix_table.cpp:
+    184-258``)."""
+    from multiverso_tpu_torch.parallel.ps_service import \
+        DistributedSparseMatrixTable
+
+    zoo = _bound_service()
+    table = DistributedSparseMatrixTable(table_id, num_row, num_col,
+                                         zoo.ps_service,
+                                         list(zoo.ps_peers), rank,
+                                         dtype=dtype or np.float32,
+                                         updater=updater,
+                                         use_pallas=use_pallas)
+    zoo.register_table(table)
+    return table
 
 
 def finish_train(worker_id: Optional[int] = None) -> None:

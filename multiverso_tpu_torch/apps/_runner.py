@@ -1,10 +1,10 @@
 """Shared CLI app runner: init -> body -> shutdown with clean exits.
 
-Port of the part of ``multiverso_tpu/apps/_runner.py`` the word2vec CLI
-and the serving plane use. User-facing errors (bad flag values, fatal
-checks, IO) log one line and return exit code 1 instead of a traceback.
-Telemetry export (``-telemetry_dir``) and the multi-process launch
-helpers wait (ROADMAP A11, A7).
+Port of the part of ``multiverso_tpu/apps/_runner.py`` the CLIs use, with
+the multi-process launch helpers (``spawn_ranks``, ``rendezvous``,
+``wait_all_done``). User-facing errors (bad flag values, fatal checks, IO)
+log one line and return exit code 1 instead of a traceback. Telemetry
+export (``-telemetry_dir``) waits (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -107,6 +107,45 @@ def comm_config() -> dict:
     return {"comm_policy": None, "comm_policy_overrides": None}
 
 
+def spawn_ranks(module: str, args: List[str], world: int,
+                rank_flag: str) -> int:
+    """Launcher: re-exec ``python -m <module>`` once per rank with a shared
+    rendezvous dir (the single-host ``mpirun -np N`` analog of the
+    reference's deployment). Runs BEFORE any runtime init: the launcher
+    only forks and waits. The ranks inherit the device flags, so local
+    ranks share the one card unless told otherwise."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    rdv = next((a.split("=", 1)[1] for a in args
+                if a.startswith("-rendezvous_dir=")), "")
+    given = bool(rdv)
+    if rdv:
+        # Namespace each run: stale addr/done files from a previous run in
+        # the same dir would poison the address exchange and the shutdown
+        # barrier.
+        rdv = tempfile.mkdtemp(prefix="run_", dir=rdv)
+    else:
+        rdv = tempfile.mkdtemp(prefix="mvapp_")
+    base = [a for a in args
+            if not a.startswith(("-world_size", f"-{rank_flag}",
+                                 "-rendezvous_dir"))]
+    procs = []
+    for r in range(world):
+        cmd = [sys.executable, "-m", module, *base,
+               f"-world_size={world}", f"-{rank_flag}={r}",
+               f"-rendezvous_dir={rdv}"]
+        procs.append(subprocess.Popen(cmd))
+    rc = 0
+    for p in procs:
+        p.wait()
+        rc |= p.returncode
+    if not given:
+        shutil.rmtree(rdv, ignore_errors=True)   # the launcher's own dir
+    return rc
+
+
 def _flag_value(args: List[str], name: str) -> Optional[str]:
     """Raw-argv value of ``-name=v`` (or ``--name=v``); last one wins."""
     for a in reversed(args):
@@ -121,3 +160,49 @@ def pin_device_if_requested(args: List[str], device_flag: str) -> None:
     passes ``-<device_flag>=cpu``, which selects ``-platform=cpu``."""
     if _flag_value(args, device_flag) == "cpu":
         configure.set_flag("platform", "cpu")
+
+
+def rendezvous(rdv: str, rank: int, world: int, address,
+               timeout_s: float = 120.0) -> List:
+    """File-based address exchange (the Controller registration analog for
+    externally-spawned ranks, ref src/controller.cpp:38-72)."""
+    import os
+    import time
+
+    with open(os.path.join(rdv, f"addr{rank}.tmp"), "w") as f:
+        f.write(f"{address[0]}:{address[1]}")
+    os.replace(os.path.join(rdv, f"addr{rank}.tmp"),
+               os.path.join(rdv, f"addr{rank}"))
+    peers: List = [None] * world
+    deadline = time.time() + timeout_s
+    for r in range(world):
+        path = os.path.join(rdv, f"addr{r}")
+        delay = 0.01
+        while not os.path.exists(path):
+            if time.time() > deadline:
+                raise TimeoutError(f"rank {r} never registered in {rdv}")
+            time.sleep(delay)
+            delay = min(delay * 2.0, 0.25)
+        host, port = open(path).read().split(":")
+        peers[r] = (host, int(port))
+    return peers
+
+
+def wait_all_done(rdv: str, rank: int, world: int,
+                  timeout_s: float = 600.0, tag: str = "done") -> None:
+    """Hold this rank's table shards up until every peer finished (the
+    MV_Barrier before shutdown, ref distributed_wordembedding.cpp:232).
+    ``tag`` names the barrier, so a run can pass more than one."""
+    import os
+    import time
+
+    with open(os.path.join(rdv, f"{tag}{rank}"), "w") as f:
+        f.write("ok")
+    deadline = time.time() + timeout_s
+    for r in range(world):
+        delay = 0.01
+        while not os.path.exists(os.path.join(rdv, f"{tag}{r}")):
+            if time.time() > deadline:
+                raise TimeoutError(f"rank {r} never finished")
+            time.sleep(delay)
+            delay = min(delay * 2.0, 0.25)

@@ -6,8 +6,10 @@ vectors from a text corpus, flags named after the reference/word2vec
 conventions, rank-0 embedding export. All four variants (``-cbow``,
 ``-hs``) and both paths (``-use_device_pipeline=true`` on-device example
 generation, ``false`` the host batch path). Runs on the CUDA card unless
-``-w2v_device=cpu`` (or ``-platform=cpu``) is given. Multi-rank training
-(``-world_size>1``) waits (ROADMAP A7).
+``-w2v_device=cpu`` (or ``-platform=cpu``) is given. ``-world_size=N``
+launches N rank processes on this host that train through the host PS
+service (``models/word2vec/distributed.py``); they run on the card too
+(several processes share one H100) unless ``-w2v_device=cpu`` is given.
 
 Usage:
     python -m multiverso_tpu_torch.apps.word2vec_main \
@@ -58,14 +60,23 @@ configure.define_int("world_size", 1, "number of distributed worker ranks")
 configure.define_int("w2v_rank", -1, "this rank (set by the launcher)")
 configure.define_string("rendezvous_dir", "",
                         "shared dir for address exchange")
-configure.define_string("w2v_device", "cpu",
-                        "distributed ranks: device (cpu|default); a "
-                        "single-process run uses the card unless "
-                        "-w2v_device=cpu is given explicitly")
+configure.define_string("w2v_summary_dir", "",
+                        "distributed ranks: each writes rank<r>.json (words, "
+                        "words/sec, last block loss, row kernel launches) "
+                        "and rank<r>.npy (its embeddings() pulled after "
+                        "every rank trained) here")
+configure.define_string("w2v_device", "default",
+                        "default|cpu: every rank, single or distributed, "
+                        "runs on the card unless -w2v_device=cpu is "
+                        "given; the local ranks of -world_size>1 share "
+                        "the one card")
 
 
-def _cfg_from_flags() -> "Word2VecConfig":
-    """The flag -> config mapping of the single-process trainer."""
+def _cfg_from_flags(device_pipeline: bool = True) -> "Word2VecConfig":
+    """The one flag -> config mapping, shared by the local and distributed
+    bodies. ``device_pipeline=False`` for distributed ranks: the
+    pull-train-push ``DistributedWord2Vec`` generates pairs on the host to
+    know its touched-row sets up front."""
     from multiverso_tpu_torch.apps._runner import comm_config
     from multiverso_tpu_torch.models.word2vec import Word2VecConfig
 
@@ -84,7 +95,8 @@ def _cfg_from_flags() -> "Word2VecConfig":
         block_words=configure.get_flag("data_block_size"),
         pipeline=configure.get_flag("is_pipeline"),
         param_prefetch=configure.get_flag("param_prefetch"),
-        device_pipeline=configure.get_flag("use_device_pipeline"),
+        device_pipeline=(device_pipeline and
+                         configure.get_flag("use_device_pipeline")),
         block_sentences=configure.get_flag("block_sentences"),
         pad_sentence_length=configure.get_flag("pad_sentence_length"),
         dispatch_mode=configure.get_flag("dispatch_mode"),
@@ -94,10 +106,87 @@ def _cfg_from_flags() -> "Word2VecConfig":
     )
 
 
+def _body_distributed(world: int, rank: int) -> int:
+    from multiverso_tpu_torch.apps._runner import rendezvous, wait_all_done
+    from multiverso_tpu_torch.core.zoo import Zoo
+    from multiverso_tpu_torch.models.word2vec import Dictionary, read_corpus
+    from multiverso_tpu_torch.models.word2vec.distributed import \
+        DistributedWord2Vec
+    from multiverso_tpu_torch.parallel.ps_service import PSService
+
+    train_file = configure.get_flag("train_file")
+    if not train_file:
+        log.error("missing -train_file")
+        return 1
+    rdv = configure.get_flag("rendezvous_dir")
+    if not rdv:
+        log.error("distributed rank needs -rendezvous_dir")
+        return 1
+    dictionary = Dictionary.build(read_corpus(train_file),
+                                  min_count=configure.get_flag("min_count"))
+    log.info("rank %d/%d: vocab=%d on %s", rank, world, len(dictionary),
+             Zoo.get().device)
+    cfg = _cfg_from_flags(device_pipeline=False)
+    svc = PSService()
+    try:
+        peers = rendezvous(rdv, rank, world, svc.address)
+        w2v = DistributedWord2Vec(cfg, dictionary, svc, peers, rank=rank)
+        sents = (dictionary.encode(s) for i, s in
+                 enumerate(read_corpus(train_file)) if i % world == rank)
+        stats = w2v.train(sents)
+        log.info("rank %d trained on %s: %.0f words/sec, %d words, last "
+                 "block loss %.6f", rank, w2v.device,
+                 stats["words_per_sec"], stats["words"], w2v.last_loss)
+        # Every rank's pushes land before anyone reads the tables back.
+        wait_all_done(rdv, rank, world, tag="trained")
+        emb = w2v.embeddings().astype("float32")
+        summary_dir = configure.get_flag("w2v_summary_dir")
+        if summary_dir:
+            _write_summary(summary_dir, rank, stats, w2v, emb)
+        if rank == 0:
+            out = configure.get_flag("output_file")
+            with open(out, "w") as f:
+                f.write(f"{len(dictionary)} {cfg.embedding_size}\n")
+                for i, vec in enumerate(emb):
+                    f.write(dictionary.words[i] + " " +
+                            " ".join(f"{x:.6f}" for x in vec) + "\n")
+            log.info("rank 0 saved %s", out)
+        wait_all_done(rdv, rank, world)
+        svc.check_fatal()
+    finally:
+        svc.close()
+    Dashboard.display(echo=True)
+    return 0
+
+
+def _write_summary(directory: str, rank: int, stats: dict, w2v,
+                   emb) -> None:
+    import json
+    import os
+
+    import numpy as np
+
+    from multiverso_tpu_torch.ops import rows
+
+    os.makedirs(directory, exist_ok=True)
+    np.save(os.path.join(directory, f"rank{rank}.npy"), emb)
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "device": str(w2v.device),
+                   "words": stats["words"], "seconds": stats["seconds"],
+                   "words_per_sec": stats["words_per_sec"],
+                   "last_loss": w2v.last_loss,
+                   "launches": dict(rows.LAUNCHES)}, f)
+
+
 def _body(argv: List[str]) -> int:
     del argv
     from multiverso_tpu_torch.models.word2vec import (Dictionary, Word2Vec,
                                                       read_corpus)
+
+    world = configure.get_flag("world_size")
+    rank = configure.get_flag("w2v_rank")
+    if world > 1 and rank >= 0:
+        return _body_distributed(world, rank)
 
     train_file = configure.get_flag("train_file")
     if not train_file:
@@ -119,16 +208,19 @@ def _body(argv: List[str]) -> int:
 
 
 def main(argv=None) -> int:
-    from multiverso_tpu_torch.apps._runner import (pin_device_if_requested,
-                                                   run_app)
+    from multiverso_tpu_torch.apps._runner import (_flag_value,
+                                                   pin_device_if_requested,
+                                                   run_app, spawn_ranks)
 
-    args = argv if argv is not None else sys.argv[1:]
-    world = next((int(a.split("=", 1)[1]) for a in args
-                  if a.lstrip("-").startswith("world_size=")), 1)
-    if world > 1:
-        raise NotImplementedError(
-            "multi-rank word2vec (-world_size>1) is not ported yet: "
-            "ROADMAP A7")
+    args = list(argv if argv is not None else sys.argv[1:])
+    # The launcher runs BEFORE run_app: it must not start the runtime (or
+    # touch the card) just to fork workers. Raw-argv scan: flags are not
+    # parsed yet.
+    world = int(_flag_value(args, "world_size") or 1)
+    has_rank = int(_flag_value(args, "w2v_rank") or -1) >= 0
+    if world > 1 and not has_rank:
+        return spawn_ranks("multiverso_tpu_torch.apps.word2vec_main", args,
+                           world, rank_flag="w2v_rank")
     pin_device_if_requested(args, device_flag="w2v_device")
     return run_app(_body, args)
 

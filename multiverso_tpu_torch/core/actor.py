@@ -1,9 +1,9 @@
 """Wire message header + payload: ``Message`` and ``MsgType``.
 
-Port of the part of ``multiverso_tpu/core/actor.py`` that the serving
-plane's framing carries (``parallel/net.py``). The actor runtime itself
-(mailbox threads over the native MtQueue) serves the PS request path and
-waits with it (ROADMAP A7).
+Port of the part of ``multiverso_tpu/core/actor.py`` that the wire
+framing carries (``parallel/net.py``), for the serving plane and the PS
+service. The PS service runs its own IO and dispatch threads, so the
+mailbox actor runtime of the JAX module has no caller in the port.
 """
 
 from __future__ import annotations
@@ -59,9 +59,16 @@ class MsgType(enum.IntEnum):
 
 
 class Message:
-    """Header + payload (ref message.h:26-68)."""
+    """Header + payload (ref message.h:26-68).
 
-    __slots__ = ("src", "dst", "type", "table_id", "msg_id", "data")
+    ``raw`` (optional) is the exact wire frame this message was parsed
+    from: the PS service's IO loop pins it on WAL-armed services so the
+    delta log appends the received bytes verbatim instead of paying a
+    re-serialization on the dispatch path. Never set on constructed
+    (outbound) messages."""
+
+    __slots__ = ("src", "dst", "type", "table_id", "msg_id", "data",
+                 "raw")
 
     def __init__(self, src: int = -1, dst: int = -1,
                  type: int = MsgType.Request_Get, table_id: int = -1,
@@ -72,6 +79,7 @@ class Message:
         self.table_id = table_id
         self.msg_id = msg_id
         self.data = data if data is not None else []
+        self.raw: Optional[bytes] = None
 
     def create_reply(self) -> "Message":
         """Reply inverts src/dst and negates the type (ref message.h:51-59)."""

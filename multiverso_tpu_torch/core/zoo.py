@@ -4,10 +4,14 @@ Port of ``multiverso_tpu/core/zoo.py`` (ref ``include/multiverso/zoo.h``,
 ``src/zoo.cpp``): startup/shutdown ordering, node roles, table
 registration, rank/size/worker/server queries and the global barrier.
 
-This slice is single-process: one worker rank, one server shard on one
-device (:func:`multiverso_tpu_torch.parallel.device.resolve_device`).
-Multi-process start-up (``-coordinator``, ``-machine_file``) waits for the
-``torch.distributed`` plane (ROADMAP A7) and raises ``NotImplementedError``.
+The Zoo's own world is one process: one worker rank, one server shard on
+one device (:func:`multiverso_tpu_torch.parallel.device.resolve_device`).
+Several processes share tables through the host PS service
+(``parallel/ps_service.py``): ``mv.net_bind`` keeps this process's
+service in :attr:`Zoo.ps_service` and ``mv.net_connect`` the peer list in
+:attr:`Zoo.ps_peers`. Multi-process start-up through a process group
+(``-coordinator``, ``-machine_file``) waits for the ``torch.distributed``
+plane (ROADMAP A7) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ class Zoo:
         self.tables: List[Any] = []
         self._barrier_count = 0
         self._num_local_workers = 1
+        self.ps_service: Optional[Any] = None
+        self.ps_peers: List[Any] = []
 
     # -- singleton ---------------------------------------------------------
     @classmethod
@@ -108,6 +114,10 @@ class Zoo:
             if close:
                 close()
         self.tables.clear()
+        if self.ps_service is not None:
+            self.ps_service.close()
+            self.ps_service = None
+        self.ps_peers = []
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.device = None

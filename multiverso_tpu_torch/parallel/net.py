@@ -1,8 +1,11 @@
 """Binary wire protocol for the host-side DCN services.
 
 Port of ``multiverso_tpu/parallel/net.py`` (host only: numpy and sockets).
-The serving plane speaks it; the PS table service on top of it waits
-(ROADMAP A7).
+The serving plane and the PS table service (``parallel/ps_service.py``)
+speak it, with the JAX package's framing byte for byte, so a client of
+either package talks to a service of the other. Decoded blobs are
+writable copies of their bytes: no array handed to a table aliases a
+buffer the wire layer reuses.
 
 Parity with the reference's single-buffer message framing
 (``mpi_net.h:289-317``: header ints + size-prefixed blobs + terminator):
@@ -22,6 +25,23 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from multiverso_tpu_torch.core.actor import Message
+from multiverso_tpu_torch.utils.quantization import (bf16_bits_to_f32,
+                                                     f32_to_bf16_bits)
+
+#: Chaos fault hook: when set, consulted once per wire op with
+#: ``(direction, sock)`` where direction is "send" or "recv". The hook may
+#: sleep (link delay) or raise OSError (packet drop: the caller sees
+#: exactly what a torn TCP link produces, so every recovery path it
+#: exercises is the real one). Installed per process, never on by
+#: default; a hook raising anything other than OSError is a bug in the
+#: drill, not the data plane, and is allowed to propagate.
+_fault_hook = None
+
+
+def set_fault_hook(hook) -> None:
+    """Install (or with ``None`` clear) the process-wide link-fault hook."""
+    global _fault_hook
+    _fault_hook = hook
 
 _HEADER = struct.Struct("<iiqii")   # type, table_id, msg_id, src, n_blobs
 _BLOB_HEADER = struct.Struct("<16sI")  # dtype string, ndim
@@ -63,7 +83,7 @@ def pack_message(msg: Message) -> bytes:
     return b"".join(parts)
 
 
-def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
+def _recv_exact(sock: socket.socket, n: int) -> Optional[bytearray]:
     buf = bytearray()
     while len(buf) < n:
         # The read deadline is the CALLER's: clients create the socket
@@ -75,10 +95,12 @@ def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
         if not chunk:
             return None
         buf.extend(chunk)
-    return bytes(buf)
+    return buf
 
 
 def send_message(sock: socket.socket, msg: Message) -> None:
+    if _fault_hook is not None:
+        _fault_hook("send", sock)
     sock.sendall(pack_message(msg))
 
 
@@ -118,7 +140,10 @@ def parse_frame(buf) -> Tuple[Optional[Message], int]:
             raise IOError(f"bad blob size {nbytes}")
         if n < off + nbytes:
             return None, 0
-        arr = np.frombuffer(bytes(buf[off:off + nbytes]),
+        chunk = buf[off:off + nbytes]     # a copy for a bytearray buf
+        if not isinstance(chunk, bytearray):
+            chunk = bytearray(chunk)
+        arr = np.frombuffer(chunk,
                             dtype=_blob_dtype(dtype_tag))
         off += nbytes
         try:
@@ -139,31 +164,6 @@ def parse_frame(buf) -> Tuple[Optional[Message], int]:
 # ---------------------------------------------------------------------------
 SERVE_WIRE_RAW = 0
 SERVE_WIRE_BF16 = 1
-
-
-# The bfloat16 bit codec of ``multiverso_tpu/utils/quantization.py``.
-def f32_to_bf16_bits(arr: np.ndarray) -> np.ndarray:
-    """float32 -> bfloat16 bit pattern as uint16, round-to-nearest-even
-    (the TPU-native 16-bit format; numpy has no bf16 dtype, so the wire
-    carries the raw upper halves). NaNs map to quiet NaN — the rounding
-    bias would otherwise turn them into inf (low payload) or wrap to 0
-    (negative NaN), silently masking a diverged gradient."""
-    b = np.ascontiguousarray(arr, dtype=np.float32).view(np.uint32)
-    rounded = b + np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1))
-    out = (rounded >> np.uint32(16)).astype(np.uint16)
-    nan = ((b & np.uint32(0x7F800000)) == np.uint32(0x7F800000)) \
-        & ((b & np.uint32(0x007FFFFF)) != 0)
-    if nan.any():
-        sign = (b[nan] >> np.uint32(16)).astype(np.uint16) \
-            & np.uint16(0x8000)
-        out[nan] = sign | np.uint16(0x7FC0)
-    return out
-
-
-def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
-    """uint16 bfloat16 bit pattern -> float32 (exact)."""
-    return (np.ascontiguousarray(bits, dtype=np.uint16)
-            .astype(np.uint32) << np.uint32(16)).view(np.float32)
 
 
 def pack_serve_payload(arr: np.ndarray, wire_dtype: str = "f32"
@@ -243,6 +243,8 @@ def unpack_json_blob(blob: np.ndarray):
 
 def recv_message(sock: socket.socket) -> Optional[Message]:
     """Blocking read of one framed message; None on clean EOF."""
+    if _fault_hook is not None:
+        _fault_hook("recv", sock)
     magic = _recv_exact(sock, _MAGIC.size)
     if magic is None:
         return None

@@ -80,6 +80,18 @@ def test_importing_the_port_loads_no_jax():
             "import multiverso_tpu_torch.recsys\n"
             "import multiverso_tpu_torch.apps.serve_main\n"
             "import multiverso_tpu_torch.apps.dlrm_main\n"
+            "import multiverso_tpu_torch.runtime.ffi\n"
+            "import multiverso_tpu_torch.parallel.async_engine\n"
+            "import multiverso_tpu_torch.parallel.ps_service\n"
+            "import multiverso_tpu_torch.core.wal\n"
+            "import multiverso_tpu_torch.utils.quantization\n"
+            "import multiverso_tpu_torch.utils.net_util\n"
+            "import multiverso_tpu_torch.apps.ps_shard_main\n"
+            "import multiverso_tpu_torch.models.word2vec.commplane\n"
+            "import multiverso_tpu_torch.models.word2vec.distributed\n"
+            "import multiverso_tpu_torch.binding\n"
+            "import multiverso_tpu_torch.binding.c_api\n"
+            "import multiverso_tpu_torch.models.convnet\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'multiverso_tpu')]\n"
             "assert not bad, bad\n"
@@ -88,6 +100,52 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("clean")
+
+
+def test_native_runtime_builds_in_the_port_build_dir_only():
+    """The native runtime is built from the port's own sources into
+    ``build/multiverso_tpu_torch/``: loading it (and driving a
+    ``DeltaBuffer`` and a PS round trip through the C client) imports
+    nothing of jax or the JAX package, and no library of the port lands
+    beside ``multiverso_tpu/runtime/`` or the port's sources."""
+    code = ("import sys, numpy as np\n"
+            "from multiverso_tpu_torch.runtime import ffi\n"
+            "lib = ffi.load()\n"
+            "print(ffi.library_path())\n"
+            "b = ffi.DeltaBuffer(4, 2)\n"
+            "b.add_rows(np.array([1, 1]), np.ones((2, 2), np.float32))\n"
+            "assert b.drain_rows(8)[1].tolist() == [[2.0, 2.0]]\n"
+            "import multiverso_tpu_torch as mv\n"
+            "from multiverso_tpu_torch.parallel import ps_service as ps\n"
+            "mv.init(['-platform=cpu'])\n"
+            "svc = ps.PSService()\n"
+            "t = ps.DistributedArrayTable(1, 4, svc, [svc.address], 0)\n"
+            "c = ffi.CClient([svc.address])\n"
+            "c.array_table(1, 4).add(np.arange(4, dtype=np.float32))\n"
+            "assert t.get().tolist() == [0.0, 1.0, 2.0, 3.0]\n"
+            "c.close(); svc.close(); mv.shutdown()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'multiverso_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "clean"
+    lib = lines[0]
+    assert os.path.dirname(lib) == os.path.join(REPO, "build",
+                                                "multiverso_tpu_torch"), lib
+    assert os.path.basename(lib).startswith("libmvtpu_host-")
+    # Nothing built beside either package's sources (the JAX package's own
+    # tests build multiverso_tpu/runtime/libmvtpu_host.so; the port never
+    # loads or writes there).
+    jax_dir = os.path.join(REPO, "multiverso_tpu", "runtime")
+    assert not [f for f in os.listdir(jax_dir)
+                if f.startswith("libmvtpu_host-")]
+    for d in ("runtime", os.path.join("runtime", "src")):
+        d = os.path.join(REPO, "multiverso_tpu_torch", d)
+        assert not [f for f in os.listdir(d) if f.endswith(".so")], d
 
 
 def test_collecting_the_port_tests_loads_no_torch():

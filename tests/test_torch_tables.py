@@ -168,10 +168,12 @@ def test_port_table_surface_and_waits():
         4, 4, comm_policy="allreduce")).comm_policy == "allreduce"
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mvt.create_table(mvt.MatrixTableOption(4, 4, comm_policy="auto"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mvt.net_bind()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mvt.create_distributed_matrix_table(0, 4, 4, 0)
+    # The PS service is ported: a one-rank world over it.
+    host, port = mvt.net_bind()
+    mvt.net_connect([(host, port)])
+    dist = mvt.create_distributed_matrix_table(0, 4, 4, 0)
+    dist.add_rows([1, 1], np.ones((2, 4), np.float32))
+    assert dist.get_rows([1]).tolist() == [[2.0] * 4]
     mvt.set_flag("state_sharding", "on")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mvt.create_table(mvt.MatrixTableOption(4, 4, updater="adagrad"))

@@ -274,5 +274,11 @@ def test_cli_user_errors(tmp_path):
     from multiverso_tpu_torch.apps import word2vec_main
     assert word2vec_main.main(["-w2v_device=cpu"]) == 1      # no -train_file
     assert word2vec_main.main(["-w2v_device=cpu", "-size=abc"]) == 1
+    # -world_size=2 launches two ranks; each exits 1 without -train_file.
+    assert word2vec_main.main(["-world_size=2", "-w2v_device=cpu"]) == 1
+    # The comm policies wait for the collective plane.
+    corpus = tmp_path / "c.txt"
+    corpus.write_text("a b c a b c\n" * 4)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        word2vec_main.main(["-world_size=2", "-w2v_device=cpu"])
+        word2vec_main.main([f"-train_file={corpus}", "-min_count=1",
+                            "-comm_policy=allreduce", "-w2v_device=cpu"])
