@@ -220,7 +220,29 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
     C client of (a), and the ASGD convnet's 2 workers through
     ``PyTreeParamManager`` on the card (finite losses, accuracy above
     chance);
-11. a JSON line of the kernels, the card line, and the result line.
+11. the collective plane (``torch.distributed`` over gloo): (a) one rank
+    on the card: the AUTO probe's ps leg (upload, add, read-back) and
+    all-reduce leg at ``PROBE_BYTES`` with each decision, then one
+    flagship word2vec block (bench.py's config) under the fused,
+    ``hybrid`` and ``model_average`` planes from one seed, every table
+    bitwise the fused plane's and B5 launched once a plane; (b) two rank
+    processes of this script (``--phase11-rank``) on the one card, one
+    world started with ``-coordinator``: ``mv.aggregate`` of a numpy
+    vector and a card tensor, the all-gather and reduce-scatter of card
+    tensors, bitwise the sums of both ranks' inputs; the probe at world 2
+    (the same readings and decisions on both ranks); word2vec
+    ``model_average`` at the flagship's widths, one block a rank, every
+    merged table bitwise the mean of both ranks' pre-merge tables and the
+    same on both (words/sec a rank, B5 once a rank); logreg's
+    data-parallel allreduce at MNIST's widths, each rank on half of every
+    minibatch, within ``DP_LOSS_RTOL`` and ``LR_RTOL``/``LR_ATOL`` of one
+    rank on whole minibatches; (c) ``logreg_main -world_size=2`` over two
+    PS ranks on the card (exit 0, rank 0's accuracy above
+    ``LR_CLI_MIN_ACC``), and two ``DistributedWord2Vec`` ranks over
+    ``PSService`` served from each rank's live input shard through
+    ``RoutedLookupClient``, every reply bitwise ``get_rows`` (B1 counted
+    under the served gathers);
+12. a JSON line of the kernels, the card line, and the result line.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
@@ -250,9 +272,9 @@ once per int8 template instance (``PAGED_INT8_INSTANCES``) and on a page
 that does not divide the bucket, an idle slot and t = 0.
 
 Every launch count is set to 0 just before each main-path run of phases
-3, 4, 6, 7, 8, 9 and 10 and read just after it (phase 10's seats and word2vec
-ranks are processes of their own and print theirs), so the comparisons of
-phase 2 do not count.
+3, 4, 6, 7, 8, 9, 10 and 11 and read just after it (phase 10's seats and
+word2vec ranks and phase 11's rank processes are processes of their own
+and report theirs), so the comparisons of phase 2 do not count.
 """
 
 from __future__ import annotations
@@ -5279,17 +5301,489 @@ def phase10(seed: int, on_path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the collective plane
+# ---------------------------------------------------------------------------
+# The AUTO probe's byte sizes (all under comm_policy.ALLREDUCE_BYTES_MAX,
+# so the probe decides each).
+PROBE_BYTES = (1 << 10, 1 << 16, 1 << 22)
+# mv.aggregate / all-gather / reduce-scatter operands: a vector of
+# AGG_ELEMS float32 and COL_ROWS x COLS row blocks (bench.py's row width).
+AGG_ELEMS, COL_ROWS = 1 << 20, 1_000
+# logreg's data-parallel allreduce at MNIST's widths: DP_STEPS minibatches
+# of the config's 20 samples, each rank stepping on its half; the losses
+# within rel DP_LOSS_RTOL of one rank's on whole minibatches, the weights
+# within LR_ATOL + LR_RTOL * |w| (phase 8's card-against-CPU bound): the
+# two halves' mean gradient sums in another order than the whole batch's.
+DP_STEPS, DP_BATCH, DP_LOSS_RTOL = 200, 20, 1e-5
+# logreg_main -world_size=2: a libsvm file of LR_CLI_SAMPLES MNIST-width
+# samples; rank 0's test accuracy must beat LR_CLI_MIN_ACC (chance 0.1).
+LR_CLI_SAMPLES, LR_CLI_MIN_ACC = 4_000, 0.3
+# Two DistributedWord2Vec ranks over PSService (bench.py's word2vec config,
+# SERVE2_WORDS corpus words, one block a rank), then SERVE2_QUERIES
+# routed lookups of 1-64 ids against the two live input shards.
+SERVE2_WORDS, SERVE2_QUERIES = 100_000, 64
+W2V_TABLE_ATTRS = {"w_in": "input_table", "w_out": "output_table",
+                   "g_in": "adagrad_in", "g_out": "adagrad_out"}
+
+
+def probe_readings(mesh, world: int) -> list:
+    """The AUTO probe's two legs at each of ``PROBE_BYTES`` on this
+    process's device, and the decision each size gets."""
+    from multiverso_tpu_torch.parallel import comm_policy as cp
+    out = []
+    for nbytes in PROBE_BYTES:
+        lat = cp.measured_policy_latency_ms(nbytes, mesh, world=world)
+        policy = cp.resolve_comm_policy((nbytes // 4,), "float32",
+                                        mesh=mesh, world=world,
+                                        table=f"probe_{nbytes}")
+        assert policy == (cp.PS if lat[cp.PS] < lat[cp.ALLREDUCE]
+                          else cp.ALLREDUCE), (lat, policy)
+        out.append({"bytes": nbytes, "ps_ms": lat[cp.PS],
+                    "allreduce_ms": lat[cp.ALLREDUCE], "policy": policy})
+    log(f"AUTO probe at world {world} on {lat['device']}: " + "; ".join(
+        f"{r['bytes']} B ps {r['ps_ms']:.4f} ms, allreduce "
+        f"{r['allreduce_ms']:.4f} ms -> {r['policy']}" for r in out))
+    return out
+
+
+def w2v_planes(sents, d) -> dict:
+    """Phase 11 (a): one flagship block under the fused, ``hybrid`` and
+    ``model_average`` planes from the same seed: each plane's four tables
+    bitwise the fused plane's, B5 launched once a block."""
+    import torch
+    from multiverso_tpu_torch.models.word2vec import Word2Vec
+    from multiverso_tpu_torch.ops import sgns
+
+    out, ref = {}, None
+    for plane in ("fused", "hybrid", "model_average"):
+        w = Word2Vec(flagship_config(comm_policy=None if plane == "fused"
+                                     else plane), d)
+        assert w.dispatch_mode == "pallas_grid", w.dispatch_mode
+        before = sgns.LAUNCHES["sgns_block"]
+        st = w.train(sentences=sents)
+        launches = sgns.LAUNCHES["sgns_block"] - before
+        assert st["comm_mode"] == plane and st["blocks"] == 1, st
+        assert launches == 1, launches
+        tables = {k: getattr(w, a).store.read()
+                  for k, a in W2V_TABLE_ATTRS.items()}
+        if ref is None:
+            ref = tables
+        for k in tables:
+            assert torch.equal(tables[k], ref[k]), (plane, k)
+        out[plane] = {"words_per_sec": st["words_per_sec"],
+                      "words": st["words"], "sgns_block": launches,
+                      "synced_words": st["synced_words"],
+                      "wordcount_policy": w.comm_policies.get(
+                          "w2v_wordcount", "ps")}
+    log("word2vec planes at the flagship's widths, one block each, tables "
+        "bitwise the fused plane's: " + "; ".join(
+            f"{p} {r['words_per_sec']:,.0f} words/sec (B5 "
+            f"{r['sgns_block']}, word count on {r['wordcount_policy']}, "
+            f"synced words {r['synced_words']})" for p, r in out.items()))
+    return out
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def phase11_rank(rank: int, coordinator: str, out: str, seed: int) -> int:
+    """One rank of phase 11 (b), a process of its own on the one card:
+    joins the world of two over gloo with -coordinator, then runs
+    ``mv.aggregate``, the all-gather and reduce-scatter, the AUTO probe at
+    world 2, word2vec ``model_average`` (one flagship block) and logreg's
+    data-parallel allreduce against one rank's, in that order on both
+    ranks. Writes ``rank<r>.json`` and the arrays the parent checks."""
+    t_start = time.perf_counter()
+    import numpy as np
+    import torch
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.core.zoo import Zoo
+    from multiverso_tpu_torch.models.logreg import LogRegConfig
+    from multiverso_tpu_torch.models.logreg.model import AllreduceModel
+    from multiverso_tpu_torch.models.word2vec import Word2Vec
+    from multiverso_tpu_torch.ops import attention, rows, sgns
+    from multiverso_tpu_torch.parallel import collectives as col
+    from multiverso_tpu_torch.telemetry import get_registry
+
+    mv.init([f"-coordinator={coordinator}", "-world_size=2",
+             f"-rank={rank}"])
+    zoo = Zoo.get()
+    mesh = zoo.mesh
+    dev = zoo.device
+    assert dev.type == "cuda", dev
+    res = {"rank": mv.rank(), "size": mv.size(), "device": str(dev),
+           "gloo_socket_ifname": os.environ.get("GLOO_SOCKET_IFNAME"),
+           "start_s": time.perf_counter() - t_start}
+    mv.barrier()
+    arrays = {}
+    rng = np.random.default_rng(seed + 110 + rank)
+    vec = rng.normal(size=AGG_ELEMS).astype(np.float32)
+    mat = rng.normal(size=(COL_ROWS, COLS)).astype(np.float32)
+    shard = rng.normal(size=(COL_ROWS, COLS)).astype(np.float32)
+    whole = rng.normal(size=(2 * COL_ROWS, COLS)).astype(np.float32)
+    t0 = time.perf_counter()
+    arrays["agg_vec"] = mv.aggregate(vec)
+    agg_t = mv.aggregate(torch.as_tensor(mat, device=dev))
+    assert agg_t.device == dev
+    arrays["agg_mat"] = agg_t.cpu().numpy()
+    arrays["allgather"] = col.device_allgather(
+        torch.as_tensor(shard, device=dev), mesh).cpu().numpy()
+    arrays["reduce_scatter"] = col.device_reduce_scatter(
+        torch.as_tensor(whole, device=dev), mesh).cpu().numpy()
+    res["collectives_s"] = time.perf_counter() - t0
+    res["probe"] = probe_readings(mesh, 2)
+
+    # word2vec model_average: one flagship block on this rank's half of
+    # the corpus, then the merge; the tables kept on either side of it.
+    d, sents = zipf_corpus(V, 1024, 500, seed=seed + 11)
+    w = Word2Vec(flagship_config(comm_policy="model_average"), d)
+    merge = w._model_average_epoch
+    pre = {}
+
+    def kept_merge():
+        for k, a in W2V_TABLE_ATTRS.items():
+            pre[k] = getattr(w, a).store.read()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        merge()
+        torch.cuda.synchronize(dev)
+        res["w2v_merge_s"] = time.perf_counter() - t
+
+    w._model_average_epoch = kept_merge
+    for counts in (rows.LAUNCHES, sgns.LAUNCHES, attention.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    st = w.train(sentences=sents[rank::2])
+    res["launches"] = {**rows.LAUNCHES, **sgns.LAUNCHES,
+                       **attention.LAUNCHES}
+    res["w2v"] = {k: st[k] for k in ("words", "pairs", "words_per_sec",
+                                     "seconds", "blocks", "comm_mode")}
+    res["w2v_post_digest"] = {}
+    for k, a in W2V_TABLE_ATTRS.items():
+        post = getattr(w, a).store.read()
+        res["w2v_post_digest"][k] = _digest(post)
+        np.save(os.path.join(out, f"pre{rank}_{k}.npy"),
+                pre[k].cpu().numpy())
+        if rank == 0:
+            np.save(os.path.join(out, f"post_{k}.npy"), post.cpu().numpy())
+
+    # logreg allreduce over the data-parallel axis at MNIST's widths, then
+    # one rank's model on the whole minibatches (built on both ranks:
+    # creating a table is collective).
+    X, y = mnist_like(seed)
+    Xb = np.concatenate([X, np.ones((len(X), 1), np.float32)], axis=1)
+    cfg = LogRegConfig(objective="softmax", num_feature=MNIST_FEATURES,
+                       num_class=MNIST_CLASSES, minibatch_size=DP_BATCH,
+                       comm_policy="allreduce")
+    dp = AllreduceModel(cfg, dp_mesh=mesh, dp_axis="server")
+    half = DP_BATCH // 2
+    losses = []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(DP_STEPS):
+        lo = i * DP_BATCH + rank * half
+        losses.append(dp.update(Xb[lo:lo + half], y[lo:lo + half]))
+    torch.cuda.synchronize(dev)
+    dp_s = time.perf_counter() - t0
+    single = AllreduceModel(cfg)
+    want = [single.update(Xb[i * DP_BATCH:(i + 1) * DP_BATCH],
+                          y[i * DP_BATCH:(i + 1) * DP_BATCH])
+            for i in range(DP_STEPS)]
+    got = np.asarray([float(x) for x in losses])
+    want = np.asarray([float(x) for x in want])
+    assert np.isfinite(got).all() and got[-1] < got[0], got
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    assert loss_rel <= DP_LOSS_RTOL, loss_rel
+    wd, ws = dp.get_weights(), single.get_weights()
+    err = np.abs(wd - ws)
+    assert bool((err <= LR_ATOL + LR_RTOL * np.abs(ws)).all()), \
+        float(err.max())
+    res["logreg_dp"] = {"steps": DP_STEPS, "seconds": dp_s,
+                        "samples_per_sec": DP_STEPS * half / dp_s,
+                        "loss_first": float(got[0]),
+                        "loss_last": float(got[-1]),
+                        "loss_max_rel_err": loss_rel,
+                        "weights_max_abs_err": float(err.max())}
+    counters = get_registry().snapshot(buckets=False)["counters"]
+    res["host_copies"] = counters.get("comm.collective.host_copies",
+                                      {}).get("value", 0)
+    res["host_bytes"] = counters.get("comm.collective.host_bytes",
+                                     {}).get("value", 0)
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    mv.shutdown()
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def collective_ranks(seed: int) -> dict:
+    """Phase 11 (b): two rank processes on the one card, one world over
+    gloo (``-coordinator``): ``mv.aggregate`` of a numpy vector and a card
+    tensor, the all-gather and reduce-scatter of card tensors, all bitwise
+    the numpy sums of both ranks' inputs; the AUTO probe at world 2 (the
+    same readings and decisions on both ranks); word2vec
+    ``model_average`` at the flagship's widths, one block a rank, each
+    merged table bitwise the mean of both ranks' pre-merge tables and
+    the same on both ranks (B5 once a rank); logreg's data-parallel
+    allreduce within its bounds of one rank's."""
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        coordinator = f"127.0.0.1:{free_ports(1)[0]}"
+        cmd = [sys.executable, os.path.abspath(__file__), "--seed",
+               str(seed), "--phase11-rank"]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            cmd + [str(r), coordinator, tmp], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, (r, outs[r][-4000:])
+        res, arrays = [], []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+            arrays.append(dict(np.load(os.path.join(tmp, f"rank{r}.npz"))))
+        ins = []
+        for r in range(2):
+            rng = np.random.default_rng(seed + 110 + r)
+            ins.append([rng.normal(size=AGG_ELEMS).astype(np.float32),
+                        rng.normal(size=(COL_ROWS, COLS)).astype(np.float32),
+                        rng.normal(size=(COL_ROWS, COLS)).astype(np.float32),
+                        rng.normal(size=(2 * COL_ROWS, COLS))
+                        .astype(np.float32)])
+        for r in range(2):
+            a = arrays[r]
+            assert (res[r]["rank"], res[r]["size"]) == (r, 2), res[r]
+            assert np.array_equal(a["agg_vec"], ins[0][0] + ins[1][0])
+            assert np.array_equal(a["agg_mat"], ins[0][1] + ins[1][1])
+            assert np.array_equal(a["allgather"],
+                                  np.concatenate([ins[0][2], ins[1][2]]))
+            whole = ins[0][3] + ins[1][3]
+            assert np.array_equal(a["reduce_scatter"],
+                                  whole[r * COL_ROWS:(r + 1) * COL_ROWS])
+            assert res[r]["launches"]["sgns_block"] == 1, res[r]["launches"]
+        assert res[0]["probe"] == res[1]["probe"]
+        assert res[0]["w2v_post_digest"] == res[1]["w2v_post_digest"]
+        for k in W2V_TABLE_ATTRS:
+            pre = [np.load(os.path.join(tmp, f"pre{r}_{k}.npy"))
+                   for r in range(2)]
+            post = np.load(os.path.join(tmp, f"post_{k}.npy"))
+            assert np.array_equal(post, (pre[0] + pre[1]) / np.float32(2)), k
+            assert not np.array_equal(pre[0], pre[1]), k
+    log("two ranks on one card over gloo (GLOO_SOCKET_IFNAME="
+        f"{res[0]['gloo_socket_ifname']}): start-up {res[0]['start_s']:.1f} "
+        f"/ {res[1]['start_s']:.1f} s; aggregate, all-gather and "
+        f"reduce-scatter bitwise ({res[0]['collectives_s']:.3f} s, "
+        f"{res[0]['host_copies']} host-staged copies a rank); word2vec "
+        "model_average one flagship block a rank, merged tables bitwise "
+        "the mean of both ranks': " + ", ".join(
+            f"rank {r['rank']} {r['w2v']['words_per_sec']:,.0f} words/sec "
+            f"({r['w2v']['words']:,} words in {r['w2v']['seconds']:.3f} s, "
+            f"merge {r['w2v_merge_s']:.3f} s)" for r in res)
+        + "; logreg data-parallel allreduce at MNIST's widths, "
+        f"{DP_STEPS} minibatches: losses within "
+        f"{res[0]['logreg_dp']['loss_max_rel_err']:.3g} (rel) and weights "
+        f"{res[0]['logreg_dp']['weights_max_abs_err']:.3g} (abs) of one "
+        f"rank, {res[0]['logreg_dp']['samples_per_sec']:,.0f} samples/sec "
+        f"a rank; {wall:.1f} s with start-up")
+    return {"ranks": res, "wall_s": wall}
+
+
+def logreg_cli_two_ranks(seed: int) -> dict:
+    """Phase 11 (c): ``logreg_main -world_size=2`` on the card, two PS
+    ranks training softmax at MNIST's widths from a libsvm file; exit 0
+    and rank 0's test accuracy above ``LR_CLI_MIN_ACC``."""
+    import re
+    import numpy as np
+    X, y = mnist_like(seed)
+    X, y = X[:LR_CLI_SAMPLES], y[:LR_CLI_SAMPLES]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "mnist_like.svm")
+        with open(data, "w") as f:
+            for row, lab in zip(X, y):
+                nz = np.flatnonzero(row)
+                f.write(f"{int(lab)} " + " ".join(
+                    f"{i}:{row[i]:.6f}" for i in nz) + "\n")
+        conf = os.path.join(tmp, "lr.conf")
+        with open(conf, "w") as f:
+            f.write(f"objective=softmax\nnum_feature={MNIST_FEATURES}\n"
+                    f"num_class={MNIST_CLASSES}\nminibatch_size=20\n"
+                    "train_epoch=1\n")
+        cmd = [sys.executable, "-m", "multiverso_tpu_torch.apps.logreg_main",
+               f"-config_file={conf}", f"-lr_train_file={data}",
+               f"-lr_test_file={data}", "-world_size=2",
+               f"-rendezvous_dir={tmp}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    assert proc.returncode == 0, text[-4000:]
+    acc = [float(m) for m in re.findall(r"test accuracy: ([0-9.]+)", text)]
+    assert len(acc) == 1 and acc[0] > LR_CLI_MIN_ACC, (acc, text[-2000:])
+    log(f"logreg_main -world_size=2 on the card: {LR_CLI_SAMPLES} samples "
+        f"at MNIST's widths over two PS ranks, rank 0's test accuracy "
+        f"{acc[0]:.4f}; {wall:.1f} s with start-up")
+    return {"accuracy": acc[0], "wall_s": wall}
+
+
+def w2v_two_rank_serving(seed: int) -> dict:
+    """Phase 11 (c): two ``DistributedWord2Vec`` ranks over ``PSService``
+    on the card (threads of this process) train one block each, then each
+    rank's live input shard is served by a ``SparseLookupRunner`` behind
+    ``ServingService`` and ``RoutedLookupClient`` routes lookups over
+    both: every reply bitwise the table's ``get_rows`` (B1 under every
+    served gather)."""
+    import threading
+    import numpy as np
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch.models.word2vec.distributed import \
+        DistributedWord2Vec
+    from multiverso_tpu_torch.ops import rows
+    from multiverso_tpu_torch.parallel.ps_service import PSService
+    from multiverso_tpu_torch.serving import (RoutedLookupClient,
+                                              ServingService,
+                                              SparseLookupRunner)
+    d, sents = zipf_corpus(V, SERVE2_WORDS // 500, 500, seed=seed + 12)
+    cfg = flagship_config(device_pipeline=False, block_words=W2V_BLOCK,
+                          pipeline=False)
+    mv.init([])
+    svcs = [PSService(), PSService()]
+    peers = [s.address for s in svcs]
+    serves, client = [], None
+    try:
+        ws = [DistributedWord2Vec(cfg, d, svcs[r], peers, rank=r)
+              for r in range(2)]
+        stats = [None, None]
+
+        def train(r):
+            stats[r] = ws[r].train(sents[r::2])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=train, args=(r,))
+                   for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive(), "training hung"
+        train_s = time.perf_counter() - t0
+        for w in ws:
+            w.w_in.flush(wait=True)
+        for w in ws:
+            svc = ServingService()
+            svc.register_runner(SparseLookupRunner(
+                w.w_in.local_store,
+                row_offset=int(w.w_in.row_offsets[w.rank])),
+                buckets=LOOKUP_BUCKETS, max_batch=LOOKUP_BATCH,
+                max_wait_ms=1.0)
+            serves.append(svc)
+        client = RoutedLookupClient([s.address for s in serves],
+                                    offsets=ws[0].w_in.row_offsets)
+        rng = np.random.default_rng(seed + 13)
+        b1 = rows.LAUNCHES["gather_rows"]
+        served = []
+        t0 = time.perf_counter()
+        for _ in range(SERVE2_QUERIES):
+            q = rng.integers(0, V, int(rng.integers(1, 65))).astype(np.int64)
+            served.append((q, client.lookup(q, deadline_ms=30_000)))
+        serve_s = time.perf_counter() - t0
+        b1 = rows.LAUNCHES["gather_rows"] - b1
+        for q, got in served:
+            want = ws[0].w_in.get_rows(q.astype(np.int32))
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert b1 > 0, b1
+    finally:
+        if client is not None:
+            client.close()
+        for s in serves:
+            s.close()
+        for s in svcs:
+            s.close()
+        mv.shutdown()
+    log(f"two DistributedWord2Vec ranks over PSService on the card: "
+        + ", ".join(f"rank {r} {st['words']:,} words at "
+                    f"{st['words_per_sec']:,.0f} words/sec"
+                    for r, st in enumerate(stats))
+        + f" ({train_s:.2f} s); {SERVE2_QUERIES} routed lookups over both "
+        f"live shards bitwise get_rows in {serve_s:.3f} s, B1 {b1} "
+        "launches under the served gathers")
+    return {"train": stats, "train_s": train_s, "serve_s": serve_s,
+            "serve_b1": b1}
+
+
+def phase11(seed: int, on_path, card: str) -> dict:
+    """Phase 11: the collective plane. Returns the readings and each
+    run's launch counts (the rank processes' as they wrote them)."""
+    from multiverso_tpu_torch.core.zoo import Zoo
+    from multiverso_tpu_torch.utils.configure import reset_flags
+    import multiverso_tpu_torch as mv
+    log(f"phase 11 on {card}")
+    t0 = time.perf_counter()
+    reset_flags()
+    out = {"launches": {}, "part_s": {}}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        out["part_s"][name] = time.perf_counter() - t
+        return res
+
+    mv.init([])
+    out["probe_world1"] = part("probe, one rank", probe_readings,
+                               Zoo.get().mesh, 1)
+    d, sents = zipf_corpus(V, 512, 500, seed=seed + 10)
+    out["w2v_planes"], out["launches"]["w2v_planes"] = part(
+        "word2vec planes", on_path, w2v_planes, sents, d)
+    mv.shutdown()
+    out["ranks"] = part("two ranks", collective_ranks, seed)
+    for r in out["ranks"]["ranks"]:
+        out["launches"][f"collective rank {r['rank']}"] = r.pop("launches")
+    out["logreg_cli"] = part("logreg_main -world_size=2",
+                             logreg_cli_two_ranks, seed)
+    out["serving"], out["launches"]["w2v_serving"] = part(
+        "two-rank word2vec and serving", on_path, w2v_two_rank_serving,
+        seed)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["part_s"].items()) + ")")
+    return out
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phase 8's synthetic data")
+    parser.add_argument("--phase11-rank", nargs=3,
+                        metavar=("RANK", "COORDINATOR", "OUT_DIR"),
+                        help="run one rank of phase 11 (b); phase 11 "
+                        "starts two of these itself")
     args = parser.parse_args()
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.phase11_rank:
+        rank, coordinator, out = args.phase11_rank
+        return phase11_rank(int(rank), coordinator, out, args.seed)
     sys.path.insert(0, REPO)
     import numpy as np
     import multiverso_tpu_torch as mv
@@ -5445,6 +5939,21 @@ def main() -> int:
                    "fused_stateful_sorted_rows", "fold_sorted_runs"):
         assert p10_runs["engine"][kernel] > 0, (kernel, p10_runs["engine"])
 
+    # Phase 11: the collective plane: the AUTO probe and word2vec's three
+    # planes on one rank (B5 once a plane), two rank processes over gloo
+    # (aggregate and the collectives, the probe at world 2, word2vec
+    # model_average with B5 once a rank, logreg's data-parallel
+    # allreduce), logreg_main -world_size=2, and two DistributedWord2Vec
+    # ranks served from their live shards (B1 under every served gather,
+    # B4 under the plain steps).
+    p11 = phase11(args.seed, on_path, card)
+    p11_runs = p11.pop("launches")
+    assert p11_runs["w2v_planes"]["sgns_block"] == 3, p11_runs
+    for r in range(2):
+        assert p11_runs[f"collective rank {r}"]["sgns_block"] == 1
+    assert p11_runs["w2v_serving"]["gather_rows"] > 0, p11_runs
+    assert p11_runs["w2v_serving"]["tiled_scatter_add_sorted_rows"] > 0
+
     b4_runs = {"bench.py leg": leg["tiled_scatter_add_sorted_rows"],
                "plain tables": plain_counts["tiled_scatter_add_sorted_rows"],
                "word2vec plain steps":
@@ -5453,7 +5962,9 @@ def main() -> int:
                    p8_runs["device_kv"]["tiled_scatter_add_sorted_rows"],
                "phase 8 LDA": p8_runs["lda"]["tiled_scatter_add_sorted_rows"],
                "phase 10": sum(c["tiled_scatter_add_sorted_rows"]
-                               for c in p10_runs.values())}
+                               for c in p10_runs.values()),
+               "phase 11": sum(c["tiled_scatter_add_sorted_rows"]
+                               for c in p11_runs.values())}
     launches = {
         "gather_rows": plane["gather_rows"] + p8_runs["sparse"]["gather_rows"]
         + sum(c["gather_rows"] for c in p9_runs.values())
@@ -5476,6 +5987,9 @@ def main() -> int:
         "flash_block_attn": lm["b6_launches"],
         "paged_decode_attn": served["b7_launches"],
         "paged_decode_attn_int8": served["b7_int8_launches"]}
+    for name in launches:
+        if name != "tiled_scatter_add_sorted_rows":
+            launches[name] += sum(c.get(name, 0) for c in p11_runs.values())
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
@@ -5485,6 +5999,9 @@ def main() -> int:
                                 if c.get(k["name"])}
         k["phase10_launches"] = {run: c[k["name"]]
                                  for run, c in p10_runs.items()
+                                 if c.get(k["name"])}
+        k["phase11_launches"] = {run: c[k["name"]]
+                                 for run, c in p11_runs.items()
                                  if c.get(k["name"])}
         if k["name"] == "fused_stateful_sorted_rows":
             k["store_add_kernels"] = store_kernels
@@ -5538,6 +6055,7 @@ def main() -> int:
         if k["name"] == "scatter_add_sorted_rows":
             k["phase8"] = p8
             k["phase10"] = p10
+            k["phase11"] = p11
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -4,7 +4,9 @@ Parity with ``include/multiverso/multiverso.h:9-65``: init/shutdown/
 barrier, rank/size/worker/server queries, flag override, table creation
 (the ``table_factory`` dispatch) and allreduce aggregate. ``init`` puts
 the tables on the CUDA card unless ``-platform=cpu`` is given, and raises
-when there is no card. ``net_bind``/``net_connect`` and the
+when there is no card; with ``-coordinator`` (or ``-machine_file``) it
+joins a ``torch.distributed`` world, over which ``rank``, ``size``,
+``barrier`` and ``aggregate`` run. ``net_bind``/``net_connect`` and the
 ``create_distributed_*`` tables share tables across processes through the
 host PS service (``parallel/ps_service.py``); each rank's shard lives on
 its Zoo's device.
@@ -112,10 +114,12 @@ def create_table(option: TableOption):
 
 
 def aggregate(data):
-    """``MV_Aggregate`` analog: allreduce-SUM across processes. One
-    process is the whole world in this slice, so the sum is the data
-    (the multi-process sum waits: ROADMAP A7)."""
-    return np.array(data, copy=True)
+    """``MV_Aggregate`` analog: allreduce-SUM across the world's ranks
+    (``parallel/collectives.py``). A tensor comes back as a tensor on its
+    device, anything else as a numpy array; at one rank, a copy of the
+    data."""
+    from multiverso_tpu_torch.parallel import collectives
+    return collectives.aggregate(data)
 
 
 def net_bind(host: str = "127.0.0.1", port: int = 0):

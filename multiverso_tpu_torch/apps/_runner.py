@@ -96,15 +96,32 @@ def serve_config() -> dict:
 
 
 def comm_config() -> dict:
-    """Resolve ``-comm_policy`` / ``-comm_policy_overrides`` into the
-    model-config fields. Only the default plane is ported (A7)."""
+    """Resolve the ``-comm_policy`` / ``-comm_policy_overrides`` flags into
+    the model-config fields — one parse shared by word2vec_main and
+    logreg_main (the JAX package's ``apps/_runner.py::comm_config``)."""
+    from multiverso_tpu_torch.utils.log import FatalError
+
     policy = str(configure.get_flag("comm_policy")).strip().lower()
-    overrides = str(configure.get_flag("comm_policy_overrides")).strip()
-    if policy or overrides:
-        raise NotImplementedError(
-            "-comm_policy / -comm_policy_overrides are not ported yet: "
-            "ROADMAP A7")
-    return {"comm_policy": None, "comm_policy_overrides": None}
+    valid = ("", "auto", "hybrid", "ps", "allreduce", "model_average")
+    if policy not in valid:
+        raise FatalError(f"bad -comm_policy value '{policy}' "
+                         f"(want one of {'|'.join(v for v in valid if v)})")
+    raw = str(configure.get_flag("comm_policy_overrides")).strip()
+    overrides = {}
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        table, sep, pol = part.partition("=")
+        pol = pol.strip().lower()
+        if not sep or not table.strip() or pol not in (
+                "ps", "allreduce", "model_average"):
+            raise FatalError(
+                f"bad -comm_policy_overrides entry '{part}' (want "
+                "'table=ps|allreduce|model_average')")
+        overrides[table.strip()] = pol
+    return {"comm_policy": policy or None, "comm_policy_overrides":
+            overrides or None}
 
 
 def spawn_ranks(module: str, args: List[str], world: int,

@@ -124,17 +124,33 @@ def load_table(table: Any, uri: str) -> None:
         table.store.load_state(payload)
 
 
+def _save_rank(zoo: Zoo) -> int:
+    """The rank a process's checkpoint files are named by: its rank in
+    the PS world where a service has adopted one (the JAX module's
+    ``_ps_rank``), else its rank in the collective world (0 in a world of
+    one process, where the JAX module also names everything rank 0)."""
+    svc = getattr(zoo, "ps_service", None)
+    rank = getattr(svc, "rank", None) if svc is not None else None
+    return rank if rank is not None else zoo.rank()
+
+
 def _meta_name(rank: int) -> str:
-    """Each PS rank writes its own manifest into a shared checkpoint dir
-    (rank 0 keeps the plain name). The port runs one rank (ROADMAP A7)."""
+    """Each rank writes its own manifest into a shared checkpoint dir
+    (rank 0 keeps the plain name for single-process compatibility)."""
     return "meta.json" if rank == 0 else f"meta.r{rank}.json"
 
 
 def save_all(directory: str, step: int = 0) -> str:
-    """Checkpoint every registered table into ``directory/ckpt_{step}/``."""
+    """Checkpoint every registered table into ``directory/ckpt_{step}/``.
+
+    Distributed tables contribute only this rank's shard,
+    filename-qualified by their ``checkpoint_suffix``; on ranks > 0 every
+    other table's file is qualified with the rank too (it is per-process
+    replica state), so ranks saving into a shared directory never
+    collide."""
     zoo = Zoo.get()
     check(zoo.started, "runtime not started")
-    rank = zoo.rank()
+    rank = _save_rank(zoo)
     root = os.path.join(directory, f"ckpt_{step:012d}")
     names: List[str] = []
     files: Dict[str, str] = {}
@@ -158,7 +174,7 @@ def load_all(checkpoint_dir: str) -> int:
     the step. Each rank reads its own manifest (falling back to rank 0's
     for checkpoints written by a single process)."""
     zoo = Zoo.get()
-    meta_path = os.path.join(checkpoint_dir, _meta_name(zoo.rank()))
+    meta_path = os.path.join(checkpoint_dir, _meta_name(_save_rank(zoo)))
     if not exists(meta_path):
         meta_path = os.path.join(checkpoint_dir, "meta.json")
     with open_stream(meta_path, "r") as s:

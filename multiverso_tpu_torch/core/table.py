@@ -21,7 +21,7 @@ and the same per-updater capability registry: ``scatter_add`` /
 duplicate combine and then the fused gather-update-scatter kernel (B3);
 row Gets go to the gather kernel (B1). On the CPU each kernel's plain
 version runs. Cross-replica state sharding (``-state_sharding=on``) waits
-for several cards (ROADMAP A7).
+for several cards (ROADMAP A10).
 
 bfloat16 tables (``dtype="bfloat16"``, or a numpy dtype named so) are
 stored as ``torch.bfloat16``. numpy knows that type only through
@@ -153,7 +153,7 @@ class ServerStore:
         if mode == "on" and self.state:
             raise NotImplementedError(
                 "-state_sharding=on (cross-replica updater-state sharding) "
-                "needs several cards: ROADMAP A7")
+                "needs several cards: ROADMAP A10")
         self.state_sharded = False
 
         # Opt-in hand-written row kernels (ops/rows.py), selected through
@@ -237,7 +237,17 @@ class ServerStore:
             torch.cuda.synchronize(self.device)
 
     def write_dense(self, values) -> None:
-        """Overwrite the whole table (the whole-replica publish)."""
+        """Overwrite the whole table (the whole-replica publish) with a
+        host array, or with a tensor (which the store then owns: the
+        model-average merge hands its merged tables over on the card)."""
+        if torch.is_tensor(values):
+            check(tuple(values.shape) == self.logical_shape,
+                  f"publish shape {tuple(values.shape)} != "
+                  f"{self.logical_shape}")
+            new = values.to(self.device, self.torch_dtype).contiguous()
+            with self._lock:
+                self.data = new
+            return
         values = np.asarray(values, dtype=self.dtype)
         check(tuple(values.shape) == self.logical_shape,
               f"publish shape {values.shape} != {self.logical_shape}")

@@ -191,7 +191,7 @@ class AttentionLM(nn.Module):
                 raise NotImplementedError(
                     f"{name}={getattr(cfg, name)}: this slice runs the LM on "
                     "one rank; sequence and data parallelism over "
-                    "torch.distributed wait for ROADMAP A7/A10")
+                    "torch.distributed wait for ROADMAP A10")
         check(cfg.sp_mode in ("ring", "ulysses"),
               f"unknown sp_mode {cfg.sp_mode!r} (want ring or ulysses)")
         self.cfg = cfg

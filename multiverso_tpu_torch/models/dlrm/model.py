@@ -11,7 +11,9 @@ Port of ``multiverso_tpu/models/dlrm/model.py``:
   the gradients of one torch autograd pass, each scaled by ``lr`` as an
   op of its own, merged through
   :func:`~multiverso_tpu_torch.parallel.comm_policy.build_dense_sync`
-  (the identity at one rank), then applied as ``w - d``. The JAX package
+  over the ``dp_axis`` of a data-parallel rank mesh (``dp_mesh``: the
+  mean of the ranks' deltas; without a mesh, or at one rank, the
+  identity), then applied as ``w - d``. The JAX package
   pins the same rounding points with ``optimization_barrier``; torch's
   eager ops keep them apart by construction.
 * **Bitwise parity between the planes** — the LOCAL twin
@@ -28,8 +30,8 @@ the (bottom output + per-field embedding) vectors, and the top MLP maps
 in full float32 (torch's default: TF32 off), as the tolerances against the
 CPU assume.
 
-Not ported: a data-parallel mesh for the dense merge (``dp_mesh``) and
-``-state_sharding`` of the embedding tables' state (ROADMAP A7).
+Not ported: ``-state_sharding=on`` of the embedding tables' state, which
+needs more than one card (the tables raise, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -217,7 +219,8 @@ class DLRMModel:
         self.dense_params = init_dense_params(cfg, self.device)
         self._loss_fn = _make_loss(cfg)
         self._forward = make_forward(cfg)
-        # The hybrid step's dense-plane merge (the identity at one rank).
+        # The hybrid step's dense-plane merge over the data-parallel
+        # axis (the identity at one rank).
         self._dense_sync = cp.build_dense_sync(dp_mesh, dp_axis)
         self._grad_bytes = dense_param_count(cfg) * 4
         self.steps = 0

@@ -11,13 +11,16 @@ Port of ``multiverso_tpu/models/logreg/model.py``. Parity with
   (``ps_model.cpp:172-182``), optionally **pipelined** with a double-buffered
   async Get so the pull overlaps compute (``ps_model.cpp:236-271``).
 
-FTRL mode pushes raw gradients; the server-side FTRL updater owns {z, n}
-and recomputes weights (the reference's FTRL table). The steps run on the
-Zoo's device (the card unless ``-platform=cpu``).
+* ``AllreduceModel`` (``comm_policy=allreduce``): weights on the device,
+  the gradient merged by an all-reduce over a data-parallel rank mesh
+  axis (``dp_mesh``/``dp_axis``); the table is written once a sync.
+* ``ModelAverageModel`` (``comm_policy=model_average``): local replicas
+  averaged over the world's ranks at every sync (the reference's "ma").
 
-Not ported: the collective comm policies (``comm_policy`` other than
-""/``ps``: the JAX package's ``AllreduceModel`` and ``ModelAverageModel``)
-raise "ROADMAP A7", as the CLI's ``-comm_policy`` does.
+FTRL mode pushes raw gradients; the server-side FTRL updater owns {z, n}
+and recomputes weights (the reference's FTRL table), so FTRL stays on the
+ps plane. The steps run on the Zoo's device (the card unless
+``-platform=cpu``).
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ class LogRegConfig:
     sync_frequency: int = 1
     pipeline: bool = False
     use_ps: bool = True
-    # Weight-table communication policy: "" or "ps" is the PSModel path;
-    # "auto", "allreduce" and "model_average" wait for ROADMAP A7.
+    # Weight-table communication policy (parallel/comm_policy.py): "" or
+    # "ps" is the PSModel path; "allreduce", "model_average", or "auto"
+    # (resolve_logreg_comm_policy's decision).
     comm_policy: str = ""
     regular: str = "none"               # none|l1|l2
     regular_coef: float = 0.0
@@ -279,17 +283,130 @@ class PSModel:
         self.local_weights = w.copy()
 
 
+class AllreduceModel:
+    """``comm_policy=allreduce``: the weights stay on the device and the
+    gradient is merged by a collective inside the step — no PS round trip
+    per minibatch. With a data-parallel mesh axis (``dp_mesh``,
+    ``dp_axis``) each rank computes its shard's batch-mean gradient and
+    loss and the merge is an all-reduce of both divided by the axis size;
+    with one contributor it is the local update. The PS table stays the
+    checkpoint/serving surface: :meth:`sync` publishes the replica once
+    (counted under ``comm.allreduce.*``) where PSModel pushes a delta every
+    minibatch.
+
+    The update is ``w - lr * grad`` with ``lr * grad`` an op of its own,
+    the rounding points of the PS path (the client scales the delta, the
+    server's sgd updater subtracts it), so both planes give the same
+    weights bitwise. The JAX package pins those points with
+    ``optimization_barrier`` and two dispatches; torch's eager ops keep
+    them apart by construction."""
+
+    def __init__(self, cfg: LogRegConfig, table=None, dp_mesh=None,
+                 dp_axis: Optional[str] = None):
+        from multiverso_tpu_torch.parallel import collectives
+        from multiverso_tpu_torch.parallel import comm_policy as cp
+        check(cfg.objective != "ftrl",
+              "ftrl keeps server-side {z, n} state — comm_policy=allreduce "
+              "cannot reconstruct it; use ps")
+        self.cfg = cfg
+        self.table = table if table is not None else mv.create_table(
+            ArrayTableOption(size=cfg.width * cfg.num_class, updater="sgd",
+                             name="logreg_weights",
+                             comm_policy="allreduce"))
+        self.device = model_device()
+        self._step = make_step(cfg)
+        self._n_axis, self._group = (
+            collectives._axis_group(dp_mesh, dp_axis)
+            if dp_mesh is not None and dp_axis else (1, None))
+        self._grad_bytes = cfg.width * cfg.num_class * 4
+        self._cp = cp
+        self._allreduce = collectives.allreduce_sum
+        self.weights = self.table.raw().reshape(
+            cfg.width, cfg.num_class).to(self.device)
+
+    def update(self, X: np.ndarray, y: np.ndarray) -> torch.Tensor:
+        """Returns the loss as a device scalar (no host sync)."""
+        loss, grad = self._step(self.weights, _dev(X, self.device),
+                                _dev(y, self.device))
+        if self._n_axis > 1:
+            # Per-shard batch means -> the global mean: the collective
+            # this policy exists for.
+            grad = self._allreduce(grad, self._group) / self._n_axis
+            loss = self._allreduce(loss, self._group) / self._n_axis
+        delta = self.cfg.learning_rate * grad
+        self.weights = self.weights - delta
+        self._cp.record(self._cp.ALLREDUCE, self._grad_bytes)
+        return loss
+
+    def sync(self) -> None:
+        """Publish the device replica to the PS table (epoch boundaries /
+        before test) — one dense write where PSModel pushed a delta per
+        minibatch."""
+        self.table.publish(self.get_weights().reshape(-1))
+
+    def get_weights(self) -> np.ndarray:
+        return self.weights.cpu().numpy()
+
+    def set_weights(self, w: np.ndarray) -> None:
+        self.weights = torch.as_tensor(
+            np.asarray(w, dtype=np.float32).reshape(
+                self.cfg.width, self.cfg.num_class).copy(),
+            device=self.device)
+        self.sync()
+
+
+class ModelAverageModel(LocalModel):
+    """``comm_policy=model_average`` — the reference's "ma" mode for LR
+    (``-ma``, src/zoo.cpp:24): each rank trains a local replica with the
+    local step; :meth:`sync` averages the replicas over the world's ranks
+    (:func:`~multiverso_tpu_torch.parallel.comm_policy.model_average_arrays`)
+    and publishes the merged weights to the PS table. Convergence trades
+    a staleness window (the averaging period) for no per-step
+    communication — loss-trajectory parity with PS, not bitwise."""
+
+    def __init__(self, cfg: LogRegConfig, table=None):
+        from multiverso_tpu_torch.parallel import comm_policy as cp
+        super().__init__(cfg)
+        self.table = table if table is not None else mv.create_table(
+            ArrayTableOption(size=cfg.width * cfg.num_class, updater="sgd",
+                             name="logreg_weights",
+                             comm_policy="model_average"))
+        self._cp = cp
+
+    def sync(self) -> None:
+        self.weights = self._cp.model_average_arrays([self.weights])[0]
+        self.table.publish(self.get_weights().reshape(-1))
+
+
+def resolve_logreg_comm_policy(cfg: LogRegConfig) -> str:
+    """The LR weight table's policy: ""/ps keeps the PSModel path without
+    probing; "auto" resolves on the weight shape (dense, small ->
+    whichever plane the probe measures faster); FTRL is pinned to ps."""
+    from multiverso_tpu_torch.parallel import comm_policy as cp
+
+    explicit = (cfg.comm_policy or "").strip().lower()
+    if cfg.objective == "ftrl":
+        check(explicit in ("", "ps", "auto"),
+              "ftrl keeps server-side {z, n} updater state — its "
+              f"comm_policy must stay ps (got '{explicit}')")
+        return cp.PS
+    if explicit in ("", cp.PS):
+        return cp.PS
+    zoo = Zoo._instance
+    mesh = zoo.mesh if zoo is not None and zoo.started else None
+    return cp.resolve_comm_policy(
+        (cfg.width, cfg.num_class), np.float32, sparse=False,
+        explicit=None if explicit == "auto" else explicit, mesh=mesh,
+        table="logreg_weights")
+
+
 def make_model(cfg: LogRegConfig):
     if not cfg.use_ps:
         return LocalModel(cfg)
-    policy = (cfg.comm_policy or "").strip().lower()
-    if cfg.objective == "ftrl":
-        # FTRL keeps server-side {z, n} state: pinned to the PS plane.
-        check(policy in ("", "ps", "auto"),
-              "ftrl keeps server-side {z, n} updater state — its "
-              f"comm_policy must stay ps (got '{policy}')")
-    elif policy not in ("", "ps"):
-        raise NotImplementedError(
-            f"logreg comm_policy={policy!r} (the collective planes) is not "
-            "ported yet: ROADMAP A7")
+    from multiverso_tpu_torch.parallel import comm_policy as cp
+    policy = resolve_logreg_comm_policy(cfg)
+    if policy == cp.ALLREDUCE:
+        return AllreduceModel(cfg)
+    if policy == cp.MODEL_AVERAGE:
+        return ModelAverageModel(cfg)
     return PSModel(cfg)

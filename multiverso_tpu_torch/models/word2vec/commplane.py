@@ -1,19 +1,30 @@
-"""Word2vec's touched-row machinery, shared by the pull-train-push planes.
+"""Word2vec communication planes: the shared touched-row machinery and
+the pure-PS (pull-train-push) client plane.
 
-Port of the helpers of ``multiverso_tpu/models/word2vec/commplane.py``
-(numpy, the JAX module's arrays bit for bit): the touched-row sets of the
-input and output tables, and the remapped per-batch step arguments.
+Port of ``multiverso_tpu/models/word2vec/commplane.py``. The helpers
+(numpy, the JAX module's arrays bit for bit) give the touched-row sets of
+the input and output tables and the remapped per-batch step arguments;
 ``models/word2vec/distributed.py::DistributedWord2Vec`` (the
-cross-process deployment) uses them; the
-in-process ``ps`` plane trainer of the JAX module (``PSPlaneTrainer``) and
-the comm policies wait for the collective plane (ROADMAP A7).
+cross-process deployment of the same plane) uses them too, so the two
+paths cannot drift. :class:`PSPlaneTrainer` is ``comm_policy=ps``: the
+reference communicator loop
+(``Applications/WordEmbedding/src/communicator.cpp:117-202``) in-process
+against the worker-table client API. The ``hybrid`` and
+``model_average`` planes live in ``model.py``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from multiverso_tpu_torch.telemetry import span
+from multiverso_tpu_torch.utils.log import log
+
+_WORDCOUNT_KEY = 0
 
 
 def bucketed_unique(values: np.ndarray) -> np.ndarray:
@@ -91,3 +102,94 @@ def collect_and_remap(batches: Sequence, sg: bool, hs: bool, huffman,
             group.append((b.centers, rm_in(b.contexts), b.context_mask,
                           rm_out(points), codes, lmask))
     return ids_in, ids_out, group
+
+
+class PSPlaneTrainer:
+    """``comm_policy=ps``: the reference's worker loop against the
+    in-process tables — every parameter byte crosses the client push/pull
+    plane (host round trips, counted in ``comm.ps.*``). A block pulls
+    exactly its touched rows (``get_rows``), trains on the pulled
+    sub-matrices on the Zoo's device with the variant's plain step over
+    the block's batches in order (the JAX package's jitted ``lax.scan``;
+    it pads the group to a power of two with masked-out batches, which
+    change no table, so the port runs the real batches only), and pushes
+    the deltas back (``add_rows``)."""
+
+    def __init__(self, w2v):
+        self.w2v = w2v
+        self.cfg = w2v.cfg
+        self._adagrad = w2v._adagrad
+
+    def _train_block(self, block) -> Tuple[int, int, object]:
+        """Pull touched rows -> train on the sub-matrices -> push deltas.
+        Returns (words, pairs, device loss or None)."""
+        w2v, cfg = self.w2v, self.cfg
+        batches = list(w2v.generator.batches(block))
+        words = sum(len(s) for s in block)
+        if not batches:
+            return words, 0, None
+        ids_in, ids_out, group = collect_and_remap(
+            batches, cfg.sg, cfg.hs, w2v.huffman, cfg.max_code_length)
+        pairs = sum(b.n_words for b in batches)
+
+        # Pull exactly the touched rows through the client plane
+        # (RequestParameter, communicator.cpp:117-155).
+        pulled = [w2v.input_table.get_rows(ids_in),
+                  w2v.output_table.get_rows(ids_out)]
+        if self._adagrad:
+            pulled += [w2v.adagrad_in.get_rows(ids_in),
+                       w2v.adagrad_out.get_rows(ids_out)]
+        else:
+            pulled += [np.zeros_like(pulled[0]), np.zeros_like(pulled[1])]
+
+        dev = w2v.device
+        local = [torch.tensor(t, dtype=torch.float32, device=dev)
+                 for t in pulled]
+        args = [torch.as_tensor(np.stack([b[i] for b in group]), device=dev)
+                for i in range(len(group[0]))]
+        lr = torch.tensor(np.float32(w2v._current_lr() * w2v._push_scale),
+                          device=dev)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for k in range(len(group)):
+            loss = loss + w2v._raw(*local, *[a[k] for a in args], lr)
+        new = [t.cpu().numpy() for t in local]
+
+        # Push the deltas back (AddDeltaParameter, communicator.cpp:
+        # 157-202). The lr already carries the push scale, so the deltas
+        # ship raw.
+        w2v.input_table.add_rows(ids_in, new[0] - pulled[0])
+        w2v.output_table.add_rows(ids_out, new[1] - pulled[1])
+        if self._adagrad:
+            w2v.adagrad_in.add_rows(ids_in, new[2] - pulled[2])
+            w2v.adagrad_out.add_rows(ids_out, new[3] - pulled[3])
+        return words, pairs, loss
+
+    def train(self, sentences, corpus_path, epochs) -> dict:
+        from multiverso_tpu_torch.models.word2vec.data import BlockStream
+
+        w2v, cfg = self.w2v, self.cfg
+        t0 = time.perf_counter()
+        losses: List[torch.Tensor] = []
+        total_pairs = 0
+        for _ in range(epochs):
+            for block in BlockStream(w2v._sentences(sentences, corpus_path),
+                                     cfg.block_words,
+                                     prefetch=cfg.pipeline):
+                with span("w2v.ps_block"):
+                    words, pairs, loss = self._train_block(block)
+                if loss is not None:
+                    losses.append(loss)
+                total_pairs += pairs
+                w2v.trained_words += words
+                if words:
+                    w2v.wordcount_table.add([_WORDCOUNT_KEY], [words])
+        elapsed = time.perf_counter() - t0
+        w2v.words_per_sec = w2v.trained_words / max(elapsed, 1e-9)
+        mean_loss = (float(torch.stack(losses[-50:]).mean())
+                     if losses else 0.0)
+        log.info("word2vec[ps plane]: %d words, %d pairs, %.0f words/sec,"
+                 " loss=%.4f", w2v.trained_words, total_pairs,
+                 w2v.words_per_sec, mean_loss)
+        return {"words": w2v.trained_words, "pairs": total_pairs,
+                "words_per_sec": w2v.words_per_sec, "loss": mean_loss,
+                "seconds": elapsed, "comm_mode": "ps"}

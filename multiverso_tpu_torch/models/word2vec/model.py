@@ -37,8 +37,16 @@ numbers to the port: :func:`draw_pair_randoms` draws from a
 ``torch.Generator``, and :func:`block_streams` / :func:`pair_gen` build
 the streams from the drawn tensors.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: a dp x tp mesh (A7) and comm policies other than None (A7).
+Communication planes (``comm_policy``, :func:`resolve_w2v_comm`): None
+keeps the fused in-store plane; ``auto``/``hybrid`` keeps it for the four
+sparse tables and merges the dense word count through one collective a
+block (``comm_policy.build_dense_sync`` over the Zoo's rank mesh);
+``model_average`` trains each rank's replicas fused and averages them over
+the world's ranks at every epoch's end; ``ps`` pulls, trains and pushes
+each block through the table clients (``commplane.PSPlaneTrainer``).
+
+Not ported yet: a dp x tp mesh (``mesh_data x mesh_model > 1``), which
+raises ``NotImplementedError`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -573,11 +581,62 @@ def _waits(cfg: Word2VecConfig) -> None:
     if cfg.mesh_data * cfg.mesh_model > 1:
         raise NotImplementedError(
             "a word2vec dp x tp mesh (mesh_data x mesh_model > 1) is not "
-            "ported yet: ROADMAP A7")
-    if cfg.comm_policy:
-        raise NotImplementedError(
-            f"word2vec comm_policy={cfg.comm_policy!r} is not ported yet: "
-            "ROADMAP A7")
+            "ported yet: ROADMAP A10")
+
+
+W2V_COMM_MODES = ("fused", "hybrid", "ps", "model_average")
+
+
+def resolve_w2v_comm(cfg: "Word2VecConfig", V: int, D: int,
+                     out_rows: int, mesh=None):
+    """Per-table CommPolicy resolution for the five word2vec tables.
+    Returns ``(mode, policies)``: ``mode`` is the training loop's plane,
+    ``policies`` maps table name -> policy (passed into the table options,
+    so each table's ``comm_policy`` attribute carries the decision).
+
+    * ``None`` -> ("fused", {}): the fused in-store plane, no probe.
+    * ``auto``/``hybrid`` -> per table: the four embedding/accumulator
+      tables are sparse row-granular -> ps (served by the fused in-store
+      plane); the word-count table is small dense -> whatever the probe
+      picks. ``comm_policy_overrides`` entries win per table.
+    * ``ps`` / ``model_average`` -> every table pinned to that plane.
+    * ``allreduce`` is rejected: word2vec's tables are sparse
+      row-granular, and densifying a [V, D] gradient a step is what the
+      decision table exists to prevent."""
+    from multiverso_tpu_torch.parallel import comm_policy as cp
+
+    mode = (cfg.comm_policy or "").strip().lower()
+    check(mode in ("", "auto", "hybrid", "ps", "model_average"),
+          "word2vec comm_policy must be auto|hybrid|ps|model_average; "
+          f"got {cfg.comm_policy!r}"
+          + (" (allreduce applies per-TABLE to small dense tables — "
+             "word2vec's embedding tables are sparse; use auto/hybrid)"
+             if mode == "allreduce" else ""))
+    if not mode:
+        return "fused", {}
+    overrides = dict(cfg.comm_policy_overrides or {})
+    names_sparse = ["w2v_input", "w2v_output", "w2v_adagrad_in",
+                    "w2v_adagrad_out"]
+    shapes = {"w2v_input": (V, D), "w2v_output": (out_rows, D),
+              "w2v_adagrad_in": (V, D), "w2v_adagrad_out": (out_rows, D),
+              "w2v_wordcount": (1,)}
+    policies = {}
+    if mode in ("ps", "model_average"):
+        want = cp.PS if mode == "ps" else cp.MODEL_AVERAGE
+        for name in names_sparse + ["w2v_wordcount"]:
+            policies[name] = cp.resolve_comm_policy(
+                shapes[name], np.float32, sparse=name in names_sparse,
+                explicit=overrides.get(name, want), mesh=mesh, table=name)
+        return mode, policies
+    for name in names_sparse:
+        policies[name] = cp.resolve_comm_policy(
+            shapes[name], cfg.param_dtype, sparse=True,
+            explicit=overrides.get(name), mesh=mesh, table=name)
+    policies["w2v_wordcount"] = cp.resolve_comm_policy(
+        (1,), np.int64, sparse=False,
+        explicit=overrides.get("w2v_wordcount"), mesh=mesh,
+        table="w2v_wordcount")
+    return "hybrid", policies
 
 
 class Word2Vec:
@@ -596,25 +655,42 @@ class Word2Vec:
         zoo = Zoo.get()
         check(zoo.started, "call mv.init() first")
         self.device = zoo.device
-        self.comm_mode = "fused"
 
         # The five reference tables (communicator.cpp:17-32). Embeddings
         # may store bfloat16; the accumulators stay float32. HS's output
-        # rows are the Huffman tree's V - 1 inner nodes.
+        # rows are the Huffman tree's V - 1 inner nodes. Each table's
+        # policy is resolved before it is created.
         out_rows = max((V - 1) if cfg.hs else V, 1)
+        self.comm_mode, comm = resolve_w2v_comm(cfg, V, D, out_rows,
+                                                mesh=zoo.mesh)
+        self.comm_policies = comm
         self.input_table = mv.create_table(MatrixTableOption(
             V, D, dtype=cfg.param_dtype, random_init=True,
             init_low=-0.5 / D, init_high=0.5 / D, seed=cfg.seed,
-            name="w2v_input", updater="default"))
+            name="w2v_input", updater="default",
+            comm_policy=comm.get("w2v_input")))
         self.output_table = mv.create_table(MatrixTableOption(
             out_rows, D, dtype=cfg.param_dtype, name="w2v_output",
-            updater="default"))
+            updater="default", comm_policy=comm.get("w2v_output")))
         self.adagrad_in = mv.create_table(MatrixTableOption(
-            V, D, name="w2v_adagrad_in", updater="default"))
+            V, D, name="w2v_adagrad_in", updater="default",
+            comm_policy=comm.get("w2v_adagrad_in")))
         self.adagrad_out = mv.create_table(MatrixTableOption(
-            out_rows, D, name="w2v_adagrad_out", updater="default"))
+            out_rows, D, name="w2v_adagrad_out", updater="default",
+            comm_policy=comm.get("w2v_adagrad_out")))
         self.wordcount_table = mv.create_table(
-            KVTableOption(value_dtype=np.int64, name="w2v_wordcount"))
+            KVTableOption(value_dtype=np.int64, name="w2v_wordcount",
+                          comm_policy=comm.get("w2v_wordcount")))
+        # Hybrid mode: one collective a block merges the dense quantity
+        # (the word count the lr schedule agrees on across ranks) while
+        # the sparse tables stay on the fused plane; accumulated on the
+        # device and read once a train().
+        self._dense_sync = None
+        self._comm_synced: Optional[torch.Tensor] = None
+        if (self.comm_mode == "hybrid" and
+                comm.get("w2v_wordcount") == "allreduce"):
+            from multiverso_tpu_torch.parallel import comm_policy as cp
+            self._dense_sync = cp.build_dense_sync(zoo.mesh)
 
         self.huffman = (HuffmanEncoder(dictionary.counts,
                                        cfg.max_code_length)
@@ -670,6 +746,40 @@ class Word2Vec:
         return (self.input_table.store.data, self.output_table.store.data,
                 self.adagrad_in.store.data, self.adagrad_out.store.data)
 
+    # -- comm-policy hooks --------------------------------------------------
+    def _hybrid_sync(self, words: int) -> None:
+        """Hybrid mode's dense-plane merge: one collective a block carries
+        the block's word count, accumulated on the device into
+        ``_comm_synced`` and read once a train()
+        (``stats["synced_words"]``). At one rank it is the identity."""
+        if self._dense_sync is None:
+            return
+        from multiverso_tpu_torch.parallel import comm_policy as cp
+        synced = self._dense_sync(torch.tensor([float(words)],
+                                               dtype=torch.float32,
+                                               device=self.device))
+        self._comm_synced = (synced if self._comm_synced is None
+                             else self._comm_synced + synced)
+        cp.record(cp.ALLREDUCE, 4)
+
+    def _synced_words(self) -> Optional[float]:
+        """The merged word count (None outside hybrid mode)."""
+        if self._comm_synced is None:
+            return None
+        return float(self._comm_synced[0])
+
+    def _model_average_epoch(self) -> None:
+        """The reference "ma" epoch merge: every table replica averaged
+        over the world's ranks on the collective plane, then written back
+        into the store (the identity at one rank, bitwise)."""
+        from multiverso_tpu_torch.parallel import comm_policy as cp
+        tables = [self.input_table, self.output_table]
+        if self._adagrad:
+            tables += [self.adagrad_in, self.adagrad_out]
+        merged = cp.model_average_arrays([t.store.read() for t in tables])
+        for t, m in zip(tables, merged):
+            t.store.write_dense(m)
+
     # -- lr schedule (ref distributed_wordembedding.cpp:92-134) ------------
     def _current_lr(self) -> float:
         if self._adagrad:
@@ -708,6 +818,13 @@ class Word2Vec:
         epochs = epochs if epochs is not None else self.cfg.epochs
         check(sentences is not None or corpus_path is not None,
               "need sentences or corpus_path")
+        if self.comm_mode == "ps":
+            # Pure client plane: pull-train-push a block through the
+            # table API (the baseline the hybrid mode exists to beat).
+            from multiverso_tpu_torch.models.word2vec.commplane import \
+                PSPlaneTrainer
+            return PSPlaneTrainer(self).train(sentences, corpus_path,
+                                              epochs)
         if self.cfg.device_pipeline:
             return self._train_device(sentences, corpus_path, epochs)
         return self._train_host(sentences, corpus_path, epochs)
@@ -791,9 +908,12 @@ class Word2Vec:
                     self.trained_words += words
                     if words:
                         self.wordcount_table.add([_WORDCOUNT_KEY], [words])
+                        self._hybrid_sync(words)
             finally:
                 if buf is not None:
                     buf.close()
+            if self.comm_mode == "model_average":
+                self._model_average_epoch()
         return self._finish(t0, losses, total_pairs, "word2vec",
                             groups=len(losses))
 
@@ -870,9 +990,12 @@ class Word2Vec:
                     pair_counts.append(pairs)
                     self.trained_words += words
                     self.wordcount_table.add([_WORDCOUNT_KEY], [words])
+                    self._hybrid_sync(words)
             finally:
                 if buf is not None:
                     buf.close()
+            if self.comm_mode == "model_average":
+                self._model_average_epoch()
         total_pairs = (int(torch.stack(pair_counts).sum())
                        if pair_counts else 0)
         return self._finish(t0, losses, total_pairs, "word2vec[device]",
@@ -891,7 +1014,7 @@ class Word2Vec:
         return {"words": self.trained_words, "pairs": total_pairs,
                 "words_per_sec": self.words_per_sec, "loss": mean_loss,
                 "seconds": elapsed, "comm_mode": self.comm_mode,
-                "synced_words": None, **counts}
+                "synced_words": self._synced_words(), **counts}
 
     # -- embeddings out ----------------------------------------------------
     def embeddings(self) -> np.ndarray:

@@ -1,11 +1,11 @@
 """Device resolution and the server-shard layout of one card.
 
-Port of ``multiverso_tpu/parallel/mesh.py``. The JAX package lays tables
-out over a ``jax.sharding.Mesh`` whose ``"server"`` axis enumerates device
-shards. This slice of the port runs on ONE card, so the server set is one
-shard: every table lives whole on one ``torch.device`` and
-``num_servers == 1``. Sharding tables over several cards waits for
-``torch.distributed`` (ROADMAP A7).
+The device half of ``multiverso_tpu/parallel/mesh.py`` (the rank half is
+``parallel/mesh.py``). The JAX package lays tables out over a
+``jax.sharding.Mesh`` whose ``"server"`` axis enumerates device shards.
+Each rank of the port runs on ONE card, so the server set is one shard:
+every table lives whole on one ``torch.device`` and ``num_servers == 1``.
+Sharding tables over several cards is ROADMAP A10.
 
 The device is the CUDA card (``cuda:0``) unless the caller asks for the
 CPU with ``-platform=cpu``. There is no silent fallback: with no flag and
@@ -54,11 +54,19 @@ def reference_server_offsets(size: int, num_servers: int) -> Tuple[int, ...]:
     return tuple(offsets)
 
 
-def check_comm_policy(policy: Optional[str], table: str):
+def check_comm_policy(policy: Optional[str], table: str,
+                      shape: Tuple[int, ...] = (), dtype=None,
+                      sparse: bool = False):
     """Per-table communication policy, as the JAX tables resolve it: a
     :class:`~multiverso_tpu_torch.parallel.comm_policy.CommPolicy` for
-    ``None``/``"ps"`` or a concrete ``allreduce``/``model_average`` (a
-    label and its counters at one rank); ``"auto"`` (the measured probe)
-    raises "ROADMAP A7"."""
+    ``None``/``"ps"`` or a concrete ``allreduce``/``model_average``;
+    ``"auto"`` runs the decision table on the table's ``shape`` and
+    ``dtype`` (``sparse`` for row-granular tables), over the Zoo's rank
+    mesh."""
+    from multiverso_tpu_torch.core.zoo import Zoo
     from multiverso_tpu_torch.parallel.comm_policy import policy_for_option
-    return policy_for_option(policy, table)
+    zoo = Zoo._instance
+    mesh = zoo.mesh if zoo is not None and zoo.started else None
+    return policy_for_option(policy, shape,
+                             dtype if dtype is not None else "float32",
+                             sparse=sparse, mesh=mesh, table=table)

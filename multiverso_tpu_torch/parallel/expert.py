@@ -6,7 +6,7 @@ most ``capacity`` tokens (overflow drops), and dispatch and combine are
 one-hot einsums. The JAX package shards the expert weights over the mesh's
 ``"expert"`` axis; on one card there is nothing to shard, so the weights
 live whole on the device (sharding them over several cards waits for
-``torch.distributed``, ROADMAP A7/A10).
+``torch.distributed``, ROADMAP A10).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ This slice of the port runs the sequence group as ONE rank, the card: the
 ring keeps its n-step loop and merge with the rotation as the identity,
 and the Ulysses layout swaps are identities, so a multi-rank version only
 adds the send and receive over ``torch.distributed``. A group of more than
-one rank raises ``NotImplementedError`` (ROADMAP A7/A10).
+one rank raises ``NotImplementedError`` (ROADMAP A10).
 
 ``-flash_attention`` (default false, as in the JAX package) routes the
 ring's local block step and Ulysses' attention through B6
@@ -36,7 +36,7 @@ def _one_rank(n: int) -> None:
         raise NotImplementedError(
             f"sequence parallelism over {n} ranks is not ported yet: the "
             "ring's K/V rotation and Ulysses' all-to-all over "
-            "torch.distributed wait for ROADMAP A7/A10")
+            "torch.distributed wait for ROADMAP A10")
 
 
 def _group(group) -> Tuple[int, int]:

@@ -36,7 +36,8 @@ class ArrayTable(WorkerTable):
         check(zoo.started, "call mv.init() before creating tables")
         updater = get_updater(option.dtype, option.updater)
         name = option.name or f"array_{len(zoo.tables)}"
-        comm = check_comm_policy(option.comm_policy, name)
+        comm = check_comm_policy(option.comm_policy, name,
+                                 (option.size,), option.dtype)
         store = ServerStore(name, (option.size,), option.dtype, updater,
                             zoo.device, zoo.num_workers())
         super().__init__(store)

@@ -39,7 +39,8 @@ class KVTable:
         self._lock = threading.Lock()
         self.table_id = zoo.register_table(self)
         # Per-table communication policy (a label and its counters).
-        self.comm = check_comm_policy(option.comm_policy, self.name)
+        self.comm = check_comm_policy(option.comm_policy, self.name,
+                                      (1,), self.value_dtype)
         self.comm_policy = self.comm.policy
 
     # -- worker cache (ref kv_table.h:30-40) -------------------------------

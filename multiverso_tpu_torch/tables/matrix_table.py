@@ -32,6 +32,7 @@ from multiverso_tpu_torch.core.table import (ServerStore, WorkerTable,
                                              host_array, host_dtype)
 from multiverso_tpu_torch.core.updater import get_updater
 from multiverso_tpu_torch.core.zoo import Zoo
+from multiverso_tpu_torch.parallel.comm_policy import SPARSE_ROWS_MIN
 from multiverso_tpu_torch.parallel.device import check_comm_policy
 from multiverso_tpu_torch.utils.dashboard import monitor
 from multiverso_tpu_torch.utils.log import check
@@ -43,7 +44,10 @@ class MatrixTable(WorkerTable):
         check(zoo.started, "call mv.init() before creating tables")
         updater = get_updater(option.dtype, option.updater)
         name = option.name or f"matrix_{len(zoo.tables)}"
-        comm = check_comm_policy(option.comm_policy, name)
+        comm = check_comm_policy(
+            option.comm_policy, name, (option.num_row, option.num_col),
+            option.dtype, sparse=(option.is_sparse or
+                                  option.num_row >= SPARSE_ROWS_MIN))
         init = None
         if option.random_init:
             rng = np.random.default_rng(option.seed)

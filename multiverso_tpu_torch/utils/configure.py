@@ -227,7 +227,7 @@ define_bool("flash_attention", False, "route the local block step of ring "
             "csrc/attention.cu; forward only: train with it off)")
 # Multi-controller bring-up (the Controller/RegisterNode analog,
 # ref src/controller.cpp:38-80 -> a torch.distributed process group;
-# multi-process start-up waits: ROADMAP A7).
+# parallel/mesh.py, core/zoo.py).
 define_string("coordinator", "", "host:port of the process-group "
               "coordinator; empty = single-process")
 define_int("world_size", 1, "number of processes (ranks)")

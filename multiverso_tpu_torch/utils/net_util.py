@@ -1,8 +1,7 @@
 """Host self-identification for machine-file deployments.
 
-Port of ``multiverso_tpu/utils/net_util.py``. The machine-file start-up
-that calls it (``-machine_file``) waits for the ``torch.distributed``
-plane (ROADMAP A7); the parsing and the rank rule are ported now.
+Port of ``multiverso_tpu/utils/net_util.py``; ``core/zoo.py`` calls
+:func:`rank_from_machine_file` for the ``-machine_file`` start-up.
 
 Parity with the reference's ``net_util`` (``src/util/net_util.cpp``,
 ``include/multiverso/util/net_util.h:10``): enumerate this host's IP
@@ -19,9 +18,8 @@ from typing import List, Optional, Tuple
 
 def get_local_ips() -> List[str]:
     """Best-effort local address enumeration (loopback always included):
-    the host name and the IPv4 addresses it resolves to. The JAX module
-    also asks the kernel for the default route's source address with a
-    UDP ``connect``; the port leaves that out and opens no socket here."""
+    the host name, the IPv4 addresses it resolves to, and the source
+    address of the default route."""
     ips = {"127.0.0.1", "localhost"}
     hostname = socket.gethostname()
     ips.add(hostname)
@@ -31,6 +29,16 @@ def get_local_ips() -> List[str]:
             if ":" not in addr:          # keep it IPv4 like the reference
                 ips.add(addr)
     except socket.gaierror:
+        pass
+    # The UDP-connect trick reveals the address of the default route: a
+    # datagram socket's connect only asks the kernel for a route, so no
+    # packet leaves the host. A host whose name resolves to loopback alone
+    # still finds its routable address here.
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.connect(("10.255.255.255", 1))
+            ips.add(s.getsockname()[0])
+    except OSError:
         pass
     return sorted(ips)
 

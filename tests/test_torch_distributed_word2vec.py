@@ -480,3 +480,66 @@ def test_cli_two_ranks_on_the_cpu(tmp_path):
     inter = np.mean([unit[x] @ unit[y] for x in a for y in b])
     assert intra > inter + 0.1, (intra, inter)
     assert (proc.stdout + proc.stderr).count("words/sec") >= 2
+
+
+def test_two_rank_train_then_serve_bitwise_parity(mv_env):
+    """Mirror of ``tests/test_serving_e2e.py::
+    test_two_rank_train_then_serve_bitwise_parity``: word2vec trained
+    across two ranks, then lookups served from each rank's LIVE input
+    shard through the routed client, every reply bitwise the table's
+    ``get_rows``. (The JAX test also counts its compiled executables per
+    bucket; the port compiles none.)"""
+    from multiverso_tpu_torch.serving import (RoutedLookupClient,
+                                              ServingService,
+                                              SparseLookupRunner)
+    rng0 = np.random.default_rng(0)
+    sents = [[f"{'a' if i % 2 == 0 else 'b'}{rng0.integers(0, 5)}"
+              for _ in range(12)] for i in range(200)]
+    d = Dictionary.build(sents, min_count=1)
+    ids = [d.encode(s) for s in sents]
+    cfg = Word2VecConfig(embedding_size=16, batch_size=128, window=3,
+                         negative=3, min_count=1, sample=0, sg=True,
+                         epochs=1, learning_rate=0.01, block_words=1000,
+                         pipeline=False, seed=3, optimizer="sgd")
+    svc0, svc1 = PSService(), PSService()
+    peers = [svc0.address, svc1.address]
+    serves, client = [], None
+    try:
+        w0 = DistributedWord2Vec(cfg, d, svc0, peers, rank=0)
+        w1 = DistributedWord2Vec(cfg, d, svc1, peers, rank=1)
+        threads = [threading.Thread(target=w0.train, args=(ids[0::2],)),
+                   threading.Thread(target=w1.train, args=(ids[1::2],))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive(), "training hung"
+        w0.w_in.flush(wait=True)
+        w1.w_in.flush(wait=True)
+        for w in (w0, w1):
+            runner = SparseLookupRunner(
+                w.w_in.local_store,
+                row_offset=int(w.w_in.row_offsets[w.rank]))
+            svc = ServingService()
+            svc.register_runner(runner, buckets=(4, 8), max_batch=4,
+                                max_wait_ms=1.0)
+            serves.append(svc)
+        client = RoutedLookupClient([s.address for s in serves],
+                                    offsets=w0.w_in.row_offsets)
+        V = len(d)
+        rng = np.random.default_rng(7)
+        for n in (3, 4, 2, 7, 8, 1):
+            q = rng.integers(0, V, n).astype(np.int64)
+            served = client.lookup(q, deadline_ms=10_000)
+            direct = w0.w_in.get_rows(q.astype(np.int32))
+            assert served.dtype == direct.dtype
+            np.testing.assert_array_equal(served, direct)
+        empty = client.lookup(np.empty(0, np.int64), deadline_ms=10_000)
+        assert empty.shape == (0, 16)
+    finally:
+        if client is not None:
+            client.close()
+        for s in serves:
+            s.close()
+        svc0.close()
+        svc1.close()

@@ -233,16 +233,32 @@ def test_ps_local_bitwise_parity(port):
     _run_parity()
 
 
-def test_ps_local_parity_under_state_sharding_needs_a7():
+def test_ps_local_parity_under_state_sharding_needs_a10():
     """The JAX test runs the parity with the AdaGrad state sharded over a
-    mesh; the port has one card, so ``-state_sharding=on`` refuses the
-    embedding tables (ROADMAP A7) instead of silently not sharding."""
+    mesh; the port keeps each table whole on one card, so
+    ``-state_sharding=on`` refuses the embedding tables (ROADMAP A10)
+    instead of silently not sharding."""
     mvt.init(["-platform=cpu", "-state_sharding=on"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         tdlrm.DLRMModel(tdlrm.DLRMConfig(**_SMALL), mode="ps")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tdlrm.DLRMModel(tdlrm.DLRMConfig(**_SMALL), mode="local",
-                        dp_mesh=object())
+
+
+def test_dp_mesh_of_one_rank_is_the_plain_step(port):
+    """The dense merge over a data-parallel rank mesh axis: at one rank
+    it is the identity, so the steps are bitwise those without a mesh."""
+    from multiverso_tpu_torch.core.zoo import Zoo
+    _, cfg = _cfgs()
+    _, scfg = _stream_cfgs(cfg)
+    plain = tdlrm.DLRMModel(cfg, mode="local")
+    dp = tdlrm.DLRMModel(cfg, mode="local", dp_mesh=Zoo.get().mesh,
+                         dp_axis="server")
+    s_a, s_b = tdlrm.ImpressionStream(scfg), tdlrm.ImpressionStream(scfg)
+    for _ in range(3):
+        a, b = s_a.batch(16), s_b.batch(16)
+        assert plain.step(a.ids, a.dense, a.labels)[0] == \
+            dp.step(b.ids, b.dense, b.labels)[0]
+    for (w_a, b_a), (w_b, b_b) in zip(plain.dense_params, dp.dense_params):
+        assert torch.equal(w_a, w_b) and torch.equal(b_a, b_b)
 
 
 def test_ps_local_bitwise_parity_on_card():
@@ -266,8 +282,9 @@ def test_comm_policy_of_the_tables(port):
     assert reg.counter("comm.ps.ops").value > ops
     x = torch.arange(4.0)
     assert torch.equal(cp.build_dense_sync(None)(x), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mvt.create_table(mvt.MatrixTableOption(4, 4, comm_policy="auto"))
+    # "auto" resolves: a sparse-shaped table stays on ps unprobed.
+    assert mvt.create_table(mvt.MatrixTableOption(
+        cp.SPARSE_ROWS_MIN, 4, comm_policy="auto")).comm_policy == "ps"
     with pytest.raises(ValueError):
         mvt.create_table(mvt.MatrixTableOption(4, 4, comm_policy="bogus"))
 

@@ -304,11 +304,21 @@ def test_bsparse_trains_end_to_end(both, tmp_path):
     assert tl.test(tlr.SampleReader(str(p), **rk)) > 0.95
 
 
-def test_comm_policies_wait_for_a7(both):
-    for policy in ("allreduce", "model_average", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            tlr.make_model(tlr.LogRegConfig(num_feature=4,
-                                            comm_policy=policy))
+def test_comm_policies_build_their_models(both):
+    from multiverso_tpu_torch.models.logreg.model import (AllreduceModel,
+                                                          ModelAverageModel)
+    from multiverso_tpu_torch.core.zoo import Zoo
+    from multiverso_tpu_torch.parallel import comm_policy as cp
+    assert isinstance(tlr.make_model(tlr.LogRegConfig(
+        num_feature=4, comm_policy="allreduce")), AllreduceModel)
+    assert isinstance(tlr.make_model(tlr.LogRegConfig(
+        num_feature=4, comm_policy="model_average")), ModelAverageModel)
+    # "auto": the weight table is small and dense, so the probe decides.
+    auto = tlr.make_model(tlr.LogRegConfig(num_feature=4,
+                                           comm_policy="auto"))
+    lat = cp.measured_policy_latency_ms(5 * 4, Zoo.get().mesh, world=1)
+    assert isinstance(auto, AllreduceModel if lat[cp.ALLREDUCE] <= lat[cp.PS]
+                      else tlr.PSModel)
     from multiverso_tpu_torch.utils.log import FatalError
     with pytest.raises(FatalError):
         tlr.make_model(tlr.LogRegConfig(num_feature=4, objective="ftrl",
@@ -334,8 +344,86 @@ def test_cli_trains_and_tests_on_cpu(tmp_path):
     assert rc == 0
     assert len((tmp_path / "pred.txt").read_text().split()) == 300
     assert np.load(tmp_path / "model.npy").shape == (7, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        logreg_main.main(["-world_size=2", "-lr_device=cpu"])
     from multiverso_tpu_torch.utils.configure import reset_flags
     reset_flags()
+    # -world_size=2 launches two PS ranks; each exits 1 without a
+    # training file.
+    assert logreg_main.main(["-world_size=2", "-lr_device=cpu"]) == 1
+    reset_flags()
     assert logreg_main.main(["-lr_device=cpu"]) == 1   # no train file
+
+
+def test_two_rank_distributed_logreg():
+    """Mirror of ``tests/test_distributed_logreg.py``: two PS-service
+    ranks, each training on its half of the data against the weights
+    split over both services; both ranks' models classify well and their
+    tables agree (the JAX test's rtol 1e-5 / atol 1e-6)."""
+    import threading
+    from multiverso_tpu_torch.models.logreg import ArrayBatcher, LogReg
+    from multiverso_tpu_torch.models.logreg.model import PSModel
+    from multiverso_tpu_torch.parallel.ps_service import (
+        DistributedArrayTable, PSService)
+    rng = np.random.default_rng(0)
+    w_true = rng.normal(size=10)
+    X = rng.normal(size=(600, 10)).astype(np.float32)
+    y = (X @ w_true > 0).astype(np.float32)
+    mvt.init(["-platform=cpu"])
+    cfg = tlr.LogRegConfig(objective="sigmoid", num_feature=10, use_ps=True,
+                           learning_rate=0.5, minibatch_size=32,
+                           sync_frequency=1)
+    svc0, svc1 = PSService(), PSService()
+    peers = [svc0.address, svc1.address]
+    tables = []
+    try:
+        tables += [DistributedArrayTable(50, cfg.width, svc, peers, rank=r,
+                                         updater="sgd")
+                   for r, svc in enumerate((svc0, svc1))]
+        regs = [LogReg(cfg, model=PSModel(cfg, table=t)) for t in tables]
+        shards = [(X[0::2], y[0::2]), (X[1::2], y[1::2])]
+
+        def train(r):
+            regs[r].train(ArrayBatcher(*shards[r], 32), epochs=15)
+
+        threads = [threading.Thread(target=train, args=(r,))
+                   for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        for r in range(2):
+            regs[r].model.sync()
+            acc = regs[r].test(ArrayBatcher(X, y, 64))
+            assert acc > 0.9, f"rank {r} acc {acc}"
+        np.testing.assert_allclose(tables[0].get(), tables[1].get(),
+                                   rtol=1e-5, atol=1e-6)
+    finally:
+        for t in tables:
+            t.close()
+        svc0.close()
+        svc1.close()
+
+
+def test_cli_two_ranks_train_on_cpu(tmp_path):
+    """``logreg_main -world_size=2``: the launcher spawns two PS ranks,
+    each trains on its shard of the file, rank 0 tests and saves."""
+    from multiverso_tpu_torch.apps import logreg_main
+    X, y = _synthetic_binary(n=400, f=6)
+    lines = [f"{int(lab)} " + " ".join(f"{i}:{v:.4f}"
+                                         for i, v in enumerate(row))
+             for row, lab in zip(X, y)]
+    (tmp_path / "train.svm").write_text("\n".join(lines) + "\n")
+    (tmp_path / "lr.conf").write_text(
+        "objective=sigmoid\nnum_feature=6\nlearning_rate=0.5\n"
+        "train_epoch=3\n"
+        f"output_model_file={tmp_path}/model.npy\n")
+    rc = logreg_main.main([f"-config_file={tmp_path}/lr.conf",
+                           f"-lr_train_file={tmp_path}/train.svm",
+                           f"-lr_test_file={tmp_path}/train.svm",
+                           f"-output_file={tmp_path}/pred.txt",
+                           "-world_size=2", f"-rendezvous_dir={tmp_path}",
+                           "-lr_device=cpu"])
+    assert rc == 0
+    assert len((tmp_path / "pred.txt").read_text().split()) == 400
+    w = np.load(tmp_path / "model.npy")
+    assert w.shape == (7, 1) and np.isfinite(w).all()

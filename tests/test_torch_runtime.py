@@ -281,8 +281,8 @@ def test_machine_file_rank_bitwise_jax(tmp_path, port_env):
         mvj.shutdown()
 
 
-# -- the Zoo's lifecycle (mirrors of tests/test_runtime.py; the mesh and
-# collective cases wait for the collective plane, ROADMAP A7) ---------------
+# -- the Zoo's lifecycle (mirrors of tests/test_runtime.py; the collective
+# cases are tests/test_torch_collectives.py) --------------------------------
 def _zoo_down():
     from multiverso_tpu_torch.core.zoo import Zoo
     from multiverso_tpu_torch.utils.configure import reset_flags

@@ -162,12 +162,19 @@ def test_port_table_surface_and_waits():
         mvt.MatrixTableOption(4, 4, is_sparse=True)), SparseMatrixTable)
     assert isinstance(mvt.create_table(mvt.KVTableOption(device=True)),
                       DeviceKVTable)
-    # A concrete comm policy is a label and its counters at one rank; the
-    # measured "auto" probe needs the collective plane (A7).
+    # A concrete comm policy is taken as resolved; "auto" runs the
+    # measured probe: a small dense table takes the plane it measured
+    # faster, a sparse-shaped one stays on ps unprobed.
+    from multiverso_tpu_torch.parallel import comm_policy as cp
     assert mvt.create_table(mvt.MatrixTableOption(
         4, 4, comm_policy="allreduce")).comm_policy == "allreduce"
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mvt.create_table(mvt.MatrixTableOption(4, 4, comm_policy="auto"))
+    small = mvt.create_table(mvt.MatrixTableOption(4, 4, comm_policy="auto"))
+    from multiverso_tpu_torch.core.zoo import Zoo
+    lat = cp.measured_policy_latency_ms(64, Zoo.get().mesh, world=1)
+    assert small.comm_policy == (cp.PS if lat[cp.PS] < lat[cp.ALLREDUCE]
+                                 else cp.ALLREDUCE)
+    assert mvt.create_table(mvt.MatrixTableOption(
+        cp.SPARSE_ROWS_MIN, 2, comm_policy="auto")).comm_policy == cp.PS
     # The PS service is ported: a one-rank world over it.
     host, port = mvt.net_bind()
     mvt.net_connect([(host, port)])
@@ -175,11 +182,23 @@ def test_port_table_surface_and_waits():
     dist.add_rows([1, 1], np.ones((2, 4), np.float32))
     assert dist.get_rows([1]).tolist() == [[2.0] * 4]
     mvt.set_flag("state_sharding", "on")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         mvt.create_table(mvt.MatrixTableOption(4, 4, updater="adagrad"))
     mvt.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mvt.init(["-platform=cpu", "-coordinator=localhost:1234"])
+    # -coordinator starts a process group: here a world of one rank.
+    from multiverso_tpu_torch.utils.configure import reset_flags
+    reset_flags()
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mvt.init(["-platform=cpu", f"-coordinator=127.0.0.1:{port}"])
+    import torch.distributed as dist
+    assert dist.is_initialized() and (mvt.rank(), mvt.size()) == (0, 1)
+    mvt.barrier()
+    assert np.array_equal(mvt.aggregate(np.arange(3.0)), np.arange(3.0))
+    mvt.shutdown()
+    assert not dist.is_initialized()
 
 
 STATEFUL = ["momentum_sgd", "adagrad", "ftrl"]
@@ -274,3 +293,99 @@ def test_stateful_payload_into_pallas_table(both, updater):
     assert sorted(got) == sorted(want)
     for k in want:
         assert np.array_equal(got[k], want[k]), (updater, k)
+
+
+def test_distributed_tables_match_model():
+    """Mirror of ``tests/test_fuzz_semantics.py::
+    test_distributed_tables_match_model``: random routed row traffic from
+    both ranks of the port's PS service equals a numpy model (the JAX
+    test's tolerance, rtol 1e-4 / atol 1e-5)."""
+    from multiverso_tpu_torch.parallel.ps_service import (
+        DistributedMatrixTable, PSService)
+    mvt.init(["-platform=cpu"])
+    svc0, svc1 = PSService(), PSService()
+    try:
+        rng = np.random.default_rng(2)
+        R, C = 31, 4
+        peers = [svc0.address, svc1.address]
+        t0 = DistributedMatrixTable(11, R, C, svc0, peers, rank=0)
+        t1 = DistributedMatrixTable(11, R, C, svc1, peers, rank=1)
+        model = np.zeros((R, C), dtype=np.float32)
+        tables = [t0, t1]
+        for _ in range(40):
+            t = tables[int(rng.integers(0, 2))]
+            n = int(rng.integers(1, 6))
+            rows = rng.integers(0, R, size=n)
+            deltas = rng.normal(size=(n, C)).astype(np.float32)
+            t.add_rows(rows, deltas)
+            np.add.at(model, rows, deltas)
+        all_rows = np.arange(R, dtype=np.int32)
+        np.testing.assert_allclose(t0.get_rows(all_rows), model,
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(t1.get_rows(all_rows), model,
+                                   rtol=1e-4, atol=1e-5)
+    finally:
+        svc0.close()
+        svc1.close()
+        mvt.shutdown()
+
+
+def test_distributed_kv_and_sparse_fuzz_match_model():
+    """Mirror of ``tests/test_fuzz_semantics.py::
+    test_distributed_kv_and_sparse_fuzz_match_model``: hash-routed KV
+    adds equal a dict model exactly (int64); sparse incremental gets
+    converge to the dense numpy model after every pull, with the rows
+    shipped bounded by the rows touched since that worker's last pull."""
+    from multiverso_tpu_torch.core.options import AddOption, GetOption
+    from multiverso_tpu_torch.parallel.ps_service import (
+        DistributedKVTable, DistributedSparseMatrixTable, PSService)
+    mvt.init(["-platform=cpu"])
+    svc0, svc1 = PSService(), PSService()
+    try:
+        rng = np.random.default_rng(7)
+        peers = [svc0.address, svc1.address]
+        kv0 = DistributedKVTable(21, svc0, peers, rank=0)
+        kv1 = DistributedKVTable(21, svc1, peers, rank=1)
+        R, C = 23, 3
+        sp0 = DistributedSparseMatrixTable(22, R, C, svc0, peers, rank=0)
+        sp1 = DistributedSparseMatrixTable(22, R, C, svc1, peers, rank=1)
+        kv_model: dict = {}
+        sp_model = np.zeros((R, C), dtype=np.float32)
+        kvs, sps = [kv0, kv1], [sp0, sp1]
+        touched_since = [0, 0]
+        pulled_once = [False, False]
+        for step in range(60):
+            r = int(rng.integers(0, 2))
+            kind = int(rng.integers(0, 3))
+            if kind == 0:
+                n = int(rng.integers(1, 5))
+                keys = rng.integers(0, 50, size=n).astype(np.int64)
+                vals = rng.integers(-100, 100, size=n).astype(np.int64)
+                kvs[r].add(keys, vals)
+                for k, v in zip(keys.tolist(), vals.tolist()):
+                    kv_model[k] = kv_model.get(k, 0) + v
+            elif kind == 1:
+                n = int(rng.integers(1, 4))
+                rows = np.unique(rng.integers(0, R, size=n))
+                deltas = rng.normal(size=(len(rows), C)).astype(np.float32)
+                sps[r].add_rows(rows, deltas, AddOption(worker_id=0))
+                np.add.at(sp_model, rows, deltas)
+                touched_since = [t + len(rows) for t in touched_since]
+            else:
+                got = sps[r].get(GetOption(worker_id=0))
+                np.testing.assert_allclose(got, sp_model, rtol=1e-4,
+                                           atol=1e-5,
+                                           err_msg=f"step {step} rank {r}")
+                bound = R if not pulled_once[r] \
+                    else min(touched_since[r], R)
+                assert sps[r].last_incremental_rows <= bound
+                pulled_once[r] = True
+                touched_since[r] = 0
+        keys = np.asarray(sorted(kv_model), dtype=np.int64)
+        want = np.asarray([kv_model[int(k)] for k in keys])
+        np.testing.assert_array_equal(kv0.get(keys), want)
+        np.testing.assert_array_equal(kv1.get(keys), want)
+    finally:
+        svc0.close()
+        svc1.close()
+        mvt.shutdown()

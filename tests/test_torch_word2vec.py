@@ -205,9 +205,13 @@ def test_dispatch_and_waits():
     with pytest.raises(FatalError):
         tmodel.resolve_dispatch_mode(
             Word2VecConfig(**_cfg_kwargs(dispatch_mode="bogus")), V, V, cpu)
-    for over in (dict(mesh_data=2), dict(comm_policy="ps")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            Word2Vec(Word2VecConfig(**_cfg_kwargs(**over)), d)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        Word2Vec(Word2VecConfig(**_cfg_kwargs(mesh_data=2)), d)
+    # The ps plane pulls, trains and pushes each block through the tables.
+    w = Word2Vec(Word2VecConfig(**_cfg_kwargs(comm_policy="ps")), d)
+    stats = w.train(sentences=sents)
+    assert stats["comm_mode"] == "ps" and np.isfinite(stats["loss"])
+    assert stats["pairs"] > 0
     # hs, CBOW, the host batch path and bfloat16 tables train.
     for over in (dict(hs=True), dict(sg=False), dict(device_pipeline=False),
                  dict(param_dtype="bfloat16")):
@@ -276,9 +280,14 @@ def test_cli_user_errors(tmp_path):
     assert word2vec_main.main(["-w2v_device=cpu", "-size=abc"]) == 1
     # -world_size=2 launches two ranks; each exits 1 without -train_file.
     assert word2vec_main.main(["-world_size=2", "-w2v_device=cpu"]) == 1
-    # The comm policies wait for the collective plane.
+    # -comm_policy reaches the model, which rejects allreduce for
+    # word2vec's sparse tables (as the JAX package does); a bad value is
+    # a user error too.
     corpus = tmp_path / "c.txt"
     corpus.write_text("a b c a b c\n" * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        word2vec_main.main([f"-train_file={corpus}", "-min_count=1",
-                            "-comm_policy=allreduce", "-w2v_device=cpu"])
+    from multiverso_tpu_torch.utils.configure import reset_flags
+    for policy in ("allreduce", "bogus"):
+        reset_flags()
+        assert word2vec_main.main([f"-train_file={corpus}", "-min_count=1",
+                                   f"-comm_policy={policy}",
+                                   "-w2v_device=cpu"]) == 1
