@@ -224,8 +224,9 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
     on the card: the AUTO probe's ps leg (upload, add, read-back) and
     all-reduce leg at ``PROBE_BYTES`` with each decision, then one
     flagship word2vec block (bench.py's config) under the fused,
-    ``hybrid`` and ``model_average`` planes from one seed, every table
-    bitwise the fused plane's and B5 launched once a plane; (b) two rank
+    ``hybrid`` and ``model_average`` planes from one seed after a
+    warm-up block, every table bitwise the fused plane's and B5 launched
+    once a plane; (b) two rank
     processes of this script (``--phase11-rank``) on the one card, one
     world started with ``-coordinator``: ``mv.aggregate`` of a numpy
     vector and a card tensor, the all-gather and reduce-scatter of card
@@ -5349,12 +5350,14 @@ def probe_readings(mesh, world: int) -> list:
 
 def w2v_planes(sents, d) -> dict:
     """Phase 11 (a): one flagship block under the fused, ``hybrid`` and
-    ``model_average`` planes from the same seed: each plane's four tables
-    bitwise the fused plane's, B5 launched once a block."""
+    ``model_average`` planes from the same seed, after a warm-up block:
+    each plane's four tables bitwise the fused plane's, B5 launched once a
+    block."""
     import torch
     from multiverso_tpu_torch.models.word2vec import Word2Vec
     from multiverso_tpu_torch.ops import sgns
 
+    Word2Vec(flagship_config(), d).train(sentences=sents)   # warm-up
     out, ref = {}, None
     for plane in ("fused", "hybrid", "model_average"):
         w = Word2Vec(flagship_config(comm_policy=None if plane == "fused"
@@ -5410,6 +5413,7 @@ def phase11_rank(rank: int, coordinator: str, out: str, seed: int) -> int:
     from multiverso_tpu_torch.parallel import collectives as col
     from multiverso_tpu_torch.telemetry import get_registry
 
+    t0 = time.perf_counter()
     mv.init([f"-coordinator={coordinator}", "-world_size=2",
              f"-rank={rank}"])
     zoo = Zoo.get()
@@ -5418,7 +5422,7 @@ def phase11_rank(rank: int, coordinator: str, out: str, seed: int) -> int:
     assert dev.type == "cuda", dev
     res = {"rank": mv.rank(), "size": mv.size(), "device": str(dev),
            "gloo_socket_ifname": os.environ.get("GLOO_SOCKET_IFNAME"),
-           "start_s": time.perf_counter() - t_start}
+           "init_s": time.perf_counter() - t0}
     mv.barrier()
     arrays = {}
     rng = np.random.default_rng(seed + 110 + rank)
@@ -5587,8 +5591,8 @@ def collective_ranks(seed: int) -> dict:
             assert np.array_equal(post, (pre[0] + pre[1]) / np.float32(2)), k
             assert not np.array_equal(pre[0], pre[1]), k
     log("two ranks on one card over gloo (GLOO_SOCKET_IFNAME="
-        f"{res[0]['gloo_socket_ifname']}): start-up {res[0]['start_s']:.1f} "
-        f"/ {res[1]['start_s']:.1f} s; aggregate, all-gather and "
+        f"{res[0]['gloo_socket_ifname']}): mv.init {res[0]['init_s']:.2f} "
+        f"/ {res[1]['init_s']:.2f} s; aggregate, all-gather and "
         f"reduce-scatter bitwise ({res[0]['collectives_s']:.3f} s, "
         f"{res[0]['host_copies']} host-staged copies a rank); word2vec "
         "model_average one flagship block a rank, merged tables bitwise "
@@ -5940,7 +5944,7 @@ def main() -> int:
         assert p10_runs["engine"][kernel] > 0, (kernel, p10_runs["engine"])
 
     # Phase 11: the collective plane: the AUTO probe and word2vec's three
-    # planes on one rank (B5 once a plane), two rank processes over gloo
+    # planes on one rank (B5 once a plane and once to warm up), two rank processes over gloo
     # (aggregate and the collectives, the probe at world 2, word2vec
     # model_average with B5 once a rank, logreg's data-parallel
     # allreduce), logreg_main -world_size=2, and two DistributedWord2Vec
@@ -5948,7 +5952,7 @@ def main() -> int:
     # B4 under the plain steps).
     p11 = phase11(args.seed, on_path, card)
     p11_runs = p11.pop("launches")
-    assert p11_runs["w2v_planes"]["sgns_block"] == 3, p11_runs
+    assert p11_runs["w2v_planes"]["sgns_block"] == 4, p11_runs
     for r in range(2):
         assert p11_runs[f"collective rank {r}"]["sgns_block"] == 1
     assert p11_runs["w2v_serving"]["gather_rows"] > 0, p11_runs

@@ -31,6 +31,7 @@ from datetime import timedelta
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from multiverso_tpu_torch.parallel import device as device_lib
 from multiverso_tpu_torch.parallel import mesh as mesh_lib
@@ -152,7 +153,6 @@ class Zoo:
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if self._group_started:
-            import torch.distributed as dist
             dist.destroy_process_group()
             self._group_started = False
         self.mesh = None
@@ -162,13 +162,11 @@ class Zoo:
     # -- identity (ref include/multiverso/zoo.h:38-50) ---------------------
     def rank(self) -> int:
         if self._group_started:
-            import torch.distributed as dist
             return dist.get_rank()
         return 0
 
     def size(self) -> int:
         if self._group_started:
-            import torch.distributed as dist
             return dist.get_world_size()
         return 1
 
@@ -200,7 +198,6 @@ class Zoo:
         check(self.started, "Zoo not started")
         self._barrier_count += 1
         if self._group_started and self.size() > 1:
-            import torch.distributed as dist
             dist.barrier()
 
     # -- table registry (ref src/zoo.cpp:178-186) --------------------------
@@ -233,8 +230,6 @@ def _start_process_group(coordinator: str, world: int, rank: int) -> None:
     coordinator is a loopback address lives on one host, so its ranks
     talk over the loopback device unless ``GLOO_SOCKET_IFNAME`` names
     another."""
-    import torch.distributed as dist
-
     host, _, port = coordinator.rpartition(":")
     check(bool(host) and port.isdigit(),
           f"-coordinator must be host:port; got {coordinator!r}")

@@ -35,6 +35,8 @@ import multiverso_tpu_torch as mv
 from multiverso_tpu_torch.core.options import AddOption, ArrayTableOption
 from multiverso_tpu_torch.core.zoo import Zoo
 from multiverso_tpu_torch.models.logreg.objective import get_objective
+from multiverso_tpu_torch.parallel import collectives
+from multiverso_tpu_torch.parallel import comm_policy as cp
 from multiverso_tpu_torch.parallel.device import resolve_device
 from multiverso_tpu_torch.utils.configure import get_flag
 from multiverso_tpu_torch.utils.dashboard import monitor
@@ -303,8 +305,6 @@ class AllreduceModel:
 
     def __init__(self, cfg: LogRegConfig, table=None, dp_mesh=None,
                  dp_axis: Optional[str] = None):
-        from multiverso_tpu_torch.parallel import collectives
-        from multiverso_tpu_torch.parallel import comm_policy as cp
         check(cfg.objective != "ftrl",
               "ftrl keeps server-side {z, n} state — comm_policy=allreduce "
               "cannot reconstruct it; use ps")
@@ -316,11 +316,9 @@ class AllreduceModel:
         self.device = model_device()
         self._step = make_step(cfg)
         self._n_axis, self._group = (
-            collectives._axis_group(dp_mesh, dp_axis)
+            collectives.axis_group(dp_mesh, dp_axis)
             if dp_mesh is not None and dp_axis else (1, None))
         self._grad_bytes = cfg.width * cfg.num_class * 4
-        self._cp = cp
-        self._allreduce = collectives.allreduce_sum
         self.weights = self.table.raw().reshape(
             cfg.width, cfg.num_class).to(self.device)
 
@@ -331,11 +329,13 @@ class AllreduceModel:
         if self._n_axis > 1:
             # Per-shard batch means -> the global mean: the collective
             # this policy exists for.
-            grad = self._allreduce(grad, self._group) / self._n_axis
-            loss = self._allreduce(loss, self._group) / self._n_axis
+            grad = collectives.allreduce_sum(grad, self._group) / \
+                self._n_axis
+            loss = collectives.allreduce_sum(loss, self._group) / \
+                self._n_axis
         delta = self.cfg.learning_rate * grad
         self.weights = self.weights - delta
-        self._cp.record(self._cp.ALLREDUCE, self._grad_bytes)
+        cp.record(cp.ALLREDUCE, self._grad_bytes)
         return loss
 
     def sync(self) -> None:
@@ -365,16 +365,14 @@ class ModelAverageModel(LocalModel):
     communication — loss-trajectory parity with PS, not bitwise."""
 
     def __init__(self, cfg: LogRegConfig, table=None):
-        from multiverso_tpu_torch.parallel import comm_policy as cp
         super().__init__(cfg)
         self.table = table if table is not None else mv.create_table(
             ArrayTableOption(size=cfg.width * cfg.num_class, updater="sgd",
                              name="logreg_weights",
                              comm_policy="model_average"))
-        self._cp = cp
 
     def sync(self) -> None:
-        self.weights = self._cp.model_average_arrays([self.weights])[0]
+        self.weights = cp.model_average_arrays([self.weights])[0]
         self.table.publish(self.get_weights().reshape(-1))
 
 
@@ -382,8 +380,6 @@ def resolve_logreg_comm_policy(cfg: LogRegConfig) -> str:
     """The LR weight table's policy: ""/ps keeps the PSModel path without
     probing; "auto" resolves on the weight shape (dense, small ->
     whichever plane the probe measures faster); FTRL is pinned to ps."""
-    from multiverso_tpu_torch.parallel import comm_policy as cp
-
     explicit = (cfg.comm_policy or "").strip().lower()
     if cfg.objective == "ftrl":
         check(explicit in ("", "ps", "auto"),
@@ -403,7 +399,6 @@ def resolve_logreg_comm_policy(cfg: LogRegConfig) -> str:
 def make_model(cfg: LogRegConfig):
     if not cfg.use_ps:
         return LocalModel(cfg)
-    from multiverso_tpu_torch.parallel import comm_policy as cp
     policy = resolve_logreg_comm_policy(cfg)
     if policy == cp.ALLREDUCE:
         return AllreduceModel(cfg)

@@ -584,9 +584,6 @@ def _waits(cfg: Word2VecConfig) -> None:
             "ported yet: ROADMAP A10")
 
 
-W2V_COMM_MODES = ("fused", "hybrid", "ps", "model_average")
-
-
 def resolve_w2v_comm(cfg: "Word2VecConfig", V: int, D: int,
                      out_rows: int, mesh=None):
     """Per-table CommPolicy resolution for the five word2vec tables.

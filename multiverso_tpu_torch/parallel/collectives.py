@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multiverso_tpu_torch.parallel.mesh import SERVER_AXIS
 from multiverso_tpu_torch.telemetry import counter
@@ -38,7 +39,6 @@ from multiverso_tpu_torch.telemetry import counter
 
 def world_size() -> int:
     """Ranks in this process's world (1 without a process group)."""
-    import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return 1
@@ -62,7 +62,7 @@ def _unstage(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.to(device)
 
 
-def _axis_group(mesh, axis: str):
+def axis_group(mesh, axis: str):
     """``(size, group)`` of this rank's slice along ``axis``."""
     n = mesh.axis_size(axis) if mesh is not None else 1
     if n <= 1:
@@ -77,7 +77,6 @@ def _axis_group(mesh, axis: str):
 def allreduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """SUM of ``x`` over ``group`` (default: the world), in a new tensor on
     ``x``'s device. gloo reduces a card tensor in place itself."""
-    import torch.distributed as dist
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
@@ -88,7 +87,7 @@ def device_allreduce(x: torch.Tensor, mesh,
     """Sum of the ranks' ``x`` over ``axis`` (the JAX function's ``psum``:
     ``x`` is this rank's shard of its global input, the result its
     replicated output)."""
-    n, group = _axis_group(mesh, axis)
+    n, group = axis_group(mesh, axis)
     if n == 1:
         return x
     return allreduce_sum(x, group)
@@ -98,8 +97,7 @@ def device_allgather(x: torch.Tensor, mesh,
                      axis: str = SERVER_AXIS) -> torch.Tensor:
     """``AllreduceEngine::Allgather`` analog: every rank's ``x`` along dim
     0, concatenated in axis order, on every rank."""
-    import torch.distributed as dist
-    n, group = _axis_group(mesh, axis)
+    n, group = axis_group(mesh, axis)
     if n == 1:
         return x
     host = _stage(x)
@@ -113,8 +111,7 @@ def device_reduce_scatter(x: torch.Tensor, mesh,
     """``AllreduceEngine::ReduceScatter`` analog: ``x`` is this rank's
     whole ``[n*k, ...]`` contribution; the result is the SUM of the
     ranks' contributions' k-row slice at this rank's axis index."""
-    import torch.distributed as dist
-    n, group = _axis_group(mesh, axis)
+    n, group = axis_group(mesh, axis)
     if n == 1:
         return x
     if x.shape[0] % n:

@@ -41,6 +41,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.parallel import collectives
+from multiverso_tpu_torch.parallel.mesh import SERVER_AXIS
 from multiverso_tpu_torch.telemetry import counter, histogram
 from multiverso_tpu_torch.utils.log import check, log
 
@@ -111,9 +113,6 @@ def measured_policy_latency_ms(nbytes: int, mesh=None, world: int = 1,
     ``iters`` runs after a warm-up, synchronized with the device. With a
     process group the two medians are averaged over the world, so every
     rank reads (and decides on) the same numbers."""
-    from multiverso_tpu_torch.parallel import collectives
-    from multiverso_tpu_torch.parallel.mesh import SERVER_AXIS
-
     dev = torch.device(device) if device is not None else _probe_device()
     n = max(int(nbytes) // 4, 1)
     key = (n.bit_length(), _mesh_signature(dev, mesh, world))
@@ -133,7 +132,7 @@ def measured_policy_latency_ms(nbytes: int, mesh=None, world: int = 1,
         data.cpu().numpy()          # the pull's read (synchronizes)
         ps_times.append((time.perf_counter() - t0) * 1e3)
 
-    n_axis, group = collectives._axis_group(mesh, SERVER_AXIS)
+    n_axis, group = collectives.axis_group(mesh, SERVER_AXIS)
     if world > 1 and n_axis > 1:
         def merge(v):
             return collectives.allreduce_sum(v, group) / n_axis
@@ -198,8 +197,6 @@ def resolve_comm_policy(shape: Sequence[int], dtype: Any, *,
 
     ``world`` is the number of contributors the all-reduce would reduce
     over; 0 means this process's world size."""
-    from multiverso_tpu_torch.parallel import collectives
-
     if explicit not in (None, "", AUTO):
         check(explicit in COMM_POLICIES,
               f"comm_policy must be one of {COMM_POLICIES} or '{AUTO}'; "
@@ -309,10 +306,7 @@ def build_dense_sync(mesh=None, axis: Optional[str] = None
     a one-rank axis, or without a mesh, it is ``x + 0.0``: the identity,
     bitwise what the JAX package's ``psum`` / size gives over identical
     replicas."""
-    from multiverso_tpu_torch.parallel import collectives
-    from multiverso_tpu_torch.parallel.mesh import SERVER_AXIS
-
-    n, group = collectives._axis_group(mesh, axis or SERVER_AXIS)
+    n, group = collectives.axis_group(mesh, axis or SERVER_AXIS)
     if n <= 1:
         return lambda x: x + 0.0
 
@@ -328,8 +322,6 @@ def model_average_arrays(arrays: Sequence) -> List:
     identity at one rank, bitwise). Tensors stay tensors on their device,
     in their dtype; anything else comes back as numpy in its dtype.
     Counted per array under ``comm.model_average.*``."""
-    from multiverso_tpu_torch.parallel import collectives
-
     world = collectives.world_size()
     out: List = []
     for a in arrays:

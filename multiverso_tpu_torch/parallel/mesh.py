@@ -24,6 +24,7 @@ import itertools
 from typing import Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from multiverso_tpu_torch.utils.configure import get_flag
 
@@ -91,8 +92,6 @@ def build_mesh(spec: Optional[str] = None) -> RankMesh:
     axes; their sizes must multiply to the world size. In a world of more
     than one rank every rank must call this, in the same order: it creates
     the axes' subgroups collectively."""
-    import torch.distributed as dist
-
     multi = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if multi else 1
     rank = dist.get_rank() if multi else 0

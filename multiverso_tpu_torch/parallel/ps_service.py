@@ -89,6 +89,16 @@ def _host(values) -> np.ndarray:
     return host_array(values)
 
 
+def _host_f32(values) -> np.ndarray:
+    """A client's delta as a float32 host array: a tensor, on the card or
+    on the host, is read to the host first (what a model pushes, e.g.
+    logreg's ``PSModel``)."""
+    import torch
+    if isinstance(values, torch.Tensor):
+        values = _host(values.detach())
+    return np.asarray(values, dtype=np.float32)
+
+
 def is_device_error(e: BaseException) -> bool:
     """True for an error raised by the card (a CUDA error surfaced by
     torch), which must fail the run, not just the request."""
@@ -2210,7 +2220,7 @@ class DistributedArrayTable(DistributedTableBase):
     # -- ops ---------------------------------------------------------------
     def add(self, delta: np.ndarray,
             option: Optional[AddOption] = None) -> None:
-        delta = np.asarray(delta, dtype=np.float32)
+        delta = _host_f32(delta)
         check(delta.shape == (self.size,), "bad delta shape")
         with self._op_lock:
             self.flush()
@@ -2223,7 +2233,7 @@ class DistributedArrayTable(DistributedTableBase):
         the native DeltaBuffer — N calls become ONE wire message per server
         at the next flush/get (ref ``src/table.cpp:62-82`` returns an id
         immediately; the merge is the device-side improvement on it)."""
-        delta = np.asarray(delta, dtype=np.float32)
+        delta = _host_f32(delta)
         check(delta.shape == (self.size,), "bad delta shape")
         option = option or AddOption()
         with self._op_lock:
@@ -2381,7 +2391,7 @@ class DistributedMatrixTable(DistributedTableBase):
     def add_rows(self, row_ids, deltas,
                  option: Optional[AddOption] = None) -> None:
         rows = np.asarray(row_ids, dtype=np.int32)
-        deltas = np.asarray(deltas, dtype=np.float32)
+        deltas = _host_f32(deltas)
         with self._op_lock:
             self.flush()
             op = self._send_add_rows(rows, deltas, option or AddOption())
@@ -2393,7 +2403,7 @@ class DistributedMatrixTable(DistributedTableBase):
         """Stage (linear updaters: merged by the native buffer, one wire
         message per server at flush) or fire without waiting (stateful)."""
         rows = np.asarray(row_ids, dtype=np.int32)
-        deltas = np.asarray(deltas, dtype=np.float32)
+        deltas = _host_f32(deltas)
         option = option or AddOption()
         with self._op_lock:
             if self._stage_buf is not None:

@@ -165,6 +165,10 @@ def case_world(rank: int, out: str, coordinator: str) -> dict:
     res["host_copies"] = counters.get("comm.collective.host_copies",
                                       {}).get("value", 0)
     res["ma_bytes"] = counters["comm.model_average.bytes"]["value"]
+    # Both ranks checkpoint every table into one shared directory.
+    from multiverso_tpu_torch.core.checkpoint import save_all
+    res["ckpt_root"] = save_all(os.path.join(out, "ckpt"), step=1)
+    res["tables"] = [t.name for t in Zoo.get().tables]
     np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
     mv.shutdown()
     return res

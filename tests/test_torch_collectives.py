@@ -255,6 +255,24 @@ def test_two_rank_word2vec_model_average(world):
             err_msg=name, **W2V_TOL)
 
 
+def test_two_rank_checkpoint_names_each_rank(world):
+    """``save_all`` from both ranks into one directory: rank 0 keeps the
+    plain names, rank 1's manifest and files carry its rank, as the JAX
+    module names them, so the two never collide."""
+    from multiverso_tpu.core import checkpoint as jck
+    res, _ = world
+    root = res[0]["ckpt_root"]
+    assert res[1]["ckpt_root"] == root
+    names = set(os.listdir(root))
+    assert {jck._meta_name(0), jck._meta_name(1)} <= names
+    with open(os.path.join(root, jck._meta_name(1))) as f:
+        files = json.load(f)["files"]
+    assert sorted(files) == sorted(set(res[1]["tables"]))
+    assert all(v.endswith("-r1.npz") and v in names for v in files.values())
+    with open(os.path.join(root, jck._meta_name(0))) as f:
+        assert all("-r" not in v for v in json.load(f)["files"].values())
+
+
 def test_two_rank_machine_file_start_up(tmp_path):
     """``-machine_file`` start-up: each rank finds its line through the
     default route's source address on a host whose name resolves to
