@@ -5590,6 +5590,11 @@ def collective_ranks(seed: int) -> dict:
             post = np.load(os.path.join(tmp, f"post_{k}.npy"))
             assert np.array_equal(post, (pre[0] + pre[1]) / np.float32(2)), k
             assert not np.array_equal(pre[0], pre[1]), k
+    log(f"AUTO probe at world 2 on {res[0]['device']} (both ranks read the "
+        "same): "
+        + "; ".join(f"{r['bytes']} B ps {r['ps_ms']:.4f} ms, allreduce "
+                    f"{r['allreduce_ms']:.4f} ms -> {r['policy']}"
+                    for r in res[0]["probe"]))
     log("two ranks on one card over gloo (GLOO_SOCKET_IFNAME="
         f"{res[0]['gloo_socket_ifname']}): mv.init {res[0]['init_s']:.2f} "
         f"/ {res[1]['init_s']:.2f} s; aggregate, all-gather and "
@@ -5605,7 +5610,9 @@ def collective_ranks(seed: int) -> dict:
         f"{res[0]['logreg_dp']['loss_max_rel_err']:.3g} (rel) and weights "
         f"{res[0]['logreg_dp']['weights_max_abs_err']:.3g} (abs) of one "
         f"rank, {res[0]['logreg_dp']['samples_per_sec']:,.0f} samples/sec "
-        f"a rank; {wall:.1f} s with start-up")
+        f"a rank; {wall:.1f} s with start-up, "
+        f"{res[0]['seconds']:.1f} / {res[1]['seconds']:.1f} s of it in "
+        "each rank's phase")
     return {"ranks": res, "wall_s": wall}
 
 
