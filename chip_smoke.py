@@ -243,7 +243,24 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
     ``PSService`` served from each rank's live input shard through
     ``RoutedLookupClient``, every reply bitwise ``get_rows`` (B1 counted
     under the served gathers);
-12. a JSON line of the kernels, the card line, and the result line.
+12. the long-context LM across ranks: rank processes of this script
+    (``--phase12-rank``) on the one card, one gloo world each, at
+    GPT-2-small widths (``LM``; 6 layers in (b) and (c)) with the cyclic
+    batches of phase 6: (a)
+    two ranks on ``seq:2``: ``loss()`` in ring and Ulysses mode with
+    ``-flash_attention`` off and on (B6 launched exactly 2 x 12 times a
+    rank a ring forward and 12 times a Ulysses one), each within
+    ``LM_LOSS_RTOL`` of one rank's LM from the same seed, 3 ``fit`` steps
+    with the flag off against one rank's (losses, and the loss after the
+    last step, within ``P12_FIT_RTOL``; parameters within
+    ``P12_PARAM_ATOL``), and the MoE LM's ``loss()``
+    (``MOE_LAYERS``, ``MOE_EXPERTS``) against one rank's; (b) four ranks
+    on ``data:2,seq:2`` and (c) four on ``stage:2,seq:2`` (the 1F1B
+    pipeline, 4 microbatches), 3 ``fit`` steps each against one rank's
+    flat LM from the same weights (for (c) ``pipeline_params_to_flat`` of
+    the pipeline's); every rank's losses and parameters equal, tokens/sec
+    and host-staged bytes a rank, each world's seconds;
+13. a JSON line of the kernels, the card line, and the result line.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
@@ -270,12 +287,22 @@ and B x H that fills the card, within ``PAGED_TOL``. B7's int8 instance
 way at both shapes (payloads of 127 and NaN scales in the wholly
 excluded pages), timed with its byte bound (dh + 4 bytes a row), and run
 once per int8 template instance (``PAGED_INT8_INSTANCES``) and on a page
-that does not divide the bucket, an idle slot and t = 0.
+that does not divide the bucket, an idle slot and t = 0. Then the wide
+instances (``check_wide_kernels``): B5 with ``WIDE_NEG`` negatives (its
+grouped variant) on the flagship block, held chunk by chunk within
+``SGNS_RTOL`` (the whole block's difference recorded), two launches bitwise equal, timed with its bound; B6 at D = ``WIDE_HEAD`` at the LM's eval shape (timed with
+both bounds and SDPA) and small cases (offsets, a bias, bfloat16, D =
+264, NaN in the unseen keys); B7 and its int8 instance at dh =
+``WIDE_PAGED_HEAD`` at the serving shape (NaN or 127 in the wholly
+masked pages, repeatable, graph-equal, timed with the byte bound) and
+small cases (dh = 520, an idle slot, one CTA a slot, head and chunk, a
+bfloat16 pool).
 
 Every launch count is set to 0 just before each main-path run of phases
-3, 4, 6, 7, 8, 9, 10 and 11 and read just after it (phase 10's seats and
-word2vec ranks and phase 11's rank processes are processes of their own
-and report theirs), so the comparisons of phase 2 do not count.
+3, 4, 6, 7, 8, 9, 10, 11 and 12 and read just after it (phase 10's seats
+and word2vec ranks and the rank processes of phases 11 and 12 are
+processes of their own and report theirs), so the comparisons of phase 2
+do not count.
 """
 
 from __future__ import annotations
@@ -307,7 +334,7 @@ TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 SGNS_RTOL = {"w_in": 2e-3, "w_out": 2e-3, "g_in": 1e-5, "g_out": 1e-5}
 SGNS_LOSS_RTOL = 1e-4
 # B5's bfloat16 instance, per table, the same measure, held chunk by chunk
-# (hold_bf16_by_chunk). Kernel and plain version both round each step to
+# (hold_by_chunk). Kernel and plain version both round each step to
 # bfloat16 and add a row's lanes in lane order with a rounding after every
 # add; their float32 steps differ as in float32 (the dot products' order),
 # and a step that lands on a bfloat16 rounding edge rounds the other way: one
@@ -349,6 +376,13 @@ LM_LOSS_RTOL = 1e-5
 ATTN_TOL = {"o_rtol": 2e-5, "o_atol": 2e-6, "l_rtol": 2e-5, "m_rtol": 1e-6}
 # The ring-step shapes of scripts/bench_flash_attn.py:41 (B, H, S, D).
 RING_SHAPES = ((1, 8, 2048, 128), (1, 8, 4096, 128), (2, 16, 2048, 64))
+# The kernels' wide instances (check_wide_kernels): B5 past 16 negatives
+# (the grouped variant; the word2vec paper's 5-20 for small corpora, and
+# twice that), B6 past a 256-wide head (D = 320: GPT-2 XL's 1600 / 5;
+# 512: two column chunks) and B7 at dh = 320.
+WIDE_NEG = (20, 40)
+WIDE_HEAD = (320, 512)
+WIDE_PAGED_HEAD = 320
 # The serving phase: GPT-2-small widths (LM) served with max_new 64 and 8
 # slots per bucket engine over buckets 128 and 512, pages of 16 positions;
 # 32 prompts of serve_bench's decode workload, 8 in flight.
@@ -1319,19 +1353,21 @@ def sgns_bound(streams, n_live: int, param_bytes: int = 4):
     """Least time for one block: each live lane's ids once, each touched
     row of the four tables read and written once (embeddings of
     ``param_bytes`` a value, float32 AdaGrad sums), and the arithmetic of
-    the live pairs (dots, gradients, AdaGrad updates) at float32 rate.
+    the live pairs (dots, gradients, AdaGrad updates) at float32 rate,
+    for the streams' K negatives a pair.
     Returns ``(ms, "bytes" or "operations", bytes ms, operations ms)``."""
     import torch
     centers, contexts, negs, n_pairs = streams
+    K = negs.shape[-1]
     c = centers[:n_live].reshape(-1)[:int(n_pairs)]
     o = contexts[:n_live].reshape(-1)[:int(n_pairs)]
-    k = negs[:n_live].reshape(-1, NEG)[:int(n_pairs)]
+    k = negs[:n_live].reshape(-1, K)[:int(n_pairs)]
     u_in = int(torch.unique(c).numel())
     u_out = int(torch.unique(torch.cat([o, k.reshape(-1)])).numel())
     p = int(n_pairs)
-    n_bytes = p * (2 + NEG) * 4 + 2 * (u_in + u_out) * D * (param_bytes + 4)
-    flops_per_pair = (2 * D * (1 + NEG) + D * (2 * NEG + 2) + D * (1 + NEG)
-                      + 7 * D * (2 + NEG))
+    n_bytes = p * (2 + K) * 4 + 2 * (u_in + u_out) * D * (param_bytes + 4)
+    flops_per_pair = (2 * D * (1 + K) + D * (2 * K + 2) + D * (1 + K)
+                      + 7 * D * (2 + K))
     return (*bound_ms(n_bytes, p * flops_per_pair), bound_ms(n_bytes)[0],
             bound_ms(0.0, p * flops_per_pair)[0])
 
@@ -1451,14 +1487,16 @@ def check_sgns_kernel(dev) -> dict:
             "library_ms": None}
 
 
-def hold_bf16_by_chunk(tables, streams, n_pairs, lr, adagrad, what: str,
-                       cpu_spread: bool = False) -> dict:
-    """B5's bfloat16 instance held against its plain version chunk by
-    chunk: for each live chunk of the block, kernel and plain version
-    start from the same tables (the plain version's after the chunks
-    before), train that chunk alone, and must agree within
-    ``SGNS_BF16_RTOL`` (each table's max |kernel - plain| over its largest
-    |value|) and the chunk's loss within ``SGNS_LOSS_RTOL``. A whole
+def hold_by_chunk(tables, streams, n_pairs, lr, adagrad, what: str,
+                  cpu_spread: bool = False, rtol=None) -> dict:
+    """B5 held against its plain version chunk by chunk (its bfloat16
+    instance, and the float32 one where a whole block's training is
+    rounding-sensitive): for each live chunk of the block, kernel and
+    plain version start from the same tables (the plain version's after
+    the chunks before), train that chunk alone, and must agree within
+    ``rtol`` (default ``SGNS_BF16_RTOL``; each table's max |kernel -
+    plain| over its largest |value|) and the chunk's loss within
+    ``SGNS_LOSS_RTOL``. A whole
     block cannot be held so: there one rounding edge that the two cross
     differently changes the steps of every later chunk (see
     ``SGNS_BF16_RTOL``). With ``cpu_spread`` the same chunk also runs
@@ -1468,6 +1506,7 @@ def hold_bf16_by_chunk(tables, streams, n_pairs, lr, adagrad, what: str,
     import torch
     from multiverso_tpu_torch.ops import sgns
 
+    rtol = rtol or SGNS_BF16_RTOL
     chunk = streams[0].shape[1]
     n_pairs = int(n_pairs)
     ref = [t.clone() for t in tables]
@@ -1504,13 +1543,13 @@ def hold_bf16_by_chunk(tables, streams, n_pairs, lr, adagrad, what: str,
                         (a - b).abs().max()) / scale)
     log(f"{what}, chunk by chunk: kernel vs plain, worst over chunks of "
         f"max|err| / max|value|: " + ", ".join(
-            f"{k} {v:.3e} (limit {SGNS_BF16_RTOL[k]:.2g})"
+            f"{k} {v:.3e} (limit {rtol[k]:.2g})"
             for k, v in worst.items()) + f"; loss {worst_loss:.3e}"
         + ("; the card's plain vs the CPU's: " + ", ".join(
             f"{k} {v:.3e}" for k, v in spread_cpu.items())
            if cpu_spread else ""))
     for name in TABLES:
-        assert worst[name] <= SGNS_BF16_RTOL[name], (what, name, worst)
+        assert worst[name] <= rtol[name], (what, name, worst)
     assert worst_loss <= SGNS_LOSS_RTOL, (what, worst_loss)
     out = {"max_rel_err_tables": worst, "max_abs_err_tables": worst_abs,
            "max_loss_rel_err": worst_loss}
@@ -1522,7 +1561,7 @@ def hold_bf16_by_chunk(tables, streams, n_pairs, lr, adagrad, what: str,
 def check_sgns_kernel_bf16(dev) -> dict:
     """B5's bfloat16 instance on the flagship block with bfloat16
     embeddings (bench.py's ``w2v_words_per_sec_bf16`` leg): held against
-    the card's plain version chunk by chunk (``hold_bf16_by_chunk``, with
+    the card's plain version chunk by chunk (``hold_by_chunk``, with
     the spread of the card's plain version against the CPU's); the whole
     block once through each, the loss within ``SGNS_LOSS_RTOL`` and the
     tables' spread printed beside the plain version's own (on the card
@@ -1537,7 +1576,7 @@ def check_sgns_kernel_bf16(dev) -> dict:
     centers, contexts, negs, n_pairs = streams
     n_live = (int(n_pairs) + CHUNK - 1) // CHUNK
     log(f"B5 bf16 sgns_block: {int(n_pairs)} pairs, {n_live} live chunks")
-    by_chunk = hold_bf16_by_chunk(tables, streams, n_pairs, lr, True,
+    by_chunk = hold_by_chunk(tables, streams, n_pairs, lr, True,
                                   "B5 bf16 flagship block",
                                   cpu_spread=True)
     kern = [t.clone() for t in tables]
@@ -1654,7 +1693,7 @@ def check_variants(dev) -> dict:
                 f"{' bf16' if bf16 else ''}")
         rec = {"d": d, "k": k, "adagrad": adagrad}
         if bf16:
-            rec.update(hold_bf16_by_chunk(tables, streams, n_pairs, 0.025,
+            rec.update(hold_by_chunk(tables, streams, n_pairs, 0.025,
                                           adagrad, what))
             out["sgns_block_bf16"].append(rec)
             continue
@@ -1703,7 +1742,7 @@ def check_sgns_layouts(dev) -> list:
 
     def hold(what, tables, streams, n_pairs, adagrad):
         if tables[0].dtype == torch.bfloat16:
-            return {"layout": what, "bf16": True, **hold_bf16_by_chunk(
+            return {"layout": what, "bf16": True, **hold_by_chunk(
                 tables, streams, n_pairs, 0.025, adagrad, what)}
         kern = [t.clone() for t in tables]
         plain = [t.clone() for t in tables]
@@ -1854,9 +1893,11 @@ def check_attention_kernel(dev) -> dict:
     """B6 at the LM's eval shape (causal) and at the ring-step shapes
     (non-causal), timed; on inputs with NaN in the K and V rows that no
     query sees (the LM's widths with twice the keys), against the plain
-    version on the clean inputs; then once each at a small shape: causal
-    with offsets, fully masked, with a bias, bfloat16, D = 8 and D =
-    256."""
+    version on the clean inputs; at the blocks phase 12's two-rank ring
+    gives it (half the LM's sequence, causal, at each block offset pair
+    the ring visits, one wholly masked); then once each at a small
+    shape: causal with offsets, fully masked, with a bias, bfloat16, D =
+    8 and D = 256."""
     import torch
     from multiverso_tpu_torch.ops import attention
 
@@ -1888,6 +1929,19 @@ def check_attention_kernel(dev) -> dict:
         "clean (plain)", attention.flash_block_attn(q, kp, vp, **kw),
         attention.flash_block_attn_plain(q, kc, vc, **kw))
     del kp, vp, kc, vc
+    variants = [{"case": "NaN in the unseen keys' K and V, LM widths",
+                 "max_abs_err": poisoned}]
+    # Phase 12's ring at seq:2: rank r's queries at offset r * s/2 meet
+    # the keys of rank r, then of rank 1 - r.
+    half = s // 2
+    q, k, v = attn_inputs(g, dev, b, h, half, half, dh)
+    for offs in ((0, 0), (half, half), (half, 0), (0, half)):
+        e, _, _ = pair(f"B6 two-rank ring block {(b, h, half, dh)}, causal "
+                       f"offsets {offs}", q, k, v, scale=dh ** -0.5,
+                       causal=True, offsets=offs)
+        variants.append({"case": f"two-rank ring block {[b, h, half, dh]}, "
+                         f"causal offsets {list(offs)}", "max_abs_err": e})
+    del q, k, v
     shapes = []
     for b2, h2, s2, d2 in RING_SHAPES:
         q, k, v = attn_inputs(g, dev, b2, h2, s2, s2, d2)
@@ -1903,8 +1957,6 @@ def check_attention_kernel(dev) -> dict:
                        "max_abs_err": e, **t, **bd})
         del q, k, v
 
-    variants = [{"case": "NaN in the unseen keys' K and V, LM widths",
-                 "max_abs_err": poisoned}]
     q, k, v = attn_inputs(g, dev, 2, 3, 128, 256, 64)
     for offs in ((0, 0), (384, 128), (128, 384)):
         e, _, _ = pair(f"B6 causal offsets {offs}", q, k, v, scale=0.125,
@@ -2407,6 +2459,253 @@ def check_paged_kernel_int8(dev) -> dict:
             "bitwise_repeat": True, "graph_equals_eager": True,
             "long_context": {"bucket": PAGED_LONG_BUCKET, **long},
             "variants": variants}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the kernels' wide instances (any negative count, any head width)
+# ---------------------------------------------------------------------------
+def check_sgns_negatives(dev) -> list:
+    """B5 past 16 negatives (the grouped variant) on the flagship block:
+    its centers, contexts and pair count, with ``WIDE_NEG`` negatives a
+    pair drawn from the block's own negatives (so from the flagship's
+    unigram^0.75 table), float32, AdaGrad. Each is held against the plain
+    version chunk by chunk (each chunk from the plain version's tables,
+    within ``SGNS_RTOL`` and ``SGNS_LOSS_RTOL``); over the whole block the
+    loss is held within ``SGNS_LOSS_RTOL`` and each table's difference is
+    recorded, not held: many negatives of a few frequent rows make a
+    block's training sensitive to rounding (at K = 40 the plain version
+    moves as far between float32 and float64 as the kernel does from
+    it; see PERF.md). Two launches bitwise equal; timed by events beside
+    the plain version and the bound."""
+    import torch
+    from multiverso_tpu_torch.ops import sgns
+
+    tables, streams, lr = flagship_block(dev)
+    centers, contexts, negs5, n_pairs = streams
+    n_live = (int(n_pairs) + CHUNK - 1) // CHUNK
+    g = torch.Generator(device=dev).manual_seed(12)
+    pool = negs5[:n_live].reshape(-1)
+
+    def rel(a_t, b_t):
+        return {n: float((a.double() - b.double()).abs().max())
+                / float(b.abs().max()) for n, a, b in zip(TABLES, a_t, b_t)}
+
+    out = []
+    for k in WIDE_NEG:
+        negs = pool[torch.randint(0, pool.numel(), negs5.shape[:2] + (k,),
+                                  generator=g, device=dev)].contiguous()
+        st = (centers, contexts, negs)
+        what = f"B5 K={k} (grouped variant), flagship block"
+        by_chunk = hold_by_chunk(tables, (*st, n_pairs), n_pairs, lr,
+                                      True, what, rtol=SGNS_RTOL)
+        kern = [t.clone() for t in tables]
+        plain = [t.clone() for t in tables]
+        lk = float(sgns.sgns_block_cuda(*kern, *st, n_pairs, lr, True))
+        lp = float(sgns.sgns_block_plain(*plain, *st, n_pairs, lr, True))
+        block = rel(kern, plain)
+        log(f"{what}, whole block: loss {lk} vs plain {lp}; kernel vs plain "
+            + ", ".join(f"{n} {block[n]:.3e}" for n in TABLES))
+        assert abs(lk - lp) <= SGNS_LOSS_RTOL * abs(lp), (what, lk, lp)
+        twice = [t.clone() for t in tables]
+        assert float(sgns.sgns_block_cuda(*twice, *st, n_pairs, lr,
+                                          True)) == lk, what
+        for name, a, b in zip(TABLES, twice, kern):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                (what, name)
+        del twice, kern
+        launch = sgns.prepare_sgns_block(*[t.clone() for t in tables], *st,
+                                         n_pairs, lr, True)
+        ms = cuda_ms(lambda: sgns.launch_sgns_block(launch), 3, warmup=1)
+        plain_ms = cuda_ms(lambda: sgns.sgns_block_plain(
+            *plain, *st, n_pairs, lr, True), 1, warmup=0)
+        bound = sgns_bound((centers, contexts, negs, n_pairs), n_live)
+        log(f"{what}: kernel {ms:.4f} ms per block ({launch.grid} CTAs), "
+            f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+            f"bytes {bound[2]:.4f}, operations {bound[3]:.4f}); a second "
+            "launch bitwise equal")
+        out.append({"case": f"K={k}: the grouped variant, flagship block",
+                    "k": k, "max_abs_err": max(
+                        by_chunk["max_abs_err_tables"].values()),
+                    "by_chunk": by_chunk, "block_rel_err": block,
+                    "loss": lk,
+                    "plain_loss": lp, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    "bound_bytes_ms": bound[2], "bound_ops_ms": bound[3],
+                    "library_ms": None, "bitwise_repeat": True})
+        del launch, plain, negs
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_attention_wide(dev) -> list:
+    """B6's wide instance (D > 256: the output columns split over CTAs,
+    the scores over D in chunks of 256) at the LM's eval shape with heads
+    of ``WIDE_HEAD``, causal, timed by events and in a graph beside the
+    plain version, SDPA and both bounds; then small cases: non-causal
+    with offsets, a bias, bfloat16, D = 264 (a last chunk of 8 columns)
+    and NaN in the unseen keys' K and V."""
+    import torch
+    from multiverso_tpu_torch.ops import attention
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def pair(what, q, k, v, bias=None, want=None, **kw):
+        got = attention.flash_block_attn(q, k, v, bias, **kw)
+        ref = attention.flash_block_attn_plain(*(want or (q, k, v)), bias,
+                                               **kw)
+        return attn_compare(what, got, ref)
+
+    out = []
+    b, h, s = LM_BATCH, LM["heads"], LM["seq"]
+    for d in WIDE_HEAD:
+        q, k, v = attn_inputs(g, dev, b, h, s, s, d)
+        what = f"B6 wide D={d} at the LM's eval shape {(b, h, s, d)}, causal"
+        err = pair(what, q, k, v, scale=d ** -0.5, causal=True,
+                   offsets=(0, 0))
+        rec = time_attn(q, k, v, True, 10)
+        bound = attn_bounds(b, h, s, s, d, causal=True, offsets=(0, 0))
+        log(f"{what}: kernel {rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms "
+            f"in a CUDA graph), plain {rec['plain_ms']:.4f} ms, "
+            f"{rec['library']} {rec['library_ms']:.4f} ms, "
+            f"{bounds_text(bound)}")
+        out.append({"case": f"D={d}, the wide instance, LM eval shape",
+                    "shape": [b, h, s, d], "causal": True,
+                    "max_abs_err": err, **rec, **bound})
+        del q, k, v
+        torch.cuda.empty_cache()
+    q, k, v = attn_inputs(g, dev, 2, 3, 128, 256, 320)
+    for offs in ((384, 128), (128, 384)):
+        e = pair(f"B6 wide D=320 causal offsets {offs}", q, k, v,
+                 scale=320 ** -0.5, causal=True, offsets=offs)
+        out.append({"case": f"D=320 causal offsets {list(offs)}",
+                    "max_abs_err": e})
+    band = torch.where(torch.arange(256, device=dev)[None, :]
+                       > torch.arange(128, device=dev)[:, None] + 50,
+                       attention.NEG_INF, 0.0).to(torch.float32)
+    out.append({"case": "D=320 bias", "max_abs_err": pair(
+        "B6 wide D=320 bias", q, k, v, band, scale=320 ** -0.5)})
+    out.append({"case": "D=320 bfloat16", "max_abs_err": pair(
+        "B6 wide D=320 bfloat16", *(t.to(torch.bfloat16) for t in (q, k, v)),
+        scale=320 ** -0.5)})
+    q, k, v = attn_inputs(g, dev, 2, 3, 256, 384, 264)
+    out.append({"case": "D=264 (a last chunk of 8 columns), causal",
+                "max_abs_err": pair("B6 wide D=264 causal", q, k, v,
+                                    scale=264 ** -0.5, causal=True,
+                                    offsets=(128, 0))})
+    kp, vp = (torch.cat([t[:, :, :128], torch.full_like(t[:, :, :256],
+                                                        float("nan"))],
+                        dim=2) for t in (k, v))
+    kc, vc = (torch.cat([t[:, :, :128], t[:, :, :256]], dim=2)
+              for t in (k, v))
+    qq = q[:, :, :128].contiguous()
+    out.append({"case": "D=264, NaN in the unseen keys' K and V",
+                "max_abs_err": pair(
+                    "B6 wide D=264, keys 128..383 NaN (kernel) or clean "
+                    "(plain)", qq, kp, vp, want=(qq, kc, vc),
+                    scale=264 ** -0.5, causal=True, offsets=(0, 0))})
+    return out
+
+
+def check_paged_wide(dev) -> dict:
+    """B7's wide instance (dh > 256: the output columns split into chunks
+    of 256 over CTAs) at the serving shape with heads of dh
+    ``WIDE_PAGED_HEAD``, float32 and int8 pages: held against the plain
+    version within ``PAGED_TOL`` (again with NaN, or payloads of 127 and
+    NaN scales, in every page the mask wholly excludes), launched twice
+    (bitwise equal) and from a CUDA graph, timed by events and in a graph
+    beside the plain version and the byte bound; then small cases: a
+    bfloat16 pool, dh = 520 (a last chunk of 8), one CTA a slot and head,
+    an idle slot on the garbage page. Returns {kernel name: records}."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.ops import attention
+    from multiverso_tpu_torch.serving import default_pool_pages
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    rng = np.random.default_rng(9)
+    S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
+    H, dh = LM["heads"], WIDE_PAGED_HEAD
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lengths = [min(len(p), S) for p in decode_workload(
+        rng, SERVE_BATCH, S, 0.0, [])]
+    lengths[0] = S
+    t = rng.integers(0, N, SERVE_BATCH).tolist()
+    n_phys = default_pool_pages(SERVE_BUCKETS, SERVE_BATCH, N, P) + 1
+    out = {"paged_decode_attn": [], "paged_decode_attn_int8": []}
+    for dtype, name in ((None, "paged_decode_attn"),
+                        (torch.int8, "paged_decode_attn_int8")):
+        sc = {}
+        args = paged_inputs(g, dev, lengths, t, S, N, P, H, dh, n_phys,
+                            layers=3, dtype=dtype, scales=sc)
+        kw = dict(bucket=S, page=P, scale=dh ** -0.5, **sc)
+        G = args[3].shape[1]
+        label = (f"B7{' int8' if dtype else ''} wide dh={dh} at the serving "
+                 f"shape (B {SERVE_BATCH}, H {H}, page {P}, bucket {S}, G {G})")
+        err = paged_pair(label, args, kw, counter=name)
+        if sc:
+            poisoned, n_dead, bad = paged_poisoned(args, S, P, sc)
+            bad_kw = dict(kw, **bad)
+        else:
+            poisoned, n_dead = paged_poisoned(args, S, P)
+            bad_kw = kw
+        nan_err = paged_pair(f"{label}, the {n_dead} wholly masked pages "
+                             "poisoned", poisoned, bad_kw, want=(args, kw),
+                             counter=name)
+        del poisoned
+        paged_repeatable(label, args, kw)
+        rec = {"ms": cuda_ms(lambda: attention.paged_decode_attn(*args, **kw),
+                             50),
+               "graph_ms": graph_ms(lambda: attention.paged_decode_attn(
+                   *args, **kw)),
+               "plain_ms": cuda_ms(lambda: attention.paged_decode_attn_plain(
+                   *args, **kw), 50)}
+        q, kp, vp, ptab, lens, ts = args
+        bound = paged_bound(q, kp, ptab, lens, ts, S, P)
+        splits = attention.paged_splits(SERVE_BATCH * H * 2, G, sms)
+        log(f"{label}, {splits} CTAs a slot, head and column chunk: kernel "
+            f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
+            f"plain {rec['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]})")
+        out[name].append({"case": f"dh={dh}, the wide instance, serving "
+                                  "shape", "shape": [SERVE_BATCH, H, dh],
+                          "max_abs_err": err,
+                          "nan_excluded_pages_max_abs_err": nan_err,
+                          "splits": splits, **rec, "bound_ms": bound[0],
+                          "bound_by": bound[1], "library_ms": None})
+        del args, q, kp, vp
+        torch.cuda.empty_cache()
+        cases = [("dh=520 (a last chunk of 8)", [3, 60, 128, 17],
+                  [0, 5, 63, 20], 4, 520, 64),
+                 ("idle slot on the garbage page, dh=320", [1, 40, 100, 7],
+                  [0, 10, 63, 1], 4, 320, 64)]
+        slots = -(-attention.PAGED_CTAS_PER_SM * sms // (12 * 2))
+        cases.append((f"{slots} slots x 12 heads, dh=320: one CTA a slot, "
+                      "head and chunk", rng.integers(1, 129, slots).tolist(),
+                      rng.integers(0, 64, slots).tolist(), 12, 320,
+                      slots * 12 + 1))
+        if dtype is None:
+            cases.append(("bfloat16 pool, dh=320", [3, 60, 128, 17],
+                          [0, 5, 63, 20], 4, 320, 64))
+        for case, lens_v, t_v, heads, d, phys in cases:
+            sc = {}
+            dt = torch.bfloat16 if case.startswith("bfloat16") else dtype
+            a = paged_inputs(g, dev, lens_v, t_v, 128, 64, 16, heads, d,
+                             phys, dtype=dt, scales=sc)
+            if case.startswith("idle"):
+                a[3][0] = 0
+            e = paged_pair(f"B7{' int8' if dtype else ''} wide {case}", a,
+                           dict(bucket=128, page=16, scale=d ** -0.5, **sc),
+                           counter=name)
+            out[name].append({"case": case, "max_abs_err": e})
+    return out
+
+
+def check_wide_kernels(dev) -> dict:
+    """The kernels' wide instances: {kernel name: records}."""
+    out = {"sgns_block": check_sgns_negatives(dev),
+           "flash_block_attn": check_attention_wide(dev)}
+    out.update(check_paged_wide(dev))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5777,6 +6076,291 @@ def phase11(seed: int, on_path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the long-context LM across ranks (gloo ranks on the one card)
+# ---------------------------------------------------------------------------
+#: world -> (ranks, -mesh_shape, LMConfig fields over LM's). (b) and (c)
+#: are cut to 6 layers (of 12) to keep the whole script inside its time
+#: limit: their 4 ranks each draw, hold and train the model, and one
+#: rank's reference draws it again.
+P12_WORLDS = {
+    "a": (2, "data:1,seq:2", dict(seq_parallel=2, data_parallel=1)),
+    "b": (4, "data:2,seq:2", dict(seq_parallel=2, data_parallel=2,
+                                  layers=6)),
+    "c": (4, "stage:2,seq:2", dict(pipeline_stages=2, seq_parallel=2,
+                                   pipeline_microbatches=4, layers=6)),
+}
+P12_TIMEOUT_S = 600
+# 3 fit steps across ranks against one rank from the same weights: the
+# losses (each taken before its step) and the loss after the last step
+# within tests/test_torch_attention_lm.py's rtol 1e-4. The parameters
+# within P12_PARAM_ATOL: the worlds read at most 1.88e-4 on an H100
+# (runs G6, G8), and 3 Adam steps at lr 1e-3 move some parameters ~3e-3
+# (a first step is lr * sign(g)), so a world that skipped its updates
+# fails; a skipped or wrong last step alone moves the loss after it.
+P12_FIT_RTOL = 1e-4
+P12_PARAM_ATOL = 1e-3
+
+
+def _host_bytes() -> float:
+    from multiverso_tpu_torch.telemetry import get_registry
+    counters = get_registry().snapshot(buckets=False)["counters"]
+    return counters.get("comm.collective.host_bytes", {}).get("value", 0)
+
+
+def _p12_run(res, what, fn, n_tok, want_b6=None):
+    """One main-path run of a phase 12 rank: B6's count set to 0 just
+    before and read just after, timed, host-staged bytes counted."""
+    from multiverso_tpu_torch.ops import attention
+    attention.LAUNCHES["flash_block_attn"] = 0
+    staged = _host_bytes()
+    val, dt = timed(fn)
+    b6 = attention.LAUNCHES["flash_block_attn"]
+    if want_b6 is not None:
+        assert b6 == want_b6, (what, b6, want_b6)
+    res["runs"].append({"run": what, "seconds": dt, "b6_launches": b6,
+                        "host_bytes": _host_bytes() - staged,
+                        "tokens_per_sec": n_tok / dt})
+    return val
+
+
+def _p12_fit_against(model_params, ref, batches, losses, loss_after,
+                     tokens, what) -> dict:
+    """Hold a world's 3 fit steps (``losses``, final ``model_params``, flat
+    names, and ``loss_after``, its loss of ``tokens`` after them) against
+    one rank's ``ref`` model from the same weights."""
+    import numpy as np
+    want = ref.fit(batches)
+    assert np.allclose(losses, want, rtol=P12_FIT_RTOL, atol=0), \
+        (what, losses, want)
+    want_after = ref.loss(tokens)
+    after_rel = abs(loss_after - want_after) / abs(want_after)
+    assert after_rel <= P12_FIT_RTOL, (what, loss_after, want_after)
+    worst = 0.0
+    for name, p in ref.params.items():
+        err = float((model_params[name].detach() - p.detach()).abs().max())
+        worst = max(worst, err)
+        assert err <= P12_PARAM_ATOL, (what, name, err, P12_PARAM_ATOL)
+    loss_rel = float(np.max(np.abs(np.asarray(losses) - np.asarray(want))
+                            / np.abs(np.asarray(want))))
+    return {"one_rank_fit": want, "fit_loss_max_rel_err": loss_rel,
+            "one_rank_loss_after": want_after,
+            "loss_after_rel_err": after_rel,
+            "params_max_abs_err": worst, "params_atol": P12_PARAM_ATOL}
+
+
+def phase12_rank(world: str, rank: int, coordinator: str, out: str,
+                 seed: int) -> int:
+    """One rank of phase 12's world (a), (b) or (c), a process of its own
+    on the one card: joins the world over gloo with ``-coordinator`` and
+    ``-mesh_shape``, drives the LM at GPT-2-small widths over the mesh,
+    then leaves the world; rank 0 then runs one rank's LM from the same
+    weights on the card and holds the world's readings against it.
+    Writes ``rank<r>.json``."""
+    t_start = time.perf_counter()
+    import math
+    import torch
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import multiverso_tpu_torch as mv
+    from multiverso_tpu_torch import interop
+    from multiverso_tpu_torch.core.zoo import Zoo
+    from multiverso_tpu_torch.models.attention_lm import (
+        AttentionLM, LMConfig, pipeline_params_to_flat)
+    from multiverso_tpu_torch.utils.configure import set_flag
+
+    n, spec, kw = P12_WORLDS[world]
+    t0 = time.perf_counter()
+    mv.init([f"-coordinator={coordinator}", f"-world_size={n}",
+             f"-rank={rank}", f"-mesh_shape={spec}"])
+    mesh, dev = Zoo.get().mesh, Zoo.get().device
+    assert dev.type == "cuda", dev
+    res = {"world": world, "rank": mv.rank(), "size": mv.size(),
+           "mesh": mesh.shape, "init_s": time.perf_counter() - t0,
+           "runs": []}
+    batches = cyclic_batches(LM_STEPS + 1, LM_BATCH, LM["seq"], LM_CYCLE,
+                             seed=seed + 12)
+    tokens, train = batches[0], batches[1:]
+    n_tok = LM_BATCH * LM["seq"]
+    widths = dict(LM, layers=kw.get("layers", LM["layers"]))
+    cfg = LMConfig(**dict(LM, **kw), seed=seed)
+    model, build_s = timed(lambda: AttentionLM(cfg, mesh=mesh))
+    res["build_s"] = build_s
+    res["shard"] = [model.shard.data_index, model.shard.seq_index,
+                    getattr(model, "stage", 0)]
+    init = None
+    if world == "c" and rank == 0:
+        # The weights the one-rank reference starts from, flattened.
+        init = {k: v.detach().clone() for k, v in pipeline_params_to_flat(
+            cfg, model.params).items()}
+    set_flag("flash_attention", False)
+    if world == "a":
+        layers = LM["layers"]
+        for mode, b6_on in (("ring", 2 * layers), ("ulysses", layers)):
+            cfg.sp_mode = mode
+            for flash in (False, True):
+                set_flag("flash_attention", flash)
+                want = b6_on if flash else 0
+                _p12_run(res, f"loss {mode} flash={flash} (warm-up)",
+                         lambda: model.loss(tokens), n_tok, want)
+                res[f"loss_{mode}_{int(flash)}"] = _p12_run(
+                    res, f"loss {mode} flash={flash}",
+                    lambda: model.loss(tokens), n_tok, want)
+        cfg.sp_mode = "ring"
+        set_flag("flash_attention", False)
+    res["fit"] = _p12_run(res, f"fit {LM_STEPS} steps",
+                          lambda: model.fit(train), LM_STEPS * n_tok, 0)
+    assert all(math.isfinite(x) for x in res["fit"]), res["fit"]
+    res["loss_after"] = _p12_run(res, "loss after fit",
+                                 lambda: model.loss(tokens), n_tok, 0)
+    moe = None
+    if world == "a":
+        mcfg = LMConfig(**dict(LM, layers=MOE_LAYERS), **kw,
+                        moe_experts=MOE_EXPERTS, seed=seed)
+        moe = AttentionLM(mcfg, mesh=mesh)
+        res["moe_loss"] = _p12_run(res, "MoE loss ring flash=False",
+                                   lambda: moe.loss(tokens), n_tok, 0)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # Every rank's parameters after the same steps: one digest.
+    res["digest"] = _digest(torch.cat([p.detach().reshape(-1)
+                                       for p in model.parameters()]))
+    mv.shutdown()
+    if rank == 0:
+        # One rank's LM on the card from the same weights.
+        ref = AttentionLM(LMConfig(**widths, seed=seed), dev)
+        if init is not None:
+            interop.load_attention_lm_params(
+                ref, {k: v.cpu().numpy() for k, v in init.items()})
+        if world == "a":
+            for mode in ("ring", "ulysses"):
+                ref.cfg.sp_mode = mode
+                want = ref.loss(tokens)
+                res[f"one_rank_loss_{mode}"] = want
+                for flash in (0, 1):
+                    got = res[f"loss_{mode}_{flash}"]
+                    assert abs(got - want) <= LM_LOSS_RTOL * abs(want), \
+                        (mode, flash, got, want)
+            ref.cfg.sp_mode = "ring"
+            mref = AttentionLM(LMConfig(**dict(LM, layers=MOE_LAYERS),
+                                        moe_experts=MOE_EXPERTS, seed=seed),
+                               dev)
+            want = mref.loss(tokens)
+            res["one_rank_moe_loss"] = want
+            assert abs(res["moe_loss"] - want) <= LM_LOSS_RTOL * abs(want), \
+                (res["moe_loss"], want)
+            del mref
+        params = (pipeline_params_to_flat(cfg, model.params) if world == "c"
+                  else model.params)
+        res.update(_p12_fit_against(params, ref, train, res["fit"],
+                                    res["loss_after"], tokens,
+                                    f"world {world}"))
+        del ref
+    del model, moe
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def p12_world(world: str, seed: int, card: str) -> dict:
+    """Phase 12's world ``world``: its rank processes on the card, their
+    readings checked and logged."""
+    n, spec, kw = P12_WORLDS[world]
+    with tempfile.TemporaryDirectory() as tmp:
+        coordinator = f"127.0.0.1:{free_ports(1)[0]}"
+        cmd = [sys.executable, os.path.abspath(__file__), "--seed",
+               str(seed), "--phase12-rank", world]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            cmd + [str(r), coordinator, tmp], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=P12_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, (world, r, outs[r][-4000:])
+        res = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    p12_check_and_log(world, res, wall, card)
+    return {"ranks": res, "wall_s": wall}
+
+
+def p12_check_and_log(world: str, res: list, wall: float, card: str) -> None:
+    """A phase 12 world's ranks agree (the same losses and parameters);
+    their readings logged."""
+    n, spec, _ = P12_WORLDS[world]
+    ref = res[0]
+    for i, r in enumerate(res):
+        assert (r["rank"], r["size"]) == (i, n), r
+        assert r["fit"] == ref["fit"], (world, r["fit"], ref["fit"])
+        assert r["digest"] == ref["digest"], (world, i)
+    by_run = {run["run"]: run for run in ref["runs"]}
+    fit = by_run[f"fit {LM_STEPS} steps"]
+    log(f"phase 12 ({world}) {spec}, {n} ranks on one card: "
+        + (f"loss() ring {ref['loss_ring_0']} (B6 off) / {ref['loss_ring_1']} "
+           f"(on, {by_run['loss ring flash=True']['b6_launches']} B6 "
+           f"launches a rank), Ulysses {ref['loss_ulysses_0']} / "
+           f"{ref['loss_ulysses_1']} ({by_run['loss ulysses flash=True']['b6_launches']}"
+           f" B6), one rank {ref['one_rank_loss_ring']}; ring "
+           f"{by_run['loss ring flash=False']['tokens_per_sec']:.6g} / "
+           f"{by_run['loss ring flash=True']['tokens_per_sec']:.6g}, Ulysses "
+           f"{by_run['loss ulysses flash=False']['tokens_per_sec']:.6g} / "
+           f"{by_run['loss ulysses flash=True']['tokens_per_sec']:.6g} "
+           f"tokens/sec (the world's), ring host-staged "
+           f"{by_run['loss ring flash=False']['host_bytes'] / 1e6:.1f} MB a "
+           f"rank a loss(); MoE loss {ref['moe_loss']} against one rank's "
+           f"{ref['one_rank_moe_loss']}; " if world == "a" else "")
+        + f"fit {LM_STEPS} steps {ref['fit']} against one rank's "
+        f"{ref['one_rank_fit']} (max rel {ref['fit_loss_max_rel_err']:.3g}; "
+        f"loss after {ref['loss_after']} against {ref['one_rank_loss_after']}"
+        f", rel {ref['loss_after_rel_err']:.3g}; parameters within {ref['params_max_abs_err']:.3g}, limit "
+        f"{ref['params_atol']:.3g}), {fit['tokens_per_sec']:.6g} tokens/sec "
+        f"(the world's; {fit['tokens_per_sec'] / n:.6g} a rank), host-staged "
+        f"{fit['host_bytes'] / LM_STEPS / 1e6:.1f} MB a step a rank; peak "
+        f"{max(r['peak_gib'] for r in res):.2f} GiB a rank; {wall:.1f} s "
+        f"with start-up (" + ", ".join(f"{r['seconds']:.1f}" for r in res)
+        + f" s in the ranks) [{card}]")
+
+
+def phase12(seed: int, card: str) -> dict:
+    """Phase 12: the long-context LM across ranks: (a) ``seq:2``, (b)
+    ``data:2,seq:2``, (c) ``stage:2,seq:2`` (see the module's
+    docstring). Returns each world's readings and B6's launches, summed
+    over the ranks' main-path runs."""
+    import gc
+    import torch
+    log(f"phase 12 on {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"part_s": {}}
+    for world in P12_WORLDS:
+        t = time.perf_counter()
+        out[world] = p12_world(world, seed, card)
+        out["part_s"][world] = time.perf_counter() - t
+    out["b6_launches"] = sum(run["b6_launches"] for world in P12_WORLDS
+                             for r in out[world]["ranks"]
+                             for run in r["runs"])
+    assert out["b6_launches"] > 0, out
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 12: {out['seconds']:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f}" for k, v in out["part_s"].items())
+        + f"); B6 launched {out['b6_launches']} times across the ranks")
+    return out
+
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5786,6 +6370,10 @@ def main() -> int:
                         metavar=("RANK", "COORDINATOR", "OUT_DIR"),
                         help="run one rank of phase 11 (b); phase 11 "
                         "starts two of these itself")
+    parser.add_argument("--phase12-rank", nargs=4,
+                        metavar=("WORLD", "RANK", "COORDINATOR", "OUT_DIR"),
+                        help="run one rank of phase 12's world a, b or c; "
+                        "phase 12 starts them itself")
     args = parser.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -5795,6 +6383,9 @@ def main() -> int:
     if args.phase11_rank:
         rank, coordinator, out = args.phase11_rank
         return phase11_rank(int(rank), coordinator, out, args.seed)
+    if args.phase12_rank:
+        world, rank, coordinator, out = args.phase12_rank
+        return phase12_rank(world, int(rank), coordinator, out, args.seed)
     sys.path.insert(0, REPO)
     import numpy as np
     import multiverso_tpu_torch as mv
@@ -5823,6 +6414,10 @@ def main() -> int:
     kernels.append(check_attention_kernel(dev))
     kernels.append(check_paged_kernel(dev))
     kernels.append(check_paged_kernel_int8(dev))
+    wide = check_wide_kernels(dev)
+    for k in kernels:
+        if k["name"] in wide:
+            k["wide"] = wide[k["name"]]
     variants = check_variants(dev)
     for rec in check_sgns_layouts(dev):
         variants["sgns_block_bf16" if rec["bf16"] else "sgns_block"].append(
@@ -5965,6 +6560,12 @@ def main() -> int:
     assert p11_runs["w2v_serving"]["gather_rows"] > 0, p11_runs
     assert p11_runs["w2v_serving"]["tiled_scatter_add_sorted_rows"] > 0
 
+    # Phase 12: the long-context LM across ranks on the card: seq:2 (ring
+    # and Ulysses loss() with B6 off and on, 3 fit steps, the MoE loss),
+    # data:2,seq:2 and stage:2,seq:2 (3 fit steps each), each against one
+    # rank from the same weights. The ranks count B6 in their own runs.
+    p12 = phase12(args.seed, card)
+
     b4_runs = {"bench.py leg": leg["tiled_scatter_add_sorted_rows"],
                "plain tables": plain_counts["tiled_scatter_add_sorted_rows"],
                "word2vec plain steps":
@@ -5995,7 +6596,7 @@ def main() -> int:
         "tiled_scatter_add_sorted_rows": sum(b4_runs.values()),
         "sgns_block": flag["sgns_block"],
         "sgns_block_bf16": flag_bf16["sgns_block_bf16"],
-        "flash_block_attn": lm["b6_launches"],
+        "flash_block_attn": lm["b6_launches"] + p12["b6_launches"],
         "paged_decode_attn": served["b7_launches"],
         "paged_decode_attn_int8": served["b7_int8_launches"]}
     for name in launches:
@@ -6056,6 +6657,11 @@ def main() -> int:
         if k["name"] == "flash_block_attn":
             k["launches_by_run"] = {r["run"]: r["launches"]
                                     for r in lm["runs"]}
+            k["phase12_launches"] = {
+                f"({w}) rank {r['rank']}: {run['run']}": run["b6_launches"]
+                for w in P12_WORLDS for r in p12[w]["ranks"]
+                for run in r["runs"] if run["b6_launches"]}
+            k["phase12"] = p12
         if k["name"] == "paged_decode_attn":
             k["launches_by_mode"] = {name: m["b7_launches"] for name, m
                                      in served["modes"].items()}

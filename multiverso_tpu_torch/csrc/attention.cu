@@ -82,6 +82,20 @@
 // D = 256 (above 48 KB it needs the opt-in attribute, set at an
 // instance's first launch). The registers and spills of each instance
 // (-Xptxas -v) are printed by chip_smoke.py and kept in PERF.md.
+//
+// D > 256 (any D % 8 == 0): the wide instance. A Q row and the O
+// accumulator of 64 rows do not fit beside K and V at such widths, so the
+// output columns are split over CTAs (gridDim.y = ceil(D / 256), 256
+// columns each) and each CTA walks D in chunks of 256 for the scores:
+// for every k tile it stages the chunk's Q and K columns, adds their
+// products into S (the same 3xTF32 mma.sync, each 64 columns summed from
+// 0 and added in float32, as P.V's tiles are), then stages its own 256
+// columns of V for P.V. Every CTA of a q tile computes the same S, m and
+// l in the same order, so they agree bit for bit; the one at y = 0 writes
+// m and l. The tiles are staged one at a time (no overlap of loads and
+// products) and Q is staged again for every k tile: a simple instance that
+// is right, with the masked-tile skip and the exact m of the others, and
+// the same shared memory as D = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,7 +108,6 @@ constexpr int kThreads = 128;
 constexpr int kTile = 64;               // q rows and k rows per tile
 constexpr int kQKPad = 8;               // floats of padding per Q, K row
 constexpr int kVPad = 4;                // floats of padding per V row
-constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;       // pallas_attention.py NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -169,13 +182,15 @@ __device__ __forceinline__ Chunks chunks_of(int d) {
   return {tid / d4, tid % d4, kThreads / d4, kThreads % d4, d4};
 }
 
-// Rows [0, 64) of a row-major [*, d] matrix into shared rows of stride ds:
-// float32 by cp.async (landed after the next wait), bfloat16 converted to
-// float32 by plain loads and stores.
-__device__ __forceinline__ void stage(float* dst, const float* src, int d,
+// Rows [0, 64) of a row-major matrix with rows ld elements apart, w.d4
+// 16-byte chunks of each, into shared rows of stride ds: float32 by
+// cp.async (landed after the next wait), bfloat16 converted to float32 by
+// plain loads and stores.
+__device__ __forceinline__ void stage(float* dst, const float* src, int ld,
                                       int ds, const Chunks& w) {
   for (int r = w.r0, c = w.c0; r < kTile;) {
-    cp_async16(dst + r * ds + 4 * c, src + static_cast<int64_t>(r) * d + 4 * c);
+    cp_async16(dst + r * ds + 4 * c,
+               src + static_cast<int64_t>(r) * ld + 4 * c);
     r += w.dr;
     c += w.dc;
     if (c >= w.d4) {
@@ -186,10 +201,10 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int d,
 }
 
 __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
-                                      int d, int ds, const Chunks& w) {
+                                      int ld, int ds, const Chunks& w) {
   for (int r = w.r0, c = w.c0; r < kTile;) {
     const uint2 raw = *reinterpret_cast<const uint2*>(
-        src + static_cast<int64_t>(r) * d + 4 * c);
+        src + static_cast<int64_t>(r) * ld + 4 * c);
     const float2 a =
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
     const float2 b =
@@ -217,9 +232,75 @@ size_t smem_bytes(int nc) {
          sizeof(float);
 }
 
+// S += Q K^T for rows r0, r0 + 8 and the tile's 64 keys, 8 per fragment,
+// over columns [c0, c1) of the staged Q and K (c0, c1 multiples of 8).
+template <int NC>
+__device__ __forceinline__ void qk_cols(float (&s)[8][4], const float* qs,
+                                        const float* ks, int r0, int g,
+                                        int t, int c0, int c1) {
+  constexpr int qk_ds = 64 * NC + kQKPad;
+#pragma unroll
+  for (int c = c0; c < c1; c += 8) {
+    const float2 qa =
+        *reinterpret_cast<const float2*>(qs + r0 * qk_ds + c + 2 * t);
+    const float2 qb =
+        *reinterpret_cast<const float2*>(qs + (r0 + 8) * qk_ds + c + 2 * t);
+    const float a[4] = {qa.x, qb.x, qa.y, qb.y};
+    uint32_t ah[4], al[4];
+    split4(a, ah, al);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 kk = *reinterpret_cast<const float2*>(
+          ks + (n * 8 + g) * qk_ds + c + 2 * t);
+      mma3(s[n], ah, al, kk.x, kk.y);
+    }
+  }
+}
+
+// S += Q K^T over the 64 NC staged columns. SUB: each 64 columns are
+// summed from 0 in the tensor cores and added to S in float32, as P.V's
+// tiles are to O: the tensor cores truncate their sums, and one chain
+// over a wide head's columns (40 steps at D = 320, against the main
+// path's 8) builds the truncation up past B6's tolerance; only the 64s
+// that hold some of the chunk's w columns are walked (the rest are 0).
+template <int NC, bool SUB>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4], const float* qs,
+                                        const float* ks, int r0, int g,
+                                        int t, int w = 64 * NC) {
+  if constexpr (SUB) {
+#pragma unroll
+    for (int cb = 0; cb < NC; ++cb) {
+      if (64 * cb >= w) break;
+      float part[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+      qk_cols<NC>(part, qs, ks, r0, g, t, 64 * cb, 64 * cb + 64);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+    }
+  } else {
+    qk_cols<NC>(s, qs, ks, r0, g, t, 0, 64 * NC);
+  }
+}
+
+// Columns [w, 64 NC) of the 2 * 64 staged Q and K rows set to 0, so the
+// products over them add exactly 0.
+template <int NC>
+__device__ __forceinline__ void zero_qk_tail(float* qs, int w) {
+  constexpr int qk_ds = 64 * NC + kQKPad;
+  for (int i = threadIdx.x; i < 2 * kTile * qk_ds; i += kThreads)
+    if (i % qk_ds >= w) qs[i] = 0.0f;  // qs and ks are adjacent
+}
+
 // NC: 64-column chunks of o, ceil(d / 64); each warp holds NC * 8 column
-// fragments of its 16 rows.
-template <typename T, int NC>
+// fragments of its 16 rows. WIDE (NC = 4, d > 256): this CTA's output
+// columns are [256 y, 256 y + 256) of d, and the scores walk d in chunks
+// of 256.
+template <typename T, int NC, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ bias,
@@ -233,8 +314,9 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // a fixed count: Q and K columns d .. 64 NC - 1 hold zeros (their
   // products add exactly 0), and V's hold what they hold (the output
   // columns they feed are not written).
-  constexpr int qk_ds = 64 * NC + kQKPad;
-  constexpr int v_ds = 64 * NC + kVPad;
+  constexpr int kW = 64 * NC;
+  constexpr int qk_ds = kW + kQKPad;
+  constexpr int v_ds = kW + kVPad;
   float* qs = smem;
   float* ks = qs + kTile * qk_ds;
   float* vs = ks + kTile * qk_ds;
@@ -247,8 +329,12 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2;
   const int t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16 + g;  // this thread's rows r0, r0+8
+  const T* qb = q + (bh * sq + q0) * d;
   const T* kb = k + bh * sk * d;
   const T* vb = v + bh * sk * d;
+  // This CTA's output columns [d0, d0 + dw).
+  const int d0 = WIDE ? static_cast<int>(blockIdx.y) * kW : 0;
+  const int dw = WIDE ? min(kW, d - d0) : d;
 
   int n_kt = sk / kTile;
   if (causal && bias == nullptr && k_off <= q_off + q0) {
@@ -260,16 +346,18 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // K and V are staged in turn: K of tile j + 1 lands while tile j's
   // softmax and P.V run, V of tile j + 1 while its Q.K^T runs. Every step
   // commits one cp.async group (empty at the end), so "all but the newest
-  // group" is always the tile about to be read.
-  if (d < 64 * NC)
-    for (int i = threadIdx.x; i < 2 * kTile * qk_ds; i += kThreads)
-      if (i % qk_ds >= d) qs[i] = 0.0f;  // qs and ks are adjacent
-  const Chunks w = chunks_of(d);
-  stage(qs, q + (bh * sq + q0) * d, d, qk_ds, w);
-  stage(ks, kb, d, qk_ds, w);
-  cp_async_commit();
-  stage(vs, vb, d, v_ds, w);
-  cp_async_commit();
+  // group" is always the tile about to be read. The wide instance stages
+  // each chunk when it needs it and waits for it.
+  const Chunks w = chunks_of(WIDE ? kW : d);
+  const Chunks wv = chunks_of(dw);
+  if constexpr (!WIDE) {
+    if (d < kW) zero_qk_tail<NC>(qs, d);
+    stage(qs, qb, d, qk_ds, w);
+    stage(ks, kb, d, qk_ds, w);
+    cp_async_commit();
+    stage(vs, vb, d, v_ds, w);
+    cp_async_commit();
+  }
 
   float acc[NC * 8][4];
 #pragma unroll
@@ -283,8 +371,6 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_kt; ++j) {
     const int k0 = j * kTile;
     const int64_t next = static_cast<int64_t>(k0 + kTile) * d;
-    cp_async_wait<1>();
-    __syncthreads();  // K of tile j has landed
 
     // S = Q K^T for rows r0, r0 + 8 and the tile's 64 keys, 8 per fragment.
     float s[8][4];
@@ -292,26 +378,30 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 64 * NC; c += 8) {
-      const float2 qa =
-          *reinterpret_cast<const float2*>(qs + r0 * qk_ds + c + 2 * t);
-      const float2 qb =
-          *reinterpret_cast<const float2*>(qs + (r0 + 8) * qk_ds + c + 2 * t);
-      const float a[4] = {qa.x, qb.x, qa.y, qb.y};
-      uint32_t ah[4], al[4];
-      split4(a, ah, al);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 kk = *reinterpret_cast<const float2*>(
-            ks + (n * 8 + g) * qk_ds + c + 2 * t);
-        mma3(s[n], ah, al, kk.x, kk.y);
+    if constexpr (WIDE) {
+      for (int c0 = 0; c0 < d; c0 += kW) {
+        const int cw = min(kW, d - c0);
+        __syncthreads();  // every warp is done with the last Q, K and V
+        if (cw < kW) zero_qk_tail<NC>(qs, cw);
+        const Chunks wc = cw < kW ? chunks_of(cw) : w;
+        stage(qs, qb + c0, d, qk_ds, wc);
+        stage(ks, kb + static_cast<int64_t>(k0) * d + c0, d, qk_ds, wc);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();  // the chunk's Q and K have landed
+        qk_tile<NC, true>(s, qs, ks, r0, g, t, cw);
       }
+      // V's last reader was tile j - 1's P.V, before the chunks' barriers.
+      stage(vs, vb + static_cast<int64_t>(k0) * d + d0, d, v_ds, wv);
+      cp_async_commit();
+    } else {
+      cp_async_wait<1>();
+      __syncthreads();  // K of tile j has landed
+      qk_tile<NC, false>(s, qs, ks, r0, g, t);
+      __syncthreads();  // every warp is done with K
+      if (j + 1 < n_kt) stage(ks, kb + next, d, qk_ds, w);
+      cp_async_commit();
     }
-
-    __syncthreads();  // every warp is done with K
-    if (j + 1 < n_kt) stage(ks, kb + next, d, qk_ds, w);
-    cp_async_commit();
 
     // Scale, mask and bias; each row's max, and its key when the max
     // grows. Masked: col - row > q_off + q0 - k_off - k0 (clamped, as
@@ -366,7 +456,10 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int h = 0; h < 2; ++h) l_i[h] = alpha[h] * l_i[h] + quad_sum(rs[h]);
 
-    cp_async_wait<1>();
+    if constexpr (WIDE)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
     __syncthreads();  // V of tile j has landed
 #pragma unroll
     for (int cb = 0; cb < NC; ++cb) {
@@ -392,23 +485,33 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
           acc[cb * 8 + i][e] =
               fmaf(alpha[e >> 1], acc[cb * 8 + i][e], pv[i][e]);
     }
-    __syncthreads();  // every warp is done with V
-    if (j + 1 < n_kt) stage(vs, vb + next, d, v_ds, w);
-    cp_async_commit();
+    if constexpr (!WIDE) {
+      __syncthreads();  // every warp is done with V
+      if (j + 1 < n_kt) stage(vs, vb + next, d, v_ds, w);
+      cp_async_commit();
+    }
   }
 
   // m exactly: the running max's key rescored as a float32 FMA chain over
-  // d in order, by thread t = h of the quad for row r0 + 8h.
+  // d in order, by thread t = h of the quad for row r0 + 8h (the wide
+  // instance reads the q row from global memory: its Q tile holds the
+  // last chunk only).
   float m_exact = kNegInf;
   if (t < 2) {
     const int row = r0 + 8 * t;
     const int key = t == 0 ? best[0] : best[1];
     m_exact = t == 0 ? m_i[0] : m_i[1];
     if (key >= 0) {
-      const float* qr = qs + row * qk_ds;
       const T* kr = kb + static_cast<int64_t>(key) * d;
       float dot = 0.0f;
-      for (int c = 0; c < d; ++c) dot = fmaf(qr[c], to_float(kr[c]), dot);
+      if constexpr (WIDE) {
+        const T* qr = qb + static_cast<int64_t>(row) * d;
+        for (int c = 0; c < d; ++c)
+          dot = fmaf(to_float(qr[c]), to_float(kr[c]), dot);
+      } else {
+        const float* qr = qs + row * qk_ds;
+        for (int c = 0; c < d; ++c) dot = fmaf(qr[c], to_float(kr[c]), dot);
+      }
       float x = dot * scale;
       if (causal) x = x + ((k_off + key > q_off + q0 + row) ? kNegInf : 0.0f);
       if (bias != nullptr)
@@ -426,20 +529,20 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int64_t r = bh * sq + q0 + r0 + 8 * h;
-    float* orow = o + r * d + 2 * t;
+    float* orow = o + r * d + d0 + 2 * t;
 #pragma unroll
     for (int jj = 0; jj < NC * 8; ++jj)
-      if (jj * 8 < d)
+      if (jj * 8 < dw)
         *reinterpret_cast<float2*>(orow + jj * 8) =
             make_float2(acc[jj][2 * h] * f[h], acc[jj][2 * h + 1] * f[h]);
-    if (t == 0) {
+    if (t == 0 && d0 == 0) {
       m_out[r] = mf[h];
       l_out[r] = l_i[h] * f[h];
     }
   }
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool WIDE>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            float* o, float* m, float* l, int64_t bh, int sq, int sk, int d,
            float scale, int causal, int64_t q_off, int64_t k_off,
@@ -451,13 +554,15 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_block_kernel<T, NC>,
+        flash_block_kernel<T, NC, WIDE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  const unsigned grid = static_cast<unsigned>(bh * (sq / kTile));
-  flash_block_kernel<T, NC><<<grid, kThreads, smem, st>>>(
+  const dim3 grid(static_cast<unsigned>(bh * (sq / kTile)),
+                  WIDE ? static_cast<unsigned>((d + 64 * NC - 1) / (64 * NC))
+                       : 1u);
+  flash_block_kernel<T, NC, WIDE><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, o, m, l, static_cast<int>(bh), sq, sk,
       d, scale, causal, q_off, k_off);
@@ -471,17 +576,20 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias,
              cudaStream_t st) {
   switch ((d + 63) / 64) {
     case 1:
-      return launch<T, 1>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
-                          causal, q_off, k_off, st);
+      return launch<T, 1, false>(q, k, v, bias, o, m, l, bh, sq, sk, d,
+                                 scale, causal, q_off, k_off, st);
     case 2:
-      return launch<T, 2>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
-                          causal, q_off, k_off, st);
+      return launch<T, 2, false>(q, k, v, bias, o, m, l, bh, sq, sk, d,
+                                 scale, causal, q_off, k_off, st);
     case 3:
-      return launch<T, 3>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
-                          causal, q_off, k_off, st);
+      return launch<T, 3, false>(q, k, v, bias, o, m, l, bh, sq, sk, d,
+                                 scale, causal, q_off, k_off, st);
+    case 4:
+      return launch<T, 4, false>(q, k, v, bias, o, m, l, bh, sq, sk, d,
+                                 scale, causal, q_off, k_off, st);
     default:
-      return launch<T, 4>(q, k, v, bias, o, m, l, bh, sq, sk, d, scale,
-                          causal, q_off, k_off, st);
+      return launch<T, 4, true>(q, k, v, bias, o, m, l, bh, sq, sk, d,
+                                scale, causal, q_off, k_off, st);
   }
 }
 
@@ -501,7 +609,7 @@ int mv_flash_block_attn(const void* q, const void* k, const void* v,
                         void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
   if (sq % kTile != 0 || sk <= 0 || sk % kTile != 0 || d <= 0 ||
-      d % 8 != 0 || d > kMaxD || bh * (sq / kTile) > 0x7fffffffLL)
+      d % 8 != 0 || bh * (sq / kTile) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (bf16)

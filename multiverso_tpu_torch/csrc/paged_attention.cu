@@ -95,6 +95,15 @@
 //     exp(s - m), or exp(m - s) where s is the new max) and p . V goes by
 //     the same columns. The groups, then the warps, then the CTAs merge
 //     (m, l, acc) in a fixed order.
+//   * A head wider than kMaxD (256) takes the wide instance: the output
+//     columns are split into chunks of 256 over CTAs (gridDim.y), each of
+//     which scores every live key over the whole row and keeps its own
+//     chunk's accumulator. A row of such a head does not fit the tiles
+//     of the ring, so a warp scores one key at a time with its lanes
+//     striding over the row, read from global memory; the live-page skip,
+//     the splits and the ticket merge are the same, with one ticket and
+//     one (m, l) pair a chunk. Every chunk's CTA computes the same
+//     scores in the same order. Simple and right; not yet fast.
 // One wrapper call is one launch.
 
 #include <cuda_bf16.h>
@@ -250,6 +259,50 @@ __device__ __forceinline__ Live live_runs(int length, int t, int bucket,
   r.e2 = max(b2, r.s2);
   if (r.count() == 0) r.n1 = r.s2 = r.e2 = n_pages;
   return r;
+}
+
+// The last CTA's merge of a (slot, head)'s split partials: each of the w
+// columns merges the splits in order, 8 at a time: their m, l (at column
+// ml of each partial's row, `stride` floats apart) and the column's acc
+// loaded together (a split with no page was never written and is skipped),
+// the running max and sums rescaled per 8; out[c] = acc / l.
+__device__ __forceinline__ void merge_splits(const float* all, int stride,
+                                             int ml, int w, int splits,
+                                             int n_live, float* out) {
+  for (int c = threadIdx.x; c < w; c += kThreads) {
+    float gm = kNegInf;
+    float sum = 0.f;
+    float sum_o = 0.f;
+    for (int s0 = 0; s0 < splits; s0 += 8) {
+      float pm[8], pl[8], pa[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int sj = s0 + j;
+        const bool some = sj < splits &&
+                          static_cast<int64_t>(sj) * n_live / splits <
+                              static_cast<int64_t>(sj + 1) * n_live / splits;
+        const float* ps = all + sj * stride;
+        pm[j] = some ? __ldcg(ps + ml) : -INFINITY;
+        pl[j] = some ? __ldcg(ps + ml + 1) : 0.f;
+        pa[j] = some ? __ldcg(ps + c) : 0.f;
+      }
+      float cm = gm;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cm = fmaxf(cm, pm[j]);
+      const float r = expf(gm - cm);
+      sum *= r;
+      sum_o *= r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (pm[j] == -INFINITY) continue;
+        const float a = expf(pm[j] - cm);
+        sum += pl[j] * a;
+        sum_o += pa[j] * a;
+      }
+      gm = cm;
+    }
+    out[c] = sum_o / sum;
+  }
 }
 
 // E: values a vector (16 bytes, or 1 value in the narrow instances); LK:
@@ -526,46 +579,186 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     PROF_MARK(3);
     return;
   }
-  // Each column merges the splits in order, 8 at a time: their m, l and
-  // the column's acc loaded together (a split with no page was never
-  // written and is skipped), the running max and sums rescaled per 8.
-  const float* all = part + bh * splits * stride;
-  for (int c = threadIdx.x; c < d; c += kThreads) {
-    float gm = kNegInf;
-    float sum = 0.f;
-    float sum_o = 0.f;
-    for (int s0 = 0; s0 < splits; s0 += 8) {
-      float pm[8], pl[8], pa[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int sj = s0 + j;
-        const bool some = sj < splits &&
-                          static_cast<int64_t>(sj) * n_live / splits <
-                              static_cast<int64_t>(sj + 1) * n_live / splits;
-        const float* ps = all + sj * stride;
-        pm[j] = some ? __ldcg(ps + d) : -INFINITY;
-        pl[j] = some ? __ldcg(ps + d + 1) : 0.f;
-        pa[j] = some ? __ldcg(ps + c) : 0.f;
-      }
-      float cm = gm;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cm = fmaxf(cm, pm[j]);
-      const float r = expf(gm - cm);
-      sum *= r;
-      sum_o *= r;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (pm[j] == -INFINITY) continue;
-        const float a = expf(pm[j] - cm);
-        sum += pl[j] * a;
-        sum_o += pa[j] * a;
-      }
-      gm = cm;
-    }
-    o[bh * d + c] = sum_o / sum;
-  }
+  merge_splits(part + bh * splits * stride, stride, d, d, splits, n_live,
+               o + bh * d);
   if (threadIdx.x == 0) g_tickets[bh] = 0;
   PROF_MARK(3);
+}
+
+// The wide instance (d > kMaxD): CTA (blockIdx.x, blockIdx.y) takes
+// split blockIdx.x % splits of (slot, head) blockIdx.x / splits and the
+// output columns [kMaxD y, kMaxD y + kMaxD) of d. A warp scores one live
+// key at a time, its lanes striding over the whole row in global memory,
+// and keeps the online softmax and its lanes' columns of the chunk.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_wide_kernel(const float* __restrict__ q,
+                         const T* __restrict__ kp, const T* __restrict__ vp,
+                         const float* __restrict__ ks,
+                         const float* __restrict__ vs,
+                         const int* __restrict__ ptab,
+                         const int* __restrict__ lengths,
+                         const int* __restrict__ tstep, float* __restrict__ o,
+                         float* __restrict__ part, int heads, int n_pages,
+                         int page, int d, int64_t page_stride,
+                         int64_t scale_stride, int n_phys, int bucket,
+                         float scale, int splits) {
+  constexpr int kCols = kMaxD / 32;            // chunk columns a lane holds
+  constexpr bool kQuant = sizeof(T) == 1;
+  __shared__ float wacc[kWarps * kMaxD];
+  __shared__ float wm[kWarps];
+  __shared__ float wl[kWarps];
+  __shared__ int last;
+
+  const int64_t bh = blockIdx.x / splits;
+  const int split = static_cast<int>(blockIdx.x - bh * splits);
+  const int b = static_cast<int>(bh / heads);
+  const int h = static_cast<int>(bh - static_cast<int64_t>(b) * heads);
+  const int chunk = static_cast<int>(blockIdx.y);
+  const int n_chunks = static_cast<int>(gridDim.y);
+  const int c0 = chunk * kMaxD;
+  const int cw = min(kMaxD, d - c0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  const int length = lengths[b];
+  const int t = tstep[b];
+  const int* prow = ptab + static_cast<int64_t>(b) * n_pages;
+  const float* qr = q + bh * d;
+  const Live live = live_runs(length, t, bucket, page, n_pages);
+  const int n_live = live.count();
+  const int k0 = static_cast<int>(static_cast<int64_t>(split) * n_live /
+                                  splits);
+  const int k1 = static_cast<int>(static_cast<int64_t>(split + 1) * n_live /
+                                  splits);
+  const int64_t head_off = static_cast<int64_t>(h) * page * d;
+
+  float m = kNegInf;
+  float l = 0.f;
+  float acc[kCols];
+#pragma unroll
+  for (int n = 0; n < kCols; ++n) acc[n] = 0.f;
+  const int n_keys = (k1 - k0) * page;
+  for (int kk = warp; kk < n_keys; kk += kWarps) {
+    const int pi = kk / page;
+    const int r = kk - pi * page;
+    const int j = live.page(k0 + pi);
+    const int phys = min(max(prow[j], 0), n_phys - 1);
+    const int64_t off = phys * page_stride + head_off +
+                        static_cast<int64_t>(r) * d;
+    float sk = 1.f, sv = 1.f;
+    if constexpr (kQuant) {
+      const int64_t so = phys * scale_stride +
+                         static_cast<int64_t>(h) * page + r;
+      sk = ks[so];
+      sv = vs[so];
+    }
+    float sp = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      float x = to_f(kp[off + c]);
+      if constexpr (kQuant) x *= sk;
+      sp = fmaf(qr[c], x, sp);
+    }
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1)
+      sp += __shfl_xor_sync(0xffffffffu, sp, sh);
+    float s = sp * scale;
+    const int pos = j * page + r;
+    s += (pos < length || (pos >= bucket && pos <= bucket + t)) ? 0.f
+                                                                : kNegInf;
+    const bool grows = s > m;
+    const float e = expf(grows ? m - s : s - m);
+    const float alpha = grows ? e : 1.f;
+    const float p = grows ? 1.f : e;
+    m = grows ? s : m;
+    l = l * alpha + p;
+#pragma unroll
+    for (int n = 0; n < kCols; ++n) {
+      const int c = lane + 32 * n;
+      if (c < cw) {
+        float x = to_f(vp[off + c0 + c]);
+        if constexpr (kQuant) x *= sv;
+        acc[n] = fmaf(p, x, acc[n] * alpha);
+      }
+    }
+  }
+
+  // The warps, in order, through shared memory.
+#pragma unroll
+  for (int n = 0; n < kCols; ++n) wacc[warp * kMaxD + lane + 32 * n] = acc[n];
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+  __syncthreads();
+  float mx = wm[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wm[w]);
+  float aw[kWarps];
+  float sum_l = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    aw[w] = expf(wm[w] - mx);
+    sum_l += wl[w] * aw[w];
+  }
+  if (splits == 1) {
+    for (int c = threadIdx.x; c < cw; c += kThreads) {
+      float sum_o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum_o += wacc[w * kMaxD + c] * aw[w];
+      o[bh * d + c0 + c] = sum_o / sum_l;
+    }
+    return;
+  }
+
+  // Split: this CTA's partial of its chunk and the chunk's own (m, l);
+  // the last CTA of the (slot, head, chunk) merges them in split order.
+  const int stride = d + 2 * n_chunks;
+  const int ml = d + 2 * chunk;
+  float* mine = part + (bh * splits + split) * stride;
+  if (k1 > k0) {
+    for (int c = threadIdx.x; c < cw; c += kThreads) {
+      float sum_o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum_o += wacc[w * kMaxD + c] * aw[w];
+      mine[c0 + c] = sum_o;
+    }
+    if (threadIdx.x == 0) {
+      mine[ml] = mx;
+      mine[ml + 1] = sum_l;
+    }
+  }
+  const int64_t ticket = bh * n_chunks + chunk;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&g_tickets[ticket], 1) == splits - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  merge_splits(part + bh * splits * stride + c0, stride, ml - c0, cw, splits,
+               n_live, o + bh * d + c0);
+  if (threadIdx.x == 0) g_tickets[ticket] = 0;
+}
+
+template <typename T>
+int launch_wide(const float* q, const void* kp, const void* vp,
+                const float* ks, const float* vs, const int* ptab,
+                const int* lengths, const int* t, float* o, float* part,
+                int64_t bh, int heads, int n_pages, int page, int d,
+                int64_t page_stride, int64_t scale_stride, int n_phys,
+                int bucket, float scale, int splits, cudaStream_t st) {
+  const int n_chunks = (d + kMaxD - 1) / kMaxD;
+  if (splits > 1 && bh * n_chunks > kMaxTickets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(bh * splits),
+                  static_cast<unsigned>(n_chunks));
+  paged_decode_wide_kernel<T><<<grid, kThreads, 0, st>>>(
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs, ptab,
+      lengths, t, o, part, heads, n_pages, page, d, page_stride,
+      scale_stride, n_phys, bucket, scale, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int E, int LK, int NV>
@@ -626,6 +819,7 @@ int dispatch_narrow(MV_PAGED_PARAMS) {
 
 template <typename T>
 int dispatch(MV_PAGED_PARAMS) {
+  if (d > kMaxD) return launch_wide<T>(MV_PAGED_ARGS);
   const int64_t row_bytes = static_cast<int64_t>(d) * sizeof(T);
   const bool vec = row_bytes % 16 == 0 &&
                    (page_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
@@ -654,9 +848,12 @@ extern "C" {
 // and scale_stride elements between pages (unread otherwise); ptab
 // [batch, n_pages], lengths and t [batch], int32. splits CTAs take each
 // (slot, head); with splits > 1, part holds batch * heads * splits *
-// (d + 2) floats of scratch. Writes o [batch, heads, d] float32. Returns
+// (d + 2) floats of scratch (d <= 256). Writes o [batch, heads, d] float32. Returns
 // cudaGetLastError() after the launch (0 = launched); shapes the kernel
-// does not take return cudaErrorInvalidValue and launch nothing.
+// does not take return cudaErrorInvalidValue and launch nothing. A head
+// wider than 256 (d > kMaxD) is split into ceil(d / 256) column chunks:
+// part then holds batch * heads * splits * (d + 2 * chunks) floats, and
+// batch * heads * chunks must not pass kMaxTickets when splits > 1.
 int mv_paged_decode_attn(const float* q, const void* kp, const void* vp,
                          const float* ks, const float* vs, const int* ptab,
                          const int* lengths, const int* t, float* o,
@@ -666,7 +863,7 @@ int mv_paged_decode_attn(const float* q, const void* kp, const void* vp,
                          float scale, int kind, int splits, void* stream) {
   if (batch <= 0 || heads <= 0) return 0;
   const int64_t bh = static_cast<int64_t>(batch) * heads;
-  if (n_pages <= 0 || page <= 0 || d <= 0 || d > kMaxD || n_phys <= 0 ||
+  if (n_pages <= 0 || page <= 0 || d <= 0 || n_phys <= 0 ||
       splits <= 0 || splits > n_pages || bh * splits > 0x7fffffffLL ||
       (splits > 1 && (part == nullptr || bh > kMaxTickets)) || kind < 0 ||
       kind > 2 ||

@@ -107,7 +107,13 @@
 // w_in runs and the w_out runs touch different tables, so they share one
 // phase. Registers bound the occupancy (every CTA must be resident for the
 // grid barrier), so phase 1 is built for at most 8 negatives and for at
-// most 16, and launched with the smaller variant that fits. The update
+// most 16, and launched with the smaller variant that fits. More than 16
+// negatives (the JAX kernel takes any count) take the grouped variant:
+// phase 1 reads a pair's negatives 16 at a time and folds each group's
+// dot products, loss terms and gradient terms into the pair's running
+// sums in k order, so every sum is added in the order of the other
+// variants (the grouped variant at K <= 16 would give their bits); phase
+// 2 is the same code for every variant. The update
 // arithmetic uses explicitly rounded operations (__fmul_rn, __fadd_rn,
 // ...) so no multiply-add is contracted and each element rounds as the
 // plain torch chain does.
@@ -947,7 +953,138 @@ __device__ __forceinline__ int32_t pair_ids(const SgnsArgs& a, int64_t p,
   return 0;
 }
 
-template <typename E, int VEC, int KMAX>
+// Pair p's center and context on lanes 0 and 1: the grouped variant reads
+// the negatives a group at a time.
+__device__ __forceinline__ int32_t pair_ends(const SgnsArgs& a, int64_t p,
+                                             int lane) {
+  if (lane == 0) return a.centers[p];
+  if (lane == 1) return a.contexts[p];
+  return 0;
+}
+
+// Phase 1 of pair p (slot b of its chunk) in the grouped variant: the
+// pair's K negatives G at a time. The loss terms and the negatives' terms
+// of u's gradient are summed over k in order across the groups (in
+// registers where a row takes one pass of the warp, through grad_u
+// otherwise), so every sum is the other variants' in the same order.
+template <typename E, int VEC, int G>
+__device__ __forceinline__ void pair_grouped(const SgnsArgs& a, int64_t p,
+                                             int64_t b, int32_t ends,
+                                             float m, int lane,
+                                             float& sum_pos,
+                                             float& sum_neg) {
+  using L = Ld<VEC>;
+  using T = typename L::T;
+  const int C = a.chunk, K = a.k, D = a.d, dv = D / VEC;
+  const int64_t cr = clip(__shfl_sync(kFull, ends, 0), a.v_in);
+  const int64_t orow = clip(__shfl_sync(kFull, ends, 1), a.v_out);
+  const E* w_out = static_cast<const E*>(a.w_out);
+  const E* u = static_cast<const E*>(a.w_in) + cr * D;
+  const E* vp = w_out + orow * D;
+  T* gu = reinterpret_cast<T*>(a.grad_u + b * D);
+  T* us = reinterpret_cast<T*>(a.u_snap + b * D);
+  const int32_t* negs = a.negatives + p * K;
+  const bool one = dv <= 32;  // a row in one pass: held in registers
+  const bool col = lane < dv;
+  const int cc = col ? lane : 0;
+  T uu = L::zero(), vv = L::zero(), acc = L::zero();
+  float dpos = 0.f;
+  if (one) {
+    uu = L::at(u, cc);
+    vv = L::at(vp, cc);
+    if (col) dpos = L::dot(uu, vv);
+  } else {
+    for (int c = lane; c < dv; c += 32) dpos += L::dot(L::at(u, c),
+                                                       L::at(vp, c));
+  }
+  dpos = warp_sum(dpos);
+  const float s_pos = sigmoidf(dpos);
+  float ln = 0.f;
+  for (int g0 = 0; g0 < K; g0 += G) {
+    const int kn = K - g0 < G ? K - g0 : G;
+    const int32_t mine = lane < kn ? negs[g0 + lane] : 0;
+    int32_t nr[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int32_t x = __shfl_sync(kFull, mine, k);
+      nr[k] = k < kn ? (int32_t)clip(x, a.v_out) : 0;
+    }
+    float dneg[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) dneg[k] = 0.f;
+    if (one) {
+      T vn[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k)
+        vn[k] = k < kn ? L::at(w_out + (int64_t)nr[k] * D, cc) : L::zero();
+      if (col) {
+#pragma unroll
+        for (int k = 0; k < G; ++k)
+          if (k < kn) dneg[k] = L::dot(uu, vn[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (k < kn) {
+          const float sk = sigmoidf(warp_sum(dneg[k]));
+          ln += m * logf(1.f - sk + kEps);
+          dneg[k] = sk * m;
+        }
+      }
+      if (col) {
+#pragma unroll
+        for (int k = 0; k < G; ++k)
+          if (k < kn) acc = L::add(acc, L::scale(dneg[k], vn[k]));
+      }
+    } else {
+      for (int c = lane; c < dv; c += 32) {
+        const T x = L::at(u, c);
+#pragma unroll
+        for (int k = 0; k < G; ++k)
+          if (k < kn)
+            dneg[k] += L::dot(x, L::at(w_out + (int64_t)nr[k] * D, c));
+      }
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (k < kn) {
+          const float sk = sigmoidf(warp_sum(dneg[k]));
+          ln += m * logf(1.f - sk + kEps);
+          dneg[k] = sk * m;
+        }
+      }
+      for (int c = lane; c < dv; c += 32) {
+        T x = g0 == 0 ? L::zero() : gu[c];
+#pragma unroll
+        for (int k = 0; k < G; ++k)
+          if (k < kn)
+            x = L::add(x, L::scale(dneg[k],
+                                   L::at(w_out + (int64_t)nr[k] * D, c)));
+        gu[c] = x;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      if (k < kn && lane == k + 1) a.coef[C + b * K + g0 + k] = dneg[k];
+  }
+  sum_pos += m * logf(s_pos + kEps);
+  sum_neg += ln;
+  const float g_pos = (s_pos - 1.f) * m;
+  if (one) {
+    if (col) {
+      gu[cc] = L::add(L::scale(g_pos, vv), acc);
+      us[cc] = uu;
+    }
+  } else {
+    for (int c = lane; c < dv; c += 32) {
+      gu[c] = L::add(L::scale(g_pos, L::at(vp, c)), gu[c]);
+      us[c] = L::at(u, c);
+    }
+  }
+  if (lane == 0) a.coef[b] = g_pos;
+}
+
+// KMAX: the negatives phase 1 holds at once; GROUPED: any count, KMAX at a
+// time (pair_grouped).
+template <typename E, int VEC, int KMAX, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sgns_block_kernel(SgnsArgs a) {
   using L = Ld<VEC>;
@@ -978,12 +1115,20 @@ sgns_block_kernel(SgnsArgs a) {
   for (int64_t ci = 0; ci < n_live; ++ci) {
     // -- phase 1: gather, loss, gradient scratch; one warp per pair ------
     float sum_pos = 0.f, sum_neg = 0.f;  // sums of m*log(...) (all lanes)
-    int32_t ids = gwarp < C ? pair_ids(a, ci * C + gwarp, lane) : 0;
+    auto ids_of = [&](int64_t p) {
+      return GROUPED ? pair_ends(a, p, lane) : pair_ids(a, p, lane);
+    };
+    int32_t ids = gwarp < C ? ids_of(ci * C + gwarp) : 0;
     for (int64_t b = gwarp; b < C; b += nwarps) {
       const int64_t nb = b + nwarps;
-      const int32_t next_ids = nb < C ? pair_ids(a, ci * C + nb, lane) : 0;
+      const int32_t next_ids = nb < C ? ids_of(ci * C + nb) : 0;
       const int64_t p = ci * C + b;
       const float m = (p < n_pairs) ? 1.f : 0.f;
+      if constexpr (GROUPED) {
+        pair_grouped<E, VEC, KMAX>(a, p, b, ids, m, lane, sum_pos, sum_neg);
+        ids = next_ids;
+        continue;
+      }
       const int64_t cr = clip(__shfl_sync(kFull, ids, K), a.v_in);
       const int64_t orow = clip(__shfl_sync(kFull, ids, K + 1), a.v_out);
       int32_t nr[KMAX];
@@ -1152,52 +1297,81 @@ sgns_block_kernel(SgnsArgs a) {
 
 // Let each instance take kLongSmem bytes of dynamic shared memory, once
 // per device.
-template <typename E, int VEC, int KMAX>
+template <typename E, int VEC, int KMAX, bool GROUPED>
 void allow_smem() {
   static bool done[64];
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64 || !done[dev]) {
-    cudaFuncSetAttribute(sgns_block_kernel<E, VEC, KMAX>,
+    cudaFuncSetAttribute(sgns_block_kernel<E, VEC, KMAX, GROUPED>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kLongSmem);
     if (dev >= 0 && dev < 64) done[dev] = true;
   }
 }
 
-template <typename E, int VEC, int KMAX>
+template <typename E, int VEC, int KMAX, bool GROUPED>
 int launch(SgnsArgs a, int grid, cudaStream_t st) {
-  allow_smem<E, VEC, KMAX>();
+  allow_smem<E, VEC, KMAX, GROUPED>();
   void* params[] = {&a};
-  cudaLaunchCooperativeKernel((const void*)sgns_block_kernel<E, VEC, KMAX>,
-                              dim3(grid), dim3(kThreads), params, kLongSmem,
-                              st);
+  cudaLaunchCooperativeKernel(
+      (const void*)sgns_block_kernel<E, VEC, KMAX, GROUPED>, dim3(grid),
+      dim3(kThreads), params, kLongSmem, st);
   return (int)cudaGetLastError();
 }
 
-template <typename E, int VEC, int KMAX>
+template <typename E, int VEC, int KMAX, bool GROUPED>
 int occupancy_grid() {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  allow_smem<E, VEC, KMAX>();
+  allow_smem<E, VEC, KMAX, GROUPED>();
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sgns_block_kernel<E, VEC, KMAX>, kThreads, kLongSmem);
+      &per_sm, sgns_block_kernel<E, VEC, KMAX, GROUPED>, kThreads,
+      kLongSmem);
   return per_sm * sms;
 }
 
+// The variant for k negatives at row width d: at most 8 or 16 held at
+// once, or the grouped one (16 at a time) beyond 16. grid_size and block
+// pick it alike.
+template <typename E, typename F>
+int with_variant(int d, int k, F f) {
+  if (d % 4 == 0) {
+    if (k <= kSmallNeg) return f.template run<E, 4, kSmallNeg, false>();
+    if (k <= kMaxNeg) return f.template run<E, 4, kMaxNeg, false>();
+    return f.template run<E, 4, kMaxNeg, true>();
+  }
+  if (k <= kSmallNeg) return f.template run<E, 1, kSmallNeg, false>();
+  if (k <= kMaxNeg) return f.template run<E, 1, kMaxNeg, false>();
+  return f.template run<E, 1, kMaxNeg, true>();
+}
+
+struct Occupancy {
+  template <typename E, int VEC, int KMAX, bool GROUPED>
+  int run() const {
+    return occupancy_grid<E, VEC, KMAX, GROUPED>();
+  }
+};
+
+struct Launch {
+  SgnsArgs a;
+  int grid;
+  cudaStream_t st;
+  template <typename E, int VEC, int KMAX, bool GROUPED>
+  int run() const {
+    return launch<E, VEC, KMAX, GROUPED>(a, grid, st);
+  }
+};
+
 template <typename E>
 int grid_size(int d, int k) {
-  if (d % 4 == 0)
-    return k <= kSmallNeg ? occupancy_grid<E, 4, kSmallNeg>()
-                          : occupancy_grid<E, 4, kMaxNeg>();
-  return k <= kSmallNeg ? occupancy_grid<E, 1, kSmallNeg>()
-                        : occupancy_grid<E, 1, kMaxNeg>();
+  return with_variant<E>(d, k, Occupancy{});
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue, launching nothing, when long_cap (the length of
-// long_runs) is short of the most long runs one chunk can list.
+// cudaErrorInvalidValue, launching nothing, when k < 1 or long_cap (the
+// length of long_runs) is short of the most long runs one chunk can list.
 template <typename E>
 int block(void* w_in, void* w_out, float* g_in, float* g_out, int64_t v_in,
           int64_t v_out, const int32_t* centers, const int32_t* contexts,
@@ -1208,7 +1382,8 @@ int block(void* w_in, void* w_out, float* g_in, float* g_out, int64_t v_in,
           int64_t n_chunks, int chunk, int k, int d, float lr, int adagrad,
           int grid, int32_t* long_runs, int64_t long_cap, int32_t* counts,
           void* stream) {
-  if (long_cap < chunk / kLongRun + (int64_t)chunk * (1 + k) / kLongRun)
+  if (k < 1 ||
+      long_cap < chunk / kLongRun + (int64_t)chunk * (1 + k) / kLongRun)
     return (int)cudaErrorInvalidValue;
   SgnsArgs a{w_in,      w_out,    g_in,     g_out,    v_in,     v_out,
              centers,   contexts, negatives, in_ids,  in_perm,  out_ids,
@@ -1216,11 +1391,7 @@ int block(void* w_in, void* w_out, float* g_in, float* g_out, int64_t v_in,
              loss_out,  n_chunks, chunk,    k,        d,        lr,
              adagrad,   long_runs, counts};
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (d % 4 == 0)
-    return k <= kSmallNeg ? launch<E, 4, kSmallNeg>(a, grid, st)
-                          : launch<E, 4, kMaxNeg>(a, grid, st);
-  return k <= kSmallNeg ? launch<E, 1, kSmallNeg>(a, grid, st)
-                        : launch<E, 1, kMaxNeg>(a, grid, st);
+  return with_variant<E>(d, k, Launch{a, grid, st});
 }
 
 }  // namespace

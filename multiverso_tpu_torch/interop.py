@@ -13,8 +13,12 @@ device arrays), so this module needs neither JAX nor the JAX package:
   bit patterns or as the JAX package's own bfloat16 arrays, and load bit
   for bit;
 * :func:`load_attention_lm_params` writes the JAX ``AttentionLM.params``
-  into a port ``AttentionLM``; :func:`check_attention_lm_params` is its
-  check, which the serving runner applies to the same dict.
+  into a port ``AttentionLM``: the flat layout, or the 1F1B pipeline's
+  stage-stacked one (``embed``, ``out`` and ``qkv``/``attn_out``/
+  ``mlp_in``/``mlp_out`` as ``[stages, blocks, ...]``) into a pipelined
+  model, so both packages train from the same weights;
+  :func:`check_attention_lm_params` is its check, which the serving
+  runner applies to the same dict.
 
 Each checks names, shapes and dtypes, so a mismatched pair of models
 fails loudly.
@@ -119,7 +123,10 @@ def check_attention_lm_params(params: Mapping[str, np.ndarray],
 def load_attention_lm_params(lm, params: Mapping[str, np.ndarray]) -> None:
     """Write the JAX package's ``AttentionLM.params`` (``np.asarray`` of
     each leaf) into the port's ``AttentionLM`` after
-    :func:`check_attention_lm_params`. Adam's state is not carried."""
+    :func:`check_attention_lm_params`: flat parameters into a flat model,
+    stage-stacked ones (``pipeline_stages > 0`` in both packages) into a
+    pipelined one. Every rank of a model spread over ranks loads the same
+    dict. Adam's state is not carried."""
     import torch
 
     mine = dict(lm.named_parameters())

@@ -72,8 +72,7 @@ from multiverso_tpu_torch.models.word2vec.dictionary import (Dictionary,
                                                              Sampler)
 from multiverso_tpu_torch.ops.rows import (add_rows_sorted, sort_rows,
                                           wrap_row_ids)
-from multiverso_tpu_torch.ops.sgns import (MAX_NEGATIVE,
-                                           build_sgns_grid_step,
+from multiverso_tpu_torch.ops.sgns import (build_sgns_grid_step,
                                            sgns_grid_eligible)
 from multiverso_tpu_torch.telemetry import span
 from multiverso_tpu_torch.utils.dashboard import monitor
@@ -564,12 +563,11 @@ def resolve_dispatch_mode(cfg: "Word2VecConfig", in_rows: int,
                                  cfg.batch_size, cfg.negative,
                                  cfg.param_dtype, device),
               f"dispatch_mode={mode or 'auto'} on {device}: the sg-ns kernel "
-              f"takes float32 or bfloat16 tables, negative <= "
-              f"{MAX_NEGATIVE} and a working set within the device's "
-              f"memory; vocab {in_rows}/{out_rows} x D={cfg.embedding_size} "
-              f"K={cfg.negative} {cfg.param_dtype} is not taken (ROADMAP "
-              f"B5; an explicit dispatch_mode=in_graph runs the plain chunk "
-              f"loop)")
+              f"takes float32 or bfloat16 tables, at least one negative and "
+              f"a working set within the device's memory; vocab "
+              f"{in_rows}/{out_rows} x D={cfg.embedding_size} "
+              f"K={cfg.negative} {cfg.param_dtype} is not taken (an explicit "
+              f"dispatch_mode=in_graph runs the plain chunk loop)")
         if not explicit:
             log.info("w2v dispatch auto: CUDA device -> pallas_grid")
         return "pallas_grid"

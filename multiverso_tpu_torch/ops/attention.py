@@ -50,8 +50,10 @@ from multiverso_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 BLOCK = 128          # the TPU kernel's tile; Sq and Sk must divide by it
-MAX_HEAD_DIM = 256   # csrc/attention.cu kMaxD
-PAGED_MAX_HEAD_DIM = 256   # csrc/paged_attention.cu kMaxD
+#: The widest head of B6's and B7's register-held instances; wider heads
+#: take their wide instances (``csrc/attention.cu``,
+#: ``csrc/paged_attention.cu``: the output columns split over CTAs).
+MAX_HEAD_DIM = 256
 PAGED_MAX_TICKETS = 1 << 16   # csrc/paged_attention.cu kMaxTickets
 #: B7's grid aims at this many CTAs an SM (``paged_splits``).
 PAGED_CTAS_PER_SM = 4
@@ -161,10 +163,6 @@ def _check(q, k, v, bias) -> bool:
         raise ValueError(f"flash_block_attn needs Sq % {BLOCK} == 0, "
                          f"Sk % {BLOCK} == 0 and D % 8 == 0; got Sq={sq}, "
                          f"Sk={sk}, D={d}")
-    if on_card and d > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_block_attn on a card takes D <= {MAX_HEAD_DIM}; got "
-            f"D={d} (ROADMAP B6)")
     if bias is not None and tuple(bias.shape) != (sq, sk):
         raise ValueError(f"bias must be [Sq, Sk] = [{sq}, {sk}]; got "
                          f"{tuple(bias.shape)}")
@@ -222,8 +220,7 @@ def flash_block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and key (host ints, or a 2-element tensor read to the host), used by
     ``causal``. Returns float32 ``(o [B,H,Sq,D], m [B,H,Sq,1],
     l [B,H,Sq,1])``, un-normalised. Needs ``Sq % 128 == 0``,
-    ``Sk % 128 == 0`` and ``D % 8 == 0`` (the JAX wrapper's assertion);
-    on a card also ``D <= 256``."""
+    ``Sk % 128 == 0`` and ``D % 8 == 0`` (the JAX wrapper's assertion)."""
     on_card = _check(q, k, v, bias)
     q_off, k_off = _offsets(offsets)
     return _FlashBlockAttn.apply(q, k, v, bias, float(scale), bool(causal),
@@ -293,7 +290,8 @@ def paged_splits(bh: int, n_pages: int, sms: int) -> int:
     CTAs make ``PAGED_CTAS_PER_SM`` an SM, at most one per page of the
     table (the live count of a slot is known only on the card). One where
     ``bh`` already fills the card or passes the kernel's ticket
-    counters."""
+    counters. ``bh`` counts the (slot, head) pairs times the column chunks
+    of a head wider than ``MAX_HEAD_DIM``."""
     if bh > PAGED_MAX_TICKETS:
         return 1
     return max(1, min(n_pages, -(-PAGED_CTAS_PER_SM * sms // bh)))
@@ -367,10 +365,6 @@ def _check_paged(q, kp, vp, ptab, lengths, t, page: int, ks, vs) -> bool:
     if dev.type == "cpu":
         return False
     dh = qs[2]
-    if dh > PAGED_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"paged_decode_attn on a card takes dh <= "
-            f"{PAGED_MAX_HEAD_DIM}; got dh={dh} (ROADMAP B7)")
     stride = kp.stride()
     if stride[1:] != (page * dh, dh, 1) or stride != vp.stride():
         raise ValueError(
@@ -419,9 +413,12 @@ def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
     o = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
     if B * H * dh == 0:
         return o
-    splits = paged_splits(B * H, G, _sm_count(dev))
-    part = (_paged_scratch(dev, B * H * splits * (dh + 2)) if splits > 1
-            else None)
+    # A head wider than MAX_HEAD_DIM is split into column chunks of that
+    # width over CTAs (the kernel's wide instance), each merged on its own.
+    chunks = -(-dh // MAX_HEAD_DIM) if dh > MAX_HEAD_DIM else 1
+    splits = paged_splits(B * H * chunks, G, _sm_count(dev))
+    part = (_paged_scratch(dev, B * H * splits * (dh + 2 * chunks))
+            if splits > 1 else None)
     if not q.is_contiguous():
         q = q.contiguous()
     ptab, lengths, t = _int32(ptab), _int32(lengths), _int32(t)

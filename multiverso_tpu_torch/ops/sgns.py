@@ -48,7 +48,6 @@ from multiverso_tpu_torch.ops import _build
 #: instance and the bfloat16 one.
 LAUNCHES: Dict[str, int] = {"sgns_block": 0, "sgns_block_bf16": 0}
 
-MAX_NEGATIVE = 16              # csrc/sgns.cu kMaxNeg
 #: csrc/sgns.cu's kLongRun: runs this long are applied by a whole CTA.
 #: The kernel refuses a long-run buffer sized with a smaller value
 #: (``mv_sgns_block``), and ``chip_smoke.py`` holds this one to the
@@ -80,13 +79,13 @@ def sgns_grid_eligible(in_rows: int, out_rows: int, dim: int, chunk: int,
                        device: torch.device) -> bool:
     """True when the kernel takes this configuration on ``device``: a CUDA
     device, float32 or bfloat16 embeddings (``param_dtype`` read by name),
-    ``negative <= MAX_NEGATIVE``, and the working set within the device's
+    at least one negative, and the working set within the device's
     memory."""
     if device.type != "cuda":
         return False
     if torch_dtype(param_dtype) not in EMBEDDING_DTYPES:
         return False
-    if not 1 <= negative <= MAX_NEGATIVE:
+    if negative < 1:
         return False
     total = torch.cuda.get_device_properties(device).total_memory
     return sgns_grid_bytes(in_rows, out_rows, dim, chunk, negative,
@@ -136,7 +135,9 @@ def grid_size(dim: int, negative: int, device: torch.device,
               dtype: torch.dtype = torch.float32) -> int:
     """CTAs of the cooperative grid (every CTA resident on the card) of
     the instance for embeddings of ``dtype``."""
-    key = (device.index, dim % 4 == 0, negative <= 8, dtype)
+    # csrc/sgns.cu's variants: up to 8 or 16 negatives held at once, or
+    # the grouped one beyond 16.
+    key = (device.index, dim % 4 == 0, min(2, (negative - 1) // 8), dtype)
     if key not in _grid_cache:
         with torch.cuda.device(device):
             _grid_cache[key] = int(getattr(
@@ -173,9 +174,8 @@ def _check(w_in, w_out, g_in, g_out, centers2d, contexts2d, negatives3d):
     if contexts2d.shape != (n, chunk) or negatives3d.dim() != 3 or \
             negatives3d.shape[:2] != (n, chunk):
         raise ValueError("sg-ns stream shapes disagree")
-    if not 1 <= negatives3d.shape[2] <= MAX_NEGATIVE:
-        raise ValueError(f"the sg-ns kernel takes 1..{MAX_NEGATIVE} "
-                         f"negatives; got {negatives3d.shape[2]}")
+    if negatives3d.shape[2] < 1:
+        raise ValueError("the sg-ns kernel takes at least one negative")
 
 
 class SgnsLaunch(NamedTuple):

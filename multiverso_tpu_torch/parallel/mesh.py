@@ -30,6 +30,11 @@ from multiverso_tpu_torch.utils.configure import get_flag
 
 SERVER_AXIS = "server"
 WORKER_AXIS = "worker"
+#: The long-context LM's axes: data x sequence parallelism, or the 1F1B
+#: pipeline's stages x sequence (``models/attention_lm.py``).
+DATA_AXIS = "data"
+SEQ_AXIS = "seq"
+STAGE_AXIS = "stage"
 
 
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
@@ -74,6 +79,16 @@ class RankMesh:
         """The process group of this rank's slice along ``axis``."""
         return self._groups.get(axis)
 
+    @property
+    def size(self) -> int:
+        """Ranks on the mesh."""
+        return int(self.ranks.size)
+
+    @property
+    def world_group(self):
+        """The process group of every rank of the mesh (None: one rank)."""
+        return dist.group.WORLD if self.size > 1 else None
+
 
 def _slices(ranks: np.ndarray, axis: int):
     """Every slice of ``ranks`` along ``axis``: the rank lists that differ
@@ -115,3 +130,38 @@ def build_mesh(spec: Optional[str] = None) -> RankMesh:
             if rank in members:
                 groups[name] = group
     return RankMesh(axes, rank, groups)
+
+
+def lm_axes(world: int, seq_parallel: Optional[int] = None,
+            data_parallel: Optional[int] = None,
+            pipeline_stages: int = 0) -> Dict[str, int]:
+    """The long-context LM's axes and sizes on a world of ``world`` ranks,
+    with the JAX ``AttentionLM``'s defaults: ``{stage: P, seq: sp}``
+    (``sp = seq_parallel or 1``) for the 1F1B pipeline of ``P > 0``
+    stages, else ``{data: dp, seq: sp}`` with ``sp = seq_parallel or
+    min(world, 4)`` and ``dp = data_parallel or world // sp``. The model
+    checks that the sizes fit the world."""
+    if pipeline_stages > 0:
+        return {STAGE_AXIS: pipeline_stages, SEQ_AXIS: seq_parallel or 1}
+    sp = seq_parallel or min(world, 4)
+    return {DATA_AXIS: data_parallel or max(world // sp, 1), SEQ_AXIS: sp}
+
+
+def lm_mesh_spec(world: int, seq_parallel: Optional[int] = None,
+                 data_parallel: Optional[int] = None,
+                 pipeline_stages: int = 0) -> str:
+    """The ``-mesh_shape`` of :func:`lm_axes`."""
+    return ",".join(f"{a}:{k}" for a, k in lm_axes(
+        world, seq_parallel, data_parallel, pipeline_stages).items())
+
+
+def build_lm_mesh(seq_parallel: Optional[int] = None,
+                  data_parallel: Optional[int] = None,
+                  pipeline_stages: int = 0) -> RankMesh:
+    """The rank mesh of the long-context LM over this process's world
+    (:func:`lm_mesh_spec`); every rank of the world must call it, in the
+    same order, as :func:`build_mesh`."""
+    multi = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if multi else 1
+    return build_mesh(lm_mesh_spec(world, seq_parallel, data_parallel,
+                                   pipeline_stages))

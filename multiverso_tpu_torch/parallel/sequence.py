@@ -6,11 +6,14 @@ rotates K/V shards around the ring (``ppermute``) and merges each step's
 streaming-softmax block, Ulysses swaps sequence-sharded activations to
 head-sharded ones with two ``all_to_all`` hops.
 
-This slice of the port runs the sequence group as ONE rank, the card: the
-ring keeps its n-step loop and merge with the rotation as the identity,
-and the Ulysses layout swaps are identities, so a multi-rank version only
-adds the send and receive over ``torch.distributed``. A group of more than
-one rank raises ``NotImplementedError`` (ROADMAP A10).
+Here the sequence group is a ``torch.distributed`` process group (the
+``"seq"`` axis of ``parallel/mesh.py``'s rank mesh), one rank a sequence
+block, and each function takes and returns this rank's block. The ring's
+rotation is :func:`~multiverso_tpu_torch.parallel.collectives.ring_shift`
+of K and V packed into one tensor (one exchange a ring step); Ulysses'
+swaps are :func:`~multiverso_tpu_torch.parallel.collectives.all_to_all`.
+Both are differentiable, so training runs through them. ``group=None`` is
+this rank alone (every rotation and swap the identity).
 
 ``-flash_attention`` (default false, as in the JAX package) routes the
 ring's local block step and Ulysses' attention through B6
@@ -22,32 +25,30 @@ autograd differentiates.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
 from multiverso_tpu_torch.ops.attention import (flash_block_attn,
                                                 flash_block_attn_plain)
+from multiverso_tpu_torch.parallel.collectives import (all_to_all,
+                                                       group_rank_size,
+                                                       ring_shift)
 
 
-def _one_rank(n: int) -> None:
-    if n > 1:
-        raise NotImplementedError(
-            f"sequence parallelism over {n} ranks is not ported yet: the "
-            "ring's K/V rotation and Ulysses' all-to-all over "
-            "torch.distributed wait for ROADMAP A10")
-
-
-def _group(group) -> Tuple[int, int]:
-    """(rank, size) of the sequence group: ``None`` is this rank alone; a
-    ``torch.distributed`` process group (anything with ``rank()`` and
-    ``size()``) must have one rank."""
+def _group(group):
+    """(rank, size) of the sequence group: ``None`` is this rank alone;
+    a group of more than one rank needs a ``torch.distributed`` world."""
     if group is None:
         return 0, 1
-    rank, n = int(group.rank()), int(group.size())
-    _one_rank(n)
-    return rank, n
+    n = int(group.size())
+    if n > 1 and not (torch.distributed.is_available()
+                      and torch.distributed.is_initialized()):
+        raise RuntimeError(
+            f"a sequence group of {n} ranks needs a torch.distributed "
+            "process group (mv.init with -coordinator)")
+    return (group_rank_size(group) if n > 1 else (0, 1))
 
 
 def _resolve_flash(use_flash, sq: int, sk: int, d: int) -> bool:
@@ -59,22 +60,18 @@ def _resolve_flash(use_flash, sq: int, sk: int, d: int) -> bool:
     return bool(use_flash) and sq % 128 == 0 and sk % 128 == 0 and d % 8 == 0
 
 
-def _rotate(k_cur, v_cur):
-    """Send this rank's K/V block to rank + 1 and take rank - 1's; with
-    one rank, the only group this slice takes, the block stays where it
-    is."""
-    return k_cur, v_cur
-
-
 def ring_attention_block(q_blk: torch.Tensor, k_blk: torch.Tensor,
                          v_blk: torch.Tensor, rank: int, n: int,
                          causal: bool = False,
-                         use_flash: Optional[bool] = None) -> torch.Tensor:
+                         use_flash: Optional[bool] = None,
+                         group=None) -> torch.Tensor:
     """The per-rank ring-attention body. ``q_blk/k_blk/v_blk``: this
-    rank's [B, H, S/n, D] sequence block of a group of ``n`` ranks.
-    ``use_flash`` routes the local block step through B6; ``None`` reads
-    the ``-flash_attention`` flag."""
-    _one_rank(n)
+    rank's [B, H, S/n, D] sequence block, ``rank`` its index in ``group``
+    (the ring of ``n`` ranks; ``None`` with ``n`` 1). ``use_flash`` routes
+    the local block step through B6; ``None`` reads the
+    ``-flash_attention`` flag."""
+    if n > 1 and group is None:
+        raise RuntimeError(f"a ring of {n} ranks needs its process group")
     use_flash = _resolve_flash(use_flash, q_blk.shape[2], k_blk.shape[2],
                                q_blk.shape[3])
     scale = 1.0 / np.sqrt(q_blk.shape[-1])
@@ -90,6 +87,7 @@ def ring_attention_block(q_blk: torch.Tensor, k_blk: torch.Tensor,
     # exp(-inf - -inf) = nan; -1e30 underflows cleanly and the merge's
     # beta zeroes the block.
     block_attn = flash_block_attn if use_flash else flash_block_attn_plain
+    kv = torch.stack([k_blk, v_blk]) if n > 1 else None
     k_cur, v_cur = k_blk, v_blk
     for step in range(n):
         # After `step` rotations this rank holds the K/V block that
@@ -105,7 +103,12 @@ def ring_attention_block(q_blk: torch.Tensor, k_blk: torch.Tensor,
         o_acc = o_acc * alpha + o * beta
         l_acc = l_acc * alpha + l * beta
         m_acc = m_new
-        k_cur, v_cur = _rotate(k_cur, v_cur)
+        # K and V travel as one tensor, one exchange a step. The JAX scan
+        # also rotates after the last step; that block is never read, so
+        # it is not sent.
+        if step + 1 < n:
+            kv = ring_shift(kv, group)
+            k_cur, v_cur = kv[0], kv[1]
     return o_acc / torch.clamp(l_acc, min=1e-20)
 
 
@@ -120,33 +123,45 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rank, n = _group(group)
     use_flash = _resolve_flash(None, q.shape[2], k.shape[2], q.shape[3])
     return ring_attention_block(q, k, v, rank, n, causal=causal,
-                                use_flash=use_flash)
+                                use_flash=use_flash,
+                                group=group if n > 1 else None)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       group=None, causal: bool = False) -> torch.Tensor:
-    """All-to-all sequence parallelism (the Ulysses layout swap): the
-    sequence-split blocks become head-split full sequences, dense
-    attention runs on them (the causal mask is the plain lower triangle),
-    and the result is swapped back. With one rank both swaps are the
-    identity."""
-    _group(group)
+    """All-to-all sequence parallelism (the Ulysses layout swap): this
+    rank's [B, H, S/n, D] blocks become head-split full sequences
+    [B, H/n, S, D] (H must divide by n), dense attention runs on them
+    (the causal mask is the plain lower triangle) and the result is
+    swapped back. With one rank both swaps are the identity."""
+    _, n = _group(group)
+    grp = group if n > 1 else None
+    if q.shape[1] % n:
+        raise ValueError(f"Ulysses attention splits {q.shape[1]} heads "
+                         f"over {n} ranks")
+
+    def seq_to_head(x):                    # [B,H,S/n,D] -> [B,H/n,S,D]
+        return all_to_all(x, grp, split_dim=1, concat_dim=2)
+
+    qh, kh, vh = seq_to_head(q), seq_to_head(k), seq_to_head(v)
     scale = 1.0 / np.sqrt(q.shape[-1])
-    S = q.shape[2]
+    S = qh.shape[2]
     if _resolve_flash(None, S, S, q.shape[3]):
         # Causal mask computed in the kernel (offsets zero: full sequence).
-        o, _, l = flash_block_attn(q, k, v, scale=float(scale),
+        o, _, l = flash_block_attn(qh, kh, vh, scale=float(scale),
                                    causal=causal)
-        return (o / torch.clamp(l, min=1e-20)).to(q.dtype)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    if causal:
-        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                     device=q.device))
-        s = torch.where(mask[None, None], s,
-                        torch.tensor(torch.finfo(s.dtype).min,
-                                     dtype=s.dtype, device=s.device))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+        o = (o / torch.clamp(l, min=1e-20)).to(q.dtype)
+    else:
+        s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+        if causal:
+            mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                         device=q.device))
+            s = torch.where(mask[None, None], s,
+                            torch.tensor(torch.finfo(s.dtype).min,
+                                         dtype=s.dtype, device=s.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", p, vh)
+    return all_to_all(o, grp, split_dim=2, concat_dim=1)
 
 
 def reference_attention(q, k, v):

@@ -1,17 +1,22 @@
-"""Rank processes of the port's two-rank tests on the CPU.
+"""Rank processes of the port's multi-rank tests on the CPU.
 
-``tests/test_torch_collectives.py`` starts two of these per case:
+``tests/test_torch_collectives.py`` starts two of these per case, and the
+long-context LM's tests (``tests/test_torch_*_ranks.py``,
+``tests/test_torch_pipeline.py``) two or four through :func:`run_world`:
 
     python tests/_torch_ranks.py <case> <rank> <out_dir> [case arguments]
 
-Each joins a gloo world of two ranks on loopback through ``mv.init``,
-runs its case, writes ``rank<r>.json`` (and ``rank<r>.npz`` with the
-arrays the parent checks) into ``out_dir``, and exits 0. The cases take
-their inputs from fixed seeds, so the parent can rebuild every input.
+Each joins a gloo world on loopback through ``mv.init``, runs its case,
+writes ``rank<r>.json`` (and ``rank<r>.npz`` with the arrays the parent
+checks) into ``out_dir``, and exits 0. The cases take their inputs from
+fixed seeds (or from ``inputs.npz``, which the parent writes into
+``out_dir`` first), so the parent can rebuild every input.
 """
 
 import json
 import os
+import socket
+import subprocess
 import sys
 
 import numpy as np
@@ -229,7 +234,242 @@ def case_machine_file(rank: int, out: str, machine_file: str,
     return res
 
 
-CASES = {"world": case_world, "machine_file": case_machine_file}
+# ---------------------------------------------------------------------------
+# The long-context LM across ranks: ring and Ulysses, the differentiable
+# collectives, the LM at data x seq, the 1F1B pipeline.
+# ---------------------------------------------------------------------------
+RANK_TIMEOUT_S = 120
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(out_dir: str, case: str, n: int, *args) -> list:
+    """``n`` rank processes of ``case`` (each ``args``); returns each
+    rank's JSON result. A rank that fails or outlives RANK_TIMEOUT_S
+    raises, naming its output's tail."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep +
+               os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), case, str(r), out_dir,
+         str(n), coordinator, *map(str, args)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(n)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {r} of '{case}' hung past "
+                                     f"{RANK_TIMEOUT_S} s")
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} of '{case}' failed:\n"
+                                     f"{err[-3000:]}")
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _world(rank: int, n: int, coordinator: str, mesh_shape: str):
+    import torch
+    torch.set_num_threads(1)
+    import multiverso_tpu_torch as mv
+    mv.init(["-platform=cpu", f"-coordinator={coordinator}",
+             f"-world_size={n}", f"-rank={rank}",
+             f"-mesh_shape={mesh_shape}"])
+    from multiverso_tpu_torch.core.zoo import Zoo
+    return mv, Zoo.get().mesh
+
+
+#: Ring and Ulysses inputs: [B, H, S, D] (S = 512: the JAX flash gate's
+#: 128-row blocks hold at four ranks).
+ATTN_SHAPE = (1, 4, 512, 32)
+
+
+def attn_inputs(seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=ATTN_SHAPE).astype(np.float32)
+            for _ in range(3)]
+
+
+def case_seq_attn(rank: int, out: str, n: str, coordinator: str) -> dict:
+    """Ring and Ulysses attention over a sequence group of n ranks, causal
+    and not, -flash_attention off and on, on this rank's block; and at
+    n = 2 the differentiable collectives: gradcheck in float64 of
+    ring_shift and all_to_all composed with their inverses, and each
+    one's gradient across ranks."""
+    import torch
+    n = int(n)
+    mv, mesh = _world(rank, n, coordinator, f"seq:{n}")
+    from multiverso_tpu_torch.parallel import collectives as col
+    from multiverso_tpu_torch.parallel import sequence as seq
+    from multiverso_tpu_torch.utils.configure import set_flag
+    group = mesh.group("seq")
+    res = {"rank": rank, "axis_index": mesh.axis_index("seq")}
+    blk = ATTN_SHAPE[2] // n
+    q, k, v = (torch.as_tensor(t[:, :, rank * blk:(rank + 1) * blk])
+               for t in attn_inputs())
+    arrays = {}
+    for flash in (False, True):
+        set_flag("flash_attention", flash)
+        for causal in (False, True):
+            for mode in ("ring", "ulysses"):
+                fn = (seq.ring_attention if mode == "ring"
+                      else seq.ulysses_attention)
+                arrays[f"{mode}_{int(causal)}_{int(flash)}"] = fn(
+                    q, k, v, group, causal=causal).numpy()
+    set_flag("flash_attention", False)
+    if n == 2:
+        g = torch.Generator().manual_seed(rank)
+        x = torch.randn((2, 4, 3), generator=g, dtype=torch.float64,
+                        requires_grad=True)
+        w = torch.randn((2, 4, 3), generator=g, dtype=torch.float64)
+
+        def shift_back(t):
+            return col.ring_shift(col.ring_shift(t, group) * w, group,
+                                  step=-1)
+
+        w2 = torch.randn((2, 2, 6), generator=g, dtype=torch.float64)
+
+        def swap_back(t):               # [2, 4, 3] -> [2, 2, 6] and back
+            return col.all_to_all(col.all_to_all(t, group, 1, 2) * w2,
+                                  group, 2, 1)
+
+        res["gradcheck_ring_shift"] = bool(torch.autograd.gradcheck(
+            shift_back, (x,)))
+        res["gradcheck_all_to_all"] = bool(torch.autograd.gradcheck(
+            swap_back, (x,)))
+        # Across ranks: y = shift(x) and loss = sum(y * c_r), so x's
+        # gradient on rank r is the next rank's c.
+        c = torch.full((2, 4, 3), float(rank + 1), dtype=torch.float64)
+        x2 = x.detach().clone().requires_grad_(True)
+        (col.ring_shift(x2, group) * c).sum().backward()
+        arrays["shift_grad"] = x2.grad.numpy()
+        x3 = x.detach().clone().requires_grad_(True)
+        (col.all_to_all(x3, group, 1, 2) * float(rank + 1)).sum().backward()
+        arrays["a2a_grad"] = x3.grad.numpy()
+        arrays["a2a_fwd"] = col.all_to_all(x.detach(), group, 1, 2).numpy()
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    mv.shutdown()
+    return res
+
+
+LM_SMALL = dict(vocab=61, dim=32, heads=4, layers=2, seq=256)
+
+
+def lm_tokens(seed: int, B: int = 2, S: int = 256, vocab: int = 61):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)) \
+        .astype(np.int32)
+
+
+def case_lm(rank: int, out: str, n: str, coordinator: str, mesh_shape: str,
+            cfg_json: str) -> dict:
+    """The LM on a mesh of n ranks from the JAX parameters in
+    ``inputs.npz``: loss() (flag off, then on), the gradient of one batch
+    (summed over the mesh), then 3 fit steps; rank 0 writes the arrays,
+    every rank a digest of its parameters."""
+    import hashlib
+    import torch
+    n = int(n)
+    mv, mesh = _world(rank, n, coordinator, mesh_shape)
+    from multiverso_tpu_torch import interop
+    from multiverso_tpu_torch.models import attention_lm as lm
+    from multiverso_tpu_torch.utils.configure import set_flag
+    cfg = lm.LMConfig(**json.loads(cfg_json))
+    model = lm.AttentionLM(cfg, device=torch.device("cpu"), mesh=mesh)
+    params = dict(np.load(os.path.join(out, "inputs.npz")))
+    interop.load_attention_lm_params(model, params)
+    res = {"rank": rank, "shard": [model.shard.data_index,
+                                   model.shard.seq_index]}
+    arrays = {}
+    tokens = lm_tokens(0, B=4 if cfg.pipeline_stages else 2)
+    res["loss"] = model.loss(tokens)
+    if not cfg.pipeline_stages:
+        set_flag("flash_attention", True)
+        res["loss_flash"] = model.loss(tokens)
+        set_flag("flash_attention", False)
+        loss = lm.next_token_loss(model.params, model._tokens(lm_tokens(1)),
+                                  cfg, model.shard)
+        loss.backward()
+        model._sum_grads(model.shard.group)
+        res["grad_loss"] = float(loss)
+        for name, p in model.params.items():
+            arrays[f"grad/{name}"] = p.grad.numpy()
+            p.grad = None
+    batches = [lm_tokens(10 + i, B=4 if cfg.pipeline_stages else 2)
+               for i in range(3)]
+    res["fit"] = model.fit(batches)
+    digest = hashlib.sha256()
+    for name, p in sorted(model.params.items()):
+        arrays[f"param/{name}"] = p.detach().numpy()
+        digest.update(p.detach().numpy().tobytes())
+    res["digest"] = digest.hexdigest()
+    res["loss_after"] = model.loss(tokens)
+    if rank == 0:
+        np.savez(os.path.join(out, "rank0.npz"), **arrays)
+    mv.shutdown()
+    return res
+
+
+#: The pipeline test's stage: a tanh layer with a bias; its loss a sum of
+#: squares against the targets through a head matrix.
+PIPE_MB, PIPE_DIM, PIPE_M = 3, 8, 5
+
+
+def pipe_inputs(S: int, seed: int = 3):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.normal(size=(S, PIPE_DIM, PIPE_DIM)).astype(np.float32)
+            * 0.5,
+            "b": rng.normal(size=(S, PIPE_DIM)).astype(np.float32) * 0.1,
+            "head": rng.normal(size=(PIPE_DIM, 2)).astype(np.float32),
+            "xs": rng.normal(size=(PIPE_M, PIPE_MB, PIPE_DIM))
+            .astype(np.float32),
+            "tgts": rng.normal(size=(PIPE_M, PIPE_MB, 2)).astype(np.float32)}
+
+
+def case_pipe(rank: int, out: str, n: str, coordinator: str) -> dict:
+    """pipeline_train_1f1b and pipeline_apply over a stage axis of n ranks
+    (pipe_inputs' stage and loss); each rank writes its stage's
+    gradients, the head's and the input's."""
+    import torch
+    n = int(n)
+    mv, mesh = _world(rank, n, coordinator, f"stage:{n}")
+    from multiverso_tpu_torch.parallel import pipeline as pp
+    s = mesh.axis_index("stage")
+    ins = {k: torch.as_tensor(v) for k, v in pipe_inputs(n).items()}
+    stage = {"w": ins["w"][s].clone().requires_grad_(True),
+             "b": ins["b"][s].clone().requires_grad_(True)}
+    head = {"head": ins["head"].clone().requires_grad_(True)}
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def loss_fn(h, y, t):
+        return ((y @ h["head"] - t) ** 2).sum()
+
+    loss, sg, hg, dx = pp.pipeline_train_1f1b(
+        stage_fn, loss_fn, stage, ins["xs"], ins["tgts"], mesh,
+        head_params=head, return_input_grads=True)
+    ys = pp.pipeline_apply(stage_fn, stage, ins["xs"], mesh)
+    np.savez(os.path.join(out, f"rank{rank}.npz"), w=sg["w"].numpy(),
+             b=sg["b"].numpy(), head=hg["head"].numpy(), dx=dx.numpy(),
+             ys=ys.detach().numpy())
+    mv.shutdown()
+    return {"rank": rank, "stage": s, "loss": float(loss)}
+
+
+CASES = {"world": case_world, "machine_file": case_machine_file,
+         "seq_attn": case_seq_attn, "lm": case_lm, "pipe": case_pipe}
 
 
 def main() -> int:

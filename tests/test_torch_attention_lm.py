@@ -23,6 +23,8 @@ Tolerances and why:
   tightly.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -165,15 +167,26 @@ def test_fit_with_flash_raises_where_the_gradient_is_needed(flash_flag):
     assert np.isfinite(pm.fit([_tokens()])).all()
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(pipeline_stages=2), "A10"),
-    (dict(seq_parallel=2), "A10"),
-    (dict(data_parallel=2), "A10"),
+@pytest.mark.parametrize("kw,ranks,match", [
+    (dict(seq_parallel=2, data_parallel=1), 1, "mesh 1x2 exceeds 1 "),
+    (dict(seq=255, seq_parallel=2), 2, "seq must divide by seq_parallel"),
+    (dict(pipeline_stages=2, moe_experts=4), 1, "does not compose with MoE"),
 ])
-def test_unported_configurations_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        lm.AttentionLM(lm.LMConfig(**dict(SMALL, **kw)),
-                       device=torch.device("cpu"))
+def test_unported_configurations_raise(kw, ranks, match):
+    """The JAX ``AttentionLM``'s checks that refuse a configuration, in
+    both packages: a mesh larger than the ranks (devices) it has, a
+    sequence that does not split over the sequence axis, and the pipeline
+    with MoE. The port's model reads only the size of its mesh before the
+    checks, so a stand-in of that size takes the place of a world."""
+    from multiverso_tpu_torch.utils.log import FatalError
+    cfg = dict(SMALL, **kw)
+    with pytest.raises(Exception, match=match):
+        jax_lm.AttentionLM(jax_lm.LMConfig(**cfg),
+                           devices=jax.devices()[:ranks])
+    mesh = types.SimpleNamespace(size=ranks) if ranks > 1 else None
+    with pytest.raises(FatalError, match=match):
+        lm.AttentionLM(lm.LMConfig(**cfg), device=torch.device("cpu"),
+                       mesh=mesh)
 
 
 def test_the_card_is_the_default_device(monkeypatch):

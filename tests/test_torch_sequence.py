@@ -101,12 +101,16 @@ def test_flash_gate_follows_the_flag_and_the_shapes(flash_flag):
 
 @pytest.mark.parametrize("fn", ["ring_attention", "ulysses_attention"])
 def test_a_group_of_more_than_one_rank_raises(fn):
+    """A group of one rank is the no-group call, bit for bit; a group of
+    more than one rank runs over torch.distributed
+    (``test_torch_sequence_ranks.py``) and, outside a process group,
+    raises rather than computing this rank's block alone."""
     q, k, v = (torch.as_tensor(t[:, :, :128]) for t in _inputs(2))
-    group = types.SimpleNamespace(rank=lambda: 1, size=lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        getattr(seq, fn)(q, k, v, group, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        seq.ring_attention_block(q, k, v, 0, 2)
     one = types.SimpleNamespace(rank=lambda: 0, size=lambda: 1)
     np.testing.assert_array_equal(getattr(seq, fn)(q, k, v, one).numpy(),
                                   getattr(seq, fn)(q, k, v).numpy())
+    group = types.SimpleNamespace(rank=lambda: 1, size=lambda: 4)
+    with pytest.raises(RuntimeError, match="process group"):
+        getattr(seq, fn)(q, k, v, group, causal=True)
+    with pytest.raises(RuntimeError, match="process group"):
+        seq.ring_attention_block(q, k, v, 0, 2)

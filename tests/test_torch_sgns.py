@@ -153,8 +153,9 @@ def card(monkeypatch):
 
 def test_eligibility_reckons_device_memory(card):
     """Unlike the TPU's VMEM rule, the flagship's 50K vocab is eligible on
-    one H100; 16-bit tables, more than 16 negatives, a working set beyond
-    the device's memory and a CPU device are not."""
+    one H100, and so is any negative count (past 16 the kernel's grouped
+    variant runs); float16 tables, no negatives, a working set beyond the
+    device's memory and a CPU device are not."""
     assert sgns.sgns_grid_eligible(50_000, 50_000, 128, 8192, 5, np.float32,
                                    card)
     assert sgns.sgns_grid_bytes(50_000, 50_000, 128, 8192, 5,
@@ -167,7 +168,10 @@ def test_eligibility_reckons_device_memory(card):
         == tables + (2 * 8192 * 128 + 8192 * 6) * 4 + streams
     assert not sgns.sgns_grid_eligible(50_000, 50_000, 128, 8192, 5,
                                        np.dtype("float16"), card)
-    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 17, np.float32,
+    for k in (17, 40):
+        assert sgns.sgns_grid_eligible(1000, 1000, 128, 8192, k, np.float32,
+                                       card)
+    assert not sgns.sgns_grid_eligible(1000, 1000, 128, 8192, 0, np.float32,
                                        card)
     assert not sgns.sgns_grid_eligible(10**8, 10**8, 128, 8192, 5,
                                        np.float32, card)

@@ -232,9 +232,12 @@ def test_dispatch_on_a_card_never_falls_back_to_the_plain_loop(monkeypatch):
     for mode in (None, "auto", "pallas_grid"):
         cfg = Word2VecConfig(**_cfg_kwargs(dispatch_mode=mode))
         assert tmodel.resolve_dispatch_mode(cfg, V, V, card) == "pallas_grid"
+        # Above 16 negatives the kernel's grouped variant runs.
         cfg = Word2VecConfig(**_cfg_kwargs(dispatch_mode=mode, negative=17))
-        with pytest.raises(FatalError, match="ROADMAP B5"):
-            tmodel.resolve_dispatch_mode(cfg, V, V, card)
+        assert tmodel.resolve_dispatch_mode(cfg, V, V, card) == "pallas_grid"
+        # A working set beyond the card's memory is not taken: it raises.
+        with pytest.raises(FatalError, match="is not taken"):
+            tmodel.resolve_dispatch_mode(cfg, 2**40, V, card)
     for mode in ("in_graph", "pipelined_host"):
         cfg = Word2VecConfig(**_cfg_kwargs(dispatch_mode=mode, negative=17))
         assert tmodel.resolve_dispatch_mode(cfg, V, V, card) == mode
