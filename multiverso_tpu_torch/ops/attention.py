@@ -19,7 +19,9 @@ the JAX package cannot differentiate through its ``pallas_call`` either,
 and trains through the plain ``_block_attn``. Called directly, the plain
 version is that training step: ``parallel/sequence.py`` runs it as the
 ring's block step with the flag off, and autograd differentiates it. The
-wrapper counts its kernel launches in ``LAUNCHES``.
+wrapper counts its kernel launches in ``LAUNCHES``, and by the instance
+of the kernel that served them (:func:`b6_instance`) in
+``B6_INSTANCES``.
 
 B7 is the port of ``paged_decode_attn`` of the same JAX module:
 :func:`paged_decode_attn` attends one decode token per slot over ONE
@@ -50,9 +52,9 @@ from multiverso_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 BLOCK = 128          # the TPU kernel's tile; Sq and Sk must divide by it
-#: The widest head of B6's and B7's register-held instances; wider heads
-#: take their wide instances (``csrc/attention.cu``,
-#: ``csrc/paged_attention.cu``: the output columns split over CTAs).
+#: The widest head of B7's register-held instance; wider heads take its
+#: wide instance (``csrc/paged_attention.cu``: the output columns split
+#: over CTAs). B6's instances are named by :func:`b6_instance`.
 MAX_HEAD_DIM = 256
 PAGED_MAX_TICKETS = 1 << 16   # csrc/paged_attention.cu kMaxTickets
 #: B7's grid aims at this many CTAs an SM (``paged_splits``).
@@ -62,6 +64,17 @@ PAGED_CTAS_PER_SM = 4
 #: instance apart from its float32 and bfloat16 ones).
 LAUNCHES: Dict[str, int] = {"flash_block_attn": 0, "paged_decode_attn": 0,
                             "paged_decode_attn_int8": 0}
+
+#: B6's instances in ``csrc/attention.cu`` (its ``with_instance``): the
+#: narrow ones (one warpgroup a q tile, O of 64 NC columns in registers)
+#: by the widest head each takes, the wide ones (two warpgroups a q tile)
+#: likewise, Q streamed past 512.
+B6_INSTANCE_NAMES = ("narrow d<=64", "narrow d<=128", "narrow d<=192",
+                     "narrow d<=256", "wide d<=384", "wide d<=512",
+                     "wide d>512")
+#: B6's launches by the instance that served them; each is also counted
+#: in ``LAUNCHES["flash_block_attn"]``.
+B6_INSTANCES: Dict[str, int] = dict.fromkeys(B6_INSTANCE_NAMES, 0)
 
 #: B7's page types, by the code of their instance in
 #: ``csrc/paged_attention.cu``.
@@ -81,6 +94,14 @@ def supported(q: torch.Tensor, k: torch.Tensor, block_q: int = BLOCK,
     is a multiple of 8."""
     return (q.shape[2] % block_q == 0 and k.shape[2] % block_k == 0
             and q.shape[3] % 8 == 0)
+
+
+def b6_instance(d: int) -> str:
+    """The name of B6's instance that takes heads of width ``d``."""
+    chunks = -(-d // 64)
+    if chunks <= 4:
+        return B6_INSTANCE_NAMES[chunks - 1]
+    return B6_INSTANCE_NAMES[4 if chunks <= 6 else 5 if chunks <= 8 else 6]
 
 
 def _offsets(offsets: Offsets) -> Tuple[int, int]:
@@ -131,6 +152,9 @@ def _lib():
             c, c, c, c, c, c, c, i64, i32, i32, i32, ctypes.c_float, i32,
             i64, i64, i32, c]
         lib.mv_flash_block_attn.restype = ctypes.c_int
+        lib.mv_flash_block_attn_describe.argtypes = [
+            i32, i32, ctypes.POINTER(ctypes.c_int)]
+        lib.mv_flash_block_attn_describe.restype = ctypes.c_int
         lib._mv_typed = True
     return lib
 
@@ -190,7 +214,21 @@ def _launch(q, k, v, bias, scale: float, causal: bool, q_off: int,
         int(q.dtype == torch.bfloat16), _build.stream(q))
     _build.check_launch(err, "flash_block_attn")
     LAUNCHES["flash_block_attn"] += 1
+    B6_INSTANCES[b6_instance(d)] += 1
     return o, m, l
+
+
+def describe(d: int, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+    """The launch shape and resources of B6's instance for heads of width
+    ``d`` on the current card, as the CUDA runtime reports them: threads
+    a CTA, dynamic shared memory bytes, registers and local (spill) bytes
+    a thread, CTAs an SM. Card only."""
+    out = (ctypes.c_int * 5)()
+    _build.check_launch(_lib().mv_flash_block_attn_describe(
+        int(d), int(dtype == torch.bfloat16), out), "flash_block_attn")
+    keys = ("threads", "smem_bytes", "registers", "local_bytes",
+            "ctas_per_sm")
+    return {"instance": b6_instance(d), **dict(zip(keys, out))}
 
 
 class _FlashBlockAttn(torch.autograd.Function):

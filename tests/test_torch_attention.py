@@ -60,7 +60,7 @@ def _port(q, k, v, bias=None, **kw):
     return [t.numpy() for t in out]
 
 
-def _assert_close(got, want, m_exact=True):
+def _assert_close(got, want, m_exact=True, m_atol=0.0):
     (o2, m2, l2), (o1, m1, l1) = got, want
     np.testing.assert_allclose(o2 / np.maximum(l2, 1e-20),
                                o1 / np.maximum(l1, 1e-20),
@@ -68,7 +68,7 @@ def _assert_close(got, want, m_exact=True):
     if m_exact:
         np.testing.assert_array_equal(m2, m1)
     else:
-        np.testing.assert_allclose(m2, m1, rtol=1e-6)
+        np.testing.assert_allclose(m2, m1, rtol=1e-6, atol=m_atol)
     np.testing.assert_allclose(l2, l1, rtol=2e-5)
 
 
@@ -167,6 +167,52 @@ def test_plain_bf16_inputs_compute_in_f32():
     _assert_close([t.numpy() for t in out], want)
 
 
+@pytest.mark.parametrize("d", [264, 320, 512])
+@pytest.mark.parametrize("case", ["causal (0, 0)", "causal (384, 128)",
+                                  "causal (128, 384)", "fully masked",
+                                  "band bias"])
+def test_plain_wide_heads_match_jax_flash(d, case):
+    """Heads wider than 256, which the card serves with B6's wide
+    instance: the plain version (its oracle there) against the JAX
+    kernel, causal at the ring's offsets, a wholly masked block (m exactly
+    -1e30) and the band bias. At such widths the two sides sum each dot
+    product of D terms in another order (torch's and XLA's CPU products),
+    which moves a score by a few 1e-6 (4.5e-6 read at D = 512): m is held
+    to rtol 1e-6 plus atol 1e-5, o and l to the file's tolerances."""
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, B=1, H=2, Sq=128, Sk=256, D=d)
+    kw = dict(scale=float(1.0 / np.sqrt(d)))
+    bias = None
+    if case.startswith("causal"):
+        kw.update(causal=True, offsets=tuple(
+            int(x) for x in case[8:-1].split(", ")))
+    elif case == "fully masked":
+        kw.update(causal=True, offsets=(0, 128))
+    else:
+        bias = _band_bias(128, 256)
+    jkw = dict(kw)
+    if "offsets" in jkw:
+        jkw["offsets"] = jnp.asarray(jkw["offsets"], jnp.int32)
+    got = _port(q, k, v, bias, **kw)
+    want = _jax(q, k, v, bias, **jkw)
+    _assert_close(got, want, m_exact=False, m_atol=1e-5)
+    if case == "fully masked":
+        np.testing.assert_array_equal(got[1], np.float32(-1e30))
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_b6_instance_names_follow_the_kernel_dispatch():
+    """The names the wrapper counts launches under: the narrow instances
+    by 64-column chunks of D up to 256, the wide ones up to 384, 512 and
+    past it, as ``csrc/attention.cu``'s ``with_instance`` picks them."""
+    want = {8: "narrow d<=64", 64: "narrow d<=64", 72: "narrow d<=128",
+            192: "narrow d<=192", 256: "narrow d<=256",
+            264: "wide d<=384", 384: "wide d<=384", 392: "wide d<=512",
+            512: "wide d<=512", 520: "wide d>512", 1024: "wide d>512"}
+    assert {d: attention.b6_instance(d) for d in want} == want
+    assert set(attention.B6_INSTANCES) == set(attention.B6_INSTANCE_NAMES)
+
+
 def test_supported_gate_matches_jax():
     rng = np.random.default_rng(2)
     for sq, sk, d in ((256, 384, 64), (100, 128, 64), (128, 100, 64),
@@ -200,14 +246,14 @@ def test_flash_has_no_backward():
 
 
 @pytest.mark.parametrize("case", ["causal", "bias", "bf16", "d8", "d256",
-                                  "poisoned"])
+                                  "poisoned", "d264", "d320", "d512"])
 def test_kernel_matches_plain_on_card(card, case):
     """The kernel against the plain version on the same inputs; for
     ``poisoned``, the kernel on inputs with NaN in the K and V rows of
     keys 256-383, which no query sees at offsets (0, 0), against the plain
     version on the clean inputs: the kernel never reads those rows."""
     rng = np.random.default_rng(7)
-    d = {"d8": 8, "d256": 256}.get(case, 64)
+    d = int(case[1:]) if case.startswith("d") else 64
     q, k, v = (torch.as_tensor(t, device=card)
                for t in _qkv(rng, Sq=256, Sk=384, D=d))
     kq, vq = k, v
@@ -225,9 +271,11 @@ def test_kernel_matches_plain_on_card(card, case):
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         kq, vq = k, v
     before = attention.LAUNCHES["flash_block_attn"]
+    served = attention.B6_INSTANCES[attention.b6_instance(d)]
     got = [t.cpu().numpy()
            for t in attention.flash_block_attn(q, kq, vq, **kw)]
     assert attention.LAUNCHES["flash_block_attn"] == before + 1
+    assert attention.B6_INSTANCES[attention.b6_instance(d)] == served + 1
     want = [t.cpu().numpy()
             for t in attention.flash_block_attn_plain(q, k, v, **kw)]
     _assert_close(got, want, m_exact=False)
