@@ -267,12 +267,14 @@ at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
 of ``scripts/bench_flash_attn.py:41`` (non-causal, timed with both bounds,
 3xTF32 on the tensor cores and float32 on the CUDA cores, and
 ``scaled_dot_product_attention`` as the yardstick), at the LM's eval
-shape with heads of 128 and 256 (the other narrow instances, timed the
-same way; their errors there are recorded, not held: ROADMAP C9), at the
-LM's widths with NaN in the K and V rows of the keys no query sees (the kernel skips
-their tiles; the plain version gets clean rows), and once each causal
-with offsets, fully masked, with a bias, in bfloat16 and at D = 8 and
-256, within ``ATTN_TOL``; and B7 (``paged_decode_attn``) at the
+shape with heads of 128 (the narrow instance of two chunks) and 256 (the
+wide instance of two chunks a warpgroup), timed the same way, at the
+LM's widths with NaN in the K and V rows of the keys no query sees (the
+kernel skips their tiles; the plain version gets clean rows), once each
+causal with offsets, fully masked, with a bias, in bfloat16 and at D = 8
+and 256, and at heads of ``MID_HEADS`` (causal at the ring's offsets, a
+bias, bfloat16, NaN in the unseen keys, two launches bitwise equal),
+within ``ATTN_TOL``; and B7 (``paged_decode_attn``) at the
 serving shape (8 slots, 12 heads, dh 64, page 16, bucket 512, max_new 64:
 36 pages per slot) over one layer of a pool of the serving phase's size,
 with a page table from real page plans of the workload's lengths, and at
@@ -289,7 +291,12 @@ and B x H that fills the card, within ``PAGED_TOL``. B7's int8 instance
 way at both shapes (payloads of 127 and NaN scales in the wholly
 excluded pages), timed with its byte bound (dh + 4 bytes a row), and run
 once per int8 template instance (``PAGED_INT8_INSTANCES``) and on a page
-that does not divide the bucket, an idle slot and t = 0. Then the wide
+that does not divide the bucket, an idle slot and t = 0, and at the
+layouts its tiles of several pages meet (``check_paged_int8_layouts``:
+live pages in two runs with a tile spanning the gap, split boundaries
+inside slots over scattered physical pages, scale planes off a 16-byte
+boundary, pages of 6 and of 128), each also poisoned, repeated and
+replayed from a graph. Then the wide
 instances (``check_wide_kernels``): B5 with ``WIDE_NEG`` negatives (its
 grouped variant) on the flagship block, held chunk by chunk within
 ``SGNS_RTOL`` (the whole block's difference recorded), two launches
@@ -1912,14 +1919,15 @@ def time_attn(q, k, v, causal, reps) -> dict:
 
 def check_attention_kernel(dev) -> dict:
     """B6 at the LM's eval shape (causal) and at the ring-step shapes
-    (non-causal), timed; the narrow instances of heads of 128 and 256 at
-    the LM's eval shape, timed, their errors recorded; on inputs with NaN in the K and V rows that no
-    query sees (the LM's widths with twice the keys), against the plain
-    version on the clean inputs; at the blocks phase 12's two-rank ring
-    gives it (half the LM's sequence, causal, at each block offset pair
-    the ring visits, one wholly masked); then once each at a small
-    shape: causal with offsets, fully masked, with a bias, bfloat16, D =
-    8 and D = 256."""
+    (non-causal), timed; the instances of heads of 128 and 256 at the
+    LM's eval shape, held and timed; on inputs with NaN in the K and V
+    rows that no query sees (the LM's widths with twice the keys), against
+    the plain version on the clean inputs; at the blocks phase 12's
+    two-rank ring gives it (half the LM's sequence, causal, at each block
+    offset pair the ring visits, one wholly masked); then once each at a
+    small shape: causal with offsets, fully masked, with a bias, bfloat16,
+    D = 8 and D = 256; and the heads of ``MID_HEADS`` at small shapes
+    (:func:`check_attention_mid_widths`)."""
     import torch
     from multiverso_tpu_torch.ops import attention
 
@@ -1979,18 +1987,22 @@ def check_attention_kernel(dev) -> dict:
                        "max_abs_err": e, **t, **bd})
         del q, k, v
 
-    # The other narrow instances at the LM's eval shape with their widest
-    # heads, timed. Their errors are recorded, not held: one tensor-core
-    # chain over all of D misses ATTN_TOL there (ROADMAP C9), and no main
-    # path runs them.
+    # The instances of heads of 128 (narrow, two chunks) and 256 (wide,
+    # two chunks a warpgroup) at the LM's eval shape, held within ATTN_TOL
+    # (ROADMAP C9's witness: each 64-column chunk of Q.K^T summed from 0)
+    # and timed.
     for d2 in (128, 256):
         q, k, v = attn_inputs(g, dev, b, h, s, s, d2)
         kw = dict(scale=d2 ** -0.5, causal=True, offsets=(0, 0))
-        errs = attn_errors(attention.flash_block_attn(q, k, v, **kw),
-                           attention.flash_block_attn_plain(q, k, v, **kw))
-        log(f"  B6 narrow D={d2} at the LM's eval shape {(b, h, s, d2)}, "
-            f"causal: {errs}")
-        assert errs["finite"], d2
+        served = attention.B6_INSTANCES[attention.b6_instance(d2)]
+        got = attention.flash_block_attn(q, k, v, **kw)
+        assert attention.B6_INSTANCES[attention.b6_instance(d2)] == \
+            served + 1, d2
+        want = attention.flash_block_attn_plain(q, k, v, **kw)
+        errs = attn_errors(got, want)
+        attn_compare(f"B6 {attention.b6_instance(d2)} at the LM's eval "
+                     f"shape {(b, h, s, d2)}, causal", got, want)
+        del got, want
         t = time_attn(q, k, v, True, 10)
         bd = attn_bounds(b, h, s, s, d2, causal=True, offsets=(0, 0))
         info = attention.describe(d2)
@@ -2036,11 +2048,77 @@ def check_attention_kernel(dev) -> dict:
         e, _, _ = pair(f"B6 D={d2} causal", q, k, v, scale=d2 ** -0.5,
                        causal=True, offsets=(128, 0))
         variants.append({"case": f"D={d2}", "max_abs_err": e})
+    variants += check_attention_mid_widths(dev, g)
     return {"name": "flash_block_attn", "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/attention.cu",
             "replaces": "multiverso_tpu/ops/pallas_attention.py:97",
             "shape": [b, h, s, dh], "causal": True, "max_abs_err": err,
             **rec, **bound, "shapes": shapes, "variants": variants}
+
+
+#: Heads of 65-256 columns held at small shapes: the narrow instance of
+#: two chunks (72: a last chunk of 8) and the wide instance of two chunks
+#: a warpgroup (136 and 200: a last chunk of 8 on warpgroup 1).
+MID_HEADS = (72, 136, 192, 200, 256)
+
+
+def check_attention_mid_widths(dev, g) -> list:
+    """B6 at each of ``MID_HEADS`` on small shapes, within ``ATTN_TOL``,
+    each launch counted under the instance that serves the width: causal
+    at the ring's offsets (0, 0), (384, 128) and (128, 384), two launches
+    bitwise equal, a band bias, bfloat16, and NaN in the K and V rows of
+    the keys no query sees (against the plain version on clean rows)."""
+    import torch
+    from multiverso_tpu_torch.ops import attention
+
+    def pair(what, q, k, v, bias=None, want=None, **kw):
+        d = q.shape[-1]
+        served = attention.B6_INSTANCES[attention.b6_instance(d)]
+        got = attention.flash_block_attn(q, k, v, bias, **kw)
+        assert attention.B6_INSTANCES[attention.b6_instance(d)] == \
+            served + 1, what
+        ref = attention.flash_block_attn_plain(*(want or (q, k, v)), bias,
+                                               **kw)
+        return attn_compare(what, got, ref), got
+
+    out = []
+    for d in MID_HEADS:
+        name = attention.b6_instance(d)
+        sc = d ** -0.5
+        q, k, v = attn_inputs(g, dev, 2, 3, 128, 256, d)
+        for offs in ((0, 0), (384, 128), (128, 384)):
+            e, got = pair(f"B6 {name} D={d} causal offsets {offs}", q, k, v,
+                          scale=sc, causal=True, offsets=offs)
+            out.append({"case": f"D={d} causal offsets {list(offs)}",
+                        "instance": name, "max_abs_err": e})
+            if offs == (0, 0):
+                again = attention.flash_block_attn(q, k, v, scale=sc,
+                                                   causal=True, offsets=offs)
+                assert all(torch.equal(x, y) for x, y in zip(got, again)), d
+                log(f"  B6 {name} D={d}: two launches bitwise equal")
+        q, k, v = attn_inputs(g, dev, 2, 3, 256, 384, d)
+        band = torch.where(torch.arange(384, device=dev)[None, :]
+                           > torch.arange(256, device=dev)[:, None] + 100,
+                           attention.NEG_INF, 0.0).to(torch.float32)
+        out.append({"case": f"D={d} bias", "instance": name,
+                    "max_abs_err": pair(f"B6 {name} D={d} bias", q, k, v,
+                                        band, scale=sc)[0]})
+        out.append({"case": f"D={d} bfloat16", "instance": name,
+                    "max_abs_err": pair(
+                        f"B6 {name} D={d} bfloat16",
+                        *(t.to(torch.bfloat16) for t in (q, k, v)),
+                        scale=sc)[0]})
+        # Keys 128..383 come after every query at offsets (0, 0).
+        kp, vp = (torch.cat([t[:, :, :128], torch.full_like(
+            t[:, :, 128:], float("nan"))], dim=2) for t in (k, v))
+        qq = q[:, :, :128].contiguous()
+        out.append({"case": f"D={d}, NaN in the unseen keys' K and V",
+                    "instance": name, "max_abs_err": pair(
+                        f"B6 {name} D={d}, keys 128..383 NaN (kernel) or "
+                        "clean (plain)", qq, kp, vp, want=(qq, k, v),
+                        scale=sc, causal=True, offsets=(0, 0))[0]})
+        del q, k, v, kp, vp, qq
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2330,7 +2408,7 @@ def check_paged_kernel(dev) -> dict:
             "yardstick_ms": cuda_ms(paged_yardstick(args, bucket, P), 50)}
         q, kp, vp, ptab, lens, ts = args
         bound = paged_bound(q, kp, ptab, lens, ts, bucket, P)
-        splits = attention.paged_splits(SERVE_BATCH * H, G, sms)
+        splits = attention.paged_launch_splits(q, kp, G, P, sms)
         log(f"B7 paged_decode_attn {what} ({SERVE_BATCH}, {H}, {dh}), page "
             f"{P}, G {G}, {splits} CTAs a slot and head: kernel "
             f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
@@ -2424,8 +2502,9 @@ def check_paged_kernel_int8(dev) -> dict:
     twice (bitwise equal) and from a CUDA graph (equal to the eager
     launch), and timed by events and in a graph beside the plain version
     and its byte bound (int8 rows: dh + 4 bytes). Then a page that does
-    not divide the bucket, an idle slot on the garbage page, t = 0, and
-    one small case per template instance."""
+    not divide the bucket, an idle slot on the garbage page, t = 0, one
+    small case per template instance, and the layouts of
+    :func:`check_paged_int8_layouts`."""
     import torch
     from multiverso_tpu_torch.ops import attention
 
@@ -2465,7 +2544,7 @@ def check_paged_kernel_int8(dev) -> dict:
                 *args, **kw), 50)}
         q, kp, vp, ptab, lens, ts = args
         bound = paged_bound(q, kp, ptab, lens, ts, bucket, P)
-        splits = attention.paged_splits(SERVE_BATCH * H, G, sms)
+        splits = attention.paged_launch_splits(q, kp, G, P, sms)
         log(f"B7 paged_decode_attn int8 {what} ({SERVE_BATCH}, {H}, {dh}), "
             f"page {P}, G {G}, {splits} CTAs a slot and head: kernel "
             f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
@@ -2496,6 +2575,7 @@ def check_paged_kernel_int8(dev) -> dict:
         e = pair(f"B7 int8 {case}", a, sc, page, bucket, d ** -0.5)
         variants.append({"case": case, "max_abs_err": e})
         sc.clear()
+    variants += check_paged_int8_layouts(dev, g, sms)
     return {"name": "paged_decode_attn_int8", "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/paged_attention.cu",
             "replaces": "multiverso_tpu/ops/pallas_attention.py:253",
@@ -2509,6 +2589,119 @@ def check_paged_kernel_int8(dev) -> dict:
             "bitwise_repeat": True, "graph_equals_eager": True,
             "long_context": {"bucket": PAGED_LONG_BUCKET, **long},
             "variants": variants}
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary: B7 then stages its scales 4 bytes a row."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def scattered_pages(args, n_phys: int, rng):
+    """``args`` with the page table's physical pages renumbered by a
+    random permutation of 1 .. n_phys - 1 (the garbage page 0 kept), so a
+    slot's neighbouring logical pages lie on far-apart physical pages."""
+    import numpy as np
+    import torch
+    ptab = args[3]
+    perm = torch.as_tensor(np.concatenate(
+        [[0], 1 + rng.permutation(n_phys - 1)]), dtype=ptab.dtype,
+        device=ptab.device)
+    return (*args[:3], perm[ptab.long()], *args[4:])
+
+
+def check_paged_int8_layouts(dev, g, sms: int) -> list:
+    """B7's int8 instance at the layouts its tiles of several pages meet
+    (``paged_tile_pages``: four pages of 16 rows of 64 a tile), each held
+    within ``PAGED_TOL``, again with payloads of 127 and NaN scales in
+    every page the mask wholly excludes, and launched twice (bitwise
+    equal) and from a CUDA graph: a slot whose live pages form two runs
+    (the prompt's, then the generated page past the bucket) with a tile
+    spanning the gap; the serving widths with split boundaries inside
+    slots and the pages scattered over the pool; scale planes that do not
+    start on a 16-byte boundary (4-byte copies); pages of 6 (whose scales
+    are not whole 16-byte vectors; ten pages a tile) and of 128 (a page
+    two tiles)."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(12)
+
+    def hold(what, args, sc, page, bucket, align=True):
+        kw = dict(bucket=bucket, page=page, scale=args[0].shape[2] ** -0.5)
+        fix = (lambda d: d) if align else (
+            lambda d: {k: misaligned(v) for k, v in d.items()})
+        sc = fix(sc)
+        err = paged_pair(f"B7 int8 {what}", args, {**kw, **sc},
+                         counter="paged_decode_attn_int8")
+        poisoned, n_dead, bad = paged_poisoned(args, bucket, page, sc)
+        nan_err = paged_pair(
+            f"B7 int8 {what}, payload 127 and NaN scales in the {n_dead} "
+            "wholly masked pages", poisoned, {**kw, **fix(bad)},
+            want=(args, {**kw, **sc}), counter="paged_decode_attn_int8")
+        paged_repeatable(f"B7 int8 {what}", args, {**kw, **sc})
+        G = args[3].shape[1]
+        return {"case": what, "max_abs_err": err,
+                "nan_excluded_pages_max_abs_err": nan_err,
+                "tile_pages": attention.paged_tile_pages(
+                    args[0].shape[2], 1, page),
+                "splits": attention.paged_launch_splits(args[0], args[1], G,
+                                                        page, sms),
+                "bitwise_repeat": True, "graph_equals_eager": True}
+
+    def live_of(args, bucket, page, b):
+        G = args[3].shape[1]
+        live = attention.paged_live_pages(args[4], args[5], bucket=bucket,
+                                          page=page, n_pages=G)
+        return torch.nonzero(live[b]).flatten().tolist()
+
+    out = []
+    S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
+    dh = LM["dim"] // LM["heads"]
+    sc = {}
+    a = paged_inputs(g, dev, [90, 512, 30, 200], [5, 10, 63, 0], S, N, P, 4,
+                     dh, 150, dtype=torch.int8, scales=sc)
+    tp = attention.paged_tile_pages(dh, 1, P)
+    pages = live_of(a, S, P, 0)               # the prompt's 6, then 32
+    spans = [pages[i:i + tp] for i in range(0, len(pages), tp)]
+    assert any(t[-1] - t[0] >= len(t) for t in spans), spans
+    log(f"  B7 int8 two runs: slot 0's live pages {pages}, tiles {spans}")
+    out.append(hold("live pages in two runs, a tile spanning the gap", a,
+                    sc, P, S))
+    out.append(hold("scale planes 4 bytes past a 16-byte boundary", a, sc,
+                    P, S, align=False))
+    del a
+    sc = {}
+    lengths = [512, 300, 41, 100, 7, 250, 480, 16]
+    a = scattered_pages(paged_inputs(
+        g, dev, lengths, rng.integers(0, N, SERVE_BATCH).tolist(), S, N, P,
+        LM["heads"], dh, 300, dtype=torch.int8, scales=sc), 300, rng)
+    splits = attention.paged_launch_splits(a[0], a[1], a[3].shape[1], P, sms)
+    inner = [attention.paged_split_pages(len(live_of(a, S, P, b)), tp,
+                                         splits) for b in range(2)]
+    assert splits > 1 and all(any(0 < p0 < p1 for p0, p1 in sp)
+                              for sp in inner), inner
+    log(f"  B7 int8 split boundaries: {splits} CTAs a slot and head, slot "
+        f"0's and 1's live pages by split {inner}")
+    out.append(hold("serving widths, split boundaries inside slots, pages "
+                    "scattered over the pool", a, sc, P, S))
+    del a
+    for page, bucket, what in ((6, 48, "ten pages a tile"),
+                               (128, 256, "a page two tiles")):
+        sc = {}
+        a = scattered_pages(paged_inputs(
+            g, dev, [bucket, bucket // 3, 5, bucket - 1], [0, 9, 15, 3],
+            bucket, 16, page, 4, dh, 60, dtype=torch.int8, scales=sc), 60,
+            rng)
+        out.append(hold(f"page {page} ({what})", a, sc, page, bucket))
+        del a
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2753,7 +2946,7 @@ def check_paged_wide(dev) -> dict:
                    *args, **kw), 50)}
         q, kp, vp, ptab, lens, ts = args
         bound = paged_bound(q, kp, ptab, lens, ts, S, P)
-        splits = attention.paged_splits(SERVE_BATCH * H * 2, G, sms)
+        splits = attention.paged_launch_splits(q, kp, G, P, sms)
         log(f"{label}, {splits} CTAs a slot, head and column chunk: kernel "
             f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
             f"plain {rec['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms "

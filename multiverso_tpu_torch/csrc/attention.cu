@@ -48,7 +48,11 @@
 //     a thread's two values of a fragment row are one 8-byte load;
 //   * the tensor cores truncate their sums, so the tile's P.V is summed
 //     from 0 and added to O in float32 (o = alpha o + pv, rounded): the
-//     truncation does not build up over a long k walk;
+//     truncation does not build up over a long k walk. Likewise each
+//     64-column chunk of Q.K^T is summed from 0 and added to S in float32
+//     (one chain over D = 128 missed the tolerance at the LM's eval shape,
+//     1.08 of the o allowance): the first chunk goes straight into S, so
+//     at D = 64 the product is the one chain it was;
 //   * the row max m is exact. The tensor-core scores carry ~1e-7 of
 //     absolute error, a large relative error of m for a row whose largest
 //     score is near 0 (a causal row seeing one key). So each row keeps the
@@ -78,14 +82,23 @@
 //     condition (a row that saw no key yet, or a bias that may mask a
 //     whole row) every tile is walked. The grid launches the q tiles with
 //     the most k tiles first, so the long CTAs do not come last.
-// Shared memory: 54,272 bytes at D = 64, 103,424 at D = 128 and 201,728 at
-// D = 256 (above 48 KB it needs the opt-in attribute, set at an
-// instance's first launch). The registers and spills of each instance
-// (-Xptxas -v) are printed by chip_smoke.py and kept in PERF.md.
+// These narrow instances take D <= 128: 54,272 bytes of shared memory at
+// D = 64 and 103,424 at D = 128 (above 48 KB it needs the opt-in
+// attribute, set at an instance's first launch). The registers and
+// spills of each instance (-Xptxas -v) are printed by chip_smoke.py and
+// kept in PERF.md.
 //
-// D > 256 (any D % 8 == 0): the wide instance (flash_wide_kernel). What
-// bounds it is the same: operations, 3xTF32 on the tensor cores (at the
-// LM's eval shape, causal, 0.391 ms at D = 320 and 0.625 ms at D = 512).
+// D > 128 (any D % 8 == 0): the wide instances (flash_wide_kernel). What
+// bounds them is the same: operations, 3xTF32 on the tensor cores (at the
+// LM's eval shape, causal, 0.235 ms at D = 192, 0.313 ms at D = 256,
+// 0.391 ms at D = 320 and 0.625 ms at D = 512). D in (128, 256] took
+// narrow instances of three and four chunks before: 152,576 and 201,728
+// bytes of shared memory left one CTA of 4 warps an SM, one chain over D
+// missed the tolerance, and at D = 256 it read slower than SDPA. As the
+// wide instance with O of 2 chunks a warpgroup it runs 8 warps an SM; the
+// narrow instance of three chunks with its chunks summed apart needed
+// 255 registers and spilled, and read 6% slower than before at D = 192
+// where the wide one reads 8% faster.
 // A 64-row O of such widths does not fit one warpgroup's registers, so
 // one CTA of two warpgroups (8 warps) owns a 64-row q tile: warp w of
 // each warpgroup holds rows 16 w .. 16 w + 15, and the two split the
@@ -104,9 +117,11 @@
 //   * the output columns are split by 64-column chunks, the first half
 //     (rounded up) to warpgroup 0; the score columns are split so that
 //     each warpgroup's scores plus its P.V come to the same work (at D =
-//     320: 128 + 192 and 192 + 128 columns), so between two exchanges
-//     both do the same number of products. O stays in registers: 3 or 4
-//     chunks of 16 x 64 a warp (96 or 128 floats a thread);
+//     320: 128 + 192 and 192 + 128 columns; at D = 192 64 + 128 and 128
+//     + 64; at D = 256 128 + 128 each),
+//     so between two exchanges both do the same number of products. O
+//     stays in registers: 2, 3 or 4 chunks of 16 x 64 a warp (64, 96 or
+//     128 floats a thread);
 //   * loads run during the products: each warpgroup walks its own ring of
 //     2 stages of 64 rows x 64 columns (K chunks for its scores, then V
 //     chunks for its columns, tile after tile), the next chunk's 16-byte
@@ -115,8 +130,9 @@
 //     faster at D = 320). bfloat16 tiles land as bfloat16 and are
 //     converted as the fragments are read, so the ring never waits on a
 //     conversion;
-//   * Q is staged once per CTA up to D = 512: its 64 rows (133,120 bytes
-//     at D = 512) beside the rings (73,728) and the exchange (16,384).
+//   * Q is staged once per CTA up to D = 512: its 64 rows (51,200 bytes
+//     at D = 192, 67,584 at D = 256, 133,120 at D = 512) beside the rings
+//     (73,728) and the exchange (16,384).
 //     Wider heads stream Q's chunks with K's through the ring (a stage
 //     holds both), and split the output columns over CTAs in spans of
 //     512 (gridDim.y), each walking the scores of all of D;
@@ -127,7 +143,8 @@
 //     the chunk's live columns, so a last chunk of 8 (D = 264) adds
 //     nothing of other columns.
 // One CTA an SM: 256 threads at up to 255 registers (-Xptxas -v in
-// chip_smoke.py's log; a few dozen bytes of spill at D > 384). With two
+// chip_smoke.py's log; a few dozen bytes of spill at D > 384; 157,696
+// bytes of shared memory at D = 256 leave no room for a second). With two
 // warps a scheduler, the products wait on their operands' latency: the
 // instance reaches about a quarter of its bound, as the narrow ones do.
 // Per-fragment float32 sums (shorter tensor-core chains) measured 5-20%
@@ -532,7 +549,23 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
     cp_async_wait<1>();
     __syncthreads();  // K of tile j has landed
-    qk_cols<NC>(s, qs, ks, r0, g, t, 0, kW);
+    // Each 64-column chunk summed from 0 in the tensor cores and added in
+    // float32 (the first straight into S, so NC = 1 is one chain as it
+    // was).
+    qk_cols<NC>(s, qs, ks, r0, g, t, 0, 64);
+#pragma unroll
+    for (int cb = 1; cb < NC; ++cb) {
+      float part[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+      qk_cols<NC>(part, qs, ks, r0, g, t, 64 * cb, 64 * cb + 64);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+    }
     __syncthreads();  // every warp is done with K
     if (j + 1 < n_kt) stage(ks, kb + next, d, qk_ds, w);
     cp_async_commit();
@@ -579,7 +612,7 @@ flash_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The wide instance (D > 256): two warpgroups a 64-row q tile.
+// The wide instances (D > 128): two warpgroups a 64-row q tile.
 // ---------------------------------------------------------------------------
 constexpr int kWideThreads = 256;
 constexpr int kWg = 128;                       // threads a warpgroup
@@ -661,9 +694,10 @@ __device__ __forceinline__ void qk_chunk(float (&s)[8][4], const T* qs,
   }
 }
 
-// NVC: 64-column chunks of O a warpgroup holds (3 or 4; a warp keeps NVC *
-// 8 fragments of its 16 rows); STREAM_Q: Q's chunks come through the ring with K's (heads wider than
-// 512, whose output columns then split over CTAs in spans of 2 NVC * 64).
+// NVC: 64-column chunks of O a warpgroup holds (2, 3 or 4; a warp keeps
+// NVC * 8 fragments of its 16 rows); STREAM_Q: Q's chunks come through
+// the ring with K's (heads wider than 512, whose output columns then
+// split over CTAs in spans of 2 NVC * 64).
 template <typename T, int NVC, bool STREAM_Q>
 __global__ void __launch_bounds__(kWideThreads, 1)
 flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -923,9 +957,8 @@ int with_instance(int d, Fn fn) {
     case 2:
       return fn(Narrow<T, 2>());
     case 3:
-      return fn(Narrow<T, 3>());
     case 4:
-      return fn(Narrow<T, 4>());
+      return fn(Wide<T, 2, false>());
     case 5:
     case 6:
       return fn(Wide<T, 3, false>());

@@ -18,11 +18,13 @@
 // output is normalised, o = acc / l, float32. Pages are float32, bfloat16
 // or int8 and every operation is float32 (expf, no fast math, no tensor
 // cores). An int8 page comes with its scale planes ks and vs, one float32
-// a key or value row ([n_phys, heads, page, 1] of one layer): each element
-// is dequantized as float(k8) * ks[row] before it enters the dot product,
-// and as float(v8) * vs[row] before it enters the accumulator, which is
-// the JAX step's decode_rows after its gather (serving/continuous.py:
-// 448-454); the TPU kernel has no scale planes. Page-table entries are
+// a key or value row ([n_phys, heads, page, 1] of one layer), the JAX
+// step's decode_rows after its gather (serving/continuous.py:448-454;
+// the TPU kernel has no scale planes): a row's scale is common to its
+// whole dot product and to its whole V row, so it is applied once a key,
+// s = (ks[row] * sum q . k8) * scale and p * vs[row] on V, where
+// decode_rows multiplies every element (float rounding differs only).
+// Page-table entries are
 // clamped into [0, n_phys) as the JAX
 // step's mode="clip" gather does, so an idle slot whose row points at
 // the garbage page 0 computes a finite row and never reads outside the
@@ -32,7 +34,8 @@
 // of each key the mask admits (a masked key adds exactly 0) for 4 * dh
 // flops per key, about 0.5 flop per byte in float32, far below the
 // card's ~20 flops per byte of float32 HBM balance. An int8 row is dh + 4
-// bytes with its scale (68 at dh 64, against float32's 256). At the serving shape
+// bytes with its scale (68 at dh 64, against float32's 256): 2 flops and
+// a conversion a byte, still far below. At the serving shape
 // (8 slots, 12 heads, dh 64, page 16, G 36) the admitted keys of
 // chip_smoke.py's serving inputs need 8.4 MB, ~2.5 us at 3.35 TB/s, out
 // of the 28.3 MB that all G pages hold. There the kernel is bound by
@@ -57,9 +60,11 @@
 //     is the mean of V over all G * P rows, as the kernel before this one
 //     and the TPU kernel give.
 //   * A slot's live pages are split over `splits` CTAs of each (slot,
-//     head) (flash-decoding): CTA s takes the contiguous live pages
-//     [s * n / splits, (s + 1) * n / splits) of the slot's n, keeps a
-//     partial (acc, m, l) and writes it to `part`. The last CTA of a
+//     head) (flash-decoding) in whole tiles: of the slot's n live pages in
+//     units of ppt (the last one may be short), u = ceil(n / ppt), CTA s
+//     takes the units [s * u / splits, (s + 1) * u / splits)
+//     (ops/attention.py::paged_split_pages), keeps a partial (acc, m, l)
+//     and writes it to `part`. The last CTA of a
 //     (slot, head) to finish, found by a ticket counter that it resets to
 //     0 (so a launch captured in a CUDA graph replays), merges the
 //     partials in split order into acc / l, each column loading 8
@@ -67,8 +72,9 @@
 //     launches are bitwise equal. The tickets (and the wrapper's scratch)
 //     are one set per card: B7's launches on a card run in stream order,
 //     as the serving path's do. The wrapper chooses `splits` from B * H
-//     and G so that the grid makes PAGED_CTAS_PER_SM CTAs an SM
-//     (ops/attention.py::paged_splits; 6 at the serving shape); the live
+//     and the table's units (G / ppt) so that the grid makes
+//     PAGED_CTAS_PER_SM CTAs an SM (ops/attention.py::paged_splits; 6 at
+//     the serving shape, float32 and int8 alike); the live
 //     count of a slot is known only on the card, so a short slot's later
 //     CTAs find no page and only take their ticket. A CTA covers one
 //     head, not all heads of a page: the page's [H, P, dh] block is
@@ -76,21 +82,43 @@
 //     16-byte loads, and a per-head CTA keeps 96 x splits CTAs at the
 //     serving shape where a per-page CTA would have 8 x splits.
 //   * Pages are staged in tiles of up to kTileBytes of K and as much of V
-//     (one page's rows of one head at dh 64, page 16, float32) through a
-//     ring of kRing tiles in shared memory, by 16-byte cp.async (float4,
-//     or 8 bfloat16 values), so tiles i + 1 .. i + kRing - 1 arrive while
-//     tile i is computed; the slot's page-table row sits in shared memory.
-//     A head size whose rows are not whole 16-byte vectors, or a pool not
-//     16-byte aligned, takes the narrow instance of the same kernel (one
-//     value a vector; bfloat16 and int8 then copied by plain loads). An
-//     int8 tile's rows (16 int8 values a vector: 4 loads a row at dh 64)
-//     come with their K and V scales, staged by 4-byte cp.async into a
-//     ring of their own in the same commit group, so a row's scale lands
-//     with the row.
+//     through a ring of kRing tiles in shared memory, by 16-byte cp.async
+//     (float4, 8 bfloat16 or 16 int8 values), so tiles i + 1 .. i + kRing
+//     - 1 arrive while tile i is computed; the slot's page-table row sits
+//     in shared memory. A tile is sized in bytes: for rows narrower than
+//     float32's, where whole pages fit, it holds ppt of them
+//     (ops/attention.py::paged_tile_pages): at dh 64 and pages of 16 two
+//     of bfloat16 and four of int8, so the 1-byte rows keep as many bytes
+//     in flight as float32's (a tile of one int8 page left a quarter of
+//     them) and give every warp keys in every tile (a page of 16 keys
+//     filled two of the four warps). Each page of a tile comes from its
+//     own physical page (its page of a row or vector found by one
+//     multiply-high, div_by), and each key's position from its own page,
+//     so a tile may span the gap between the two live runs. A float32
+//     tile stays one page, its page looked up once a tile as before: the
+//     page lookups of the multi-page code cost float32 7-8% at the
+//     serving shape, where one page of 16 rows of 64 already fills a
+//     tile. Where no page fits, a page is several tiles. A head size whose
+//     rows are not whole 16-byte vectors, or a pool not 16-byte aligned,
+//     takes the narrow instance of the same kernel (one value a vector;
+//     bfloat16 and int8 then copied by plain loads). An int8 tile's rows
+//     come with their K and V scales, a page's 16 contiguous floats of
+//     each plane as four 16-byte cp.async (4 bytes a row where a page's
+//     scales are not whole aligned vectors: a page of 3, or a plane not
+//     16-byte aligned) into a ring of their own in the same commit group,
+//     so a row's scale lands with the row. int8 values become float32 by
+//     a byte permute and a subtraction (exact; no int-to-float
+//     conversion), and the sums of narrow rows are rescaled only when a
+//     key raises the max (multiplying by alpha = 1 changes no bit). At
+//     dh 64, 4 lanes a key row (two passes of 32 keys a tile) read faster
+//     than 2 lanes (one pass of 64): 0.0114 against 0.0130 ms at the
+//     serving shape and 0.0279 against 0.0338 at the long-context one, in
+//     a CUDA graph on one H100 in one run (PERF.md).
 //   * Every lane works on the dot products: LK lanes hold one key row (at
-//     dh 64 in float32, 8 lanes of two float4 each), so a warp scores
-//     32 / LK keys at once, a CTA a page of 16 in one pass, and each score
-//     is reduced in log2(LK) xor shuffles within its group. Each group
+//     dh 64 in float32, 8 lanes of two float4 each; in int8, 4 lanes of
+//     one 16-byte vector), so a warp scores 32 / LK keys at once, a CTA
+//     16 (float32) or 32 (int8) a pass, and each score is reduced in
+//     log2(LK) xor shuffles within its group. Each group
 //     keeps its own online softmax (one expf a key, no divergence:
 //     exp(s - m), or exp(m - s) where s is the new max) and p . V goes by
 //     the same columns. The groups, then the warps, then the CTAs merge
@@ -167,15 +195,21 @@ __device__ __forceinline__ void load_vec(const T* p, float (&x)[E]) {
   if constexpr (E == 1) {
     x[0] = to_f(*p);
   } else if constexpr (sizeof(T) == 1) {
+    // Each byte b, biased to b + 128 (xor 0x80), becomes the low byte of
+    // the float 2^23 + (b + 128) (one byte permute), and 2^23 + 128 is
+    // taken away: exact, with no int-to-float conversion (a quarter-rate
+    // instruction).
     static_assert(E == 16, "int8 vectors are 16 values");
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
+                           raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        x[4 * i + j] = static_cast<float>(
-            static_cast<int8_t>(static_cast<uint8_t>(w[i] >> (8 * j))));
+        x[4 * i + j] =
+            __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540u | j)) -
+            8388736.0f;
   } else if constexpr (sizeof(T) == 4) {
     static_assert(E == 4, "float32 vectors are float4");
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -261,14 +295,45 @@ __device__ __forceinline__ Live live_runs(int length, int t, int bucket,
   return r;
 }
 
+// floor(x / n) for 0 <= x, n < 2^16 as one multiply-high by
+// div_mul(n): ceil(2^32 / n) leaves an error under x / 2^32 < 1 / n, so
+// the floor is exact (n == 1 gives 0: x itself).
+__device__ __forceinline__ uint32_t div_mul(int n) {
+  return n > 1 ? 0xffffffffu / static_cast<uint32_t>(n) + 1u : 0u;
+}
+__device__ __forceinline__ int div_by(int x, uint32_t mul) {
+  return mul ? static_cast<int>(__umulhi(static_cast<uint32_t>(x), mul)) : x;
+}
+
+// Tile i of a split that holds the live pages [p0, p1): rows [r0, r0 +
+// nr) of each of its np live pages [first, first + np) (first counts the
+// slot's live pages). Where whole pages fit a tile (tile_rows == page),
+// a tile holds ppt of them; else (ppt == 1) a page is tpp tiles of up to
+// tile_rows rows.
+struct Tile {
+  int first, np, r0, nr;
+};
+
+__device__ __forceinline__ Tile tile_of(int i, int p0, int p1, int ppt,
+                                        int tpp, int tile_rows, int page) {
+  const int u = i / tpp;
+  Tile tl;
+  tl.first = p0 + u * ppt;
+  tl.np = min(ppt, p1 - tl.first);
+  tl.r0 = (i - u * tpp) * tile_rows;
+  tl.nr = min(tile_rows, page - tl.r0);
+  return tl;
+}
+
 // The last CTA's merge of a (slot, head)'s split partials: each of the w
 // columns merges the splits in order, 8 at a time: their m, l (at column
 // ml of each partial's row, `stride` floats apart) and the column's acc
-// loaded together (a split with no page was never written and is skipped),
-// the running max and sums rescaled per 8; out[c] = acc / l.
+// loaded together (a split with no unit of work, of n_units split as the
+// kernel splits them, was never written and is skipped), the running max
+// and sums rescaled per 8; out[c] = acc / l.
 __device__ __forceinline__ void merge_splits(const float* all, int stride,
                                              int ml, int w, int splits,
-                                             int n_live, float* out) {
+                                             int n_units, float* out) {
   for (int c = threadIdx.x; c < w; c += kThreads) {
     float gm = kNegInf;
     float sum = 0.f;
@@ -279,8 +344,8 @@ __device__ __forceinline__ void merge_splits(const float* all, int stride,
       for (int j = 0; j < 8; ++j) {
         const int sj = s0 + j;
         const bool some = sj < splits &&
-                          static_cast<int64_t>(sj) * n_live / splits <
-                              static_cast<int64_t>(sj + 1) * n_live / splits;
+                          static_cast<int64_t>(sj) * n_units / splits <
+                              static_cast<int64_t>(sj + 1) * n_units / splits;
         const float* ps = all + sj * stride;
         pm[j] = some ? __ldcg(ps + ml) : -INFINITY;
         pl[j] = some ? __ldcg(ps + ml + 1) : 0.f;
@@ -318,13 +383,19 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
                     float* __restrict__ part, int heads, int n_pages,
                     int page, int d, int64_t page_stride,
                     int64_t scale_stride, int n_phys, int bucket,
-                    float scale, int splits, int tile_rows) {
+                    float scale, int splits, int tile_rows,
+                    int tile_pages, int svec) {
   constexpr int GK = 32 / LK;                  // keys a warp scores at once
   constexpr int VB = E * static_cast<int>(sizeof(T));
   constexpr int kTileElems = kTileBytes / static_cast<int>(sizeof(T));
   // int8 pages: a tile's K and V row scales, in a ring of their own.
   constexpr bool kQuant = sizeof(T) == 1;
   constexpr int kScaleRows = kQuant ? kMaxScaleRows : 1;
+  // Rows narrower than float32's take tiles of several pages (ppt); a
+  // float32 tile stays one page (or part of one), and its code the
+  // single-page path with no page lookup a vector or a key.
+  constexpr bool kMulti = sizeof(T) < 4;
+  const int ppt = kMulti ? tile_pages : 1;
   __shared__ __align__(16) unsigned char ring_raw[kRing * 2 * kTileBytes];
   __shared__ __align__(16) float sring[kRing * 2 * kScaleRows];
   __shared__ int row[kRowCap];
@@ -362,39 +433,73 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   }
   const Live live = live_runs(length, t, bucket, page, n_pages);
   const int n_live = live.count();
-  const int k0 = static_cast<int>(static_cast<int64_t>(split) * n_live /
+  // The split's share: whole units of ppt live pages (a unit is one tile
+  // where pages fit it), so no tile crosses a split.
+  const int n_units = (n_live + ppt - 1) / ppt;
+  const int u0 = static_cast<int>(static_cast<int64_t>(split) * n_units /
                                   splits);
-  const int k1 = static_cast<int>(static_cast<int64_t>(split + 1) * n_live /
+  const int u1 = static_cast<int>(static_cast<int64_t>(split + 1) * n_units /
                                   splits);
+  const int p0 = min(u0 * ppt, n_live);
+  const int p1 = min(u1 * ppt, n_live);
   const int tpp = (page + tile_rows - 1) / tile_rows;   // tiles a page
-  const int n_tiles = (k1 - k0) * tpp;
+  const int n_tiles = (u1 - u0) * tpp;
   const int64_t head_off = static_cast<int64_t>(h) * page * d;
+  // A tile of several pages holds whole pages (nr == page): which of its
+  // pages a row, a vector of rows or a copy of scales falls in.
+  const uint32_t row_div = div_mul(page);
+  const uint32_t vec_div = div_mul(page * nvec);
+  const uint32_t sc_div = div_mul(svec ? page / 4 : page);
   __syncthreads();
   PROF_MARK(1);
 
-  // Tile i into its ring slot: its live page's physical page (the table
-  // entry, clamped), rows [r0, r0 + tile_rows) of it.
+  // The physical page of the slot's k-th live page (the table entry,
+  // clamped).
+  auto phys_of = [&](int k) {
+    const int j = live.page(k);
+    return row_s ? row[j] : min(max(prow[j], 0), n_phys - 1);
+  };
+
+  // Tile i into its ring slot: page j of the tile (its own physical page)
+  // at rows [j nr, j nr + nr) of the slot, the copies of all its pages
+  // spread over the CTA's threads; its K and V scales (int8) by 16-byte
+  // copies where svec (a page's scales are whole aligned vectors), else 4
+  // bytes a row.
   auto issue = [&](int i) {
-    const int j = live.page(k0 + i / tpp);
-    const int phys = row_s ? row[j] : min(max(prow[j], 0), n_phys - 1);
-    const int r0 = (i % tpp) * tile_rows;
-    const int nr = min(tile_rows, page - r0);
-    const int n = nr * nvec;
-    const int64_t off = phys * page_stride + head_off +
-                        static_cast<int64_t>(r0) * d;
+    const Tile tl = tile_of(i, p0, p1, ppt, tpp, tile_rows, page);
+    const int per_page = tl.nr * nvec;          // vectors of a page's rows
+    const int64_t row_off = head_off + static_cast<int64_t>(tl.r0) * d;
     T* kd = ring + (i % kRing) * 2 * kTileElems;
-    T* vd = kd + kTileElems;
-    for (int v = threadIdx.x; v < n; v += kThreads) {
-      copy_vec<VB>(kd + v * E, kp + off + v * E);
-      copy_vec<VB>(vd + v * E, vp + off + v * E);
+    if constexpr (kMulti) {
+      for (int v = threadIdx.x; v < tl.np * per_page; v += kThreads) {
+        const int j = tl.np > 1 ? div_by(v, vec_div) : 0;
+        const int64_t off = phys_of(tl.first + j) * page_stride + row_off +
+                            static_cast<int64_t>(v - j * per_page) * E;
+        copy_vec<VB>(kd + v * E, kp + off);
+        copy_vec<VB>(kd + kTileElems + v * E, vp + off);
+      }
+    } else {
+      const int64_t off = phys_of(tl.first) * page_stride + row_off;
+      for (int v = threadIdx.x; v < per_page; v += kThreads) {
+        copy_vec<VB>(kd + v * E, kp + off + v * E);
+        copy_vec<VB>(kd + kTileElems + v * E, vp + off + v * E);
+      }
     }
     if constexpr (kQuant) {
-      const int64_t soff = phys * scale_stride +
-                           static_cast<int64_t>(h) * page + r0;
       float* ksd = sring + (i % kRing) * 2 * kScaleRows;
-      for (int r = threadIdx.x; r < nr; r += kThreads) {
-        copy_vec<4>(ksd + r, ks + soff + r);
-        copy_vec<4>(ksd + kScaleRows + r, vs + soff + r);
+      const int64_t s_off = static_cast<int64_t>(h) * page + tl.r0;
+      const int per = svec ? tl.nr / 4 : tl.nr;  // copies of a page
+      for (int v = threadIdx.x; v < tl.np * per; v += kThreads) {
+        const int j = tl.np > 1 ? div_by(v, sc_div) : 0;
+        const int c = v - j * per;
+        const int64_t soff = phys_of(tl.first + j) * scale_stride + s_off;
+        if (svec) {
+          copy_vec<16>(ksd + 4 * v, ks + soff + 4 * c);
+          copy_vec<16>(ksd + kScaleRows + 4 * v, vs + soff + 4 * c);
+        } else {
+          copy_vec<4>(ksd + v, ks + soff + c);
+          copy_vec<4>(ksd + kScaleRows + v, vs + soff + c);
+        }
       }
     }
   };
@@ -421,17 +526,17 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     if (nx < n_tiles) issue(nx);
     cp_async_commit();
 
-    const int pi = i / tpp;
-    const int r0 = (i - pi * tpp) * tile_rows;
-    const int rows = min(tile_rows, page - r0);
-    const int pos0 = live.page(k0 + pi) * page + r0;
+    const Tile tl = tile_of(i, p0, p1, ppt, tpp, tile_rows, page);
+    const int rows = tl.np * tl.nr;
+    const int pos0 = live.page(tl.first) * page + tl.r0;
     const T* kt = ring + (i % kRing) * 2 * kTileElems;
     const T* vt = kt + kTileElems;
     const float* kst = sring + (i % kRing) * 2 * kScaleRows;
     for (int kb = warp * GK; kb < rows; kb += kWarps * GK) {
       const int r = kb + grp;
       const bool valid = r < rows;
-      // The row's scales (int8 pages; 1 and unread otherwise).
+      // The row's scales (int8 pages; 1 and unread otherwise), applied
+      // once: to the key's score and to its weight p on V.
       float sk = 1.f, sv = 1.f;
       if constexpr (kQuant) {
         if (valid) {
@@ -439,7 +544,8 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           sv = kst[kScaleRows + r];
         }
       }
-      // Two partial sums (even and odd vectors) halve the FMA chain.
+      // Two partial sums halve the FMA chain: even and odd vectors, or
+      // for int8 (one vector of 16 a lane) even and odd values.
       float sp[2] = {0.f, 0.f};
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
@@ -449,8 +555,8 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
           load_vec<T, E>(kt + r * d + v * E, x);
 #pragma unroll
           for (int e = 0; e < E; ++e) {
-            if constexpr (kQuant) x[e] *= sk;
-            sp[n & 1] = fmaf(qr[n][e], x[e], sp[n & 1]);
+            const int c = kQuant ? (e & 1) : (n & 1);
+            sp[c] = fmaf(qr[n][e], x[e], sp[c]);
           }
         }
       }
@@ -459,8 +565,14 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       for (int off = LK / 2; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
       if (!valid) continue;
+      if constexpr (kQuant) s *= sk;
       s *= scale;
-      const int pos = pos0 + r;
+      // The key's position, from its own page of the tile.
+      int pos = pos0 + r;
+      if (kMulti && tl.np > 1) {
+        const int j = div_by(r, row_div);
+        pos = live.page(tl.first + j) * page + r - j * page;
+      }
       s += (pos < length || (pos >= bucket && pos <= bucket + t)) ? 0.f
                                                                   : kNegInf;
       // One expf a key and no divergence between the warp's groups: a new
@@ -472,16 +584,37 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       const float p = grows ? 1.f : e;
       m = grows ? s : m;
       l = l * alpha + p;
+      const float pv = kQuant ? p * sv : p;
+      if constexpr (kMulti) {
+        // Narrow rows rescale the sums only when the max grows (alpha is
+        // 1 else: the same bits as multiplying by it).
+        if (grows) {
 #pragma unroll
-      for (int n = 0; n < NV; ++n) {
-        const int v = li + LK * n;
-        if (v < nvec) {
-          float x[E];
-          load_vec<T, E>(vt + r * d + v * E, x);
+          for (int n = 0; n < NV; ++n)
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
-            if constexpr (kQuant) x[e] *= sv;
-            acc[n][e] = fmaf(p, x[e], acc[n][e] * alpha);
+            for (int e = 0; e < E; ++e) acc[n][e] *= alpha;
+        }
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const int v = li + LK * n;
+          if (v < nvec) {
+            float x[E];
+            load_vec<T, E>(vt + r * d + v * E, x);
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[n][e] = fmaf(pv, x[e], acc[n][e]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const int v = li + LK * n;
+          if (v < nvec) {
+            float x[E];
+            load_vec<T, E>(vt + r * d + v * E, x);
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              acc[n][e] = fmaf(pv, x[e], acc[n][e] * alpha);
           }
         }
       }
@@ -553,7 +686,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   // (slot, head) merges every non-empty split's partial in split order.
   const int stride = d + 2;
   float* mine = part + (bh * splits + split) * stride;
-  if (k1 > k0) {
+  if (u1 > u0) {
     for (int c = threadIdx.x; c < d; c += kThreads) {
       float sum_o = 0.f;
 #pragma unroll
@@ -579,7 +712,7 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     PROF_MARK(3);
     return;
   }
-  merge_splits(part + bh * splits * stride, stride, d, d, splits, n_live,
+  merge_splits(part + bh * splits * stride, stride, d, d, splits, n_units,
                o + bh * d);
   if (threadIdx.x == 0) g_tickets[bh] = 0;
   PROF_MARK(3);
@@ -768,14 +901,25 @@ int launch(const float* q, const void* kp, const void* vp, const float* ks,
            int n_pages, int page, int d, int64_t page_stride,
            int64_t scale_stride, int n_phys, int bucket, float scale,
            int splits, cudaStream_t st) {
+  // A tile holds up to kTileBytes of K rows (and as many of V): ppt whole
+  // pages where pages fit and rows are narrower than float32's
+  // (ops/attention.py::paged_tile_pages), else tile_rows rows of one
+  // page.
   const int row_bytes = d * static_cast<int>(sizeof(T));
-  int tile_rows = min(page, max(1, kTileBytes / row_bytes));
+  int tile_rows = max(1, kTileBytes / row_bytes);
   if (sizeof(T) == 1) tile_rows = min(tile_rows, kMaxScaleRows);
+  const int ppt = sizeof(T) < 4 ? max(1, tile_rows / page) : 1;
+  tile_rows = min(tile_rows, page);
+  const bool svec = sizeof(T) == 1 && page % 4 == 0 && tile_rows % 4 == 0 &&
+                    scale_stride % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(ks) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(vs) % 16 == 0;
   const unsigned grid = static_cast<unsigned>(bh * splits);
   paged_decode_kernel<T, E, LK, NV><<<grid, kThreads, 0, st>>>(
       q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs, ptab,
       lengths, t, o, part, heads, n_pages, page, d, page_stride,
-      scale_stride, n_phys, bucket, scale, splits, tile_rows);
+      scale_stride, n_phys, bucket, scale, splits, tile_rows, ppt,
+      static_cast<int>(svec));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,9 +19,11 @@ the JAX package cannot differentiate through its ``pallas_call`` either,
 and trains through the plain ``_block_attn``. Called directly, the plain
 version is that training step: ``parallel/sequence.py`` runs it as the
 ring's block step with the flag off, and autograd differentiates it. The
-wrapper counts its kernel launches in ``LAUNCHES``, and by the instance
-of the kernel that served them (:func:`b6_instance`) in
-``B6_INSTANCES``.
+kernel has narrow instances (one warpgroup a 64-row q tile) for heads up
+to 128 columns and wide ones (two warpgroups a q tile) above: "wide
+d<=256" for heads of 129-256, then 384, 512 and wider. The wrapper counts
+its kernel launches in ``LAUNCHES``, and by the instance of the kernel
+that served them (:func:`b6_instance`) in ``B6_INSTANCES``.
 
 B7 is the port of ``paged_decode_attn`` of the same JAX module:
 :func:`paged_decode_attn` attends one decode token per slot over ONE
@@ -37,8 +39,10 @@ kernel. On CUDA tensors it launches the kernel of
 :func:`paged_decode_attn_plain`, the JAX serving step's gather,
 dequantization, mask and softmax line for line, which is also the
 kernel's oracle. The kernel reads only the pages that the mask admits
-some key of (:func:`paged_live_pages`), split over :func:`paged_splits`
-CTAs per (slot, head).
+some key of (:func:`paged_live_pages`), in tiles of several pages where
+pages fit (:func:`paged_tile_pages`: four pages of 16 int8 rows of 64),
+split over :func:`paged_splits` CTAs per (slot, head) in whole tiles
+(:func:`paged_split_pages`).
 """
 
 from __future__ import annotations
@@ -52,13 +56,19 @@ from multiverso_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 BLOCK = 128          # the TPU kernel's tile; Sq and Sk must divide by it
-#: The widest head of B7's register-held instance; wider heads take its
+#: B7 only: the widest head of its tiled instances; wider heads take its
 #: wide instance (``csrc/paged_attention.cu``: the output columns split
-#: over CTAs). B6's instances are named by :func:`b6_instance`.
+#: over CTAs). B6's instances have bounds of their own, named by
+#: :func:`b6_instance`.
 MAX_HEAD_DIM = 256
 PAGED_MAX_TICKETS = 1 << 16   # csrc/paged_attention.cu kMaxTickets
 #: B7's grid aims at this many CTAs an SM (``paged_splits``).
 PAGED_CTAS_PER_SM = 4
+#: Bytes of K rows a B7 tile holds (as many of V), and the most rows of an
+#: int8 tile (its scales' room): ``csrc/paged_attention.cu`` kTileBytes
+#: and kMaxScaleRows.
+PAGED_TILE_BYTES = 4096
+PAGED_MAX_SCALE_ROWS = 256
 
 #: Kernel launches, counted where the kernel is launched (B7's int8
 #: instance apart from its float32 and bfloat16 ones).
@@ -67,11 +77,11 @@ LAUNCHES: Dict[str, int] = {"flash_block_attn": 0, "paged_decode_attn": 0,
 
 #: B6's instances in ``csrc/attention.cu`` (its ``with_instance``): the
 #: narrow ones (one warpgroup a q tile, O of 64 NC columns in registers)
-#: by the widest head each takes, the wide ones (two warpgroups a q tile)
-#: likewise, Q streamed past 512.
-B6_INSTANCE_NAMES = ("narrow d<=64", "narrow d<=128", "narrow d<=192",
-                     "narrow d<=256", "wide d<=384", "wide d<=512",
-                     "wide d>512")
+#: by the widest head each takes, the wide ones (two warpgroups a q tile,
+#: O of 2, 3 or 4 chunks of 64 columns a warpgroup) likewise, Q streamed
+#: past 512.
+B6_INSTANCE_NAMES = ("narrow d<=64", "narrow d<=128", "wide d<=256",
+                     "wide d<=384", "wide d<=512", "wide d>512")
 #: B6's launches by the instance that served them; each is also counted
 #: in ``LAUNCHES["flash_block_attn"]``.
 B6_INSTANCES: Dict[str, int] = dict.fromkeys(B6_INSTANCE_NAMES, 0)
@@ -99,9 +109,10 @@ def supported(q: torch.Tensor, k: torch.Tensor, block_q: int = BLOCK,
 def b6_instance(d: int) -> str:
     """The name of B6's instance that takes heads of width ``d``."""
     chunks = -(-d // 64)
-    if chunks <= 4:
+    if chunks <= 2:
         return B6_INSTANCE_NAMES[chunks - 1]
-    return B6_INSTANCE_NAMES[4 if chunks <= 6 else 5 if chunks <= 8 else 6]
+    return B6_INSTANCE_NAMES[2 if chunks <= 4 else 3 if chunks <= 6
+                             else 4 if chunks <= 8 else 5]
 
 
 def _offsets(offsets: Offsets) -> Tuple[int, int]:
@@ -323,16 +334,60 @@ def paged_live_pages(lengths: torch.Tensor, t: torch.Tensor, *,
 _SMS: Dict[int, int] = {}
 
 
-def paged_splits(bh: int, n_pages: int, sms: int) -> int:
+def paged_tile_pages(dh: int, elem_bytes: int, page: int) -> int:
+    """Whole pages one tile of B7's tiled instances holds for heads of
+    ``dh`` elements of ``elem_bytes`` bytes (``csrc/paged_attention.cu``'s
+    ``launch``): a tile takes up to ``PAGED_TILE_BYTES`` of K rows (an
+    int8 tile at most ``PAGED_MAX_SCALE_ROWS`` rows), as many whole pages
+    as fit, or one page's rows in several tiles where none fits (1). A
+    float32 tile stays one page (its instance keeps the single-page
+    code: at dh 64 one page of 16 rows already fills a tile). The kernel
+    splits a slot's live pages over CTAs in units of this many pages, so
+    no tile crosses a split."""
+    if elem_bytes >= 4:
+        return 1
+    rows = max(1, PAGED_TILE_BYTES // (dh * elem_bytes))
+    if elem_bytes == 1:
+        rows = min(rows, PAGED_MAX_SCALE_ROWS)
+    return max(1, rows // page)
+
+
+def paged_split_pages(n_live: int, tile_pages: int,
+                      splits: int) -> list:
+    """The live pages ``[p0, p1)`` each of a slot's ``splits`` CTAs takes
+    (``csrc/paged_attention.cu``): whole units of ``tile_pages`` live
+    pages (a tile where pages fit it; the last unit may be short), split
+    as evenly as units allow."""
+    units = -(-n_live // tile_pages)
+    return [(min(s * units // splits * tile_pages, n_live),
+             min((s + 1) * units // splits * tile_pages, n_live))
+            for s in range(splits)]
+
+
+def paged_splits(bh: int, n_units: int, sms: int) -> int:
     """CTAs per (slot, head) of one B7 launch: enough that ``bh`` x splits
-    CTAs make ``PAGED_CTAS_PER_SM`` an SM, at most one per page of the
-    table (the live count of a slot is known only on the card). One where
-    ``bh`` already fills the card or passes the kernel's ticket
-    counters. ``bh`` counts the (slot, head) pairs times the column chunks
-    of a head wider than ``MAX_HEAD_DIM``."""
+    CTAs make ``PAGED_CTAS_PER_SM`` an SM, at most one per unit of work
+    the table can hold (``n_units``: its pages, or its tiles of
+    :func:`paged_tile_pages` pages; the live count of a slot is known only
+    on the card). One where ``bh`` already fills the card or passes the
+    kernel's ticket counters. ``bh`` counts the (slot, head) pairs times
+    the column chunks of a head wider than ``MAX_HEAD_DIM``."""
     if bh > PAGED_MAX_TICKETS:
         return 1
-    return max(1, min(n_pages, -(-PAGED_CTAS_PER_SM * sms // bh)))
+    return max(1, min(n_units, -(-PAGED_CTAS_PER_SM * sms // bh)))
+
+
+def paged_launch_splits(q: torch.Tensor, kp: torch.Tensor,
+                        n_pages: int, page: int, sms: int) -> int:
+    """The splits :func:`paged_decode_attn` launches with for these
+    inputs: a head wider than ``MAX_HEAD_DIM`` splits its columns into
+    chunks (the wide instance, whose unit is a page); a narrower one
+    splits the table's tiles."""
+    B, H, dh = q.shape
+    if dh > MAX_HEAD_DIM:
+        return paged_splits(B * H * -(-dh // MAX_HEAD_DIM), n_pages, sms)
+    tp = paged_tile_pages(dh, kp.element_size(), page)
+    return paged_splits(B * H, -(-n_pages // tp), sms)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -454,7 +509,7 @@ def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
     # A head wider than MAX_HEAD_DIM is split into column chunks of that
     # width over CTAs (the kernel's wide instance), each merged on its own.
     chunks = -(-dh // MAX_HEAD_DIM) if dh > MAX_HEAD_DIM else 1
-    splits = paged_splits(B * H * chunks, G, _sm_count(dev))
+    splits = paged_launch_splits(q, kp, G, page, _sm_count(dev))
     part = (_paged_scratch(dev, B * H * splits * (dh + 2 * chunks))
             if splits > 1 else None)
     if not q.is_contiguous():

@@ -12,15 +12,18 @@ and ordered).
 
 Each version runs, in a process of its own, at B7's two main-path shapes
 of ``chip_smoke.paged_shapes`` (the serving shape, G 36, and the
-long-context shape, G 132, one layer of a 12-layer pool each). At each it
-holds the kernel against the plain version (``PAGED_TOL``), and again with
-NaN in every page the mask wholly excludes (the plain version on clean
-pages; a kernel that reads those pages reports NaN here, it is not
-stopped), checks that two launches are bitwise equal and that a launch
-replayed from a CUDA graph equals an eager one, then times, in turns, the
-kernel, the plain version and the SDPA yardstick by CUDA events over
-``--reps`` back-to-back calls (5 readings: median and range), and the
-kernel and the yardstick in a CUDA graph, beside the byte bound. At a
+long-context shape, G 132, one layer of a 12-layer pool each), with
+float32, bfloat16 and int8 pages (int8 with its scale planes, as the
+serving codec encodes them). At each it holds the kernel against the
+plain version (``PAGED_TOL``), and again with NaN in every page the mask
+wholly excludes (int8: payloads of 127 and NaN scales; the plain version
+on clean pages; a kernel that reads those pages reports NaN here, it is
+not stopped), checks that two launches are bitwise equal and that a
+launch replayed from a CUDA graph equals an eager one, then times, in
+turns, the kernel, the plain version and (float32) the SDPA yardstick by
+CUDA events over ``--reps`` back-to-back calls (5 readings: median and
+range), and the kernel (and the yardstick) in a CUDA graph, beside the
+byte bound and the splits a slot and head the version's wrapper chose. At a
 small shape (4 slots, 4 heads, dh 64, G 12), where the card is the faster
 side, it reads the host's time to issue one wrapper call (the host clock
 over 200 calls before any synchronize), and the time to read the current
@@ -33,7 +36,8 @@ at each main-path shape with that many CTAs a slot and head.
 ``--phases`` then builds this checkout's ``csrc/paged_attention.cu`` with
 ``-DMV_PAGED_PROFILE`` (thread 0 of each CTA stores ``%globaltimer`` at
 its start, after its start-up loads, after its pages and at its exit)
-and, after a few launches at each main-path shape, prints per slot the
+and, after a few launches at each main-path shape (float32 and int8
+pages), prints per slot the
 CTAs' start-up, pages (median and most) and merge-or-exit times and when
 its last CTA ended, from the launch's first CTA start. Every line is
 printed with the card's name and power limit.
@@ -54,10 +58,14 @@ import _torch_steps as steps  # noqa: E402
 
 ENTRY = "mv_paged_decode_attn"
 PROFILE = "-DMV_PAGED_PROFILE"          # csrc/paged_attention.cu's marks
-# The serving shape's instance (float32, dh 64): this kernel's (16-byte
-# vectors, 8 lanes a key row, 2 vectors a lane) and the PR 5 kernel's (2
-# columns a lane).
-MAIN = ("paged_decode_kernelIfLi4ELi8ELi2EE", "paged_decode_kernelIfLi2EE")
+# The serving shape's instances (dh 64): float32 (16-byte vectors, 8
+# lanes a key row, 2 vectors a lane), bfloat16 (8 lanes, 1 vector) and
+# int8 (4 lanes, 1 vector), and the PR 5 kernel's (2 columns a lane).
+MAIN = ("paged_decode_kernelIfLi4ELi8ELi2EE",
+        "paged_decode_kernelI13__nv_bfloat16Li8ELi8ELi1EE",
+        "paged_decode_kernelIaLi16ELi4ELi1EE", "paged_decode_kernelIfLi2EE")
+#: The page types timed at each main-path shape.
+KINDS = ("float32", "bfloat16", "int8")
 
 
 def host_ms(fn, calls: int = 200, readings: int = 5) -> float:
@@ -104,6 +112,55 @@ def repeatable(attention, args, kw) -> dict:
             "graph_equals_eager": bool(torch.equal(captured, first))}
 
 
+def shape(attention, args, sc, bucket, P, reps, splits, sms) -> dict:
+    """One version's readings at one shape and page type (``sc`` the
+    int8 pages' scale planes, else empty)."""
+    import chip_smoke as cs
+    import torch
+    kw = dict(bucket=bucket, page=P, scale=args[0].shape[2] ** -0.5, **sc)
+    kern = lambda: attention.paged_decode_attn(*args, **kw)  # noqa
+    want = attention.paged_decode_attn_plain(*args, **kw)
+    rec = {"check": within(kern(), want)}
+    if sc:
+        poisoned, _, bad = cs.paged_poisoned(args, bucket, P, sc)
+    else:
+        (poisoned, _), bad = cs.paged_poisoned(args, bucket, P), {}
+    rec["nan_excluded_pages"] = within(
+        attention.paged_decode_attn(*poisoned, **{**kw, **bad}), want)
+    del poisoned, bad, want
+    rec.update(repeatable(attention, args, kw))
+    fns = {"kernel": kern,
+           "plain": lambda: attention.paged_decode_attn_plain(*args, **kw)}
+    if not sc and args[1].dtype == torch.float32:
+        fns["yardstick"] = cs.paged_yardstick(args, bucket, P)
+    ev = cs.repeat_ms(fns, readings=5, calls=reps)
+    rec.update({"ms": ev["kernel"], "plain_ms": ev["plain"],
+                "graph_ms": cs.graph_ms(kern)})
+    if "yardstick" in fns:
+        rec.update({"yardstick_ms": ev["yardstick"],
+                    "yardstick_graph_ms": cs.graph_ms(fns["yardstick"])})
+    q, kp, vp, ptab, lens, ts = args
+    rec["bound_ms"], rec["bound_by"] = cs.paged_bound(
+        q, kp, ptab, lens, ts, bucket, P)
+    G = ptab.shape[1]
+    rec["launch_splits"] = (
+        attention.paged_launch_splits(q, kp, G, P, sms)
+        if hasattr(attention, "paged_launch_splits")
+        else attention.paged_splits(q.shape[0] * q.shape[1], G, sms))
+    if splits and hasattr(attention, "paged_splits"):
+        real = attention.paged_splits
+        rec["splits"] = {}
+        for n in splits:
+            attention.paged_splits = lambda bh, g, sms, n=n: min(g, n)
+            rec["splits"][n] = {
+                "check": within(kern(), attention.paged_decode_attn_plain(
+                    *args, **kw)),
+                "ms": cs.repeat_ms({"k": kern}, readings=3, calls=reps)["k"],
+                "graph_ms": cs.graph_ms(kern)}
+        attention.paged_splits = real
+    return rec
+
+
 def child(tree: str, cu: str, flags: str, reps: int, splits) -> dict:
     """One version's readings, in this process."""
     attention = steps.import_from(tree, "ops.attention")
@@ -116,44 +173,17 @@ def child(tree: str, cu: str, flags: str, reps: int, splits) -> dict:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     P = cs.SERVE_PAGE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {"shapes": {}}
-    for what, bucket, args in cs.paged_shapes(dev):
-        kw = dict(bucket=bucket, page=P, scale=args[0].shape[2] ** -0.5)
-        kern = lambda: attention.paged_decode_attn(*args, **kw)  # noqa
-        want = attention.paged_decode_attn_plain(*args, **kw)
-        rec = {"check": within(kern(), want)}
-        poisoned, _ = cs.paged_poisoned(args, bucket, P)
-        rec["nan_excluded_pages"] = within(
-            attention.paged_decode_attn(*poisoned, **kw), want)
-        del poisoned, want
-        rec.update(repeatable(attention, args, kw))
-        yard = cs.paged_yardstick(args, bucket, P)
-        ev = cs.repeat_ms({
-            "kernel": kern,
-            "plain": lambda: attention.paged_decode_attn_plain(*args, **kw),
-            "yardstick": yard}, readings=5, calls=reps)
-        rec.update({"ms": ev["kernel"], "plain_ms": ev["plain"],
-                    "yardstick_ms": ev["yardstick"],
-                    "graph_ms": cs.graph_ms(kern),
-                    "yardstick_graph_ms": cs.graph_ms(yard)})
-        q, kp, vp, ptab, lens, ts = args
-        rec["bound_ms"], rec["bound_by"] = cs.paged_bound(
-            q, kp, ptab, lens, ts, bucket, P)
-        if splits and hasattr(attention, "paged_splits"):
-            real = attention.paged_splits
-            rec["splits"] = {}
-            for n in splits:
-                attention.paged_splits = lambda bh, g, sms, n=n: min(g, n)
-                rec["splits"][n] = {
-                    "check": within(kern(), attention.paged_decode_attn_plain(
-                        *args, **kw)),
-                    "ms": cs.repeat_ms({"k": kern}, readings=3,
-                                       calls=reps)["k"],
-                    "graph_ms": cs.graph_ms(kern)}
-            attention.paged_splits = real
-        out["shapes"][what] = rec
-        del args, yard
-        torch.cuda.empty_cache()
+    for kind in KINDS:
+        sc = {}
+        dtype = None if kind == "float32" else getattr(torch, kind)
+        for what, bucket, args in cs.paged_shapes(dev, dtype, sc):
+            out["shapes"][f"{kind} {what}"] = shape(
+                attention, args, sc, bucket, P, reps, splits, sms)
+            del args
+            sc.clear()
+            torch.cuda.empty_cache()
 
     g = torch.Generator(device=dev).manual_seed(11)
     small = cs.paged_inputs(g, dev, [3, 60, 128, 17], [0, 5, 63, 20], 128,
@@ -197,15 +227,20 @@ def phases() -> dict:
     card = cs.card_line()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for what, bucket, args in cs.paged_shapes(dev):
+    sc = {}
+    shapes = [(f"float32 {w}", b, a, {}) for w, b, a in cs.paged_shapes(dev)]
+    shapes += [(f"int8 {w}", b, a, dict(sc)) for w, b, a in
+               cs.paged_shapes(dev, torch.int8, sc)]
+    for what, bucket, args, scales in shapes:
         kw = dict(bucket=bucket, page=cs.SERVE_PAGE,
-                  scale=args[0].shape[2] ** -0.5)
+                  scale=args[0].shape[2] ** -0.5, **scales)
         for _ in range(5):
             attention.paged_decode_attn(*args, **kw)
         torch.cuda.synchronize()
         B, H = args[0].shape[:2]
         G = args[3].shape[1]
-        S = attention.paged_splits(B * H, G, sms)
+        S = attention.paged_launch_splits(args[0], args[1], G, cs.SERVE_PAGE,
+                                          sms)
         n = B * H * S
         buf = (ctypes.c_ulonglong * (4 * n))()
         if lib.mv_paged_decode_attn_profile(buf, n) != 0:
@@ -237,8 +272,6 @@ def phases() -> dict:
                   f"(most {r['pages_most_us']:.2f}), after its pages at "
                   f"most {r['after_pages_most_us']:.2f} (the merge), last "
                   f"CTA ended at {r['end_us']:.2f} us", flush=True)
-        del args
-        torch.cuda.empty_cache()
     return {"version": "phases", "card": card, "phases": out}
 
 
@@ -246,13 +279,16 @@ def report(rec: dict) -> None:
     import chip_smoke as cs
     name, card = rec["version"], rec["card"]
     for what, r in rec["shapes"].items():
+        yard = (f"SDPA yardstick {cs.spread(r['yardstick_ms'])} (graph "
+                f"{r['yardstick_graph_ms']:.4f}); "
+                if "yardstick_ms" in r else "")
         print(f"{name} {what}: events {cs.spread(r['ms'])} ms, graph "
               f"{r['graph_ms']:.4f} ms; plain {cs.spread(r['plain_ms'])}; "
-              f"SDPA yardstick {cs.spread(r['yardstick_ms'])} (graph "
-              f"{r['yardstick_graph_ms']:.4f}); bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); against plain {r['check']}, NaN in the "
-              f"excluded pages {r['nan_excluded_pages']}; two launches "
-              f"bitwise equal {r['bitwise_repeat']}, graph equal to eager "
+              f"{yard}bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{r['launch_splits']} CTAs a slot and head; against plain "
+              f"{r['check']}, NaN in the excluded pages "
+              f"{r['nan_excluded_pages']}; two launches bitwise equal "
+              f"{r['bitwise_repeat']}, graph equal to eager "
               f"{r['graph_equals_eager']} [{card}]", flush=True)
         for n, s in r.get("splits", {}).items():
             print(f"{name} {what}, {n} CTAs a slot and head: events "

@@ -167,18 +167,13 @@ def test_plain_bf16_inputs_compute_in_f32():
     _assert_close([t.numpy() for t in out], want)
 
 
-@pytest.mark.parametrize("d", [264, 320, 512])
-@pytest.mark.parametrize("case", ["causal (0, 0)", "causal (384, 128)",
-                                  "causal (128, 384)", "fully masked",
-                                  "band bias"])
-def test_plain_wide_heads_match_jax_flash(d, case):
-    """Heads wider than 256, which the card serves with B6's wide
-    instance: the plain version (its oracle there) against the JAX
-    kernel, causal at the ring's offsets, a wholly masked block (m exactly
-    -1e30) and the band bias. At such widths the two sides sum each dot
-    product of D terms in another order (torch's and XLA's CPU products),
-    which moves a score by a few 1e-6 (4.5e-6 read at D = 512): m is held
-    to rtol 1e-6 plus atol 1e-5, o and l to the file's tolerances."""
+def _plain_against_jax_at_width(d, case):
+    """The plain version against the JAX kernel at heads of ``d``: causal
+    at the ring's offsets, a wholly masked block (m exactly -1e30) or the
+    band bias. Past D = 64 the two sides sum each dot product of D terms
+    in another order (torch's and XLA's CPU products), which moves a score
+    by a few 1e-6 (4.5e-6 read at D = 512): m is held to rtol 1e-6 plus
+    atol 1e-5, o and l to the file's tolerances."""
     rng = np.random.default_rng(d)
     q, k, v = _qkv(rng, B=1, H=2, Sq=128, Sk=256, D=d)
     kw = dict(scale=float(1.0 / np.sqrt(d)))
@@ -201,12 +196,36 @@ def test_plain_wide_heads_match_jax_flash(d, case):
         np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("d", [264, 320, 512])
+@pytest.mark.parametrize("case", ["causal (0, 0)", "causal (384, 128)",
+                                  "causal (128, 384)", "fully masked",
+                                  "band bias"])
+def test_plain_wide_heads_match_jax_flash(d, case):
+    """Heads wider than 256, which the card serves with B6's wide
+    instances: the plain version (their oracle there) against the JAX
+    kernel."""
+    _plain_against_jax_at_width(d, case)
+
+
+@pytest.mark.parametrize("d", [72, 128, 192, 200, 256])
+@pytest.mark.parametrize("case", ["causal (0, 0)", "causal (384, 128)",
+                                  "causal (128, 384)", "band bias"])
+def test_plain_narrow_widths_match_jax_flash(d, case):
+    """Heads of 65-256 columns, which the card serves with the narrow
+    instance of two chunks (D <= 128) and the wide instance of two chunks
+    a warpgroup (D in (128, 256]): the plain version (the kernels' oracle)
+    against the JAX kernel, with a last chunk of 8 columns at D = 72 and
+    200."""
+    _plain_against_jax_at_width(d, case)
+
+
 def test_b6_instance_names_follow_the_kernel_dispatch():
     """The names the wrapper counts launches under: the narrow instances
-    by 64-column chunks of D up to 256, the wide ones up to 384, 512 and
-    past it, as ``csrc/attention.cu``'s ``with_instance`` picks them."""
+    by 64-column chunks of D up to 128, the wide ones up to 256, 384, 512
+    and past it, as ``csrc/attention.cu``'s ``with_instance`` picks
+    them."""
     want = {8: "narrow d<=64", 64: "narrow d<=64", 72: "narrow d<=128",
-            192: "narrow d<=192", 256: "narrow d<=256",
+            192: "wide d<=256", 256: "wide d<=256",
             264: "wide d<=384", 384: "wide d<=384", 392: "wide d<=512",
             512: "wide d<=512", 520: "wide d>512", 1024: "wide d>512"}
     assert {d: attention.b6_instance(d) for d in want} == want
@@ -245,8 +264,9 @@ def test_flash_has_no_backward():
         (o / l).sum().backward()
 
 
-@pytest.mark.parametrize("case", ["causal", "bias", "bf16", "d8", "d256",
-                                  "poisoned", "d264", "d320", "d512"])
+@pytest.mark.parametrize("case", ["causal", "bias", "bf16", "d8", "d128",
+                                  "d200", "d256", "poisoned", "d264",
+                                  "d320", "d512"])
 def test_kernel_matches_plain_on_card(card, case):
     """The kernel against the plain version on the same inputs; for
     ``poisoned``, the kernel on inputs with NaN in the K and V rows of

@@ -329,6 +329,65 @@ def _on_card(card, q, kp, vp, ptab, lengths, t, bf16):
             *(torch.as_tensor(x).to(card) for x in (ptab, lengths, t))]
 
 
+@pytest.mark.parametrize("dh, dtype, page, want", [
+    (64, "float32", 16, 1), (64, "bfloat16", 16, 2), (64, "int8", 16, 4),
+    (128, "int8", 16, 2), (256, "int8", 16, 1), (256, "bfloat16", 16, 1),
+    (64, "int8", 3, 21), (8, "int8", 16, 16), (64, "bfloat16", 1, 32),
+    (8, "float32", 1, 1)])
+def test_tile_pages_fill_the_tile_bytes(dh, dtype, page, want):
+    """The whole pages one B7 tile holds: for rows narrower than
+    float32's as many as fit 4 KB of K rows (an int8 tile at most 256
+    rows, its scales' room), at least one; a float32 tile one page. At
+    the serving shape (dh 64, page 16) float32 is one page a tile,
+    bfloat16 two and int8 four."""
+    elem = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    tp = attention.paged_tile_pages(dh, elem, page)
+    assert tp == want
+    if elem == 4 or tp == 1:
+        return
+    assert tp * page * dh * elem <= attention.PAGED_TILE_BYTES
+    assert (tp + 1) * page * dh * elem > attention.PAGED_TILE_BYTES or \
+        (elem == 1 and (tp + 1) * page > attention.PAGED_MAX_SCALE_ROWS)
+
+
+@pytest.mark.parametrize("n_live, tile_pages, splits", [
+    (33, 4, 6), (5, 4, 6), (132, 4, 6), (9, 4, 2), (36, 1, 6), (1, 4, 6),
+    (8, 2, 3), (40, 21, 2)])
+def test_split_pages_hold_whole_tiles(n_live, tile_pages, splits):
+    """The kernel's split of a slot's live pages: the CTAs take them in
+    order, each from a tile boundary, and none takes part of a tile that
+    another takes (only the slot's last tile may be short)."""
+    spans = attention.paged_split_pages(n_live, tile_pages, splits)
+    assert len(spans) == splits
+    assert spans[0][0] == 0 and spans[-1][1] == n_live
+    for (a0, a1), (b0, _) in zip(spans, spans[1:]):
+        assert a1 == b0
+    for p0, p1 in spans:
+        assert p0 <= p1
+        assert p0 % tile_pages == 0
+        assert (p1 - p0) % tile_pages == 0 or p1 == n_live
+    units = [-(-(p1 - p0) // tile_pages) for p0, p1 in spans]
+    assert max(units) - min(units) <= 1
+
+
+def test_launch_splits_count_tiles():
+    """The splits a launch takes: tiles of the table, not pages, for heads
+    up to 256 (int8 at the serving shape: 36 pages are 9 tiles of 4, still
+    6 CTAs a slot and head on 132 SMs; a 16-page table's 4 tiles cap them
+    at 4), pages for the wide instance, one CTA where B x H fills the
+    card."""
+    q = torch.zeros(8, 12, 64)
+    i8 = torch.zeros(1, dtype=torch.int8)
+    f32 = torch.zeros(1)
+    assert attention.paged_launch_splits(q, i8, 36, 16, 132) == 6
+    assert attention.paged_launch_splits(q, i8, 16, 16, 132) == 4
+    assert attention.paged_launch_splits(q, f32, 16, 16, 132) == 6
+    assert attention.paged_launch_splits(torch.zeros(8, 12, 320), i8, 16,
+                                         16, 132) == 3
+    assert attention.paged_launch_splits(torch.zeros(64, 12, 64), i8, 36,
+                                         16, 132) == 1
+
+
 def test_kernel_skips_wholly_masked_pages_on_card(card):
     """NaN in every page the mask wholly excludes: the kernel never reads
     them, so it equals the plain version on the clean pages."""

@@ -126,6 +126,18 @@ READ_CASES = {
                        lengths=[5, 240], t=[3, 15]),
     "narrow rows (dh 8)": dict(H=3, dh=8, P=4, G=3, bucket=8, n_phys=9,
                                lengths=[2, 8], t=[1, 3]),
+    # The serving layouts (page 16, dh 64), where the card's int8 tiles
+    # hold four pages: 22 and 34 live pages, each on its own physical page
+    # far from its neighbours; a slot whose live pages form two runs (the
+    # prompt's 7 pages, then the generated ones past bucket 512); dh 256.
+    "20+ live pages, scattered physical pages": dict(
+        H=2, dh=64, P=16, G=36, bucket=512, n_phys=80, lengths=[352, 512],
+        t=[0, 40], distinct=True),
+    "live pages in two runs": dict(H=2, dh=64, P=16, G=36, bucket=512,
+                                   n_phys=80, lengths=[100, 37],
+                                   t=[20, 63], distinct=True),
+    "dh 256": dict(H=2, dh=256, P=16, G=12, bucket=128, n_phys=30,
+                   lengths=[100, 128], t=[5, 60], distinct=True),
 }
 
 
@@ -140,7 +152,11 @@ def _read_case(name):
     k[0] = 0.0                                # the garbage page
     kq, ks = jquant.encode_rows(jnp.asarray(k), "int8")
     vq, vs = jquant.encode_rows(jnp.asarray(v), "int8")
-    ptab = rng.integers(0, c["n_phys"], (B, c["G"])).astype(np.int32)
+    if c.get("distinct"):
+        ptab = rng.permutation(c["n_phys"])[:B * c["G"]].reshape(
+            B, c["G"]).astype(np.int32)
+    else:
+        ptab = rng.integers(0, c["n_phys"], (B, c["G"])).astype(np.int32)
     if "idle" in c:
         ptab[c["idle"]] = 0
     ptab[0, 0] = c["n_phys"] + 3              # clipped into the pool
