@@ -120,10 +120,17 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
    per batch; no float32 B7 launch); then, on a variant of the workload
    whose repeated prompt (124 tokens) ends in the straddle page of
    24-position pages at bucket 128, continuous paged without and with the
-   prefix cache (8 entries). Every request must be answered; every
-   float32 mode's served token must be the argmax of the port's
+   prefix cache (8 entries); then the same widths and weights in 2 heads
+   of 384, the first 8 prompts with ``max_new`` 32, continuous paged with
+   float32 and then int8 pages (B7's wide instance, exactly 12 launches
+   an engine step by the instance its entry point reports, each with the
+   splits phase 2 held at the engine's shape; every other mode's
+   launches all by the tiled instance). Every request must be answered;
+   every float32 mode's served token must be the argmax of the port's
    teacher-forced full ``forward`` on the card or within ``TIE_ATOL`` of
-   its largest logit; the drain modes' tokens must equal the continuous
+   its largest logit, and so must every token of the wide-head int8
+   mode in the int8 teacher-forced logits (below); the drain modes'
+   tokens must equal the continuous
    ones up to such a tie, drain int8's continuous int8's (ties judged in
    the int8 teacher-forced logits: generated rows attend over K and V
    round-tripped through the codec), and the prefix cache's those of the
@@ -305,11 +312,18 @@ eval shape (its launch shape, registers, spills, shared memory and CTAs
 an SM read from the runtime; two launches bitwise equal; timed with both
 bounds and SDPA), at the two-rank ring's blocks with heads of 320 and
 small cases (offsets, a bias, bfloat16 at D = 320 and 512, D = 264, D =
-576, NaN in the unseen keys); B7 and its int8 instance at dh =
-``WIDE_PAGED_HEAD`` at the serving shape (NaN or 127 in the wholly
-masked pages, repeatable, graph-equal, timed with the byte bound) and
-small cases (dh = 520, an idle slot, one CTA a slot, head and chunk, a
-bfloat16 pool).
+576, NaN in the unseen keys); B7's wide instances (dh 257-512) in
+float32, bfloat16 and int8 at dh = ``WIDE_PAGED_HEADS`` at the serving
+shape and at the first of them at the long-context shape (NaN or 127 in
+the wholly masked pages, repeatable, graph-equal, each launch counted
+under the instance the kernel's entry point reports, timed with the byte
+bound and, float32, SDPA over the gathered cache; registers, shared
+memory and CTAs an SM from the runtime), at phase 7's wide-head
+engine's step (8 slots of 2 heads of 384 at buckets 128 and 512, float32
+and int8, held the same way and counted under its splits), and small
+cases (dh = 264, a pool off its 16-byte boundary and
+int8 at 264 on the narrow-row instance, dh = 520 on the column-chunked
+one, an idle slot, one CTA a slot and head).
 
 Every launch count is set to 0 just before each main-path run of phases
 3, 4, 6, 7, 8, 9, 10, 11 and 12 and read just after it (phase 10's seats
@@ -392,10 +406,11 @@ RING_SHAPES = ((1, 8, 2048, 128), (1, 8, 4096, 128), (2, 16, 2048, 64))
 # The kernels' wide instances (check_wide_kernels): B5 past 16 negatives
 # (the grouped variant; the word2vec paper's 5-20 for small corpora, and
 # twice that), B6 past a 256-wide head (D = 320: GPT-2 XL's 1600 / 5;
-# 512: two column chunks) and B7 at dh = 320.
+# 512: two column chunks) and B7 at dh = 320, 384 (GPT-2 small's 768 in
+# 2 heads, the served wide mode) and 512.
 WIDE_NEG = (20, 40)
 WIDE_HEAD = (320, 512)
-WIDE_PAGED_HEAD = 320
+WIDE_PAGED_HEADS = (320, 384, 512)
 # The serving phase: GPT-2-small widths (LM) served with max_new 64 and 8
 # slots per bucket engine over buckets 128 and 512, pages of 16 positions;
 # 32 prompts of serve_bench's decode workload, 8 in flight.
@@ -406,6 +421,10 @@ SERVE_REQUESTS, SERVE_IN_FLIGHT = 32, 8
 # the variant workload's repeated 124-token prompt ends in a straddle page
 # that a sharer copies on extend; and the store's capacity.
 SERVE_PREFIX_PAGE, SERVE_PREFIX_ENTRIES = 24, 8
+# The wide-head modes: the same LM widths and weights in 2 heads of 384
+# (B7's wide instance), the first 8 prompts of the workload, 32 new
+# tokens each, continuous paged with float32 and then int8 pages.
+WIDE_SERVE_HEADS, WIDE_SERVE_REQUESTS, WIDE_SERVE_MAX_NEW = 2, 8, 32
 # B7 against its plain version: the JAX package's tolerances for its
 # paged kernel against the gather formulation
 # (tests/test_pallas_attention.py:163-199); the kernel sums page by page.
@@ -2255,7 +2274,7 @@ def paged_poisoned(args, bucket, page, scales=None):
     return (q, kn, vn, ptab, lens, ts), int(dead.numel())
 
 
-def paged_shapes(dev, dtype=None, scales=None):
+def paged_shapes(dev, dtype=None, scales=None, dh=None):
     """B7's two main-path shapes, one at a time: (what, bucket, args).
     The serving phase's shape (8 slots, 12 heads, dh 64, page 16, bucket
     512, max_new 64: G = 36) over one layer of a pool of the serving
@@ -2263,14 +2282,15 @@ def paged_shapes(dev, dtype=None, scales=None):
     workload's mixed lengths (one full prompt) and mixed t; then a
     long-context shape: 8 full prompts at bucket 2,048 (G = 132), one
     layer of a pool that holds them. ``dtype`` int8: the pools encoded by
-    the serving codec, their scale planes into ``scales``."""
+    the serving codec, their scale planes into ``scales``. ``dh`` widens
+    the heads (the same draws otherwise)."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.serving import default_pool_pages
     g = torch.Generator(device=dev).manual_seed(9)
     rng = np.random.default_rng(7)
     S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
-    H, dh = LM["heads"], LM["dim"] // LM["heads"]
+    H, dh = LM["heads"], dh or LM["dim"] // LM["heads"]
     lengths = [min(len(p), S) for p in decode_workload(
         rng, SERVE_BATCH, S, 0.0, [])]
     lengths[0] = S                        # one full prompt
@@ -2285,6 +2305,32 @@ def paged_shapes(dev, dtype=None, scales=None):
     yield "at the long-context shape", L, paged_inputs(
         g, dev, [L] * SERVE_BATCH, t, L, N, P, H, dh, n_phys,
         layers=LM["layers"], dtype=dtype, scales=scales)
+
+
+def wide_serve_shapes(dev, dtype=None, scales=None):
+    """B7's inputs in phase 7's wide-head modes, one bucket at a time:
+    (what, bucket, args). The continuous engine's decode step:
+    ``SERVE_BATCH`` slots of ``WIDE_SERVE_HEADS`` heads of
+    ``LM["dim"] // WIDE_SERVE_HEADS`` columns, a page table of the
+    engine's width (``pages_of(bucket + WIDE_SERVE_MAX_NEW, page)``) from
+    real page plans of the workload's lengths cut to the bucket (one full
+    prompt) and mixed t, over one layer of a 12-layer pool of the
+    engine's size. ``dtype`` and ``scales`` as in ``paged_shapes``."""
+    import numpy as np
+    import torch
+    from multiverso_tpu_torch.serving import default_pool_pages
+    g = torch.Generator(device=dev).manual_seed(19)
+    rng = np.random.default_rng(19)
+    N, P, H = WIDE_SERVE_MAX_NEW, SERVE_PAGE, WIDE_SERVE_HEADS
+    n_phys = default_pool_pages(SERVE_BUCKETS, SERVE_BATCH, N, P) + 1
+    for S in SERVE_BUCKETS:
+        lengths = [min(len(p), S) for p in decode_workload(
+            rng, SERVE_BATCH, S, 0.0, [])]
+        lengths[0] = S
+        t = rng.integers(0, N, SERVE_BATCH).tolist()
+        yield "at the wide-head engine's step", S, paged_inputs(
+            g, dev, lengths, t, S, N, P, H, LM["dim"] // H, n_phys,
+            layers=LM["layers"], dtype=dtype, scales=scales)
 
 
 def paged_yardstick(args, bucket, page):
@@ -2308,17 +2354,29 @@ def paged_yardstick(args, bucket, page):
                                                   attn_mask=mask)
 
 
-def paged_pair(what, args, kw, want=None, counter="paged_decode_attn"):
+def paged_pair(what, args, kw, want=None, counter="paged_decode_attn",
+               instance=None, splits=None):
     """B7 (the wrapper on the card) against its plain version within
     ``PAGED_TOL``: ``args`` and ``kw`` the wrapper's, ``want`` the plain
     version's ``(args, kw)`` where they differ (clean pages for a poisoned
-    launch); the launch must count one on ``counter``. Returns the max
-    abs error."""
+    launch); the launch must count one on ``counter`` and, where named,
+    one on ``instance`` of ``B7_INSTANCES`` (the instance the kernel's
+    entry point reports) and one on ``splits`` of ``B7_SPLITS``. Returns
+    the max abs error."""
     import torch
     from multiverso_tpu_torch.ops import attention
     before = attention.LAUNCHES[counter]
+    served = dict(attention.B7_INSTANCES)
+    split = dict(attention.B7_SPLITS)
     got = attention.paged_decode_attn(*args, **kw)
     assert attention.LAUNCHES[counter] == before + 1, what
+    if instance is not None:
+        served[instance] += 1
+        assert attention.B7_INSTANCES == served, (what, instance)
+    if splits is not None:
+        split[splits] = split.get(splits, 0) + 1
+        assert attention.B7_SPLITS == split, (what, splits,
+                                              attention.B7_SPLITS)
     want_args, want_kw = want or (args, kw)
     ref = attention.paged_decode_attn_plain(*want_args, **want_kw)
     torch.cuda.synchronize()
@@ -2707,6 +2765,18 @@ def check_paged_int8_layouts(dev, g, sms: int) -> list:
 # ---------------------------------------------------------------------------
 # phase 2: the kernels' wide instances (any negative count, any head width)
 # ---------------------------------------------------------------------------
+def block_negatives(streams, k: int, g):
+    """The flagship block's negatives redrawn ``k`` a pair from the
+    block's own live negatives (so from the flagship's unigram^0.75
+    table), by ``g``: [chunks, CHUNK, k] int32."""
+    import torch
+    negs5, n_pairs = streams[2], streams[3]
+    n_live = (int(n_pairs) + CHUNK - 1) // CHUNK
+    pool = negs5[:n_live].reshape(-1)
+    return pool[torch.randint(0, pool.numel(), negs5.shape[:2] + (k,),
+                              generator=g, device=pool.device)].contiguous()
+
+
 def check_sgns_negatives(dev) -> list:
     """B5 past 16 negatives (the grouped variant) on the flagship block:
     its centers, contexts and pair count, with ``WIDE_NEG`` negatives a
@@ -2724,10 +2794,9 @@ def check_sgns_negatives(dev) -> list:
     from multiverso_tpu_torch.ops import sgns
 
     tables, streams, lr = flagship_block(dev)
-    centers, contexts, negs5, n_pairs = streams
+    centers, contexts, _, n_pairs = streams
     n_live = (int(n_pairs) + CHUNK - 1) // CHUNK
     g = torch.Generator(device=dev).manual_seed(12)
-    pool = negs5[:n_live].reshape(-1)
 
     def rel(a_t, b_t):
         return {n: float((a.double() - b.double()).abs().max())
@@ -2735,8 +2804,7 @@ def check_sgns_negatives(dev) -> list:
 
     out = []
     for k in WIDE_NEG:
-        negs = pool[torch.randint(0, pool.numel(), negs5.shape[:2] + (k,),
-                                  generator=g, device=dev)].contiguous()
+        negs = block_negatives(streams, k, g)
         st = (centers, contexts, negs)
         what = f"B5 K={k} (grouped variant), flagship block"
         by_chunk = hold_by_chunk(tables, (*st, n_pairs), n_pairs, lr,
@@ -2891,97 +2959,201 @@ def check_attention_wide(dev) -> list:
     return out
 
 
+def paged_wide_case(g, dev, lens, t, heads, d, phys, dtype=None,
+                    misalign=False):
+    """A small B7 case at wide heads (bucket 128, max_new 64, page 16):
+    (args, kwargs). ``misalign`` moves the pools one element off their
+    16-byte boundary (the narrow-row wide instance)."""
+    import torch
+    sc = {}
+    a = paged_inputs(g, dev, lens, t, 128, 64, 16, heads, d, phys,
+                     dtype=dtype, scales=sc)
+    if misalign:
+        a = list(a)
+        for i in (1, 2):
+            flat = torch.empty(a[i].numel() + 1, dtype=a[i].dtype,
+                               device=dev)
+            a[i] = flat[1:].view(a[i].shape).copy_(a[i])
+    return a, dict(bucket=128, page=16, scale=d ** -0.5, **sc)
+
+
 def check_paged_wide(dev) -> dict:
-    """B7's wide instance (dh > 256: the output columns split into chunks
-    of 256 over CTAs) at the serving shape with heads of dh
-    ``WIDE_PAGED_HEAD``, float32 and int8 pages: held against the plain
-    version within ``PAGED_TOL`` (again with NaN, or payloads of 127 and
-    NaN scales, in every page the mask wholly excludes), launched twice
+    """B7's wide instances (dh 257-512: one CTA a slot, head and split
+    scores each key once over the whole row, tiles of 12 KB of rows in a
+    ring in dynamic shared memory) at the serving shape with heads of
+    ``WIDE_PAGED_HEADS`` and at the long-context shape with heads of
+    ``WIDE_PAGED_HEADS[0]``, float32, bfloat16 and int8 pages: held
+    against the plain version within ``PAGED_TOL`` (again with NaN, or
+    payloads of 127 and NaN scales, in every page the mask wholly
+    excludes), each launch counted under its instance, launched twice
     (bitwise equal) and from a CUDA graph, timed by events and in a graph
-    beside the plain version and the byte bound; then small cases: a
-    bfloat16 pool, dh = 520 (a last chunk of 8), one CTA a slot and head,
-    an idle slot on the garbage page. Returns {kernel name: records}."""
+    beside the plain version, the byte bound and SDPA over the cache
+    gathered beforehand (float32); the instance's registers, shared
+    memory and CTAs an SM as the runtime reports them. Then phase 7's
+    wide-head modes' own inputs (``wide_serve_shapes``: 8 slots of 2
+    heads of 384 at each serving bucket, float32 and int8 pages), held
+    the same way, each launch counted under the splits that
+    ``paged_launch_splits`` gives there (the records phase 7 holds the
+    engine's launches to). Then small cases: dh 264 (float32, bfloat16;
+    int8's 264-byte rows take the narrow-row instance), a pool off its
+    16-byte boundary (narrow-row), dh = 520 (the column-chunked instance,
+    a last chunk of 8), one CTA a slot and head, an idle slot on the
+    garbage page. Returns {kernel name: records}."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.ops import attention
-    from multiverso_tpu_torch.serving import default_pool_pages
 
     g = torch.Generator(device=dev).manual_seed(14)
-    rng = np.random.default_rng(9)
-    S, N, P = SERVE_BUCKETS[-1], SERVE_MAX_NEW, SERVE_PAGE
-    H, dh = LM["heads"], WIDE_PAGED_HEAD
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    lengths = [min(len(p), S) for p in decode_workload(
-        rng, SERVE_BATCH, S, 0.0, [])]
-    lengths[0] = S
-    t = rng.integers(0, N, SERVE_BATCH).tolist()
-    n_phys = default_pool_pages(SERVE_BUCKETS, SERVE_BATCH, N, P) + 1
+    P = SERVE_PAGE
     out = {"paged_decode_attn": [], "paged_decode_attn_int8": []}
-    for dtype, name in ((None, "paged_decode_attn"),
-                        (torch.int8, "paged_decode_attn_int8")):
-        sc = {}
-        args = paged_inputs(g, dev, lengths, t, S, N, P, H, dh, n_phys,
-                            layers=3, dtype=dtype, scales=sc)
-        kw = dict(bucket=S, page=P, scale=dh ** -0.5, **sc)
-        G = args[3].shape[1]
-        label = (f"B7{' int8' if dtype else ''} wide dh={dh} at the serving "
-                 f"shape (B {SERVE_BATCH}, H {H}, page {P}, bucket {S}, G {G})")
-        err = paged_pair(label, args, kw, counter=name)
-        if sc:
-            poisoned, n_dead, bad = paged_poisoned(args, S, P, sc)
-            bad_kw = dict(kw, **bad)
-        else:
-            poisoned, n_dead = paged_poisoned(args, S, P)
-            bad_kw = kw
-        nan_err = paged_pair(f"{label}, the {n_dead} wholly masked pages "
-                             "poisoned", poisoned, bad_kw, want=(args, kw),
-                             counter=name)
-        del poisoned
-        paged_repeatable(label, args, kw)
-        rec = {"ms": cuda_ms(lambda: attention.paged_decode_attn(*args, **kw),
-                             50),
-               "graph_ms": graph_ms(lambda: attention.paged_decode_attn(
-                   *args, **kw)),
-               "plain_ms": cuda_ms(lambda: attention.paged_decode_attn_plain(
-                   *args, **kw), 50)}
-        q, kp, vp, ptab, lens, ts = args
-        bound = paged_bound(q, kp, ptab, lens, ts, S, P)
-        splits = attention.paged_launch_splits(q, kp, G, P, sms)
-        log(f"{label}, {splits} CTAs a slot, head and column chunk: kernel "
-            f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), "
-            f"plain {rec['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms "
-            f"({bound[1]})")
-        out[name].append({"case": f"dh={dh}, the wide instance, serving "
-                                  "shape", "shape": [SERVE_BATCH, H, dh],
-                          "max_abs_err": err,
-                          "nan_excluded_pages_max_abs_err": nan_err,
-                          "splits": splits, **rec, "bound_ms": bound[0],
-                          "bound_by": bound[1], "library_ms": None})
-        del args, q, kp, vp
-        torch.cuda.empty_cache()
-        cases = [("dh=520 (a last chunk of 8)", [3, 60, 128, 17],
-                  [0, 5, 63, 20], 4, 520, 64),
-                 ("idle slot on the garbage page, dh=320", [1, 40, 100, 7],
-                  [0, 10, 63, 1], 4, 320, 64)]
-        slots = -(-attention.PAGED_CTAS_PER_SM * sms // (12 * 2))
-        cases.append((f"{slots} slots x 12 heads, dh=320: one CTA a slot, "
-                      "head and chunk", rng.integers(1, 129, slots).tolist(),
-                      rng.integers(0, 64, slots).tolist(), 12, 320,
-                      slots * 12 + 1))
-        if dtype is None:
-            cases.append(("bfloat16 pool, dh=320", [3, 60, 128, 17],
-                          [0, 5, 63, 20], 4, 320, 64))
-        for case, lens_v, t_v, heads, d, phys in cases:
+    vec = attention.B7_INSTANCE_NAMES[1]
+    described = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        name = ("paged_decode_attn_int8" if dtype == torch.int8
+                else "paged_decode_attn")
+        kind = str(dtype).split(".")[1]
+        for dh in WIDE_PAGED_HEADS:
             sc = {}
-            dt = torch.bfloat16 if case.startswith("bfloat16") else dtype
-            a = paged_inputs(g, dev, lens_v, t_v, 128, 64, 16, heads, d,
-                             phys, dtype=dt, scales=sc)
+            for what, S, args in paged_shapes(dev, dtype, sc, dh=dh):
+                long = what.endswith("long-context shape")
+                if long and dh != WIDE_PAGED_HEADS[0]:
+                    sc.clear()
+                    continue
+                kw = dict(bucket=S, page=P, scale=dh ** -0.5, **sc)
+                q, kp, vp, ptab, lens, ts = args
+                G = ptab.shape[1]
+                label = (f"B7 {kind} wide dh={dh} {what} (B {SERVE_BATCH}, "
+                         f"H {q.shape[1]}, page {P}, bucket {S}, G {G})")
+                err = paged_pair(label, args, kw, counter=name,
+                                 instance=vec)
+                if sc:
+                    poisoned, n_dead, bad = paged_poisoned(args, S, P, sc)
+                    bad_kw = dict(kw, **bad)
+                else:
+                    poisoned, n_dead = paged_poisoned(args, S, P)
+                    bad_kw = kw
+                nan_err = paged_pair(
+                    f"{label}, the {n_dead} wholly masked pages poisoned",
+                    poisoned, bad_kw, want=(args, kw), counter=name,
+                    instance=vec)
+                del poisoned, bad_kw
+                paged_repeatable(label, args, kw)
+                kern = lambda: attention.paged_decode_attn(*args, **kw)  # noqa
+                rec = {"ms": cuda_ms(kern, 50), "graph_ms": graph_ms(kern),
+                       "plain_ms": cuda_ms(
+                           lambda: attention.paged_decode_attn_plain(
+                               *args, **kw), 20)}
+                if dtype == torch.float32:
+                    yard = paged_yardstick(args, S, P)
+                    rec["sdpa_ms"] = cuda_ms(yard, 50)
+                    rec["sdpa_graph_ms"] = graph_ms(yard)
+                    del yard
+                bound = paged_bound(q, kp, ptab, lens, ts, S, P)
+                splits = attention.paged_launch_splits(q, kp, G, P, sms)
+                if (dh, dtype) not in described:
+                    described[dh, dtype] = attention.paged_describe(
+                        dh, dtype)
+                res = described[dh, dtype]
+                # The ring's occupancy (csrc/paged_attention.cu WideRing).
+                assert res["ctas_per_sm"] == (
+                    2 if dtype == torch.float32 else 3), res
+                sdpa = (f", SDPA over the gathered cache "
+                        f"{rec['sdpa_ms']:.4f} ms ({rec['sdpa_graph_ms']:.4f}"
+                        " ms in a graph)" if "sdpa_ms" in rec else "")
+                log(f"{label}, {splits} CTAs a slot and head: kernel "
+                    f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA "
+                    f"graph), plain {rec['plain_ms']:.4f} ms{sdpa}, bound "
+                    f"{bound[0]:.4f} ms ({bound[1]}); {res['instance']}: "
+                    f"{res['registers']} registers, {res['local_bytes']} "
+                    f"local bytes, {res['smem_bytes']} bytes of shared "
+                    f"memory, {res['ctas_per_sm']} CTAs an SM")
+                out[name].append({
+                    "case": f"dh={dh}, {kind} pages, the wide instance, "
+                            f"{what}", "shape": [SERVE_BATCH, q.shape[1], dh],
+                    "bucket": S, "instance": vec, "max_abs_err": err,
+                    "nan_excluded_pages_max_abs_err": nan_err,
+                    "splits": splits, **rec, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": None,
+                    "resources": res})
+                del args, q, kp, vp, kern
+                sc.clear()
+                torch.cuda.empty_cache()
+    # Phase 7's wide-head modes: the engine's step at each bucket.
+    wide_dh = LM["dim"] // WIDE_SERVE_HEADS
+    for dtype in (torch.float32, torch.int8):
+        name = ("paged_decode_attn_int8" if dtype == torch.int8
+                else "paged_decode_attn")
+        kind = str(dtype).split(".")[1]
+        sc = {}
+        for what, S, args in wide_serve_shapes(dev, dtype, sc):
+            kw = dict(bucket=S, page=P, scale=wide_dh ** -0.5, **sc)
+            q, kp, vp, ptab, lens, ts = args
+            G = ptab.shape[1]
+            splits = attention.paged_launch_splits(q, kp, G, P, sms)
+            label = (f"B7 {kind} wide dh={wide_dh} {what} (B {SERVE_BATCH},"
+                     f" H {q.shape[1]}, page {P}, bucket {S}, G {G}, "
+                     f"{splits} CTAs a slot and head)")
+            err = paged_pair(label, args, kw, counter=name, instance=vec,
+                             splits=splits)
+            if sc:
+                poisoned, n_dead, bad = paged_poisoned(args, S, P, sc)
+                bad_kw = dict(kw, **bad)
+            else:
+                poisoned, n_dead = paged_poisoned(args, S, P)
+                bad_kw = kw
+            nan_err = paged_pair(
+                f"{label}, the {n_dead} wholly masked pages poisoned",
+                poisoned, bad_kw, want=(args, kw), counter=name,
+                instance=vec, splits=splits)
+            del poisoned, bad_kw
+            paged_repeatable(label, args, kw)
+            out[name].append({
+                "case": f"dh={wide_dh}, {kind} pages, the wide instance, "
+                        f"{what}", "shape": [SERVE_BATCH, q.shape[1],
+                                             wide_dh],
+                "bucket": S, "pages": G, "kind": kind, "instance": vec,
+                "engine_step": True, "max_abs_err": err,
+                "nan_excluded_pages_max_abs_err": nan_err,
+                "splits": splits})
+            del args, q, kp, vp
+            sc.clear()
+            torch.cuda.empty_cache()
+    rng = np.random.default_rng(9)
+    slots = -(-attention.PAGED_CTAS_PER_SM * sms // 12)
+    lens4, t4 = [3, 60, 128, 17], [0, 5, 63, 20]
+    narrow = attention.B7_INSTANCE_NAMES[2]
+    chunked = attention.B7_INSTANCE_NAMES[3]
+    for dtype in (None, torch.bfloat16, torch.int8):
+        name = ("paged_decode_attn_int8" if dtype == torch.int8
+                else "paged_decode_attn")
+        kind = "float32" if dtype is None else str(dtype).split(".")[1]
+        cases = [("dh=264", lens4, t4, 4, 264, 64, False,
+                  narrow if dtype == torch.int8 else vec),
+                 ("dh=520 (the column-chunked instance, a last chunk of 8)",
+                  lens4, t4, 4, 520, 64, False, chunked),
+                 ("idle slot on the garbage page, dh=320", [1, 40, 100, 7],
+                  [0, 10, 63, 1], 4, 320, 64, False, vec),
+                 (f"{slots} slots x 12 heads, dh=320: one CTA a slot and "
+                  "head", rng.integers(1, 129, slots).tolist(),
+                  rng.integers(0, 64, slots).tolist(), 12, 320,
+                  slots * 12 + 1, False, vec),
+                 ("dh=320, the pool off its 16-byte boundary", lens4, t4, 4,
+                  320, 64, True, narrow)]
+        for case, lens_v, t_v, heads, d, phys, off, inst in cases:
+            a, kw = paged_wide_case(g, dev, lens_v, t_v, heads, d, phys,
+                                    dtype, off)
             if case.startswith("idle"):
                 a[3][0] = 0
-            e = paged_pair(f"B7{' int8' if dtype else ''} wide {case}", a,
-                           dict(bucket=128, page=16, scale=d ** -0.5, **sc),
-                           counter=name)
-            out[name].append({"case": case, "max_abs_err": e})
+            if case.startswith(f"{slots} slots"):
+                assert attention.paged_launch_splits(
+                    a[0], a[1], a[3].shape[1], 16, sms) == 1
+            label = f"B7 {kind} wide {case}"
+            e = paged_pair(label, a, kw, counter=name, instance=inst)
+            if case.startswith("dh=264") or off:
+                paged_repeatable(label, a, kw)
+            out[name].append({"case": f"{kind} pages, {case}",
+                              "instance": inst, "max_abs_err": e})
     return out
 
 
@@ -3906,8 +4078,9 @@ def teacher_forced_int8(params, cfg, prompts, served, dev):
     paged int8 decode reads. Returns the per-request logits rows of the
     served tokens ([max_new, vocab] each) and the count of served tokens
     that are neither the argmax nor within ``TIE_ATOL`` of the largest
-    logit there (not gated: the codec's rounding edges turn float32
-    summing-order differences into whole quantization steps)."""
+    logit there (gated in the wide-head mode only: at heads of 64 the
+    codec's rounding edges turn float32 summing-order differences into
+    whole quantization steps)."""
     import torch
     from multiverso_tpu_torch.models.attention_lm import _ln, _posenc
     from multiverso_tpu_torch.serving.quant import decode_rows, encode_rows
@@ -3950,7 +4123,7 @@ def teacher_forced_int8(params, cfg, prompts, served, dev):
     return rows, off
 
 
-def serve_lm(dev, card) -> dict:
+def serve_lm(dev, card, wide_splits) -> dict:
     """The attention LM served on the card through ``ServingService`` and
     ``ServingClient`` (see the module's docstring). Each mode's run sets
     every launch count to 0 just before it and reads them just after.
@@ -3958,7 +4131,12 @@ def serve_lm(dev, card) -> dict:
     pages); continuous paged and drain paged with int8 pages (B7's int8
     instance); and, on a variant of the workload whose repeated prompt
     reaches into the straddle page of 24-position pages at bucket 128,
-    continuous paged without and with the prefix cache."""
+    continuous paged without and with the prefix cache; then the same
+    widths in ``WIDE_SERVE_HEADS`` heads of 384 (B7's wide instance, 12
+    launches an engine step by instance name), continuous paged with
+    float32 and with int8 pages, on a few requests; ``wide_splits``
+    {(page kind, bucket): splits}, the splits phase 2 held B7 at on the
+    wide-head engine's step, which the engine's launches must take."""
     import numpy as np
     import torch
     from multiverso_tpu_torch.models.attention_lm import (LMConfig,
@@ -4003,7 +4181,10 @@ def serve_lm(dev, card) -> dict:
     cont = dict(continuous=True, paged=True, kv_page=SERVE_PAGE)
     pre_page = dict(paged=True, page=SERVE_PREFIX_PAGE)
     pre_cont = dict(continuous=True, paged=True, kv_page=SERVE_PREFIX_PAGE)
-    # (name, runner kwargs, register_runner kwargs, workload, B7 counter)
+    wide_cfg = LMConfig(**dict(LM, heads=WIDE_SERVE_HEADS), seed=0)
+    wide = dict(cfg=wide_cfg, max_new=WIDE_SERVE_MAX_NEW)
+    # (name, runner kwargs, register_runner kwargs, workload, B7 counter
+    # [, the LM config and max_new where they are not the main ones])
     modes = (("continuous paged", paged, cont, "main", "paged_decode_attn"),
              ("drain preallocated", {}, dict(pipeline_depth="auto"), "main",
               None),
@@ -4019,16 +4200,28 @@ def serve_lm(dev, card) -> dict:
               "prefix", "paged_decode_attn"),
              ("continuous paged, prefix cache", pre_page,
               dict(pre_cont, prefix_entries=SERVE_PREFIX_ENTRIES), "prefix",
-              "paged_decode_attn"))
-    workloads = {"main": prompts, "prefix": prefix_prompts}
+              "paged_decode_attn"),
+             ("continuous paged, heads of 384", paged, cont, "wide",
+              "paged_decode_attn", wide),
+             ("continuous paged int8, heads of 384",
+              dict(paged, kv_dtype="int8"), dict(cont, kv_dtype="int8"),
+              "wide", "paged_decode_attn_int8", wide))
+    workloads = {"main": prompts, "prefix": prefix_prompts,
+                 "wide": prompts[:WIDE_SERVE_REQUESTS]}
+    wide_dh = LM["dim"] // WIDE_SERVE_HEADS
+    tiled = attention.B7_INSTANCE_NAMES[0]
+    wide_vec = attention.b7_instance(wide_dh)
     svc = ServingService()
     cli = None
     out = {"modes": {}}
     try:
         runners = []
-        for rid, (name, rkw, skw, _, _) in enumerate(modes):
-            runner = AttentionLMRunner(params, cfg, max_new=SERVE_MAX_NEW,
-                                       max_batch=SERVE_BATCH, **rkw)
+        for rid, (name, rkw, skw, _, _, *over) in enumerate(modes):
+            over = over[0] if over else {}
+            runner = AttentionLMRunner(
+                params, over.get("cfg", cfg),
+                max_new=over.get("max_new", SERVE_MAX_NEW),
+                max_batch=SERVE_BATCH, **rkw)
             svc.register_runner(runner, runner_id=rid,
                                 buckets=SERVE_BUCKETS,
                                 max_batch=SERVE_BATCH, **skw)
@@ -4047,7 +4240,10 @@ def serve_lm(dev, card) -> dict:
         def count(name):
             return reg.counter(name).snapshot()["value"]
 
-        for rid, (name, _, _, load, b7) in enumerate(modes):
+        for rid, (name, _, _, load, b7, *over) in enumerate(modes):
+            over = over[0] if over else {}
+            mode_cfg = over.get("cfg", cfg)
+            max_new = over.get("max_new", SERVE_MAX_NEW)
             b = svc.batcher(rid)
             mode_prompts = workloads[load]
             h_first = HistWindow("serve.latency.first_token")
@@ -4056,19 +4252,24 @@ def serve_lm(dev, card) -> dict:
                 "serve.continuous.steps", "serve.batches",
                 "serve.prefix.hits", "serve.prefix.prefill_skipped",
                 "serve.prefix.copy_on_extend", "serve.continuous.joins")}
-            for counts in (rows.LAUNCHES, sgns.LAUNCHES, attention.LAUNCHES):
+            for counts in (rows.LAUNCHES, sgns.LAUNCHES, attention.LAUNCHES,
+                           attention.B7_INSTANCES):
                 for key in counts:
                     counts[key] = 0
+            attention.B7_SPLITS.clear()
             tokens, lat, wall, errors = drive(cli, rid, mode_prompts,
                                               SERVE_IN_FLIGHT)
             launches = dict(attention.LAUNCHES)
+            instances = {k: n for k, n in attention.B7_INSTANCES.items()
+                         if n}
+            split_launches = dict(attention.B7_SPLITS)
             delta = {k: count(k) - v for k, v in c0.items()}
             steps, batches = (delta["serve.continuous.steps"],
                               delta["serve.batches"])
             assert not errors, (name, errors[:3])
-            assert all(t is not None and len(t) == SERVE_MAX_NEW
+            assert all(t is not None and len(t) == max_new
                        for t in tokens), name
-            n_tok = SERVE_MAX_NEW * len(mode_prompts)
+            n_tok = max_new * len(mode_prompts)
             rec = {"tokens_per_sec": n_tok / wall, "seconds": wall,
                    "requests": len(mode_prompts), "errors": len(errors),
                    "latency_ms_p50": pct(lat, 50),
@@ -4079,7 +4280,9 @@ def serve_lm(dev, card) -> dict:
                    "per_token_ms_p99": h_per_token.pct(99),
                    "b7_launches": launches["paged_decode_attn"],
                    "b7_int8_launches": launches["paged_decode_attn_int8"],
-                   "b6_launches": launches["flash_block_attn"]}
+                   "b7_instance_launches": instances,
+                   "b6_launches": launches["flash_block_attn"],
+                   "heads": mode_cfg.heads}
             assert h_first.read()[0] == len(mode_prompts), name
             assert rec["b6_launches"] == 0, rec
             if name.startswith("continuous"):
@@ -4091,7 +4294,7 @@ def serve_lm(dev, card) -> dict:
                 rec["batches"] = batches
                 rec["pool_high_water_pages"] = runners[rid].pool_high_water()
                 rec["pipeline_depth"] = b.pipeline_depth
-                want = LM["layers"] * (SERVE_MAX_NEW - 1) * batches
+                want = LM["layers"] * (max_new - 1) * batches
             else:
                 rec["batches"] = batches
                 rec["pipeline_depth"] = b.pipeline_depth
@@ -4101,14 +4304,34 @@ def serve_lm(dev, card) -> dict:
             assert (launches[b7] if b7 else 0) == want, (name, rec, want)
             assert b7 is None or launches[other] == 0, (name, launches)
             assert want > 0 or name == "drain preallocated"
+            # Every B7 launch by the instance of the mode's heads: the
+            # tiled one at heads of 64, the wide one at heads of 384.
+            inst = wide_vec if load == "wide" else tiled
+            assert instances == ({inst: want} if want else {}), (
+                name, instances, want)
+            if load == "wide":
+                # Each launch with the splits phase 2 held at its bucket,
+                # the largest bucket's among them where a prompt needs it.
+                kind = "int8" if "int8" in name else "float32"
+                held = {b: n for (k, b), n in wide_splits.items()
+                        if k == kind}
+                assert set(split_launches) <= set(held.values()), (
+                    name, split_launches, held)
+                if any(len(p) > SERVE_BUCKETS[0] for p in mode_prompts):
+                    assert held[SERVE_BUCKETS[-1]] in split_launches, (
+                        name, split_launches, held)
+                rec["b7_split_launches"] = split_launches
             served[name] = tokens
             if "int8" in name:
                 # The int8 modes' logits are not the float32 forward's:
                 # their check reads the int8 teacher-forced logits.
                 int8_rows[name], off = teacher_forced_int8(
-                    lm_params, cfg, mode_prompts, tokens, dev)
+                    lm_params, mode_cfg, mode_prompts, tokens, dev)
                 rec["off_int8_teacher_forced"] = off
-                base = served["continuous paged"]
+                if load == "wide":
+                    assert off == 0, (name, off)
+                base = served["continuous paged" + (
+                    ", heads of 384" if load == "wide" else "")]
                 same = sum(a == c for x, y in zip(base, tokens)
                            for a, c in zip(x, y))
                 rec["share_equal_to_f32_continuous"] = same / n_tok
@@ -4117,11 +4340,12 @@ def serve_lm(dev, card) -> dict:
                         served["continuous paged int8"], tokens,
                         int8_rows[name])
             else:
-                lg_rows, ties = teacher_forced(lm_params, cfg, mode_prompts,
-                                               tokens, dev)
+                lg_rows, ties = teacher_forced(lm_params, mode_cfg,
+                                               mode_prompts, tokens, dev)
                 rec["ties"] = ties
                 base = {"main": "continuous paged",
-                        "prefix": "continuous paged, prefix workload"}[load]
+                        "prefix": "continuous paged, prefix workload",
+                        "wide": name}[load]
                 if name != base:
                     rec["diverged_at_a_tie"] = agree(served[base], tokens,
                                                      lg_rows)
@@ -4147,10 +4371,14 @@ def serve_lm(dev, card) -> dict:
                 extra += (f"full-forward check: every token passes, "
                           f"{rec['ties']} ties")
             if "off_int8_teacher_forced" in rec:
+                gate = "gated" if load == "wide" else "not gated"
                 extra += (f"{rec['off_int8_teacher_forced']} tokens off the "
-                          "int8 teacher-forced argmax beyond TIE_ATOL (not "
-                          "gated), share of tokens equal to continuous "
+                          f"int8 teacher-forced argmax beyond TIE_ATOL "
+                          f"({gate}), share of tokens equal to continuous "
                           f"paged f32 {rec['share_equal_to_f32_continuous']}")
+            if "b7_split_launches" in rec:
+                extra += (f"; B7 launches by CTAs a slot and head "
+                          f"{rec['b7_split_launches']}")
             if "diverged_at_a_tie" in rec:
                 extra += (f", {rec['diverged_at_a_tie']} requests diverge "
                           "at a tie")
@@ -4171,7 +4399,7 @@ def serve_lm(dev, card) -> dict:
                 f"{rec['latency_ms_p50']:.3f} ms p99 "
                 f"{rec['latency_ms_p99']:.3f} ms; B7 launches "
                 f"{rec['b7_launches']}, B7 int8 launches "
-                f"{rec['b7_int8_launches']}; "
+                f"{rec['b7_int8_launches']} (by instance {instances}); "
                 + (f"engine steps {steps}, " if "engine_steps" in rec
                    else f"batches {batches}, pipeline depth "
                    f"{rec['pipeline_depth']}, ")
@@ -6784,7 +7012,10 @@ def main() -> int:
     lm = attention_lm(dev, card)
 
     # Phase 7: the LM served (each mode reads the counts one by one).
-    served = serve_lm(dev, card)
+    served = serve_lm(dev, card, {
+        (r["kind"], r["bucket"]): r["splits"]
+        for name in ("paged_decode_attn", "paged_decode_attn_int8")
+        for r in wide[name] if r.get("engine_step")})
 
     # Phase 8: the sparse matrix table (B1, B2), the device KV table (B4,
     # the fold), checkpoints (the fused route) and LDA (B4), then logreg;
@@ -6959,13 +7190,21 @@ def main() -> int:
                 for w in P12_WORLDS for r in p12[w]["ranks"]
                 for run in r["runs"] if run["b6_launches"]}
             k["phase12"] = p12
+        if k["name"] in ("paged_decode_attn", "paged_decode_attn_int8"):
+            # Phase 7's launches by mode, and by the instance that served
+            # them (each mode reads one page kind).
+            own = ("b7_launches" if k["name"] == "paged_decode_attn"
+                   else "b7_int8_launches")
+            k["launches_by_mode"] = {name: m[own] for name, m
+                                     in served["modes"].items()}
+            k["instance_launches"] = {}
+            for m in served["modes"].values():
+                if m[own]:
+                    for inst, n in m["b7_instance_launches"].items():
+                        k["instance_launches"][inst] = \
+                            k["instance_launches"].get(inst, 0) + n
         if k["name"] == "paged_decode_attn":
-            k["launches_by_mode"] = {name: m["b7_launches"] for name, m
-                                     in served["modes"].items()}
             k["serving"] = served
-        if k["name"] == "paged_decode_attn_int8":
-            k["launches_by_mode"] = {name: m["b7_int8_launches"] for name, m
-                                     in served["modes"].items()}
         if k["name"] == "scatter_add_sorted_rows":
             k["phase8"] = p8
             k["phase10"] = p10

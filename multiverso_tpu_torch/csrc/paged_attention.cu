@@ -123,16 +123,60 @@
 //     exp(s - m), or exp(m - s) where s is the new max) and p . V goes by
 //     the same columns. The groups, then the warps, then the CTAs merge
 //     (m, l, acc) in a fixed order.
-//   * A head wider than kMaxD (256) takes the wide instance: the output
-//     columns are split into chunks of 256 over CTAs (gridDim.y), each of
-//     which scores every live key over the whole row and keeps its own
-//     chunk's accumulator. A row of such a head does not fit the tiles
-//     of the ring, so a warp scores one key at a time with its lanes
-//     striding over the row, read from global memory; the live-page skip,
-//     the splits and the ticket merge are the same, with one ticket and
-//     one (m, l) pair a chunk. Every chunk's CTA computes the same
-//     scores in the same order. Simple and right; not yet fast.
-// One wrapper call is one launch.
+//   * A head of kMaxD < d <= kMaxWideD (257-512 columns) takes the wide
+//     instances (paged_wide_kernel), the same design at wider rows: one
+//     CTA of a (slot, head, split) scores each live key once over the
+//     whole row, and O's columns are split over the lanes that hold the
+//     row. A row is 1,028-2,048 bytes in float32, so the tiles are larger
+//     (WideRing): float32 tiles of up to 12 KB of K rows (and as many of
+//     V) in a ring of 4, bfloat16 and int8 tiles of up to 10 KB in a ring
+//     of 3, whole pages where they fit (int8 at dh 320: 2 pages of 16
+//     rows), else a page in ceil(page bytes / tile bytes) tiles of equal
+//     rows (float32 at dh 320: 2 tiles of 8 rows; at dh 512 3 of 6, 6 and
+//     4). The ring lives in dynamic shared memory: float32 98,304 bytes
+//     and 2,064 static, 2 CTAs an SM (192 KB of ring an SM); bfloat16
+//     61,440, int8 62,592 with its scales' ring, 3 CTAs an SM (180 KB),
+//     the occupancy calculator's counts (chip_smoke.py prints them),
+//     against the tiled instance's 4 x 32 KB at dh 64. The 1- and 2-byte
+//     rows take the smaller ring for more warps: a byte of them costs
+//     more instructions (a byte permute and a subtraction a value for
+//     int8) than a byte of float32, and 3 CTAs an SM read them 11-20%
+//     faster, float32 up to 9% slower (PERF.md, run I2); __launch_bounds__
+//     holds each instance to its ring's CTAs an SM. 16 lanes hold a key
+//     row (a warp scores 2 keys at once, a CTA 8 a pass), each NV 16-byte
+//     vectors: float32 5, 6 or 8 (dh <= 320, 384, 512), bfloat16 3 or 4
+//     (dh <= 384, 512), int8 2 past dh 384, so a lane keeps at most 32
+//     query values and 32 accumulator columns in registers; int8 up to dh
+//     384 takes 8 lanes of 3 vectors (4 keys a warp; at dh 320, 20 of 24
+//     vectors busy against 20 of 32 at 16 lanes: 17.5% faster at the
+//     long-context shape, 168 registers, I3). Lanes past the row's last
+//     vector add exact zeros (they load nothing). As in the
+//     int8 instance, every page of a tile is found by a multiply-high,
+//     every key's position from its own page, and the sums rescaled only
+//     when a key raises the max; the int8 scale is applied once a key, a
+//     page's scales copied by 16-byte cp.async where they are aligned
+//     vectors. Rows that are not whole 16-byte vectors, or a pool off a
+//     16-byte boundary, take the narrow-row wide instance: 32 lanes a
+//     row, 16 values a lane. The splits count whole tiles
+//     (ops/attention.py::paged_tile_pages), the merge scratch is d + 2
+//     floats a split, as for the tiled instances, and the last CTA merges
+//     up to 4 columns a thread at once (merge_wide: a column at a time
+//     took 8-15 us at dh 320-512, against 3.6-4 us at dh 64, I2). The
+//     tiled instances' code is untouched: the wide ones are a kernel of
+//     their own.
+//   * A head wider than kMaxWideD takes the column-chunked instance
+//     (paged_decode_chunked_kernel): the output columns are split into
+//     chunks of 256 over CTAs (gridDim.y), each of which scores every live
+//     key over the whole row and keeps its own chunk's accumulator; a warp
+//     scores one key at a time with its lanes striding over the row, read
+//     from global memory; the live-page skip, the splits and the ticket
+//     merge are the same, with one ticket and one (m, l) pair a chunk.
+//     Every chunk's CTA computes the same scores in the same order.
+//     Simple and right; not yet fast.
+// One wrapper call is one launch. The entry point reports the instance
+// that took it, and the wrapper counts its launches by that report.
+
+#include <atomic>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,9 +194,43 @@ constexpr int kRowCap = 512;            // page-table entries kept in smem
 constexpr int kMaxTickets = 1 << 16;    // (slot, head) pairs that can split
 constexpr int kMaxScaleRows = 256;      // rows of an int8 tile (its scales)
 constexpr float kNegInf = -1e30f;       // pallas_attention.py NEG_INF
+// The wide instances (kMaxD < d <= kMaxWideD): their ring by page type
+// (WideRing), the rows of an int8 tile's scales, and the output columns
+// a thread merges.
+constexpr int kMaxWideD = 512;
+constexpr int kWideScaleRows = 48;
+constexpr int kWideCols = kMaxWideD / kThreads;
+// The instances, as mv_paged_decode_attn reports them: their indices in
+// ops/attention.py::B7_INSTANCE_NAMES.
+enum Instance {
+  kInstTiled = 0,
+  kInstWideVec = 1,
+  kInstWideNarrow = 2,
+  kInstChunked = 3
+};
+
+// A wide CTA's ring: kTiles tiles in flight, each kTileBytes of K rows
+// (and as many of V). float32 keeps 4 of 12 KB (2 CTAs an SM); the 2- and
+// 1-byte rows, which take more instructions a byte, 3 of 10 KB (3 CTAs an
+// SM, 12 warps). kSmem: the dynamic shared memory of a CTA, the ring,
+// then (int8) the ring of the rows' scales.
+template <typename T>
+struct WideRing {
+  static constexpr int kTiles = sizeof(T) == 4 ? 4 : 3;
+  static constexpr int kTileBytes = sizeof(T) == 4 ? 12288 : 10240;
+  static constexpr int kCtasPerSm = sizeof(T) == 4 ? 2 : 3;
+  static constexpr int kSmem =
+      kTiles * 2 * kTileBytes +
+      (sizeof(T) == 1 ? kTiles * 2 * kWideScaleRows * 4 : 0);
+  static_assert(kWarps * (kMaxWideD + 2) * 4 <= kTiles * 2 * kTileBytes,
+                "the wide warps' merge reuses the ring");
+  static_assert(kTileBytes / (kMaxD + 1) <= kWideScaleRows,
+                "an int8 wide tile's rows fit its scales' ring");
+};
 
 static_assert(kWarps * (kMaxD + 2) * 4 <= kRing * 2 * kTileBytes,
               "the warps' merge reuses the ring");
+static_assert(kWideScaleRows % 4 == 0, "scales copy as 16-byte vectors");
 
 // One ticket counter per (slot, head), zero when the module loads; the
 // last CTA of a (slot, head) sets its counter back to 0.
@@ -718,14 +796,371 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
   PROF_MARK(3);
 }
 
-// The wide instance (d > kMaxD): CTA (blockIdx.x, blockIdx.y) takes
-// split blockIdx.x % splits of (slot, head) blockIdx.x / splits and the
-// output columns [kMaxD y, kMaxD y + kMaxD) of d. A warp scores one live
-// key at a time, its lanes striding over the whole row in global memory,
-// and keeps the online softmax and its lanes' columns of the chunk.
+// The wide instances' merge of a (slot, head)'s split partials, as
+// merge_splits merges them (each column the same operations in the same
+// order), but a thread takes all of its columns (c, c + kThreads, ...) at
+// once: a group of 8 splits' (m, l) is loaded once for them, and every
+// load of the group is in flight together.
+__device__ __forceinline__ void merge_wide(const float* all, int d,
+                                           int splits, int n_units,
+                                           float* out) {
+  const int stride = d + 2;
+  float gm = kNegInf;
+  float sum = 0.f;
+  float sum_o[kWideCols];
+#pragma unroll
+  for (int k = 0; k < kWideCols; ++k) sum_o[k] = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += 8) {
+    float pm[8], pl[8], pa[8][kWideCols];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int sj = s0 + j;
+      const bool some = sj < splits &&
+                        static_cast<int64_t>(sj) * n_units / splits <
+                            static_cast<int64_t>(sj + 1) * n_units / splits;
+      const float* ps = all + sj * stride;
+      pm[j] = some ? __ldcg(ps + d) : -INFINITY;
+      pl[j] = some ? __ldcg(ps + d + 1) : 0.f;
+#pragma unroll
+      for (int k = 0; k < kWideCols; ++k) {
+        const int c = threadIdx.x + k * kThreads;
+        pa[j][k] = some && c < d ? __ldcg(ps + c) : 0.f;
+      }
+    }
+    float cm = gm;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cm = fmaxf(cm, pm[j]);
+    const float r = expf(gm - cm);
+    sum *= r;
+#pragma unroll
+    for (int k = 0; k < kWideCols; ++k) sum_o[k] *= r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (pm[j] == -INFINITY) continue;
+      const float a = expf(pm[j] - cm);
+      sum += pl[j] * a;
+#pragma unroll
+      for (int k = 0; k < kWideCols; ++k) sum_o[k] += pa[j][k] * a;
+    }
+    gm = cm;
+  }
+#pragma unroll
+  for (int k = 0; k < kWideCols; ++k) {
+    const int c = threadIdx.x + k * kThreads;
+    if (c < d) out[c] = sum_o[k] / sum;
+  }
+}
+
+// The wide instances (kMaxD < d <= kMaxWideD): the tiled kernel's design
+// at rows of 1-2 KB, with tiles of WideRing<T>::kTileBytes in a ring of
+// WideRing<T>::kTiles in dynamic shared memory. Every tile takes the
+// multi-page path: its pages are found by a multiply-high and each key's
+// position from its own page. E values a vector (16 bytes, or 1 in the narrow-row
+// instance); LK lanes hold a key row; NV vectors a lane.
+template <typename T, int E, int LK, int NV>
+__global__ void __launch_bounds__(kThreads, WideRing<T>::kCtasPerSm)
+paged_wide_kernel(const float* __restrict__ q, const T* __restrict__ kp,
+                  const T* __restrict__ vp, const float* __restrict__ ks,
+                  const float* __restrict__ vs, const int* __restrict__ ptab,
+                  const int* __restrict__ lengths,
+                  const int* __restrict__ tstep, float* __restrict__ o,
+                  float* __restrict__ part, int heads, int n_pages, int page,
+                  int d, int64_t page_stride, int64_t scale_stride,
+                  int n_phys, int bucket, float scale, int splits,
+                  int tile_rows, int ppt, int svec) {
+  using Ring = WideRing<T>;
+  constexpr int GK = 32 / LK;                  // keys a warp scores at once
+  constexpr int VB = E * static_cast<int>(sizeof(T));
+  constexpr int kTiles = Ring::kTiles;
+  constexpr int kTileElems = Ring::kTileBytes / static_cast<int>(sizeof(T));
+  constexpr bool kQuant = sizeof(T) == 1;
+  extern __shared__ __align__(16) unsigned char wide_raw[];
+  __shared__ int row[kRowCap];
+  __shared__ int last;
+  T* ring = reinterpret_cast<T*>(wide_raw);
+  float* sring = reinterpret_cast<float*>(wide_raw + kTiles * 2 *
+                                                         Ring::kTileBytes);
+
+  const int64_t bh = blockIdx.x / splits;
+  const int split = static_cast<int>(blockIdx.x - bh * splits);
+  const int b = static_cast<int>(bh / heads);
+  const int h = static_cast<int>(bh - static_cast<int64_t>(b) * heads);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int li = lane % LK;
+  const int grp = lane / LK;
+  const int nvec = d / E;
+  PROF_MARK(0);
+
+  // The mask scalars, the page-table row and the lane's query columns.
+  const int length = lengths[b];
+  const int t = tstep[b];
+  const int* prow = ptab + static_cast<int64_t>(b) * n_pages;
+  const bool row_s = n_pages <= kRowCap;
+  if (row_s)
+    for (int j = threadIdx.x; j < n_pages; j += kThreads)
+      row[j] = min(max(prow[j], 0), n_phys - 1);
+  float qr[NV][E];
+#pragma unroll
+  for (int n = 0; n < NV; ++n) {
+    const int v = li + LK * n;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      qr[n][e] = v < nvec ? q[bh * d + v * E + e] : 0.f;
+  }
+  const Live live = live_runs(length, t, bucket, page, n_pages);
+  const int n_live = live.count();
+  // The split's share: whole units of ppt live pages, so no tile crosses
+  // a split.
+  const int n_units = (n_live + ppt - 1) / ppt;
+  const int u0 = static_cast<int>(static_cast<int64_t>(split) * n_units /
+                                  splits);
+  const int u1 = static_cast<int>(static_cast<int64_t>(split + 1) * n_units /
+                                  splits);
+  const int p0 = min(u0 * ppt, n_live);
+  const int p1 = min(u1 * ppt, n_live);
+  const int tpp = (page + tile_rows - 1) / tile_rows;   // tiles a page
+  const int n_tiles = (u1 - u0) * tpp;
+  const int64_t head_off = static_cast<int64_t>(h) * page * d;
+  const uint32_t row_div = div_mul(page);
+  const uint32_t vec_div = div_mul(page * nvec);
+  const uint32_t sc_div = div_mul(svec ? page / 4 : page);
+  __syncthreads();
+  PROF_MARK(1);
+
+  auto phys_of = [&](int k) {
+    const int j = live.page(k);
+    return row_s ? row[j] : min(max(prow[j], 0), n_phys - 1);
+  };
+
+  // Tile i into its ring slot, each page of it from its own physical page;
+  // an int8 tile's K and V scales by 16-byte copies where svec, else 4
+  // bytes a row.
+  auto issue = [&](int i) {
+    const Tile tl = tile_of(i, p0, p1, ppt, tpp, tile_rows, page);
+    const int per_page = tl.nr * nvec;
+    const int64_t row_off = head_off + static_cast<int64_t>(tl.r0) * d;
+    T* kd = ring + (i % kTiles) * 2 * kTileElems;
+    for (int v = threadIdx.x; v < tl.np * per_page; v += kThreads) {
+      const int j = tl.np > 1 ? div_by(v, vec_div) : 0;
+      const int64_t off = phys_of(tl.first + j) * page_stride + row_off +
+                          static_cast<int64_t>(v - j * per_page) * E;
+      copy_vec<VB>(kd + v * E, kp + off);
+      copy_vec<VB>(kd + kTileElems + v * E, vp + off);
+    }
+    if constexpr (kQuant) {
+      float* ksd = sring + (i % kTiles) * 2 * kWideScaleRows;
+      const int64_t s_off = static_cast<int64_t>(h) * page + tl.r0;
+      const int per = svec ? tl.nr / 4 : tl.nr;
+      for (int v = threadIdx.x; v < tl.np * per; v += kThreads) {
+        const int j = tl.np > 1 ? div_by(v, sc_div) : 0;
+        const int c = v - j * per;
+        const int64_t soff = phys_of(tl.first + j) * scale_stride + s_off;
+        if (svec) {
+          copy_vec<16>(ksd + 4 * v, ks + soff + 4 * c);
+          copy_vec<16>(ksd + kWideScaleRows + 4 * v, vs + soff + 4 * c);
+        } else {
+          copy_vec<4>(ksd + v, ks + soff + c);
+          copy_vec<4>(ksd + kWideScaleRows + v, vs + soff + c);
+        }
+      }
+    }
+  };
+
+  float m = kNegInf;
+  float l = 0.f;
+  float acc[NV][E];
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[n][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kTiles - 1; ++i) {
+    if (i < n_tiles) issue(i);
+    cp_async_commit();
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kTiles - 2>();
+    __syncthreads();        // tile i landed; every warp is done with i - 1
+    const int nx = i + kTiles - 1;
+    if (nx < n_tiles) issue(nx);
+    cp_async_commit();
+
+    const Tile tl = tile_of(i, p0, p1, ppt, tpp, tile_rows, page);
+    const int rows = tl.np * tl.nr;
+    const int pos0 = live.page(tl.first) * page + tl.r0;
+    const T* kt = ring + (i % kTiles) * 2 * kTileElems;
+    const T* vt = kt + kTileElems;
+    const float* kst = sring + (i % kTiles) * 2 * kWideScaleRows;
+    for (int kb = warp * GK; kb < rows; kb += kWarps * GK) {
+      const int r = kb + grp;
+      const bool valid = r < rows;
+      float sk = 1.f, sv = 1.f;
+      if constexpr (kQuant) {
+        if (valid) {
+          sk = kst[r];
+          sv = kst[kWideScaleRows + r];
+        }
+      }
+      float sp[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const int v = li + LK * n;
+        if (valid && v < nvec) {
+          float x[E];
+          load_vec<T, E>(kt + r * d + v * E, x);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const int c = kQuant ? (e & 1) : (n & 1);
+            sp[c] = fmaf(qr[n][e], x[e], sp[c]);
+          }
+        }
+      }
+      float s = sp[0] + sp[1];
+#pragma unroll
+      for (int off = LK / 2; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (!valid) continue;
+      if constexpr (kQuant) s *= sk;
+      s *= scale;
+      int pos = pos0 + r;
+      if (tl.np > 1) {
+        const int j = div_by(r, row_div);
+        pos = live.page(tl.first + j) * page + r - j * page;
+      }
+      s += (pos < length || (pos >= bucket && pos <= bucket + t)) ? 0.f
+                                                                  : kNegInf;
+      const bool grows = s > m;
+      const float e = expf(grows ? m - s : s - m);
+      const float alpha = grows ? e : 1.f;
+      const float p = grows ? 1.f : e;
+      m = grows ? s : m;
+      l = l * alpha + p;
+      const float pv = kQuant ? p * sv : p;
+      if (grows) {
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int e2 = 0; e2 < E; ++e2) acc[n][e2] *= alpha;
+      }
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        const int v = li + LK * n;
+        if (v < nvec) {
+          float x[E];
+          load_vec<T, E>(vt + r * d + v * E, x);
+#pragma unroll
+          for (int e2 = 0; e2 < E; ++e2)
+            acc[n][e2] = fmaf(pv, x[e2], acc[n][e2]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  PROF_MARK(2);
+
+  // Merge the warp's groups (xor over the lane bits above LK), in order.
+#pragma unroll
+  for (int off = LK; off < 32; off <<= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mx = fmaxf(m, m2);
+    const float a1 = expf(m - mx);
+    const float a2 = expf(m2 - mx);
+    l = l * a1 + l2 * a2;
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float x = __shfl_xor_sync(0xffffffffu, acc[n][e], off);
+        acc[n][e] = acc[n][e] * a1 + x * a2;
+      }
+    m = mx;
+  }
+
+  // Then the warps, through the ring's memory: (m, l, acc[d]) each.
+  __syncthreads();
+  float* wacc = reinterpret_cast<float*>(wide_raw);
+  float* wm = wacc + kWarps * d;
+  float* wl = wm + kWarps;
+  if (grp == 0) {
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      const int v = li + LK * n;
+      if (v < nvec)
+#pragma unroll
+        for (int e = 0; e < E; ++e) wacc[warp * d + v * E + e] = acc[n][e];
+    }
+    if (li == 0) {
+      wm[warp] = m;
+      wl[warp] = l;
+    }
+  }
+  __syncthreads();
+  float mx = wm[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wm[w]);
+  float aw[kWarps];
+  float sum_l = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    aw[w] = expf(wm[w] - mx);
+    sum_l += wl[w] * aw[w];
+  }
+  if (splits == 1) {
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum_o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum_o += wacc[w * d + c] * aw[w];
+      o[bh * d + c] = sum_o / sum_l;
+    }
+    PROF_MARK(3);
+    return;
+  }
+
+  // Split: this CTA's partial, a ticket, and the last CTA of the (slot,
+  // head) merges every non-empty split's partial in split order.
+  const int stride = d + 2;
+  float* mine = part + (bh * splits + split) * stride;
+  if (u1 > u0) {
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum_o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum_o += wacc[w * d + c] * aw[w];
+      mine[c] = sum_o;
+    }
+    if (threadIdx.x == 0) {
+      mine[d] = mx;
+      mine[d + 1] = sum_l;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&g_tickets[bh], 1) == splits - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) {
+    PROF_MARK(3);
+    return;
+  }
+  merge_wide(part + bh * splits * stride, d, splits, n_units, o + bh * d);
+  if (threadIdx.x == 0) g_tickets[bh] = 0;
+  PROF_MARK(3);
+}
+
+// The column-chunked instance (d > kMaxWideD): CTA (blockIdx.x,
+// blockIdx.y) takes split blockIdx.x % splits of (slot, head) blockIdx.x /
+// splits and the output columns [kMaxD y, kMaxD y + kMaxD) of d. A warp
+// scores one live key at a time, its lanes striding over the whole row in
+// global memory, and keeps the online softmax and its lanes' columns of
+// the chunk.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_wide_kernel(const float* __restrict__ q,
+paged_decode_chunked_kernel(const float* __restrict__ q,
                          const T* __restrict__ kp, const T* __restrict__ vp,
                          const float* __restrict__ ks,
                          const float* __restrict__ vs,
@@ -876,18 +1311,18 @@ paged_decode_wide_kernel(const float* __restrict__ q,
 }
 
 template <typename T>
-int launch_wide(const float* q, const void* kp, const void* vp,
-                const float* ks, const float* vs, const int* ptab,
-                const int* lengths, const int* t, float* o, float* part,
-                int64_t bh, int heads, int n_pages, int page, int d,
-                int64_t page_stride, int64_t scale_stride, int n_phys,
-                int bucket, float scale, int splits, cudaStream_t st) {
+int launch_chunked(const float* q, const void* kp, const void* vp,
+                   const float* ks, const float* vs, const int* ptab,
+                   const int* lengths, const int* t, float* o, float* part,
+                   int64_t bh, int heads, int n_pages, int page, int d,
+                   int64_t page_stride, int64_t scale_stride, int n_phys,
+                   int bucket, float scale, int splits, cudaStream_t st) {
   const int n_chunks = (d + kMaxD - 1) / kMaxD;
   if (splits > 1 && bh * n_chunks > kMaxTickets)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(bh * splits),
                   static_cast<unsigned>(n_chunks));
-  paged_decode_wide_kernel<T><<<grid, kThreads, 0, st>>>(
+  paged_decode_chunked_kernel<T><<<grid, kThreads, 0, st>>>(
       q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs, ptab,
       lengths, t, o, part, heads, n_pages, page, d, page_stride,
       scale_stride, n_phys, bucket, scale, splits);
@@ -961,14 +1396,115 @@ int dispatch_narrow(MV_PAGED_PARAMS) {
   return launch<T, 1, 32, 8>(MV_PAGED_ARGS);
 }
 
-template <typename T>
-int dispatch(MV_PAGED_PARAMS) {
-  if (d > kMaxD) return launch_wide<T>(MV_PAGED_ARGS);
+// One wide instance: its dynamic shared memory opted into once per card
+// (before any launch: a launch captured in a CUDA graph makes no call),
+// then its launch, or with `desc` its resources into desc[5] (see
+// mv_paged_decode_describe) and no launch. A tile holds up to
+// WideRing<T>::kTileBytes of K rows (and as many of V): ppt whole pages
+// where a page fits (ops/attention.py::paged_tile_pages), else a page in
+// tpp tiles of equal rows.
+template <typename T, int E, int LK, int NV>
+int launch_wide(MV_PAGED_PARAMS, int* desc) {
+  const auto kernel = paged_wide_kernel<T, E, LK, NV>;
+  constexpr int smem = WideRing<T>::kSmem;
+  constexpr int64_t tile_bytes = WideRing<T>::kTileBytes;
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(opted.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted.fetch_or(bit, std::memory_order_acq_rel);
+  }
+  if (desc != nullptr) {
+    cudaFuncAttributes a;
+    err = cudaFuncGetAttributes(&a, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int ctas = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    desc[0] = kThreads;
+    desc[1] = smem + static_cast<int>(a.sharedSizeBytes);
+    desc[2] = a.numRegs;
+    desc[3] = static_cast<int>(a.localSizeBytes);
+    desc[4] = ctas;
+    return 0;
+  }
   const int64_t row_bytes = static_cast<int64_t>(d) * sizeof(T);
-  const bool vec = row_bytes % 16 == 0 &&
-                   (page_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(vp) % 16 == 0;
+  const int64_t page_bytes = row_bytes * page;
+  int ppt = 1;
+  int tile_rows = page;
+  if (page_bytes <= tile_bytes) {
+    ppt = static_cast<int>(tile_bytes / page_bytes);
+  } else {
+    const int64_t tpp = (page_bytes + tile_bytes - 1) / tile_bytes;
+    const int64_t even = (page + tpp - 1) / tpp;
+    const int64_t fit = tile_bytes / row_bytes;
+    tile_rows = static_cast<int>(even < fit ? even : fit);
+  }
+  const bool svec = sizeof(T) == 1 && page % 4 == 0 && tile_rows % 4 == 0 &&
+                    scale_stride % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(ks) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(vs) % 16 == 0;
+  const unsigned grid = static_cast<unsigned>(bh * splits);
+  kernel<<<grid, kThreads, smem, st>>>(
+      q, static_cast<const T*>(kp), static_cast<const T*>(vp), ks, vs, ptab,
+      lengths, t, o, part, heads, n_pages, page, d, page_stride,
+      scale_stride, n_phys, bucket, scale, splits, tile_rows, ppt,
+      static_cast<int>(svec));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide instances (kMaxD < d <= kMaxWideD): 16 lanes a key row of
+// 16-byte vectors, NV of them a lane (at most 32 values), int8 up to dh
+// 384 8 lanes of 3 (48 values); the narrow-row one (vec false) 32 lanes a
+// row, 16 values a lane.
+template <typename T>
+int dispatch_wide(MV_PAGED_PARAMS, bool vec, int* desc) {
+  if (!vec) return launch_wide<T, 1, 32, 16>(MV_PAGED_ARGS, desc);
+  constexpr int E = 16 / sizeof(T);
+  const int nvec = d / E;
+  if constexpr (E == 4) {
+    if (nvec <= 16 * 5) return launch_wide<T, E, 16, 5>(MV_PAGED_ARGS, desc);
+    if (nvec <= 16 * 6) return launch_wide<T, E, 16, 6>(MV_PAGED_ARGS, desc);
+    return launch_wide<T, E, 16, 8>(MV_PAGED_ARGS, desc);
+  } else if constexpr (E == 8) {
+    if (nvec <= 16 * 3) return launch_wide<T, E, 16, 3>(MV_PAGED_ARGS, desc);
+    return launch_wide<T, E, 16, 4>(MV_PAGED_ARGS, desc);
+  } else {
+    if (nvec <= 8 * 3) return launch_wide<T, E, 8, 3>(MV_PAGED_ARGS, desc);
+    return launch_wide<T, E, 16, 2>(MV_PAGED_ARGS, desc);
+  }
+}
+
+// Whether the rows are whole 16-byte vectors on 16-byte boundaries.
+template <typename T>
+bool vec_rows(int d, int64_t page_stride, const void* kp, const void* vp) {
+  const int64_t row_bytes = static_cast<int64_t>(d) * sizeof(T);
+  return row_bytes % 16 == 0 &&
+         (page_stride * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(vp) % 16 == 0;
+}
+
+// The instance a launch takes, by its index in
+// ops/attention.py::B7_INSTANCE_NAMES, into *instance.
+template <typename T>
+int dispatch(MV_PAGED_PARAMS, int* instance) {
+  if (d > kMaxWideD) {
+    *instance = kInstChunked;
+    return launch_chunked<T>(MV_PAGED_ARGS);
+  }
+  const bool vec = vec_rows<T>(d, page_stride, kp, vp);
+  if (d > kMaxD) {
+    *instance = vec ? kInstWideVec : kInstWideNarrow;
+    return dispatch_wide<T>(MV_PAGED_ARGS, vec, nullptr);
+  }
+  *instance = kInstTiled;
   if (vec) return dispatch_vec<T>(MV_PAGED_ARGS);
   return dispatch_narrow<T>(MV_PAGED_ARGS);
 }
@@ -992,19 +1528,27 @@ extern "C" {
 // and scale_stride elements between pages (unread otherwise); ptab
 // [batch, n_pages], lengths and t [batch], int32. splits CTAs take each
 // (slot, head); with splits > 1, part holds batch * heads * splits *
-// (d + 2) floats of scratch (d <= 256). Writes o [batch, heads, d] float32. Returns
-// cudaGetLastError() after the launch (0 = launched); shapes the kernel
-// does not take return cudaErrorInvalidValue and launch nothing. A head
-// wider than 256 (d > kMaxD) is split into ceil(d / 256) column chunks:
-// part then holds batch * heads * splits * (d + 2 * chunks) floats, and
-// batch * heads * chunks must not pass kMaxTickets when splits > 1.
+// (d + 2) floats of scratch (d <= 512). Writes o [batch, heads, d]
+// float32. Returns cudaGetLastError() after the launch (0 = launched);
+// shapes the kernel does not take return cudaErrorInvalidValue and launch
+// nothing. A head wider than 512 (d > kMaxWideD) is split into
+// ceil(d / 256) column chunks: part then holds batch * heads * splits *
+// (d + 2 * chunks) floats, and batch * heads * chunks must not pass
+// kMaxTickets when splits > 1. Where `instance` is not null, the index
+// of the instance that took the launch (Instance: 0 tiled, 1 wide of
+// 16-byte vectors, 2 wide narrow-row, 3 column-chunked) goes there, -1
+// where nothing was dispatched.
 int mv_paged_decode_attn(const float* q, const void* kp, const void* vp,
                          const float* ks, const float* vs, const int* ptab,
                          const int* lengths, const int* t, float* o,
                          float* part, int batch, int heads, int n_pages,
                          int page, int d, int64_t page_stride,
                          int64_t scale_stride, int n_phys, int bucket,
-                         float scale, int kind, int splits, void* stream) {
+                         float scale, int kind, int splits, void* stream,
+                         int* instance) {
+  int taken = -1;
+  if (instance == nullptr) instance = &taken;
+  *instance = -1;
   if (batch <= 0 || heads <= 0) return 0;
   const int64_t bh = static_cast<int64_t>(batch) * heads;
   if (n_pages <= 0 || page <= 0 || d <= 0 || n_phys <= 0 ||
@@ -1014,10 +1558,33 @@ int mv_paged_decode_attn(const float* q, const void* kp, const void* vp,
       (kind == 2 && (ks == nullptr || vs == nullptr || scale_stride <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kind == 1) return dispatch<__nv_bfloat16>(MV_ENTRY_ARGS, instance);
+  if (kind == 2) return dispatch<int8_t>(MV_ENTRY_ARGS, instance);
+  return dispatch<float>(MV_ENTRY_ARGS, instance);
+}
+
+// The resources of the wide instance that takes heads of width d (256 <
+// d <= 512) of page kind `kind` with rows of 16-byte vectors (vec 1) or
+// not (vec 0), read from the runtime, into out[5]: threads a CTA, shared
+// memory bytes a CTA (dynamic and static), registers and local (spill)
+// bytes a thread, CTAs an SM. Returns a CUDA error code (0 = read).
+int mv_paged_decode_describe(int d, int kind, int vec, int* out) {
+  if (d <= kMaxD || d > kMaxWideD || kind < 0 || kind > 2 || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* q = nullptr;
+  const void *kp = nullptr, *vp = nullptr;
+  const float *ks = nullptr, *vs = nullptr;
+  const int *ptab = nullptr, *lengths = nullptr, *t = nullptr;
+  float *o = nullptr, *part = nullptr;
+  const int64_t bh = 1, page_stride = 0, scale_stride = 0;
+  const int heads = 1, n_pages = 1, page = 1, n_phys = 1, bucket = 0;
+  const int splits = 1;
+  const float scale = 1.f;
+  const cudaStream_t st = nullptr;
   if (kind == 1)
-    return dispatch<__nv_bfloat16>(MV_ENTRY_ARGS);
-  if (kind == 2) return dispatch<int8_t>(MV_ENTRY_ARGS);
-  return dispatch<float>(MV_ENTRY_ARGS);
+    return dispatch_wide<__nv_bfloat16>(MV_ENTRY_ARGS, vec != 0, out);
+  if (kind == 2) return dispatch_wide<int8_t>(MV_ENTRY_ARGS, vec != 0, out);
+  return dispatch_wide<float>(MV_ENTRY_ARGS, vec != 0, out);
 }
 
 #ifdef MV_PAGED_PROFILE

@@ -42,7 +42,14 @@ kernel's oracle. The kernel reads only the pages that the mask admits
 some key of (:func:`paged_live_pages`), in tiles of several pages where
 pages fit (:func:`paged_tile_pages`: four pages of 16 int8 rows of 64),
 split over :func:`paged_splits` CTAs per (slot, head) in whole tiles
-(:func:`paged_split_pages`).
+(:func:`paged_split_pages`). Its instances: the tiled ones for heads up
+to 256 columns; the wide ones for heads of 257-512 (tiles of 10-12 KB of
+rows in dynamic shared memory), of 16-byte vectors or, where the rows are
+not whole vectors or the pool is off a 16-byte boundary, one value a lane;
+and the column-chunked one above 512. The wrapper counts its launches by
+page kind in ``LAUNCHES``, by the instance that the kernel's entry point
+reports it took in ``B7_INSTANCES``, and by the CTAs a (slot, head) took
+in ``B7_SPLITS``.
 """
 
 from __future__ import annotations
@@ -57,10 +64,12 @@ from multiverso_tpu_torch.ops import _build
 NEG_INF = -1e30
 BLOCK = 128          # the TPU kernel's tile; Sq and Sk must divide by it
 #: B7 only: the widest head of its tiled instances; wider heads take its
-#: wide instance (``csrc/paged_attention.cu``: the output columns split
-#: over CTAs). B6's instances have bounds of their own, named by
-#: :func:`b6_instance`.
+#: wide instances up to ``PAGED_MAX_WIDE_DIM``, and its column-chunked one
+#: above (``csrc/paged_attention.cu``: the output columns split over CTAs
+#: in chunks of ``MAX_HEAD_DIM``). B6's instances have bounds of their
+#: own, named by :func:`b6_instance`.
 MAX_HEAD_DIM = 256
+PAGED_MAX_WIDE_DIM = 512
 PAGED_MAX_TICKETS = 1 << 16   # csrc/paged_attention.cu kMaxTickets
 #: B7's grid aims at this many CTAs an SM (``paged_splits``).
 PAGED_CTAS_PER_SM = 4
@@ -69,6 +78,10 @@ PAGED_CTAS_PER_SM = 4
 #: and kMaxScaleRows.
 PAGED_TILE_BYTES = 4096
 PAGED_MAX_SCALE_ROWS = 256
+#: Bytes of K rows a tile of B7's wide instances holds, by the bytes of a
+#: page element (``csrc/paged_attention.cu``'s ``WideRing``): float32
+#: 12 KB, bfloat16 and int8 10 KB.
+PAGED_WIDE_TILE_BYTES = {4: 12288, 2: 10240, 1: 10240}
 
 #: Kernel launches, counted where the kernel is launched (B7's int8
 #: instance apart from its float32 and bfloat16 ones).
@@ -89,6 +102,19 @@ B6_INSTANCES: Dict[str, int] = dict.fromkeys(B6_INSTANCE_NAMES, 0)
 #: B7's page types, by the code of their instance in
 #: ``csrc/paged_attention.cu``.
 PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+#: B7's instances in ``csrc/paged_attention.cu``: the tiled ones (heads up
+#: to ``MAX_HEAD_DIM``, ``paged_decode_kernel``), the wide ones (up to
+#: ``PAGED_MAX_WIDE_DIM``, ``paged_wide_kernel``) with rows of 16-byte
+#: vectors or one value a lane, and the column-chunked one above
+#: (``paged_decode_chunked_kernel``).
+B7_INSTANCE_NAMES = ("tiled", "wide d<=512 vec", "wide d<=512 narrow-row",
+                     "wide d>512")
+#: B7's launches by the instance that served them, float32, bfloat16 and
+#: int8 pages alike; each is also counted in ``LAUNCHES`` by page kind.
+B7_INSTANCES: Dict[str, int] = dict.fromkeys(B7_INSTANCE_NAMES, 0)
+#: B7's launches by the CTAs that took each (slot, head): {splits: count}.
+B7_SPLITS: Dict[int, int] = {}
 
 NO_BACKWARD = (
     "flash_block_attn has no backward: the JAX package cannot "
@@ -335,15 +361,23 @@ _SMS: Dict[int, int] = {}
 
 
 def paged_tile_pages(dh: int, elem_bytes: int, page: int) -> int:
-    """Whole pages one tile of B7's tiled instances holds for heads of
-    ``dh`` elements of ``elem_bytes`` bytes (``csrc/paged_attention.cu``'s
-    ``launch``): a tile takes up to ``PAGED_TILE_BYTES`` of K rows (an
-    int8 tile at most ``PAGED_MAX_SCALE_ROWS`` rows), as many whole pages
-    as fit, or one page's rows in several tiles where none fits (1). A
-    float32 tile stays one page (its instance keeps the single-page
-    code: at dh 64 one page of 16 rows already fills a tile). The kernel
-    splits a slot's live pages over CTAs in units of this many pages, so
-    no tile crosses a split."""
+    """Whole pages one tile of B7 holds for heads of ``dh`` elements of
+    ``elem_bytes`` bytes (``csrc/paged_attention.cu``'s ``launch`` and
+    ``launch_wide``). A tiled instance's tile takes up to
+    ``PAGED_TILE_BYTES`` of K rows (an int8 tile at most
+    ``PAGED_MAX_SCALE_ROWS`` rows), as many whole pages as fit, or one
+    page's rows in several tiles where none fits (1); a float32 tile
+    stays one page (its instance keeps the single-page code: at dh 64 one
+    page of 16 rows already fills a tile). A wide instance's tile takes up
+    to ``PAGED_WIDE_TILE_BYTES[elem_bytes]``; the column-chunked
+    instance's unit is one page. The kernel splits a slot's
+    live pages over CTAs in units of this many pages, so no tile crosses a
+    split."""
+    if dh > PAGED_MAX_WIDE_DIM:
+        return 1
+    if dh > MAX_HEAD_DIM:
+        return max(1, PAGED_WIDE_TILE_BYTES[elem_bytes]
+                   // (page * dh * elem_bytes))
     if elem_bytes >= 4:
         return 1
     rows = max(1, PAGED_TILE_BYTES // (dh * elem_bytes))
@@ -371,7 +405,7 @@ def paged_splits(bh: int, n_units: int, sms: int) -> int:
     :func:`paged_tile_pages` pages; the live count of a slot is known only
     on the card). One where ``bh`` already fills the card or passes the
     kernel's ticket counters. ``bh`` counts the (slot, head) pairs times
-    the column chunks of a head wider than ``MAX_HEAD_DIM``."""
+    the column chunks of a head wider than ``PAGED_MAX_WIDE_DIM``."""
     if bh > PAGED_MAX_TICKETS:
         return 1
     return max(1, min(n_units, -(-PAGED_CTAS_PER_SM * sms // bh)))
@@ -380,14 +414,31 @@ def paged_splits(bh: int, n_units: int, sms: int) -> int:
 def paged_launch_splits(q: torch.Tensor, kp: torch.Tensor,
                         n_pages: int, page: int, sms: int) -> int:
     """The splits :func:`paged_decode_attn` launches with for these
-    inputs: a head wider than ``MAX_HEAD_DIM`` splits its columns into
-    chunks (the wide instance, whose unit is a page); a narrower one
-    splits the table's tiles."""
+    inputs: a head wider than ``PAGED_MAX_WIDE_DIM`` splits its columns
+    into chunks (the column-chunked instance, whose unit is a page); a
+    narrower one splits the table's tiles."""
     B, H, dh = q.shape
-    if dh > MAX_HEAD_DIM:
-        return paged_splits(B * H * -(-dh // MAX_HEAD_DIM), n_pages, sms)
+    chunks = paged_chunks(dh)
     tp = paged_tile_pages(dh, kp.element_size(), page)
-    return paged_splits(B * H, -(-n_pages // tp), sms)
+    return paged_splits(B * H * chunks, -(-n_pages // tp), sms)
+
+
+def paged_chunks(dh: int) -> int:
+    """The column chunks of a B7 launch: ``ceil(dh / MAX_HEAD_DIM)`` for
+    the column-chunked instance (heads wider than ``PAGED_MAX_WIDE_DIM``),
+    else 1. A split's merge scratch is ``dh + 2 * chunks`` floats."""
+    return -(-dh // MAX_HEAD_DIM) if dh > PAGED_MAX_WIDE_DIM else 1
+
+
+def b7_instance(dh: int, vec: bool = True) -> str:
+    """The name of B7's instance that takes heads of width ``dh``, with
+    rows of 16-byte vectors on 16-byte boundaries (``vec``) or not. A
+    launch is counted under the instance its entry point reports."""
+    if dh <= MAX_HEAD_DIM:
+        return B7_INSTANCE_NAMES[0]
+    if dh > PAGED_MAX_WIDE_DIM:
+        return B7_INSTANCE_NAMES[3]
+    return B7_INSTANCE_NAMES[1 if vec else 2]
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -404,10 +455,30 @@ def _paged_lib():
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_paged_decode_attn.argtypes = [
             c, c, c, c, c, c, c, c, c, c, i32, i32, i32, i32, i32, i64, i64,
-            i32, i32, ctypes.c_float, i32, i32, c]
+            i32, i32, ctypes.c_float, i32, i32, c,
+            ctypes.POINTER(ctypes.c_int)]
         lib.mv_paged_decode_attn.restype = ctypes.c_int
+        lib.mv_paged_decode_describe.argtypes = [
+            i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+        lib.mv_paged_decode_describe.restype = ctypes.c_int
         lib._mv_typed = True
     return lib
+
+
+def paged_describe(dh: int, dtype: torch.dtype = torch.float32,
+                   vec: bool = True) -> Dict[str, int]:
+    """The launch shape and resources of B7's wide instance for heads of
+    width ``dh`` (257-512) and pages of ``dtype`` on the current card, as
+    the CUDA runtime reports them: threads a CTA, shared memory bytes a
+    CTA (dynamic and static), registers and local (spill) bytes a thread,
+    CTAs an SM. Card only."""
+    out = (ctypes.c_int * 5)()
+    _build.check_launch(_paged_lib().mv_paged_decode_describe(
+        int(dh), PAGE_KINDS[dtype], int(bool(vec)), out),
+        "paged_decode_attn")
+    keys = ("threads", "smem_bytes", "registers", "local_bytes",
+            "ctas_per_sm")
+    return {"instance": b7_instance(dh, vec), **dict(zip(keys, out))}
 
 
 def _check_paged(q, kp, vp, ptab, lengths, t, page: int, ks, vs) -> bool:
@@ -506,26 +577,26 @@ def _launch_paged(q, kp, vp, ptab, lengths, t, bucket: int, page: int,
     o = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
     if B * H * dh == 0:
         return o
-    # A head wider than MAX_HEAD_DIM is split into column chunks of that
-    # width over CTAs (the kernel's wide instance), each merged on its own.
-    chunks = -(-dh // MAX_HEAD_DIM) if dh > MAX_HEAD_DIM else 1
     splits = paged_launch_splits(q, kp, G, page, _sm_count(dev))
-    part = (_paged_scratch(dev, B * H * splits * (dh + 2 * chunks))
+    part = (_paged_scratch(dev, B * H * splits * (dh + 2 * paged_chunks(dh)))
             if splits > 1 else None)
     if not q.is_contiguous():
         q = q.contiguous()
     ptab, lengths, t = _int32(ptab), _int32(lengths), _int32(t)
     kind = PAGE_KINDS[kp.dtype]
     quant = kind == PAGE_KINDS[torch.int8]
+    instance = ctypes.c_int(-1)
     err = _paged_lib().mv_paged_decode_attn(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
         ptab.data_ptr(), lengths.data_ptr(), t.data_ptr(), o.data_ptr(),
         part, B, H, G, page, dh, kp.stride(0),
         ks.stride(0) if quant else 0, kp.shape[0], int(bucket),
-        float(scale), kind, splits, _build.stream(q))
+        float(scale), kind, splits, _build.stream(q), ctypes.byref(instance))
     _build.check_launch(err, "paged_decode_attn")
     LAUNCHES["paged_decode_attn_int8" if quant else "paged_decode_attn"] += 1
+    B7_INSTANCES[B7_INSTANCE_NAMES[instance.value]] += 1
+    B7_SPLITS[splits] = B7_SPLITS.get(splits, 0) + 1
     return o
 
 

@@ -8,7 +8,8 @@ and ordered).
 
     python3 scripts/torch_paged_steps.py [--tree NAME=DIR ...] \\
         [--cu NAME=FILE ...] [--flags NAME=FLAGS ...] [--order NAMES] \\
-        [--splits N,N,...] [--reps N] [--phases] [--out FILE]
+        [--splits N,N,...] [--reps N] [--dh N,N,...] [--phases] \\
+        [--out FILE]
 
 Each version runs, in a process of its own, at B7's two main-path shapes
 of ``chip_smoke.paged_shapes`` (the serving shape, G 36, and the
@@ -23,7 +24,10 @@ launch replayed from a CUDA graph equals an eager one, then times, in
 turns, the kernel, the plain version and (float32) the SDPA yardstick by
 CUDA events over ``--reps`` back-to-back calls (5 readings: median and
 range), and the kernel (and the yardstick) in a CUDA graph, beside the
-byte bound and the splits a slot and head the version's wrapper chose. At a
+byte bound and the splits a slot and head the version's wrapper chose.
+``--dh`` adds wider heads (B7's wide instances past 256): the serving
+shape at each width listed, the long-context shape at the first, with
+the same three page types and the same readings. At a
 small shape (4 slots, 4 heads, dh 64, G 12), where the card is the faster
 side, it reads the host's time to issue one wrapper call (the host clock
 over 200 calls before any synchronize), and the time to read the current
@@ -37,7 +41,8 @@ at each main-path shape with that many CTAs a slot and head.
 ``-DMV_PAGED_PROFILE`` (thread 0 of each CTA stores ``%globaltimer`` at
 its start, after its start-up loads, after its pages and at its exit)
 and, after a few launches at each main-path shape (float32 and int8
-pages), prints per slot the
+pages; with ``--dh`` also at the wider heads, as above), prints per slot
+the
 CTAs' start-up, pages (median and most) and merge-or-exit times and when
 its last CTA ended, from the launch's first CTA start. Every line is
 printed with the card's name and power limit.
@@ -64,6 +69,15 @@ PROFILE = "-DMV_PAGED_PROFILE"          # csrc/paged_attention.cu's marks
 MAIN = ("paged_decode_kernelIfLi4ELi8ELi2EE",
         "paged_decode_kernelI13__nv_bfloat16Li8ELi8ELi1EE",
         "paged_decode_kernelIaLi16ELi4ELi1EE", "paged_decode_kernelIfLi2EE")
+# The wide instances (dh 257-512), the column-chunked one and its
+# predecessor, by the start of their labels.
+WIDE = ("paged_wide_kernel", "paged_decode_chunked_kernel",
+        "paged_decode_wide_kernel")
+
+
+def shown(kernel: str) -> bool:
+    """Whether a kernel's registers and spills are printed."""
+    return kernel in MAIN or kernel.startswith(WIDE)
 #: The page types timed at each main-path shape.
 KINDS = ("float32", "bfloat16", "int8")
 
@@ -161,7 +175,8 @@ def shape(attention, args, sc, bucket, P, reps, splits, sms) -> dict:
     return rec
 
 
-def child(tree: str, cu: str, flags: str, reps: int, splits) -> dict:
+def child(tree: str, cu: str, flags: str, reps: int, splits,
+          dhs=()) -> dict:
     """One version's readings, in this process."""
     attention = steps.import_from(tree, "ops.attention")
     _build = steps.import_from(tree, "ops._build")
@@ -178,12 +193,17 @@ def child(tree: str, cu: str, flags: str, reps: int, splits) -> dict:
     for kind in KINDS:
         sc = {}
         dtype = None if kind == "float32" else getattr(torch, kind)
-        for what, bucket, args in cs.paged_shapes(dev, dtype, sc):
-            out["shapes"][f"{kind} {what}"] = shape(
-                attention, args, sc, bucket, P, reps, splits, sms)
-            del args
-            sc.clear()
-            torch.cuda.empty_cache()
+        for dh in (None, *dhs):
+            for what, bucket, args in cs.paged_shapes(dev, dtype, sc, dh=dh):
+                if dh and dh != dhs[0] and "long-context" in what:
+                    sc.clear()
+                    continue
+                key = f"{kind} {what}" + (f", dh {dh}" if dh else "")
+                out["shapes"][key] = shape(attention, args, sc, bucket, P,
+                                           reps, splits, sms)
+                del args
+                sc.clear()
+                torch.cuda.empty_cache()
 
     g = torch.Generator(device=dev).manual_seed(11)
     small = cs.paged_inputs(g, dev, [3, 60, 128, 17], [0, 5, 63, 20], 128,
@@ -205,13 +225,14 @@ def child(tree: str, cu: str, flags: str, reps: int, splits) -> dict:
             attention.paged_decode_attn_plain(*a, **kw))
     if not cu:
         out["ptxas"] = [f"{k}: {line}" for k, line in cs.ptxas_lines(
-            _build.build_log("paged_attention")) if k in MAIN]
+            _build.build_log("paged_attention")) if shown(k)]
     return out
 
 
-def phases() -> dict:
+def phases(dhs=()) -> dict:
     """Per-CTA phase times of this checkout's kernel built with its marks,
-    at each main-path shape, summarised per slot, in this process."""
+    at each main-path shape (and the wider heads ``dhs``), summarised per
+    slot, in this process."""
     import ctypes
     import numpy as np
     import torch
@@ -227,11 +248,21 @@ def phases() -> dict:
     card = cs.card_line()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    sc = {}
-    shapes = [(f"float32 {w}", b, a, {}) for w, b, a in cs.paged_shapes(dev)]
-    shapes += [(f"int8 {w}", b, a, dict(sc)) for w, b, a in
-               cs.paged_shapes(dev, torch.int8, sc)]
-    for what, bucket, args, scales in shapes:
+
+    def shapes():
+        for dh in (None, *dhs):
+            for kind in ("float32", "int8"):
+                sc = {}
+                dtype = torch.int8 if kind == "int8" else None
+                for w, b, a in cs.paged_shapes(dev, dtype, sc, dh=dh):
+                    if dh and dh != dhs[0] and "long-context" in w:
+                        sc.clear()
+                        continue
+                    yield (f"{kind} {w}" + (f", dh {dh}" if dh else ""), b,
+                           a, dict(sc))
+                    sc.clear()
+
+    for what, bucket, args, scales in shapes():
         kw = dict(bucket=bucket, page=cs.SERVE_PAGE,
                   scale=args[0].shape[2] ** -0.5, **scales)
         for _ in range(5):
@@ -311,15 +342,19 @@ def main(argv=None) -> int:
     steps.add_arguments(ap)
     ap.add_argument("--splits", default="")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--dh", default="",
+                    help="wider heads to read too, comma-separated")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.probe:
-        print(json.dumps(phases()))
-        return 0
     splits = [int(x) for x in args.splits.split(",") if x]
+    dhs = [int(x) for x in args.dh.split(",") if x]
+    if args.probe:
+        print(json.dumps(phases(dhs)))
+        return 0
     if args.child:
-        print(json.dumps(child(*steps.child_spec(args), args.reps, splits)))
+        print(json.dumps(child(*steps.child_spec(args), args.reps, splits,
+                               dhs)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -337,14 +372,15 @@ def main(argv=None) -> int:
                                                  variants).items():
         print(f"built {os.path.basename(cu)} {flags}".rstrip(), flush=True)
         for k, line in cs.ptxas_lines(log):
-            if k in MAIN:
+            if shown(k):
                 print(f"  {k}: {line}", flush=True)
-    child_args = ["--reps", str(args.reps), "--splits", args.splits]
+    child_args = ["--reps", str(args.reps), "--splits", args.splits,
+                  "--dh", args.dh]
     records = steps.run(__file__, args, child_args, on_record=report)
     if args.phases:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--probe"], capture_output=True, text=True,
-                              timeout=600)
+                               "--probe", "--dh", args.dh],
+                              capture_output=True, text=True, timeout=600)
         print(proc.stdout.rsplit("\n", 2)[0], flush=True)
         if proc.returncode != 0:
             print(f"phases: failed\n{proc.stderr[-3000:]}", flush=True)

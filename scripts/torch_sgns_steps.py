@@ -7,7 +7,7 @@ run through this checkout's wrapper; and probe this checkout's kernel.
     python3 scripts/torch_sgns_steps.py [--tree NAME=DIR ...] \\
         [--cu NAME=FILE ...] [--flags NAME=FLAGS ...] [--sort-all NAME ...] \\
         [--order NAMES] [--launches N] [--flagship] [--spread] [--phases] \\
-        [--out FILE]
+        [--negative K,K,...] [--out FILE]
 
 ``--tree`` takes a checkout of the repository (for example the parent
 commit unpacked by ``git archive`` into ``build/``); ``--cu`` a variant of
@@ -55,7 +55,11 @@ their own after the versions:
   the long runs, the tiles of short and medium runs, the second grid
   barrier) on the flagship block with both id draws: each phase's mean
   over CTAs and chunks and its largest on one CTA, in microseconds at the
-  card's largest SM clock (a phase run below it reads short). Then chunks
+  card's largest SM clock (a phase run below it reads short). With
+  ``--negative``, at each K listed: K = 5 is the block as drawn, any other
+  K redraws the block's negatives K a pair from its own
+  (``chip_smoke.block_negatives``, as phase 2's grouped-variant check
+  does; K > 16 runs the grouped variant). Then chunks
   of uniform ids (C=8192, K=5) in which one id fills L out-lanes, L from 0
   to 8,192: the kernel's time per chunk by CUDA events against L.
 
@@ -334,9 +338,9 @@ def one_long_run(cs, sgns, dev, card) -> list:
     return out
 
 
-def phases(cs, sgns, dev, card) -> dict:
+def phases(cs, sgns, dev, card, negatives=()) -> dict:
     """Per-phase cycles of a chunk from the kernel built with its phase
-    marks."""
+    marks, at the block's K and at each of ``negatives``."""
     import ctypes
     import torch
     lib = use_library(sgns, steps.variant_library("sgns", CSRC, PROFILE))
@@ -351,9 +355,15 @@ def phases(cs, sgns, dev, card) -> dict:
     g = torch.Generator(device=dev).manual_seed(4)
     uniform = [torch.randint(0, cs.V, s.shape, generator=g, device=dev,
                              dtype=s.dtype) for s in streams[:3]]
+    blocks = [("zipf", streams[:3]), ("uniform", uniform)]
+    gk = torch.Generator(device=dev).manual_seed(12)
+    for k in negatives:
+        if k != streams[2].shape[2]:
+            blocks.append((f"zipf K={k}", (*streams[:2], cs.block_negatives(
+                streams, k, gk))))
     buf = (ctypes.c_ulonglong * 16)()
     result = {}
-    for ids, block in (("zipf", streams[:3]), ("uniform", uniform)):
+    for ids, block in blocks:
         work = [t.clone() for t in tables]
         p = sgns.prepare_sgns_block(*work, *block, streams[3], lr, True)
         sgns.launch_sgns_block(p)
@@ -380,7 +390,7 @@ def phases(cs, sgns, dev, card) -> dict:
     return result
 
 
-def probe(what) -> dict:
+def probe(what, negatives=()) -> dict:
     """--spread and --phases on this checkout's kernel, in this process."""
     sys.path.insert(0, steps.REPO)
     import chip_smoke as cs
@@ -396,7 +406,7 @@ def probe(what) -> dict:
         record["spread"] = plain_spread(cs, sgns, dev, card)
     if "phases" in what:
         record["one_long_run"] = one_long_run(cs, sgns, dev, card)
-        record["phases"] = phases(cs, sgns, dev, card)
+        record["phases"] = phases(cs, sgns, dev, card, negatives)
     mv.shutdown()
     return record
 
@@ -444,10 +454,13 @@ def main(argv=None) -> int:
     ap.add_argument("--flagship", action="store_true")
     ap.add_argument("--spread", action="store_true")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--negative", default="",
+                    help="with --phases, negatives a pair to read too")
     ap.add_argument("--probe", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    negatives = [int(x) for x in args.negative.split(",") if x]
     if args.probe:
-        print(json.dumps(probe(args.probe.split(","))))
+        print(json.dumps(probe(args.probe.split(","), negatives)))
         return 0
     if args.child:
         print(json.dumps(child(*steps.child_spec(args), args.launches,
@@ -486,7 +499,8 @@ def main(argv=None) -> int:
         what = [w for w in ("spread", "phases") if getattr(args, w)]
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--probe",
-             ",".join(what)], capture_output=True, text=True, timeout=1200)
+             ",".join(what), "--negative", args.negative],
+            capture_output=True, text=True, timeout=1200)
         print(proc.stdout.rsplit("\n", 2)[0], flush=True)
         if proc.returncode != 0:
             print(f"probes: failed\n{proc.stderr[-3000:]}", flush=True)

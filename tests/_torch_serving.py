@@ -13,13 +13,14 @@ import numpy as np
 CFG = dict(vocab=61, dim=32, heads=4, layers=2, seq=128)
 
 
-def jax_params(key: int = 0):
-    """The JAX ``init_params`` weights as a dict of numpy arrays."""
+def jax_params(key: int = 0, cfg=None):
+    """The JAX ``init_params`` weights as a dict of numpy arrays, of the
+    LM ``cfg`` (a dict like ``CFG``, which is the default)."""
     import jax
 
     from multiverso_tpu.models.attention_lm import LMConfig, init_params
-    return {k: np.asarray(v) for k, v in
-            init_params(LMConfig(**CFG), jax.random.PRNGKey(key)).items()}
+    return {k: np.asarray(v) for k, v in init_params(
+        LMConfig(**(cfg or CFG)), jax.random.PRNGKey(key)).items()}
 
 
 def jax_runner(params, **kw):
@@ -30,13 +31,13 @@ def jax_runner(params, **kw):
     return AttentionLMRunner(params, LMConfig(**CFG), **kw)
 
 
-def port_runner(params, **kw):
-    """The port's runner on the CPU."""
+def port_runner(params, cfg=None, **kw):
+    """The port's runner on the CPU, of the LM ``cfg`` (default ``CFG``)."""
     import torch
 
     from multiverso_tpu_torch.models.attention_lm import LMConfig
     from multiverso_tpu_torch.serving import AttentionLMRunner
-    return AttentionLMRunner(params, LMConfig(**CFG),
+    return AttentionLMRunner(params, LMConfig(**(cfg or CFG)),
                              device=torch.device("cpu"), **kw)
 
 

@@ -10,7 +10,9 @@ kernel is held against the plain version on the card by the card-only
 tests below and by ``chip_smoke.py``. The kernel reads only the pages
 that the mask admits a key of (``paged_live_pages``) and splits a slot's
 pages over several CTAs; the cases below put page boundaries, G = 1 and
-a long table under both.
+a long table under both. Heads of 264 and 320 columns (B7's wide
+instances on a card) are held the same way, in float32 and bfloat16,
+and int8 pages against the JAX codec's ``decode_rows`` after the gather.
 """
 
 import numpy as np
@@ -50,11 +52,12 @@ def _bf16(x):
     return torch.as_tensor(x).to(torch.bfloat16).float().numpy()
 
 
-def _case(name):
+def _case(name, dh=8):
     """Inputs of one case: (q, kp, vp, ptab, lengths, t, bucket, page,
-    bf16). The first is ``test_pallas_attention.py:163-199``'s."""
+    bf16). The first is ``test_pallas_attention.py:163-199``'s; ``dh``
+    widens its heads."""
     rng = np.random.default_rng(0)
-    H, dh, P, G, bucket, n_phys = 4, 8, 4, 4, 8, 16
+    H, P, G, bucket, n_phys = 4, 4, 4, 8, 16
     lengths = np.asarray([3, 1, 7], np.int32)
     t = np.asarray([0, 2, 5], np.int32)
     bf16 = False
@@ -139,7 +142,12 @@ def _port(q, kp, vp, ptab, lengths, t, bucket, page, scale, bf16):
 
 @pytest.mark.parametrize("name", CASES)
 def test_plain_matches_jax_kernel_and_gather(name):
-    q, kp, vp, ptab, lengths, t, bucket, page, bf16 = _case(name)
+    _hold_against_jax(*_case(name))
+
+
+def _hold_against_jax(q, kp, vp, ptab, lengths, t, bucket, page, bf16):
+    """The port's read (the plain version on the CPU) against the JAX
+    kernel in interpret mode and the JAX gather."""
     scale = float(1.0 / np.sqrt(q.shape[-1]))
     got = _port(q, kp, vp, ptab, lengths, t, bucket, page, scale, bf16)
     dt = jnp.bfloat16 if bf16 else jnp.float32
@@ -152,6 +160,56 @@ def test_plain_matches_jax_kernel_and_gather(name):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, kernel, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, gather, rtol=RTOL, atol=ATOL)
+
+
+#: Cases held at wide heads: the JAX test's inputs, a generated position
+#: on the next page, and a long table with a short and a full slot.
+WIDE_CASES = ["test_pallas_attention inputs",
+              "bucket + t crosses a page boundary",
+              "long table, one short and one full slot"]
+
+
+@pytest.mark.parametrize("dh", [264, 320])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("name", WIDE_CASES)
+def test_wide_heads_plain_matches_jax_kernel_and_gather(name, bf16, dh):
+    """Heads of 264 and 320 columns (B7's wide instances on a card):
+    the plain version against the JAX kernel and gather."""
+    q, kp, vp, ptab, lengths, t, bucket, page, _ = _case(name, dh=dh)
+    if bf16:
+        kp, vp = _bf16(kp), _bf16(vp)
+    _hold_against_jax(q, kp, vp, ptab, lengths, t, bucket, page, bf16)
+
+
+def _int8_pools(kp, vp):
+    """``kp``, ``vp`` through the JAX codec: (k8, ks, v8, vs) as numpy,
+    and the JAX ``decode_rows`` of each pool."""
+    from multiverso_tpu.serving import quant as jquant
+    (k8, ks), (v8, vs) = (jquant.encode_rows(jnp.asarray(x), "int8")
+                          for x in (kp, vp))
+    decoded = [np.asarray(jquant.decode_rows(p, s, "int8"))
+               for p, s in ((k8, ks), (v8, vs))]
+    return [np.array(x) for x in (k8, ks, v8, vs)], decoded
+
+
+@pytest.mark.parametrize("dh", [264, 320, 384])
+@pytest.mark.parametrize("name", WIDE_CASES)
+def test_wide_heads_int8_plain_matches_jax_decode_rows(name, dh):
+    """int8 pages at wide heads (dh 264: rows not whole 16-byte vectors,
+    the narrow-row instance on a card): the plain read with the scale
+    planes against the JAX gather of ``decode_rows``'s rows."""
+    q, kp, vp, ptab, lengths, t, bucket, page, _ = _case(name, dh=dh)
+    (k8, ks, v8, vs), (kd, vd) = _int8_pools(kp, vp)
+    scale = float(1.0 / np.sqrt(dh))
+    T = torch.as_tensor
+    before = dict(attention.LAUNCHES)
+    got = attention.paged_decode_attn(
+        T(q), T(k8), T(v8), T(ptab), T(lengths), T(t), bucket=bucket,
+        page=page, scale=scale, ks=T(ks), vs=T(vs)).numpy()
+    assert attention.LAUNCHES == before                        # CPU: plain
+    want = _jax_gather(q, kd, vd, ptab, lengths, t, bucket, page, scale)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 def test_layer_view_of_a_pool_reads_that_layer():
@@ -372,10 +430,11 @@ def test_split_pages_hold_whole_tiles(n_live, tile_pages, splits):
 
 def test_launch_splits_count_tiles():
     """The splits a launch takes: tiles of the table, not pages, for heads
-    up to 256 (int8 at the serving shape: 36 pages are 9 tiles of 4, still
+    up to 512 (int8 at the serving shape: 36 pages are 9 tiles of 4, still
     6 CTAs a slot and head on 132 SMs; a 16-page table's 4 tiles cap them
-    at 4), pages for the wide instance, one CTA where B x H fills the
-    card."""
+    at 4; int8 at dh 320, tiles of 2 pages, 8 tiles cap nothing), pages
+    of every column chunk for the column-chunked instance past 512, one
+    CTA where B x H fills the card."""
     q = torch.zeros(8, 12, 64)
     i8 = torch.zeros(1, dtype=torch.int8)
     f32 = torch.zeros(1)
@@ -383,9 +442,59 @@ def test_launch_splits_count_tiles():
     assert attention.paged_launch_splits(q, i8, 16, 16, 132) == 4
     assert attention.paged_launch_splits(q, f32, 16, 16, 132) == 6
     assert attention.paged_launch_splits(torch.zeros(8, 12, 320), i8, 16,
-                                         16, 132) == 3
+                                         16, 132) == 6
+    assert attention.paged_launch_splits(torch.zeros(8, 12, 320), i8, 4,
+                                         16, 132) == 2
+    assert attention.paged_launch_splits(torch.zeros(8, 12, 520), i8, 16,
+                                         16, 132) == 2
     assert attention.paged_launch_splits(torch.zeros(64, 12, 64), i8, 36,
                                          16, 132) == 1
+
+
+@pytest.mark.parametrize("dh, dtype, page, tile_pages, chunks", [
+    (264, "float32", 16, 1, 1), (320, "float32", 16, 1, 1),
+    (512, "float32", 4, 1, 1), (320, "float32", 4, 2, 1),
+    (320, "bfloat16", 16, 1, 1), (384, "bfloat16", 16, 1, 1),
+    (264, "int8", 16, 2, 1), (320, "int8", 16, 2, 1), (384, "int8", 16, 1, 1),
+    (512, "int8", 16, 1, 1), (320, "int8", 1, 32, 1), (320, "bfloat16", 2, 8, 1),
+    (520, "float32", 16, 1, 3), (520, "int8", 16, 1, 3),
+    (1024, "bfloat16", 16, 1, 4)])
+def test_wide_layout_tiles_and_scratch(dh, dtype, page, tile_pages, chunks):
+    """The wide instances' layout (heads of 257-512): tiles of up to 12 KB
+    (float32) or 10 KB (bfloat16, int8) of K rows, whole pages where they
+    fit, no column chunks, so a split's merge scratch is dh + 2 floats;
+    past 512 the column-chunked instance, a page a unit and ceil(dh / 256)
+    chunks, each with its own (m, l)."""
+    elem = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    tp = attention.paged_tile_pages(dh, elem, page)
+    assert tp == tile_pages
+    assert attention.paged_chunks(dh) == chunks
+    if dh <= attention.PAGED_MAX_WIDE_DIM:
+        budget = attention.PAGED_WIDE_TILE_BYTES[elem]
+        assert tp * page * dh * elem <= budget or tp == 1
+        assert (tp + 1) * page * dh * elem > budget
+    q = torch.zeros(8, 12, dh)
+    kp = torch.zeros(1, dtype=getattr(torch, dtype))
+    splits = attention.paged_launch_splits(q, kp, 36, page, 132)
+    assert splits == attention.paged_splits(8 * 12 * chunks,
+                                            -(-36 // tp), 132)
+
+
+@pytest.mark.parametrize("dh, vec, want", [
+    (64, True, "tiled"), (256, False, "tiled"),
+    (264, True, "wide d<=512 vec"), (320, True, "wide d<=512 vec"),
+    (512, True, "wide d<=512 vec"), (264, False, "wide d<=512 narrow-row"),
+    (258, False, "wide d<=512 narrow-row"),
+    (512, False, "wide d<=512 narrow-row"), (520, True, "wide d>512")])
+def test_instance_names_follow_the_rows(dh, vec, want):
+    """The names of the instances, in the order of the indices the
+    kernel's entry point reports: the tiled ones up to 256, the wide ones
+    up to 512 (by 16-byte vectors where the rows are whole vectors on
+    16-byte boundaries, else one value a lane), then the column-chunked
+    one."""
+    assert attention.b7_instance(dh, vec) == want
+    assert attention.B7_INSTANCE_NAMES.index(want) == (
+        0 if dh <= 256 else 3 if dh > 512 else 1 if vec else 2)
 
 
 def test_kernel_skips_wholly_masked_pages_on_card(card):
@@ -445,3 +554,105 @@ def test_kernel_is_bitwise_repeatable_and_graph_equal_on_card(card):
         torch.cuda.synchronize()
         assert torch.equal(first, second), name
         assert torch.equal(captured, first), name
+
+
+def _wide_on_card(card, name, dh, dtype, poison=False):
+    """A wide-head case on the card as the wrapper takes it: (args,
+    kwargs); int8 pools encoded by the serving codec. With ``poison``,
+    one physical page per (slot, logical page) and every page the kernel
+    skips filled with NaN (int8: payloads of 127 and NaN scales)."""
+    from multiverso_tpu_torch.serving.quant import encode_rows
+    q, kp, vp, ptab, lengths, t, bucket, page, _ = _case(name, dh=dh)
+    if poison:
+        nan = _unique_pages(q, kp, vp, ptab, lengths, t, bucket, page,
+                            poison=lambda shape: np.full(shape, np.nan,
+                                                         np.float32))
+        q, kp, vp, ptab, lengths, t = nan
+    kw = dict(bucket=bucket, page=page, scale=float(dh) ** -0.5)
+    kp_t, vp_t = (torch.as_tensor(x).to(card) for x in (kp, vp))
+    if dtype == "int8":
+        bad = torch.isnan(kp_t).all(dim=-1, keepdim=True)
+        (kp_t, ks), (vp_t, vs) = (encode_rows(torch.nan_to_num(x), "int8")
+                                  for x in (kp_t, vp_t))
+        for x in (kp_t, vp_t):
+            x.masked_fill_(bad, 127)
+        for x in (ks, vs):
+            x.masked_fill_(bad, float("nan"))
+        kw.update(ks=ks, vs=vs)
+    else:
+        kp_t, vp_t = kp_t.to(getattr(torch, dtype)), vp_t.to(
+            getattr(torch, dtype))
+    args = [torch.as_tensor(q).to(card), kp_t, vp_t,
+            *(torch.as_tensor(x).to(card) for x in (ptab, lengths, t))]
+    return args, kw
+
+
+@pytest.mark.parametrize("dh", [264, 320, 384, 512, 520])
+def test_wide_kernel_matches_plain_on_card(card, dh):
+    """B7's wide instances (and the column-chunked one at 520) against
+    the plain version on the card, float32, bfloat16 and int8 pages: each
+    launch counted under its instance, NaN in the pages the mask wholly
+    excludes changes nothing, two launches are bitwise equal and a graph
+    replay equals an eager launch."""
+    for dtype in ("float32", "bfloat16", "int8"):
+        for name in WIDE_CASES:
+            args, kw = _wide_on_card(card, name, dh, dtype)
+            # Fresh pools lie on 16-byte boundaries: only int8 rows of 264
+            # are not whole 16-byte vectors.
+            elem = args[1].element_size()
+            inst = attention.b7_instance(dh, dh * elem % 16 == 0)
+            before = dict(attention.B7_INSTANCES)
+            got = attention.paged_decode_attn(*args, **kw)
+            before[inst] += 1
+            assert attention.B7_INSTANCES == before, (dh, dtype, inst)
+            want = attention.paged_decode_attn_plain(*args, **kw)
+            nan_args, nan_kw = _wide_on_card(card, name, dh, dtype,
+                                             poison=True)
+            nan_got = attention.paged_decode_attn(*nan_args, **nan_kw)
+            first = attention.paged_decode_attn(*args, **kw)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = attention.paged_decode_attn(*args, **kw)
+            graph.replay()
+            torch.cuda.synchronize()
+            what = f"{name}, dh {dh}, {dtype}"
+            for x in (got, nan_got):
+                np.testing.assert_allclose(
+                    x.cpu().numpy(), want.cpu().numpy(), rtol=RTOL,
+                    atol=ATOL, err_msg=what)
+            assert torch.equal(first, got), what
+            assert torch.equal(captured, got), what
+
+
+@pytest.mark.parametrize("dh", [320, 384])
+def test_wide_kernel_off_a_16_byte_boundary_on_card(card, dh):
+    """A float32 pool one element off its 16-byte boundary: the entry
+    point reports the narrow-row wide instance, which holds the plain
+    version."""
+    args, kw = _wide_on_card(card, WIDE_CASES[0], dh, "float32")
+    for i in (1, 2):
+        flat = torch.empty(args[i].numel() + 1, device=card)
+        args[i] = flat[1:].view(args[i].shape).copy_(args[i])
+    before = dict(attention.B7_INSTANCES)
+    got = attention.paged_decode_attn(*args, **kw)
+    before["wide d<=512 narrow-row"] += 1
+    assert attention.B7_INSTANCES == before
+    want = attention.paged_decode_attn_plain(*args, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dh", [264, 320, 384, 512, 520])
+def test_wide_kernel_with_one_cta_per_slot_head_on_card(card, monkeypatch,
+                                                        dh):
+    """The wide instances with their slots unsplit."""
+    monkeypatch.setattr(attention, "paged_splits", lambda bh, g, sms: 1)
+    for dtype in ("float32", "int8"):
+        for name in WIDE_CASES:
+            args, kw = _wide_on_card(card, name, dh, dtype)
+            got = attention.paged_decode_attn(*args, **kw)
+            want = attention.paged_decode_attn_plain(*args, **kw)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{name}, {dh}, {dtype}")

@@ -12,10 +12,11 @@ Oracles and tolerances:
 * the plain int8 read is within B7's ``PAGED_TOL`` (``rtol=2e-5,
   atol=2e-6``) of a JAX computation of the same read: the page gather
   with ``mode="clip"``, ``decode_rows``, masked softmax attention;
-* the int8 step functions against the JAX ones (jitted, on copies of the
-  same inputs): payloads within one quantization level (a K or V value
-  whose float32 matmul differs by an ulp can cross a rounding boundary),
-  scales and the dequantized rows within 1e-6 plus a level, tokens equal;
+* the int8 step functions against the JAX ones at heads of 8 and of 264
+  (jitted, on copies of the same inputs): payloads within one
+  quantization level (a K or V value whose float32 matmul differs by an
+  ulp can cross a rounding boundary), scales and the dequantized rows
+  within 1e-6 plus a level, tokens equal;
 * served tokens (bf16 and int8 pages) equal the port's f32 drain path on
   the reference test's prompts, and continuous int8 equals drain int8.
 """
@@ -233,11 +234,11 @@ def test_plain_int8_read_is_a_layer_view_and_ignores_other_scales():
 
 
 # -- the step functions -----------------------------------------------------
-def _jax_steps(page, max_new, kv_dtype):
+def _jax_steps(page, max_new, kv_dtype, cfg):
     from multiverso_tpu.models.attention_lm import LMConfig
     from multiverso_tpu.serving.continuous import ContinuousBatcher
 
-    me = types.SimpleNamespace(cfg=LMConfig(**ts.CFG), max_new=max_new,
+    me = types.SimpleNamespace(cfg=LMConfig(**cfg), max_new=max_new,
                                page=page, kv_dtype=kv_dtype)
 
     def bound(name):
@@ -246,20 +247,35 @@ def _jax_steps(page, max_new, kv_dtype):
     return bound("_prefill_paged_fn"), bound("_step_paged_fn")
 
 
+#: An LM of heads wider than 256 columns (B7's wide instances on a card):
+#: ``tests/test_torch_serving_wide.py``'s.
+WIDE_CFG = dict(ts.CFG, dim=528, heads=2)
+
+
 def test_int8_paged_step_functions_match_jax(params):
     """Two prompts prefilled into int8 pages, then 3 steps: payloads
     within one level, scales and dequantized pages close, ``out`` and
     ``tok`` equal, after every call."""
+    _hold_int8_steps(params, ts.CFG)
+
+
+def test_int8_paged_step_functions_match_jax_at_wide_heads():
+    """The same at 2 heads of 264 columns (JAX weights of that LM)."""
+    _hold_int8_steps(ts.jax_params(cfg=WIDE_CFG), WIDE_CFG)
+
+
+def _hold_int8_steps(params, cfg):
     from multiverso_tpu_torch.serving import ContinuousBatcher, page_plan
 
     P, N, B, S = 3, 4, 3, 8
-    jpre, jstep = _jax_steps(P, N, "int8")
-    runner = ts.port_runner(params, max_new=N, max_batch=B)
+    jpre, jstep = _jax_steps(P, N, "int8", cfg)
+    runner = ts.port_runner(params, cfg, max_new=N, max_batch=B)
     cb = ContinuousBatcher(runner, buckets=(S,), max_batch=B, paged=True,
                            page=P, kv_dtype="int8")
     try:
         G = cb._engine_for(S).n_logical
-        L, H, dh = 2, 4, 8
+        L, H = cfg["layers"], cfg["heads"]
+        dh = cfg["dim"] // H
         rng = np.random.default_rng(1)
         n_phys = 16
         shape = (n_phys, L, H, P, dh)
