@@ -209,9 +209,12 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
     each, Gets the same ids back (B1) and reads every shard whole: all
     bitwise the same Adds replayed through the port's store on the CPU
     (rows/sec over the wire; each seat prints its B1/B2/B4 counts on
-    exit); (b) seat 1 killed with SIGKILL and the same command rerun: it
-    restores nothing, replays its WAL (records and seconds printed) and
-    its shards read back bitwise the bytes before the kill; (c)
+    exit); the seats are a ``PSShardFleet`` without a client seat: each
+    binds an ephemeral port and announces it in its addr file, and the
+    client connects to the announced addresses; (b) seat 1 killed with
+    SIGKILL and respawned: it binds a fresh port, restores nothing,
+    replays its WAL (records and seconds printed) and its shards read
+    back bitwise the bytes before the kill; (c)
     ``word2vec_main -world_size=2`` at bench.py's word2vec config on a
     synthetic Zipf corpus of ``W2V_DIST_WORDS`` words, ranks on the card
     by default: exit 0, finite losses, the two ranks' ``embeddings()``
@@ -267,7 +270,31 @@ Phases (any failure exits non-zero; nothing here swallows a phase):
     flat LM from the same weights (for (c) ``pipeline_params_to_flat`` of
     the pipeline's); every rank's losses and parameters equal, tokens/sec
     and host-staged bytes a rank, each world's seconds;
-13. a JSON line of the kernels, the card line, and the result line.
+13. the serving fleet (``multiverso_tpu_torch/fleet``): (a) ``fleet_main
+    -fleet_role=local -fleet_replicas=2 -serve_device=default
+    -fleet_supervise=true -fleet_synthetic=1000000x50@<seed>``: two
+    replica processes, each serving bench.py's row plane from a
+    ``ServerStore`` on the card, behind an in-process router; 4 client
+    threads send lookups of 8 Zipf keys through ``FleetClient`` for
+    ``FLEET_LOAD_S`` seconds, every reply bitwise the seeded table the
+    host computes with numpy (requests/sec, per-request p50/p99); (b)
+    ``fleet_main -fleet_role=drain`` while lookups run: exit 0, no
+    request fails, every member's ``drains_completed`` advances; (c)
+    replica-1 SIGKILLed while lookups run: no request fails (the client's
+    failover), the supervisor respawns it, it rejoins the ring at a new
+    address (seconds from the kill to the rejoin) and lookups stay
+    bitwise; (d) a supervised ``PSShardFleet`` of two seats of phase
+    10's tables on the card, checkpointing every ``FLEET_PS_CKPT_S``
+    seconds: the C client pushes 5 Adds a table, every seat checkpoints,
+    5 more, seat 1 is SIGKILLed at once and respawned by the supervisor,
+    restores its checkpoint and replays its WAL, and every shard reads
+    back bitwise the CPU replay; (e) each replica run reports its store
+    on ``cuda`` and B1 launches, each seat run B1, B2 and B4 launches (a
+    SIGKILLed run prints none);
+14. a JSON line of the kernels, the card line, and the result line.
+
+Phase 2 also holds the instance that B6's entry point reports against
+the one its dispatch table names, at heads of ``B6_REPORT_WIDTHS``.
 
 Phase 2 also holds B6 (``flash_block_attn``) against its plain version:
 at the LM's eval shape (8, 12, 1,024, 64, causal), at the ring-step shapes
@@ -327,9 +354,9 @@ one, an idle slot, one CTA a slot and head).
 
 Every launch count is set to 0 just before each main-path run of phases
 3, 4, 6, 7, 8, 9, 10, 11 and 12 and read just after it (phase 10's seats
-and word2vec ranks and the rank processes of phases 11 and 12 are
-processes of their own and report theirs), so the comparisons of phase 2
-do not count.
+and word2vec ranks, the rank processes of phases 11 and 12, and phase
+13's replicas and seats are processes of their own and report theirs),
+so the comparisons of phase 2 do not count.
 """
 
 from __future__ import annotations
@@ -2068,11 +2095,40 @@ def check_attention_kernel(dev) -> dict:
                        causal=True, offsets=(128, 0))
         variants.append({"case": f"D={d2}", "max_abs_err": e})
     variants += check_attention_mid_widths(dev, g)
+    reported = check_b6_reported_instances(dev, g)
     return {"name": "flash_block_attn", "route": "cuda",
             "source": "multiverso_tpu_torch/csrc/attention.cu",
             "replaces": "multiverso_tpu/ops/pallas_attention.py:97",
             "shape": [b, h, s, dh], "causal": True, "max_abs_err": err,
-            **rec, **bound, "shapes": shapes, "variants": variants}
+            **rec, **bound, "shapes": shapes, "variants": variants,
+            "reported_instances": reported}
+
+
+#: The head widths at which phase 2 holds the instance that B6's entry
+#: point reports against the one its dispatch table names.
+B6_REPORT_WIDTHS = (64, 128, 192, 256, 320, 512)
+
+
+def check_b6_reported_instances(dev, g) -> dict:
+    """One launch of B6 at each of ``B6_REPORT_WIDTHS`` (a small causal
+    shape): the launch is counted under the instance that the entry
+    point reports it took, which must be the one ``b6_instance`` names,
+    and under no other. Returns {width: instance}."""
+    from multiverso_tpu_torch.ops import attention
+
+    out = {}
+    for d in B6_REPORT_WIDTHS:
+        q, k, v = attn_inputs(g, dev, 1, 2, 128, 128, d)
+        before = dict(attention.B6_INSTANCES)
+        attention.flash_block_attn(q, k, v, scale=d ** -0.5, causal=True)
+        moved = {name: n - before[name]
+                 for name, n in attention.B6_INSTANCES.items()
+                 if n != before[name]}
+        assert moved == {attention.b6_instance(d): 1}, (d, moved)
+        out[d] = attention.b6_instance(d)
+    log("B6 reported instances: " + ", ".join(
+        f"D={d} {name}" for d, name in out.items()))
+    return out
 
 
 #: Heads of 65-256 columns held at small shapes: the narrow instance of
@@ -5625,75 +5681,41 @@ def free_ports(n: int) -> list:
     return ports
 
 
-class Seat:
-    """One ``ps_shard_main`` seat process (stdout and stderr to a file)."""
+def ps_seat_fleet(tmp: str, rows: int, cols: int, seat_args=(),
+                  **kw):
+    """``PS_SEATS`` ``ps_shard_main`` seats of ``PS_TABLES`` (matrix
+    tables of ``rows`` x ``cols``) as a port ``PSShardFleet`` with no
+    client seat: ranks 0..PS_SEATS-1, each binding an ephemeral port and
+    announcing it in its addr file, each run's output in ``tmp``. Clients
+    connect to the announced addresses (``fleet.addresses()``)."""
+    from multiverso_tpu_torch.fleet.ps_fleet import PSShardFleet
+    kw.setdefault("supervise", False)
+    kw.setdefault("checkpoint_every_s", 0.0)
+    return PSShardFleet(
+        PS_SEATS, table_id=PS_TABLE_ID, table_size=rows,
+        table_kind="matrix", table_cols=cols,
+        tables=[u + (":pallas" if k else "")
+                for u, k in PS_TABLES.values()],
+        workdir=tmp, log_dir=tmp, client_seat=False,
+        serve_duration=3600.0,
+        extra_seat_args={r: list(seat_args) for r in range(PS_SEATS)},
+        **kw)
 
-    def __init__(self, rank: int, peers: list, tmp: str, rows: int,
-                 cols: int, extra=()):
-        self.rank, self.tmp = rank, tmp
-        self.addr_file = os.path.join(tmp, f"seat{rank}.addr")
-        self.cmd = [
-            sys.executable, "-m", "multiverso_tpu_torch.apps.ps_shard_main",
-            f"-rank={rank}",
-            "-ps_peers=" + ",".join(f"{h}:{p}" for h, p in peers),
-            "-ps_table_kind=matrix", f"-ps_table_id={PS_TABLE_ID}",
-            f"-ps_table_size={rows}", f"-ps_table_cols={cols}",
-            "-ps_tables=" + ",".join(
-                u + (":pallas" if k else "") for u, k in PS_TABLES.values()),
-            "-wal=true",
-            f"-wal_dir={os.path.join(tmp, 'wal')}", "-wal_sync_acks=true",
-            f"-ps_addr_file={self.addr_file}", *extra]
-        self.runs = []
 
-    def start(self) -> None:
-        if os.path.exists(self.addr_file):
-            os.remove(self.addr_file)
-        out = open(os.path.join(self.tmp,
-                                f"seat{self.rank}.{len(self.runs)}.log"),
-                   "w")
-        self.proc = subprocess.Popen(self.cmd, cwd=REPO, stdout=out,
-                                     stderr=subprocess.STDOUT)
-        self.runs.append((self.proc, out, time.perf_counter()))
+def seat_launches(fleet) -> dict:
+    """Each run's launch counts, keyed "seat R run J" (a SIGKILL'd run
+    prints none)."""
+    return {f"seat {r} run {run}": fleet.seat_line(r, "PS_SHARD_LAUNCHES",
+                                                   run)
+            for r in fleet.ranks for run in range(fleet.seat_runs(r))
+            if fleet.seat_line(r, "PS_SHARD_LAUNCHES", run) is not None}
 
-    def wait_announced(self, timeout_s: float = 300.0) -> float:
-        """Seconds from the start of this run to the addr file."""
-        t0 = self.runs[-1][2]
-        while not os.path.exists(self.addr_file):
-            assert self.proc.poll() is None, self.log_text()[-3000:]
-            assert time.perf_counter() - t0 < timeout_s, "seat never up"
-            time.sleep(0.05)
-        return time.perf_counter() - t0
 
-    def log_text(self, run: int = -1) -> str:
-        if not self.runs[run][1].closed:
-            self.runs[run][1].flush()
-        with open(self.runs[run][1].name) as f:
-            return f.read()
-
-    def line(self, tag: str, run: int = -1) -> dict:
-        for text in self.log_text(run).splitlines():
-            if text.startswith(tag + " "):
-                return json.loads(text[len(tag) + 1:])
-        raise AssertionError(f"seat {self.rank} printed no {tag}:\n"
-                             + self.log_text(run)[-3000:])
-
-    def kill9(self) -> None:
-        import signal
-        self.proc.send_signal(signal.SIGKILL)
-        self.proc.wait(timeout=60)
-        self.runs[-1][1].close()
-
-    def stop(self) -> None:
-        """SIGTERM (see ``wait_stopped``)."""
-        if self.proc.poll() is None:
-            self.proc.terminate()
-
-    def wait_stopped(self) -> None:
-        """The seat closes its service, prints its launch counts and must
-        exit 0."""
-        rc = self.proc.wait(timeout=120)
-        self.runs[-1][1].close()
-        assert rc == 0, (rc, self.log_text()[-3000:])
+def stop_seat_fleet(fleet) -> None:
+    """SIGTERM every seat: each closes its service, prints its launch
+    counts and must exit 0."""
+    for rank, rc in fleet.stop_seats().items():
+        assert rc == 0, (rank, rc, fleet.seat_log(rank)[-3000:])
 
 
 def ps_replay_store(updater: str, use_pallas: bool, rows: int, cols: int,
@@ -5706,85 +5728,124 @@ def ps_replay_store(updater: str, use_pallas: bool, rows: int, cols: int,
                        use_pallas_rows=use_pallas)
 
 
+class SeatPlane:
+    """The C client's view of a ``ps_seat_fleet``: ``PS_TABLES`` of
+    ``rows`` x ``cols`` split over ``PS_SEATS`` seats by
+    ``reference_server_offsets``, and the same Adds replayed through the
+    port's store on the CPU (``replay``), shard by shard."""
+
+    def __init__(self, fleet, rows: int, cols: int, n_ids: int, cpu):
+        from multiverso_tpu_torch.parallel.ps_service import \
+            reference_server_offsets
+        from multiverso_tpu_torch.runtime import ffi
+
+        ffi.load()
+        self.fleet, self.rows, self.cols, self.n_ids = fleet, rows, cols, \
+            n_ids
+        self.offs = reference_server_offsets(rows, PS_SEATS)
+        self.replay = {name: [ps_replay_store(u, k, self.offs[s + 1]
+                                              - self.offs[s], cols, cpu)
+                              for s in range(PS_SEATS)]
+                       for name, (u, k) in PS_TABLES.items()}
+        self.addresses = []
+
+    def connect(self):
+        """A C client over the seats' announced addresses (only the
+        announcements name their ports) and its tables by name."""
+        from multiverso_tpu_torch.runtime import ffi
+        peers = self.fleet.addresses()
+        assert all(p is not None for p in peers), peers
+        self.addresses.append(peers)
+        cli = ffi.CClient(peers)
+        return cli, {name: cli.matrix_table(PS_TABLE_ID + i, self.rows,
+                                            self.cols)
+                     for i, name in enumerate(PS_TABLES)}
+
+    def draw(self, rng, n_adds: int) -> list:
+        """``n_adds`` Adds of ``n_ids`` ids (duplicates among them)."""
+        import numpy as np
+        return [(rng.integers(0, self.rows, size=self.n_ids)
+                 .astype(np.int32),
+                 rng.normal(size=(self.n_ids, self.cols)).astype(np.float32))
+                for _ in range(n_adds)]
+
+    def push(self, tables: dict, adds: list) -> float:
+        """Each Add into every table over the wire, then into the CPU
+        replay; returns the seconds of the pushes."""
+        from multiverso_tpu_torch.core.options import AddOption
+        t0 = time.perf_counter()
+        for ids, d in adds:
+            for t in tables.values():
+                t.add_rows(ids, d)
+        add_s = time.perf_counter() - t0
+        opt = AddOption()
+        for ids, d in adds:
+            for name in tables:
+                for s in range(PS_SEATS):
+                    lo, hi = self.offs[s], self.offs[s + 1]
+                    keep = (ids >= lo) & (ids < hi)
+                    self.replay[name][s].apply_rows(ids[keep] - lo, d[keep],
+                                                    opt)
+        return add_s
+
+    def want(self) -> dict:
+        import numpy as np
+        return {name: np.concatenate([st.read().numpy() for st in sts])
+                for name, sts in self.replay.items()}
+
+    def read_shard(self, table, s: int):
+        import numpy as np
+        lo, hi = self.offs[s], self.offs[s + 1]
+        return np.concatenate([
+            table.get_rows(np.arange(a, min(a + self.n_ids, hi),
+                                     dtype=np.int32))
+            for a in range(lo, hi, self.n_ids)])
+
+    def check_shards(self, tables: dict, want: dict) -> dict:
+        """Every shard read back whole, bitwise ``want``; returns the
+        shards by (table, seat)."""
+        got = {}
+        for name, t in tables.items():
+            for s in range(PS_SEATS):
+                got[name, s] = self.read_shard(t, s)
+                assert got[name, s].tobytes() == want[name][
+                    self.offs[s]:self.offs[s + 1]].tobytes(), (name, s)
+        return got
+
+
 def ps_row_plane(seed: int, rows: int = ROWS, cols: int = COLS,
                  n_ids: int = N_IDS, n_adds: int = PS_ADDS,
                  seat_args=(), cpu=None) -> dict:
     """Phase 10 (a), (b), (e): two seats, the C client as the worker;
     every shard read back bitwise the CPU replay; then seat 1 killed with
-    SIGKILL, rerun, and its shard bitwise the bytes before the kill."""
+    SIGKILL, respawned at a fresh port, and its shard bitwise the bytes
+    before the kill."""
     import numpy as np
     import torch
-    from multiverso_tpu_torch.parallel.ps_service import \
-        reference_server_offsets
-    from multiverso_tpu_torch.runtime import ffi
 
-    cpu = cpu or torch.device("cpu")
-    ffi.load()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        peers = [("127.0.0.1", p) for p in free_ports(PS_SEATS)]
-        seats = [Seat(r, peers, tmp, rows, cols, seat_args)
-                 for r in range(PS_SEATS)]
+        fleet = ps_seat_fleet(tmp, rows, cols, seat_args)
         try:
-            for s in seats:
-                s.start()
-            out["seat_start_s"] = [s.wait_announced() for s in seats]
-            offs = reference_server_offsets(rows, PS_SEATS)
-
-            def connect():
-                cli = ffi.CClient(peers)
-                return cli, {name: cli.matrix_table(PS_TABLE_ID + i, rows,
-                                                    cols)
-                             for i, name in enumerate(PS_TABLES)}
-
-            def read_shard(table, s):
-                return np.concatenate([
-                    table.get_rows(np.arange(lo, min(lo + n_ids,
-                                                     offs[s + 1]),
-                                             dtype=np.int32))
-                    for lo in range(offs[s], offs[s + 1], n_ids)])
-
-            cli, tables = connect()
-            replay = {name: [ps_replay_store(u, k, offs[s + 1] - offs[s],
-                                             cols, cpu)
-                             for s in range(PS_SEATS)]
-                      for name, (u, k) in PS_TABLES.items()}
-            from multiverso_tpu_torch.core.options import AddOption
-            opt = AddOption()
-            rng = np.random.default_rng(seed + 10)
-            adds = [(rng.integers(0, rows, size=n_ids).astype(np.int32),
-                     rng.normal(size=(n_ids, cols)).astype(np.float32))
-                    for _ in range(n_adds)]
+            t0 = time.perf_counter()
+            fleet.start(bringup_timeout_s=300.0)
+            out["seat_start_s"] = time.perf_counter() - t0
+            plane = SeatPlane(fleet, rows, cols, n_ids,
+                              cpu or torch.device("cpu"))
+            cli, tables = plane.connect()
+            adds = plane.draw(np.random.default_rng(seed + 10), n_adds)
             out["duplicate_ids"] = [int(n_ids - len(np.unique(i)))
                                     for i, _ in adds]
-            t0 = time.perf_counter()
-            for ids, d in adds:
-                for t in tables.values():
-                    t.add_rows(ids, d)
-            add_s = time.perf_counter() - t0
+            add_s = plane.push(tables, adds)
             t0 = time.perf_counter()
             got = {name: [t.get_rows(ids) for ids, _ in adds]
                    for name, t in tables.items()}
             get_s = time.perf_counter() - t0
-            for ids, d in adds:
-                for name in tables:
-                    for s in range(PS_SEATS):
-                        keep = (ids >= offs[s]) & (ids < offs[s + 1])
-                        replay[name][s].apply_rows(ids[keep] - offs[s],
-                                                   d[keep], opt)
-            want = {name: np.concatenate([st.read().numpy() for st in sts])
-                    for name, sts in replay.items()}
+            want = plane.want()
             for name in tables:
                 for (ids, _), g in zip(adds, got[name]):
                     assert g.tobytes() == want[name][ids].tobytes(), name
-            # Every shard read back whole, bitwise the CPU replay.
-            before = {}
-            for name, t in tables.items():
-                for s in range(PS_SEATS):
-                    before[name, s] = read_shard(t, s)
-                    assert before[name, s].tobytes() == \
-                        want[name][offs[s]:offs[s + 1]].tobytes(), \
-                        (name, s)
+            before = plane.check_shards(tables, want)
             cli.close()
             out.update(
                 rows_added=2 * n_adds * n_ids, add_s=add_s,
@@ -5796,35 +5857,30 @@ def ps_row_plane(seed: int, rows: int = ROWS, cols: int = COLS,
                 f"ids in {get_s:.3f} s ({out['get_rows_per_s']:,.0f} "
                 f"rows/s); every shard bitwise the CPU replay")
 
-            # (b) recovery: kill -9 seat 1, rerun the same command.
-            victim = seats[1]
-            victim.kill9()
-            victim.start()
-            out["recovery_wall_s"] = victim.wait_announced()
-            rec = victim.line("PS_SHARD_RECOVERY")
-            cli, tables = connect()
+            # (b) recovery: kill -9 seat 1 and respawn it: it binds a
+            # fresh port, replays its WAL and announces the new address.
+            fleet.kill(1)
+            fleet.handle(1).wait(timeout=60)
+            fleet.spawn_seat(1)
+            out["recovery_wall_s"] = fleet.wait_announced(1, 300.0)
+            rec = fleet.seat_line(1, "PS_SHARD_RECOVERY")
+            assert rec is not None, fleet.seat_log(1)[-3000:]
+            cli, tables = plane.connect()
             for name, t in tables.items():
-                assert read_shard(t, 1).tobytes() == \
+                assert plane.read_shard(t, 1).tobytes() == \
                     before[name, 1].tobytes(), name
             cli.close()
             out["recovery"] = rec
             assert rec["applied"] == 2 * n_adds, rec
+            out["addresses"] = plane.addresses
             log(f"seat 1 killed (SIGKILL) and rerun: {rec['applied']} WAL "
                 f"records replayed in {rec['seconds']:.3f} s, announced "
-                f"{out['recovery_wall_s']:.3f} s after the rerun started "
-                f"(process start included); its shards bitwise the bytes "
-                f"before the kill")
+                f"{out['recovery_wall_s']:.3f} s after the respawn started "
+                f"(process start included) at a fresh port; its shards "
+                f"bitwise the bytes before the kill")
         finally:
-            for s in seats:
-                s.stop()
-            for s in seats:
-                s.wait_stopped()
-        # Each run's counts, keyed "seat R run J" (a SIGKILL'd run prints
-        # none).
-        out["seat_launches"] = {
-            f"seat {s.rank} run {run}": s.line("PS_SHARD_LAUNCHES", run)
-            for s in seats for run in range(len(s.runs))
-            if "PS_SHARD_LAUNCHES" in s.log_text(run)}
+            stop_seat_fleet(fleet)
+        out["seat_launches"] = seat_launches(fleet)
     log("seat launch counts (the killed run prints none): "
         + json.dumps(out["seat_launches"]))
     return out
@@ -6883,6 +6939,412 @@ def phase12(seed: int, card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the serving fleet on the card
+# ---------------------------------------------------------------------------
+# Each lookup replica serves bench.py's row plane (ROWS x COLS float32,
+# -fleet_synthetic=ROWSxCOLS@seed); requests carry LOOKUP_KEYS Zipf keys
+# (serve_bench's default of 8) from FLEET_THREADS client threads, for
+# FLEET_LOAD_S seconds in (a).
+FLEET_REPLICAS, FLEET_THREADS, FLEET_LOAD_S = 2, 4, 8.0
+# Bring-up, drain and respawn deadline.
+FLEET_TIMEOUT_S = 240.0
+# (d): ps_fleet seats checkpoint every FLEET_PS_CKPT_S seconds; the C
+# client pushes FLEET_PS_ADDS Adds of N_IDS ids before a checkpoint and
+# as many after it, and seat 1 is killed before the next one.
+FLEET_PS_CKPT_S, FLEET_PS_ADDS = 8.0, 5
+
+
+def fleet_where(device: str) -> str:
+    return "the CPU" if device == "cpu" else "the card"
+
+
+def fleet_table(rows: int, cols: int, seed: int):
+    """The rows of ``-fleet_synthetic=ROWSxCOLS@SEED``, computed on the
+    host as every replica computes them before it uploads them."""
+    import numpy as np
+    return np.random.default_rng(seed).normal(size=(rows, cols)) \
+        .astype(np.float32)
+
+
+class LookupLoad:
+    """``threads`` client threads sending Zipf lookups through one
+    ``FleetClient`` until stopped, every reply held bitwise against
+    ``table``; per-request latencies and every failure kept."""
+
+    def __init__(self, cli, table, seed: int, threads: int = FLEET_THREADS):
+        import threading
+        import numpy as np
+        self.cli, self.table = cli, table
+        self.stop_ev = threading.Event()
+        self.lat_ms, self.errors, self.n = [], [], 0
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(
+            target=self._run, args=(np.random.default_rng(seed + i),),
+            daemon=True) for i in range(threads)]
+
+    def _run(self, rng) -> None:
+        rows = len(self.table)
+        while not self.stop_ev.is_set():
+            keys = zipf_queries(rng, 64, rows)
+            for k in keys:
+                if self.stop_ev.is_set():
+                    return
+                k = k.astype("int32")
+                t0 = time.perf_counter()
+                try:
+                    got = self.cli.lookup(k, deadline_ms=10_000, timeout=30)
+                    ok = got.tobytes() == self.table[k].tobytes()
+                    err = None if ok else f"rows differ for keys {k}"
+                except Exception as e:  # noqa: BLE001 - every failure
+                    err = repr(e)       # is reported by the caller
+                ms = (time.perf_counter() - t0) * 1e3
+                with self._lock:
+                    self.n += 1
+                    if err is None:
+                        self.lat_ms.append(ms)
+                    else:
+                        self.errors.append(err)
+
+    def start(self) -> "LookupLoad":
+        self.t0 = time.perf_counter()
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self) -> dict:
+        import numpy as np
+        self.stop_ev.set()
+        for t in self._threads:
+            t.join(timeout=60)
+        seconds = time.perf_counter() - self.t0
+        lat = np.asarray(self.lat_ms)
+        return {"requests": self.n, "errors": len(self.errors),
+                "first_errors": self.errors[:3], "seconds": seconds,
+                "requests_per_s": len(lat) / seconds,
+                "p50_ms": float(np.percentile(lat, 50)) if len(lat) else None,
+                "p99_ms": float(np.percentile(lat, 99)) if len(lat) else None}
+
+
+def fleet_members(cli) -> dict:
+    """The router's members by id, from a fresh routing table."""
+    return {m["id"]: m for m in cli.refresh().members}
+
+
+def wait_members(cli, want: int, timeout_s: float = FLEET_TIMEOUT_S,
+                 proc=None, text=lambda: "") -> dict:
+    """Block until ``want`` members serve (none draining)."""
+    t0 = time.perf_counter()
+    while True:
+        members = fleet_members(cli)
+        if len([m for m in members.values()
+                if not m.get("draining")]) >= want:
+            return members
+        assert proc is None or proc.poll() is None, text()[-3000:]
+        assert time.perf_counter() - t0 < timeout_s, \
+            (members, text()[-3000:])
+        time.sleep(0.1)
+
+
+def tagged_lines(text: str, tag: str) -> list:
+    """Every ``TAG {json}`` in ``text``, in order, wherever it starts: a
+    replica writes each such line in one write, but another process's
+    unfinished line may precede it on the same line of the shared log."""
+    dec, out = json.JSONDecoder(), []
+    i = text.find(tag + " ")
+    while i >= 0:
+        obj, end = dec.raw_decode(text, i + len(tag) + 1)
+        out.append(obj)
+        i = text.find(tag + " ", end)
+    return out
+
+
+def replica_pids(text: str) -> dict:
+    """Member id -> pid of each replica's latest run, from its
+    ``FLEET_REPLICA_SERVING`` line (a respawn replaces its slot's)."""
+    return {o["member"]: o["pid"]
+            for o in tagged_lines(text, "FLEET_REPLICA_SERVING")}
+
+
+def replica_launches(text: str) -> list:
+    """Each replica run's ``FLEET_REPLICA_LAUNCHES`` (a SIGKILL'd run
+    prints none)."""
+    return tagged_lines(text, "FLEET_REPLICA_LAUNCHES")
+
+
+def fleet_lookups(seed: int, rows: int = ROWS, cols: int = COLS,
+                  device: str = "default",
+                  load_s: float = FLEET_LOAD_S) -> dict:
+    """Phase 13 (a)-(c) and the replicas' part of (e): ``fleet_main
+    -fleet_role=local`` with ``FLEET_REPLICAS`` supervised replicas of
+    the seeded table on ``device`` (the card unless "cpu"); (a) Zipf
+    lookups through ``FleetClient``, bitwise the host's table, with
+    requests/sec and per-request p50/p99; (b) ``fleet_main
+    -fleet_role=drain`` under load: zero failed requests and every
+    member's ``drains_completed`` advanced; (c) replica-1 SIGKILLed under
+    load: zero failed requests, the supervisor respawns it, it rejoins
+    the ring at a new address and lookups stay bitwise (the seconds from
+    the kill to the rejoin). The fleet is stopped with SIGTERM and every
+    replica run that was not killed prints its launch counts."""
+    import signal
+    from multiverso_tpu_torch.fleet import FleetClient
+
+    table = fleet_table(rows, cols, seed)
+    out = {"replicas": FLEET_REPLICAS, "keys_per_request": LOOKUP_KEYS}
+    dev = [f"-serve_device={device}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        addr_file = os.path.join(tmp, "router.addr")
+        log_path = os.path.join(tmp, "fleet.log")
+        cmd = [sys.executable, "-m", "multiverso_tpu_torch.apps.fleet_main",
+               "-fleet_role=local", f"-fleet_replicas={FLEET_REPLICAS}",
+               "-fleet_supervise=true", "-fleet_supervisor_cooldown_s=1",
+               f"-fleet_synthetic={rows}x{cols}@{seed}",
+               f"-fleet_addr_file={addr_file}", "-serve_duration=900",
+               *dev]
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(cmd, cwd=REPO, stdout=f,
+                                    stderr=subprocess.STDOUT)
+
+        def text() -> str:
+            with open(log_path) as f:
+                return f.read()
+
+        cli = None
+        try:
+            t0 = time.perf_counter()
+            while not os.path.exists(addr_file):
+                assert proc.poll() is None, text()[-3000:]
+                assert time.perf_counter() - t0 < FLEET_TIMEOUT_S
+                time.sleep(0.1)
+            host, port = open(addr_file).read().split(":")
+            router = (host, int(port))
+            cli = FleetClient(router, refresh_s=0.05)
+            wait_members(cli, FLEET_REPLICAS, proc=proc, text=text)
+            out["bringup_s"] = time.perf_counter() - t0
+
+            # (a) lookups.
+            load = LookupLoad(cli, table, seed + 130).start()
+            time.sleep(load_s)
+            out["lookups"] = r = load.stop()
+            assert r["errors"] == 0 and r["requests"] > 0, r
+            log(f"fleet lookups ({FLEET_REPLICAS} replicas of {rows:,} x "
+                f"{cols} float32 on {fleet_where(device)}, {FLEET_THREADS} "
+                f"client threads, {LOOKUP_KEYS} Zipf keys a request): "
+                f"{r['requests']:,} requests in {r['seconds']:.2f} s, "
+                f"{r['requests_per_s']:,.1f} requests/s, p50 "
+                f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, every "
+                f"reply bitwise the seeded table")
+
+            # (b) a rolling drain under load.
+            before = {mid: int(m.get("drains_completed", 0))
+                      for mid, m in fleet_members(cli).items()}
+            load = LookupLoad(cli, table, seed + 140).start()
+            t1 = time.perf_counter()
+            drain = subprocess.run(
+                [sys.executable, "-m",
+                 "multiverso_tpu_torch.apps.fleet_main",
+                 "-fleet_role=drain", f"-fleet_router={host}:{port}",
+                 *dev], cwd=REPO, capture_output=True, text=True,
+                timeout=FLEET_TIMEOUT_S)
+            drain_s = time.perf_counter() - t1
+            time.sleep(0.5)
+            r = load.stop()
+            assert drain.returncode == 0, drain.stdout[-3000:] + \
+                drain.stderr[-3000:]
+            after = {mid: int(m.get("drains_completed", 0))
+                     for mid, m in fleet_members(cli).items()}
+            assert all(after[mid] > n for mid, n in before.items()), \
+                (before, after)
+            assert r["errors"] == 0, r
+            out["drain"] = dict(r, drain_s=drain_s, drains_before=before,
+                                drains_after=after)
+            log(f"rolling drain under load: {drain_s:.2f} s for "
+                f"{len(before)} members, {r['requests']:,} requests, 0 "
+                f"failed, drains_completed {before} -> {after}")
+
+            # (c) SIGKILL replica-1 under load; the supervisor respawns it.
+            victim = "replica-1"
+            old = fleet_members(cli)[victim]
+            pid = replica_pids(text())[victim]
+            load = LookupLoad(cli, table, seed + 150).start()
+            time.sleep(1.0)
+            t_kill = time.perf_counter()
+            os.kill(pid, signal.SIGKILL)
+            while True:
+                m = fleet_members(cli).get(victim)
+                if m is not None and not m.get("draining") and \
+                        (m["host"], m["port"]) != (old["host"],
+                                                   old["port"]):
+                    break
+                assert proc.poll() is None, text()[-3000:]
+                assert time.perf_counter() - t_kill < FLEET_TIMEOUT_S, \
+                    text()[-3000:]
+                time.sleep(0.05)
+            rejoin_s = time.perf_counter() - t_kill
+            time.sleep(2.0)
+            r = load.stop()
+            assert r["errors"] == 0, r
+            assert replica_pids(text())[victim] != pid
+            assert "fleet supervisor: respawn" in text(), text()[-3000:]
+            out["failover"] = dict(r, kill_to_rejoin_s=rejoin_s)
+            log(f"{victim} SIGKILLed under load: {r['requests']:,} "
+                f"requests, 0 failed (failover); respawned by the "
+                f"supervisor and back in the ring {rejoin_s:.2f} s after "
+                f"the kill")
+            wait_members(cli, FLEET_REPLICAS, proc=proc, text=text)
+            load = LookupLoad(cli, table, seed + 160).start()
+            time.sleep(1.0)
+            r = load.stop()
+            assert r["errors"] == 0 and r["requests"] > 0, r
+            out["after_respawn"] = r
+        finally:
+            if cli is not None:
+                cli.close()
+            if proc.poll() is None:
+                proc.terminate()
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            # A replica the local role could not stop must not outlive it.
+            for pid in replica_pids(text()).values():
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+        assert rc == 0, (rc, text()[-3000:])
+        runs = replica_launches(text())
+    # Each replica run that was not SIGKILLed: both baseline slots after
+    # the drain, and the respawned one.
+    assert len(runs) == FLEET_REPLICAS, runs
+    for run in runs:
+        want = "cpu" if device == "cpu" else "cuda"
+        assert run["device"].startswith(want), run
+        if want == "cuda":
+            assert run["launches"]["gather_rows"] > 0, run
+    out["replica_launches"] = {f"{r['member']} pid {r['pid']}":
+                               r["launches"] for r in runs}
+    log("fleet replica launch counts: " + json.dumps(
+        {k: v["gather_rows"] for k, v in out["replica_launches"].items()}))
+    return out
+
+
+def ps_fleet_plane(seed: int, rows: int = ROWS, cols: int = COLS,
+                   n_ids: int = N_IDS, n_adds: int = FLEET_PS_ADDS,
+                   ckpt_s: float = FLEET_PS_CKPT_S, device: str = "default",
+                   cpu=None) -> dict:
+    """Phase 13 (d) and the seats' part of (e): a supervised
+    ``PSShardFleet`` of ``PS_SEATS`` seats of ``PS_TABLES`` on ``device``
+    checkpointing every ``ckpt_s`` seconds; the C client pushes
+    ``n_adds`` Adds, waits for every seat's checkpoint of every table,
+    pushes ``n_adds`` more, and seat 1 is SIGKILLed at once; the
+    supervisor respawns it, it restores its checkpoint and replays the
+    WAL records after it (``PS_SHARD_RECOVERY``), and every shard of both
+    seats reads back bitwise the CPU replay of all the Adds."""
+    import numpy as np
+    import torch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = ps_seat_fleet(
+            tmp, rows, cols, [f"-serve_device={device}"], supervise=True,
+            checkpoint_every_s=ckpt_s, cooldown_s=0.5, join_grace_s=120.0)
+        ckpt = [os.path.join(tmp, "ckpt", name) for r in fleet.ranks
+                for name in (f"ps_shard{r}.npz",
+                             f"ps_shard{r}_t{PS_TABLE_ID + 1}.npz")]
+        try:
+            t0 = time.perf_counter()
+            fleet.start(bringup_timeout_s=FLEET_TIMEOUT_S)
+            out["seat_start_s"] = time.perf_counter() - t0
+            plane = SeatPlane(fleet, rows, cols, n_ids,
+                              cpu or torch.device("cpu"))
+            cli, tables = plane.connect()
+            rng = np.random.default_rng(seed + 170)
+            out["add_s"] = [plane.push(tables, plane.draw(rng, n_adds))]
+            # Every seat checkpoints both tables after these Adds.
+            t1 = time.time()
+            while not all(os.path.exists(p) and os.path.getmtime(p) > t1
+                          for p in ckpt):
+                assert time.time() - t1 < 3 * ckpt_s + 60, ckpt
+                time.sleep(0.05)
+            out["add_s"].append(plane.push(tables,
+                                           plane.draw(rng, n_adds)))
+            cli.close()
+            # Killed well before the next checkpoint: the respawn restores
+            # the checkpoint and replays the second Adds from its WAL.
+            t_kill = time.perf_counter()
+            fleet.kill(1)
+            while fleet.seat_runs(1) < 2:
+                assert time.perf_counter() - t_kill < FLEET_TIMEOUT_S
+                time.sleep(0.05)
+            fleet.wait_announced(1, FLEET_TIMEOUT_S)
+            out["kill_to_announce_s"] = time.perf_counter() - t_kill
+            rec = fleet.seat_line(1, "PS_SHARD_RECOVERY")
+            assert rec is not None, fleet.seat_log(1)[-3000:]
+            assert "restored shard from" in fleet.seat_log(1), \
+                fleet.seat_log(1)[-3000:]
+            assert rec["applied"] > 0, rec
+            out["recovery"] = rec
+            cli, tables = plane.connect()
+            plane.check_shards(tables, plane.want())
+            cli.close()
+            out["status"] = fleet.status()
+            assert out["status"]["supervisor"]["respawns"] >= 1, out
+            log(f"ps_fleet ({PS_SEATS} seats of {rows:,} x {cols}, "
+                f"{len(PS_TABLES)} tables, on {fleet_where(device)}): "
+                f"{2 * n_adds} Adds of {n_ids:,} ids a table around a "
+                f"checkpoint, then seat 1 SIGKILLed and respawned by the "
+                f"supervisor: checkpoint restored and {rec['applied']} WAL "
+                f"records replayed in {rec['seconds']:.3f} s, announced "
+                f"{out['kill_to_announce_s']:.2f} s after the kill; every "
+                f"shard bitwise the CPU replay")
+        finally:
+            stop_seat_fleet(fleet)
+        out["seat_launches"] = seat_launches(fleet)
+        out["addresses"] = plane.addresses
+    for r in fleet.ranks:
+        printed = [k for k in out["seat_launches"]
+                   if k.startswith(f"seat {r} ")]
+        assert printed, (r, out["seat_launches"])
+    if device != "cpu":
+        for name, c in out["seat_launches"].items():
+            for kernel in ("gather_rows", "scatter_add_sorted_rows",
+                           "tiled_scatter_add_sorted_rows"):
+                assert c[kernel] > 0, (name, c)
+    log("ps_fleet seat launch counts (the killed run prints none): "
+        + json.dumps(out["seat_launches"]))
+    return out
+
+
+def phase13(seed: int, card: str) -> dict:
+    """Phase 13: the serving fleet on the card. Returns the readings and
+    each process's launch counts."""
+    log(f"phase 13 on {card}")
+    t0 = time.perf_counter()
+    out = {"part_s": {}}
+    t = time.perf_counter()
+    out["lookups"] = fleet_lookups(seed)
+    out["part_s"]["lookup fleet"] = time.perf_counter() - t
+    r = out["lookups"]["lookups"]
+    log(f"phase 13 fleet lookups on {card}: {r['requests_per_s']:,.1f} "
+        f"requests/s, p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms; "
+        f"kill to rejoin {out['lookups']['failover']['kill_to_rejoin_s']:.2f}"
+        f" s")
+    t = time.perf_counter()
+    out["ps_fleet"] = ps_fleet_plane(seed)
+    out["part_s"]["ps_fleet"] = time.perf_counter() - t
+    out["launches"] = {
+        **{f"replica {k}": v
+           for k, v in out["lookups"]["replica_launches"].items()},
+        **{f"ps_fleet {k}": v
+           for k, v in out["ps_fleet"]["seat_launches"].items()}}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["part_s"].items()) + ")")
+    return out
+
+
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7091,6 +7553,14 @@ def main() -> int:
     # rank from the same weights. The ranks count B6 in their own runs.
     p12 = phase12(args.seed, card)
 
+    # Phase 13: the serving fleet on the card: fleet_main's local role
+    # with two supervised replicas of the 1,000,000 x 50 table (B1 under
+    # every lookup), a rolling drain and a SIGKILLed replica under load,
+    # then a supervised ps_fleet of two seats (B1, B2, B4) with a seat
+    # SIGKILLed and respawned through its checkpoint and WAL.
+    p13 = phase13(args.seed, card)
+    p13_runs = p13.pop("launches")
+
     b4_runs = {"bench.py leg": leg["tiled_scatter_add_sorted_rows"],
                "plain tables": plain_counts["tiled_scatter_add_sorted_rows"],
                "word2vec plain steps":
@@ -7101,7 +7571,9 @@ def main() -> int:
                "phase 10": sum(c["tiled_scatter_add_sorted_rows"]
                                for c in p10_runs.values()),
                "phase 11": sum(c["tiled_scatter_add_sorted_rows"]
-                               for c in p11_runs.values())}
+                               for c in p11_runs.values()),
+               "phase 13": sum(c["tiled_scatter_add_sorted_rows"]
+                               for c in p13_runs.values())}
     launches = {
         "gather_rows": plane["gather_rows"] + p8_runs["sparse"]["gather_rows"]
         + sum(c["gather_rows"] for c in p9_runs.values())
@@ -7127,6 +7599,7 @@ def main() -> int:
     for name in launches:
         if name != "tiled_scatter_add_sorted_rows":
             launches[name] += sum(c.get(name, 0) for c in p11_runs.values())
+            launches[name] += sum(c.get(name, 0) for c in p13_runs.values())
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
@@ -7139,6 +7612,9 @@ def main() -> int:
                                  if c.get(k["name"])}
         k["phase11_launches"] = {run: c[k["name"]]
                                  for run, c in p11_runs.items()
+                                 if c.get(k["name"])}
+        k["phase13_launches"] = {run: c[k["name"]]
+                                 for run, c in p13_runs.items()
                                  if c.get(k["name"])}
         if k["name"] == "fused_stateful_sorted_rows":
             k["store_add_kernels"] = store_kernels
@@ -7209,6 +7685,7 @@ def main() -> int:
             k["phase8"] = p8
             k["phase10"] = p10
             k["phase11"] = p11
+            k["phase13"] = p13
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -2,9 +2,12 @@
 
 Port of the part of ``multiverso_tpu/apps/_runner.py`` the CLIs use, with
 the multi-process launch helpers (``spawn_ranks``, ``rendezvous``,
-``wait_all_done``). User-facing errors (bad flag values, fatal checks, IO)
-log one line and return exit code 1 instead of a traceback. Telemetry
-export (``-telemetry_dir``) waits (ROADMAP A11).
+``wait_all_done``) and the flag parses (``serve_config``,
+``comm_config``, ``fleet_config``). User-facing errors (bad flag values,
+fatal checks, IO) log one line and return exit code 1 instead of a
+traceback. The alert engine and the wedge watchdog run for the body
+(``-telemetry_alerts``, ``-telemetry_flight``); telemetry export
+(``-telemetry_dir``) waits (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -23,23 +26,37 @@ _USER_ERRORS = (FlagError, FatalError, OSError)
 def run_app(body: Callable[[List[str]], int],
             argv: Optional[List[str]] = None) -> int:
     """Parse flags + start the runtime, run ``body(remaining_argv)``,
-    always shut down. Returns a process exit code."""
+    always shut down. Returns a process exit code. The alert engine,
+    the wedge watchdog and the fatal-signal postmortems run for the body
+    and stop after shutdown."""
+    from multiverso_tpu_torch.telemetry import (
+        maybe_start_observability_from_flags, stop_alert_engine,
+        stop_watchdog)
     try:
         remaining = mv.init(argv if argv is not None else sys.argv[1:])
     except _USER_ERRORS as e:
         log.error("%s", e)
         return 1
+    observability_on = False
     try:
         if configure.get_flag("telemetry_dir"):
             raise NotImplementedError(
                 "telemetry export (-telemetry_dir) is not ported yet: "
                 "ROADMAP A11")
+        # Alert engine + wedge watchdog + fatal-signal postmortems
+        # (-telemetry_alerts / -telemetry_flight, both default-on).
+        observability_on = maybe_start_observability_from_flags()
         return body(remaining)
     except _USER_ERRORS as e:
         log.error("%s", e)
         return 1
     finally:
-        mv.shutdown()
+        try:
+            mv.shutdown()
+        finally:
+            if observability_on:
+                stop_alert_engine()
+                stop_watchdog()
 
 
 def serve_config() -> dict:
@@ -92,6 +109,74 @@ def serve_config() -> dict:
         "kv_dtype": kv_dtype,
         "table_dtype": table_dtype,
         "prefix_entries": int(get_flag("serve_prefix_cache")),
+    }
+
+
+def fleet_config() -> dict:
+    """Resolve the ``-fleet_*`` flags into router/member/client kwargs
+    (one parse, like :func:`serve_config`; the JAX package's
+    ``apps/_runner.py::fleet_config``)."""
+    from multiverso_tpu_torch.utils.log import FatalError
+
+    get_flag = configure.get_flag
+    hedge: object = str(get_flag("fleet_hedge"))
+    if hedge not in ("adaptive", "off"):
+        try:
+            hedge = float(hedge)
+        except ValueError:
+            raise FatalError(f"bad -fleet_hedge value '{hedge}' "
+                             "(want adaptive|off|<ms>)") from None
+    router_raw = str(get_flag("fleet_router"))
+    router = None
+    if router_raw:
+        try:
+            host, port = router_raw.rsplit(":", 1)
+            router = (host, int(port))
+        except ValueError:
+            raise FatalError(f"bad -fleet_router value '{router_raw}' "
+                             "(want host:port)") from None
+    synthetic_raw = str(get_flag("fleet_synthetic"))
+    synthetic = None
+    if synthetic_raw:
+        try:
+            dims, seed = synthetic_raw.split("@") \
+                if "@" in synthetic_raw else (synthetic_raw, "0")
+            rows, cols = dims.lower().split("x")
+            synthetic = (int(rows), int(cols), int(seed))
+        except ValueError:
+            raise FatalError(f"bad -fleet_synthetic value "
+                             f"'{synthetic_raw}' (want ROWSxCOLS@SEED)") \
+                from None
+    return {
+        "role": str(get_flag("fleet_role")),
+        "router": router,
+        "port": int(get_flag("fleet_port")),
+        "replicas": int(get_flag("fleet_replicas")),
+        "vnodes": int(get_flag("fleet_vnodes")),
+        "heartbeat_ms": float(get_flag("fleet_heartbeat_ms")),
+        "liveness_misses": int(get_flag("fleet_liveness_misses")),
+        "hedge": hedge,
+        "member_id": str(get_flag("fleet_member_id")),
+        "addr_file": str(get_flag("fleet_addr_file")),
+        "synthetic": synthetic,
+        "proxy": bool(get_flag("fleet_proxy")),
+        "drain_timeout_s": float(get_flag("fleet_drain_timeout_s")),
+        "supervise": bool(get_flag("fleet_supervise")),
+        "min_replicas": int(get_flag("fleet_min_replicas")),
+        "max_replicas": int(get_flag("fleet_max_replicas")),
+        "supervisor_cooldown_s":
+            float(get_flag("fleet_supervisor_cooldown_s")),
+        "scale_quiet_s": float(get_flag("fleet_scale_quiet_s")),
+        "rpc_timeout_ms": float(get_flag("rpc_timeout_ms")),
+        "ps_shards": int(get_flag("ps_fleet_shards")),
+        "ps_dir": str(get_flag("ps_fleet_dir")),
+        "hotkey_replicas": int(get_flag("fleet_hotkey_replicas")),
+        "rebalance": bool(get_flag("fleet_rebalance")),
+        "rebalance_ratio": float(get_flag("fleet_rebalance_ratio")),
+        "rebalance_windows": int(get_flag("fleet_rebalance_windows")),
+        "rebalance_cooldown_s":
+            float(get_flag("fleet_rebalance_cooldown_s")),
+        "rebalance_vnodes": int(get_flag("fleet_rebalance_vnodes")),
     }
 
 

@@ -18,8 +18,10 @@ atomics).
 
     # kill -9 it; rerun the same command: it recovers and re-registers.
 
-Beyond the JAX CLI, a seat binds the port of its own ``-ps_peers`` entry
-when it is not 0 (the JAX seat always takes an ephemeral port), and
+A seat always binds an ephemeral port (its own ``-ps_peers`` entry is
+replaced by the bound address) and announces it in ``-ps_addr_file``:
+a restarted seat comes back at a new address, which it registers with
+its peers (``fleet/ps_fleet.py`` spawns seats so). Beyond the JAX CLI,
 ``-ps_tables=UPDATER[:pallas],...`` serves one table per entry (ids from
 ``-ps_table_id`` up; ``:pallas`` gives the shard the hand-written row
 kernels), each of ``-ps_table_kind``, ``-ps_table_size`` and
@@ -47,8 +49,7 @@ from multiverso_tpu_torch.utils.configure import (define_double, define_int,
 from multiverso_tpu_torch.utils.log import check, log
 
 define_string("ps_peers", "", "comma host:port list, one per rank (this "
-              "rank's own entry is replaced by its bound address; a "
-              "non-zero port there is the one bound)")
+              "rank's own entry is replaced by its bound address)")
 define_int("ps_table_id", 900, "distributed table id to serve (the first "
            "of -ps_tables)")
 define_int("ps_table_size", 10000, "distributed table rows (array: length)")
@@ -106,9 +107,9 @@ def _body(remaining: List[str]) -> int:
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
 
-    # A non-zero port in this rank's own entry is bound (a restarted seat
-    # comes back at the same address); 0 takes an ephemeral port.
-    svc = PSService(port=peers[rank][1])
+    # An ephemeral port: a port picked before the bind could be taken in
+    # between by another process, and a restarted seat's old one too.
+    svc = PSService()
     if bool(flag_or("wal", False)):
         wal_dir = str(get_flag("wal_dir"))
         check(bool(wal_dir), "-wal=true requires -wal_dir=DIR")

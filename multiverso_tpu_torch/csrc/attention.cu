@@ -927,9 +927,12 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The instances: each names its kernel, threads a CTA, shared memory for
 // heads of width d and the most it takes (set as the opt-in), and CTAs a
 // q tile.
+// kIndex: the instance's index in ops/attention.py::B6_INSTANCE_NAMES,
+// which mv_flash_block_attn reports for every launch.
 template <typename T, int NC>
 struct Narrow {
   using Elem = T;
+  static constexpr int kIndex = NC - 1;
   static constexpr int kCtaThreads = kThreads;
   static auto kernel() { return flash_block_kernel<T, NC>; }
   static size_t smem(int) { return smem_bytes(NC); }
@@ -940,6 +943,7 @@ struct Narrow {
 template <typename T, int NVC, bool STREAM_Q>
 struct Wide {
   using Elem = T;
+  static constexpr int kIndex = STREAM_Q ? 5 : NVC;
   static constexpr int kCtaThreads = kWideThreads;
   static constexpr int kSpan = 2 * NVC * 64;  // output columns a CTA
   static auto kernel() { return flash_wide_kernel<T, NVC, STREAM_Q>; }
@@ -1031,17 +1035,24 @@ extern "C" {
 // float32 or null. Writes o [bh, sq, d], m and l [bh, sq], float32.
 // Returns cudaGetLastError() after the launch (0 = launched); shapes the
 // kernel does not take return cudaErrorInvalidValue and launch nothing.
+// Where `instance` is not null, the index of the instance that took the
+// launch (its kIndex: 0-1 narrow, 2-5 wide) goes there, -1 where nothing
+// was dispatched.
 int mv_flash_block_attn(const void* q, const void* k, const void* v,
                         const float* bias, float* o, float* m, float* l,
                         int64_t bh, int sq, int sk, int d, float scale,
                         int causal, int64_t q_off, int64_t k_off, int bf16,
-                        void* stream) {
+                        void* stream, int* instance) {
+  int taken = -1;
+  if (instance == nullptr) instance = &taken;
+  *instance = -1;
   if (bh <= 0 || sq <= 0) return 0;
   if (sq % kTile != 0 || sk <= 0 || sk % kTile != 0 || d <= 0 ||
       d % 8 != 0 || bh * (sq / kTile) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   auto go = [&](auto inst) {
+    *instance = decltype(inst)::kIndex;
     return launch<decltype(inst)>(q, k, v, bias, o, m, l, bh, sq, sk, d,
                                   scale, causal, q_off, k_off, st);
   };

@@ -22,8 +22,9 @@ ring's block step with the flag off, and autograd differentiates it. The
 kernel has narrow instances (one warpgroup a 64-row q tile) for heads up
 to 128 columns and wide ones (two warpgroups a q tile) above: "wide
 d<=256" for heads of 129-256, then 384, 512 and wider. The wrapper counts
-its kernel launches in ``LAUNCHES``, and by the instance of the kernel
-that served them (:func:`b6_instance`) in ``B6_INSTANCES``.
+its kernel launches in ``LAUNCHES``, and by the instance that the kernel's
+entry point reports it took in ``B6_INSTANCES`` (:func:`b6_instance` names
+the instance the dispatch should take, for ``describe`` and the checks).
 
 B7 is the port of ``paged_decode_attn`` of the same JAX module:
 :func:`paged_decode_attn` attends one decode token per slot over ONE
@@ -95,8 +96,10 @@ LAUNCHES: Dict[str, int] = {"flash_block_attn": 0, "paged_decode_attn": 0,
 #: past 512.
 B6_INSTANCE_NAMES = ("narrow d<=64", "narrow d<=128", "wide d<=256",
                      "wide d<=384", "wide d<=512", "wide d>512")
-#: B6's launches by the instance that served them; each is also counted
-#: in ``LAUNCHES["flash_block_attn"]``.
+#: B6's launches by the instance that the entry point reports it took
+#: (the instance's ``kIndex`` in ``csrc/attention.cu``, an index into
+#: ``B6_INSTANCE_NAMES``); each is also counted in
+#: ``LAUNCHES["flash_block_attn"]``.
 B6_INSTANCES: Dict[str, int] = dict.fromkeys(B6_INSTANCE_NAMES, 0)
 
 #: B7's page types, by the code of their instance in
@@ -187,7 +190,7 @@ def _lib():
         c, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.mv_flash_block_attn.argtypes = [
             c, c, c, c, c, c, c, i64, i32, i32, i32, ctypes.c_float, i32,
-            i64, i64, i32, c]
+            i64, i64, i32, c, ctypes.POINTER(ctypes.c_int)]
         lib.mv_flash_block_attn.restype = ctypes.c_int
         lib.mv_flash_block_attn_describe.argtypes = [
             i32, i32, ctypes.POINTER(ctypes.c_int)]
@@ -243,15 +246,17 @@ def _launch(q, k, v, bias, scale: float, causal: bool, q_off: int,
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     if bias is not None:
         bias = _aligned(bias.to(torch.float32))
+    instance = ctypes.c_int(-1)
     err = _lib().mv_flash_block_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         o.data_ptr(), m.data_ptr(), l.data_ptr(), B * H, sq, sk, d,
         float(scale), int(bool(causal)), q_off, k_off,
-        int(q.dtype == torch.bfloat16), _build.stream(q))
+        int(q.dtype == torch.bfloat16), _build.stream(q),
+        ctypes.byref(instance))
     _build.check_launch(err, "flash_block_attn")
     LAUNCHES["flash_block_attn"] += 1
-    B6_INSTANCES[b6_instance(d)] += 1
+    B6_INSTANCES[B6_INSTANCE_NAMES[instance.value]] += 1
     return o, m, l
 
 

@@ -437,6 +437,9 @@ class PSService:
         #: The card's error that failed a request on the dispatcher (see
         #: ``_fail_device``); None while the service is healthy.
         self.fatal: Optional[BaseException] = None
+        #: Directory registration threads (``enable_directory``), joined
+        #: by ``close`` with the IO and dispatch threads.
+        self._reg_threads: List[threading.Thread] = []
         self._io_thread = threading.Thread(target=self._io_loop, daemon=True)
         self._dispatch_thread = threading.Thread(target=self._dispatch_loop,
                                                  daemon=True)
@@ -893,6 +896,8 @@ class PSService:
                 # requests' deadlines expire even with no new traffic.
                 item = self._queue.get(timeout=0.5)
             except _queue_mod.Empty:
+                if not self._running:
+                    return      # closed while close() found the queue full
                 continue
             if item is None:
                 return
@@ -1287,6 +1292,7 @@ class PSService:
             th = threading.Thread(target=reg, daemon=True)
             th.start()
             threads.append(th)
+            self._reg_threads.append(th)
         for th in threads:
             th.join(timeout=3)   # fast path completes inline; rest retry
 
@@ -1423,6 +1429,16 @@ class PSService:
             # Orderly shutdown seals the log (flush + fsync) — an abrupt
             # kill skips this, which is exactly what recovery handles.
             self._wal.close()
+        # Wait (bounded) for the service's threads to end: a daemon thread
+        # still running when the interpreter finalizes is ended there by
+        # pthread_exit, which can abort the process ("terminate called
+        # without an active exception") and turn a seat's orderly exit
+        # into SIGABRT.
+        me = threading.current_thread()
+        for t in (self._io_thread, self._dispatch_thread,
+                  *self._reg_threads):
+            if t is not me:
+                t.join(timeout=10.0)
 
 
 def _reply_nbytes(reply: Message) -> int:
@@ -1607,10 +1623,19 @@ class PeerClient:
         return slot[0].data[0].tolist()
 
     def close(self) -> None:
+        """Close the connection and wait (bounded) for the reader, which
+        ``shutdown`` wakes from its blocked recv (see ``PSService.close``
+        for why no daemon thread should outlive its owner)."""
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:
             pass
+        if threading.current_thread() is not self._reader:
+            self._reader.join(timeout=10.0)
 
 
 class _PendingOp:

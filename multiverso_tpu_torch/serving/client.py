@@ -344,7 +344,9 @@ class ServingClient:
 
     def close(self) -> None:
         """Close the connection and wait up to 10 s for the reader thread
-        (``shutdown`` wakes its blocked ``recv``)."""
+        (``shutdown`` wakes its blocked ``recv``). Called from a completion
+        callback, which runs on the reader thread, it does not wait for
+        itself (a fleet client drops a dead replica's connection so)."""
         try:
             self._sock.shutdown(socket.SHUT_RDWR)
         except OSError:
@@ -353,7 +355,8 @@ class ServingClient:
             self._sock.close()
         except OSError:
             pass
-        self._reader.join(timeout=10.0)
+        if threading.current_thread() is not self._reader:
+            self._reader.join(timeout=10.0)
 
 
 class RoutedLookupClient:

@@ -156,7 +156,7 @@ class ServingService:
                 except Exception as e:  # noqa: BLE001 - an unsupported
                     # checkpoint layout (MoE / pipeline attention_lm)
                     # must DEGRADE to drain batching, not crash serving
-                    # bring-up (ROADMAP 5b).
+                    # bring-up.
                     log.warning(
                         "-serve_continuous: runner %s does not support "
                         "continuous decode (%s); degrading to drain "
@@ -297,7 +297,7 @@ class ServingService:
                 # actually serves (StampedRows); everything else reports
                 # the runner's last-batch clock. Using runner.clock()
                 # for hits let a staleness>0 reply claim a NEWER version
-                # than its rows (ROADMAP 5a).
+                # than its rows.
                 stamp = getattr(result, "clock_stamp", None)
                 clock = float(stamp) if stamp is not None else \
                     float(getattr(runner, "clock", lambda: -1.0)())

@@ -21,11 +21,11 @@ One :class:`TrafficSketch` per instrumented **surface** (``serve.lookup``
 keeps the hot path to ONE list-append: ``record()`` pushes the key array
 onto a per-thread buffer; ``flush()`` drains every buffer into the
 sketches and publishes ``sketch.<surface>.keys``/``.bytes`` counters and
-``.top1_share``/``.topk_share`` skew gauges. The JAX package's telemetry
-tick (its timeseries store, ROADMAP A11) is not ported, so in the port
-``flush()`` runs when a reader asks for fresh numbers, or on a recording
-thread whose buffer outgrows :data:`SketchHub.FLUSH_PENDING` (a fold
-without publication). Surface cardinality is bounded
+``.top1_share``/``.topk_share`` skew gauges. The telemetry tick
+(``timeseries.py``'s ``TimeseriesStore.tick``, driven by the alert
+engine) runs ``flush()``; so does a reader that wants fresh numbers (the
+fleet heartbeat), and a recording thread whose buffer outgrows
+:data:`SketchHub.FLUSH_PENDING` folds its own (without publication). Surface cardinality is bounded
 (:data:`SketchHub.MAX_SURFACES`, with the overflow counted) and every
 sketch's memory is fixed by the ``-telemetry_sketch_*`` flags.
 
@@ -363,8 +363,8 @@ class SketchHub:
 
     ``record(surface, keys)`` appends ``(surface, keys, nbytes)`` to a
     per-thread buffer (registered once per thread under the hub lock);
-    ``flush()`` — driven by any reader that wants fresh numbers (the
-    JAX package's telemetry tick is not ported) — drains every buffer into the
+    ``flush()`` — driven by the telemetry tick or any reader that wants
+    fresh numbers — drains every buffer into the
     per-surface :class:`TrafficSketch` and publishes the derived load
     metrics. A thread whose buffer outgrows :data:`FLUSH_PENDING`
     self-drains so unticked processes stay bounded too."""
